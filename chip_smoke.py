@@ -27,6 +27,34 @@ Phases, each printing one JSON line:
    ``torch._fused_adam_`` driven to the same function (eps rescaled by
    1/sqrt(1-b2^t)) as the library yardstick; never on the port's path.
 
+7. flash_kernel — the flash-attention kernels (forward, dK/dV, dQ through
+   ``flash_attention_bthd``'s autograd) against ``flash_attention_reference``
+   (materialised fp32 scores, autograd gradients) for a loss ``sum(O * R)``
+   with a seeded R, at [B, T, H, D] = [1, 64, 2, 16], [2, 200, 4, 32]
+   (ragged), [4, 2048, 8, 64] (the LM path's) and [1, 512, 2, 128], causal
+   and not. fp32: O within atol 1e-5 / rtol 1e-4, gradients within atol
+   1e-4 / rtol 1e-3; bf16 inputs against the reference in fp32 on the same
+   bf16 values: O within 2e-2, gradients within 5e-2.
+8. lm_main — the port's ``SeqTrainer`` at the widest LM width the repo
+   defines (benchmarks/lm_bench.py: vocab 256, d_model 512, 8 heads, 4
+   layers, d_ff 2048; 12,864,512 parameters), scheme full, attn_impl flash,
+   fp32, lr 1e-3, T = 2048, batch 4, 32 train sequences (8 steps), 8 test
+   sequences, eval_every 4. The flash counts are set to 0 just before and
+   must read fwd = 4 * 8 + 4 * (eval batches), dK/dV = dQ = 4 * 8 just
+   after; losses, parameters and moments must be finite.
+9. lm_flash_vs_xla — the same width from one init, 2 steps at T = 512,
+   batch 4, attn_impl flash and xla: parameters within atol 2e-5 / rtol
+   1e-3, final losses within rtol 1e-4 (tests/test_lm.py's tolerances).
+10. lm_bf16 — 2 full-width steps with compute_dtype bfloat16: the bf16
+   kernels launched (counted), losses finite.
+11. flash_timing — each flash kernel at [4, 2048, 8, 64], fp32, causal (and
+   the forward in bf16): median of 50 launches timed with CUDA events,
+   beside its bound (the causal half's products over the fp32 CUDA-core
+   rate, or bytes over the HBM rate, whichever is larger), its plain
+   version, and ``scaled_dot_product_attention(is_causal=True)`` at the
+   same shape in [B, H, T, D] as the library yardstick (forward, and its
+   backward for the two backward kernels), never on the port's path.
+
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no ``ok`` line. It needs no network and one card.
@@ -66,6 +94,21 @@ def hbm_bytes_per_s(name: str) -> float:
 
 
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+
+# The flash-attention phases.
+FLASH_SHAPES = ((1, 64, 2, 16), (2, 200, 4, 32), (4, 2048, 8, 64), (1, 512, 2, 128))
+FLASH_MAIN = (4, 2048, 8, 64)  # the LM path's [B, T, H, D]
+FLASH_TOL = {  # dtype name -> ((atol, rtol) of O, (atol, rtol) of the gradients)
+    "float32": ((1e-5, 1e-4), (1e-4, 1e-3)),
+    "bfloat16": ((2e-2, 2e-2), (5e-2, 5e-2)),
+}
+LM_STEPS = 8
+FLASH_KERNELS = {  # counter key -> (name, the TPU kernel it replaces)
+    "fwd": ("flash_fwd", "jax/experimental/pallas/ops/tpu/flash_attention.py:589"),
+    "bwd_dkv": ("flash_bwd_dkv", "jax/experimental/pallas/ops/tpu/flash_attention.py:941"),
+    "bwd_dq": ("flash_bwd_dq", "jax/experimental/pallas/ops/tpu/flash_attention.py:1287"),
+}
 
 
 def nvidia_smi() -> str:
@@ -244,6 +287,243 @@ def timing(torch, fused_adam, card: str) -> dict:
     return out
 
 
+def _close(a, b, atol: float, rtol: float) -> tuple[bool, float]:
+    a, b = a.detach().float(), b.detach().float()
+    err = (a - b).abs()
+    return bool((err <= atol + rtol * b.abs()).all()), float(err.max())
+
+
+def check_flash(torch, fa) -> dict:
+    """Kernels (through autograd) vs the plain attention on the card;
+    returns the largest fp32 abs error per kernel."""
+    dev = torch.device("cuda")
+    worst = {key: 0.0 for key in FLASH_KERNELS}
+    for shape in FLASH_SHAPES:
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                gen = torch.Generator(device=dev).manual_seed(sum(shape) + causal)
+                q, k, v, r = (torch.randn(shape, generator=gen, device=dev) for _ in range(4))
+                # Separate leaves for each side (``.to`` of the same dtype
+                # returns the tensor itself).
+                got = [t.to(dtype).clone().requires_grad_(True) for t in (q, k, v)]
+                out = fa.flash_attention_bthd(*got, causal=causal)
+                (out.float() * r).sum().backward()
+                ref = [t.to(dtype).float().clone().requires_grad_(True) for t in (q, k, v)]
+                want = fa.flash_attention_reference(*ref, causal=causal)
+                (want * r).sum().backward()
+                torch.cuda.synchronize()
+                name = str(dtype).split(".")[-1]
+                (oa, orl), (ga, grl) = FLASH_TOL[name]
+                checks = {"o": _close(out, want, oa, orl)}
+                for n, a, b in zip("qkv", got, ref):
+                    checks[f"d{n}"] = _close(a.grad, b.grad, ga, grl)
+                errs = {n: e for n, (_, e) in checks.items()}
+                emit("flash_kernel", shape=list(shape), causal=causal, dtype=name,
+                     max_abs_err=errs)
+                if out.dtype != dtype or not all(ok for ok, _ in checks.values()):
+                    raise AssertionError(f"flash kernels != plain at {shape} causal={causal} "
+                                         f"{name}: {errs}")
+                if dtype == torch.float32:
+                    worst["fwd"] = max(worst["fwd"], errs["o"])
+                    worst["bwd_dkv"] = max(worst["bwd_dkv"], errs["dk"], errs["dv"])
+                    worst["bwd_dq"] = max(worst["bwd_dq"], errs["dq"])
+                del q, k, v, r, got, out, ref, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def lm_spec():
+    from ddl_tpu_torch.models.transformer import LMSpec
+
+    return LMSpec(vocab=256, d_model=512, num_heads=8, num_layers=4, d_ff=2048)
+
+
+def _finite_state(torch, trainer) -> bool:
+    from ddl_tpu_torch.utils import tree
+
+    state = [trainer.params, trainer.opt_state.m, trainer.opt_state.v]
+    return all(bool(torch.isfinite(t).all()) for t in tree.leaves(state))
+
+
+def lm_main(torch, fa) -> dict:
+    from ddl_tpu_torch.data.lm import synthesize_copy
+    from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
+
+    spec = lm_spec()
+    if spec.num_params() != 12_864_512 or spec.head_dim != 64:
+        raise AssertionError(f"unexpected LM width {spec}")
+    bs, seq_len = 4, 2048
+    cfg = SeqConfig(scheme="full", attn_impl="flash", batch_size=bs, learning_rate=1e-3,
+                    eval_every=4, seed=0, spec=spec)
+    ds = synthesize_copy(num_train=LM_STEPS * bs, num_test=8, seq_len=seq_len,
+                         vocab=spec.vocab, seed=0)
+    trainer = SeqTrainer(cfg, ds)
+    for key in fa.launches:
+        fa.launches[key] = 0
+    result = trainer.train(log=lambda s: None)
+    launches = dict(fa.launches)
+    eval_batches = len(result.history) * -(-ds.test_tokens.shape[0] // bs)
+    want = {"fwd": spec.num_layers * (LM_STEPS + eval_batches),
+            "bwd_dkv": spec.num_layers * LM_STEPS, "bwd_dq": spec.num_layers * LM_STEPS}
+    if launches != want:
+        raise AssertionError(f"flash launches {launches}, want {want}")
+    if not (all(math.isfinite(x) for x in result.span_losses) and _finite_state(torch, trainer)):
+        raise AssertionError("non-finite loss, parameter or moment on the LM path")
+    if int(trainer.opt_state.step) != LM_STEPS or not 0.0 <= result.final_accuracy <= 1.0:
+        raise AssertionError(f"Adam step {int(trainer.opt_state.step)}, "
+                             f"accuracy {result.final_accuracy}")
+    stats = result.step_stats
+    out = dict(
+        steps=LM_STEPS, batch_size=bs, seq_len=seq_len, num_params=spec.num_params(),
+        launches=launches, eval_batches=eval_batches, tokens_per_sec=result.tokens_per_sec,
+        train_time_s=result.train_time_s, warmup_s=result.compile_time_s,
+        span_losses=result.span_losses, history=result.history,
+        final_loss=result.final_loss, final_accuracy=result.final_accuracy,
+        span_ms={"p50": stats.p50_ms, "p95": stats.p95_ms, "mean": stats.mean_ms,
+                 "spans": stats.steps},
+    )
+    emit("lm_main", **out)
+    return out
+
+
+def lm_flash_vs_xla(torch) -> dict:
+    import numpy as np
+
+    from ddl_tpu_torch.convert import lm_params_to_numpy
+    from ddl_tpu_torch.data.lm import synthesize_copy
+    from ddl_tpu_torch.models.transformer import init_lm_params
+    from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
+    from ddl_tpu_torch.utils import tree
+
+    spec = lm_spec()
+    init = lm_params_to_numpy(init_lm_params(torch.Generator().manual_seed(1), spec))
+    ds = synthesize_copy(num_train=8, num_test=4, seq_len=512, vocab=spec.vocab, seed=1)
+    res = {}
+    for impl in ("flash", "xla"):
+        cfg = SeqConfig(scheme="full", attn_impl=impl, batch_size=4, learning_rate=1e-3,
+                        eval_every=0, seed=1, spec=spec)
+        res[impl] = SeqTrainer(cfg, ds, init=init).train(log=lambda s: None)
+    worst, bad = 0.0, []
+    for i, (a, b) in enumerate(zip(tree.leaves(res["flash"].params),
+                                   tree.leaves(res["xla"].params))):
+        err = np.abs(a - b)
+        worst = max(worst, float(err.max()))
+        if not (err <= 2e-5 + 1e-3 * np.abs(b)).all():
+            bad.append(i)
+    lf, lx = res["flash"].final_loss, res["xla"].final_loss
+    out = dict(steps=2, seq_len=512, loss_flash=lf, loss_xla=lx,
+               loss_rel_diff=abs(lf - lx) / abs(lx), params_max_abs_diff=worst)
+    emit("lm_flash_vs_xla", **out)
+    if bad or abs(lf - lx) > 1e-4 * abs(lx):
+        raise AssertionError(f"flash != xla training: leaves {bad}, losses {lf} vs {lx}")
+    return out
+
+
+def lm_bf16(torch, fa) -> dict:
+    from ddl_tpu_torch.data.lm import synthesize_copy
+    from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
+
+    spec = lm_spec()
+    cfg = SeqConfig(scheme="full", attn_impl="flash", compute_dtype="bfloat16", batch_size=4,
+                    learning_rate=1e-3, eval_every=0, seed=2, spec=spec)
+    ds = synthesize_copy(num_train=8, num_test=4, seq_len=2048, vocab=spec.vocab, seed=2)
+    trainer = SeqTrainer(cfg, ds)
+    for key in fa.launches:
+        fa.launches[key] = 0
+    result = trainer.train(log=lambda s: None)
+    launches = dict(fa.launches)
+    want = {"fwd": spec.num_layers * 3, "bwd_dkv": spec.num_layers * 2,
+            "bwd_dq": spec.num_layers * 2}
+    out = dict(steps=2, launches=launches, span_losses=result.span_losses,
+               final_loss=result.final_loss, tokens_per_sec=result.tokens_per_sec)
+    emit("lm_bf16", **out)
+    if launches != want:
+        raise AssertionError(f"bf16 flash launches {launches}, want {want}")
+    if not (all(math.isfinite(x) for x in result.span_losses) and _finite_state(torch, trainer)):
+        raise AssertionError("non-finite loss, parameter or moment on the bf16 LM path")
+    return out
+
+
+def flash_bound_ms(shape, kind: str, elem_bytes: int, ops_per_s: float, card: str):
+    """(bound ms, what bounds it) of one kernel at ``shape``, causal: the
+    products on the causal half (pairs with key <= query; exps and the
+    softmax's adds are not counted) over ``ops_per_s``, or each input read
+    once and each output written once over the HBM rate."""
+    b, t, h, d = shape
+    pairs = b * h * t * (t + 1) // 2
+    tensor = b * t * h * d * elem_bytes
+    rows = b * h * t * 4  # lse or delta, fp32
+    products, tensors, row_arrays = {
+        "fwd": (2, 4, 1),  # reads q, k, v; writes o, lse
+        "bwd_dkv": (4, 6, 2),  # reads q, k, v, dO, lse, delta; writes dk, dv
+        "bwd_dq": (3, 5, 2),  # reads q, k, v, dO, lse, delta; writes dq
+    }[kind]
+    ops_ms = products * 2 * d * pairs / ops_per_s * 1e3
+    bytes_ms = (tensors * tensor + row_arrays * rows) / hbm_bytes_per_s(card) * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def flash_timing(torch, fa, card: str) -> dict:
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        q, k, v, do = (torch.randn(FLASH_MAIN, generator=gen, device=dev).to(dtype)
+                       for _ in range(4))
+        scale = 1.0 / math.sqrt(FLASH_MAIN[-1])
+        o, lse = fa.flash_fwd(q, k, v, True, scale)
+        delta = fa.attention_delta(o, do)
+        name = str(dtype).split(".")[-1]
+        fp32 = dtype == torch.float32
+        # The library yardstick in its own layout, [B, H, T, D], copied
+        # outside the clock.
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+        lq, lk, lv = (x.clone().requires_grad_(True) for x in (qt, kt, vt))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+        lib_fwd = median_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                          is_causal=True), 50)
+        lib_bwd = median_ms(torch, lambda: torch.autograd.grad(lo, (lq, lk, lv), dot,
+                                                               retain_graph=True), 50)
+        lib_err = float((lo.detach().transpose(1, 2).float() - o.float()).abs().max())
+        runs = {
+            "fwd": (lambda: fa.flash_fwd(q, k, v, True, scale),
+                    lambda: fa.flash_fwd_reference(q, k, v, True, scale), lib_fwd),
+            "bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale),
+                        lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True, scale),
+                        lib_bwd),
+            "bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale),
+                       lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, True, scale),
+                       lib_bwd),
+        }
+        for key, (kernel, plain, lib_ms) in runs.items():
+            if not fp32 and key != "fwd":
+                continue
+            # Kernel vs its own plain version on the same residuals.
+            got, want = kernel(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            plain_err = max(float((a.float() - b.float()).abs().max())
+                            for a, b in zip(got, want))
+            ms = median_ms(torch, kernel, 50)
+            plain_ms = median_ms(torch, plain, 20, warm=3)
+            bound, by = flash_bound_ms(FLASH_MAIN, key, 4 if fp32 else 2,
+                                       FP32_OPS_PER_S if fp32 else BF16_OPS_PER_S, card)
+            row = dict(kernel=key, dtype=name, shape=list(FLASH_MAIN), causal=True, ms=ms,
+                       plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                       library="sdpa forward" if key == "fwd" else
+                       "sdpa backward (dq, dk and dv in one call)",
+                       share_of_bound=bound / ms, kernel_vs_plain_max_abs=plain_err)
+            emit("flash_timing", **row)
+            out[(key, name)] = row
+        emit("flash_timing_library", dtype=name, sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
+             sdpa_fwd_plus_bwd_ms=lib_fwd + lib_bwd, sdpa_vs_kernel_o_max_abs=lib_err)
+        del q, k, v, do, o, lse, delta, qt, kt, vt, dot, lq, lk, lv, lo
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -252,7 +532,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from ddl_tpu_torch.ops import build, fused_adam
+    from ddl_tpu_torch.ops import build, flash_attention, fused_adam
     from ddl_tpu_torch.parallel.mesh import destroy_world, init_world
 
     card = nvidia_smi()
@@ -276,7 +556,14 @@ def main() -> int:
             destroy_world()
 
     tim = timing(torch, fused_adam, card)
-    print(json.dumps({"kernels": [{
+
+    flash_err = check_flash(torch, flash_attention)
+    lm_out = lm_main(torch, flash_attention)
+    lm_flash_vs_xla(torch)
+    lm_bf16(torch, flash_attention)
+    flash_tim = flash_timing(torch, flash_attention, card)
+
+    kernels = [{
         "name": "adam_flat_fused",
         "route": "cuda",
         "source": "ddl_tpu_torch/csrc/fused_adam.cu",
@@ -288,7 +575,25 @@ def main() -> int:
         "bound_ms": tim["bound_ms"],
         "bound_by": tim["bound_by"],
         "library_ms": tim["library_ms"],
-    }]}), flush=True)
+    }]
+    for key, (name, replaces) in FLASH_KERNELS.items():
+        row = flash_tim[(key, "float32")]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "ddl_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces,
+            "reached_from": "ddl_tpu/ops/attention.py:38",
+            "launches": lm_out["launches"][key],
+            "max_abs_err": flash_err[key],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library": row["library"],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -10,15 +10,17 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise.
 
 Layout:
-    data/       MNIST pipeline (numpy copy of ddl_tpu/data/mnist.py)
-    models/     the MNIST CNN, JAX storage layout
-    ops/        TF1 Adam, the fused-Adam CUDA kernel and its builder
-    parallel/   layout policies, collectives, process worlds
-    strategies/ sync DP and ZeRO-1 sharded trainers
-    train/      config + single-device trainer
-    utils/      step timing
-    convert.py  weight carry-over from the JAX package (as numpy)
-    csrc/       CUDA sources, built with nvcc at first use
+    data/        MNIST pipeline and the LM copy task (numpy copies of ddl_tpu/data)
+    models/      the MNIST CNN and the decoder LM, JAX storage layout
+    ops/         TF1 Adam, the fused-Adam and flash-attention CUDA kernels, their builder
+    parallel/    layout policies, collectives, process worlds, plain attention
+    strategies/  sync DP and ZeRO-1 sharded CNN trainers, the one-device LM trainer
+    train/       config + single-device CNN trainer
+    utils/       step timing, parameter trees
+    precision.py the LM's fp32 / bf16-compute contract
+    convert.py   weight carry-over from the JAX package (as numpy)
+    csrc/        CUDA sources, built with nvcc at first use
+    tools/       step anatomy on the card
 """
 
 __version__ = "0.1.0"

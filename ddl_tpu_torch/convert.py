@@ -1,10 +1,11 @@
 """Weight carry-over between the JAX package and the port.
 
 The port stores parameters in the JAX package's layout (HWIO convs,
-``[in, out]`` FCs, names ``v0..v13``) and its ZeRO-1 Adam moments as the
-same flat per-shard vectors, so conversion is a check of names and shapes
-and a placement: no transposes. Arrays cross as numpy (``np.asarray`` of a
-JAX array), so this module needs nothing of JAX.
+``[in, out]`` FCs, names ``v0..v13``; the LM's nested tree with ``[in,
+out]`` projections) and its ZeRO-1 Adam moments as the same flat per-shard
+vectors, so conversion is a check of names and shapes and a placement: no
+transposes. Arrays cross as numpy (``np.asarray`` of a JAX array, or
+``jax.tree.map(np.asarray, tree)``), so this module needs nothing of JAX.
 """
 
 from __future__ import annotations
@@ -15,7 +16,9 @@ import numpy as np
 import torch
 
 from .models.cnn import PARAM_SPECS, Specs
-from .ops.optimizers import ShardedAdam
+from .models.transformer import LMSpec, param_shapes
+from .ops.optimizers import AdamState, ShardedAdam
+from .utils import tree
 
 
 def params_from_numpy(
@@ -56,3 +59,44 @@ def sharded_adam_from_numpy(
         v=torch.tensor(v, dtype=torch.float32, device=device),
     )
 
+
+def _tree_from_numpy(np_tree, shapes, device, path: str = ""):
+    """Check ``np_tree`` against the ``shapes`` tree (same dict keys, list
+    lengths and leaf shapes) and place it as float32 tensors."""
+    if isinstance(shapes, dict):
+        if not isinstance(np_tree, dict) or sorted(np_tree) != sorted(shapes):
+            got = sorted(np_tree) if isinstance(np_tree, dict) else type(np_tree).__name__
+            raise ValueError(f"{path or 'params'}: names {got} != {sorted(shapes)}")
+        return {k: _tree_from_numpy(np_tree[k], s, device, f"{path}/{k}") for k, s in shapes.items()}
+    if isinstance(shapes, list):
+        if not isinstance(np_tree, (list, tuple)) or len(np_tree) != len(shapes):
+            raise ValueError(f"{path}: want a list of {len(shapes)}, got {np_tree!r:.60}")
+        return [_tree_from_numpy(a, s, device, f"{path}/{i}")
+                for i, (a, s) in enumerate(zip(np_tree, shapes))]
+    a = np.asarray(np_tree)
+    if a.shape != tuple(shapes):
+        raise ValueError(f"{path}: shape {a.shape} != spec {tuple(shapes)}")
+    return torch.tensor(a, dtype=torch.float32, device=device)
+
+
+def lm_params_from_numpy(np_tree, spec: LMSpec, device: str | torch.device) -> dict:
+    """JAX LM parameters (a nested tree of numpy arrays) -> the port's
+    float32 tree on ``device``. Raises unless the names, nesting and shapes
+    are exactly ``init_lm_params``' for ``spec``."""
+    return _tree_from_numpy(np_tree, param_shapes(spec), device)
+
+
+def lm_params_to_numpy(params) -> dict:
+    """The port's LM parameter tree -> numpy, in the JAX package's layout."""
+    return tree.map(lambda t: t.detach().cpu().numpy().copy(), params)
+
+
+def adam_state_from_numpy(step, m, v, spec: LMSpec, device: str | torch.device) -> AdamState:
+    """Tree-shaped TF1 Adam state (the JAX package's ``AdamState`` over the
+    LM tree, as numpy) -> the port's, with ``m`` and ``v`` checked like the
+    parameters."""
+    return AdamState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+        m=lm_params_from_numpy(m, spec, device),
+        v=lm_params_from_numpy(v, spec, device),
+    )

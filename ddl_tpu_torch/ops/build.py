@@ -36,7 +36,7 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 
-KERNEL_SOURCES = ("fused_adam",)
+KERNEL_SOURCES = ("fused_adam", "flash_attention")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

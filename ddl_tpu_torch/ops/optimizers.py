@@ -14,20 +14,25 @@ moment. This is not ``torch.optim.Adam`` (which uses
 
 Functional like the JAX original: ``adam_update`` returns new tensors. The
 step counter is a device tensor, and so is ``lr_t``: no host sync per step.
+``adam_init``/``adam_update`` take any parameter tree (``utils/tree.py``):
+the CNN's flat dict or the LM's nested one; m and v mirror its structure.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
+
+from ..utils import tree
 
 
 @dataclasses.dataclass
 class AdamState:
     step: torch.Tensor  # int32 scalar on the device, updates applied
-    m: dict[str, torch.Tensor]  # first moment, same structure as params
-    v: dict[str, torch.Tensor]  # second moment
+    m: Any  # first moment, same tree as params
+    v: Any  # second moment
 
 
 @dataclasses.dataclass
@@ -41,12 +46,12 @@ class ShardedAdam:
     v: torch.Tensor
 
 
-def adam_init(params: dict[str, torch.Tensor]) -> AdamState:
-    some = next(iter(params.values()))
+def adam_init(params: Any) -> AdamState:
+    some = tree.leaves(params)[0]
     return AdamState(
         step=torch.zeros((), dtype=torch.int32, device=some.device),
-        m={k: torch.zeros_like(p) for k, p in params.items()},
-        v={k: torch.zeros_like(p) for k, p in params.items()},
+        m=tree.map(torch.zeros_like, params),
+        v=tree.map(torch.zeros_like, params),
     )
 
 
@@ -60,22 +65,22 @@ def bias_corrected_lr(
 
 
 def adam_update(
-    params: dict[str, torch.Tensor],
+    params: Any,
     state: AdamState,
-    grads: dict[str, torch.Tensor],
+    grads: Any,
     *,
     lr: float = 1e-4,
     b1: float = 0.9,
     b2: float = 0.999,
     eps: float = 1e-8,
-) -> tuple[dict[str, torch.Tensor], AdamState]:
-    """One TF1-semantics Adam step. Returns ``(new_params, new_state)``."""
+) -> tuple[Any, AdamState]:
+    """One TF1-semantics Adam step over a parameter tree. Returns
+    ``(new_params, new_state)``."""
     step = state.step + 1
     lr_t = bias_corrected_lr(step, lr, b1, b2)
-    new_m = {k: b1 * state.m[k] + (1.0 - b1) * grads[k] for k in params}
-    new_v = {k: b2 * state.v[k] + (1.0 - b2) * grads[k] * grads[k] for k in params}
-    new_params = {
-        k: p - lr_t * new_m[k] / (torch.sqrt(new_v[k]) + eps)
-        for k, p in params.items()
-    }
+    new_m = tree.map(lambda m, g: b1 * m + (1.0 - b1) * g, state.m, grads)
+    new_v = tree.map(lambda v, g: b2 * v + (1.0 - b2) * g * g, state.v, grads)
+    new_params = tree.map(
+        lambda p, m, v: p - lr_t * m / (torch.sqrt(v) + eps), params, new_m, new_v
+    )
     return new_params, AdamState(step=step, m=new_m, v=new_v)

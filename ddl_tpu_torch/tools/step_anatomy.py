@@ -1,19 +1,25 @@
-"""Where a train step's time goes on the card, for the port's main path.
+"""Where a train step's time goes on the card, for the port's main paths.
 
-    python -m ddl_tpu_torch.tools.step_anatomy [--batch-size 100] [--steps 20] [--out FILE]
+    python -m ddl_tpu_torch.tools.step_anatomy [--variant cnn|lm] [--batch-size N] [--steps N] [--out FILE]
 
-Runs the ZeRO-1 sync step (``make_sharded_step``: one worker, ``num_ps=2``,
-layout ``flat``) at full width over an NCCL world of one, and reports, each
-as one JSON line:
+``--variant cnn`` (the default) runs the ZeRO-1 sync step
+(``make_sharded_step``: one worker, ``num_ps=2``, layout ``flat``) at full
+width over an NCCL world of one, batch 100 by default. ``--variant lm``
+runs the decoder-LM train step (``strategies/seq.py::_step_body``, scheme
+full) at the widest LM width the repo defines (benchmarks/lm_bench.py:
+vocab 256, d_model 512, 8 heads, 4 layers, d_ff 2048), T = 2048, batch 4 by
+default, fp32. Each reports, as one JSON line:
 
 - ``steady``: host-clock ms per step over ``--steps`` steps after a
-  warm-up, closed by ``torch.cuda.synchronize``, for fused and plain Adam
-  in turns (plain, fused, fused, plain), and images/s;
-- ``anatomy``: a ``torch.profiler`` trace of 10 fused steps: device time
-  per step by kernel family (conv, matmul, pool, fused Adam, NCCL, other
-  elementwise), the device's busy and idle share of the wall time, and the
-  ten costliest kernels. Where the profiler records no device time, the
-  breakdown reads "not measured".
+  warm-up, closed by ``torch.cuda.synchronize``, for the two versions in
+  turns (plain, kernel, kernel, plain): plain and fused Adam for the CNN,
+  ``attn_impl`` xla and flash for the LM; and images/s or tokens/s;
+- ``anatomy``: a ``torch.profiler`` trace of a few steps of the kernel
+  version: device time per step by kernel family (CNN: conv, matmul, pool,
+  fused Adam, NCCL, other; LM: the flash kernels, cuBLAS matmuls,
+  elementwise, other), the device's busy and idle share of the wall time,
+  and the ten costliest kernels. Where the profiler records no device
+  time, the breakdown reads "not measured".
 
 Needs a CUDA card; raises without one.
 """
@@ -21,6 +27,7 @@ Needs a CUDA card; raises without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -37,17 +44,22 @@ from ..parallel.mesh import default_device, destroy_world, init_world
 from ..strategies.sync import make_sharded_step, resolve_layout, sharded_adam_init
 from ..train.config import TrainConfig
 
-FAMILIES = (
+CNN_FAMILIES = (
     ("fused_adam", re.compile(r"adam_flat_kernel")),
     ("nccl", re.compile(r"nccl", re.I)),
     ("conv", re.compile(r"conv|cudnn|implicit|dgrad|wgrad|fprop|winograd|fft", re.I)),
     ("matmul", re.compile(r"gemm|cutlass|cublas|xmma|sgemm|splitK", re.I)),
     ("pool", re.compile(r"max_pool|MaxPool", re.I)),
 )
+LM_FAMILIES = (
+    ("flash", re.compile(r"flash_(fwd|bwd_dkv|bwd_dq)_kernel")),
+    ("matmul", re.compile(r"gemm|cutlass|cublas|xmma|sgemm|splitK", re.I)),
+    ("elementwise", re.compile(r"elementwise|vectorized|unrolled", re.I)),
+)
 
 
-def family(name: str) -> str:
-    for fam, pat in FAMILIES:
+def family(name: str, families=CNN_FAMILIES) -> str:
+    for fam, pat in families:
         if pat.search(name):
             return fam
     return "other"
@@ -60,23 +72,58 @@ def _run(step, params, opt, xs, ys, steps, first_step):
     return params, opt
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="ddl_tpu_torch.tools.step_anatomy")
-    ap.add_argument("--batch-size", type=int, default=100)
-    ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--out", default=None, help="also write the JSON lines here")
-    args = ap.parse_args(argv)
+def steady_ms(run, order, steps: int) -> dict:
+    """Host-clock ms per step of ``run(version, steps)`` for each version in
+    ``order``, each run closed by a device barrier."""
+    ms = {v: [] for v in order}
+    for version in order:
+        t0 = time.perf_counter()
+        run(version, steps)
+        torch.cuda.synchronize()
+        ms[version].append((time.perf_counter() - t0) / steps * 1e3)
+    return ms
+
+
+def anatomy(run, n: int, families) -> dict:
+    """``torch.profiler`` over ``run(n)``: device ms per step by family,
+    busy and idle share of the wall time, and the costliest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(n)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and t > 0:
+            kernels[e.key] = kernels.get(e.key, 0.0) + t
+    busy = sum(kernels.values())
+    if busy <= 0:
+        return {"device_time": "not measured", "wall_ms_per_step": wall_us / n / 1e3}
+    fams = {}
+    for name, t in kernels.items():
+        fam = family(name, families)
+        fams[fam] = fams.get(fam, 0.0) + t
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    return {
+        "steps": n,
+        "wall_ms_per_step": wall_us / n / 1e3,
+        "device_busy_ms_per_step": busy / n / 1e3,
+        "device_busy_share": busy / wall_us,
+        "device_idle_share": 1.0 - busy / wall_us,
+        "family_ms_per_step": {k: v / n / 1e3 for k, v in
+                               sorted(fams.items(), key=lambda kv: -kv[1])},
+        "top_kernels_ms_per_step": [[k[:90], v / n / 1e3] for k, v in top],
+    }
+
+
+def cnn_variant(args, emit) -> None:
     dev = default_device("cuda")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    lines = []
-
-    def emit(rec):
-        rec = {"card": torch.cuda.get_device_name(0), **rec}
-        lines.append(json.dumps(rec))
-        print(lines[-1], flush=True)
-
-    bs = args.batch_size
+    bs = args.batch_size or 100
     ds = load_mnist(None, synthetic_train=10 * bs, synthetic_test=10, seed=0)
     xs = torch.as_tensor(ds.x_train.reshape(10, bs, 784)).to(dev)
     ys = torch.as_tensor(one_hot(ds.y_train).reshape(10, bs, 10)).to(dev)
@@ -90,59 +137,97 @@ def main(argv=None) -> int:
                                   fused_adam=fused, keep_prob=0.5)
                 layout = resolve_layout(cfg, 1)
                 steps[fused] = (make_sharded_step(cfg, world, layout), layout)
-            params = {k: torch.tensor(v, device=dev) for k, v in init.items()}
-            opt = sharded_adam_init(world, steps[True][1])
-            params, opt = _run(steps[True][0], params, opt, xs, ys, 5, 0)  # warm-up
-            params, opt = _run(steps[False][0], params, opt, xs, ys, 5, 5)
+            state = {"params": {k: torch.tensor(v, device=dev) for k, v in init.items()},
+                     "opt": sharded_adam_init(world, steps[True][1]), "step": 0}
+
+            def run(fused, n):
+                state["params"], state["opt"] = _run(steps[fused][0], state["params"],
+                                                     state["opt"], xs, ys, n, state["step"])
+                state["step"] += n
+
+            run(True, 5)  # warm-up
+            run(False, 5)
             torch.cuda.synchronize()
-            ms = {False: [], True: []}
-            for fused in (False, True, True, False):
-                t0 = time.perf_counter()
-                params, opt = _run(steps[fused][0], params, opt, xs, ys, args.steps, 10)
-                torch.cuda.synchronize()
-                ms[fused].append((time.perf_counter() - t0) / args.steps * 1e3)
-            emit({"phase": "steady", "batch_size": bs, "steps": args.steps,
+            ms = steady_ms(run, (False, True, True, False), args.steps)
+            emit({"phase": "steady", "variant": "cnn", "batch_size": bs, "steps": args.steps,
                   "plain_ms_per_step": ms[False], "fused_ms_per_step": ms[True],
                   "fused_images_per_sec": [bs / (t * 1e-3) for t in ms[True]]})
-
-            from torch.profiler import ProfilerActivity, profile
-
-            n_prof = 10
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                params, opt = _run(steps[True][0], params, opt, xs, ys, n_prof, 100)
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            kernels = {}
-            for e in prof.key_averages():
-                t = getattr(e, "self_device_time_total", None)
-                if t is None:
-                    t = getattr(e, "self_cuda_time_total", 0)
-                if e.device_type == torch.autograd.DeviceType.CUDA and t > 0:
-                    kernels[e.key] = kernels.get(e.key, 0.0) + t
-            busy = sum(kernels.values())
-            if busy <= 0:
-                emit({"phase": "anatomy", "device_time": "not measured",
-                      "wall_ms_per_step": wall_us / n_prof / 1e3})
-            else:
-                fams = {}
-                for name, t in kernels.items():
-                    fams[family(name)] = fams.get(family(name), 0.0) + t
-                top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-                emit({
-                    "phase": "anatomy", "batch_size": bs, "steps": n_prof,
-                    "wall_ms_per_step": wall_us / n_prof / 1e3,
-                    "device_busy_ms_per_step": busy / n_prof / 1e3,
-                    "device_busy_share": busy / wall_us,
-                    "device_idle_share": 1.0 - busy / wall_us,
-                    "family_ms_per_step": {k: v / n_prof / 1e3 for k, v in
-                                           sorted(fams.items(), key=lambda kv: -kv[1])},
-                    "top_kernels_ms_per_step": [[k[:90], v / n_prof / 1e3] for k, v in top],
-                })
-            if not isinstance(opt, ShardedAdam) or not torch.isfinite(opt.m).all():
+            emit({"phase": "anatomy", "variant": "cnn", "batch_size": bs,
+                  **anatomy(lambda n: run(True, n), 10, CNN_FAMILIES)})
+            if not isinstance(state["opt"], ShardedAdam) or not torch.isfinite(
+                    state["opt"].m).all():
                 raise AssertionError("non-finite optimizer state")
         finally:
             destroy_world()
+
+
+def lm_variant(args, emit) -> None:
+    from ..data.lm import synthesize_copy
+    from ..models.transformer import LMSpec, init_lm_params
+    from ..ops import flash_attention
+    from ..ops.optimizers import adam_init
+    from ..strategies.seq import SeqConfig, _step_body
+    from ..utils import tree
+
+    dev = default_device("cuda")
+    bs, seq_len = args.batch_size or 4, args.seq_len
+    spec = LMSpec(vocab=256, d_model=512, num_heads=8, num_layers=4, d_ff=2048)
+    ds = synthesize_copy(num_train=4 * bs, num_test=0, seq_len=seq_len, vocab=spec.vocab,
+                         seed=0)
+    stage = lambda a, dtype: torch.as_tensor(  # noqa: E731
+        a.reshape(4, bs, seq_len)).to(dtype).to(dev)
+    xs, ys, ws = stage(ds.tokens, torch.long), stage(ds.targets, torch.long), stage(
+        ds.weights, torch.float32)
+    base = SeqConfig(scheme="full", batch_size=bs, learning_rate=1e-3, spec=spec)
+    steps = {impl: _step_body(dataclasses.replace(base, attn_impl=impl))
+             for impl in ("xla", "flash")}
+    params = init_lm_params(torch.Generator().manual_seed(0), spec, dev)
+    state = {"params": params, "opt": adam_init(params), "i": 0}
+    flash_attention.load_kernel()
+
+    def run(impl, n):
+        for _ in range(n):
+            i = state["i"] % xs.shape[0]
+            state["params"], state["opt"], _ = steps[impl](state["params"], state["opt"],
+                                                           xs[i], ys[i], ws[i])
+            state["i"] += 1
+
+    run("flash", 3)  # warm-up
+    run("xla", 3)
+    torch.cuda.synchronize()
+    ms = steady_ms(run, ("xla", "flash", "flash", "xla"), args.steps)
+    tokens = bs * seq_len
+    emit({"phase": "steady", "variant": "lm", "batch_size": bs, "seq_len": seq_len,
+          "steps": args.steps, "xla_ms_per_step": ms["xla"], "flash_ms_per_step": ms["flash"],
+          "flash_tokens_per_sec": [tokens / (t * 1e-3) for t in ms["flash"]],
+          "xla_tokens_per_sec": [tokens / (t * 1e-3) for t in ms["xla"]],
+          "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+    emit({"phase": "anatomy", "variant": "lm", "attn_impl": "flash", "batch_size": bs,
+          "seq_len": seq_len, **anatomy(lambda n: run("flash", n), 5, LM_FAMILIES)})
+    if not all(bool(torch.isfinite(t).all()) for t in tree.leaves(state["opt"].m)):
+        raise AssertionError("non-finite optimizer state")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="ddl_tpu_torch.tools.step_anatomy")
+    ap.add_argument("--variant", default="cnn", choices=["cnn", "lm"])
+    ap.add_argument("--batch-size", type=int, default=None,
+                    help="images (cnn, default 100) or sequences (lm, default 4)")
+    ap.add_argument("--seq-len", type=int, default=2048, help="lm only")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--out", default=None, help="also write the JSON lines here")
+    args = ap.parse_args(argv)
+    default_device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lines = []
+
+    def emit(rec):
+        rec = {"card": torch.cuda.get_device_name(0), **rec}
+        lines.append(json.dumps(rec))
+        print(lines[-1], flush=True)
+
+    (lm_variant if args.variant == "lm" else cnn_variant)(args, emit)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -33,6 +33,12 @@ class StepStats:
     images_per_sec: float
     p99_ms: float = 0.0
 
+    @property
+    def tokens_per_sec(self) -> float:
+        """``images_per_sec`` under its name for the LM, which counts
+        tokens (B * T) per step."""
+        return self.images_per_sec
+
     def line(self) -> str:
         return (
             f"steps={self.steps} mean={self.mean_ms:.2f}ms "

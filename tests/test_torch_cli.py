@@ -1,10 +1,11 @@
 """The port's CLI subset (ddl_tpu_torch/cli.py): the flag-to-config mapping
 of the JAX CLI, its --fused-adam validation, loud refusal of what is not
-ported, and one tiny end-to-end run on the CPU."""
+ported, and tiny end-to-end runs on the CPU (sync_sharding and lm)."""
 
 import dataclasses
 import json
 
+import numpy as np
 import pytest
 
 from ddl_tpu.cli import build_parser as j_parser, config_from_args as j_config
@@ -73,3 +74,57 @@ def test_sync_sharding_end_to_end_on_cpu(capsys, monkeypatch, tmp_path):
     assert [b for _, b, _ in out["history"]] == [0, 2]
     assert 0.0 <= out["final_accuracy"] <= 1.0
     assert out["step_stats"]["steps"] == 2  # spans [0], [1, 2]
+
+
+LM_SMOKE = ["lm", "--device", "cpu", "--seq-scheme", "full", "--attn-impl", "flash",
+            "--seq-len", "32", "--vocab", "16", "--d-model", "32", "--heads", "2",
+            "--layers", "2", "--d-ff", "64", "--train-seqs", "64", "--test-seqs", "16",
+            "--batch-size", "16"]
+
+
+def test_lm_flags_keep_the_jax_spellings_and_defaults():
+    ours, theirs = cli.build_parser(), j_parser()
+    for dest in cli._LM_ONLY + ("epochs", "eval_every", "seed", "lr", "batch_size", "bf16"):
+        assert ours.get_default(dest) == theirs.get_default(dest), dest
+    args = ours.parse_args(LM_SMOKE + ["--remat", "--bf16", "--lr", "3e-3", "--seed", "5"])
+    cfg = cli.lm_config_from_args(args)
+    assert (cfg.scheme, cfg.attn_impl, cfg.remat, cfg.compute_dtype) == (
+        "full", "flash", True, "bfloat16")
+    assert (cfg.learning_rate, cfg.seed, cfg.batch_size, cfg.spec.d_ff) == (3e-3, 5, 16, 64)
+    default = cli.lm_config_from_args(ours.parse_args(["lm", "--seq-scheme", "full"]))
+    assert (default.batch_size, default.learning_rate, default.compute_dtype) == (32, 1e-3, None)
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["lm"], "pass --seq-scheme full"),
+    (["lm", "--seq-scheme", "ulysses"], "pass --seq-scheme full"),
+    (["lm", "--seq-scheme", "full", "--keep-prob", "0.7"], "--keep-prob does not apply"),
+    (["sync", "--attn-impl", "flash"], "--attn-impl does not apply"),
+    (["single", "--bf16"], "ROADMAP"),
+])
+def test_lm_flag_refusals(argv, match):
+    args = cli.build_parser().parse_args(argv)
+    convert = cli.lm_config_from_args if argv[0] == "lm" else (lambda a: cli.config_from_args(a, 1))
+    with pytest.raises(SystemExit, match=match):
+        convert(args)
+
+
+def test_lm_end_to_end_on_cpu(capsys):
+    assert cli.main(LM_SMOKE + ["--json", "--eval-every", "2"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["variant"] == "lm" and out["device"] == "cpu"
+    assert out["config"]["attn_impl"] == "flash" and out["config"]["scheme"] == "full"
+    assert out["config"]["seq_len"] == 32 and out["config"]["spec"]["d_model"] == 32
+    assert np.isfinite(out["final_loss"]) and 0.0 <= out["final_accuracy"] <= 1.0
+    assert [b for _, b, _ in out["history"]] == [0, 2, 3]
+    assert out["step_stats"]["steps"] == 3 and out["tokens_per_sec"] > 0
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["--num-workers", "2"], "cannot shard"),
+    (["--batch-size", "128"], "exceeds 64 train sequences"),
+    (["--vocab", "2"], "too small"),
+])
+def test_lm_config_errors_exit_cleanly(extra, match):
+    with pytest.raises(SystemExit, match=f"lm config error.*{match}"):
+        cli.main(LM_SMOKE + extra)

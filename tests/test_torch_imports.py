@@ -88,6 +88,11 @@ def test_entry_points_raise_without_a_card():
         SingleChipTrainer(TrainConfig(), ds)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mesh.init_world(1, 0, "file:///nonexistent/never-used", "cuda")
+    from ddl_tpu_torch import cli
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["lm", "--seq-scheme", "full", "--seq-len", "32", "--vocab", "16",
+                  "--train-seqs", "8", "--test-seqs", "4", "--batch-size", "4"])
 
 
 def test_cpu_fused_adam_never_builds_the_kernel(monkeypatch):
