@@ -33,15 +33,17 @@ Phases, each printing one JSON line:
    with a seeded R, at [B, T, H, D] = [1, 64, 2, 16], [2, 200, 4, 32]
    (ragged), [4, 2048, 8, 64] (the LM path's) and [1, 512, 2, 128], causal
    and not. fp32: O within atol 1e-5 / rtol 1e-4, gradients within atol
-   1e-4 / rtol 1e-3; bf16 inputs against the reference in fp32 on the same
-   bf16 values: O within 2e-2, gradients within 5e-2.
+   1e-4 / rtol 1e-3; bf16 inputs (and R) against the reference in fp32 on
+   the same bf16 values: O within atol 2e-3 / rtol 1e-2, gradients within
+   atol 1e-2 / rtol 1e-2.
 8. lm_main — the port's ``SeqTrainer`` at the widest LM width the repo
    defines (benchmarks/lm_bench.py: vocab 256, d_model 512, 8 heads, 4
    layers, d_ff 2048; 12,864,512 parameters), scheme full, attn_impl flash,
    fp32, lr 1e-3, T = 2048, batch 4, 32 train sequences (8 steps), 8 test
    sequences, eval_every 4. The flash counts are set to 0 just before and
-   must read fwd = 4 * 8 + 4 * (eval batches), dK/dV = dQ = 4 * 8 just
-   after; losses, parameters and moments must be finite.
+   must read fwd = 4 * (8 + 1) + 4 * (eval batches), dK/dV = dQ = 4 * (8 +
+   1) just after (the + 1 is the trainer's discarded warm-up step);
+   losses, parameters and moments must be finite.
 9. lm_flash_vs_xla — the same width from one init, 2 steps at T = 512,
    batch 4, attn_impl flash and xla: parameters within atol 2e-5 / rtol
    1e-3, final losses within rtol 1e-4 (tests/test_lm.py's tolerances).
@@ -51,7 +53,8 @@ Phases, each printing one JSON line:
    the forward in bf16): median of 50 launches timed with CUDA events,
    beside its bound (the causal half's products over the fp32 CUDA-core
    rate, or bytes over the HBM rate, whichever is larger), its plain
-   version, and ``scaled_dot_product_attention(is_causal=True)`` at the
+   version (the kernel's outputs held to it at the flash_kernel
+   tolerances), and ``scaled_dot_product_attention(is_causal=True)`` at the
    same shape in [B, H, T, D] as the library yardstick (forward, and its
    backward for the two backward kernels), never on the port's path.
 
@@ -99,9 +102,13 @@ BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 # The flash-attention phases.
 FLASH_SHAPES = ((1, 64, 2, 16), (2, 200, 4, 32), (4, 2048, 8, 64), (1, 512, 2, 128))
 FLASH_MAIN = (4, 2048, 8, 64)  # the LM path's [B, T, H, D]
-FLASH_TOL = {  # dtype name -> ((atol, rtol) of O, (atol, rtol) of the gradients)
+# dtype name -> ((atol, rtol) of O, (atol, rtol) of the gradients). bf16: O
+# differs from the fp32 reference by its own rounding (2^-9 relative); the
+# gradients also carry O's rounding through delta = rowsum(dO * O), an
+# absolute error of up to about 1e-2 at these shapes.
+FLASH_TOL = {
     "float32": ((1e-5, 1e-4), (1e-4, 1e-3)),
-    "bfloat16": ((2e-2, 2e-2), (5e-2, 5e-2)),
+    "bfloat16": ((2e-3, 1e-2), (1e-2, 1e-2)),
 }
 LM_STEPS = 8
 FLASH_KERNELS = {  # counter key -> (name, the TPU kernel it replaces)
@@ -287,10 +294,13 @@ def timing(torch, fused_adam, card: str) -> dict:
     return out
 
 
-def _close(a, b, atol: float, rtol: float) -> tuple[bool, float]:
+def _close(a, b, atol: float, rtol: float) -> tuple[bool, float, float]:
+    """(within ``atol + rtol * |b|`` everywhere, the largest abs error, the
+    largest error as a share of its element's tolerance)."""
     a, b = a.detach().float(), b.detach().float()
     err = (a - b).abs()
-    return bool((err <= atol + rtol * b.abs()).all()), float(err.max())
+    share = float((err / (atol + rtol * b.abs())).max())
+    return share <= 1.0, float(err.max()), share
 
 
 def check_flash(torch, fa) -> dict:
@@ -302,13 +312,16 @@ def check_flash(torch, fa) -> dict:
         for causal in (True, False):
             for dtype in (torch.float32, torch.bfloat16):
                 gen = torch.Generator(device=dev).manual_seed(sum(shape) + causal)
-                q, k, v, r = (torch.randn(shape, generator=gen, device=dev) for _ in range(4))
+                q, k, v, r = (torch.randn(shape, generator=gen, device=dev).to(dtype).float()
+                              for _ in range(4))
+                # Both sides get the same values: the kernels see dO = R in
+                # the inputs' type, the reference all of them in fp32.
                 # Separate leaves for each side (``.to`` of the same dtype
                 # returns the tensor itself).
                 got = [t.to(dtype).clone().requires_grad_(True) for t in (q, k, v)]
                 out = fa.flash_attention_bthd(*got, causal=causal)
                 (out.float() * r).sum().backward()
-                ref = [t.to(dtype).float().clone().requires_grad_(True) for t in (q, k, v)]
+                ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
                 want = fa.flash_attention_reference(*ref, causal=causal)
                 (want * r).sum().backward()
                 torch.cuda.synchronize()
@@ -317,10 +330,11 @@ def check_flash(torch, fa) -> dict:
                 checks = {"o": _close(out, want, oa, orl)}
                 for n, a, b in zip("qkv", got, ref):
                     checks[f"d{n}"] = _close(a.grad, b.grad, ga, grl)
-                errs = {n: e for n, (_, e) in checks.items()}
+                errs = {n: e for n, (_, e, _) in checks.items()}
                 emit("flash_kernel", shape=list(shape), causal=causal, dtype=name,
-                     max_abs_err=errs)
-                if out.dtype != dtype or not all(ok for ok, _ in checks.values()):
+                     max_abs_err=errs,
+                     share_of_tolerance={n: s for n, (_, _, s) in checks.items()})
+                if out.dtype != dtype or not all(ok for ok, _, _ in checks.values()):
                     raise AssertionError(f"flash kernels != plain at {shape} causal={causal} "
                                          f"{name}: {errs}")
                 if dtype == torch.float32:
@@ -363,8 +377,10 @@ def lm_main(torch, fa) -> dict:
     result = trainer.train(log=lambda s: None)
     launches = dict(fa.launches)
     eval_batches = len(result.history) * -(-ds.test_tokens.shape[0] // bs)
-    want = {"fwd": spec.num_layers * (LM_STEPS + eval_batches),
-            "bwd_dkv": spec.num_layers * LM_STEPS, "bwd_dq": spec.num_layers * LM_STEPS}
+    # The warm-up's discarded step launches each kernel once a layer too.
+    steps = LM_STEPS + 1
+    want = {"fwd": spec.num_layers * (steps + eval_batches),
+            "bwd_dkv": spec.num_layers * steps, "bwd_dq": spec.num_layers * steps}
     if launches != want:
         raise AssertionError(f"flash launches {launches}, want {want}")
     if not (all(math.isfinite(x) for x in result.span_losses) and _finite_state(torch, trainer)):
@@ -432,8 +448,9 @@ def lm_bf16(torch, fa) -> dict:
         fa.launches[key] = 0
     result = trainer.train(log=lambda s: None)
     launches = dict(fa.launches)
-    want = {"fwd": spec.num_layers * 3, "bwd_dkv": spec.num_layers * 2,
-            "bwd_dq": spec.num_layers * 2}
+    # 2 steps, the warm-up's discarded step and one eval batch.
+    want = {"fwd": spec.num_layers * 4, "bwd_dkv": spec.num_layers * 3,
+            "bwd_dq": spec.num_layers * 3}
     out = dict(steps=2, launches=launches, span_losses=result.span_losses,
                final_loss=result.final_loss, tokens_per_sec=result.tokens_per_sec)
     emit("lm_bf16", **out)
@@ -500,12 +517,18 @@ def flash_timing(torch, fa, card: str) -> dict:
         for key, (kernel, plain, lib_ms) in runs.items():
             if not fp32 and key != "fwd":
                 continue
-            # Kernel vs its own plain version on the same residuals.
+            # Kernel vs its own plain version on the same residuals, at the
+            # flash_kernel phase's tolerance (O's for the forward's O and
+            # LSE, the gradients' for the backward kernels).
             got, want = kernel(), plain()
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
-            plain_err = max(float((a.float() - b.float()).abs().max())
-                            for a, b in zip(got, want))
+            atol, rtol = FLASH_TOL[name][0 if key == "fwd" else 1]
+            checks = [_close(a, b, atol, rtol) for a, b in zip(got, want)]
+            plain_err = max(e for _, e, _ in checks)
+            if not all(ok for ok, _, _ in checks):
+                raise AssertionError(f"{key} kernel != its plain version ({name}): "
+                                     f"{[(e, s) for _, e, s in checks]}")
             ms = median_ms(torch, kernel, 50)
             plain_ms = median_ms(torch, plain, 20, warm=3)
             bound, by = flash_bound_ms(FLASH_MAIN, key, 4 if fp32 else 2,

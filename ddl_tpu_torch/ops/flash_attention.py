@@ -115,7 +115,7 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 @functools.cache
 def load_kernel() -> ctypes.CDLL:
     """Build (first time) and load the kernel library without launching
-    anything; trainers call it before their clock starts."""
+    anything."""
     lib = build.load("flash_attention")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     # B, T, H, D; batch, row and head strides; scale, causal, device, stream.
@@ -155,13 +155,16 @@ def _device_and_stream(t: torch.Tensor) -> tuple[int, int]:
 def _launch(key: str, name: str, tensors, q: torch.Tensor, causal: bool, scale: float) -> None:
     """One launch of ``name`` on the tensors' device, counted under
     ``launches[key]``. Every tensor must be contiguous (the kernels take
-    one set of [B, T, H, D] strides for all operands)."""
+    one set of [B, T, H, D] strides for all operands). With B, T or H = 0
+    there is nothing to compute: no launch, no count."""
     b, t, h, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"flash attention kernels take head_dim in {HEAD_DIMS}, got {d}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("flash attention kernels take contiguous tensors")
     dev, stream = _device_and_stream(q)
+    if q.numel() == 0:
+        return
     lib = load_kernel()
     s_b, s_t, s_h, _ = q.stride()
     err = getattr(lib, name)(

@@ -253,17 +253,13 @@ class SeqTrainer:
         return float(num / den)
 
     def _warm_up(self, params, opt_state, xs, ys, ws) -> None:
-        """Outside the clock (where the JAX trainer compiles): build and load
-        the flash kernels without launching them, then one discarded train
-        step on the first batch through the plain attention, which loads
-        cuBLAS and PyTorch's kernels and sizes the allocator without
-        launching the counted kernels. The step is functional: ``params``
-        and ``opt_state`` are not changed."""
-        cfg = self.config
-        if cfg.attn_impl == "flash" and self.device.type == "cuda":
-            flash_attention.load_kernel()
-        _step_body(dataclasses.replace(cfg, attn_impl="xla"))(
-            params, opt_state, xs[0], ys[0], ws[0])
+        """Outside the clock (where the JAX trainer compiles): one discarded
+        train step of this config on the first batch, which builds the
+        flash kernels (flash on CUDA), loads cuBLAS and PyTorch's kernels
+        and sizes the allocator. It launches each flash kernel once per
+        layer. The step is functional: ``params`` and ``opt_state`` are not
+        changed."""
+        _step_body(self.config)(params, opt_state, xs[0], ys[0], ws[0])
         barrier(self.device)
 
     def train(self, log: Callable[[str], None] = print) -> LMResult:

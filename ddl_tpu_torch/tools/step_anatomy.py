@@ -13,7 +13,8 @@ default, fp32. Each reports, as one JSON line:
 - ``steady``: host-clock ms per step over ``--steps`` steps after a
   warm-up, closed by ``torch.cuda.synchronize``, for the two versions in
   turns (plain, kernel, kernel, plain): plain and fused Adam for the CNN,
-  ``attn_impl`` xla and flash for the LM; and images/s or tokens/s;
+  ``attn_impl`` xla and flash for the LM; and images/s or tokens/s (the
+  LM also gives each impl's peak allocated memory over its own runs);
 - ``anatomy``: a ``torch.profiler`` trace of a few steps of the kernel
   version: device time per step by kernel family (CNN: conv, matmul, pool,
   fused Adam, NCCL, other; LM: the flash kernels, cuBLAS matmuls,
@@ -39,6 +40,7 @@ import torch
 from ..convert import params_to_numpy
 from ..data.mnist import load_mnist, one_hot
 from ..models import cnn
+from ..models.transformer import LMSpec
 from ..ops.optimizers import ShardedAdam
 from ..parallel.mesh import default_device, destroy_world, init_world
 from ..strategies.sync import make_sharded_step, resolve_layout, sharded_adam_init
@@ -56,6 +58,9 @@ LM_FAMILIES = (
     ("matmul", re.compile(r"gemm|cutlass|cublas|xmma|sgemm|splitK", re.I)),
     ("elementwise", re.compile(r"elementwise|vectorized|unrolled", re.I)),
 )
+# The widest LM the repo defines (benchmarks/lm_bench.py) at its T.
+LM_SPEC = LMSpec(vocab=256, d_model=512, num_heads=8, num_layers=4, d_ff=2048)
+LM_SEQ_LEN = 2048
 
 
 def family(name: str, families=CNN_FAMILIES) -> str:
@@ -163,47 +168,49 @@ def cnn_variant(args, emit) -> None:
 
 def lm_variant(args, emit) -> None:
     from ..data.lm import synthesize_copy
-    from ..models.transformer import LMSpec, init_lm_params
+    from ..models.transformer import init_lm_params
     from ..ops import flash_attention
     from ..ops.optimizers import adam_init
     from ..strategies.seq import SeqConfig, _step_body
     from ..utils import tree
 
     dev = default_device("cuda")
-    bs, seq_len = args.batch_size or 4, args.seq_len
-    spec = LMSpec(vocab=256, d_model=512, num_heads=8, num_layers=4, d_ff=2048)
-    ds = synthesize_copy(num_train=4 * bs, num_test=0, seq_len=seq_len, vocab=spec.vocab,
+    bs = args.batch_size or 4
+    ds = synthesize_copy(num_train=4 * bs, num_test=0, seq_len=LM_SEQ_LEN, vocab=LM_SPEC.vocab,
                          seed=0)
     stage = lambda a, dtype: torch.as_tensor(  # noqa: E731
-        a.reshape(4, bs, seq_len)).to(dtype).to(dev)
+        a.reshape(4, bs, LM_SEQ_LEN)).to(dtype).to(dev)
     xs, ys, ws = stage(ds.tokens, torch.long), stage(ds.targets, torch.long), stage(
         ds.weights, torch.float32)
-    base = SeqConfig(scheme="full", batch_size=bs, learning_rate=1e-3, spec=spec)
+    base = SeqConfig(scheme="full", batch_size=bs, learning_rate=1e-3, spec=LM_SPEC)
     steps = {impl: _step_body(dataclasses.replace(base, attn_impl=impl))
              for impl in ("xla", "flash")}
-    params = init_lm_params(torch.Generator().manual_seed(0), spec, dev)
+    params = init_lm_params(torch.Generator().manual_seed(0), LM_SPEC, dev)
     state = {"params": params, "opt": adam_init(params), "i": 0}
     flash_attention.load_kernel()
+    peak = {"xla": 0, "flash": 0}  # bytes allocated at most during one impl's runs
 
     def run(impl, n):
+        torch.cuda.reset_peak_memory_stats(dev)
         for _ in range(n):
             i = state["i"] % xs.shape[0]
             state["params"], state["opt"], _ = steps[impl](state["params"], state["opt"],
                                                            xs[i], ys[i], ws[i])
             state["i"] += 1
+        peak[impl] = max(peak[impl], torch.cuda.max_memory_allocated(dev))
 
     run("flash", 3)  # warm-up
     run("xla", 3)
     torch.cuda.synchronize()
     ms = steady_ms(run, ("xla", "flash", "flash", "xla"), args.steps)
-    tokens = bs * seq_len
-    emit({"phase": "steady", "variant": "lm", "batch_size": bs, "seq_len": seq_len,
+    tokens = bs * LM_SEQ_LEN
+    emit({"phase": "steady", "variant": "lm", "batch_size": bs, "seq_len": LM_SEQ_LEN,
           "steps": args.steps, "xla_ms_per_step": ms["xla"], "flash_ms_per_step": ms["flash"],
           "flash_tokens_per_sec": [tokens / (t * 1e-3) for t in ms["flash"]],
           "xla_tokens_per_sec": [tokens / (t * 1e-3) for t in ms["xla"]],
-          "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+          "peak_memory_gb": {impl: b / 1e9 for impl, b in peak.items()}})
     emit({"phase": "anatomy", "variant": "lm", "attn_impl": "flash", "batch_size": bs,
-          "seq_len": seq_len, **anatomy(lambda n: run("flash", n), 5, LM_FAMILIES)})
+          "seq_len": LM_SEQ_LEN, **anatomy(lambda n: run("flash", n), 5, LM_FAMILIES)})
     if not all(bool(torch.isfinite(t).all()) for t in tree.leaves(state["opt"].m)):
         raise AssertionError("non-finite optimizer state")
 
@@ -213,7 +220,6 @@ def main(argv=None) -> int:
     ap.add_argument("--variant", default="cnn", choices=["cnn", "lm"])
     ap.add_argument("--batch-size", type=int, default=None,
                     help="images (cnn, default 100) or sequences (lm, default 4)")
-    ap.add_argument("--seq-len", type=int, default=2048, help="lm only")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out", default=None, help="also write the JSON lines here")
     args = ap.parse_args(argv)

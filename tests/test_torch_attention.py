@@ -157,6 +157,25 @@ def test_cpu_path_never_builds_or_launches(monkeypatch):
     assert torch.isfinite(q.grad).all()
 
 
+@pytest.mark.parametrize("shape", [(0, 16, 2, 16), (1, 0, 2, 16), (1, 16, 0, 16)])
+def test_empty_tensors_launch_and_count_nothing(shape, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("nothing to compute: no kernel may be loaded or launched")
+
+    # Past the device check, as on a card; an empty operand never reaches the library.
+    monkeypatch.setattr(fa, "_device_and_stream", lambda t: (0, 0))
+    monkeypatch.setattr(fa, "load_kernel", refuse)
+    before = dict(fa.launches)
+    q = torch.zeros(shape)
+    o, lse = fa.flash_fwd(q, q, q, True, 1.0)
+    delta = torch.zeros_like(lse)
+    dk, dv = fa.flash_bwd_dkv(q, q, q, q, lse, delta, True, 1.0)
+    dq = fa.flash_bwd_dq(q, q, q, q, lse, delta, True, 1.0)
+    assert fa.launches == before
+    assert o.shape == dk.shape == dv.shape == dq.shape == shape
+    assert lse.shape == (shape[0], shape[2], shape[1])
+
+
 def test_kernels_refuse_what_they_do_not_take():
     q, k, v, _ = _kernel_inputs((1, 16, 2, 8), torch.float32, "cpu", seed=0)
     with pytest.raises(ValueError, match="head_dim"):
@@ -203,7 +222,7 @@ def test_cuda_kernels_match_plain(shape, causal, dtype, cuda_device):
     q, k, v, do = _kernel_inputs(shape, dtype, cuda_device, seed=shape[1])
     before = dict(fa.launches)
     tol = ((dict(atol=1e-5, rtol=1e-4), dict(atol=1e-4, rtol=1e-3)) if dtype == torch.float32
-           else (dict(atol=2e-2, rtol=2e-2), dict(atol=5e-2, rtol=5e-2)))
+           else (dict(atol=2e-3, rtol=1e-2), dict(atol=1e-2, rtol=1e-2)))
     _check_kernel_functions(q, k, v, do, causal, fa.flash_fwd, fa.flash_bwd_dkv,
                             fa.flash_bwd_dq, tol)
     torch.cuda.synchronize()
