@@ -36,7 +36,9 @@ Phases, each printing one JSON line:
    1e-4 / rtol 1e-3; bf16 inputs (and R) against the reference in fp32 on
    the same bf16 values: O within atol 2e-3 / rtol 1e-2, gradients within
    atol 1e-2 / rtol 1e-2.
-8. lm_main — the port's ``SeqTrainer`` at the widest LM width the repo
+8. flash_determinism — dK/dV and dQ twice on the same inputs at [4, 2048,
+   8, 64], causal, fp32 and bf16: dk, dv and dq must be bit-equal.
+9. lm_main — the port's ``SeqTrainer`` at the widest LM width the repo
    defines (benchmarks/lm_bench.py: vocab 256, d_model 512, 8 heads, 4
    layers, d_ff 2048; 12,864,512 parameters), scheme full, attn_impl flash,
    fp32, lr 1e-3, T = 2048, batch 4, 32 train sequences (8 steps), 8 test
@@ -44,19 +46,21 @@ Phases, each printing one JSON line:
    must read fwd = 4 * (8 + 1) + 4 * (eval batches), dK/dV = dQ = 4 * (8 +
    1) just after (the + 1 is the trainer's discarded warm-up step);
    losses, parameters and moments must be finite.
-9. lm_flash_vs_xla — the same width from one init, 2 steps at T = 512,
+10. lm_flash_vs_xla — the same width from one init, 2 steps at T = 512,
    batch 4, attn_impl flash and xla: parameters within atol 2e-5 / rtol
    1e-3, final losses within rtol 1e-4 (tests/test_lm.py's tolerances).
-10. lm_bf16 — 2 full-width steps with compute_dtype bfloat16: the bf16
+11. lm_bf16 — 2 full-width steps with compute_dtype bfloat16: the bf16
    kernels launched (counted), losses finite.
-11. flash_timing — each flash kernel at [4, 2048, 8, 64], fp32, causal (and
-   the forward in bf16): median of 50 launches timed with CUDA events,
-   beside its bound (the causal half's products over the fp32 CUDA-core
-   rate, or bytes over the HBM rate, whichever is larger), its plain
-   version (the kernel's outputs held to it at the flash_kernel
-   tolerances), and ``scaled_dot_product_attention(is_causal=True)`` at the
-   same shape in [B, H, T, D] as the library yardstick (forward, and its
-   backward for the two backward kernels), never on the port's path.
+12. flash_timing — each flash kernel at [4, 2048, 8, 64], causal, fp32 and
+   bf16: median of 50 launches timed with CUDA events, beside its bound (the
+   causal half's products over the card's rate for fp32-accurate products,
+   the TF32 tensor cores' in 3 passes, or over the bf16 tensor-core rate for
+   bf16, or bytes over the HBM rate, whichever is larger; the fp32 CUDA-core
+   figure beside it as ``cuda_core_bound_ms``), its plain version (the
+   kernel's outputs held to it at the flash_kernel tolerances), and
+   ``scaled_dot_product_attention(is_causal=True)`` at the same shape in
+   [B, H, T, D] as the library yardstick (forward, and its backward beside
+   the two backward kernels and their sum), never on the port's path.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -97,7 +101,10 @@ def hbm_bytes_per_s(name: str) -> float:
 
 
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+# fp32-accurate products on the TF32 tensor cores take 3 passes (3xTF32).
+TF32X3_OPS_PER_S = TF32_OPS_PER_S / 3
 
 # The flash-attention phases.
 FLASH_SHAPES = ((1, 64, 2, 16), (2, 200, 4, 32), (4, 2048, 8, 64), (1, 512, 2, 128))
@@ -346,6 +353,33 @@ def check_flash(torch, fa) -> dict:
     return worst
 
 
+def flash_determinism(torch, fa) -> dict:
+    """dK/dV and dQ twice on the same inputs at the LM path's shape, causal,
+    fp32 and bf16: the gradients must be bit-equal (no atomics)."""
+    dev = torch.device("cuda")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=dev).manual_seed(4)
+        q, k, v, do = (torch.randn(FLASH_MAIN, generator=gen, device=dev).to(dtype)
+                       for _ in range(4))
+        scale = 1.0 / math.sqrt(FLASH_MAIN[-1])
+        o, lse = fa.flash_fwd(q, k, v, True, scale)
+        delta = fa.attention_delta(o, do)
+        runs = [(*fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale),
+                 fa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale)) for _ in range(2)]
+        torch.cuda.synchronize()
+        name = str(dtype).split(".")[-1]
+        equal = {g: bool(torch.equal(a, b)) for g, a, b in zip(("dk", "dv", "dq"), *runs)}
+        emit("flash_determinism", shape=list(FLASH_MAIN), causal=True, dtype=name,
+             bit_equal=equal)
+        if not all(equal.values()):
+            raise AssertionError(f"backward kernels differ on a repeat ({name}): {equal}")
+        out[name] = equal
+        del q, k, v, do, o, lse, delta, runs
+    torch.cuda.empty_cache()
+    return out
+
+
 def lm_spec():
     from ddl_tpu_torch.models.transformer import LMSpec
 
@@ -515,8 +549,6 @@ def flash_timing(torch, fa, card: str) -> dict:
                        lib_bwd),
         }
         for key, (kernel, plain, lib_ms) in runs.items():
-            if not fp32 and key != "fwd":
-                continue
             # Kernel vs its own plain version on the same residuals, at the
             # flash_kernel phase's tolerance (O's for the forward's O and
             # LSE, the gradients' for the backward kernels).
@@ -531,17 +563,27 @@ def flash_timing(torch, fa, card: str) -> dict:
                                      f"{[(e, s) for _, e, s in checks]}")
             ms = median_ms(torch, kernel, 50)
             plain_ms = median_ms(torch, plain, 20, warm=3)
+            # The least time: fp32 products to fp32 accuracy on the TF32
+            # tensor cores (3 passes), bf16 products at the bf16 rate; the
+            # fp32 CUDA-core figure beside it.
             bound, by = flash_bound_ms(FLASH_MAIN, key, 4 if fp32 else 2,
-                                       FP32_OPS_PER_S if fp32 else BF16_OPS_PER_S, card)
+                                       TF32X3_OPS_PER_S if fp32 else BF16_OPS_PER_S, card)
+            cuda_core, _ = flash_bound_ms(FLASH_MAIN, key, 4 if fp32 else 2, FP32_OPS_PER_S,
+                                          card)
             row = dict(kernel=key, dtype=name, shape=list(FLASH_MAIN), causal=True, ms=ms,
-                       plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                       plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                       bound_rate="tf32 tensor cores, 3 passes" if fp32 else
+                       "bf16 tensor cores",
+                       cuda_core_bound_ms=cuda_core, library_ms=lib_ms,
                        library="sdpa forward" if key == "fwd" else
                        "sdpa backward (dq, dk and dv in one call)",
                        share_of_bound=bound / ms, kernel_vs_plain_max_abs=plain_err)
             emit("flash_timing", **row)
             out[(key, name)] = row
+        pair = out[("bwd_dkv", name)]["ms"] + out[("bwd_dq", name)]["ms"]
         emit("flash_timing_library", dtype=name, sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
-             sdpa_fwd_plus_bwd_ms=lib_fwd + lib_bwd, sdpa_vs_kernel_o_max_abs=lib_err)
+             sdpa_fwd_plus_bwd_ms=lib_fwd + lib_bwd, sdpa_vs_kernel_o_max_abs=lib_err,
+             bwd_pair_ms=pair, bwd_pair_over_sdpa_bwd=pair / lib_bwd)
         del q, k, v, do, o, lse, delta, qt, kt, vt, dot, lq, lk, lv, lo
         torch.cuda.empty_cache()
     return out
@@ -581,6 +623,7 @@ def main() -> int:
     tim = timing(torch, fused_adam, card)
 
     flash_err = check_flash(torch, flash_attention)
+    flash_determinism(torch, flash_attention)
     lm_out = lm_main(torch, flash_attention)
     lm_flash_vs_xla(torch)
     lm_bf16(torch, flash_attention)
@@ -613,6 +656,8 @@ def main() -> int:
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
+            "bound_rate": row["bound_rate"],
+            "cuda_core_bound_ms": row["cuda_core_bound_ms"],
             "library_ms": row["library_ms"],
             "library": row["library"],
         })

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` launcher and no PyTorch
 headers, so ``nvcc`` builds it in seconds into a shared library that
 ``ctypes`` loads. Libraries go to ``ddl_tpu_torch/_build/`` (git-ignored),
-named by a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is reused. Nothing is built when a module is imported:
+named by a hash of the source, the ``csrc/*.cuh`` headers it includes and
+the flags, so an edited source or header is rebuilt and an unchanged one is
+reused. Nothing is built when a module is imported:
 the first launch on a CUDA tensor builds, and ``build_all`` builds every
 kernel at once (one ``nvcc`` per source, all started together).
 
@@ -18,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -60,9 +62,29 @@ def nvcc_path() -> str:
     )
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: pathlib.Path, seen: dict[pathlib.Path, bytes]) -> None:
+    """``path`` and every header it includes with quotes (relative to the
+    including file, recursively), each read once."""
+    path = path.resolve()
+    if path in seen:
+        return
+    seen[path] = text = path.read_bytes()
+    for inc in _LOCAL_INCLUDE.findall(text):
+        _sources(path.parent / inc.decode(), seen)
+
+
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by a hash of the flags, the
+    source and the local headers it includes, so an edit to any of them
+    builds anew."""
+    seen: dict[pathlib.Path, bytes] = {}
+    _sources(CSRC / f"{name}.cu", seen)
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path, text in seen.items():
+        digest.update(path.name.encode() + b"\0" + text)
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

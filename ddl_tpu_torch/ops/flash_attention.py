@@ -14,7 +14,10 @@ are hand-written CUDA kernels (``csrc/flash_attention.cu``) under a
 
 Inputs are float32 or bfloat16 in the model's ``[B, T, H, D]`` layout
 (no transpose copies), ``D`` in :data:`HEAD_DIMS`; every sum is fp32, and
-outputs and gradients come back in the inputs' type.
+outputs and gradients come back in the inputs' type. The forward runs its
+products on the CUDA cores; the two backward kernels run theirs on the TF32
+tensor cores to fp32 accuracy (each fp32 operand split into two TF32 parts,
+three products per product) and stay deterministic.
 
 :func:`flash_attention_bthd` dispatches on the tensors' device: on CUDA it
 launches the kernels (built from ``csrc/flash_attention.cu`` at first use),
@@ -185,8 +188,16 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
     return o, lse
 
 
+def _aligned16(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy when its data does not start on a 16-byte boundary:
+    the backward kernels stage tiles in 16-byte ``cp.async`` chunks (their
+    launcher refuses a misaligned operand)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
     """The dK/dV kernel: ``(dk, dv)``."""
+    q, k, v, do = (_aligned16(x) for x in (q, k, v, do))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("bwd_dkv", "ddl_flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv), q, causal, scale)
     return dk, dv
@@ -194,6 +205,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
     """The dQ kernel."""
+    q, k, v, do = (_aligned16(x) for x in (q, k, v, do))
     dq = torch.empty_like(q)
     _launch("bwd_dq", "ddl_flash_bwd_dq", (q, k, v, do, lse, delta, dq), q, causal, scale)
     return dq

@@ -16,7 +16,12 @@
   ``ddl_tpu.parallel.ring.full_attention``, with shard offsets.
 - The wrapper's rules: the CPU path never builds or launches, an
   unsupported head dim and a non-CUDA tensor raise at the kernel.
-- The CUDA kernels against their plain versions on the card: marked
+- The backward kernels' arithmetic, rehearsed in torch: dK/dV/dQ from
+  products split into TF32 parts ("3xTF32", as the kernels run them on the
+  tensor cores) hold the fp32 gradient tolerance; one TF32 pass is at
+  least 10x further off.
+- The CUDA kernels against their plain versions on the card, and the
+  backward kernels bit-equal on a repeat: marked
   ``cuda``, skipped without a card. They need no JAX, so on the card they
   run with ``python -m pytest --noconftest -m cuda tests/test_torch_attention.py``.
 """
@@ -34,6 +39,9 @@ from ddl_tpu_torch.parallel.ring import full_attention
 FWD_TOL = dict(atol=2e-6, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-5, rtol=1e-4)
 BF16_TOL = dict(atol=5e-2, rtol=5e-2)
+# The kernels' gradients against their plain versions in fp32 (the card's
+# gate; chip_smoke.py's flash_kernel phase uses the same).
+KERNEL_GRAD_TOL = dict(atol=1e-4, rtol=1e-3)
 SHAPES = [(2, 64, 4, 16), (2, 72, 2, 32)]
 
 
@@ -197,6 +205,74 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         build.nvcc_path()
 
 
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, by integer ops on the bits: the kernels' rounding."""
+    bits = (x.contiguous().view(torch.int32) + 0x1000) & -0x2000  # clear the low 13 bits
+    return bits.view(torch.float32)
+
+
+def _tf32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """``einsum(eq, a, b)`` as the tensor cores take it: 3 passes, a_lo b_hi
+    + a_hi b_lo + a_hi b_hi with x_hi = tf32(x), x_lo = tf32(x - x_hi); or 1
+    pass, a_hi b_hi. Products of TF32 values are exact in fp32."""
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    out = torch.einsum(eq, a_hi, b_hi)
+    if passes == 3:
+        a_lo, b_lo = _tf32_rna(a - a_hi), _tf32_rna(b - b_hi)
+        out = torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo) + out
+    return out
+
+
+def _tf32_backward(q, k, v, do, lse, delta, causal, scale, passes):
+    """(dq, dk, dv) with every product of the backward kernels split as they
+    split it: S, dP, then dV, dK, dQ from P and dS."""
+    t = q.shape[1]
+    s = _tf32_einsum("bqhd,bkhd->bhqk", q, k, passes) * scale
+    keep = torch.ones(t, t, dtype=torch.bool).tril() if causal else torch.ones(t, t).bool()
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    dp = _tf32_einsum("bqhd,bkhd->bhqk", do, v, passes)
+    ds = p * (dp - delta[..., None])
+    dv = _tf32_einsum("bhqk,bqhd->bkhd", p, do, passes)
+    dk = _tf32_einsum("bhqk,bqhd->bkhd", ds, q, passes) * scale
+    dq = _tf32_einsum("bhqk,bkhd->bqhd", ds, k, passes) * scale
+    return dq, dk, dv
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    x = torch.tensor([1.0, 1 + 2**-11, 1 + 2**-10 + 2**-11, -(1 + 2**-11), 1 + 2**-12, 3e38],
+                     dtype=torch.float32)
+    want = [1.0, 1 + 2**-10, 1 + 2**-9, -(1 + 2**-10), 1.0]
+    assert _tf32_rna(x)[:5].tolist() == want  # ties (1 + 2^-11) go away from zero
+    assert (_tf32_rna(x).view(torch.int32) & 0x1FFF == 0).all()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 72, 2, 32), (1, 128, 2, 64)])
+def test_three_tf32_passes_hold_fp32_gradients_one_does_not(shape, causal):
+    q, k, v, do = _kernel_inputs(shape, torch.float32, "cpu", seed=shape[1] + causal)
+    scale = 1.0 / shape[-1] ** 0.5
+    o, lse = fa.flash_fwd_reference(q, k, v, causal, scale)
+    delta = fa.attention_delta(o, do)
+    wk, wv = fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale)
+    want = (fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale), wk, wv)
+    three = _tf32_backward(q, k, v, do, lse, delta, causal, scale, passes=3)
+    one = _tf32_backward(q, k, v, do, lse, delta, causal, scale, passes=1)
+    for name, a3, a1, w in zip(("dq", "dk", "dv"), three, one, want):
+        torch.testing.assert_close(a3, w, msg=lambda m: f"{name}: {m}", **KERNEL_GRAD_TOL)
+        err3, err1 = float((a3 - w).abs().max()), float((a1 - w).abs().max())
+        assert err1 >= 10 * err3, f"{name}: one pass {err1:.2e}, three {err3:.2e}"
+
+
+def test_backward_operands_are_realigned_to_16_bytes():
+    x = torch.zeros(1 + 2 * 16 * 2 * 16)[1:].view(2, 16, 2, 16)  # 4 bytes past a boundary
+    assert x.data_ptr() % 16 != 0
+    y = fa._aligned16(x)
+    assert y.data_ptr() % 16 == 0 and torch.equal(x, y)
+    z = torch.zeros(2, 16, 2, 16)
+    assert fa._aligned16(z) is z
+
+
 def test_kernel_library_is_built_with_the_others():
     assert "flash_attention" in build.KERNEL_SOURCES
     assert (build.CSRC / "flash_attention.cu").is_file()
@@ -228,6 +304,21 @@ def test_cuda_kernels_match_plain(shape, causal, dtype, cuda_device):
     torch.cuda.synchronize()
     assert {key: fa.launches[key] - before[key] for key in before} == {
         "fwd": 1, "bwd_dkv": 1, "bwd_dq": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [CUDA_SHAPES[2], CUDA_SHAPES[3]])
+def test_cuda_backward_kernels_bit_equal_on_repeat(shape, dtype, cuda_device):
+    q, k, v, do = _kernel_inputs(shape, dtype, cuda_device, seed=11)
+    scale = 1.0 / shape[-1] ** 0.5
+    o, lse = fa.flash_fwd(q, k, v, True, scale)
+    delta = fa.attention_delta(o, do)
+    runs = [(*fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale),
+             fa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dk", "dv", "dq"), *runs):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda

@@ -128,3 +128,41 @@ def test_kernel_library_named_by_source_hash():
     assert (build.CSRC / "fused_adam.cu").is_file()
     assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert not any("fast_math" in f or "fast-math" in f for f in build.NVCC_FLAGS)
+
+
+def test_kernel_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include <stdint.h>\n#include "a.cuh"\nint x;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "other.cuh").write_text("// not included\n")
+    first = build.library_path("k")
+    (tmp_path / "other.cuh").write_text("// edited, still not included\n")
+    assert build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("// b, edited\n")  # included through a.cuh
+    second = build.library_path("k")
+    assert second != first and second.name.startswith("libk-")
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\nint y;\n')
+    assert build.library_path("k") not in (first, second)
+    # The real flash source includes its tensor-core header.
+    monkeypatch.undo()
+    assert b'#include "tf32_mma.cuh"' in (build.CSRC / "flash_attention.cu").read_bytes()
+
+
+def test_kernel_report_parses_ptxas_and_sass():
+    from ddl_tpu_torch.tools import kernel_report
+
+    name = "_ZN51_GLOBAL__N__c930_18_flash_attention_cu_ac2619flash_bwd_dq_kernelIfLi64EEEvPKT_"
+    ptxas = (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+             f"ptxas info    : Function properties for {name}\n"
+             "    8 bytes stack frame, 4 bytes spill stores, 2 bytes spill loads\n"
+             "ptxas info    : Used 128 registers, used 1 barriers\n")
+    assert kernel_report.parse_ptxas(ptxas) == {name: dict(
+        stack_bytes=8, spill_stores=4, spill_loads=2, registers=128)}
+    sass = (f"\t\tFunction : {name}\n"
+            "        /*06f0*/                   LDGSTS.E.BYPASS.128 [R13], desc[UR4][R4.64], !P3 ;\n"
+            "        /*0700*/              @!P0 HMMA.1688.F32.TF32 R4, R8, R12, R4 ;\n"
+            "        /*0710*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;\n"
+            "        /*0720*/                   LDS R3, [R2] ;\n")
+    assert kernel_report.parse_sass(sass) == {name: dict(HMMA=2, LDGSTS=1, FFMA=0, LDS=1)}
+    assert kernel_report._FLASH.search(name).groups() == ("flash_bwd_dq_kernel", "f", "64")
