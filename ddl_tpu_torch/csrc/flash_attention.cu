@@ -24,13 +24,39 @@
 // product; at the LM's shape [4, 2048, 8, 64] the causal half is 67M
 // (query, key) pairs, far above the card's operations-per-byte balance.
 //
-// Forward (`flash_fwd_kernel`): every product on the CUDA cores in plain
-// fp32 FMAs; its bound is the fp32 CUDA-core peak (67 TFLOP/s on an H100
-// SXM). A block of 128 threads owns a 64-row query tile and loops over key
-// tiles; operands are staged reduction-index-major with 4 floats of row
-// padding, so a product step reads each thread's operands with 16-byte
-// loads; the 16 x 8 thread grid puts the 8 threads of a row in one warp,
-// so the online softmax reduces rows with shuffles.
+// Forward (`flash_fwd_kernel`, replaces `_flash_attention_impl`): both
+// products, S = Q K^T and P V, on the tensor cores. In fp32 they run on the
+// TF32 tensor cores to fp32 accuracy (3xTF32, mma.sync m16n8k8, as the
+// backward below); its bound is 3 x products over the TF32 rate. In bf16
+// they run on the bf16 tensor cores (mma.sync m16n8k16, fp32 sums): S in
+// one pass (bf16 products are exact), P V in two, with P split into two
+// bf16 parts (hi = bf16(p), lo = bf16(p - hi)), since P rounded once to
+// bf16 takes most of O's bf16 tolerance; its bound is the products over
+// the bf16 rate (3 passes where 2 would do). The design:
+//
+// - Warps own query rows: a block of 4 warps owns 64 rows, 16 a warp, and
+//   loops over key tiles of 64. Each warp keeps its 16 x D O accumulator
+//   and each row's running max m and sum l in registers, in the mma
+//   accumulator layout (a lane holds rows g and g + 8); row maxima reduce
+//   over the 4 lanes of a quad with two shuffles.
+// - Q is staged once and its fragments stay in registers for the whole key
+//   loop (fp32: split into TF32 parts once, up to D = 64).
+// - P stays in registers: fp32 P feeds P V straight from the accumulator
+//   layout through the permuted reduction index described below; in bf16
+//   two adjacent 16 x 8 accumulator tiles are one A fragment of m16n8k16.
+//   bf16 K and V fragments come from their row-major tiles by ldmatrix (V
+//   transposed). No shared round trip for P.
+// - Short, independent tensor-core sums: P V loops over the tile's keys
+//   outside and up to 8 output tiles of 8 columns inside, each in a fresh
+//   accumulator, so 8 mma chains run side by side and none runs past the
+//   tile; then O = alpha O + tile in IEEE fp32 (alpha = 2^(m_old - m_new)).
+//   The softmax works in base 2 (c = scale * log2 e, P = 2^(S c - m) with
+//   one fma, ex2.approx) and masks only the tiles that hold a masked or
+//   ragged entry. At the end O / l, and LSE = m ln 2 + log l in natural
+//   units.
+// - K and V tiles are double-buffered with cp.async, one row-major padded
+//   copy each, as in the backward; the grid starts the last query tile,
+//   which under causality sees every key, first; no atomics.
 //
 // Backward (`flash_bwd_dkv_kernel`, `flash_bwd_dq_kernel`): every product
 // on the TF32 tensor cores (mma.sync m16n8k8, tf32_mma.cuh) to fp32
@@ -87,175 +113,15 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kRowGroups = 16;  // threadIdx.x / 8: which 4 rows a thread owns
-constexpr int kColGroups = 8;   // threadIdx.x % 8: which column run (lanes of one warp)
-constexpr int kPad = 4;         // floats of padding per shared row (keeps 16-byte alignment)
-constexpr int kOuter = 64;      // rows of the outer tile a block owns
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename E>
-__device__ __forceinline__ E from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-    return __float2bfloat16_rn(x);
-}
-
-// N consecutive floats from shared memory, with 16-byte (or 8-byte) loads.
-template <int N>
-__device__ __forceinline__ void lds(float (&dst)[N], const float* src) {
-    if constexpr (N % 4 == 0) {
-#pragma unroll
-        for (int i = 0; i < N; i += 4) {
-            const float4 t = *reinterpret_cast<const float4*>(src + i);
-            dst[i] = t.x;
-            dst[i + 1] = t.y;
-            dst[i + 2] = t.z;
-            dst[i + 3] = t.w;
-        }
-    } else {
-        static_assert(N % 2 == 0, "runs of an even number of floats");
-#pragma unroll
-        for (int i = 0; i < N; i += 2) {
-            const float2 t = *reinterpret_cast<const float2*>(src + i);
-            dst[i] = t.x;
-            dst[i + 1] = t.y;
-        }
-    }
-}
-
-// acc[i][j] += sum_{r < R} A[r * lda + i] * B[r * ldb + j]. Both operands
-// are stored reduction-index-major, so each step reads TM and TN
-// consecutive floats and does TM * TN FMAs.
-template <int TM, int TN, int R>
-__device__ __forceinline__ void rr_product(float (&acc)[TM][TN], const float* A, int lda,
-                                           const float* B, int ldb) {
-#pragma unroll 4
-    for (int r = 0; r < R; ++r) {
-        float a[TM], b[TN];
-        lds(a, A + r * lda);
-        lds(b, B + r * ldb);
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-#pragma unroll
-            for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-    }
-}
-
-// Rows [row0, row0 + ROWS) of one (batch, head) slice, all D columns, into
-// shared memory as fp32: row-major into `rm` ([ROWS][D + kPad]) and/or
-// transposed into `tr` ([D][ROWS + kPad]). Rows at or past T read as zero.
-template <int ROWS, int D, typename E>
-__device__ __forceinline__ void load_tile(float* rm, float* tr, const E* src,
-                                          int64_t row_stride, int row0, int T) {
-    for (int idx = threadIdx.x; idx < ROWS * D; idx += kThreads) {
-        const int r = idx / D, d = idx % D;
-        float x = 0.f;
-        if (row0 + r < T) x = to_f32(src[(int64_t)(row0 + r) * row_stride + d]);
-        if (rm != nullptr) rm[r * (D + kPad) + d] = x;
-        if (tr != nullptr) tr[d * (ROWS + kPad) + r] = x;
-    }
-}
+constexpr int kOuter = 64;  // rows of the outer tile a block owns
+constexpr float kLn2 = 0.693147180559945309f;
+constexpr double kLog2e = 1.44269504088896340736;
 
 __device__ __forceinline__ bool visible(int qi, int kj, int T, int causal) {
     return qi < T && kj < T && (!causal || kj <= qi);
 }
 
-// ---------------------------------------------------------------- forward
-
-template <int D>
-struct FwdTile {
-    static constexpr int BM = kOuter, BN = 64;
-    static constexpr int LQ = BM + kPad, LK = BN + kPad, LV = D + kPad;
-    // Qt [D][LQ], Kt [D][LK], V [BN][LV], Pt [BN][LQ]
-    static constexpr int kFloats = D * LQ + D * LK + BN * LV + BN * LQ;
-};
-
-template <typename E, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
-                     E* __restrict__ o, float* __restrict__ lse, int T, int H, int64_t sB,
-                     int64_t sT, int64_t sH, float scale, int causal) {
-    using S = FwdTile<D>;
-    constexpr int TM = S::BM / kRowGroups, TN = S::BN / kColGroups, TD = D / kColGroups;
-    extern __shared__ float4 smem4[];
-    float* Qt = reinterpret_cast<float*>(smem4);
-    float* Kt = Qt + D * S::LQ;
-    float* Vs = Kt + D * S::LK;
-    float* Pt = Vs + S::BN * S::LV;
-
-    const int ty = threadIdx.x / kColGroups, tx = threadIdx.x % kColGroups;
-    const int m0 = blockIdx.x * S::BM, h = blockIdx.y, b = blockIdx.z;
-    const int64_t base = (int64_t)b * sB + (int64_t)h * sH;
-    load_tile<S::BM, D>(nullptr, Qt, q + base, sT, m0, T);
-
-    float m_run[TM], l_run[TM], acc[TM][TD];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        m_run[i] = -INFINITY;
-        l_run[i] = 0.f;
-#pragma unroll
-        for (int e = 0; e < TD; ++e) acc[i][e] = 0.f;
-    }
-    const int n_end = causal ? min(T, m0 + S::BM) : T;
-    for (int n0 = 0; n0 < n_end; n0 += S::BN) {
-        __syncthreads();  // the last tile's readers are done with Kt, V and Pt
-        load_tile<S::BN, D>(nullptr, Kt, k + base, sT, n0, T);
-        load_tile<S::BN, D>(Vs, nullptr, v + base, sT, n0, T);
-        __syncthreads();
-        float s[TM][TN] = {};
-        rr_product<TM, TN, D>(s, Qt + ty * TM, S::LQ, Kt + tx * TN, S::LK);
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-            const int qi = m0 + ty * TM + i;
-            float mx = -INFINITY;
-#pragma unroll
-            for (int j = 0; j < TN; ++j) {
-                // Rows past T see nothing and are never stored.
-                s[i][j] = visible(qi, n0 + tx * TN + j, T, causal) ? s[i][j] * scale : -INFINITY;
-                mx = fmaxf(mx, s[i][j]);
-            }
-            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-            const float m_new = fmaxf(m_run[i], mx);
-            const float alpha = m_run[i] == -INFINITY ? 0.f : expf(m_run[i] - m_new);
-            m_run[i] = m_new;
-            l_run[i] *= alpha;
-#pragma unroll
-            for (int e = 0; e < TD; ++e) acc[i][e] *= alpha;
-#pragma unroll
-            for (int j = 0; j < TN; ++j) {
-                const float p = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_new);
-                l_run[i] += p;
-                Pt[(tx * TN + j) * S::LQ + ty * TM + i] = p;
-            }
-        }
-        __syncthreads();
-        rr_product<TM, TD, S::BN>(acc, Pt + ty * TM, S::LQ, Vs + tx * TD, S::LV);
-    }
-    float* lse_row = lse + ((int64_t)b * H + h) * T;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        float l = l_run[i];
-        l += __shfl_xor_sync(0xffffffffu, l, 1);
-        l += __shfl_xor_sync(0xffffffffu, l, 2);
-        l += __shfl_xor_sync(0xffffffffu, l, 4);
-        const int qi = m0 + ty * TM + i;
-        if (qi < T) {
-            E* orow = o + base + (int64_t)qi * sT + tx * TD;
-#pragma unroll
-            for (int e = 0; e < TD; ++e) orow[e] = from_f32<E>(acc[i][e] / l);
-            if (tx == 0) lse_row[qi] = m_run[i] + logf(l);
-        }
-    }
-}
-
-// ------------------------------------------------------------------ backward
+// ------------------------------------------------- tiles and fragments
 
 constexpr int kWarpRows = 16;  // rows of the outer tile a warp owns (mma's M)
 constexpr int kInner = 32;     // rows of an inner (streamed) tile
@@ -340,8 +206,8 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
     *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-// The 16 x D gradient accumulator of a warp, times `mul`, to rows
-// row0 + {g, g + 8} (those below T).
+// The 16 x D accumulator of a warp, times `mul`, to rows row0 + {g, g + 8}
+// (those below T).
 template <int D, typename E>
 __device__ __forceinline__ void store_rows(E* dst, const float (&acc)[D / 8][4], float mul,
                                            int64_t base, int64_t row_stride, int row0, int T,
@@ -355,6 +221,335 @@ __device__ __forceinline__ void store_rows(E* dst, const float (&acc)[D / 8][4],
         for (int nd = 0; nd < D / 8; ++nd)
             store2(row + 8 * nd, acc[nd][2 * half] * mul, acc[nd][2 * half + 1] * mul);
     }
+}
+
+// A bf16 A fragment of m16n8k16 from a row-major shared tile: rows
+// r0 + {g, g + 8}, columns c0 + 2t + {0, 1} and c0 + 2t + {8, 9}, one 32-bit
+// load each (bank 4 row + t at the 16-byte pad: conflict-free).
+template <int LD>
+__device__ __forceinline__ void frag_a16(uint32_t (&a)[4], const __nv_bfloat16* s, int r0, int c0,
+                                         int g, int t) {
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(s + (r0 + g) * LD + c0 + 2 * t);
+    a[0] = p[0];
+    a[1] = p[4 * LD];
+    a[2] = p[4];
+    a[3] = p[4 * LD + 4];
+}
+
+// ----------------------------------------------------------------- forward
+
+template <typename E, int D>
+struct FwdTile {
+    // Keys of a streamed tile: 64 (faster than 32 on the H100 in both
+    // types, PERF.md).
+    static constexpr int BQ = kOuter, BK = 64;
+    static constexpr int LD = padded_row<E, D>();
+    // Q [BQ][LD]; two stages of K, V [BK][LD]
+    static constexpr int kBytes = (BQ * LD + 4 * BK * LD) * (int)sizeof(E);
+};
+
+// o = alpha o + x in IEEE fp32 (one rounding an element), alpha per row
+// half: elements 0, 1 are row g, 2, 3 row g + 8.
+__device__ __forceinline__ void rescale_add(float (&o)[4], const float (&alpha)[2],
+                                            const float (&x)[4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[e] = __fmaf_rn(alpha[e >> 1], o[e], x[e]);
+}
+
+// The products of one warp (16 query rows) and one key tile, by input type.
+template <typename E, int D, int BK, int LD>
+struct FwdOps;
+
+// fp32: on the TF32 tensor cores to fp32 accuracy (3xTF32, m16n8k8).
+template <int D, int BK, int LD>
+struct FwdOps<float, D, BK, LD> {
+    // Q's fragments, split into TF32 parts once for the whole key loop (D
+    // registers a thread), up to D = 64; at D = 128, whose O accumulator
+    // takes 64 registers, they are re-read and split each tile.
+    static constexpr bool kQRegs = D <= 64;
+    struct Q {
+        tc::Split<4> a[kQRegs ? D / 8 : 1];
+    };
+
+    static __device__ __forceinline__ tc::Split<4> q_frag(const float* Qs, int r0, int kk, int g,
+                                                          int t) {
+        float x[4];
+        frag_a<LD>(x, Qs, r0, 8 * kk, g, t);
+        return tc::split<false>(x);
+    }
+
+    static __device__ __forceinline__ void load_q(Q& q, const float* Qs, int r0, int g, int t) {
+        if constexpr (kQRegs) {
+#pragma unroll
+            for (int kk = 0; kk < D / 8; ++kk) q.a[kk] = q_frag(Qs, r0, kk, g, t);
+        }
+    }
+
+    // s = Q K^T, the small TF32 terms in an accumulator of their own.
+    static __device__ __forceinline__ void scores(float (&s)[BK / 8][4], const Q& q,
+                                                  const float* Qs, const float* Kb, int r0, int g,
+                                                  int t, int /*lane*/) {
+        float s_lo[BK / 8][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk) {
+            tc::Split<4> qa;
+            if constexpr (kQRegs) {
+                qa = q.a[kk];
+            } else {
+                qa = q_frag(Qs, r0, kk, g, t);
+            }
+#pragma unroll
+            for (int j = 0; j < BK / 8; ++j) {
+                float y[2];
+                frag_b_cols<LD>(y, Kb, 8 * j, 8 * kk, g, t);
+                tc::mma_f32_2acc<false, false>(s[j], s_lo[j], qa, tc::split<false>(y));
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) tc::add4(s[j], s_lo[j]);
+    }
+
+    // o = alpha o + P V: P from the accumulator layout (permuted k). The
+    // key tile is the outer loop and up to 8 output tiles of 8 columns
+    // take fresh accumulators at once, so their mma chains are independent.
+    static __device__ __forceinline__ void pv(float (&o)[D / 8][4], const float (&p)[BK / 8][4],
+                                              const float (&alpha)[2], const float* Vb, int g,
+                                              int t, int /*lane*/) {
+        constexpr int NG = D / 8 < 8 ? D / 8 : 8;
+        tc::Split<4> pa[BK / 8];
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) pa[j] = acc_as_a(p[j]);
+#pragma unroll
+        for (int n0 = 0; n0 < D / 8; n0 += NG) {
+            float x[NG][4] = {};
+#pragma unroll
+            for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+                for (int nd = 0; nd < NG; ++nd) {
+                    float y[2];
+                    frag_b_rows<LD>(y, Vb, 8 * j, 8 * (n0 + nd), g, t);
+                    tc::mma_f32<false, false>(x[nd], pa[j], tc::split<false>(y));
+                }
+            }
+#pragma unroll
+            for (int nd = 0; nd < NG; ++nd) rescale_add(o[n0 + nd], alpha, x[nd]);
+        }
+    }
+};
+
+// bf16: on the bf16 tensor cores (m16n8k16, fp32 sums).
+template <int D, int BK, int LD>
+struct FwdOps<__nv_bfloat16, D, BK, LD> {
+    struct Q {
+        uint32_t a[D / 16][4];
+    };
+
+    static __device__ __forceinline__ void load_q(Q& q, const __nv_bfloat16* Qs, int r0, int g,
+                                                  int t) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) frag_a16<LD>(q.a[kk], Qs, r0, 16 * kk, g, t);
+    }
+
+    // s = Q K^T in one pass: products of bf16 values are exact.
+    static __device__ __forceinline__ void scores(float (&s)[BK / 8][4], const Q& q,
+                                                  const __nv_bfloat16* /*Qs*/,
+                                                  const __nv_bfloat16* Kb, int /*r0*/, int /*g*/,
+                                                  int /*t*/, int lane) {
+        // ldmatrix tiles 0..3: keys +0 / +8 (tiles 0, 1 / 2, 3) of columns
+        // +0 / +8 (tiles 0, 2 / 1, 3): the B fragments of two key blocks.
+        const __nv_bfloat16* krow =
+            Kb + ((lane & 7) + 8 * (lane >> 4)) * LD + 8 * ((lane >> 3) & 1);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+            for (int jp = 0; jp < BK / 16; ++jp) {
+                uint32_t y[4];
+                tc::ldmatrix_x4(y, krow + 16 * jp * LD + 16 * kk);
+                const uint32_t b0[2] = {y[0], y[1]}, b1[2] = {y[2], y[3]};
+                tc::mma_bf16(s[2 * jp], q.a[kk], b0);
+                tc::mma_bf16(s[2 * jp + 1], q.a[kk], b1);
+            }
+        }
+    }
+
+    // o = alpha o + P V with P in two bf16 parts (lo first, then hi) and V's
+    // B fragments transposed out of its row-major tile, two output tiles of
+    // 8 columns a load. As in fp32, the key tile is the outer loop and up to
+    // 8 output tiles take fresh accumulators at once.
+    static __device__ __forceinline__ void pv(float (&o)[D / 8][4], const float (&p)[BK / 8][4],
+                                              const float (&alpha)[2], const __nv_bfloat16* Vb,
+                                              int /*g*/, int /*t*/, int lane) {
+        constexpr int NP = D / 16 < 4 ? D / 16 : 4;  // pairs of output tiles at once
+        // Keys 16 jj..16 jj + 15: the accumulator tiles 2 jj and 2 jj + 1.
+        uint32_t ph[BK / 16][4], pl[BK / 16][4];
+#pragma unroll
+        for (int jj = 0; jj < BK / 16; ++jj) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                const int j = 2 * jj + (r >> 1), e = 2 * (r & 1);
+                tc::split_bf16(ph[jj][r], pl[jj][r], p[j][e], p[j][e + 1]);
+            }
+        }
+        // This lane's row address for ldmatrix: tiles 0..3 are keys +0 / +8
+        // of columns +0 (tiles 0, 1) and +8 (tiles 2, 3).
+        const __nv_bfloat16* vrow =
+            Vb + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 8 * (lane >> 4);
+#pragma unroll
+        for (int p0 = 0; p0 < D / 16; p0 += NP) {
+            float x[2 * NP][4] = {};
+#pragma unroll
+            for (int jj = 0; jj < BK / 16; ++jj) {
+#pragma unroll
+                for (int np = 0; np < NP; ++np) {
+                    uint32_t y[4];
+                    tc::ldmatrix_x4_trans(y, vrow + 16 * jj * LD + 16 * (p0 + np));
+                    const uint32_t b0[2] = {y[0], y[1]}, b1[2] = {y[2], y[3]};
+                    tc::mma_bf16(x[2 * np], pl[jj], b0);
+                    tc::mma_bf16(x[2 * np], ph[jj], b0);
+                    tc::mma_bf16(x[2 * np + 1], pl[jj], b1);
+                    tc::mma_bf16(x[2 * np + 1], ph[jj], b1);
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < 2 * NP; ++i) rescale_add(o[2 * p0 + i], alpha, x[i]);
+        }
+    }
+};
+
+// One key tile's online softmax in the accumulator layout (this lane's rows
+// qr + g and qr + g + 8, keys n0 + 8j + 2t + {0, 1}), in base 2 with c =
+// scale * log2(e): raises the running row max m of S c (masking S where
+// MASK), turns S into P = 2^(S c - m) with one fma, so that the exponent
+// is rounded once near the max, and returns alpha = 2^(m_old - m) with l =
+// alpha l + this lane's share of the row's sum of P. A row that has seen
+// nothing keeps m = -inf and subtracts 0 instead, so that its alpha is 0,
+// not NaN.
+template <int BK, bool MASK>
+__device__ __forceinline__ void online_softmax(float (&s)[BK / 8][4], float (&m)[2],
+                                               float (&l)[2], float (&alpha)[2], int qr, int n0,
+                                               int T, int causal, float c, int g, int t) {
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int half = e >> 1;
+            if constexpr (MASK) {
+                if (!visible(qr + g + 8 * half, n0 + 8 * j + 2 * t + (e & 1), T, causal))
+                    s[j][e] = -INFINITY;
+            }
+            // A masked score's -inf times a negative c would be +inf.
+            mx[half] = fmaxf(mx[half], MASK && s[j][e] == -INFINITY ? -INFINITY : s[j][e] * c);
+        }
+    }
+    float ref[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        float x = mx[half];
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        const float m_new = fmaxf(m[half], x);
+        ref[half] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[half] = tc::exp2_ftz(m[half] - ref[half]);
+        m[half] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int half = e >> 1;
+            const float p = tc::exp2_ftz(__fmaf_rn(s[j][e], c, -ref[half]));
+            s[j][e] = MASK && s[j][e] == -INFINITY ? 0.f : p;
+            sum[half] = __fadd_rn(sum[half], s[j][e]);
+        }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) l[half] = __fmaf_rn(alpha[half], l[half], sum[half]);
+}
+
+template <typename E, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+                     E* __restrict__ o, float* __restrict__ lse, int T, int H, int64_t sB,
+                     int64_t sT, int64_t sH, float c, int causal) {
+    using S = FwdTile<E, D>;
+    using Ops = FwdOps<E, D, S::BK, S::LD>;
+    constexpr int BK = S::BK, LD = S::LD;
+    extern __shared__ float4 smem4[];
+    E* Qs = reinterpret_cast<E*>(smem4);
+    E* Ks = Qs + S::BQ * LD;   // [2][BK][LD]
+    E* Vs = Ks + 2 * BK * LD;  // [2][BK][LD]
+
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    // Slow grid index = query tile, heaviest first: under causality the
+    // last tile sees every key.
+    const int m0 = (gridDim.y - 1 - blockIdx.y) * S::BQ, bh = blockIdx.x, b = bh / H,
+              h = bh % H;
+    const int64_t base = (int64_t)b * sB + (int64_t)h * sH;
+    const int r0 = warp * kWarpRows, qr = m0 + r0;  // this warp's first query
+    const int k_end = causal ? min(T, m0 + S::BQ) : T;
+    const int n_tiles = (k_end + BK - 1) / BK;
+
+    auto stage = [&](int i) {
+        const int buf = i & 1;
+        async_tile<BK, D>(Ks + buf * BK * LD, k + base, sT, i * BK, T);
+        async_tile<BK, D>(Vs + buf * BK * LD, v + base, sT, i * BK, T);
+        tc::cp_async_commit();
+    };
+    async_tile<S::BQ, D>(Qs, q + base, sT, m0, T);
+    tc::cp_async_commit();
+    stage(0);
+    tc::cp_async_wait<1>();
+    __syncthreads();  // Q visible to every warp
+    typename Ops::Q qf;
+    Ops::load_q(qf, Qs, r0, g, t);
+
+    float acc[D / 8][4] = {};
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+    for (int i = 0; i < n_tiles; ++i) {
+        if (i + 1 < n_tiles) {
+            stage(i + 1);
+            tc::cp_async_wait<1>();
+        } else {
+            tc::cp_async_wait<0>();
+        }
+        __syncthreads();  // tile i visible to every warp
+        const int n0 = i * BK, buf = i & 1;
+        // Skip when this warp's queries are all past T or all before the
+        // tile's first key (warp-uniform).
+        if (qr < T && (!causal || n0 <= qr + kWarpRows - 1)) {
+            float s[BK / 8][4] = {};
+            Ops::scores(s, qf, Qs, Ks + buf * BK * LD, r0, g, t, lane);
+            float alpha[2];
+            // Masks only where the tile holds a key after one of the warp's
+            // queries, a key past T or a query past T (warp-uniform).
+            if ((causal && n0 + BK - 1 > qr) || n0 + BK > T || qr + kWarpRows > T) {
+                online_softmax<BK, true>(s, m_run, l_run, alpha, qr, n0, T, causal, c, g, t);
+            } else {
+                online_softmax<BK, false>(s, m_run, l_run, alpha, qr, n0, T, causal, c, g, t);
+            }
+            Ops::pv(acc, s, alpha, Vs + buf * BK * LD, g, t, lane);
+        }
+        __syncthreads();  // every warp is done with buffer i & 1 before it reloads
+    }
+    // Rows past T saw nothing (l = 0) and are never stored.
+    float* lse_row = lse + (int64_t)bh * T;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        float l = l_run[half];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const int r = qr + g + 8 * half;
+        // m is in base 2: LSE = m ln 2 + log l, in natural units.
+        if (t == 0 && r < T) lse_row[r] = __fmaf_rn(m_run[half], kLn2, logf(l));
+#pragma unroll
+        for (int nd = 0; nd < D / 8; ++nd) {
+            acc[nd][2 * half] /= l;
+            acc[nd][2 * half + 1] /= l;
+        }
+    }
+    store_rows<D>(o, acc, 1.f, base, sT, qr, T, g, t);
 }
 
 // ------------------------------------------------------------------ dK, dV
@@ -653,8 +848,8 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// The backward kernels copy 16-byte chunks with cp.async: every operand
-// and every stride must keep that alignment.
+// Every kernel copies 16-byte chunks with cp.async: every operand and every
+// stride must keep that alignment.
 template <typename E>
 bool aligned16(const Args& a) {
     uintptr_t bits = (uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v | (uintptr_t)a.dout;
@@ -664,7 +859,7 @@ bool aligned16(const Args& a) {
 
 template <typename E, int D>
 int smem_bytes(Which which) {
-    if (which == kFwd) return FwdTile<D>::kFloats * (int)sizeof(float);
+    if (which == kFwd) return FwdTile<E, D>::kBytes;
     return which == kBwdKV ? BwdKVTile<E, D>::kBytes : BwdQTile<E, D>::kBytes;
 }
 
@@ -675,31 +870,26 @@ cudaError_t launch(Which which, const Args& a) {
     const E* v = static_cast<const E*>(a.v);
     const E* dout = static_cast<const E*>(a.dout);
     const int tiles = (a.T + kOuter - 1) / kOuter;
-    cudaError_t err = cudaSuccess;
-    if (which == kFwd) {
-        const dim3 grid(tiles, a.H, a.B);
-        const int bytes = smem_bytes<E, D>(kFwd);
-        err = allow_smem(flash_fwd_kernel<E, D>, bytes);
-        if (err != cudaSuccess) return err;
-        flash_fwd_kernel<E, D><<<grid, kThreads, bytes, a.stream>>>(
-            q, k, v, static_cast<E*>(a.o), a.lse, a.T, a.H, a.sB, a.sT, a.sH, a.scale,
-            a.causal);
-        return cudaGetLastError();
-    }
     if (!aligned16<E>(a)) return cudaErrorMisalignedAddress;
     // (batch, head) fast, tiles slow: each kernel maps the slow index to
     // its tiles heaviest first.
     if ((int64_t)a.B * a.H > 0x7fffffff || tiles > 65535) return cudaErrorInvalidValue;
     const dim3 grid(a.B * a.H, tiles);
-    if (which == kBwdKV) {
-        const int bytes = smem_bytes<E, D>(kBwdKV);
+    const int bytes = smem_bytes<E, D>(which);
+    cudaError_t err = cudaSuccess;
+    if (which == kFwd) {
+        err = allow_smem(flash_fwd_kernel<E, D>, bytes);
+        if (err != cudaSuccess) return err;
+        flash_fwd_kernel<E, D><<<grid, kThreads, bytes, a.stream>>>(
+            q, k, v, static_cast<E*>(a.o), a.lse, a.T, a.H, a.sB, a.sT, a.sH,
+            (float)(a.scale * kLog2e), a.causal);
+    } else if (which == kBwdKV) {
         err = allow_smem(flash_bwd_dkv_kernel<E, D>, bytes);
         if (err != cudaSuccess) return err;
         flash_bwd_dkv_kernel<E, D><<<grid, kThreads, bytes, a.stream>>>(
             q, k, v, dout, a.lse, a.delta, static_cast<E*>(a.dk), static_cast<E*>(a.dv), a.T,
             a.H, a.sB, a.sT, a.sH, a.scale, a.causal);
     } else {
-        const int bytes = smem_bytes<E, D>(kBwdQ);
         err = allow_smem(flash_bwd_dq_kernel<E, D>, bytes);
         if (err != cudaSuccess) return err;
         flash_bwd_dq_kernel<E, D><<<grid, kThreads, bytes, a.stream>>>(

@@ -14,10 +14,12 @@ are hand-written CUDA kernels (``csrc/flash_attention.cu``) under a
 
 Inputs are float32 or bfloat16 in the model's ``[B, T, H, D]`` layout
 (no transpose copies), ``D`` in :data:`HEAD_DIMS`; every sum is fp32, and
-outputs and gradients come back in the inputs' type. The forward runs its
-products on the CUDA cores; the two backward kernels run theirs on the TF32
-tensor cores to fp32 accuracy (each fp32 operand split into two TF32 parts,
-three products per product) and stay deterministic.
+outputs and gradients come back in the inputs' type. All three kernels run
+their products on the tensor cores and are deterministic. In fp32 they use
+the TF32 tensor cores to fp32 accuracy: each fp32 operand is split into two
+TF32 parts, three products per product. In bf16 the forward uses the bf16
+tensor cores, with P split into two bf16 parts for ``P V``; the backward
+kernels widen bf16 to TF32, which holds it exactly.
 
 :func:`flash_attention_bthd` dispatches on the tensors' device: on CUDA it
 launches the kernels (built from ``csrc/flash_attention.cu`` at first use),
@@ -180,19 +182,20 @@ def _launch(key: str, name: str, tensors, q: torch.Tensor, causal: bool, scale: 
     launches[key] += 1
 
 
+def _aligned16(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy when its data does not start on a 16-byte boundary:
+    the kernels stage tiles in 16-byte ``cp.async`` chunks (their launcher
+    refuses a misaligned operand)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def flash_fwd(q, k, v, causal: bool, scale: float):
     """The forward kernel: ``(o, lse)`` for contiguous CUDA ``q, k, v``."""
+    q, k, v = (_aligned16(x) for x in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[0], q.shape[2], q.shape[1], dtype=torch.float32, device=q.device)
     _launch("fwd", "ddl_flash_fwd", (q, k, v, o, lse), q, causal, scale)
     return o, lse
-
-
-def _aligned16(x: torch.Tensor) -> torch.Tensor:
-    """``x``, or a copy when its data does not start on a 16-byte boundary:
-    the backward kernels stage tiles in 16-byte ``cp.async`` chunks (their
-    launcher refuses a misaligned operand)."""
-    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):

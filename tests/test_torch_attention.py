@@ -20,12 +20,19 @@
   products split into TF32 parts ("3xTF32", as the kernels run them on the
   tensor cores) hold the fp32 gradient tolerance; one TF32 pass is at
   least 10x further off.
+- The forward kernel's arithmetic, rehearsed in torch: key tiles of 64, an
+  online softmax in base 2 with a running max and sum, each tile's P V in a
+  fresh accumulator added to the rescaled O in fp32; fp32 products in 3
+  TF32 passes (one pass at least 10x further off), bf16 with S in one pass
+  and P in two bf16 parts. O and LSE hold chip_smoke.py's O tolerance.
+- Every kernel wrapper hands its kernel 16-byte aligned operands.
 - The CUDA kernels against their plain versions on the card, and the
-  backward kernels bit-equal on a repeat: marked
+  kernels bit-equal on a repeat: marked
   ``cuda``, skipped without a card. They need no JAX, so on the card they
   run with ``python -m pytest --noconftest -m cuda tests/test_torch_attention.py``.
 """
 
+import math
 import shutil
 import types
 
@@ -42,6 +49,10 @@ BF16_TOL = dict(atol=5e-2, rtol=5e-2)
 # The kernels' gradients against their plain versions in fp32 (the card's
 # gate; chip_smoke.py's flash_kernel phase uses the same).
 KERNEL_GRAD_TOL = dict(atol=1e-4, rtol=1e-3)
+# The forward kernel's O (and LSE) against the plain version, by input type
+# (chip_smoke.py's FLASH_TOL).
+KERNEL_O_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-4),
+                torch.bfloat16: dict(atol=2e-3, rtol=1e-2)}
 SHAPES = [(2, 64, 4, 16), (2, 72, 2, 32)]
 
 
@@ -264,13 +275,89 @@ def test_three_tf32_passes_hold_fp32_gradients_one_does_not(shape, causal):
         assert err1 >= 10 * err3, f"{name}: one pass {err1:.2e}, three {err3:.2e}"
 
 
-def test_backward_operands_are_realigned_to_16_bytes():
+def _fwd_emulated(q, k, v, causal, scale, passes=3, block=64):
+    """``(o, lse)`` computed as the forward kernel computes them: key tiles
+    of ``block``, an online softmax in base 2 (running max m of S c and sum
+    l, P = 2^(S c - m), alpha = 2^(m_old - m), c = scale log2 e), each
+    tile's P V in a fresh accumulator added to
+    alpha O in fp32, O / l and LSE = m ln 2 + log l at the end. fp32: S and
+    P V from TF32 parts (``passes`` 3 or 1). bf16: S in one pass (products
+    of bf16 values are exact), P V with P as bf16 hi + lo."""
+    t = q.shape[1]
+    bf16 = q.dtype == torch.bfloat16
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    c = torch.tensor(scale * math.log2(math.e), dtype=torch.float32)
+    m = torch.full((q.shape[0], q.shape[2], t), -math.inf)
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape[0], q.shape[2], t, q.shape[3])
+    for n0 in range(0, t, block):
+        ks, vs = kf[:, n0:n0 + block], vf[:, n0:n0 + block]
+        if bf16:
+            s = torch.einsum("bqhd,bkhd->bhqk", qf, ks)
+        else:
+            s = _tf32_einsum("bqhd,bkhd->bhqk", qf, ks, passes)
+        if causal:
+            keys = torch.arange(n0, n0 + ks.shape[1])
+            s = s.masked_fill(keys[None, :] > torch.arange(t)[:, None], -math.inf)
+        m_new = torch.maximum(m, (s * c).amax(-1))
+        ref = torch.where(m_new == -math.inf, 0.0, m_new)
+        alpha = torch.exp2(m - ref)
+        # The kernel's fma: S c - m with one rounding.
+        p = torch.exp2((s.double() * c.double() - ref.double()[..., None]).float())
+        l = alpha * l + p.sum(-1)
+        if bf16:
+            p_hi = p.bfloat16().float()
+            p_lo = (p - p_hi).bfloat16().float()
+            x = (torch.einsum("bhqk,bkhd->bhqd", p_lo, vs)
+                 + torch.einsum("bhqk,bkhd->bhqd", p_hi, vs))
+        else:
+            x = _tf32_einsum("bhqk,bkhd->bhqd", p, vs, passes)
+        o = alpha[..., None] * o + x
+        m = m_new
+    o = o / l[..., None]
+    return o.transpose(1, 2).to(q.dtype), m * math.log(2) + torch.log(l)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 72, 2, 32), (1, 160, 2, 64)])
+def test_forward_kernel_arithmetic_holds_the_o_tolerance(shape, causal, dtype):
+    q, k, v, _ = _kernel_inputs(shape, dtype, "cpu", seed=shape[1] + causal)
+    scale = 1.0 / shape[-1] ** 0.5
+    want_o, want_lse = fa.flash_fwd_reference(q.float(), k.float(), v.float(), causal, scale)
+    o, lse = _fwd_emulated(q, k, v, causal, scale)
+    assert o.dtype == dtype
+    tol = KERNEL_O_TOL[dtype]
+    torch.testing.assert_close(o.float(), want_o, **tol)
+    torch.testing.assert_close(lse, want_lse, **tol)
+    if dtype == torch.float32:
+        one, _ = _fwd_emulated(q, k, v, causal, scale, passes=1)
+        err3, err1 = float((o - want_o).abs().max()), float((one - want_o).abs().max())
+        assert err1 >= 10 * err3, f"one pass {err1:.2e}, three {err3:.2e}"
+
+
+@pytest.mark.parametrize("kernel", ["backward", "forward"])
+def test_backward_operands_are_realigned_to_16_bytes(kernel, monkeypatch):
     x = torch.zeros(1 + 2 * 16 * 2 * 16)[1:].view(2, 16, 2, 16)  # 4 bytes past a boundary
     assert x.data_ptr() % 16 != 0
     y = fa._aligned16(x)
     assert y.data_ptr() % 16 == 0 and torch.equal(x, y)
     z = torch.zeros(2, 16, 2, 16)
     assert fa._aligned16(z) is z
+    # What each wrapper hands its kernel: the q, k, v (and dO) it staged.
+    staged = []
+    monkeypatch.setattr(fa, "_launch",
+                        lambda key, name, tensors, *rest: staged.append(tensors[:4]))
+    if kernel == "forward":
+        fa.flash_fwd(x, x, x, True, 1.0)
+        staged = [ts[:3] for ts in staged]
+    else:
+        lse = torch.zeros(2, 2, 16)
+        fa.flash_bwd_dkv(x, x, x, x, lse, lse, True, 1.0)
+        fa.flash_bwd_dq(x, x, x, x, lse, lse, True, 1.0)
+    assert len(staged) == (1 if kernel == "forward" else 2)
+    for ts in staged:
+        assert all(t.data_ptr() % 16 == 0 and torch.equal(t, x) for t in ts)
 
 
 def test_kernel_library_is_built_with_the_others():
@@ -319,6 +406,17 @@ def test_cuda_backward_kernels_bit_equal_on_repeat(shape, dtype, cuda_device):
     torch.cuda.synchronize()
     for name, a, b in zip(("dk", "dv", "dq"), *runs):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [CUDA_SHAPES[2], CUDA_SHAPES[3]])
+def test_cuda_forward_kernel_bit_equal_on_repeat(shape, dtype, cuda_device):
+    q, k, v, _ = _kernel_inputs(shape, dtype, cuda_device, seed=12)
+    scale = 1.0 / shape[-1] ** 0.5
+    (o1, lse1), (o2, lse2) = (fa.flash_fwd(q, k, v, True, scale) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
 
 
 @pytest.mark.cuda
