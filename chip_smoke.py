@@ -11,8 +11,12 @@ Phases, each printing one JSON line:
 2. build   — builds every CUDA kernel from ``ddl_tpu_torch/csrc`` with nvcc
    (one nvcc per source, all started together).
 3. kernel  — the fused-Adam kernel against its plain PyTorch version on the
-   card, at n = 5, 1024, 65,536, 65,553, 2,656,128 and on a slice at an
-   offset of one element (the scalar path); atol 2e-7 on p, m and v.
+   card, at n = 5, 1024, 65,536, 65,553, 2,656,128, at sizes from the
+   kernel's launch plan on this card (a full wave: every block of one
+   resident wave one full tile; a full wave + 1 float4; the ZeRO-1 flat
+   shard of one rank of 4 workers, from the layout code) and on a slice at
+   an offset of one element (the scalar path): p, m and v must be
+   bit-equal, and so must a repeat at n = 2,656,128.
 4. main    — the port's main path: ``SyncTrainer`` at full width (conv
    32/64/128/256, FC 1024/512), batch 100, one worker, ``num_ps=2``, layout
    ``flat``, ``fused_adam``, keep_prob 0.5, 2,000 synthetic images (20
@@ -21,11 +25,16 @@ Phases, each printing one JSON line:
    just after; losses, parameters and moments must be finite.
 5. fused_vs_plain — the same trainer from one init at keep_prob 1 for 2
    steps, fused and plain Adam: params, m and v agree to atol 1e-6.
-6. timing  — the kernel at n = 2,656,128 (the main path's flat vector):
-   median of 200 launches timed with CUDA events, against its bound (28
-   bytes an element over the card's HBM rate), the plain chain, and
-   ``torch._fused_adam_`` driven to the same function (eps rescaled by
-   1/sqrt(1-b2^t)) as the library yardstick; never on the port's path.
+6. timing  — the kernel at n = 2,656,128 (the main path's flat vector)
+   by its device time (``ddl_tpu_torch/tools/devtime.py``): ``ms`` cold
+   (the median of 100 launches, each after a 256 MB write that flushes the
+   L2, read from the profiler by the kernel's name), ``hot_ms`` (no flush)
+   and ``call_ms`` (CUDA events around each Python call, the host's time
+   to reach the launch included); against its bound (28 bytes an element
+   over the card's HBM rate, from the cold reading only), the plain chain
+   and ``torch._fused_adam_`` driven to the same function (eps rescaled by
+   1/sqrt(1-b2^t)) as the library yardstick, both by the same timer (the
+   sum of their device events a call); never on the port's path.
 
 7. flash_kernel — the flash-attention kernels (forward, dK/dV, dQ through
    ``flash_attention_bthd``'s autograd) against ``flash_attention_reference``
@@ -54,19 +63,24 @@ Phases, each printing one JSON line:
 11. lm_bf16 — 2 full-width steps with compute_dtype bfloat16: the bf16
    kernels launched (counted), losses finite.
 12. flash_timing — each flash kernel at [4, 2048, 8, 64], causal, fp32 and
-   bf16: median of 50 launches timed with CUDA events, beside its bound (the
-   causal half's products over the card's rate for fp32-accurate products,
-   the TF32 tensor cores' in 3 passes, or over the bf16 tensor-core rate for
-   bf16, or bytes over the HBM rate, whichever is larger; the fp32 CUDA-core
-   figure beside it as ``cuda_core_bound_ms``), its plain version (the
+   bf16, by the same timer as phase 6 (50 launches cold, 50 hot, 50 calls),
+   beside its bound (the causal half's products over the card's rate for
+   fp32-accurate products, the TF32 tensor cores' in 3 passes, or over the
+   bf16 tensor-core rate for bf16, or bytes over the HBM rate, whichever is
+   larger; the fp32 CUDA-core figure beside it as ``cuda_core_bound_ms``),
+   its plain version (the
    kernel's outputs held to it at the flash_kernel tolerances), and
    ``scaled_dot_product_attention(is_causal=True)`` at the same shape in
    [B, H, T, D] as the library yardstick (forward, and its backward beside
    the two backward kernels and their sum; ``flash_timing_library`` gives
    the forward's and the backward pair's ratio to it), never on the port's
-   path.
+   path; the plain versions and SDPA by the sum of their device events a
+   call.
 
-Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the last
+If the profiler records no device time for a kernel or a call, the phase
+fails; nothing falls back to CUDA events. Then one ``{"kernels": [...]}``
+line (each kernel's cold ``ms``, ``hot_ms``, ``call_ms`` and ``timer``), the
+``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no ``ok`` line. It needs no network and one card.
 """
@@ -84,24 +98,12 @@ import time
 # n of the main path's flat vector: 2,656,010 parameters, lane-padded.
 FULL_N = 2_656_128
 KERNEL_SIZES = (5, 1024, 65_536, 65_553, FULL_N)
-ATOL_KERNEL = 2e-7
 ATOL_FUSED_VS_PLAIN = 1e-6
 MAIN_STEPS = 20
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def hbm_bytes_per_s(name: str) -> float:
-    """Published HBM rate of the card (NVIDIA data sheets)."""
-    if "H200" in name:
-        return 4.8e12
-    if "H100" in name and "PCIe" in name:
-        return 2.0e12
-    if "H100" in name and "NVL" in name:
-        return 3.9e12
-    return 3.35e12  # H100 SXM (80GB HBM3)
 
 
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -122,6 +124,7 @@ FLASH_TOL = {
     "bfloat16": ((2e-3, 1e-2), (1e-2, 1e-2)),
 }
 LM_STEPS = 8
+ADAM_KERNEL = r"adam_flat_\w*kernel"  # the device names the profiler reads
 FLASH_KERNELS = {  # counter key -> (name, the TPU kernel it replaces)
     "fwd": ("flash_fwd", "jax/experimental/pallas/ops/tpu/flash_attention.py:589"),
     "bwd_dkv": ("flash_bwd_dkv", "jax/experimental/pallas/ops/tpu/flash_attention.py:941"),
@@ -143,28 +146,49 @@ def adam_inputs(torch, n: int, gen, device):
     return p, m, v, g
 
 
+def kernel_sizes(fused_adam) -> list[tuple[int, int]]:
+    """(n, offset) of the kernel phase: the fixed sizes, the launch plan's
+    boundaries on this card and the 4-worker flat shard, then the scalar
+    path (an offset of one float)."""
+    from ddl_tpu_torch.strategies.sync import resolve_layout
+    from ddl_tpu_torch.train.config import TrainConfig
+
+    wave = fused_adam.full_wave_n(*fused_adam.occupancy(0, True))
+    shard4 = resolve_layout(TrainConfig(batch_size=100, num_workers=4, num_ps=4,
+                                        layout="flat"), 4).max_shard
+    sizes = list(KERNEL_SIZES) + [wave, wave + 4, shard4]
+    return [(n, 0) for n in sizes] + [(65_553, 1)]
+
+
 def check_kernel(torch, fused_adam) -> float:
-    """Kernel vs plain on the card; returns the largest abs error."""
+    """Kernel vs plain on the card: bit-equal, and bit-equal on a repeat;
+    returns the largest abs error (0.0)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     lr_t = torch.tensor([3e-4], device=dev)
     worst = 0.0
-    cases = [(n, 0) for n in KERNEL_SIZES] + [(65_553, 1)]
-    for n, offset in cases:
+    for n, offset in kernel_sizes(fused_adam):
         bufs = adam_inputs(torch, n + offset, gen, dev)
         want = fused_adam.adam_flat_reference(*(b[offset:] for b in bufs), lr_t)
+        g = bufs[3][offset:]
         # The kernel updates its copies in place, at the same offset (an
         # offset of one float leaves the 16-byte alignment: scalar path).
-        p, m, v = (b.clone()[offset:] for b in bufs[:3])
-        g = bufs[3][offset:]
-        vec4 = all(t.data_ptr() % 16 == 0 for t in (p, m, v, g))
-        got = fused_adam.adam_flat_fused(p, m, v, g, lr_t)
+        runs = []
+        for _ in range(2 if n == FULL_N else 1):
+            p, m, v = (b.clone()[offset:] for b in bufs[:3])
+            runs.append(fused_adam.adam_flat_fused(p, m, v, g, lr_t))
         torch.cuda.synchronize()
+        vec4 = all(t.data_ptr() % 16 == 0 for t in (*runs[0], g))
+        got = runs[0]
         errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
-        emit("kernel", n=n, offset=offset, vec4=vec4,
+        equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+        repeat = all(bool(torch.equal(a, b)) for a, b in zip(got, runs[-1]))
+        emit("kernel", n=n, offset=offset, vec4=vec4, bit_equal=equal,
+             repeat_bit_equal=repeat if len(runs) > 1 else None,
              max_abs_err={"p": errs[0], "m": errs[1], "v": errs[2]})
-        if not all(e <= ATOL_KERNEL for e in errs):
-            raise AssertionError(f"kernel != plain at n={n} offset={offset}: {errs}")
+        if not (equal and repeat):
+            raise AssertionError(f"kernel != plain (or a repeat) at n={n} offset={offset}: "
+                                 f"{errs}, repeat bit-equal {repeat}")
         worst = max(worst, *errs)
     return worst
 
@@ -240,24 +264,7 @@ def fused_vs_plain(torch, world) -> float:
     return worst
 
 
-def median_ms(torch, fn, reps: int = 200, warm: int = 10) -> float:
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    times = sorted(s.elapsed_time(e) for s, e in pairs)
-    return times[len(times) // 2]
-
-
-def timing(torch, fused_adam, card: str) -> dict:
+def timing(torch, fused_adam, devtime, flush, card: str) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     n = FULL_N
@@ -285,21 +292,27 @@ def timing(torch, fused_adam, card: str) -> dict:
     # Timed on the same buffers, updated in place over and over: the work
     # per call does not depend on the values.
     kp, km, kv = p.clone(), m.clone(), v.clone()
-    ms = median_ms(torch, lambda: fused_adam.adam_flat_fused(kp, km, kv, g, lr_t))
-    plain_ms = median_ms(torch, lambda: fused_adam.adam_flat_reference(p, m, v, g, lr_t))
+    kern = devtime.timings(lambda: fused_adam.adam_flat_fused(kp, km, kv, g, lr_t), flush,
+                           kernel=ADAM_KERNEL, reps=100, call_reps=200)
+    plain = devtime.timings(lambda: fused_adam.adam_flat_reference(p, m, v, g, lr_t), flush)
     lp, lm, lv = p.clone(), m.clone(), v.clone()
-    library_ms = median_ms(torch, lambda: library(lp, lm, lv))
+    lib = devtime.timings(lambda: library(lp, lm, lv), flush, reps=100, call_reps=200)
     nbytes = 28 * n  # read g, m, v, p; write p', m', v'
     ops = 12 * n  # 7 mul, 3 add/sub, 1 sqrt, 1 div per element
-    bytes_ms = nbytes / hbm_bytes_per_s(card) * 1e3
+    bytes_ms = nbytes / devtime.hbm_bytes_per_s(card) * 1e3
     ops_ms = ops / FP32_OPS_PER_S * 1e3
+    ms = kern["ms"]
     out = dict(
-        n=n, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        library_max_abs_err=library_err,
+        n=n, ms=ms, hot_ms=kern["hot_ms"], call_ms=kern["call_ms"], timer=kern["timer"],
+        cold_min_max_ms=kern["cold_min_max_ms"], hot_min_max_ms=kern["hot_min_max_ms"],
+        device_minus_launch_ms=kern["device_minus_launch_ms"],
+        plain_ms=plain["ms"], plain_hot_ms=plain["hot_ms"], plain_call_ms=plain["call_ms"],
+        library_ms=lib["ms"], library_hot_ms=lib["hot_ms"], library_call_ms=lib["call_ms"],
+        library_device_events=lib["device_events"], library_max_abs_err=library_err,
         bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         gb_per_s=nbytes / (ms * 1e-3) / 1e9,
         share_of_bound=max(bytes_ms, ops_ms) / ms,
-        hbm_bytes_per_s=hbm_bytes_per_s(card),
+        hbm_bytes_per_s=devtime.hbm_bytes_per_s(card),
     )
     emit("timing", **out)
     return out
@@ -505,11 +518,11 @@ def lm_bf16(torch, fa) -> dict:
     return out
 
 
-def flash_bound_ms(shape, kind: str, elem_bytes: int, ops_per_s: float, card: str):
+def flash_bound_ms(shape, kind: str, elem_bytes: int, ops_per_s: float, hbm: float):
     """(bound ms, what bounds it) of one kernel at ``shape``, causal: the
     products on the causal half (pairs with key <= query; exps and the
     softmax's adds are not counted) over ``ops_per_s``, or each input read
-    once and each output written once over the HBM rate."""
+    once and each output written once over the HBM rate ``hbm``."""
     b, t, h, d = shape
     pairs = b * h * t * (t + 1) // 2
     tensor = b * t * h * d * elem_bytes
@@ -520,14 +533,15 @@ def flash_bound_ms(shape, kind: str, elem_bytes: int, ops_per_s: float, card: st
         "bwd_dq": (3, 5, 2),  # reads q, k, v, dO, lse, delta; writes dq
     }[kind]
     ops_ms = products * 2 * d * pairs / ops_per_s * 1e3
-    bytes_ms = (tensors * tensor + row_arrays * rows) / hbm_bytes_per_s(card) * 1e3
+    bytes_ms = (tensors * tensor + row_arrays * rows) / hbm * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def flash_timing(torch, fa, card: str) -> dict:
+def flash_timing(torch, fa, devtime, flush, card: str) -> dict:
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
+    hbm = devtime.hbm_bytes_per_s(card)
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         gen = torch.Generator(device=dev).manual_seed(3)
@@ -543,10 +557,10 @@ def flash_timing(torch, fa, card: str) -> dict:
         qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
         lq, lk, lv = (x.clone().requires_grad_(True) for x in (qt, kt, vt))
         lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
-        lib_fwd = median_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                                          is_causal=True), 50)
-        lib_bwd = median_ms(torch, lambda: torch.autograd.grad(lo, (lq, lk, lv), dot,
-                                                               retain_graph=True), 50)
+        lib_fwd = devtime.timings(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                         is_causal=True), flush)
+        lib_bwd = devtime.timings(lambda: torch.autograd.grad(lo, (lq, lk, lv), dot,
+                                                              retain_graph=True), flush)
         lib_err = float((lo.detach().transpose(1, 2).float() - o.float()).abs().max())
         runs = {
             "fwd": (lambda: fa.flash_fwd(q, k, v, True, scale),
@@ -558,7 +572,7 @@ def flash_timing(torch, fa, card: str) -> dict:
                        lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, True, scale),
                        lib_bwd),
         }
-        for key, (kernel, plain, lib_ms) in runs.items():
+        for key, (kernel, plain, lib) in runs.items():
             # Kernel vs its own plain version on the same residuals, at the
             # flash_kernel phase's tolerance (O's for the forward's O and
             # LSE, the gradients' for the backward kernels).
@@ -571,31 +585,41 @@ def flash_timing(torch, fa, card: str) -> dict:
             if not all(ok for ok, _, _ in checks):
                 raise AssertionError(f"{key} kernel != its plain version ({name}): "
                                      f"{[(e, s) for _, e, s in checks]}")
-            ms = median_ms(torch, kernel, 50)
-            plain_ms = median_ms(torch, plain, 20, warm=3)
+            del got, want
+            kern = devtime.timings(kernel, flush, kernel=f"{FLASH_KERNELS[key][0]}_kernel")
+            plain_t = devtime.timings(plain, flush, reps=20)
             # The least time: fp32 products to fp32 accuracy on the TF32
             # tensor cores (3 passes), bf16 products at the bf16 rate; the
             # fp32 CUDA-core figure beside it.
             bound, by = flash_bound_ms(FLASH_MAIN, key, 4 if fp32 else 2,
-                                       TF32X3_OPS_PER_S if fp32 else BF16_OPS_PER_S, card)
+                                       TF32X3_OPS_PER_S if fp32 else BF16_OPS_PER_S, hbm)
             cuda_core, _ = flash_bound_ms(FLASH_MAIN, key, 4 if fp32 else 2, FP32_OPS_PER_S,
-                                          card)
-            row = dict(kernel=key, dtype=name, shape=list(FLASH_MAIN), causal=True, ms=ms,
-                       plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                                          hbm)
+            row = dict(kernel=key, dtype=name, shape=list(FLASH_MAIN), causal=True,
+                       ms=kern["ms"], hot_ms=kern["hot_ms"], call_ms=kern["call_ms"],
+                       timer=kern["timer"], cold_min_max_ms=kern["cold_min_max_ms"],
+                       device_minus_launch_ms=kern["device_minus_launch_ms"],
+                       plain_ms=plain_t["ms"], plain_hot_ms=plain_t["hot_ms"],
+                       bound_ms=bound, bound_by=by,
                        bound_rate="tf32 tensor cores, 3 passes" if fp32 else
                        "bf16 tensor cores",
-                       cuda_core_bound_ms=cuda_core, library_ms=lib_ms,
+                       cuda_core_bound_ms=cuda_core, library_ms=lib["ms"],
+                       library_hot_ms=lib["hot_ms"], library_call_ms=lib["call_ms"],
                        library="sdpa forward" if key == "fwd" else
                        "sdpa backward (dq, dk and dv in one call)",
-                       share_of_bound=bound / ms, kernel_vs_plain_max_abs=plain_err)
+                       share_of_bound=bound / kern["ms"], kernel_vs_plain_max_abs=plain_err)
             emit("flash_timing", **row)
             out[(key, name)] = row
         fwd_ms = out[("fwd", name)]["ms"]
         pair = out[("bwd_dkv", name)]["ms"] + out[("bwd_dq", name)]["ms"]
-        emit("flash_timing_library", dtype=name, sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
-             sdpa_fwd_plus_bwd_ms=lib_fwd + lib_bwd, sdpa_vs_kernel_o_max_abs=lib_err,
-             fwd_ms=fwd_ms, fwd_over_sdpa_fwd=fwd_ms / lib_fwd,
-             bwd_pair_ms=pair, bwd_pair_over_sdpa_bwd=pair / lib_bwd)
+        emit("flash_timing_library", dtype=name, timer=lib_fwd["timer"],
+             sdpa_fwd_ms=lib_fwd["ms"], sdpa_fwd_hot_ms=lib_fwd["hot_ms"],
+             sdpa_fwd_call_ms=lib_fwd["call_ms"], sdpa_fwd_device_events=lib_fwd["device_events"],
+             sdpa_bwd_ms=lib_bwd["ms"], sdpa_bwd_hot_ms=lib_bwd["hot_ms"],
+             sdpa_bwd_call_ms=lib_bwd["call_ms"], sdpa_bwd_device_events=lib_bwd["device_events"],
+             sdpa_fwd_plus_bwd_ms=lib_fwd["ms"] + lib_bwd["ms"], sdpa_vs_kernel_o_max_abs=lib_err,
+             fwd_ms=fwd_ms, fwd_over_sdpa_fwd=fwd_ms / lib_fwd["ms"],
+             bwd_pair_ms=pair, bwd_pair_over_sdpa_bwd=pair / lib_bwd["ms"])
         del q, k, v, do, o, lse, delta, qt, kt, vt, dot, lq, lk, lv, lo
         torch.cuda.empty_cache()
     return out
@@ -611,6 +635,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ddl_tpu_torch.ops import build, flash_attention, fused_adam
     from ddl_tpu_torch.parallel.mesh import destroy_world, init_world
+    from ddl_tpu_torch.tools import devtime
 
     card = nvidia_smi()
     torch.backends.cudnn.allow_tf32 = False
@@ -632,14 +657,15 @@ def main() -> int:
         finally:
             destroy_world()
 
-    tim = timing(torch, fused_adam, card)
+    flush = devtime.L2Flush(torch.device("cuda"))
+    tim = timing(torch, fused_adam, devtime, flush, card)
 
     flash_err = check_flash(torch, flash_attention)
     flash_determinism(torch, flash_attention)
     lm_out = lm_main(torch, flash_attention)
     lm_flash_vs_xla(torch)
     lm_bf16(torch, flash_attention)
-    flash_tim = flash_timing(torch, flash_attention, card)
+    flash_tim = flash_timing(torch, flash_attention, devtime, flush, card)
 
     kernels = [{
         "name": "adam_flat_fused",
@@ -649,6 +675,9 @@ def main() -> int:
         "launches": main_out["launches"],
         "max_abs_err": max_err,
         "ms": tim["ms"],
+        "hot_ms": tim["hot_ms"],
+        "call_ms": tim["call_ms"],
+        "timer": tim["timer"],
         "plain_ms": tim["plain_ms"],
         "bound_ms": tim["bound_ms"],
         "bound_by": tim["bound_by"],
@@ -665,6 +694,9 @@ def main() -> int:
             "launches": lm_out["launches"][key],
             "max_abs_err": flash_err[key],
             "ms": row["ms"],
+            "hot_ms": row["hot_ms"],
+            "call_ms": row["call_ms"],
+            "timer": row["timer"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],

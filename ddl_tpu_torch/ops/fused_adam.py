@@ -13,6 +13,11 @@ on the CPU it runs :func:`adam_flat_reference`, the same formula in torch
 ops. Any other device raises, and so does a CUDA build or launch failure:
 nothing falls back to the plain version on the card.
 
+The grid is planned here, not in the kernel: :func:`launch_plan` is a pure
+function of n, the path (float4 or scalar) and the occupancy the compiled
+kernel gets on the card (asked of the CUDA runtime once, :func:`occupancy`),
+so the CPU tests can check that a plan covers every element exactly once.
+
 ``launches`` counts kernel launches (CPU calls are not counted), so a run
 can show that its main path went through the kernel.
 """
@@ -21,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -47,11 +53,46 @@ def adam_flat_reference(
     return p - lr_t * m2 / (torch.sqrt(v2) + eps), m2, v2
 
 
-@functools.cache
-def _max_blocks(device_index: int) -> int:
-    # Enough resident blocks of 256 threads to fill every SM; the kernel's
-    # grid-stride loop covers the rest.
-    return torch.cuda.get_device_properties(device_index).multi_processor_count * 8
+# Units (float4s, or floats on the scalar path) of a tile: one a consumer
+# thread (kThreads in csrc/fused_adam.cu).
+THREADS = 256
+
+
+class LaunchPlan(NamedTuple):
+    """How one launch covers ``n`` elements: ``blocks`` blocks (at most one
+    resident wave), the grid sweeping the ``units`` (float4s or floats)
+    together in tiles of ``THREADS``; on the float4 path the ``tail`` = n %
+    4 elements past the last float4 are block 0's."""
+
+    blocks: int
+    units: int
+    tail: int
+
+    def block_span(self, b: int) -> tuple[int, int, int]:
+        """(first unit, step, bound) of block ``b``'s tiles, the kernels' own
+        index formula: tile t takes the units first + t * step + [0,
+        THREADS) below the bound."""
+        return b * THREADS, self.blocks * THREADS, self.units
+
+
+def launch_plan(n: int, vec4: bool, sms: int, blocks_per_sm: int) -> LaunchPlan:
+    """The grid for ``n`` elements on a card of ``sms`` SMs that holds
+    ``blocks_per_sm`` blocks of the kernel each: one block a tile up to one
+    full wave (``sms * blocks_per_sm``), so blocks differ by at most one
+    tile. ``blocks`` is 0 only for ``n == 0`` (nothing to launch)."""
+    if n < 0 or sms < 1 or blocks_per_sm < 1:
+        raise ValueError(f"launch_plan: n={n}, sms={sms}, blocks_per_sm={blocks_per_sm}")
+    units, tail = (n // 4, n % 4) if vec4 else (n, 0)
+    if n == 0:
+        return LaunchPlan(0, 0, 0)
+    return LaunchPlan(max(1, min(sms * blocks_per_sm, -(-units // THREADS))), units, tail)
+
+
+def full_wave_n(sms: int, blocks_per_sm: int) -> int:
+    """The n (float4 path) at which every block of one full wave takes
+    exactly one tile: the plan's boundary, where n + 4 gives block 0 a
+    second tile."""
+    return 4 * sms * blocks_per_sm * THREADS
 
 
 @functools.cache
@@ -63,13 +104,46 @@ def load_kernel() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int64,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    lib.ddl_adam_blocks_per_sm.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    lib.ddl_adam_blocks_per_sm.restype = ctypes.c_int
     lib.ddl_cuda_error_string.argtypes = [ctypes.c_int]
     lib.ddl_cuda_error_string.restype = ctypes.c_char_p
+    lib.ddl_adam_threads.argtypes = []
+    lib.ddl_adam_threads.restype = ctypes.c_int
+    if lib.ddl_adam_threads() != THREADS:
+        raise RuntimeError(f"csrc/fused_adam.cu takes tiles of {lib.ddl_adam_threads()} "
+                           f"units, the wrapper plans for {THREADS}")
     return lib
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.ddl_cuda_error_string(err).decode()
+        raise RuntimeError(f"adam_flat_fused: {what} failed: {msg} ({err})")
+
+
+@functools.cache
+def occupancy(device_index: int, vec4: bool) -> tuple[int, int]:
+    """(SMs, resident blocks an SM) of the compiled float4 (``vec4``) or
+    scalar kernel on the card, asked of the CUDA runtime once."""
+    lib = load_kernel()
+    out = ctypes.c_int(0)
+    _raise_on(lib, lib.ddl_adam_blocks_per_sm(int(vec4), device_index, ctypes.byref(out)),
+              "occupancy query")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    if out.value < 1:
+        raise RuntimeError(f"adam_flat_fused: the kernel fits no block on an SM ({out.value})")
+    return sms, out.value
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(n: int, vec4: bool, device_index: int) -> LaunchPlan:
+    """The launch plan of one call, kept: a train step asks for the same n
+    every step, and the host's time per call is the step's."""
+    return launch_plan(n, vec4, *occupancy(device_index, vec4))
 
 
 def _check(p, m, v, g, lr_t) -> None:
@@ -116,19 +190,24 @@ def adam_flat_fused(
         return p, m, v
     if p.device.type != "cuda":
         raise RuntimeError(f"adam_flat_fused: no kernel for device {p.device}")
+    _launch(p, m, v, g, lr_t, b1, b2, eps)
+    return p, m, v
+
+
+def _launch(p, m, v, g, lr_t, b1: float, b2: float, eps: float) -> None:
+    """Launch the kernel on CUDA tensors that :func:`_check` passed: the
+    TMA ring when all four buffers are 16-byte aligned, else the scalar
+    kernel. Raises if the launch fails."""
     global launches
     lib = load_kernel()
     ptrs = [t.data_ptr() for t in (p, m, v, g)]
     vec4 = all(ptr % 16 == 0 for ptr in ptrs)
     dev = p.device.index if p.device.index is not None else torch.cuda.current_device()
-    err = lib.ddl_adam_flat_f32(
-        *ptrs, lr_t.data_ptr(), p.numel(),
-        b1, 1.0 - b1, b2, 1.0 - b2, eps,
-        int(vec4), _max_blocks(dev), dev,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        msg = lib.ddl_cuda_error_string(err).decode()
-        raise RuntimeError(f"adam_flat_fused: kernel launch failed: {msg} ({err})")
+    plan = _plan(p.numel(), vec4, dev)
+    if plan.blocks == 0:
+        return
+    _raise_on(lib, lib.ddl_adam_flat_f32(
+        *ptrs, lr_t.data_ptr(), p.numel(), b1, 1.0 - b1, b2, 1.0 - b2, eps,
+        int(vec4), plan.blocks, dev, torch.cuda.current_stream(dev).cuda_stream,
+    ), "kernel launch")
     launches += 1
-    return p, m, v

@@ -8,9 +8,12 @@ into a temporary directory, and prints one JSON line per kernel instance:
 - ``registers``, ``spill_stores``, ``spill_loads``, ``stack_bytes`` as
   ``ptxas`` reports them;
 - ``sass``: how many ``HMMA`` (tensor-core products), ``LDGSTS``
-  (``cp.async`` copies), ``FFMA`` and ``LDS`` instructions ``cuobjdump
-  -sass`` shows in the kernel's code (``null`` where the toolkit has no
-  ``cuobjdump``);
+  (``cp.async`` copies), ``UBLKCP`` (``cp.async.bulk`` copies by the
+  Tensor Memory Accelerator), ``FFMA``, ``LDS``, ``LDG`` and ``STG`` (global
+  loads and stores) instructions ``cuobjdump -sass`` shows in the kernel's
+  code, and how many of the loads and stores carry the evict-first hint
+  (``LDG_EF``, ``STG_EF``: ``ld.global.cs``/``st.global.cs``) (``null``
+  where the toolkit has no ``cuobjdump``);
 - ``dynamic_smem_bytes``: for the flash-attention kernels, the shared
   memory one block asks for at launch (``ddl_flash_smem_bytes`` of the
   built library).
@@ -36,7 +39,8 @@ _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
 _FLASH = re.compile(r"(flash_(?:fwd|bwd_dkv|bwd_dq)_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
-_SASS_OPS = ("HMMA", "LDGSTS", "FFMA", "LDS")
+_SASS_OPS = ("HMMA", "LDGSTS", "UBLKCP", "FFMA", "LDS", "LDG", "STG")
+_EVICT_FIRST = ("LDG", "STG")  # also counted as LDG_EF / STG_EF when .EF
 
 
 def _demangle(names: list[str]) -> dict[str, str]:
@@ -70,17 +74,21 @@ def parse_ptxas(log: str) -> dict[str, dict]:
 
 
 def parse_sass(text: str) -> dict[str, dict[str, int]]:
-    """Counts of :data:`_SASS_OPS` per mangled kernel name."""
+    """Counts of :data:`_SASS_OPS` per mangled kernel name, and of the
+    loads and stores among them with the evict-first (``.EF``) hint."""
+    keys = _SASS_OPS + tuple(f"{op}_EF" for op in _EVICT_FIRST)
     counts: dict[str, dict[str, int]] = {}
     current = None
     for line in text.splitlines():
         if "Function :" in line:
             current = counts.setdefault(line.split("Function :")[1].strip(),
-                                        dict.fromkeys(_SASS_OPS, 0))
+                                        dict.fromkeys(keys, 0))
         elif current is not None:
-            m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
-            if m and m.group(1) in current:
+            m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(\S*)", line)
+            if m and m.group(1) in _SASS_OPS:
                 current[m.group(1)] += 1
+                if m.group(1) in _EVICT_FIRST and "EF" in m.group(2).split("."):
+                    current[f"{m.group(1)}_EF"] += 1
     return counts
 
 

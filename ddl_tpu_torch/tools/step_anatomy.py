@@ -47,7 +47,7 @@ from ..strategies.sync import make_sharded_step, resolve_layout, sharded_adam_in
 from ..train.config import TrainConfig
 
 CNN_FAMILIES = (
-    ("fused_adam", re.compile(r"adam_flat_kernel")),
+    ("fused_adam", re.compile(r"adam_flat_\w*kernel")),
     ("nccl", re.compile(r"nccl", re.I)),
     ("conv", re.compile(r"conv|cudnn|implicit|dgrad|wgrad|fprop|winograd|fft", re.I)),
     ("matmul", re.compile(r"gemm|cutlass|cublas|xmma|sgemm|splitK", re.I)),

@@ -163,6 +163,13 @@ def test_kernel_report_parses_ptxas_and_sass():
             "        /*06f0*/                   LDGSTS.E.BYPASS.128 [R13], desc[UR4][R4.64], !P3 ;\n"
             "        /*0700*/              @!P0 HMMA.1688.F32.TF32 R4, R8, R12, R4 ;\n"
             "        /*0710*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;\n"
-            "        /*0720*/                   LDS R3, [R2] ;\n")
-    assert kernel_report.parse_sass(sass) == {name: dict(HMMA=2, LDGSTS=1, FFMA=0, LDS=1)}
+            "        /*0720*/                   LDS R3, [R2] ;\n"
+            "        /*0730*/                   LDG.E.EF.128 R4, desc[UR4][R2.64] ;\n"
+            "        /*0740*/              @P1 LDG.E.128 R8, desc[UR4][R6.64] ;\n"
+            "        /*0750*/                   STG.E.EF.128 desc[UR4][R2.64], R4 ;\n"
+            "        /*0760*/                   STG.E.128 desc[UR4][R6.64], R8 ;\n"
+            "        /*0770*/                   STG.E desc[UR4][R6.64], R9 ;\n"
+            "        /*0780*/                   UBLKCP.S.G [UR8], [UR4], UR6 ;\n")
+    assert kernel_report.parse_sass(sass) == {name: dict(
+        HMMA=2, LDGSTS=1, UBLKCP=1, FFMA=0, LDS=1, LDG=2, STG=3, LDG_EF=1, STG_EF=1)}
     assert kernel_report._FLASH.search(name).groups() == ("flash_bwd_dq_kernel", "f", "64")
