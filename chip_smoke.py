@@ -13,10 +13,12 @@ Phases, each printing one JSON line:
 3. kernel  — the fused-Adam kernel against its plain PyTorch version on the
    card, at n = 5, 1024, 65,536, 65,553, 2,656,128, at sizes from the
    kernel's launch plan on this card (a full wave: every block of one
-   resident wave one full tile; a full wave + 1 float4; the ZeRO-1 flat
-   shard of one rank of 4 workers, from the layout code) and on a slice at
-   an offset of one element (the scalar path): p, m and v must be
-   bit-equal, and so must a repeat at n = 2,656,128.
+   resident wave one full tile; a full wave + 1 float4), at sizes from the
+   layout code (the ZeRO-1 flat shard of one rank of 4 workers; the async
+   serve's vectors: the ``async`` full vector of 2,656,010, whose last 2
+   take the scalar tail, and the folded chunk of ``async_sharding``) and on
+   a slice at an offset of one element (the scalar path): p, m and v must
+   be bit-equal, and so must a repeat at n = 2,656,128.
 4. main    — the port's main path: ``SyncTrainer`` at full width (conv
    32/64/128/256, FC 1024/512), batch 100, one worker, ``num_ps=2``, layout
    ``flat``, ``fused_adam``, keep_prob 0.5, 2,000 synthetic images (20
@@ -25,6 +27,22 @@ Phases, each printing one JSON line:
    just after; losses, parameters and moments must be finite.
 5. fused_vs_plain — the same trainer from one init at keep_prob 1 for 2
    steps, fused and plain Adam: params, m and v agree to atol 1e-6.
+5a. async_main — the async parameter server's path: ``AsyncTrainer`` at
+   the same full width over the same NCCL world of one, ``async_sharding``
+   (``num_ps=2``, layout block, folded onto the rank: the serve's two
+   ``all_to_all_single`` calls are real NCCL calls), batch 100 a push,
+   keep_prob 0.5, 2,000 synthetic images (20 rounds), an eval of the PS and
+   of every worker's replica after rounds 0 and 10. The kernel's launch
+   count is set to 0 just before and must read 20 (W x rounds, one a push)
+   just after; t must read 20; losses, ps, m, v and the replica finite;
+   one per-worker accuracy for each PS eval; the replica equal to the PS
+   bit for bit (W = 1: the one worker pushed last).
+5b. async_equivalence — from one init at keep_prob 1, 4 rounds of
+   ``async`` (replicated serve, n = 2,656,010), ``async_sharding`` (block)
+   and ``async_sharding_greedy`` (zigzag), cuDNN in its deterministic
+   algorithms: the logical ps, m and v must be bit-equal across the three
+   (Adam is elementwise), and the ``async`` parameters must equal
+   ``SingleChipTrainer``'s over the same 4 batches within atol 1e-6.
 6. timing  — the kernel at n = 2,656,128 (the main path's flat vector)
    by its device time (``ddl_tpu_torch/tools/devtime.py``): ``ms`` cold
    (the median of 100 launches, each after a 256 MB write that flushes the
@@ -79,7 +97,8 @@ Phases, each printing one JSON line:
 
 If the profiler records no device time for a kernel or a call, the phase
 fails; nothing falls back to CUDA events. Then one ``{"kernels": [...]}``
-line (each kernel's cold ``ms``, ``hot_ms``, ``call_ms`` and ``timer``), the
+line (each kernel's cold ``ms``, ``hot_ms``, ``call_ms`` and ``timer``; the
+Adam row's ``launches`` from phase 4 and ``async_launches`` from 5a), the
 ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no ``ok`` line. It needs no network and one card.
@@ -100,6 +119,8 @@ FULL_N = 2_656_128
 KERNEL_SIZES = (5, 1024, 65_536, 65_553, FULL_N)
 ATOL_FUSED_VS_PLAIN = 1e-6
 MAIN_STEPS = 20
+ASYNC_ROUNDS = 20
+ASYNC_EQ_ROUNDS = 4
 
 
 def emit(phase: str, **fields) -> None:
@@ -150,13 +171,21 @@ def kernel_sizes(fused_adam) -> list[tuple[int, int]]:
     """(n, offset) of the kernel phase: the fixed sizes, the launch plan's
     boundaries on this card and the 4-worker flat shard, then the scalar
     path (an offset of one float)."""
+    from ddl_tpu_torch.models import cnn
+    from ddl_tpu_torch.strategies.async_ps import serve_layout_for
     from ddl_tpu_torch.strategies.sync import resolve_layout
     from ddl_tpu_torch.train.config import TrainConfig
 
     wave = fused_adam.full_wave_n(*fused_adam.occupancy(0, True))
     shard4 = resolve_layout(TrainConfig(batch_size=100, num_workers=4, num_ps=4,
                                         layout="flat"), 4).max_shard
-    sizes = list(KERNEL_SIZES) + [wave, wave + 4, shard4]
+    # The async serve at W = 1: the replicated serve pushes into the full
+    # (unpadded) vector; async_sharding into its folded chunk.
+    if serve_layout_for(TrainConfig(num_ps=1), 1) is not None:
+        raise AssertionError("async at W = 1 is not the replicated serve")
+    async_full = sum(cnn.param_sizes().values())
+    async_chunk = serve_layout_for(TrainConfig(num_ps=2, layout="block"), 1).max_shard
+    sizes = dict.fromkeys(list(KERNEL_SIZES) + [wave, wave + 4, shard4, async_full, async_chunk])
     return [(n, 0) for n in sizes] + [(65_553, 1)]
 
 
@@ -262,6 +291,107 @@ def fused_vs_plain(torch, world) -> float:
     if worst > ATOL_FUSED_VS_PLAIN or int(a.opt_state.step) != 2:
         raise AssertionError(f"fused != plain after 2 steps: {errs}")
     return worst
+
+
+def async_main(torch, world, fused_adam) -> dict:
+    from ddl_tpu_torch.data.mnist import load_mnist
+    from ddl_tpu_torch.parallel import collectives as coll
+    from ddl_tpu_torch.strategies.async_ps import AsyncTrainer
+    from ddl_tpu_torch.train.config import TrainConfig
+
+    cfg = TrainConfig(
+        batch_size=100, num_workers=1, num_ps=2, layout="block", keep_prob=0.5,
+        eval_every=10, seed=0,
+    )
+    ds = load_mnist(path=None, synthetic_train=ASYNC_ROUNDS * 100, synthetic_test=1000, seed=0)
+    trainer = AsyncTrainer(cfg, ds, world=world)
+    layout = trainer.serve_layout
+    if layout is None or layout.num_shards != 1 or layout.max_shard != FULL_N:
+        raise AssertionError(f"async_sharding at W = 1 is not one folded chunk of {FULL_N}")
+    fused_adam.launches = 0
+    result = trainer.train(log=lambda s: None)
+    launches = fused_adam.launches
+    if launches != ASYNC_ROUNDS:
+        raise AssertionError(f"fused-Adam kernel launched {launches} times in the async "
+                             f"serve, want {ASYNC_ROUNDS}")
+    st = trainer.state
+    if int(st.t) != ASYNC_ROUNDS:
+        raise AssertionError(f"async update counter {int(st.t)}, want {ASYNC_ROUNDS}")
+    finite = all(math.isfinite(x) for x in result.span_losses)
+    finite &= all(bool(torch.isfinite(t).all()) for t in (st.ps, st.m, st.v, st.workers))
+    if not finite:
+        raise AssertionError("non-finite loss, ps, moment or replica on the async path")
+    if (len(result.worker_history) != len(result.history) or len(result.history) != 2
+            or any(len(accs) != 1 for _, _, accs in result.worker_history)):
+        raise AssertionError(f"evals {result.history} / worker evals {result.worker_history}")
+    ps = trainer.logical(st.ps)
+    replica = coll.unflatten_params(st.replica(0), trainer.spec)
+    if not all(bool(torch.equal(ps[k], replica[k])) for k in ps):
+        raise AssertionError("the one worker's replica is not the PS after its last push")
+    stats = result.step_stats
+    out = dict(
+        variant="async_sharding", rounds=ASYNC_ROUNDS, launches=launches, t=int(st.t),
+        n=int(st.ps.numel()), images_per_sec=result.images_per_sec,
+        train_time_s=result.train_time_s, warmup_s=result.compile_time_s,
+        span_losses=result.span_losses, history=result.history,
+        worker_history=result.worker_history, final_accuracy=result.final_accuracy,
+        span_ms={"p50": stats.p50_ms, "p95": stats.p95_ms, "mean": stats.mean_ms,
+                 "spans": stats.steps},
+    )
+    emit("async_main", **out)
+    return out
+
+
+def async_equivalence(torch, world) -> dict:
+    import numpy as np
+
+    from ddl_tpu_torch.convert import params_to_numpy
+    from ddl_tpu_torch.data.mnist import load_mnist
+    from ddl_tpu_torch.models import cnn
+    from ddl_tpu_torch.strategies.async_ps import AsyncTrainer
+    from ddl_tpu_torch.train import SingleChipTrainer
+    from ddl_tpu_torch.train.config import TrainConfig
+
+    init = params_to_numpy(cnn.init_params(torch.Generator().manual_seed(3), "cpu"))
+    ds = load_mnist(path=None, synthetic_train=ASYNC_EQ_ROUNDS * 100, synthetic_test=100, seed=3)
+    quiet = lambda s: None  # noqa: E731
+    trainers = {}
+    # Bit-equality across serve placements needs a conv library that gives
+    # the same bits for the same inputs: cuDNN's deterministic algorithms.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for variant, num_ps, layout in (("async", 1, "block"), ("async_sharding", 2, "block"),
+                                        ("async_sharding_greedy", 2, "zigzag")):
+            cfg = TrainConfig(batch_size=100, num_workers=1, num_ps=num_ps, layout=layout,
+                              keep_prob=1.0, eval_every=0, seed=3)
+            t = AsyncTrainer(cfg, ds, world=world, init=init)
+            trainers[variant] = (t, t.train(log=quiet))
+        single = SingleChipTrainer(TrainConfig(batch_size=100, keep_prob=1.0, eval_every=0, seed=3),
+                                   ds, init=init, device=world.device).train(log=quiet)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    ref = trainers["async"][0]
+    want = {what: ref.logical(getattr(ref.state, what)) for what in ("ps", "m", "v")}
+    bit_equal = {}
+    for variant in ("async_sharding", "async_sharding_greedy"):
+        t = trainers[variant][0]
+        bit_equal[variant] = {what: all(bool(torch.equal(a, want[what][k]))
+                                        for k, a in t.logical(getattr(t.state, what)).items())
+                              for what in ("ps", "m", "v")}
+    counters = {v: int(t.state.t) for v, (t, _) in trainers.items()}
+    async_params = trainers["async"][1].params
+    vs_single = max(float(np.abs(async_params[k] - single.params[k]).max()) for k in single.params)
+    out = dict(rounds=ASYNC_EQ_ROUNDS, n={v: int(t.state.ps.numel()) for v, (t, _) in
+                                          trainers.items()},
+               bit_equal=bit_equal, t=counters, async_vs_single_max_abs=vs_single,
+               atol=ATOL_FUSED_VS_PLAIN)
+    emit("async_equivalence", **out)
+    if not all(all(d.values()) for d in bit_equal.values()):
+        raise AssertionError(f"the async serves differ: {bit_equal}")
+    if set(counters.values()) != {ASYNC_EQ_ROUNDS} or vs_single > ATOL_FUSED_VS_PLAIN:
+        raise AssertionError(f"async t {counters}, vs single-chip {vs_single}")
+    return out
 
 
 def timing(torch, fused_adam, devtime, flush, card: str) -> dict:
@@ -654,6 +784,8 @@ def main() -> int:
         try:
             main_out = main_path(torch, world, fused_adam)
             fused_vs_plain(torch, world)
+            async_out = async_main(torch, world, fused_adam)
+            async_equivalence(torch, world)
         finally:
             destroy_world()
 
@@ -673,6 +805,7 @@ def main() -> int:
         "source": "ddl_tpu_torch/csrc/fused_adam.cu",
         "replaces": "ddl_tpu/ops/pallas_adam.py:54",
         "launches": main_out["launches"],
+        "async_launches": async_out["launches"],
         "max_abs_err": max_err,
         "ms": tim["ms"],
         "hot_ms": tim["hot_ms"],

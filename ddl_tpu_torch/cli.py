@@ -1,8 +1,10 @@
 """Command-line launcher for the port — the subset of ``ddl_tpu/cli.py``
-the ported slices carry: the CNN variants and the decoder LM on one device.
+the ported slices carry: the seven CNN variants (single, sync and async,
+whole or sharded) and the decoder LM on one device.
 
     python -m ddl_tpu_torch single
     python -m ddl_tpu_torch sync_sharding --num-workers 1 --num-ps 2 --layout flat --fused-adam
+    python -m ddl_tpu_torch async_sharding --num-ps 2
     torchrun --nproc-per-node 4 -m ddl_tpu_torch sync --num-workers 4
     python -m ddl_tpu_torch lm --seq-scheme full --attn-impl flash
 
@@ -36,8 +38,8 @@ VARIANTS = (
 )
 # Flags of the CNN variants and of the lm variant: each is refused, set away
 # from its default, by the other (as ddl_tpu/cli.py's _reject_foreign_flags).
-_CNN_ONLY = ("num_ps", "layout", "keep_prob", "data", "synthetic_train", "synthetic_test",
-             "fused_adam", "tiny", "reference_compat")
+_CNN_ONLY = ("num_ps", "layout", "keep_prob", "staleness_seed", "data", "synthetic_train",
+             "synthetic_test", "fused_adam", "tiny", "reference_compat")
 _LM_ONLY = ("seq_scheme", "seq_len", "vocab", "d_model", "heads", "layers", "d_ff",
             "train_seqs", "test_seqs", "target_accuracy", "attn_impl", "remat")
 
@@ -60,13 +62,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "zigzag for *_greedy)")
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--batch-size", type=int, default=None,
-                   help="global batch size (default 100, rounded up to a "
-                        "multiple of --num-workers for sharded data)")
+                   help="sync: global batch size (default 100, rounded up to a "
+                        "multiple of --num-workers for sharded data); async: "
+                        "the batch of one push (default 100)")
     p.add_argument("--lr", type=float, default=None,
                    help="Adam learning rate (default 1e-4, the reference's)")
     p.add_argument("--keep-prob", type=float, default=0.5)
     p.add_argument("--eval-every", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--staleness-seed", type=int, default=0,
+                   help="async: seed of the arrival schedule (one permutation "
+                        "of the workers a round)")
     p.add_argument("--data", default="data/mnist.pkl",
                    help="mnist.pkl path; synthesized procedurally if absent")
     p.add_argument("--synthetic-train", type=int, default=50_000)
@@ -110,7 +116,7 @@ def build_parser() -> argparse.ArgumentParser:
     lm.add_argument("--remat", action="store_true",
                     help="recompute each transformer block in the backward pass")
     # The JAX CLI's parallelism flags (--tensor-parallel, --data-parallel,
-    # --pipeline-parallel, --zero1, ...) wait for ROADMAP queue 1, item 1.
+    # --pipeline-parallel, --zero1, ...) wait for ROADMAP queue 1, item 3.
     return p
 
 
@@ -168,6 +174,7 @@ def config_from_args(args, num_workers: int):
         layout=layout,
         grad_reduction="sum" if args.reference_compat else "mean",
         shard_data=shard_data,
+        staleness_seed=args.staleness_seed,
         fused_adam=args.fused_adam,
         conv_channels=TINY_CONV_CHANNELS if args.tiny else (32, 64, 128, 256),
         fc_sizes=TINY_FC_SIZES if args.tiny else (1024, 512),
@@ -199,7 +206,7 @@ def lm_config_from_args(args):
     _reject_foreign_flags(args, "lm", _CNN_ONLY)
     if args.seq_scheme != "full":
         raise SystemExit(
-            f"--seq-scheme {args.seq_scheme} is not ported yet (ROADMAP queue 1, item 1): "
+            f"--seq-scheme {args.seq_scheme} is not ported yet (ROADMAP queue 1, item 3): "
             "pass --seq-scheme full, which trains on one device"
         )
     return SeqConfig(
@@ -258,11 +265,6 @@ def _run_lm(args, device) -> int:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.variant.startswith("async"):
-        raise SystemExit(
-            f"{args.variant}: the async parameter server is not ported yet "
-            "(ROADMAP queue 1, async parameter server)"
-        )
     import torch
 
     from .data.mnist import load_mnist
@@ -291,13 +293,16 @@ def main(argv: list[str] | None = None) -> int:
 
         result = SingleChipTrainer(cfg, dataset, device=device).train()
     else:
-        from .strategies.sync import SyncTrainer
+        if args.variant.startswith("async"):
+            from .strategies.async_ps import AsyncTrainer as Trainer
+        else:
+            from .strategies.sync import SyncTrainer as Trainer
 
         with tempfile.TemporaryDirectory() as store_dir:
             world = _join_world(num_workers, args.device, store_dir)
             try:
                 rank = world.rank
-                result = SyncTrainer(cfg, dataset, world=world).train()
+                result = Trainer(cfg, dataset, world=world).train()
             finally:
                 destroy_world()
     if rank != 0:
@@ -314,6 +319,12 @@ def main(argv: list[str] | None = None) -> int:
             "config": dataclasses.asdict(cfg),
             "final_accuracy": result.final_accuracy,
             "history": [[e, b, round(a, 6)] for e, b, a in result.history],
+            # Async only: each worker's stale-replica accuracy per eval
+            # point; null for sync and single.
+            "worker_history": (
+                [[e, b, [round(a, 6) for a in accs]] for e, b, accs in result.worker_history]
+                if result.worker_history is not None else None
+            ),
             "train_time_s": result.train_time_s,
             "images_per_sec": result.images_per_sec,
             "compile_time_s": result.compile_time_s,

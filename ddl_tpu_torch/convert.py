@@ -100,3 +100,46 @@ def adam_state_from_numpy(step, m, v, spec: LMSpec, device: str | torch.device) 
         m=lm_params_from_numpy(m, spec, device),
         v=lm_params_from_numpy(v, spec, device),
     )
+
+
+def async_state_from_numpy(state, rank: int, world_size: int, *, sharded: bool,
+                           device: str | torch.device):
+    """The JAX package's global ``AsyncState`` (as numpy: ``ps``, ``m``,
+    ``v``, ``workers`` ``[W, total]`` and ``t``) -> rank ``rank``'s
+    ``strategies.async_ps.AsyncState``. Sharded: the rank's ``[chunk]`` of
+    the owner-major ``[W * chunk]`` ps/m/v and its replica row ``workers[r]``
+    as ``[1, total]``; replicated: everything."""
+    from .strategies.async_ps import AsyncState
+
+    ps, m, v, workers = (np.asarray(getattr(state, k), np.float32)
+                         for k in ("ps", "m", "v", "workers"))
+    if ps.ndim != 1 or m.shape != ps.shape or v.shape != ps.shape or workers.ndim != 2:
+        raise ValueError(f"want flat ps/m/v and [W, total] workers, got {ps.shape}, "
+                         f"{m.shape}, {v.shape}, {workers.shape}")
+    if workers.shape[0] != world_size:
+        raise ValueError(f"workers has {workers.shape[0]} rows for a world of {world_size}")
+    if sharded:
+        if ps.shape[0] % world_size:
+            raise ValueError(f"ps of {ps.shape[0]} does not split into {world_size} chunks")
+        chunk = ps.shape[0] // world_size
+        mine = slice(rank * chunk, (rank + 1) * chunk)
+        ps, m, v, workers = ps[mine], m[mine], v[mine], workers[rank : rank + 1]
+    put = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    return AsyncState(ps=put(ps), m=put(m), v=put(v), workers=put(workers),
+                      t=torch.tensor(int(np.asarray(state.t)), dtype=torch.int32, device=device))
+
+
+def async_state_to_numpy(rank_states, *, sharded: bool) -> dict[str, np.ndarray]:
+    """Inverse of :func:`async_state_from_numpy` over every rank's state (in
+    rank order): the JAX package's global form as a dict of numpy arrays
+    (``ps``, ``m``, ``v``, ``workers`` ``[W, total]``, ``t``). Sharded: the
+    chunks and replica rows concatenated; replicated: rank 0's state, which
+    every rank holds."""
+    np_of = lambda t: t.detach().cpu().numpy().copy()  # noqa: E731
+    if not sharded:
+        s = rank_states[0]
+        return {"ps": np_of(s.ps), "m": np_of(s.m), "v": np_of(s.v),
+                "workers": np_of(s.workers), "t": np.asarray(int(s.t), np.int32)}
+    cat = lambda k: np.concatenate([np_of(getattr(s, k)) for s in rank_states])  # noqa: E731
+    return {"ps": cat("ps"), "m": cat("m"), "v": cat("v"), "workers": cat("workers"),
+            "t": np.asarray(int(rank_states[0].t), np.int32)}

@@ -16,6 +16,10 @@ Two sharded-update paths, selected by the layout policy:
   overlap) and reduce-scatter the rows; update locally; all-gather, then
   reassemble with :func:`reassembly_index`.
 
+The async serve adds two transports: :func:`all_gather_rows` (every rank's
+full gradient, the replicated serve) and :func:`all_to_all_rows` (gradient
+slices to their owners and replica pieces back, the sharded serve).
+
 ``tp_allreduce`` and ``tp_promote`` (the tensor-parallel pair) are not
 ported yet: they belong to the LM slice.
 """
@@ -176,6 +180,22 @@ def all_gather_flat(shard: torch.Tensor, world: World) -> torch.Tensor:
     ``[W * chunk]``."""
     out = torch.empty(world.size * shard.shape[0], dtype=shard.dtype, device=shard.device)
     dist.all_gather_into_tensor(out, shard.contiguous())
+    return out
+
+
+def all_gather_rows(row: torch.Tensor, world: World) -> torch.Tensor:
+    """Every rank's ``[n]`` row stacked in rank order: ``[W, n]``
+    (``lax.all_gather(row, tiled=False)``)."""
+    return all_gather_flat(row, world).view(world.size, -1)
+
+
+def all_to_all_rows(rows: torch.Tensor, world: World) -> torch.Tensor:
+    """Row ``s`` of ``rows`` ``[W, chunk]`` goes to rank ``s``; row ``r`` of
+    the result is what rank ``r`` sent here (``lax.all_to_all(split_axis=0,
+    concat_axis=0, tiled=True)``). The async serve's scatter of gradient
+    slices to their owners and its return of refreshed replica pieces."""
+    out = torch.empty_like(rows)
+    dist.all_to_all_single(out, rows.contiguous())
     return out
 
 

@@ -2,7 +2,7 @@
 one-card LM path needs (``attn_impl="xla"``).
 
 The JAX module also holds ring attention over ``ppermute`` and Ulysses over
-``all_to_all``; those schemes are not ported yet (ROADMAP queue 1, item 1).
+``all_to_all``; those schemes are not ported yet (ROADMAP queue 1, item 3).
 XLA computed this function outside any Pallas kernel, so here it is torch
 ops (cuBLAS batched matmuls), as the JAX package left it to XLA.
 """

@@ -43,7 +43,7 @@ from ..utils.metrics import StepStats, StepTimer, barrier
 Scheme = Literal["ring", "ulysses", "full"]
 
 # What is left of the LM trainer, in ROADMAP.md.
-ROADMAP_LM = "ROADMAP queue 1, item 1 (LM training beyond one card)"
+ROADMAP_LM = "ROADMAP queue 1, item 3 (LM training beyond one card)"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,6 @@
 """Where a train step's time goes on the card, for the port's main paths.
 
-    python -m ddl_tpu_torch.tools.step_anatomy [--variant cnn|lm] [--batch-size N] [--steps N] [--out FILE]
+    python -m ddl_tpu_torch.tools.step_anatomy [--variant cnn|lm|async] [--batch-size N] [--steps N] [--out FILE]
 
 ``--variant cnn`` (the default) runs the ZeRO-1 sync step
 (``make_sharded_step``: one worker, ``num_ps=2``, layout ``flat``) at full
@@ -8,16 +8,25 @@ width over an NCCL world of one, batch 100 by default. ``--variant lm``
 runs the decoder-LM train step (``strategies/seq.py::_step_body``, scheme
 full) at the widest LM width the repo defines (benchmarks/lm_bench.py:
 vocab 256, d_model 512, 8 heads, 4 layers, d_ff 2048), T = 2048, batch 4 by
-default, fp32. Each reports, as one JSON line:
+default, fp32. ``--variant async`` runs the async parameter server's round
+(``strategies/async_ps.py::make_async_round``, one worker, batch 100 a push
+by default) at the CNN's full width over the same world: ``async_sharding``
+(``num_ps=2``, block, folded onto the rank) and ``async`` (the replicated
+serve), beside the ZeRO-1 sync step with fused Adam, in spans of up to 10
+rounds (the trainer's eval cadence; each span ends with the PS all-gather).
+Each reports, as one JSON line:
 
 - ``steady``: host-clock ms per step over ``--steps`` steps after a
   warm-up, closed by ``torch.cuda.synchronize``, for the two versions in
   turns (plain, kernel, kernel, plain): plain and fused Adam for the CNN,
-  ``attn_impl`` xla and flash for the LM; and images/s or tokens/s (the
-  LM also gives each impl's peak allocated memory over its own runs);
+  ``attn_impl`` xla and flash for the LM, sync and the two async serves
+  (sync, async_sharding, async, async, async_sharding, sync) for async; and
+  images/s or tokens/s (the LM also gives each impl's peak allocated
+  memory over its own runs);
 - ``anatomy``: a ``torch.profiler`` trace of a few steps of the kernel
-  version: device time per step by kernel family (CNN: conv, matmul, pool,
-  fused Adam, NCCL, other; LM: the flash kernels, cuBLAS matmuls,
+  version (async: of each serve): device time per step by kernel family
+  (CNN and async: conv, matmul, pool, fused Adam, NCCL, other; LM: the
+  flash kernels, cuBLAS matmuls,
   elementwise, other), the device's busy and idle share of the wall time,
   and the ten costliest kernels. Where the profiler records no device
   time, the breakdown reads "not measured".
@@ -166,6 +175,68 @@ def cnn_variant(args, emit) -> None:
             destroy_world()
 
 
+def async_variant(args, emit) -> None:
+    from ..strategies import async_ps
+
+    dev = default_device("cuda")
+    bs = args.batch_size or 100
+    span = 10  # rounds a span: the trainer's eval cadence
+    ds = load_mnist(None, synthetic_train=span * bs, synthetic_test=10, seed=0)
+    xs = torch.as_tensor(ds.x_train.reshape(span, bs, 784)).to(dev)
+    ys = torch.as_tensor(one_hot(ds.y_train).reshape(span, bs, 10)).to(dev)
+    init = params_to_numpy(cnn.init_params(torch.Generator().manual_seed(0), "cpu"))
+    with tempfile.TemporaryDirectory() as store:
+        world = init_world(1, 0, f"file://{os.path.join(store, 'store')}", "cuda")
+        try:
+            params = {k: torch.tensor(v, device=dev) for k, v in init.items()}
+            cfg = TrainConfig(batch_size=bs, num_workers=1, num_ps=2, layout="flat",
+                              fused_adam=True, keep_prob=0.5)
+            layout = resolve_layout(cfg, 1)
+            sync = {"step": make_sharded_step(cfg, world, layout), "params": params,
+                    "opt": sharded_adam_init(world, layout)}
+            serves = {}
+            for name, num_ps in (("async_sharding", 2), ("async", 1)):
+                acfg = TrainConfig(batch_size=bs, num_workers=1, num_ps=num_ps, layout="block",
+                                   keep_prob=0.5)
+                lay = async_ps.serve_layout_for(acfg, 1)
+                serves[name] = {"run": async_ps.make_async_round(acfg, world, lay),
+                                "state": async_ps.async_state_init(acfg, world, lay, params)}
+            sched = async_ps.async_schedule(0, 1, span)
+            done = {"sync": 0, "async_sharding": 0, "async": 0}
+
+            def run(version, n):
+                for lo in range(0, n, span):
+                    k = min(span, n - lo)
+                    if version == "sync":
+                        sync["params"], sync["opt"] = _run(sync["step"], sync["params"],
+                                                           sync["opt"], xs, ys, k, done["sync"])
+                    else:
+                        sv = serves[version]
+                        sv["state"], _, _ = sv["run"](sv["state"], xs[:k], ys[:k], sched[:k],
+                                                      done[version])
+                    done[version] += k
+
+            order = ("sync", "async_sharding", "async", "async", "async_sharding", "sync")
+            for version in ("sync", "async_sharding", "async"):
+                run(version, 5)  # warm-up
+            torch.cuda.synchronize()
+            ms = steady_ms(run, order, args.steps)
+            emit({"phase": "steady", "variant": "async", "batch_size": bs, "steps": args.steps,
+                  "span_rounds": span, "order": list(order),
+                  **{f"{v}_ms_per_step": ms[v] for v in ("sync", "async_sharding", "async")},
+                  **{f"{v}_images_per_sec": [bs / (t * 1e-3) for t in ms[v]]
+                     for v in ("sync", "async_sharding", "async")}})
+            for name in ("async_sharding", "async"):
+                st = serves[name]["state"]
+                emit({"phase": "anatomy", "variant": name, "batch_size": bs,
+                      "n": int(st.ps.numel()),
+                      **anatomy(lambda n: run(name, n), span, CNN_FAMILIES)})
+                if not all(bool(torch.isfinite(t).all()) for t in (st.ps, st.m, st.v)):
+                    raise AssertionError(f"non-finite {name} serve state")
+        finally:
+            destroy_world()
+
+
 def lm_variant(args, emit) -> None:
     from ..data.lm import synthesize_copy
     from ..models.transformer import init_lm_params
@@ -217,7 +288,7 @@ def lm_variant(args, emit) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="ddl_tpu_torch.tools.step_anatomy")
-    ap.add_argument("--variant", default="cnn", choices=["cnn", "lm"])
+    ap.add_argument("--variant", default="cnn", choices=["cnn", "lm", "async"])
     ap.add_argument("--batch-size", type=int, default=None,
                     help="images (cnn, default 100) or sequences (lm, default 4)")
     ap.add_argument("--steps", type=int, default=20)
@@ -233,7 +304,7 @@ def main(argv=None) -> int:
         lines.append(json.dumps(rec))
         print(lines[-1], flush=True)
 
-    (lm_variant if args.variant == "lm" else cnn_variant)(args, emit)
+    {"cnn": cnn_variant, "lm": lm_variant, "async": async_variant}[args.variant](args, emit)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -37,10 +37,10 @@ class TrainConfig:
     grad_reduction: Literal["mean", "sum"] = "mean"
     shard_data: bool = True
 
-    # Async only (not ported yet: ROADMAP queue 1, async parameter server).
+    # Async: the seed of the arrival schedule (strategies/async_ps.py).
     staleness_seed: int = 0
 
-    # Precision: only fp32 is ported (bf16 is ROADMAP queue 1, precision).
+    # Precision: only fp32 is ported (bf16 is ROADMAP queue 1, item 4).
     compute_dtype: str | None = None
     precision: str | None = None
 
@@ -49,7 +49,7 @@ class TrainConfig:
     fused_adam: bool = False
 
     # Patches-matmul conv lowering: only "none" is ported (ROADMAP queue 1,
-    # the CNN model's conv_matmul modes).
+    # item 6: the CNN's conv_matmul modes).
     conv1_matmul: bool = False
     conv_matmul: Literal["none", "first", "tail", "first+tail", "all"] = "none"
 
@@ -69,7 +69,7 @@ class TrainConfig:
         if self.conv1_matmul or self.conv_matmul != "none":
             raise NotImplementedError(
                 "conv_matmul modes other than 'none' are not ported yet "
-                "(ROADMAP queue 1, item 2: the CNN model)"
+                "(ROADMAP queue 1, item 6: the CNN's conv_matmul modes)"
             )
         if self.grad_reduction not in ("mean", "sum"):
             raise ValueError(f"grad_reduction must be mean or sum, got {self.grad_reduction!r}")

@@ -10,7 +10,8 @@ the step timer measures.
 
 The dropout stream is a pure function of ``(seed, global step, worker)``
 (``cnn.dropout_generator``), so span chunking never changes the masks.
-Checkpoint, guard, health, goodput and profile hooks are not ported yet.
+Checkpoint, guard, health, goodput and profile hooks are not ported yet
+(ROADMAP queue 1, items 5 and 7).
 """
 
 from __future__ import annotations
@@ -47,6 +48,9 @@ class TrainResult:
     compile_time_s: float = 0.0  # warm-up before the clock (no compiler here)
     step_stats: StepStats | None = None  # per-span time percentiles
     span_losses: list[float] = dataclasses.field(default_factory=list)  # mean loss per span
+    # Async only: (epoch, round, [accuracy of each worker's stale replica])
+    # per eval point. None for the sync and single trainers.
+    worker_history: list[tuple[int, int, list[float]]] | None = None
 
 
 def value_and_grad(
@@ -142,12 +146,11 @@ def eval_chunks(x, y, batch: int):
 
 
 @torch.no_grad()
-def evaluate(
+def correct_total(
     params: dict, x_test: torch.Tensor, y_test_onehot: torch.Tensor, batch: int = 2000
-) -> float:
-    """Full-test-set accuracy in chunks of ``batch`` (bounds activation
-    memory); the correct counts add up on the device and reach the host
-    in ONE fetch."""
+) -> torch.Tensor:
+    """Top-1 hits on the test set in chunks of ``batch`` (bounds activation
+    memory), summed on the device: an int64 scalar tensor."""
     whole, tail = eval_chunks(x_test, y_test_onehot, batch)
     correct = torch.zeros((), dtype=torch.int64, device=x_test.device)
     if whole is not None:
@@ -155,7 +158,14 @@ def evaluate(
             correct += cnn.correct_count(params, x, y)
     if tail is not None:
         correct += cnn.correct_count(params, *tail)
-    return int(correct) / x_test.shape[0]
+    return correct
+
+
+def evaluate(
+    params: dict, x_test: torch.Tensor, y_test_onehot: torch.Tensor, batch: int = 2000
+) -> float:
+    """Full-test-set accuracy; the count reaches the host in ONE fetch."""
+    return int(correct_total(params, x_test, y_test_onehot, batch)) / x_test.shape[0]
 
 
 def hit_target(config: TrainConfig, accuracy: float) -> bool:

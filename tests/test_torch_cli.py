@@ -1,6 +1,7 @@
 """The port's CLI subset (ddl_tpu_torch/cli.py): the flag-to-config mapping
 of the JAX CLI, its --fused-adam validation, loud refusal of what is not
-ported, and tiny end-to-end runs on the CPU (sync_sharding and lm)."""
+ported, and tiny end-to-end runs on the CPU (sync_sharding, the three async
+variants and lm)."""
 
 import dataclasses
 import json
@@ -24,6 +25,10 @@ def _configs(argv, num_workers):
     (["sync", "--reference-compat", "--batch-size", "50", "--lr", "3e-4"], 4),
     (["single", "--keep-prob", "0.7", "--eval-every", "5", "--epochs", "2"], 1),
     (["sync_sharding", "--batch-size", "96"], 3),
+    (["async", "--keep-prob", "0.7"], 1),
+    (["async_sharding", "--num-ps", "3", "--staleness-seed", "5"], 3),
+    (["async_sharding_greedy", "--tiny", "--batch-size", "50"], 4),
+    (["async", "--reference-compat", "--epochs", "2"], 2),
 ])
 def test_flags_map_to_the_same_config(argv, workers):
     got, want = _configs(argv, workers)
@@ -34,6 +39,7 @@ def test_flags_map_to_the_same_config(argv, workers):
     ["sync", "--fused-adam"],
     ["single", "--fused-adam"],
     ["sync_sharding", "--num-ps", "1", "--fused-adam"],
+    ["async", "--fused-adam"],
 ])
 def test_fused_adam_validation(argv):
     args = cli.build_parser().parse_args(argv)
@@ -47,9 +53,31 @@ def test_batch_must_divide_over_workers():
         cli.config_from_args(args, 3)
 
 
-def test_async_variants_are_refused():
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["async", "--device", "cpu"])
+@pytest.mark.parametrize("variant,num_ps,layout", [
+    ("async", 1, "block"),
+    ("async_sharding", 2, "block"),
+    ("async_sharding_greedy", 2, "zigzag"),
+])
+def test_async_variants_end_to_end_on_cpu(variant, num_ps, layout, capsys, monkeypatch,
+                                          tmp_path):
+    """Each async variant trains on the CPU at W = 1 and prints its
+    per-worker history beside the PS history."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    rc = cli.main([
+        variant, "--device", "cpu", "--tiny", "--synthetic-train", "256",
+        "--synthetic-test", "64", "--batch-size", "32", "--eval-every", "4",
+        "--data", str(tmp_path / "absent.pkl"), "--json",
+    ])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["variant"] == variant and out["device"] == "cpu"
+    assert (out["config"]["num_ps"], out["config"]["layout"]) == (num_ps, layout)
+    assert out["config"]["batch_size"] == 32 and not out["config"]["fused_adam"]
+    assert [r for _, r, _ in out["history"]] == [0, 4]  # 8 rounds, chunks of 4
+    assert [(e, r) for e, r, _ in out["worker_history"]] == [(e, r) for e, r, _ in out["history"]]
+    assert all(len(accs) == 1 and 0.0 <= accs[0] <= 1.0 for _, _, accs in out["worker_history"])
+    assert 0.0 <= out["final_accuracy"] <= 1.0 and out["images_per_sec"] > 0
+    assert out["step_stats"]["steps"] == 2
 
 
 def test_multiworker_needs_torchrun(monkeypatch):
@@ -74,6 +102,7 @@ def test_sync_sharding_end_to_end_on_cpu(capsys, monkeypatch, tmp_path):
     assert [b for _, b, _ in out["history"]] == [0, 2]
     assert 0.0 <= out["final_accuracy"] <= 1.0
     assert out["step_stats"]["steps"] == 2  # spans [0], [1, 2]
+    assert out["worker_history"] is None
 
 
 LM_SMOKE = ["lm", "--device", "cpu", "--seq-scheme", "full", "--attn-impl", "flash",

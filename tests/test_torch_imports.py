@@ -93,6 +93,9 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["lm", "--seq-scheme", "full", "--seq-len", "32", "--vocab", "16",
                   "--train-seqs", "8", "--test-seqs", "4", "--batch-size", "4"])
+    for variant in ("async", "async_sharding", "async_sharding_greedy"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main([variant, "--tiny", "--synthetic-train", "8", "--synthetic-test", "8"])
 
 
 def test_cpu_fused_adam_never_builds_the_kernel(monkeypatch):

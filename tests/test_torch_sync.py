@@ -1,5 +1,7 @@
-"""The port's trainers (ddl_tpu_torch/train, ddl_tpu_torch/strategies/sync.py)
-against the JAX package's on the same converted init and the same data, at
+"""The port's trainers (ddl_tpu_torch/train, ddl_tpu_torch/strategies/sync.py,
+and at W = 2 strategies/async_ps.py's round program, in the same spawned
+world) against the JAX package's on the same converted init and the same
+data, at
 ``keep_prob=1`` (jax.random and torch dropout masks cannot match) and the
 tiny model (tests/conftest.py SMALL_SPECS).
 
@@ -25,13 +27,22 @@ from ddl_tpu.parallel.mesh import DP_AXIS, make_mesh
 from ddl_tpu.strategies import sync as jsync
 from ddl_tpu.train import SingleChipTrainer as JSingle, TrainConfig as JConfig
 from ddl_tpu.train.trainer import make_epoch_chunk as j_chunk
-from ddl_tpu_torch.convert import sharded_adam_from_numpy
+from ddl_tpu.strategies import async_ps as jasync
+from ddl_tpu.strategies.async_ps import async_schedule as j_async_schedule
+from ddl_tpu_torch.convert import (
+    async_state_from_numpy,
+    async_state_to_numpy,
+    sharded_adam_from_numpy,
+)
 from ddl_tpu_torch.data.mnist import load_mnist
 from ddl_tpu_torch.models import cnn as tcnn
 from ddl_tpu_torch.ops import fused_adam
+from ddl_tpu_torch.parallel import collectives as tcoll
 from ddl_tpu_torch.parallel.mesh import destroy_world, init_world
+from ddl_tpu_torch.strategies.async_ps import AsyncState, _flat_spec as t_flat_spec
 from ddl_tpu_torch.strategies.sync import SyncTrainer
 from ddl_tpu_torch.train import SingleChipTrainer, TrainConfig
+from ddl_tpu_torch.train.trainer import correct_total
 
 import _torch_world
 
@@ -118,47 +129,59 @@ def test_sync_trainer_zero1_flat_matches_jax(fused, init_np, world1):
     assert [round(a, 6) for *_, a in tres.history] == [round(a, 6) for *_, a in jres.history]
 
 
-def test_two_rank_gloo_world_matches_jax_sync_steps(init_np, small_dataset, tmp_path):
-    """One spawned 2-rank gloo world runs two steps of ZeRO-1 for layouts
-    zigzag and flat (num_ps=2) and of unsharded DP; each rank's params,
-    m/v (its shard, for ZeRO-1) and losses match JAX's make_sharded_step
-    / make_dp_step on make_mesh(2)."""
-    layouts, steps, bs = ("zigzag", "flat", "dp"), 2, 32
+ASYNC_BS = 16
+
+
+@pytest.fixture(scope="module")
+def two_rank_world(init_np, small_dataset, tmp_path_factory):
+    """ONE spawned 2-rank gloo world for every W = 2 case: the children run
+    each sync case of ``_torch_world.SYNC_CASES`` for two steps, then each
+    async case of ``ASYNC_CASES`` for two rounds; the JAX side runs the same
+    configs on make_mesh(2) meanwhile. Returns (rank results, JAX sync
+    results, JAX async results)."""
+    tmp_path = tmp_path_factory.mktemp("world")
+    steps, bs = 2, 32
     x = np.asarray(small_dataset.x_train[:bs])
     y = np.eye(10, dtype=np.float32)[np.asarray(small_dataset.y_train[:bs])]
+    R, W = _torch_world.ASYNC_ROUNDS, 2
+    n = R * ASYNC_BS * W
+    ax = np.asarray(small_dataset.x_train[:n]).reshape(W, R, ASYNC_BS, -1).transpose(1, 0, 2, 3)
+    ay = np.eye(10, dtype=np.float32)[np.asarray(small_dataset.y_train[:n])]
+    ay = ay.reshape(W, R, ASYNC_BS, -1).transpose(1, 0, 2, 3)
+    x_test = np.asarray(small_dataset.x_test[:64])
+    y_test = np.eye(10, dtype=np.float32)[np.asarray(small_dataset.y_test[:64])]
     inputs = tmp_path / "inputs.npz"
-    np.savez(inputs, x=x, y=y, **init_np)
+    np.savez(inputs, x=x, y=y, ax=np.ascontiguousarray(ax), ay=np.ascontiguousarray(ay),
+             x_test=x_test, y_test=y_test, **init_np)
 
     ctx = multiprocessing.get_context("spawn")
     procs = [
-        ctx.Process(target=_torch_world.sharded_steps, args=(
-            r, 2, f"file://{tmp_path / 'store'}", str(inputs),
-            str(tmp_path / f"rank{r}.npz"), layouts, steps))
-        for r in range(2)
+        ctx.Process(target=_torch_world.world_cases, args=(
+            r, W, f"file://{tmp_path / 'store'}", str(inputs),
+            str(tmp_path / f"rank{r}.npz"), steps))
+        for r in range(W)
     ]
     for pr in procs:
         pr.start()
 
     # The JAX side, while the children run.
-    mesh = make_mesh(2)
+    mesh = make_mesh(W)
     shapes = {k: v.shape for k, v in init_np.items()}
     sizes = {k: int(np.prod(s)) for k, s in shapes.items()}
     data_sh = NamedSharding(mesh, P(DP_AXIS))
     xj, yj = jax.device_put(jnp.asarray(x), data_sh), jax.device_put(jnp.asarray(y), data_sh)
     want = {}
     replicated = NamedSharding(mesh, P())
-    for layout in layouts:
+    for name, (num_ps, layout, reduction) in _torch_world.SYNC_CASES.items():
         p = jax.device_put({k: jnp.asarray(v) for k, v in init_np.items()}, replicated)
-        if layout == "dp":
-            cfg = JConfig(num_workers=2, num_ps=1, batch_size=bs, keep_prob=1.0,
-                          learning_rate=LR, **TINY)
+        cfg = JConfig(num_workers=W, num_ps=num_ps, layout=layout, grad_reduction=reduction,
+                      batch_size=bs, keep_prob=1.0, learning_rate=LR, **TINY)
+        if num_ps == 1:
             step = jsync.make_dp_step(cfg, mesh)
             o = jax.device_put(j_adam_init(p), replicated)
             ms = None
         else:
-            cfg = JConfig(num_workers=2, num_ps=2, layout=layout, batch_size=bs,
-                          keep_prob=1.0, learning_rate=LR, **TINY)
-            lay = jsync.resolve_layout(cfg, 2, sizes)
+            lay = jsync.resolve_layout(cfg, W, sizes)
             step = jsync.make_sharded_step(cfg, mesh, lay, shapes)
             o = jsync.sharded_adam_init(mesh, lay)
             ms = lay.max_shard
@@ -166,27 +189,130 @@ def test_two_rank_gloo_world_matches_jax_sync_steps(init_np, small_dataset, tmp_
         for i in range(steps):
             p, o, loss = step(p, o, xj, yj, jax.random.PRNGKey(i))
             losses.append(float(loss))
-        want[layout] = (ms, {k: np.asarray(v) for k, v in p.items()},
-                        jax.tree.map(np.asarray, o.m), jax.tree.map(np.asarray, o.v), losses)
+        want[name] = (ms, {k: np.asarray(v) for k, v in p.items()},
+                      jax.tree.map(np.asarray, o.m), jax.tree.map(np.asarray, o.v), losses)
+
+    want_async = {}
+    scheds = jnp.asarray(j_async_schedule(_torch_world.ASYNC_SCHEDULE_SEED, W, R))
+    rngs = jnp.zeros((1, 2), jnp.uint32)
+    for name, (num_ps, layout) in _torch_world.ASYNC_CASES.items():
+        cfg = JConfig(num_workers=W, num_ps=num_ps, layout=layout, batch_size=ASYNC_BS,
+                      keep_prob=1.0, learning_rate=LR, **TINY)
+        lay = None if name == "replicated" else jsync.resolve_layout(cfg, W, sizes)
+        st = jasync.async_state_init(cfg, mesh, lay, {k: jnp.asarray(v) for k, v in init_np.items()})
+        run = jasync.make_async_round(cfg, mesh, lay, shapes)
+        losses = []
+        for r in range(R):
+            st, ps_full, loss = run(st, jnp.asarray(ax[r : r + 1]), jnp.asarray(ay[r : r + 1]),
+                                    rngs, scheds[r : r + 1])
+            losses.append(float(loss))
+        want_async[name] = (jax.tree.map(np.asarray, st), np.asarray(ps_full), losses)
 
     for pr in procs:
         pr.join(timeout=180)
         assert not pr.is_alive() and pr.exitcode == 0, f"rank exit code {pr.exitcode}"
-    for r in range(2):
-        got = np.load(tmp_path / f"rank{r}.npz")
-        for layout in layouts:
-            ms, params, m, v, losses = want[layout]
+    got = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(W)]
+    return got, want, want_async, (x_test, y_test)
+
+
+def test_two_rank_gloo_world_matches_jax_sync_steps(init_np, two_rank_world):
+    """Two steps of ZeRO-1 for layouts zigzag, flat, block and lpt
+    (num_ps=2), a block layout of num_ps=3 folded onto the two ranks, flat
+    with grad_reduction="sum", and unsharded DP, in the spawned 2-rank
+    world; each rank's params, m/v (its shard, for ZeRO-1) and losses match
+    JAX's make_sharded_step / make_dp_step on make_mesh(2)."""
+    got, want, _, _ = two_rank_world
+    for r, rank in enumerate(got):
+        for name in _torch_world.SYNC_CASES:
+            ms, params, m, v, losses = want[name]
             for k in init_np:
-                np.testing.assert_allclose(got[f"{layout}/{k}"], params[k], atol=STEP_ATOL,
-                                           err_msg=f"rank {r} {layout} {k}")
+                np.testing.assert_allclose(rank[f"{name}/{k}"], params[k], atol=STEP_ATOL,
+                                           err_msg=f"rank {r} {name} {k}")
             if ms is None:  # DP: replicated per-variable moments
                 for k in init_np:
-                    np.testing.assert_allclose(got[f"{layout}/m/{k}"], m[k], atol=STEP_ATOL)
-                    np.testing.assert_allclose(got[f"{layout}/v/{k}"], v[k], atol=STEP_ATOL)
+                    np.testing.assert_allclose(rank[f"{name}/m/{k}"], m[k], atol=STEP_ATOL)
+                    np.testing.assert_allclose(rank[f"{name}/v/{k}"], v[k], atol=STEP_ATOL)
             else:
-                np.testing.assert_allclose(got[f"{layout}/m"], m[r * ms:(r + 1) * ms],
-                                           atol=STEP_ATOL)
-                np.testing.assert_allclose(got[f"{layout}/v"], v[r * ms:(r + 1) * ms],
-                                           atol=STEP_ATOL)
-            np.testing.assert_allclose(got[f"{layout}/loss"], losses, rtol=LOSS_RTOL)
-            assert int(got[f"{layout}/step"]) == steps
+                np.testing.assert_allclose(rank[f"{name}/m"], m[r * ms:(r + 1) * ms],
+                                           atol=STEP_ATOL, err_msg=f"rank {r} {name}")
+                np.testing.assert_allclose(rank[f"{name}/v"], v[r * ms:(r + 1) * ms],
+                                           atol=STEP_ATOL, err_msg=f"rank {r} {name}")
+            np.testing.assert_allclose(rank[f"{name}/loss"], losses, rtol=LOSS_RTOL)
+            assert int(rank[f"{name}/step"]) == 2
+
+
+@pytest.mark.parametrize("name", list(_torch_world.ASYNC_CASES))
+def test_two_rank_gloo_world_matches_jax_async_rounds(name, two_rank_world):
+    """Two rounds of make_async_round at W = 2 (the replicated serve, zigzag
+    at num_ps=2, block at num_ps=14 folded): each rank's ps/m/v and replica
+    rows match JAX's state converted to that rank (convert.
+    async_state_from_numpy), the logical ps matches JAX's, the losses match
+    and t counts 2 * W pushes."""
+    got, _, want_async, _ = two_rank_world
+    jstate, jps_full, jlosses = want_async[name]
+    sharded = name != "replicated"
+    for r, rank in enumerate(got):
+        want = async_state_from_numpy(jstate, r, 2, sharded=sharded, device="cpu")
+        for k in ("ps", "m", "v", "workers"):
+            np.testing.assert_allclose(rank[f"async/{name}/state/{k}"], getattr(want, k).numpy(),
+                                       atol=STEP_ATOL, rtol=0, err_msg=f"rank {r} {name} {k}")
+        assert int(rank[f"async/{name}/state/t"]) == int(want.t) == 2 * 2
+        np.testing.assert_allclose(rank[f"async/{name}/ps_full"], jps_full, atol=STEP_ATOL, rtol=0)
+        np.testing.assert_allclose(rank[f"async/{name}/loss"], jlosses, rtol=LOSS_RTOL)
+    # Both ranks' states, put together (convert.async_state_to_numpy), are
+    # JAX's global state.
+    ranks = [AsyncState(**{k: torch.as_tensor(rank[f"async/{name}/state/{k}"])
+                           for k in ("ps", "m", "v", "workers", "t")}) for rank in got]
+    glob = async_state_to_numpy(ranks, sharded=sharded)
+    for k in ("ps", "m", "v", "workers"):
+        np.testing.assert_allclose(glob[k], getattr(jstate, k), atol=STEP_ATOL, rtol=0)
+    assert int(glob["t"]) == int(jstate.t)
+
+
+def test_two_rank_async_sharded_serve_equals_replicated_bitwise(init_np, two_rank_world):
+    """In the port, the sharded serves (zigzag at num_ps=2, block at 14)
+    leave ps, m and v bit-identical to the replicated serve's: Adam is
+    elementwise, so shard placement cannot change a bit."""
+    got, _, _, _ = two_rank_world
+    for rank in got:
+        for what in ("ps", "m", "v"):
+            for k in init_np:
+                ref = rank[f"async/replicated/logical/{what}/{k}"]
+                for name in ("zigzag2", "block14"):
+                    np.testing.assert_array_equal(rank[f"async/{name}/logical/{what}/{k}"], ref,
+                                                  err_msg=f"{name} {what} {k}")
+
+
+def test_two_rank_async_staleness_is_real(two_rank_world):
+    """After the last round, the last-scheduled worker's replica is the PS
+    exactly and the other worker's is stale, in every serve."""
+    got, _, _, _ = two_rank_world
+    sched = j_async_schedule(_torch_world.ASYNC_SCHEDULE_SEED, 2, _torch_world.ASYNC_ROUNDS)
+    last = int(sched[-1, -1])
+    for name in _torch_world.ASYNC_CASES:
+        if name == "replicated":
+            rows = got[0][f"async/{name}/state/workers"]
+        else:
+            rows = np.concatenate([rank[f"async/{name}/state/workers"] for rank in got])
+        ps = got[0][f"async/{name}/ps_full"]
+        np.testing.assert_array_equal(rows[last], ps, err_msg=name)
+        assert np.abs(rows[1 - last] - ps).max() > 0, name
+
+
+def test_two_rank_async_per_worker_eval(two_rank_world):
+    """The per-worker eval returns W counts in rank order, the same on both
+    ranks: worker w's is the count of its own replica on the test set."""
+    got, _, _, (x_test, y_test) = two_rank_world
+    specs = tcnn.make_param_specs(tcnn.TINY_CONV_CHANNELS, tcnn.TINY_FC_SIZES)
+    for name in _torch_world.ASYNC_CASES:
+        counts = [rank[f"async/{name}/worker_counts"] for rank in got]
+        assert counts[0].shape == (2,)
+        np.testing.assert_array_equal(counts[0], counts[1], err_msg=name)
+        rows = (got[0][f"async/{name}/state/workers"] if name == "replicated" else
+                np.concatenate([rank[f"async/{name}/state/workers"] for rank in got]))
+        spec = t_flat_spec(_torch_world.async_layout(name, 2, tcnn.param_sizes(specs)),
+                           dict(specs))
+        want = [int(correct_total(tcoll.unflatten_params(torch.as_tensor(rows[w]), spec),
+                                  torch.as_tensor(x_test), torch.as_tensor(y_test)))
+                for w in range(2)]
+        assert counts[0].tolist() == want, name
