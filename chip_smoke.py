@@ -80,6 +80,30 @@ Phases, each printing one JSON line:
    within rtol 1e-4 (tests/test_lm.py's tolerances).
 11. lm_bf16 — 2 full-width steps with compute_dtype bfloat16: the bf16
    kernels launched (counted), losses finite.
+11a. serve_main — the port's serving path (``serve/``) at the width of
+   benchmarks/serve_bench.py (the same LM, vocab 256, d_model 512, 8 heads,
+   4 layers, d_ff 2048, the port's seeded init), ``ServeConfig(slots=8,
+   capacity=512, page_size=64)``, greedy: 16 prompts from
+   ``synthesize_prompts(num=16, min_len=16, max_len=128, vocab=256,
+   seed=0)``, 64 new tokens each, after ``Scheduler.warmup`` (outside the
+   clock). All 16 must finish ``ok`` with 64 tokens and the page pool must
+   be whole again after the run; prints decode tokens/s, TTFT and ITL
+   p50/p95, decode ticks, ``last_attend_width`` and peak memory. No kernel
+   of ``csrc/`` lies on this path (serving's attention is plain torch ops,
+   as JAX's is plain jnp): every kernel's launch count is set to 0 before
+   this phase, 11b and the serving half of 11c, read after each (before
+   11c's flash oracle) and printed as ``kernel_launches``; a count above 0
+   fails the phase.
+11b. serve_equivalence — at the same width, tokens equal in each case: paged
+   ≡ contiguous; 3 requests continuously batched ≡ each one alone; prefix
+   cache on (shared-prefix prompts, hits > 0) ≡ off, contiguous and paged;
+   ``prefill_chunk=64`` ≡ whole-prompt prefill; temperature 0.8 with top_k
+   20, batched ≡ alone. A mismatch reports the first differing step's top-2
+   logit margin.
+11c. serve_vs_full_forward — one request's prefill logits and 32 decode
+   steps' logits, contiguous and paged, against ``apply_lm`` over the same
+   tokens with the flash forward kernel as ``attn_fn``: within atol 1e-4 /
+   rtol 1e-3 (the largest error's share of that tolerance printed).
 12. flash_timing — each flash kernel at [4, 2048, 8, 64], causal, fp32 and
    bf16, by the same timer as phase 6 (50 launches cold, 50 hot, 50 calls),
    beside its bound (the causal half's products over the card's rate for
@@ -648,6 +672,226 @@ def lm_bf16(torch, fa) -> dict:
     return out
 
 
+# The serving phases: benchmarks/serve_bench.py's width and traffic.
+SERVE_PROMPTS = dict(num=16, min_len=16, max_len=128, vocab=256, seed=0)
+SERVE_NEW = 64
+SERVE_TOL = (1e-4, 1e-3)  # (atol, rtol) of serve_vs_full_forward
+
+
+def zero_launches(fused_adam, fa) -> None:
+    """Every kernel's launch count to 0."""
+    fused_adam.launches = 0
+    for key in fa.launches:
+        fa.launches[key] = 0
+
+
+def serve_launches(phase: str, fused_adam, fa) -> dict:
+    """Every kernel's launch count since :func:`zero_launches`, by kernel
+    name; raises unless all are 0 (no kernel of ``csrc/`` lies on the serve
+    path)."""
+    counts = {"adam_flat_fused": fused_adam.launches,
+              **{FLASH_KERNELS[key][0]: n for key, n in fa.launches.items()}}
+    if any(counts.values()):
+        raise AssertionError(f"{phase}: kernels launched on the serve path: {counts}")
+    return counts
+
+
+def serve_engine(params, **kw):
+    """An engine at serve_bench's slots and capacity over the shared
+    ``params`` (the port's init from seed 0, placed once)."""
+    from ddl_tpu_torch.serve import InferenceEngine, ServeConfig
+
+    return InferenceEngine(ServeConfig(spec=lm_spec(), slots=8, capacity=512, **kw),
+                           placed_params=params, device="cuda")
+
+
+def serve_run(params, requests, *, warmup=False, **kw):
+    """(completions, stats, engine, per-request top-2 margins of each step,
+    the active rows' logits of each decode tick) of one ``Scheduler.run``
+    over a fresh engine."""
+    import numpy as np
+
+    from ddl_tpu_torch.serve import Scheduler
+
+    eng = serve_engine(params, **kw)
+    sched = Scheduler(eng)
+    if warmup:
+        sched.warmup(requests)
+    margins = {r.id: [] for r in requests}
+    ticks = []
+    decode = eng.decode
+
+    def recording(last, lengths, rids, active, **k):
+        nxt, logits = decode(last, lengths, rids, active, **k)
+        s = np.sort(logits, axis=-1)
+        for i in np.nonzero(np.asarray(active, bool))[0]:
+            margins[int(rids[i])].append(float(s[i, -1] - s[i, -2]))
+        ticks.append(logits[np.asarray(active, bool)])
+        return nxt, logits
+
+    eng.decode = recording
+    done, stats = sched.run(requests)
+    return done, stats, eng, margins, ticks
+
+
+def serve_main(torch, params, fused_adam, fa) -> dict:
+    from ddl_tpu_torch.data.lm import synthesize_prompts
+    from ddl_tpu_torch.serve import Request, Scheduler
+
+    prompts = synthesize_prompts(**SERVE_PROMPTS)
+    requests = [Request(id=i, prompt=p, max_new_tokens=SERVE_NEW) for i, p in enumerate(prompts)]
+    start = time.perf_counter()
+    zero_launches(fused_adam, fa)
+    eng = serve_engine(params, page_size=64)
+    sched = Scheduler(eng)
+    t0 = time.perf_counter()
+    sched.warmup(requests)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    done, stats = sched.run(requests)
+    peak = torch.cuda.max_memory_allocated()
+    launches = serve_launches("serve_main", fused_adam, fa)
+    bad = {i: (c.status, len(c.tokens)) for i, c in done.items()
+           if c.status != "ok" or len(c.tokens) != SERVE_NEW}
+    whole = eng.pages.free == eng.num_pages and eng.pages.reserved == 0 and not eng.table_len.any()
+    out = dict(
+        requests=len(done), new_tokens=SERVE_NEW, slots=8, capacity=512, page_size=64,
+        num_pages=eng.num_pages, kernel_launches=launches,
+        decode_tokens_per_s=stats.decode_tokens_per_s, decode_ticks=stats.decode_steps,
+        decode_tokens=stats.decode_tokens, prefill_tokens_per_s=stats.prefill_tokens_per_s,
+        decode_tick_ms={"p50": stats.latency.p50_ms, "p95": stats.latency.p95_ms,
+                        "mean": stats.latency.mean_ms},
+        ttft_ms={"p50": stats.ttft.p50_ms, "p95": stats.ttft.p95_ms},
+        itl_ms={"p50": stats.itl.p50_ms, "p95": stats.itl.p95_ms},
+        last_attend_width=eng.last_attend_width, peak_memory_gb=peak / 1e9,
+        warmup_s=warmup_s, pool_whole_after_release=whole, not_ok=bad,
+        seconds=time.perf_counter() - start,
+    )
+    emit("serve_main", **out)
+    if bad or len(done) != len(prompts) or not whole:
+        raise AssertionError(f"serve_main: requests not ok {bad}, pool whole {whole}")
+    return out
+
+
+def _first_difference(a, b, margins_a, margins_b):
+    """(request, step, top-2 margins there) of the first differing token."""
+    for i in sorted(a):
+        ta, tb = a[i].tokens, b[i].tokens
+        if ta != tb:
+            step = next((k for k, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                        min(len(ta), len(tb)))
+            at = lambda m: m[i][step - 1] if 0 < step <= len(m[i]) else None  # noqa: E731
+            return {"request": i, "step": step, "margin_a": at(margins_a),
+                    "margin_b": at(margins_b)}
+    return None
+
+
+def serve_equivalence(params, fused_adam, fa) -> dict:
+    import numpy as np
+
+    from ddl_tpu_torch.data.lm import synthesize_prompts, synthesize_shared_prefix_prompts
+    from ddl_tpu_torch.serve import Request
+
+    prompts = synthesize_prompts(**SERVE_PROMPTS)
+    def reqs(ps, n=SERVE_NEW, stagger=False):
+        # Staggered: one arrival a tick, so a family's later prompts find its
+        # first one registered.
+        return [Request(id=i, prompt=p, max_new_tokens=n, arrival=i if stagger else 0)
+                for i, p in enumerate(ps)]
+
+    # Prompts of 128-152 tokens sharing 112: paged entries hold 2 full pages,
+    # so a hit shares one page and copies the boundary page (48 rows).
+    start = time.perf_counter()
+    zero_launches(fused_adam, fa)
+    shared = synthesize_shared_prefix_prompts(n_families=2, per_family=4, prefix_len=112,
+                                              tail_min=16, tail_max=40, vocab=256, seed=0)
+    results, failures = {}, {}
+
+    def same(name, a, b, extra=None):
+        diff = _first_difference(a[0], b[0], a[3], b[3])
+        results[name] = dict(tokens_equal=diff is None, **(extra or {}))
+        if diff is not None:
+            failures[name] = diff
+
+    paged, contiguous = serve_run(params, reqs(prompts), page_size=64), serve_run(params,
+                                                                                reqs(prompts))
+    # Not a gate: whether the two layouts' decode logits are bitwise equal.
+    logits = {}
+    if len(paged[4]) == len(contiguous[4]):
+        a, b = np.concatenate(paged[4]), np.concatenate(contiguous[4])
+        logits = dict(logits_max_abs_diff=float(np.abs(a - b).max()),
+                      logits_bitwise_equal=bool(np.array_equal(a, b)))
+    same("paged_vs_contiguous", paged, contiguous, logits)
+    for kw, name in (({}, "batched_vs_alone"),
+                     (dict(temperature=0.8, top_k=20), "sampled_batched_vs_alone")):
+        three = [Request(id=i, prompt=prompts[i], max_new_tokens=SERVE_NEW) for i in (2, 7, 11)]
+        batched = serve_run(params, three, **kw)
+        for r in three:
+            alone = serve_run(params, [r], **kw)
+            same(f"{name}[{r.id}]", ({r.id: batched[0][r.id]},) + batched[1:3]
+                 + ({r.id: batched[3][r.id]},), alone[:4])
+    for ps in (0, 64):
+        on = serve_run(params, reqs(shared, 32, True), page_size=ps, prefix_slots=4, warmup=True)
+        same(f"prefix_on_vs_off[page_size={ps}]", on,
+             serve_run(params, reqs(shared, 32, True), page_size=ps),
+             dict(prefix_hits=on[1].prefix_hits, page_copies=on[2].page_copies if ps else None))
+        if on[1].prefix_hits <= 0:
+            failures[f"prefix_on_vs_off[page_size={ps}]"] = "no prefix hit"
+    same("chunk64_vs_whole", serve_run(params, reqs(prompts, 16), page_size=64, prefill_chunk=64),
+         serve_run(params, reqs(prompts, 16), page_size=64))
+    launches = serve_launches("serve_equivalence", fused_adam, fa)
+    emit("serve_equivalence", cases=results, failures=failures, kernel_launches=launches,
+         seconds=time.perf_counter() - start)
+    if failures:
+        raise AssertionError(f"serve paths differ: {failures}")
+    return results
+
+
+def serve_vs_full_forward(torch, params, fused_adam, fa) -> dict:
+    import numpy as np
+
+    from ddl_tpu_torch.data.lm import synthesize_prompts
+    from ddl_tpu_torch.models.transformer import apply_lm
+
+    start = time.perf_counter()
+    prompt = synthesize_prompts(**SERVE_PROMPTS)[5]
+    steps = 32
+    atol, rtol = SERVE_TOL
+    out = {}
+    for ps in (0, 64):
+        zero_launches(fused_adam, fa)
+        eng = serve_engine(params, page_size=ps)
+        tok, prefill_logits = eng.prefill(prompt, slot=0, request_id=0)
+        seq, logits = [*prompt.tolist(), tok], [prefill_logits]
+        S = eng.config.slots
+        active = np.zeros(S, bool)
+        active[0] = True
+        for _ in range(steps):
+            last = np.zeros(S, np.int32)
+            last[0] = seq[-1]
+            lengths = np.zeros(S, np.int32)
+            lengths[0] = len(seq) - 1
+            nxt, lg = eng.decode(last, lengths, np.zeros(S, np.int32), active)
+            logits.append(lg[:1])
+            seq.append(int(nxt[0]))
+        # Read before the oracle below launches the flash forward.
+        launches = serve_launches(f"serve_vs_full_forward[page_size={ps}]", fused_adam, fa)
+        got = torch.tensor(np.concatenate(logits), device="cuda")
+        tokens = torch.tensor([seq[:-1]], device="cuda")
+        want = apply_lm(eng.params, tokens, eng.config.spec,
+                        attn_fn=lambda q, k, v: fa.flash_attention_bthd(q, k, v, causal=True))[0]
+        ok, err, share = _close(got, want, atol, rtol)
+        out[f"page_size={ps}"] = dict(positions=int(got.shape[0]), max_abs_err=err,
+                                      share_of_tolerance=share, kernel_launches=launches)
+        if not ok:
+            emit("serve_vs_full_forward", atol=atol, rtol=rtol, **out)
+            raise AssertionError(f"serve logits != full forward (page_size={ps}): {err}")
+    emit("serve_vs_full_forward", atol=atol, rtol=rtol, prompt_len=len(prompt),
+         decode_steps=steps, seconds=time.perf_counter() - start, **out)
+    return out
+
+
 def flash_bound_ms(shape, kind: str, elem_bytes: int, ops_per_s: float, hbm: float):
     """(bound ms, what bounds it) of one kernel at ``shape``, causal: the
     products on the causal half (pairs with key <= query; exps and the
@@ -797,6 +1041,13 @@ def main() -> int:
     lm_out = lm_main(torch, flash_attention)
     lm_flash_vs_xla(torch)
     lm_bf16(torch, flash_attention)
+    from ddl_tpu_torch.models.transformer import init_lm_params
+
+    serve_params = init_lm_params(torch.Generator().manual_seed(0), lm_spec(), "cuda")
+    serve_main(torch, serve_params, fused_adam, flash_attention)
+    serve_equivalence(serve_params, fused_adam, flash_attention)
+    serve_vs_full_forward(torch, serve_params, fused_adam, flash_attention)
+    del serve_params
     flash_tim = flash_timing(torch, flash_attention, devtime, flush, card)
 
     kernels = [{

@@ -12,9 +12,11 @@ without a card they raise.
 Layout:
     data/        MNIST pipeline and the LM copy task (numpy copies of ddl_tpu/data)
     models/      the MNIST CNN and the decoder LM, JAX storage layout
-    ops/         TF1 Adam, the fused-Adam and flash-attention CUDA kernels, their builder
+    ops/         TF1 Adam, the fused-Adam and flash-attention CUDA kernels, their builder,
+                 the KV-cache ops
     parallel/    layout policies, collectives, process worlds, plain attention
     strategies/  sync DP and ZeRO-1 sharded CNN trainers, the one-device LM trainer
+    serve/       single-engine LM serving: KV caches, engine, scheduler, sampling
     train/       config + single-device CNN trainer
     utils/       step timing, parameter trees
     precision.py the LM's fp32 / bf16-compute contract

@@ -1,12 +1,13 @@
 """Command-line launcher for the port — the subset of ``ddl_tpu/cli.py``
 the ported slices carry: the seven CNN variants (single, sync and async,
-whole or sharded) and the decoder LM on one device.
+whole or sharded), the decoder LM on one device, and single-engine serving.
 
     python -m ddl_tpu_torch single
     python -m ddl_tpu_torch sync_sharding --num-workers 1 --num-ps 2 --layout flat --fused-adam
     python -m ddl_tpu_torch async_sharding --num-ps 2
     torchrun --nproc-per-node 4 -m ddl_tpu_torch sync --num-workers 4
     python -m ddl_tpu_torch lm --seq-scheme full --attn-impl flash
+    python -m ddl_tpu_torch serve --slots 8 --capacity 512 --page-size 64 --json
 
 Flags are spelled as in the JAX CLI, with its defaults; a flag of another
 variant set away from its default is refused. One process drives one
@@ -35,13 +36,34 @@ VARIANTS = (
     "sync_sharding_greedy",
     "async_sharding_greedy",
     "lm",
+    "serve",
 )
-# Flags of the CNN variants and of the lm variant: each is refused, set away
-# from its default, by the other (as ddl_tpu/cli.py's _reject_foreign_flags).
+# Flags of one variant group, each refused, set away from its default, by
+# the others (as ddl_tpu/cli.py's _reject_foreign_flags).
 _CNN_ONLY = ("num_ps", "layout", "keep_prob", "staleness_seed", "data", "synthetic_train",
              "synthetic_test", "fused_adam", "tiny", "reference_compat")
-_LM_ONLY = ("seq_scheme", "seq_len", "vocab", "d_model", "heads", "layers", "d_ff",
-            "train_seqs", "test_seqs", "target_accuracy", "attn_impl", "remat")
+_MODEL = ("vocab", "d_model", "heads", "layers", "d_ff")  # the LM's width: lm and serve
+_LM_TRAIN = ("seq_scheme", "seq_len", "train_seqs", "test_seqs", "target_accuracy",
+             "attn_impl", "remat")
+_LM_ONLY = _LM_TRAIN + _MODEL
+_TRAIN_ONLY = ("num_workers", "epochs", "batch_size", "lr", "eval_every")
+_SERVE_ONLY = ("slots", "capacity", "max_new_tokens", "num_prompts", "prompt_min",
+               "prompt_max", "temperature", "top_k", "prefix_cache", "prefill_chunk",
+               "prefill_budget", "page_size", "num_pages", "ttft_deadline",
+               "request_deadline", "shed_threshold")
+# JAX CLI flags of slices not ported yet, with their ROADMAP items: setting
+# one raises NotImplementedError, whatever the variant.
+_NOT_PORTED = {
+    "tensor_parallel": "ROADMAP queue 1, item 3: tensor parallelism",
+    "kv_dtype": "ROADMAP queue 1, item 8: the int8 pool",
+    "checkpoint_dir": "ROADMAP queue 1, item 5: checkpoints",
+    "replicas": "ROADMAP queue 1, item 8: the router",
+    "traffic": "ROADMAP queue 1, item 8: the router",
+    "slo": "ROADMAP queue 1, item 8: the router",
+    "autoscale": "ROADMAP queue 1, item 8: the controller",
+    "roles": "ROADMAP queue 1, item 8: disagg",
+    "speculate": "ROADMAP queue 1, item 8: speculate",
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -94,7 +116,8 @@ def build_parser() -> argparse.ArgumentParser:
         "lm options",
         "the 'lm' variant trains the decoder LM on the procedural copy task "
         "(strategies/seq.py) on one device; --batch-size counts sequences "
-        "(default 32), --lr defaults to 1e-3",
+        "(default 32), --lr defaults to 1e-3. The model flags (--vocab, "
+        "--d-model, --heads, --layers, --d-ff) also size the 'serve' model",
     )
     lm.add_argument("--seq-scheme", default="ring", choices=["ring", "ulysses", "full"],
                     help="cross-shard attention scheme; only full (one device) is "
@@ -117,6 +140,61 @@ def build_parser() -> argparse.ArgumentParser:
                     help="recompute each transformer block in the backward pass")
     # The JAX CLI's parallelism flags (--tensor-parallel, --data-parallel,
     # --pipeline-parallel, --zero1, ...) wait for ROADMAP queue 1, item 3.
+    sv = p.add_argument_group(
+        "serve options",
+        "the 'serve' variant runs KV-cache autoregressive decode with continuous "
+        "batching (serve/) over a seeded prompt set on one device; the model flags, "
+        "--seed and --json apply as usual; the model's weights are the port's own "
+        "seeded init",
+    )
+    sv.add_argument("--slots", type=int, default=4,
+                    help="continuous-batching width: concurrent sequences decoded per step")
+    sv.add_argument("--capacity", type=int, default=256,
+                    help="KV-cache rows per slot — bounds prompt + generated length")
+    sv.add_argument("--max-new-tokens", type=int, default=32,
+                    help="tokens generated per request")
+    sv.add_argument("--num-prompts", type=int, default=8,
+                    help="size of the seeded synthetic prompt set (data.lm.synthesize_prompts)")
+    sv.add_argument("--prompt-min", type=int, default=4, help="minimum synthetic prompt length")
+    sv.add_argument("--prompt-max", type=int, default=48, help="maximum synthetic prompt length")
+    sv.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature; 0 = greedy decode")
+    sv.add_argument("--top-k", type=int, default=0,
+                    help="restrict sampling to the k highest logits; 0 = full vocab "
+                         "(temperature > 0 only)")
+    sv.add_argument("--prefix-cache", type=int, default=0, metavar="SLOTS",
+                    help="prefix-cache pool width (paged: resident entries); 0 = off")
+    sv.add_argument("--prefill-chunk", type=int, default=0, metavar="N",
+                    help="chunked prefill in N-token chunks (a power of two >= 8) "
+                         "interleaved with decode ticks; 0 = whole-prompt prefill")
+    sv.add_argument("--prefill-budget", type=int, default=0, metavar="T",
+                    help="max prefill tokens per scheduler tick when chunking "
+                         "(>= --prefill-chunk); 0 = one chunk per tick")
+    sv.add_argument("--page-size", type=int, default=0, metavar="ROWS",
+                    help="paged KV cache: rows per page (a power of two dividing "
+                         "--capacity); 0 = contiguous per-slot rings")
+    sv.add_argument("--num-pages", type=int, default=0, metavar="N",
+                    help="paged KV pool size in pages (requires --page-size; >= --slots); "
+                         "0 = slots * capacity / page-size")
+    sv.add_argument("--ttft-deadline", type=float, default=None, metavar="SECONDS",
+                    help="default per-request time-to-first-token deadline (expiry: "
+                         "status 'deadline_exceeded')")
+    sv.add_argument("--request-deadline", type=float, default=None, metavar="SECONDS",
+                    help="default per-request total deadline (eligibility to completion)")
+    sv.add_argument("--shed-threshold", type=int, default=None, metavar="N",
+                    help="admission shedding: a request whose first eligible tick finds N "
+                         "outstanding requests is refused with status 'shed' (N >= --slots)")
+    # The JAX CLI's flags of later slices (_NOT_PORTED): parsed so that
+    # setting one fails with its ROADMAP item, not a generic parse error.
+    sv.add_argument("--tensor-parallel", type=int, default=1, help="not ported")
+    sv.add_argument("--kv-dtype", default=None, help="not ported")
+    sv.add_argument("--checkpoint-dir", default=None, help="not ported")
+    sv.add_argument("--replicas", type=int, default=None, help="not ported")
+    sv.add_argument("--traffic", default=None, help="not ported")
+    sv.add_argument("--slo", default=None, help="not ported")
+    sv.add_argument("--autoscale", default=None, help="not ported")
+    sv.add_argument("--roles", default=None, help="not ported")
+    sv.add_argument("--speculate", default=None, help="not ported")
     return p
 
 
@@ -131,7 +209,7 @@ def config_from_args(args, num_workers: int):
     from .models.cnn import TINY_CONV_CHANNELS, TINY_FC_SIZES
     from .train.config import TrainConfig
 
-    _reject_foreign_flags(args, args.variant, _LM_ONLY)
+    _reject_foreign_flags(args, args.variant, _LM_ONLY + _SERVE_ONLY)
     if args.bf16:
         raise SystemExit(
             f"--bf16 for {args.variant}: the CNN's bf16 compute is not ported yet "
@@ -203,7 +281,7 @@ def lm_config_from_args(args):
     from .models.transformer import LMSpec
     from .strategies.seq import SeqConfig
 
-    _reject_foreign_flags(args, "lm", _CNN_ONLY)
+    _reject_foreign_flags(args, "lm", _CNN_ONLY + _SERVE_ONLY)
     if args.seq_scheme != "full":
         raise SystemExit(
             f"--seq-scheme {args.seq_scheme} is not ported yet (ROADMAP queue 1, item 3): "
@@ -263,8 +341,109 @@ def _run_lm(args, device) -> int:
     return 0
 
 
+def _run_serve(args, device) -> int:
+    """The ``serve`` variant: continuous-batching KV-cache decode over a
+    seeded prompt set, warmed up outside the clock (JAX's ``_run_serve``,
+    one engine, tp 1)."""
+    from .data.lm import synthesize_prompts
+    from .models.transformer import LMSpec
+    from .serve import InferenceEngine, Request, Scheduler, ServeConfig
+
+    _reject_foreign_flags(args, "serve", _CNN_ONLY + _LM_TRAIN + _TRAIN_ONLY)
+    spec = LMSpec(vocab=args.vocab, d_model=args.d_model, num_heads=args.heads,
+                  num_layers=args.layers, d_ff=args.d_ff)
+    cfg = ServeConfig(
+        spec=spec, slots=args.slots, capacity=args.capacity,
+        temperature=args.temperature, top_k=args.top_k, seed=args.seed,
+        compute_dtype="bfloat16" if args.bf16 else None,
+        prefix_slots=args.prefix_cache, prefill_chunk=args.prefill_chunk,
+        prefill_budget=args.prefill_budget, page_size=args.page_size,
+        num_pages=args.num_pages,
+    )
+    if args.top_k and args.temperature <= 0:
+        raise SystemExit("--top-k requires --temperature > 0 (greedy decode ignores it)")
+    if args.max_new_tokens < 1:
+        raise SystemExit(f"--max-new-tokens must be >= 1, got {args.max_new_tokens}")
+    if args.prompt_max + args.max_new_tokens > args.capacity:
+        raise SystemExit(
+            f"serve config error: --prompt-max {args.prompt_max} + --max-new-tokens "
+            f"{args.max_new_tokens} exceeds --capacity {args.capacity}"
+        )
+    try:
+        engine = InferenceEngine(cfg, device=device)
+    except (ValueError, KeyError) as e:
+        raise SystemExit(f"serve config error: {e}")
+    try:
+        prompts = synthesize_prompts(num=args.num_prompts, min_len=args.prompt_min,
+                                     max_len=args.prompt_max, vocab=args.vocab, seed=args.seed)
+    except ValueError as e:
+        raise SystemExit(f"serve config error: {e}")
+    requests = [Request(id=i, prompt=pr, max_new_tokens=args.max_new_tokens)
+                for i, pr in enumerate(prompts)]
+    try:
+        scheduler = Scheduler(engine, ttft_deadline_s=args.ttft_deadline,
+                              deadline_s=args.request_deadline,
+                              shed_threshold=args.shed_threshold)
+    except ValueError as e:
+        raise SystemExit(f"serve config error: {e}")
+    # Every program shape runs once outside the reported run: the latency
+    # percentiles and tok/s measure serving, not first-use set-up.
+    scheduler.warmup(requests)
+    done, stats = scheduler.run(requests)
+    for i in sorted(done):
+        c = done[i]
+        tag = "" if c.status == "ok" else f" [{c.status}]"
+        print(f"request {i}: prompt {c.prompt_len} tokens -> {len(c.tokens)} generated "
+              f"{c.tokens[:8]}{'...' if len(c.tokens) > 8 else ''}{tag}")
+    lat = stats.latency
+    print(f"prefill {stats.prefill_tokens_per_s:.0f} tok/s | decode "
+          f"{stats.decode_tokens_per_s_per_slot:.1f} tok/s/slot ({stats.slots} slots) | "
+          f"per-token latency p50 {lat.p50_ms:.1f}ms p95 {lat.p95_ms:.1f}ms "
+          f"p99 {lat.p99_ms:.1f}ms")
+    print(f"ttft p50 {stats.ttft.p50_ms:.1f}ms p95 {stats.ttft.p95_ms:.1f}ms"
+          f" | itl p95 {stats.itl.p95_ms:.1f}ms")
+    if args.prefix_cache:
+        print(f"prefix cache: {stats.prefix_hits}/{stats.prefix_lookups} hits "
+              f"({stats.prefix_hit_rate:.0%}), {stats.prefill_tokens_saved} prefill "
+              "tokens saved")
+    if args.page_size:
+        print(f"paged pool: {engine.num_pages} pages x {args.page_size} rows, "
+              f"{engine.pages.free} free at exit, {engine.page_copies} CoW tail-page copies")
+    if args.json:
+        print(json.dumps({
+            "variant": "serve",
+            "device": str(device),
+            "config": dataclasses.asdict(cfg),
+            "num_prompts": args.num_prompts,
+            "max_new_tokens": args.max_new_tokens,
+            "completions": {
+                str(i): {"prompt_len": done[i].prompt_len, "tokens": done[i].tokens,
+                         "status": done[i].status}
+                for i in sorted(done)
+            },
+            "prefill_tokens_per_s": stats.prefill_tokens_per_s,
+            "decode_tokens_per_s": stats.decode_tokens_per_s,
+            "decode_tokens_per_s_per_slot": stats.decode_tokens_per_s_per_slot,
+            "decode_steps": stats.decode_steps,
+            "latency_ms": {"p50": lat.p50_ms, "p95": lat.p95_ms, "p99": lat.p99_ms},
+            "ttft_ms": {"p50": stats.ttft.p50_ms, "p95": stats.ttft.p95_ms},
+            "itl_ms": {"p50": stats.itl.p50_ms, "p95": stats.itl.p95_ms,
+                       "p99": stats.itl.p99_ms},
+            "prefix_lookups": stats.prefix_lookups,
+            "prefix_hits": stats.prefix_hits,
+            "prefill_tokens_saved": stats.prefill_tokens_saved,
+            "kv_page_copies": engine.page_copies if args.page_size else 0,
+            "kv_pages_free": engine.pages.free if args.page_size else 0,
+        }))
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    for dest, item in _NOT_PORTED.items():
+        if getattr(args, dest) != parser.get_default(dest):
+            raise NotImplementedError(f"--{dest.replace('_', '-')} is not ported yet ({item})")
     import torch
 
     from .data.mnist import load_mnist
@@ -278,6 +457,8 @@ def main(argv: list[str] | None = None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
     if args.variant == "lm":
         return _run_lm(args, device)
+    if args.variant == "serve":
+        return _run_serve(args, device)
     num_workers = args.num_workers or int(os.environ.get("WORLD_SIZE", "1"))
     if args.variant == "single" and num_workers != 1:
         raise SystemExit("single runs one worker")

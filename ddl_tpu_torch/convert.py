@@ -4,7 +4,8 @@ The port stores parameters in the JAX package's layout (HWIO convs,
 ``[in, out]`` FCs, names ``v0..v13``; the LM's nested tree with ``[in,
 out]`` projections) and its ZeRO-1 Adam moments as the same flat per-shard
 vectors, so conversion is a check of names and shapes and a placement: no
-transposes. Arrays cross as numpy (``np.asarray`` of a JAX array, or
+transposes. The serving KV caches convert likewise, with the drop row or
+page the port's caches add (``serve/cache.py``). Arrays cross as numpy (``np.asarray`` of a JAX array, or
 ``jax.tree.map(np.asarray, tree)``), so this module needs nothing of JAX.
 """
 
@@ -17,6 +18,7 @@ import torch
 
 from .models.cnn import PARAM_SPECS, Specs
 from .models.transformer import LMSpec, param_shapes
+from .ops.kv_cache import PAD_POS
 from .ops.optimizers import AdamState, ShardedAdam
 from .utils import tree
 
@@ -143,3 +145,43 @@ def async_state_to_numpy(rank_states, *, sharded: bool) -> dict[str, np.ndarray]
     cat = lambda k: np.concatenate([np_of(getattr(s, k)) for s in rank_states])  # noqa: E731
     return {"ps": cat("ps"), "m": cat("m"), "v": cat("v"), "workers": cat("workers"),
             "t": np.asarray(int(rank_states[0].t), np.int32)}
+
+
+def kv_cache_from_numpy(np_cache, *, paged: bool, device: str | torch.device):
+    """The JAX package's serving cache (anything with numpy ``k``, ``v`` and
+    ``pos``: a ``KVCache`` ``[L, S, C, H, D]`` / ``[S, C]``, or with
+    ``paged`` a ``PagedKVCache`` ``[L, P, page, H, D]`` / ``[P, page]``) ->
+    the port's, with the drop row of each slot (contiguous) or the drop page
+    (paged) appended."""
+    from .serve.cache import KVCache, PagedKVCache
+
+    k, v, pos = (np.asarray(getattr(np_cache, n)) for n in ("k", "v", "pos"))
+    if k.ndim != 5 or v.shape != k.shape or pos.shape != k.shape[1:3]:
+        raise ValueError(f"want k/v [L, S|P, C|page, H, D] and pos [S|P, C|page], got "
+                         f"{k.shape}, {v.shape}, {pos.shape}")
+    axis = 1 if paged else 2  # the pages, or each slot's rows
+
+    def put(a, ax, fill):
+        pad = list(a.shape)
+        pad[ax] = 1
+        return torch.tensor(np.concatenate([a, np.full(pad, fill, a.dtype)], axis=ax),
+                            device=device)
+
+    cls = PagedKVCache if paged else KVCache
+    return cls(k=put(k.astype(np.float32), axis, 0.0), v=put(v.astype(np.float32), axis, 0.0),
+               pos=put(pos.astype(np.int32), axis - 1, PAD_POS))
+
+
+def kv_cache_to_numpy(cache) -> dict[str, np.ndarray]:
+    """Inverse of :func:`kv_cache_from_numpy`: the port's ``KVCache`` or
+    ``PagedKVCache`` -> ``{"k", "v", "pos"}`` numpy in the JAX package's
+    shapes (drop row or page removed)."""
+    from .serve.cache import PagedKVCache
+
+    np_of = lambda t: t.detach().cpu().numpy().copy()  # noqa: E731
+    if isinstance(cache, PagedKVCache):
+        n = cache.num_pages
+        return {"k": np_of(cache.k[:, :n]), "v": np_of(cache.v[:, :n]), "pos": np_of(cache.pos[:n])}
+    c = cache.capacity
+    return {"k": np_of(cache.k[:, :, :c]), "v": np_of(cache.v[:, :, :c]),
+            "pos": np_of(cache.pos[:, :c])}

@@ -1,12 +1,13 @@
-"""Procedural language-modeling data: the copy task — a numpy copy of
-``ddl_tpu/data/lm.py`` (``LMDataset``, ``synthesize_copy``), byte-equal for
-the same arguments.
+"""Procedural language-modeling data — a numpy copy of ``ddl_tpu/data/lm.py``
+(``LMDataset``, ``synthesize_copy``, ``synthesize_prompts``,
+``synthesize_shared_prefix_prompts``), byte-equal for the same arguments.
 
 Each sequence is ``[BOS, prefix, prefix]`` with loss only on the repeated
 half, so every scored target is a token that appeared exactly
 ``seq_len//2 - 2`` positions earlier: a model that cannot attend that far
-back cannot beat chance ``1/vocab``. The serving prompt sets
-(``synthesize_prompts*``) wait for the serving slice.
+back cannot beat chance ``1/vocab``. The serving prompt sets are
+``[BOS, payload...]`` lists of variable length (the serving stack owns its
+padding).
 """
 
 from __future__ import annotations
@@ -77,3 +78,78 @@ def synthesize_copy(
     tr = make(num_train, rng)
     te = make(num_test, rng)
     return LMDataset(*tr, *te)
+
+
+def synthesize_prompts(
+    num: int = 16,
+    min_len: int = 4,
+    max_len: int = 48,
+    vocab: int = 64,
+    seed: int = 0,
+) -> list[np.ndarray]:
+    """Deterministic variable-length prompt set for serving: each prompt is
+    ``[BOS, payload...]`` (token 0 reserved as BOS, payload uniform in
+    ``[1, vocab)``), lengths uniform in ``[min_len, max_len]``; a list of
+    int32 arrays."""
+    if not 1 <= min_len <= max_len:
+        raise ValueError(f"need 1 <= min_len <= max_len, got "
+                         f"{min_len}/{max_len}")
+    if vocab < 2:
+        raise ValueError(f"vocab {vocab} too small for payload + BOS")
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(min_len, max_len + 1, size=num)
+    return [
+        np.concatenate([
+            np.zeros(1, np.int32),
+            rng.integers(1, vocab, size=int(n) - 1, dtype=np.int32),
+        ])
+        for n in lens
+    ]
+
+
+def synthesize_shared_prefix_prompts(
+    n_families: int = 4,
+    per_family: int = 4,
+    prefix_len: int = 16,
+    tail_min: int = 1,
+    tail_max: int = 8,
+    vocab: int = 64,
+    seed: int = 0,
+) -> list[np.ndarray]:
+    """Deterministic shared-prefix prompt workload for the prefix cache:
+    ``n_families`` families of ``per_family`` prompts, every prompt of a
+    family opening with the same ``prefix_len``-token ``[BOS, payload...]``
+    prefix and ending in its own tail of length uniform in ``[tail_min,
+    tail_max]``; returned round-robin across families."""
+    if n_families < 1 or per_family < 1:
+        raise ValueError(
+            f"need n_families >= 1 and per_family >= 1, got "
+            f"{n_families}/{per_family}"
+        )
+    if prefix_len < 2:
+        raise ValueError(
+            f"prefix_len {prefix_len} must be >= 2 (BOS + >=1 shared "
+            f"payload token — a 1-token 'shared prefix' is just BOS)"
+        )
+    if not 1 <= tail_min <= tail_max:
+        raise ValueError(f"need 1 <= tail_min <= tail_max, got "
+                         f"{tail_min}/{tail_max}")
+    if vocab < 2:
+        raise ValueError(f"vocab {vocab} too small for payload + BOS")
+    rng = np.random.default_rng(seed)
+    prefixes = [
+        np.concatenate([
+            np.zeros(1, np.int32),
+            rng.integers(1, vocab, size=prefix_len - 1, dtype=np.int32),
+        ])
+        for _ in range(n_families)
+    ]
+    prompts = []
+    for _ in range(per_family):
+        for f in range(n_families):
+            tail_len = int(rng.integers(tail_min, tail_max + 1))
+            prompts.append(np.concatenate([
+                prefixes[f],
+                rng.integers(1, vocab, size=tail_len, dtype=np.int32),
+            ]))
+    return prompts

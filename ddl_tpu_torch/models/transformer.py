@@ -18,8 +18,11 @@ LayerNorm with fp32 statistics written out (eps inside the rsqrt, cast back
 before ``* g + b``), fp32 logits. ``compute_dtype`` casts every parameter
 inside :func:`apply_lm`.
 
-The serving entry points (``apply_lm_cached``, ``apply_lm_paged``) and the
-tensor-parallel hooks wait for their slices.
+The serving entry points ``apply_lm_cached`` (per-slot rings) and
+``apply_lm_paged`` (the shared page pool) run each layer as
+:func:`apply_block` with an attention that writes the layer's k/v rows into
+a KV cache, in place, and attends over it (``ops/kv_cache.py``). The tensor-parallel hooks
+and the int8 pool wait for their slices.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import kv_cache
 from ..utils import tree
 
 Params = Mapping[str, Any]
@@ -192,6 +196,108 @@ def apply_lm(
         h = checkpoint(block, h, blk, use_reentrant=False) if remat else block(h, blk)
     h = _layernorm(h, params["lnf_g"], params["lnf_b"])
     return (h @ params["head"]).float()
+
+
+def apply_lm_cached(
+    params: Params,
+    tokens: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    cache_pos: torch.Tensor,
+    spec: LMSpec = LMSpec(),
+    *,
+    start: torch.Tensor | None,
+    positions: torch.Tensor | None = None,
+    rows: torch.Tensor | None = None,
+    compute_dtype: torch.dtype | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Incremental (KV-cached) forward: int tokens ``[B, T]`` (the NEW
+    elements of each slot) -> fp32 logits ``[B, T, vocab]``, updating the
+    cache IN PLACE and returning ``(logits, cache_k, cache_v, cache_pos)``.
+
+    ``cache_k``/``cache_v [L, B, C + 1, H, D]`` are the per-layer rings and
+    ``cache_pos [B, C + 1]`` (int32) each row's absolute position, row ``C``
+    of each slot being the drop row (``ops.kv_cache``). ``start [B]`` is each
+    slot's write cursor: token t lands in row ``(start + t) % C`` at position
+    ``start + t`` (``None`` when both overrides are given). ``positions [B, T]`` overrides the positions (RoPE and the
+    stored mask positions, ``PAD_POS`` at padded tails), ``rows [B, T]`` the
+    write rows (``C`` drops the write). One prefill followed by one-token
+    decode steps reproduces :func:`apply_lm`'s logits at every position."""
+    if compute_dtype is not None:
+        params = tree.map(lambda p: p.to(compute_dtype), dict(params))
+    h = params["embed"][tokens]  # [B, T, E]
+    t = h.shape[1]
+    capacity = cache_k.shape[2] - 1
+    if rows is None or positions is None:
+        if start is None:
+            raise ValueError("pass start, or both positions and rows")
+        ar = torch.arange(t, dtype=start.dtype, device=h.device)
+        if rows is None:
+            rows = (start[:, None] + ar) % capacity
+        if positions is None:
+            positions = start[:, None] + ar
+    rows = kv_cache.drop_index(rows, capacity)  # once for every write
+    kv_cache.put_rows(cache_pos, positions.to(cache_pos.dtype), rows)
+    k_pos = cache_pos[:, :capacity]
+
+    def attn_fn(i):
+        # Layer i's attention: write its k/v rows, attend over the ring.
+        def attn(q, k, v):
+            kv_cache.put_rows(cache_k[i], k.to(cache_k.dtype), rows)
+            kv_cache.put_rows(cache_v[i], v.to(cache_v.dtype), rows)
+            return kv_cache.attend(q, cache_k[i, :, :capacity].to(q.dtype),
+                                   cache_v[i, :, :capacity].to(q.dtype), positions, k_pos)
+        return attn
+
+    for i, blk in enumerate(params["blocks"]):
+        h = apply_block(h, blk, spec, attn_fn=attn_fn(i), positions=positions)
+    h = _layernorm(h, params["lnf_g"], params["lnf_b"])
+    return (h @ params["head"]).float(), cache_k, cache_v, cache_pos
+
+
+def apply_lm_paged(
+    params: Params,
+    tokens: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    pool_pos: torch.Tensor,
+    table: torch.Tensor,
+    spec: LMSpec = LMSpec(),
+    *,
+    positions: torch.Tensor,
+    flat_rows: torch.Tensor,
+    compute_dtype: torch.dtype | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The same layer math as :func:`apply_lm_cached` against the PAGED pool:
+    ``pool_k``/``pool_v [L, P + 1, page, H, D]`` and ``pool_pos [P + 1,
+    page]`` (page ``P`` is the drop page), read and written through the
+    block table ``table [B, TP]`` (page ids, -1 = unmapped; ``TP`` is the
+    page-count bucket). New tokens write at ``flat_rows [B, T]``
+    (``ops.kv_cache.table_rows``; padded tails and inactive slots map to the
+    drop page), and attention gathers each slot's pages into a ``[B, TP *
+    page, H, D]`` view whose positions travel with the rows. In place;
+    returns ``(logits, pool_k, pool_v, pool_pos)``."""
+    if compute_dtype is not None:
+        params = tree.map(lambda p: p.to(compute_dtype), dict(params))
+    h = params["embed"][tokens]  # [B, T, E]
+    rows = kv_cache.flat_drop_index(pool_pos, flat_rows)  # once for every write
+    kv_cache.put_flat(pool_pos, positions, rows)
+    k_pos = kv_cache.table_positions(pool_pos, table)  # [B, TP * page]
+
+    def attn_fn(i):
+        # Layer i's attention: write its k/v rows, attend over the gathered pages.
+        def attn(q, k, v):
+            kv_cache.put_flat(pool_k[i], k, rows)
+            kv_cache.put_flat(pool_v[i], v, rows)
+            return kv_cache.attend(q, kv_cache.gather_pages(pool_k[i], table).to(q.dtype),
+                                   kv_cache.gather_pages(pool_v[i], table).to(q.dtype),
+                                   positions, k_pos)
+        return attn
+
+    for i, blk in enumerate(params["blocks"]):
+        h = apply_block(h, blk, spec, attn_fn=attn_fn(i), positions=positions)
+    h = _layernorm(h, params["lnf_g"], params["lnf_b"])
+    return (h @ params["head"]).float(), pool_k, pool_v, pool_pos
 
 
 def ce_sums(

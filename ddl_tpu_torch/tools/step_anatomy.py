@@ -1,6 +1,6 @@
 """Where a train step's time goes on the card, for the port's main paths.
 
-    python -m ddl_tpu_torch.tools.step_anatomy [--variant cnn|lm|async] [--batch-size N] [--steps N] [--out FILE]
+    python -m ddl_tpu_torch.tools.step_anatomy [--variant cnn|lm|async|serve] [--batch-size N] [--steps N] [--out FILE]
 
 ``--variant cnn`` (the default) runs the ZeRO-1 sync step
 (``make_sharded_step``: one worker, ``num_ps=2``, layout ``flat``) at full
@@ -14,7 +14,12 @@ by default) at the CNN's full width over the same world: ``async_sharding``
 (``num_ps=2``, block, folded onto the rank) and ``async`` (the replicated
 serve), beside the ZeRO-1 sync step with fused Adam, in spans of up to 10
 rounds (the trainer's eval cadence; each span ends with the PS all-gather).
-Each reports, as one JSON line:
+``--variant serve`` runs single-engine serving (``serve/``) at
+``chip_smoke.py`` serve_main's configuration: the LM at
+benchmarks/serve_bench.py's width (the lm variant's), 8 slots, capacity 512,
+greedy, 16 prompts of 16-128 tokens from seed 0, 64 new tokens each, in the
+contiguous layout and the paged one (page 64). Each reports, as one JSON
+line:
 
 - ``steady``: host-clock ms per step over ``--steps`` steps after a
   warm-up, closed by ``torch.cuda.synchronize``, for the two versions in
@@ -22,14 +27,25 @@ Each reports, as one JSON line:
   ``attn_impl`` xla and flash for the LM, sync and the two async serves
   (sync, async_sharding, async, async, async_sharding, sync) for async; and
   images/s or tokens/s (the LM also gives each impl's peak allocated
-  memory over its own runs);
+  memory over its own runs). Serve: one ``Scheduler.run`` of the whole
+  traffic a turn (contiguous, paged, paged, contiguous, each after
+  ``warmup``): decode tokens/s, host ms a decode tick, TTFT and ITL;
 - ``anatomy``: a ``torch.profiler`` trace of a few steps of the kernel
   version (async: of each serve): device time per step by kernel family
   (CNN and async: conv, matmul, pool, fused Adam, NCCL, other; LM: the
   flash kernels, cuBLAS matmuls,
-  elementwise, other), the device's busy and idle share of the wall time,
-  and the ten costliest kernels. Where the profiler records no device
-  time, the breakdown reads "not measured".
+  elementwise, other; serve: matmul, softmax, index, reduce, elementwise,
+  copy, other), the device's busy and idle share of the wall time, and the
+  ten costliest kernels. Serve profiles ``--steps`` decode ticks with all 8
+  slots active (each layout's first 8 prompts prefilled), after the same
+  ticks unprofiled (``host_ms_per_tick``), beside the bytes a tick must
+  move over the HBM rate (``bytes_bound_ms``: the weights once but only
+  the looked-up embedding rows, each slot's resident K/V rows, the new
+  rows and the logits) and the bytes the tick's gather reads
+  (``gather_bytes_ms``: the whole embedding table, every slot's attended
+  width).
+  Where the profiler records no device time, the breakdown reads "not
+  measured".
 
 Needs a CUDA card; raises without one.
 """
@@ -67,7 +83,16 @@ LM_FAMILIES = (
     ("matmul", re.compile(r"gemm|cutlass|cublas|xmma|sgemm|splitK", re.I)),
     ("elementwise", re.compile(r"elementwise|vectorized|unrolled", re.I)),
 )
-# The widest LM the repo defines (benchmarks/lm_bench.py) at its T.
+SERVE_FAMILIES = (
+    ("matmul", re.compile(r"gemm|cutlass|cublas|xmma|sgemm|splitK", re.I)),
+    ("softmax", re.compile(r"softmax", re.I)),
+    ("index", re.compile(r"index|scatter|gather", re.I)),
+    ("reduce", re.compile(r"reduce", re.I)),
+    ("copy", re.compile(r"memcpy|memset|copy", re.I)),
+    ("elementwise", re.compile(r"elementwise|vectorized|unrolled", re.I)),
+)
+# The widest LM the repo defines (benchmarks/lm_bench.py) at its T; also
+# benchmarks/serve_bench.py's serving width.
 LM_SPEC = LMSpec(vocab=256, d_model=512, num_heads=8, num_layers=4, d_ff=2048)
 LM_SEQ_LEN = 2048
 
@@ -286,9 +311,88 @@ def lm_variant(args, emit) -> None:
         raise AssertionError("non-finite optimizer state")
 
 
+def serve_variant(args, emit) -> None:
+    import numpy as np
+
+    from ..data.lm import synthesize_prompts
+    from ..models.transformer import init_lm_params
+    from ..serve import InferenceEngine, Request, Scheduler, ServeConfig
+    from .devtime import hbm_bytes_per_s
+
+    dev = default_device("cuda")
+    slots, capacity, new = 8, 512, 64
+    prompts = synthesize_prompts(num=16, min_len=16, max_len=128, vocab=LM_SPEC.vocab, seed=0)
+    requests = [Request(id=i, prompt=p, max_new_tokens=new) for i, p in enumerate(prompts)]
+    params = init_lm_params(torch.Generator().manual_seed(0), LM_SPEC, dev)
+    layouts = {"contiguous": 0, "paged": 64}
+    scheds = {name: Scheduler(InferenceEngine(
+        ServeConfig(spec=LM_SPEC, slots=slots, capacity=capacity, page_size=ps),
+        placed_params=params, device=dev)) for name, ps in layouts.items()}
+    order = ("contiguous", "paged", "paged", "contiguous")
+    runs = {name: [] for name in layouts}
+    for name in order:
+        sched = scheds[name]
+        sched.warmup(requests)
+        done, st = sched.run(requests)
+        if any(c.status != "ok" or len(c.tokens) != new for c in done.values()):
+            raise AssertionError(f"{name}: a request did not finish ok")
+        runs[name].append({
+            "decode_tokens_per_s": st.decode_tokens_per_s, "decode_ticks": st.decode_steps,
+            "decode_tick_ms": {"mean": st.latency.mean_ms, "p50": st.latency.p50_ms,
+                               "p95": st.latency.p95_ms},
+            "ttft_ms": {"p50": st.ttft.p50_ms, "p95": st.ttft.p95_ms},
+            "itl_ms": {"p50": st.itl.p50_ms, "p95": st.itl.p95_ms},
+            "last_attend_width": sched.engine.last_attend_width})
+    emit({"phase": "steady", "variant": "serve", "slots": slots, "capacity": capacity,
+          "requests": len(requests), "new_tokens": new, "order": list(order), "runs": runs})
+    e, vocab = LM_SPEC.d_model, LM_SPEC.vocab
+    weight_bytes = 4 * LM_SPEC.num_params()
+    kv_row = 2 * LM_SPEC.num_layers * e * 4  # K and V of every layer, fp32
+    for name, sched in scheds.items():
+        eng = sched.engine
+        eng.reset()
+        lengths = np.array([len(p) for p in prompts[:slots]], np.int32)
+        last = np.array([eng.prefill(p, slot=s, request_id=s)[0]
+                         for s, p in enumerate(prompts[:slots])], np.int32)
+        rids = np.arange(slots, dtype=np.int32)
+        active = np.ones(slots, bool)
+        resident = []  # rows already cached, summed over the slots, a tick
+
+        def ticks(n):
+            nonlocal last, lengths
+            for _ in range(n):
+                resident.append(int(lengths.sum()))
+                last, _ = eng.decode(last, lengths, rids, active)
+                lengths = lengths + 1
+
+        ticks(3)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ticks(args.steps)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / args.steps * 1e3
+        breakdown = anatomy(ticks, args.steps, SERVE_FAMILIES)
+        rows = float(np.mean(resident[-args.steps:]))  # the profiled ticks'
+        # The least a tick moves, each input read once and each output
+        # written once: every weight but the embedding table, the slots'
+        # embedding rows, each slot's cached K/V rows and positions, its new
+        # row, and the logits. Beside it, what the gather reads: the whole
+        # table and every slot's attended width.
+        nbytes = (weight_bytes - 4 * vocab * e + 4 * slots * e
+                  + (rows + slots) * (kv_row + 4) + 4 * slots * vocab)
+        width = eng.last_attend_width
+        gather = weight_bytes + slots * width * kv_row
+        hbm = hbm_bytes_per_s(torch.cuda.get_device_name(0))
+        emit({"phase": "anatomy", "variant": f"serve_{name}", "slots": slots,
+              "attend_width": width, "resident_rows_per_slot": rows / slots,
+              "host_ms_per_tick": host_ms, "bytes_per_tick": nbytes,
+              "bytes_bound_ms": nbytes / hbm * 1e3, "gather_bytes_per_tick": gather,
+              "gather_bytes_ms": gather / hbm * 1e3, **breakdown})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="ddl_tpu_torch.tools.step_anatomy")
-    ap.add_argument("--variant", default="cnn", choices=["cnn", "lm", "async"])
+    ap.add_argument("--variant", default="cnn", choices=["cnn", "lm", "async", "serve"])
     ap.add_argument("--batch-size", type=int, default=None,
                     help="images (cnn, default 100) or sequences (lm, default 4)")
     ap.add_argument("--steps", type=int, default=20)
@@ -304,7 +408,8 @@ def main(argv=None) -> int:
         lines.append(json.dumps(rec))
         print(lines[-1], flush=True)
 
-    {"cnn": cnn_variant, "lm": lm_variant, "async": async_variant}[args.variant](args, emit)
+    {"cnn": cnn_variant, "lm": lm_variant, "async": async_variant,
+     "serve": serve_variant}[args.variant](args, emit)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

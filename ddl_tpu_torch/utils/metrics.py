@@ -30,33 +30,38 @@ class StepStats:
     p50_ms: float
     p95_ms: float
     total_s: float
+    # Items per second: images for the CNN, tokens for the LM and serving.
     images_per_sec: float
     p99_ms: float = 0.0
 
     @property
     def tokens_per_sec(self) -> float:
-        """``images_per_sec`` under its name for the LM, which counts
-        tokens (B * T) per step."""
+        """``images_per_sec`` under its name for the LM and serving, which
+        count tokens."""
         return self.images_per_sec
 
-    def line(self) -> str:
+    def line(self, unit: str = "img/s") -> str:
+        """One-line summary; ``unit`` labels the throughput column
+        (``"tok/s"`` for the LM and serving)."""
         return (
             f"steps={self.steps} mean={self.mean_ms:.2f}ms "
             f"p50={self.p50_ms:.2f}ms p95={self.p95_ms:.2f}ms "
             f"p99={self.p99_ms:.2f}ms "
-            f"throughput={self.images_per_sec:.0f} img/s"
+            f"throughput={self.images_per_sec:.0f} {unit}"
         )
 
     @classmethod
-    def from_times(cls, times_s, images) -> "StepStats":
-        """Percentile stats over raw per-step durations (seconds) and the
-        images each step processed."""
+    def from_times(cls, times_s, images=None) -> "StepStats":
+        """Percentile stats over raw per-event durations (seconds): timer
+        brackets, or the serving TTFT and inter-token latencies.
+        ``images`` optionally weights throughput; absent, throughput reads
+        0 (a latency-only distribution)."""
         times = np.asarray(list(times_s), np.float64)
         if times.size == 0:
             return cls(steps=0, mean_ms=0.0, p50_ms=0.0, p95_ms=0.0,
                        p99_ms=0.0, total_s=0.0, images_per_sec=0.0)
         total = float(times.sum())
-        n_images = float(np.sum(images))
+        n_images = float(np.sum(images)) if images is not None else 0.0
         return cls(
             steps=int(times.size),
             mean_ms=float(times.mean() * 1e3),
