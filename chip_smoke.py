@@ -80,6 +80,20 @@ Phases, each printing one JSON line:
    within rtol 1e-4 (tests/test_lm.py's tolerances).
 11. lm_bf16 — 2 full-width steps with compute_dtype bfloat16: the bf16
    kernels launched (counted), losses finite.
+11s. lm_seq — the sequence-parallel schemes at lm_main's width, fp32, batch 4,
+   over an NCCL world of one (the all-to-alls, the world's gradient sum, the
+   ZeRO-1 reduce-scatter and all-gather are real NCCL calls). At T = 2048,
+   4 steps (plus the warm-up, an eval after each) each of Ulysses + flash,
+   ring + zigzag (nsub 2: the causal skip drops one sub-tile of four) and
+   Ulysses + flash + zero1: the flash counts, set to 0 just before each run,
+   must read lm_main's formula for the Ulysses runs and 0 for the ring;
+   prints each run's step ms (p50, p95) and peak memory. Then at T = 512,
+   2 steps from one init: Ulysses + flash against full + flash (atol 1e-6;
+   whether it is bitwise printed), ring contiguous and ring zigzag against
+   full + xla (atol 2e-5 / rtol 1e-3) and Ulysses + flash + zero1 against
+   Ulysses + flash (atol 1e-5 / rtol 1e-4, tests/test_lm.py:335-341), each
+   with its losses within rtol 1e-4 and the largest error's share of its
+   tolerance printed.
 11a. serve_main — the port's serving path (``serve/``) at the width of
    benchmarks/serve_bench.py (the same LM, vocab 256, d_model 512, 8 heads,
    4 layers, d_ff 2048, the port's seeded init), ``ServeConfig(slots=8,
@@ -122,7 +136,8 @@ Phases, each printing one JSON line:
 If the profiler records no device time for a kernel or a call, the phase
 fails; nothing falls back to CUDA events. Then one ``{"kernels": [...]}``
 line (each kernel's cold ``ms``, ``hot_ms``, ``call_ms`` and ``timer``; the
-Adam row's ``launches`` from phase 4 and ``async_launches`` from 5a), the
+Adam row's ``launches`` from phase 4 and ``async_launches`` from 5a; each
+flash row's ``launches`` from phase 9 and ``ulysses_launches`` from 11s), the
 ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no ``ok`` line. It needs no network and one card.
@@ -460,6 +475,7 @@ def timing(torch, fused_adam, devtime, flush, card: str) -> dict:
         n=n, ms=ms, hot_ms=kern["hot_ms"], call_ms=kern["call_ms"], timer=kern["timer"],
         cold_min_max_ms=kern["cold_min_max_ms"], hot_min_max_ms=kern["hot_min_max_ms"],
         device_minus_launch_ms=kern["device_minus_launch_ms"],
+        profile_windows=kern["profile_windows"],
         plain_ms=plain["ms"], plain_hot_ms=plain["hot_ms"], plain_call_ms=plain["call_ms"],
         library_ms=lib["ms"], library_hot_ms=lib["hot_ms"], library_call_ms=lib["call_ms"],
         library_device_events=lib["device_events"], library_max_abs_err=library_err,
@@ -670,6 +686,108 @@ def lm_bf16(torch, fa) -> dict:
     if not (all(math.isfinite(x) for x in result.span_losses) and _finite_state(torch, trainer)):
         raise AssertionError("non-finite loss, parameter or moment on the bf16 LM path")
     return out
+
+
+# The lm_seq phase: runs at T = 2048 (name, SeqConfig fields), and the
+# equivalence pairs at T = 512 (run, oracle, (atol, rtol)).
+LM_SEQ_STEPS = 4
+LM_SEQ_RUNS = (
+    ("ulysses_flash", dict(scheme="ulysses", attn_impl="flash")),
+    ("ring_zigzag", dict(scheme="ring", seq_layout="zigzag")),
+    ("ulysses_flash_zero1", dict(scheme="ulysses", attn_impl="flash", zero1=True)),
+)
+LM_SEQ_EQ_RUNS = {
+    "full_flash": dict(scheme="full", attn_impl="flash"),
+    "full_xla": dict(scheme="full", attn_impl="xla"),
+    "ulysses_flash": dict(scheme="ulysses", attn_impl="flash"),
+    "ring": dict(scheme="ring"),
+    "ring_zigzag": dict(scheme="ring", seq_layout="zigzag"),
+    "ulysses_flash_zero1": dict(scheme="ulysses", attn_impl="flash", zero1=True),
+}
+LM_SEQ_EQ = (
+    ("ulysses_flash", "full_flash", (1e-6, 0.0)),
+    ("ring", "full_xla", (2e-5, 1e-3)),
+    ("ring_zigzag", "full_xla", (2e-5, 1e-3)),
+    ("ulysses_flash_zero1", "ulysses_flash", (1e-5, 1e-4)),
+)
+
+
+def lm_seq(torch, fa, world) -> dict:
+    import numpy as np
+
+    from ddl_tpu_torch.convert import lm_params_to_numpy
+    from ddl_tpu_torch.data.lm import synthesize_copy
+    from ddl_tpu_torch.models.transformer import init_lm_params
+    from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
+    from ddl_tpu_torch.utils import tree
+
+    start = time.perf_counter()
+    spec, bs, seq_len = lm_spec(), 4, 2048
+    quiet = lambda s: None  # noqa: E731
+    ds = synthesize_copy(num_train=LM_SEQ_STEPS * bs, num_test=bs, seq_len=seq_len,
+                         vocab=spec.vocab, seed=4)
+    runs = {}
+    for name, kw in LM_SEQ_RUNS:
+        cfg = SeqConfig(batch_size=bs, learning_rate=1e-3, eval_every=1, seed=4, spec=spec, **kw)
+        trainer = SeqTrainer(cfg, ds, world=world)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for key in fa.launches:
+            fa.launches[key] = 0
+        result = trainer.train(log=quiet)
+        launches = dict(fa.launches)
+        peak = torch.cuda.max_memory_allocated()
+        steps = LM_SEQ_STEPS + 1  # the warm-up's discarded step too
+        evals = len(result.history) * -(-ds.test_tokens.shape[0] // bs)
+        L = spec.num_layers
+        want = ({"fwd": L * (steps + evals), "bwd_dkv": L * steps, "bwd_dq": L * steps}
+                if cfg.attn_impl == "flash" else dict.fromkeys(fa.launches, 0))
+        stats = result.step_stats
+        out = dict(run=name, scheme=cfg.scheme, seq_layout=cfg.seq_layout, zero1=cfg.zero1,
+                   attn_impl=cfg.attn_impl, steps=LM_SEQ_STEPS, seq_len=seq_len, batch_size=bs,
+                   launches=launches, want_launches=want, evals=len(result.history),
+                   step_ms={"p50": stats.p50_ms, "p95": stats.p95_ms, "mean": stats.mean_ms,
+                            "spans": stats.steps},
+                   tokens_per_sec=result.tokens_per_sec, peak_memory_gb=peak / 1e9,
+                   warmup_s=result.compile_time_s, span_losses=result.span_losses,
+                   final_accuracy=result.final_accuracy)
+        emit("lm_seq", **out)
+        if launches != want:
+            raise AssertionError(f"lm_seq {name}: flash launches {launches}, want {want}")
+        if not (all(math.isfinite(x) for x in result.span_losses)
+                and _finite_state(torch, trainer)):
+            raise AssertionError(f"lm_seq {name}: non-finite loss, parameter or moment")
+        if int(trainer.opt_state.step) != LM_SEQ_STEPS:
+            raise AssertionError(f"lm_seq {name}: Adam step {int(trainer.opt_state.step)}")
+        runs[name] = out
+        del trainer, result
+        torch.cuda.empty_cache()
+
+    # Equivalence: 2 steps at T = 512 from one init.
+    init = lm_params_to_numpy(init_lm_params(torch.Generator().manual_seed(5), spec))
+    ds = synthesize_copy(num_train=2 * bs, num_test=bs, seq_len=512, vocab=spec.vocab, seed=5)
+    res = {name: SeqTrainer(SeqConfig(batch_size=bs, learning_rate=1e-3, eval_every=0, seed=5,
+                                      spec=spec, **kw), ds, init=init, world=world
+                            ).train(log=quiet)
+           for name, kw in LM_SEQ_EQ_RUNS.items()}
+    pairs, bad = {}, []
+    for name, oracle, (atol, rtol) in LM_SEQ_EQ:
+        a_leaves, b_leaves = tree.leaves(res[name].params), tree.leaves(res[oracle].params)
+        err = max(float(np.abs(a - b).max()) for a, b in zip(a_leaves, b_leaves))
+        share = max(float((np.abs(a - b) / (atol + rtol * np.abs(b))).max())
+                    for a, b in zip(a_leaves, b_leaves))
+        la, lb = res[name].final_loss, res[oracle].final_loss
+        pairs[f"{name}_vs_{oracle}"] = dict(
+            atol=atol, rtol=rtol, params_max_abs_diff=err, params_share_of_tolerance=share,
+            bitwise=all(np.array_equal(a, b) for a, b in zip(a_leaves, b_leaves)),
+            loss=la, oracle_loss=lb, loss_rel_diff=abs(la - lb) / abs(lb))
+        if share > 1.0 or abs(la - lb) > 1e-4 * abs(lb):
+            bad.append(f"{name}_vs_{oracle}")
+    emit("lm_seq_equivalence", steps=2, seq_len=512, pairs=pairs,
+         seconds=time.perf_counter() - start)
+    if bad:
+        raise AssertionError(f"lm_seq: schemes differ: {bad}")
+    return runs
 
 
 # The serving phases: benchmarks/serve_bench.py's width and traffic.
@@ -973,6 +1091,7 @@ def flash_timing(torch, fa, devtime, flush, card: str) -> dict:
                        ms=kern["ms"], hot_ms=kern["hot_ms"], call_ms=kern["call_ms"],
                        timer=kern["timer"], cold_min_max_ms=kern["cold_min_max_ms"],
                        device_minus_launch_ms=kern["device_minus_launch_ms"],
+                       profile_windows=kern["profile_windows"],
                        plain_ms=plain_t["ms"], plain_hot_ms=plain_t["hot_ms"],
                        bound_ms=bound, bound_by=by,
                        bound_rate="tf32 tensor cores, 3 passes" if fp32 else
@@ -999,6 +1118,38 @@ def flash_timing(torch, fa, devtime, flush, card: str) -> dict:
     return out
 
 
+def run_phases(torch, world, card: str):
+    """Every phase after the build, in order; returns what the kernels line
+    reads."""
+    from ddl_tpu_torch.models.transformer import init_lm_params
+    from ddl_tpu_torch.ops import flash_attention, fused_adam
+    from ddl_tpu_torch.tools import devtime
+
+    max_err = check_kernel(torch, fused_adam)
+    main_out = main_path(torch, world, fused_adam)
+    fused_vs_plain(torch, world)
+    async_out = async_main(torch, world, fused_adam)
+    async_equivalence(torch, world)
+
+    flush = devtime.L2Flush(torch.device("cuda"))
+    tim = timing(torch, fused_adam, devtime, flush, card)
+
+    flash_err = check_flash(torch, flash_attention)
+    flash_determinism(torch, flash_attention)
+    lm_out = lm_main(torch, flash_attention)
+    lm_flash_vs_xla(torch)
+    lm_bf16(torch, flash_attention)
+    seq_out = lm_seq(torch, flash_attention, world)
+
+    serve_params = init_lm_params(torch.Generator().manual_seed(0), lm_spec(), "cuda")
+    serve_main(torch, serve_params, fused_adam, flash_attention)
+    serve_equivalence(serve_params, fused_adam, flash_attention)
+    serve_vs_full_forward(torch, serve_params, fused_adam, flash_attention)
+    del serve_params
+    flash_tim = flash_timing(torch, flash_attention, devtime, flush, card)
+    return max_err, main_out, async_out, tim, flash_err, lm_out, seq_out, flash_tim
+
+
 def main() -> int:
     import torch
 
@@ -1007,9 +1158,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from ddl_tpu_torch.ops import build, flash_attention, fused_adam
+    from ddl_tpu_torch.ops import build
     from ddl_tpu_torch.parallel.mesh import destroy_world, init_world
-    from ddl_tpu_torch.tools import devtime
 
     card = nvidia_smi()
     torch.backends.cudnn.allow_tf32 = False
@@ -1021,34 +1171,15 @@ def main() -> int:
     build.build_all()
     emit("build", seconds=time.perf_counter() - t0, kernels=list(build.KERNEL_SOURCES))
 
-    max_err = check_kernel(torch, fused_adam)
-
     with tempfile.TemporaryDirectory() as store:
+        # One NCCL world of one, set up once, for every phase that needs one
+        # (the CNN paths and lm_seq).
         world = init_world(1, 0, f"file://{os.path.join(store, 'store')}", "cuda")
         try:
-            main_out = main_path(torch, world, fused_adam)
-            fused_vs_plain(torch, world)
-            async_out = async_main(torch, world, fused_adam)
-            async_equivalence(torch, world)
+            (max_err, main_out, async_out, tim, flash_err, lm_out, seq_out,
+             flash_tim) = run_phases(torch, world, card)
         finally:
             destroy_world()
-
-    flush = devtime.L2Flush(torch.device("cuda"))
-    tim = timing(torch, fused_adam, devtime, flush, card)
-
-    flash_err = check_flash(torch, flash_attention)
-    flash_determinism(torch, flash_attention)
-    lm_out = lm_main(torch, flash_attention)
-    lm_flash_vs_xla(torch)
-    lm_bf16(torch, flash_attention)
-    from ddl_tpu_torch.models.transformer import init_lm_params
-
-    serve_params = init_lm_params(torch.Generator().manual_seed(0), lm_spec(), "cuda")
-    serve_main(torch, serve_params, fused_adam, flash_attention)
-    serve_equivalence(serve_params, fused_adam, flash_attention)
-    serve_vs_full_forward(torch, serve_params, fused_adam, flash_attention)
-    del serve_params
-    flash_tim = flash_timing(torch, flash_attention, devtime, flush, card)
 
     kernels = [{
         "name": "adam_flat_fused",
@@ -1076,6 +1207,7 @@ def main() -> int:
             "replaces": replaces,
             "reached_from": "ddl_tpu/ops/attention.py:38",
             "launches": lm_out["launches"][key],
+            "ulysses_launches": seq_out["ulysses_flash"]["launches"][key],
             "max_abs_err": flash_err[key],
             "ms": row["ms"],
             "hot_ms": row["hot_ms"],

@@ -1,19 +1,21 @@
 """Command-line launcher for the port — the subset of ``ddl_tpu/cli.py``
 the ported slices carry: the seven CNN variants (single, sync and async,
-whole or sharded), the decoder LM on one device, and single-engine serving.
+whole or sharded), the decoder LM over a [data-parallel, num-workers]
+grid (ring, Ulysses or full attention, ZeRO-1), and single-engine serving.
 
     python -m ddl_tpu_torch single
     python -m ddl_tpu_torch sync_sharding --num-workers 1 --num-ps 2 --layout flat --fused-adam
     python -m ddl_tpu_torch async_sharding --num-ps 2
     torchrun --nproc-per-node 4 -m ddl_tpu_torch sync --num-workers 4
-    python -m ddl_tpu_torch lm --seq-scheme full --attn-impl flash
+    python -m ddl_tpu_torch lm --seq-scheme ulysses --attn-impl flash
+    torchrun --nproc-per-node 4 -m ddl_tpu_torch lm --num-workers 2 --data-parallel 2 --zero1
     python -m ddl_tpu_torch serve --slots 8 --capacity 512 --page-size 64 --json
 
 Flags are spelled as in the JAX CLI, with its defaults; a flag of another
 variant set away from its default is refused. One process drives one
-device: a multi-worker CNN run is launched with ``torchrun``, whose
-``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT`` variables this
-reads; a run of one worker makes a world of one itself. Runs on ``cuda``
+device: a multi-worker run is launched with ``torchrun``, whose ``RANK`` /
+``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT`` variables this reads; a
+run of one worker makes a world of one itself. Runs on ``cuda``
 unless ``--device cpu``, in fp32 with TF32 off unless ``--bf16`` (the JAX
 CLI's bf16 default on a TPU does not carry over).
 """
@@ -44,7 +46,7 @@ _CNN_ONLY = ("num_ps", "layout", "keep_prob", "staleness_seed", "data", "synthet
              "synthetic_test", "fused_adam", "tiny", "reference_compat")
 _MODEL = ("vocab", "d_model", "heads", "layers", "d_ff")  # the LM's width: lm and serve
 _LM_TRAIN = ("seq_scheme", "seq_len", "train_seqs", "test_seqs", "target_accuracy",
-             "attn_impl", "remat")
+             "attn_impl", "remat", "seq_layout", "data_parallel", "zero1")
 _LM_ONLY = _LM_TRAIN + _MODEL
 _TRAIN_ONLY = ("num_workers", "epochs", "batch_size", "lr", "eval_every")
 _SERVE_ONLY = ("slots", "capacity", "max_new_tokens", "num_prompts", "prompt_min",
@@ -55,6 +57,8 @@ _SERVE_ONLY = ("slots", "capacity", "max_new_tokens", "num_prompts", "prompt_min
 # one raises NotImplementedError, whatever the variant.
 _NOT_PORTED = {
     "tensor_parallel": "ROADMAP queue 1, item 3: tensor parallelism",
+    "pipeline_parallel": "ROADMAP queue 1, item 3: the pipeline",
+    "microbatches": "ROADMAP queue 1, item 3: the pipeline",
     "kv_dtype": "ROADMAP queue 1, item 8: the int8 pool",
     "checkpoint_dir": "ROADMAP queue 1, item 5: checkpoints",
     "replicas": "ROADMAP queue 1, item 8: the router",
@@ -115,13 +119,18 @@ def build_parser() -> argparse.ArgumentParser:
     lm = p.add_argument_group(
         "lm options",
         "the 'lm' variant trains the decoder LM on the procedural copy task "
-        "(strategies/seq.py) on one device; --batch-size counts sequences "
-        "(default 32), --lr defaults to 1e-3. The model flags (--vocab, "
-        "--d-model, --heads, --layers, --d-ff) also size the 'serve' model",
+        "(strategies/seq.py) over a [--data-parallel, --num-workers] grid of "
+        "processes, one a rank (torchrun beyond one); --num-workers is the "
+        "sequence-parallel degree (default: WORLD_SIZE / --data-parallel, else "
+        "1), --batch-size counts sequences (default 32), --lr defaults to 1e-3. "
+        "The model flags (--vocab, --d-model, --heads, --layers, --d-ff) also "
+        "size the 'serve' model",
     )
     lm.add_argument("--seq-scheme", default="ring", choices=["ring", "ulysses", "full"],
-                    help="cross-shard attention scheme; only full (one device) is "
-                         "ported, so pass --seq-scheme full")
+                    help="cross-shard attention scheme: ring (K/V blocks passed around "
+                         "the sequence ranks), ulysses (all-to-all head re-partition; "
+                         "needs --heads divisible by --num-workers), full (no sharding; "
+                         "--num-workers 1 only)")
     lm.add_argument("--seq-len", type=int, default=512)
     lm.add_argument("--vocab", type=int, default=64)
     lm.add_argument("--d-model", type=int, default=256)
@@ -138,8 +147,22 @@ def build_parser() -> argparse.ArgumentParser:
                          "hand-written CUDA flash kernels; their plain version on the CPU)")
     lm.add_argument("--remat", action="store_true",
                     help="recompute each transformer block in the backward pass")
-    # The JAX CLI's parallelism flags (--tensor-parallel, --data-parallel,
-    # --pipeline-parallel, --zero1, ...) wait for ROADMAP queue 1, item 3.
+    lm.add_argument("--seq-layout", default="contiguous", choices=["contiguous", "zigzag"],
+                    help="ring position layout: contiguous (block i on rank i) or zigzag "
+                         "(two-ended chunk pairs, which balance the causal sweep; "
+                         "--seq-scheme ring, --seq-len divisible by 2 * --num-workers)")
+    lm.add_argument("--data-parallel", type=int, default=1, metavar="DP",
+                    help="the batch shards over DP rows while the sequence shards over "
+                         "--num-workers columns (ranks = DP * num-workers); --batch-size "
+                         "must divide by DP")
+    lm.add_argument("--zero1", action="store_true",
+                    help="ZeRO-1 over all ranks: reduce-scatter the gradient, Adam on "
+                         "each rank's flat chunk, all-gather the parameters")
+    # The pipeline (the JAX CLI's --pipeline-parallel, --microbatches) waits
+    # for ROADMAP queue 1, item 3: parsed below so that setting one fails
+    # with its item.
+    lm.add_argument("--pipeline-parallel", type=int, default=1, help="not ported")
+    lm.add_argument("--microbatches", type=int, default=1, help="not ported")
     sv = p.add_argument_group(
         "serve options",
         "the 'serve' variant runs KV-cache autoregressive decode with continuous "
@@ -261,17 +284,18 @@ def config_from_args(args, num_workers: int):
 
 def _join_world(num_workers: int, device: str, store_dir: str):
     """torchrun's world when its variables are set, else a world of one
-    over a file store in ``store_dir``."""
+    over a file store in ``store_dir``. ``num_workers`` is the number of
+    ranks the run needs."""
     from .parallel.mesh import init_world
 
     env_size = os.environ.get("WORLD_SIZE")
     if env_size is not None:
         if int(env_size) != num_workers:
-            raise SystemExit(f"--num-workers {num_workers} != WORLD_SIZE {env_size}")
+            raise SystemExit(f"the run needs {num_workers} ranks, WORLD_SIZE is {env_size}")
         return init_world(num_workers, int(os.environ["RANK"]), "env://", device)
     if num_workers != 1:
         raise SystemExit(
-            f"--num-workers {num_workers} needs one process per worker: "
+            f"{num_workers} ranks need one process each: "
             f"launch with torchrun --nproc-per-node {num_workers} -m ddl_tpu_torch ..."
         )
     return init_world(1, 0, f"file://{os.path.join(store_dir, 'store')}", device)
@@ -282,32 +306,37 @@ def lm_config_from_args(args):
     from .strategies.seq import SeqConfig
 
     _reject_foreign_flags(args, "lm", _CNN_ONLY + _SERVE_ONLY)
-    if args.seq_scheme != "full":
-        raise SystemExit(
-            f"--seq-scheme {args.seq_scheme} is not ported yet (ROADMAP queue 1, item 3): "
-            "pass --seq-scheme full, which trains on one device"
-        )
+    if args.data_parallel < 1:
+        raise SystemExit(f"--data-parallel must be >= 1, got {args.data_parallel}")
+    # Default: every rank of the world, split over the dp rows.
+    num_workers = args.num_workers or max(
+        1, int(os.environ.get("WORLD_SIZE", "1")) // args.data_parallel)
     return SeqConfig(
         epochs=args.epochs,
         batch_size=args.batch_size or 32,
         learning_rate=args.lr if args.lr is not None else 1e-3,
         eval_every=args.eval_every,
         seed=args.seed,
-        num_workers=args.num_workers or 1,
+        num_workers=num_workers,
+        data_parallel=args.data_parallel,
         scheme=args.seq_scheme,
         compute_dtype="bfloat16" if args.bf16 else None,
         target_accuracy=args.target_accuracy,
+        zero1=args.zero1,
         attn_impl=args.attn_impl,
         remat=args.remat,
+        seq_layout=args.seq_layout,
         spec=LMSpec(vocab=args.vocab, d_model=args.d_model, num_heads=args.heads,
                     num_layers=args.layers, d_ff=args.d_ff),
     )
 
 
 def _run_lm(args, device) -> int:
-    """The ``lm`` variant: decoder-LM training on the copy task, one device."""
+    """The ``lm`` variant: decoder-LM training on the copy task over the
+    [dp, num_workers] grid, one process a rank."""
     from .data.lm import synthesize_copy
-    from .strategies.seq import SeqTrainer
+    from .parallel.mesh import destroy_world
+    from .strategies.seq import SeqTrainer, check_config
 
     cfg = lm_config_from_args(args)
     try:
@@ -315,11 +344,19 @@ def _run_lm(args, device) -> int:
             num_train=args.train_seqs, num_test=args.test_seqs,
             seq_len=args.seq_len, vocab=args.vocab, seed=args.seed,
         )
-        trainer = SeqTrainer(cfg, dataset, device=device)
+        # Every config check, before any rank joins the world.
+        check_config(cfg, dataset)
     except ValueError as e:
-        # Only construction is guarded: every config check lives there.
         raise SystemExit(f"lm config error: {e}")
-    result = trainer.train()
+    with tempfile.TemporaryDirectory() as store_dir:
+        world = _join_world(cfg.num_workers * cfg.data_parallel, args.device, store_dir)
+        try:
+            trainer = SeqTrainer(cfg, dataset, world=world)
+            result = trainer.train(log=print if world.rank == 0 else (lambda s: None))
+        finally:
+            destroy_world()
+    if world.rank != 0:
+        return 0
     print(f"training time: {result.train_time_s:.2f}s "
           f"({result.tokens_per_sec:.0f} tokens/s, "
           f"warm-up {result.compile_time_s:.1f}s excluded)")

@@ -104,6 +104,40 @@ def adam_state_from_numpy(step, m, v, spec: LMSpec, device: str | torch.device) 
     )
 
 
+def lm_sharded_adam_from_numpy(step, m, v, spec: LMSpec, rank: int, world_size: int,
+                               device: str | torch.device) -> ShardedAdam:
+    """The LM's ZeRO-1 Adam state in its logical form (params-shaped numpy
+    ``m``/``v`` trees, as the JAX package's checkpoints hold it) -> rank
+    ``rank``'s ``ShardedAdam``: the trees flattened in ``utils.tree.leaves``
+    order, zero-padded to ``world_size`` equal chunks, chunk ``rank``."""
+    from .parallel.collectives import chunk_size, pad_to
+    from .strategies.seq import _FlatPlan
+
+    flat = [_FlatPlan.flatten(lm_params_from_numpy(t, spec, "cpu")) for t in (m, v)]
+    chunk = chunk_size(flat[0].numel(), world_size)
+    mine = slice(rank * chunk, (rank + 1) * chunk)
+    m_own, v_own = (pad_to(f, chunk * world_size)[mine].to(device) for f in flat)
+    return ShardedAdam(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+        m=m_own, v=v_own,
+    )
+
+
+def lm_sharded_adam_to_numpy(rank_states, spec: LMSpec) -> dict:
+    """Inverse of :func:`lm_sharded_adam_from_numpy` over every rank's
+    state (in rank order): ``{"step", "m", "v"}`` with params-shaped numpy
+    ``m`` and ``v`` trees (padding dropped)."""
+    from .models.transformer import init_lm_params
+    from .strategies.seq import _FlatPlan
+
+    plan = _FlatPlan(init_lm_params(torch.Generator().manual_seed(0), spec))
+    out = {"step": np.asarray(int(rank_states[0].step), np.int32)}
+    for k in ("m", "v"):
+        flat = torch.cat([getattr(s, k).detach().cpu() for s in rank_states])
+        out[k] = lm_params_to_numpy(plan.unflatten(flat))
+    return out
+
+
 def async_state_from_numpy(state, rank: int, world_size: int, *, sharded: bool,
                            device: str | torch.device):
     """The JAX package's global ``AsyncState`` (as numpy: ``ps``, ``m``,

@@ -20,8 +20,24 @@ The async serve adds two transports: :func:`all_gather_rows` (every rank's
 full gradient, the replicated serve) and :func:`all_to_all_rows` (gradient
 slices to their owners and replica pieces back, the sharded serve).
 
+The sequence-parallel LM adds two differentiable ones (autograd Functions,
+whose backward is the transpose JAX takes):
+
+- :func:`ring_shift`: every rank sends its tensors to the next rank of a
+  :class:`Ring` and receives the previous rank's (``lax.ppermute`` with
+  ``i -> i+1``); its backward shifts the gradients ``i -> i-1``. Tensors
+  that move together move in one ``batch_isend_irecv`` and one autograd
+  node, so every rank runs the same sequence of point-to-point calls in
+  the backward pass too.
+- :func:`seq_to_heads` / :func:`heads_to_seq`: Ulysses's tiled
+  ``all_to_all`` (``split_axis=2, concat_axis=1`` and back) over
+  ``all_to_all_single``; each one's backward is the other.
+
+``LOCAL`` stands for "no process group": a ring or sequence axis of one
+whose collectives are identities and are not called.
+
 ``tp_allreduce`` and ``tp_promote`` (the tensor-parallel pair) are not
-ported yet: they belong to the LM slice.
+ported yet (ROADMAP queue 1, item 3: tensor parallelism).
 """
 
 from __future__ import annotations
@@ -34,7 +50,7 @@ import torch
 import torch.distributed as dist
 
 from .layout import LayoutAssignment
-from .mesh import World
+from .mesh import LOCAL, World
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,3 +238,139 @@ def from_logical(logical, layout: LayoutAssignment, n: int) -> np.ndarray:
     out = np.zeros(n, logical.dtype)
     out[reassembly_index(layout)] = logical
     return out
+
+
+# ---------------------------------------------------------------------------
+# Sequence-parallel transports (differentiable)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Ring:
+    """A ring of ranks: ``ranks`` (global ranks, in ring order) over
+    ``group``; this rank is ``ranks[index]``."""
+
+    group: object
+    ranks: tuple[int, ...]
+    index: int
+
+    @property
+    def next(self) -> int:
+        return self.ranks[(self.index + 1) % len(self.ranks)]
+
+    @property
+    def prev(self) -> int:
+        return self.ranks[(self.index - 1) % len(self.ranks)]
+
+
+def _shift(xs, dst: int, src: int, group) -> tuple[torch.Tensor, ...]:
+    """Send each of ``xs`` to ``dst`` and receive as many from ``src``, all
+    in one batch."""
+    xs = [x.contiguous() for x in xs]
+    outs = [torch.empty_like(x) for x in xs]
+    ops = []
+    for x, out in zip(xs, outs):
+        ops += [dist.P2POp(dist.isend, x, dst, group), dist.P2POp(dist.irecv, out, src, group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return tuple(outs)
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ring: Ring, *xs):
+        ctx.ring = ring
+        return _shift(xs, ring.next, ring.prev, ring.group)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ring = ctx.ring
+        return (None, *_shift(gs, ring.prev, ring.next, ring.group))
+
+
+def ring_shift(ring: Ring, *xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """``xs`` of the previous rank of ``ring`` (each rank's go to the
+    next)."""
+    return _RingShift.apply(ring, *xs)
+
+
+class _Keep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, out, *kept):
+        ctx.like = [(x.shape, x.dtype, x.device) for x in kept]
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(s, dtype=d, device=dev) for s, d, dev in ctx.like))
+
+
+def keep_in_backward(out: torch.Tensor, *kept: torch.Tensor) -> torch.Tensor:
+    """``out``, with a zero gradient flowing back into each of ``kept``.
+
+    Autograd runs a node's backward only when some output of it receives a
+    gradient. A rank whose causal sweep skips the last blocks it receives
+    would then never run the last ring shifts' backward while its
+    neighbours wait in theirs; JAX's transpose of ``ppermute`` always runs.
+    Tying the last received blocks to the output makes every rank run
+    every shift's backward, in the same order."""
+    if not torch.is_grad_enabled() or not any(x.requires_grad for x in kept):
+        return out
+    return _Keep.apply(out, *kept)
+
+
+def _all_to_all(group, size: int, xs, split_axis: int, concat_axis: int):
+    """JAX's tiled ``all_to_all`` of every tensor of ``xs`` over a group of
+    ``size``: each tensor's ``split_axis`` is cut into ``size`` blocks,
+    block ``j`` goes to group rank ``j``, and the blocks received are
+    concatenated along ``concat_axis`` in the senders' order. One
+    ``all_to_all_single`` carries all of ``xs``. The results are contiguous
+    (a copy out of the receive buffer where the layout needs one), so the
+    flash wrapper's own ``.contiguous()`` copies nothing."""
+    shape = xs[0].shape
+    n = shape[split_axis] // size
+    # Send buffer [size, len(xs), *shape with split_axis cut to n]: block j
+    # of each tensor in row j.
+    block = list(shape)
+    block[split_axis] = n
+    send = torch.empty((size, len(xs), *block), dtype=xs[0].dtype, device=xs[0].device)
+    for i, x in enumerate(xs):
+        split = x.unflatten(split_axis, (size, n)).movedim(split_axis, 0)
+        send[:, i].copy_(split)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    out = []
+    for i in range(len(xs)):
+        # Row s came from group rank s: it goes to block s of concat_axis.
+        r = recv[:, i].movedim(0, concat_axis)
+        out.append(r.flatten(concat_axis, concat_axis + 1))
+    return tuple(o.contiguous() for o in out)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, size: int, split_axis: int, concat_axis: int, *xs):
+        ctx.args = (group, size, split_axis, concat_axis)
+        return _all_to_all(group, size, xs, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        group, size, split_axis, concat_axis = ctx.args
+        return (None, None, None, None, *_all_to_all(group, size, gs, concat_axis, split_axis))
+
+
+def seq_to_heads(group, size: int, *xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """``[B, T/P, H, D]`` sequence shards -> ``[B, T, H/P, D]`` head shards
+    (rank ``j`` gets head block ``j``; ``lax.all_to_all(split_axis=2,
+    concat_axis=1, tiled=True)``)."""
+    if group is LOCAL:
+        return xs
+    return _AllToAll.apply(group, size, 2, 1, *xs)
+
+
+def heads_to_seq(group, size: int, *xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The inverse of :func:`seq_to_heads` (``split_axis=1,
+    concat_axis=2``)."""
+    if group is LOCAL:
+        return xs
+    return _AllToAll.apply(group, size, 1, 2, *xs)

@@ -1,26 +1,46 @@
-"""Decoder-LM training — the port of ``ddl_tpu/strategies/seq.py`` for one
-device and scheme ``full``.
+"""Decoder-LM training — the port of ``ddl_tpu/strategies/seq.py``.
 
-The JAX trainer runs the decoder LM (``models/transformer.py``) over a 2-D
-``[data_parallel, num_workers]`` mesh with the sequence sharded across it
-(ring or Ulysses attention), tensor and pipeline parallelism and ZeRO-1.
-This slice ports its single-device form: ``scheme="full"``,
-``num_workers=1``, the replicated TF1-Adam update (``_step_body``), with
-``attn_impl="xla"`` (plain attention, ``parallel/ring.py``) or ``"flash"``
-(the hand-written CUDA flash kernels, ``ops/flash_attention.py``; their
-plain version on the CPU). The span loop, eval cadence and early stop are
-the JAX trainer's (``train/trainer.py::eval_spans``); each span is a host
-loop of eager steps closed by a device barrier.
+The trainer runs the decoder LM (``models/transformer.py``) over the 2-D
+``[data_parallel, num_workers]`` process grid (``parallel/mesh.py::Grid``,
+JAX's ``make_mesh_2d``): the batch shards over the dp rows and the sequence
+over the sp columns, each rank holding ``B/dp`` sequences x ``T/sp``
+positions. One process a rank: torchrun on a multi-card host, a world of
+one on one card, gloo worlds on the CPU; without a world (``world=None``)
+the grid is one rank and every collective is an identity.
 
-``SeqConfig`` keeps every JAX field and default. A value that needs what is
-not ported raises ``NotImplementedError`` naming its ROADMAP item, and the
-JAX trainer's own checks raise the same ``ValueError``s.
+Schemes (``SeqConfig.scheme``):
+
+- ``ring``: ring attention (``parallel/ring.py``), K/V blocks passed
+  around the sp row, layout ``contiguous`` or ``zigzag``; plain torch ops,
+  as JAX's is plain jnp;
+- ``ulysses``: two all-to-alls around a full-sequence local attention
+  over a head subset: ``attn_impl="xla"`` (plain attention) or ``"flash"``
+  (the hand-written CUDA flash kernels, ``ops/flash_attention.py``; their
+  plain version on the CPU);
+- ``full``: no sharding of the sequence (``num_workers`` 1).
+
+A step (``_step_body``) differentiates this rank's scored-token CE sum over
+the world's weight total (``_local_loss_fn``), all-reduces the flat
+gradient once over the world, and runs TF1 Adam over the tree. With
+``zero1`` (``_zero1_step_body``) the flat gradient is reduce-scattered
+over the world instead (the combined (dp, sp) axes, whose rank order is
+JAX's chunk order), each rank runs the plain flat Adam chain on its chunk
+(JAX's LM ZeRO-1 does not take the fused kernel) and the chunks are
+all-gathered back. The span loop, eval cadence and early stop are the JAX
+trainer's (``train/trainer.py::eval_spans``); each span is a host loop of
+eager steps closed by a device barrier.
+
+``SeqConfig`` keeps every JAX field and default. Tensor parallelism,
+pipeline parallelism and the ``bf16`` precision policy raise
+``NotImplementedError`` naming their ROADMAP items, and the JAX trainer's
+own checks raise the same ``ValueError``s (:func:`check_config`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import time
 from typing import Callable, Literal
 
@@ -33,43 +53,49 @@ from ..data.lm import LMDataset
 from ..models import transformer
 from ..models.transformer import LMSpec
 from ..ops import flash_attention
-from ..ops.optimizers import AdamState, adam_init, adam_update
-from ..parallel.mesh import default_device
-from ..parallel.ring import full_attention
+from ..ops.optimizers import AdamState, ShardedAdam, adam_init, adam_update
+from ..parallel import collectives as coll
+from ..parallel import ring
+from ..parallel.mesh import DP_AXIS, SP_AXIS, Grid, World, default_device, make_grid
 from ..train.trainer import eval_spans, hit_target
 from ..utils import tree
 from ..utils.metrics import StepStats, StepTimer, barrier
+from .sync import _adam_flat
 
 Scheme = Literal["ring", "ulysses", "full"]
 
+# The grid's axes, dp-major: rank = dp_index * num_workers + sp_index.
+AXES = (DP_AXIS, SP_AXIS)
 # What is left of the LM trainer, in ROADMAP.md.
-ROADMAP_LM = "ROADMAP queue 1, item 3 (LM training beyond one card)"
+ROADMAP_TP = "ROADMAP queue 1, item 3: tensor parallelism"
+ROADMAP_PP = "ROADMAP queue 1, item 3: the pipeline"
+LOCAL_GRID = make_grid(None, 1, 1)
 
 
 @dataclasses.dataclass(frozen=True)
 class SeqConfig:
-    """The JAX package's ``SeqConfig``: same fields, same defaults (the
-    default scheme ``ring`` is not ported yet; pass ``scheme="full"``)."""
+    """The JAX package's ``SeqConfig``: same fields, same defaults."""
 
     epochs: int = 1
-    batch_size: int = 8  # sequences per global batch
+    batch_size: int = 8  # sequences per global batch (shards over dp rows)
     learning_rate: float = 1e-3
     eval_every: int = 10  # batches between test-set evals (0 = end only)
     seed: int = 0
-    num_workers: int = 1  # sequence-parallel degree
-    data_parallel: int = 1
+    num_workers: int = 1  # sequence-parallel degree (sp axis)
+    data_parallel: int = 1  # dp axis; ranks = data_parallel * num_workers
     tensor_parallel: int = 1
     scheme: Scheme = "ring"
     compute_dtype: str | None = None  # None = fp32; "bfloat16" = bf16 compute
     precision: str | None = None  # "fp32"; "bf16" is not ported yet
     target_accuracy: float | None = None
-    zero1: bool = False
-    # Local attention: "xla" = plain attention (materialises [B, H, T, T]
-    # scores); "flash" = the CUDA flash kernels (their plain version on the
-    # CPU).
+    zero1: bool = False  # ZeRO-1 over the combined (dp, sp) axes
+    # Local attention for full and ulysses: "xla" = plain attention
+    # (materialises [B, H, T, T] scores); "flash" = the CUDA flash kernels
+    # (their plain version on the CPU).
     attn_impl: Literal["xla", "flash"] = "xla"
     # Recompute each block in the backward pass (torch.utils.checkpoint).
     remat: bool = False
+    # Position-to-rank layout of the ring: "contiguous" or "zigzag".
     seq_layout: Literal["contiguous", "zigzag"] = "contiguous"
     pipeline_parallel: int = 1
     microbatches: int = 1
@@ -81,6 +107,25 @@ class SeqConfig:
 
     def dtype(self) -> torch.dtype | None:
         return self.policy().compute_dtype
+
+    def validate_topology(self) -> None:
+        """JAX's pipeline topology checks; a pipeline raises
+        ``NotImplementedError`` (not ported yet)."""
+        pp, m = self.pipeline_parallel, self.microbatches
+        if pp < 1:
+            raise ValueError(f"pipeline_parallel must be >= 1, got {pp}")
+        if m < 1:
+            raise ValueError(f"microbatches must be >= 1, got {m}")
+        if m > 1 and pp == 1:
+            raise ValueError(
+                f"microbatches ({m}) > 1 requires pipeline_parallel > 1 "
+                "(microbatching exists to fill the pipeline; without "
+                "stages it only re-associates the batch)"
+            )
+        if pp > 1:
+            raise NotImplementedError(
+                f"pipeline_parallel={pp} is not ported yet ({ROADMAP_PP})"
+            )
 
 
 @dataclasses.dataclass
@@ -100,8 +145,10 @@ class LMResult:
     span_losses: list[float] = dataclasses.field(default_factory=list)  # last loss per span
 
 
-def _attn_for(config: SeqConfig) -> Callable:
-    """The attention closure for this config — always causal (decoder LM)."""
+def _attn_for(config: SeqConfig, grid: Grid = LOCAL_GRID) -> Callable:
+    """This rank's attention closure over ``[B, T/W, H, D]`` — always causal
+    (decoder LM)."""
+    W = config.num_workers
     if config.attn_impl not in ("xla", "flash"):
         raise ValueError(f"unknown attn_impl {config.attn_impl!r}")
     flash = config.attn_impl == "flash"
@@ -110,48 +157,125 @@ def _attn_for(config: SeqConfig) -> Callable:
             "attn_impl='flash' supports schemes full and ulysses; the ring's "
             "travelling-block softmax state cannot route through the flash kernel"
         )
+    local = functools.partial(flash_attention.flash_attention_bthd, causal=True) if flash \
+        else None
     if config.scheme == "full":
-        if config.num_workers != 1:
+        if W != 1:
             raise ValueError("scheme='full' cannot shard the sequence; "
                              "use ring or ulysses for num_workers > 1")
-        if flash:
-            return functools.partial(flash_attention.flash_attention_bthd, causal=True)
-        return functools.partial(full_attention, causal=True)
-    if config.scheme in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"scheme={config.scheme!r} is not ported yet ({ROADMAP_LM}); "
-            "use scheme='full' on one device"
+        return local or functools.partial(ring.full_attention, causal=True)
+    if config.scheme == "ring":
+        if config.seq_layout not in ring.LAYOUTS:
+            raise ValueError(f"unknown layout {config.seq_layout!r}")
+        return functools.partial(
+            ring.ring_attention_shard, axis_size=W, index=grid.sp_index,
+            ring=coll.Ring(grid.sp_group, grid.sp_ranks, grid.sp_index), causal=True,
+            layout=config.seq_layout,
+        )
+    if config.scheme == "ulysses":
+        return functools.partial(
+            ring.ulysses_attention_shard, axis_size=W, group=grid.sp_group, causal=True,
+            local_attn=local,
         )
     raise ValueError(f"unknown scheme {config.scheme!r}")
 
 
-def _check_slice(config: SeqConfig) -> None:
-    """Raise for what the JAX trainer supports and the port does not yet."""
-    for name in ("num_workers", "data_parallel", "tensor_parallel", "pipeline_parallel",
-                 "microbatches"):
-        if getattr(config, name) < 1:
-            raise ValueError(f"{name} must be >= 1, got {getattr(config, name)}")
-    todo = [
-        (config.num_workers > 1, f"num_workers={config.num_workers} (sequence parallelism)"),
-        (config.data_parallel > 1, f"data_parallel={config.data_parallel}"),
-        (config.tensor_parallel > 1, f"tensor_parallel={config.tensor_parallel}"),
-        (config.pipeline_parallel > 1 or config.microbatches > 1,
-         f"pipeline_parallel={config.pipeline_parallel}, microbatches={config.microbatches}"),
-        (config.zero1, "zero1 (the ZeRO-1 LM update)"),
-        (config.seq_layout != "contiguous", f"seq_layout={config.seq_layout!r}"),
-    ]
-    for bad, what in todo:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet ({ROADMAP_LM})")
+def check_config(config: SeqConfig, dataset: LMDataset) -> None:
+    """Every check of the JAX ``SeqTrainer.__init__``, in its order and with
+    its ``ValueError`` texts; what is not ported raises
+    ``NotImplementedError``. Needs no process group."""
+    W, dp, tp = config.num_workers, config.data_parallel, config.tensor_parallel
+    config.validate_topology()
+    if dataset.seq_len % max(W, 1):
+        raise ValueError(f"seq_len {dataset.seq_len} not divisible by {W} workers")
+    if tp > 1:
+        raise NotImplementedError(f"tensor_parallel={tp} is not ported yet ({ROADMAP_TP})")
+    local_heads = config.spec.num_heads // max(tp, 1)
+    if config.scheme == "ulysses" and local_heads % max(W, 1):
+        raise ValueError(
+            f"ulysses needs per-device num_heads ({local_heads}) "
+            f"divisible by num_workers ({W})"
+        )
+    # Both splits: an out-of-range id would index past the embedding.
+    for name, toks in (("train", dataset.tokens), ("test", dataset.test_tokens)):
+        if toks.size and toks.max() >= config.spec.vocab:
+            raise ValueError(
+                f"{name} vocab {toks.max() + 1} exceeds model vocab {config.spec.vocab}"
+            )
+    if config.batch_size % max(dp, 1):
+        raise ValueError(
+            f"batch_size {config.batch_size} not divisible by "
+            f"data_parallel {dp} (the batch shards over dp rows)"
+        )
+    if dataset.num_train // config.batch_size == 0:
+        raise ValueError(
+            f"batch_size {config.batch_size} exceeds {dataset.num_train} train sequences"
+        )
+    if config.seq_layout == "zigzag":
+        if config.scheme != "ring":
+            raise ValueError(
+                "seq_layout='zigzag' balances the RING's causal sweep; "
+                "full/ulysses reassemble the whole sequence locally and "
+                "assume contiguous order — use scheme='ring'"
+            )
+        if dataset.seq_len % (2 * W):
+            raise ValueError(
+                f"seq_layout='zigzag' needs seq_len % (2 * num_workers)"
+                f" == 0, got {dataset.seq_len} % {2 * W}"
+            )
+    if dp < 1 or W < 1 or tp < 1:
+        raise ValueError(
+            f"data_parallel ({dp}), num_workers ({W}) and "
+            f"tensor_parallel ({tp}) must be >= 1"
+        )
+    _attn_for(config)  # unknown attn_impl / scheme / layout; full with sharding
+    config.policy()  # precision="bf16" raises; unknown dtypes are ValueErrors
 
 
-def _local_loss_fn(config: SeqConfig, attn, tokens, targets, weights):
-    """The loss the train step differentiates: the batch's scored-token CE
-    sum over its weight total."""
+def _shard_positions(config: SeqConfig, t_local: int, grid: Grid,
+                     device: torch.device) -> torch.Tensor:
+    """This sp shard's absolute token positions ``[t_local]`` per the
+    config's layout, made on the device. They feed both RoPE and the
+    ring's mask, so the two cannot disagree."""
+    return ring.shard_positions(config.seq_layout, grid.sp_index, config.num_workers,
+                                t_local, torch, device=device)
+
+
+def _psum(t: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """``lax.psum`` over both axes: the sum over the world, in place."""
+    return t if grid.world is None else coll.all_reduce_sum(t, grid.world)
+
+
+def _shard_sums(config: SeqConfig, grid: Grid, attn, positions, fn) -> Callable:
+    """``(params, tokens, targets, weights) -> (num, den)`` of an
+    accumulator-form metric ``fn`` (``lm_correct_sums``) over this rank's
+    ``[n, T/W]`` shard, in chunks of ``batch_size`` sequences, summed over
+    the world in one all-reduce: the global sums, not a mean of shard
+    means (the scored tokens sit unevenly across the sequence shards)."""
+
+    def sums(params, tokens, targets, weights):
+        out = torch.zeros(2, device=tokens.device)
+        bs = config.batch_size
+        for i in range(0, tokens.shape[0], bs):
+            num, den = fn(params, tokens[i:i + bs], targets[i:i + bs], weights[i:i + bs],
+                          config.spec, attn_fn=attn, positions=positions,
+                          compute_dtype=config.dtype())
+            out += torch.stack([num, den])
+        return _psum(out, grid)
+
+    return sums
+
+
+def _local_loss_fn(config: SeqConfig, grid: Grid, attn, tokens, targets, weights,
+                   positions) -> Callable:
+    """The loss a step differentiates: this shard's scored-token CE sum
+    over the world's weight total. The total depends on no parameter, so
+    the gradients are this rank's partial sums, which the step reduces."""
+    den = _psum(weights.float().sum(), grid)
 
     def local_loss(p):
-        num, den = transformer.lm_loss_sums(
-            p, tokens, targets, weights, config.spec, attn_fn=attn,
+        num, _ = transformer.lm_loss_sums(
+            p, tokens, targets, weights, config.spec, attn_fn=attn, positions=positions,
             compute_dtype=config.dtype(), remat=config.remat,
         )
         return num / den
@@ -159,27 +283,91 @@ def _local_loss_fn(config: SeqConfig, attn, tokens, targets, weights):
     return local_loss
 
 
-def _step_body(config: SeqConfig) -> Callable:
+def _local_grads(config, grid, attn, positions, params, tokens, targets, weights):
+    """``(loss summed over the world, this rank's gradient leaves)``."""
+    leaves = tree.map(lambda t: t.detach().requires_grad_(True), params)
+    l_local = _local_loss_fn(config, grid, attn, tokens, targets, weights, positions)(leaves)
+    grads = torch.autograd.grad(l_local, tree.leaves(leaves))
+    return _psum(l_local.detach(), grid), grads
+
+
+class _FlatPlan:
+    """Static flatten/unflatten plan for the LM parameter tree, in
+    ``utils.tree.leaves`` order (``jax.flatten_util.ravel_pytree``'s)."""
+
+    def __init__(self, template):
+        self.like = template
+        self.shapes = [tuple(t.shape) for t in tree.leaves(template)]
+        self.sizes = [math.prod(s) for s in self.shapes]
+        self.total = sum(self.sizes)
+
+    @staticmethod
+    def flatten(t) -> torch.Tensor:
+        return torch.cat([x.reshape(-1) for x in tree.leaves(t)])
+
+    def unflatten(self, flat: torch.Tensor):
+        """A tree of views of ``flat[:total]``."""
+        parts = flat[: self.total].split(self.sizes)
+        return tree.unflatten(self.like, [x.view(s) for x, s in zip(parts, self.shapes)])
+
+
+def _step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
+               plan: _FlatPlan) -> Callable:
     """One train step: ``(params, opt_state, tokens, targets, weights) ->
-    (params', opt_state', loss)`` — loss and the gradient of every leaf by
-    autograd, then TF1 Adam over the tree."""
-    attn = _attn_for(config)
+    (params', opt_state', loss)`` — local gradients, ONE all-reduce of the
+    flat gradient over the world, then TF1 Adam over the tree."""
+    attn = _attn_for(config, grid)
 
     def step(params, opt_state: AdamState, tokens, targets, weights):
-        leaves = tree.map(lambda t: t.detach().requires_grad_(True), params)
-        loss = _local_loss_fn(config, attn, tokens, targets, weights)(leaves)
-        grads = tree.unflatten(leaves, torch.autograd.grad(loss, tree.leaves(leaves)))
+        loss, grads = _local_grads(config, grid, attn, positions, params, tokens, targets,
+                                   weights)
+        if grid.world is None:
+            grads = tree.unflatten(params, grads)
+        else:
+            grads = plan.unflatten(coll.all_reduce_sum(_FlatPlan.flatten(grads), grid.world))
         with torch.no_grad():
             params, opt_state = adam_update(params, opt_state, grads, lr=config.learning_rate)
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
+
+    return step
+
+
+def _zero1_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
+                     plan: _FlatPlan) -> Callable:
+    """One ZeRO-1 step: local gradients, ONE reduce-scatter of the flat
+    gradient over the world (which both sums the dp/sp partials and lands
+    each rank its chunk ``dp_index * num_workers + sp_index``), the plain
+    flat Adam chain on the chunk, and an all-gather of the updated chunks."""
+    attn = _attn_for(config, grid)
+    n_dev = config.data_parallel * config.num_workers
+    chunk = coll.chunk_size(plan.total, n_dev)
+    mine = slice(grid.rank * chunk, (grid.rank + 1) * chunk)
+
+    def step(params, opt: ShardedAdam, tokens, targets, weights):
+        loss, grads = _local_grads(config, grid, attn, positions, params, tokens, targets,
+                                   weights)
+        flat = _FlatPlan.flatten(grads)
+        if grid.world is None:
+            g_own = coll.pad_to(flat, chunk)
+        else:
+            g_own = coll.reduce_scatter_flat(flat, grid.world, mean=False, chunk=chunk)
+        with torch.no_grad():
+            p_own = coll.pad_to(_FlatPlan.flatten(params), chunk * n_dev)[mine]
+            p_new, opt = _adam_flat(p_own, opt, g_own, lr=config.learning_rate)
+            full = p_new if grid.world is None else coll.all_gather_flat(p_new, grid.world)
+        return plan.unflatten(full), opt, loss
 
     return step
 
 
 class SeqTrainer:
-    """LM trainer on one device (``cuda`` unless ``device="cpu"``). ``init``
-    is a numpy parameter tree in the JAX layout (e.g. a JAX init); without
-    it, a glorot init from ``config.seed``."""
+    """LM trainer over the ``[data_parallel, num_workers]`` grid of
+    ``world`` (``init_world``; its device is the trainer's), or, without a
+    world, on one device (``cuda`` unless ``device="cpu"``) with ``dp =
+    num_workers = 1``. ``init`` is a numpy parameter tree in the JAX layout
+    (e.g. a JAX init); without it, a glorot init from ``config.seed``, the
+    same on every rank. Parameters are replicated on every rank; the Adam
+    moments too, or with ``zero1`` this rank's flat chunk."""
 
     def __init__(
         self,
@@ -187,43 +375,80 @@ class SeqTrainer:
         dataset: LMDataset,
         init: dict | None = None,
         device: str | torch.device | None = None,
+        world: World | None = None,
     ):
-        _attn_for(config)  # unknown attn_impl / scheme; full with sharding
-        _check_slice(config)
-        config.policy()  # precision="bf16" raises; unknown dtypes are ValueErrors
-        # Both splits: an out-of-range id would index past the embedding.
-        for name, toks in (("train", dataset.tokens), ("test", dataset.test_tokens)):
-            if toks.size and toks.max() >= config.spec.vocab:
-                raise ValueError(
-                    f"{name} vocab {toks.max() + 1} exceeds model vocab {config.spec.vocab}"
-                )
-        if dataset.num_train // config.batch_size == 0:
-            raise ValueError(
-                f"batch_size {config.batch_size} exceeds {dataset.num_train} train sequences"
-            )
+        check_config(config, dataset)
+        if world is not None and device is not None:
+            raise ValueError("pass device or world, not both (a world has its device)")
         self.config = config
         self.dataset = dataset
-        self.device = default_device(device)
+        self.grid = make_grid(world, config.data_parallel, config.num_workers)
+        self.device = world.device if world is not None else default_device(device)
         if init is not None:
             self.params = lm_params_from_numpy(init, config.spec, self.device)
         else:
             self.params = transformer.init_lm_params(
                 torch.Generator().manual_seed(config.seed), config.spec, self.device
             )
-        self.opt_state = adam_init(self.params)
+        self._plan = _FlatPlan(self.params)
+        if config.zero1:
+            chunk = coll.chunk_size(self._plan.total, config.data_parallel * config.num_workers)
+            zeros = lambda: torch.zeros(chunk, device=self.device)  # noqa: E731
+            self.opt_state = ShardedAdam(
+                step=torch.zeros((), dtype=torch.int32, device=self.device), m=zeros(), v=zeros()
+            )
+        else:
+            self.opt_state = adam_init(self.params)
+        # Zigzag: one staging-time gather re-orders the sequence so that
+        # contiguous sp sharding lands chunk pair (i, 2W-1-i) on rank i.
+        self._perm = (ring.zigzag_permutation(config.num_workers, dataset.seq_len)
+                      if config.seq_layout == "zigzag" else None)
+        t_local = dataset.seq_len // config.num_workers
+        self.positions = _shard_positions(config, t_local, self.grid, self.device)
+        self._attn = _attn_for(config, self.grid)
+
+    def step_fn(self) -> Callable:
+        """This config's train step, ``(params, opt, tokens, targets,
+        weights) -> (params', opt', loss)`` on this rank's blocks."""
+        if self.config.zero1:
+            return _zero1_step_body(self.config, self.grid, self.positions, self._plan)
+        return _step_body(self.config, self.grid, self.positions, self._plan)
+
+    def _permuted(self, arr: np.ndarray) -> np.ndarray:
+        """The layout's sequence permutation (identity when contiguous):
+        tokens, targets and weights move together."""
+        return arr if self._perm is None else arr[:, self._perm]
+
+    def _local(self, arr: np.ndarray, rows: bool) -> torch.Tensor:
+        """This rank's block of ``arr [..., B, T]`` on the device: its sp
+        column's ``T/W`` positions and, with ``rows``, its dp row's ``B/dp``
+        sequences (token ids as int64)."""
+        g, cfg = self.grid, self.config
+        t = arr.shape[-1] // cfg.num_workers
+        block = arr[..., g.sp_index * t:(g.sp_index + 1) * t]
+        if rows:
+            b = arr.shape[-2] // cfg.data_parallel
+            block = block[..., g.dp_index * b:(g.dp_index + 1) * b, :]
+        out = torch.as_tensor(np.ascontiguousarray(block))
+        return (out.long() if not out.is_floating_point() else out).to(self.device)
 
     def stage_batches(self, arr: np.ndarray, batches: int, bs: int) -> torch.Tensor:
-        """``batches`` x ``bs`` rows of ``arr`` as a ``[nb, B, T]`` tensor on
-        the device (token ids as int64)."""
-        shaped = np.asarray(arr[: batches * bs]).reshape(batches, bs, arr.shape[1])
-        t = torch.as_tensor(shaped)
-        return (t.long() if not t.is_floating_point() else t).to(self.device)
+        """``batches`` x ``bs`` rows of ``arr`` as this rank's ``[nb, B/dp,
+        T/W]`` blocks on the device."""
+        shaped = self._permuted(np.asarray(arr[: batches * bs])).reshape(
+            batches, bs, arr.shape[1])
+        return self._local(shaped, rows=True)
+
+    def stage_test(self, arr: np.ndarray) -> torch.Tensor:
+        """The whole test set's sp column ``[n, T/W]`` (replicated over
+        dp)."""
+        return self._local(self._permuted(np.asarray(arr)), rows=False)
 
     def span_program(self, k: int) -> Callable:
         """``(params, opt, xs, ys, ws, first) -> (params, opt, last_loss)``:
         ``k`` consecutive steps over the staged batches ``first ..
         first + k - 1``."""
-        step = _step_body(self.config)
+        step = self.step_fn()
 
         def run(params, opt_state, xs, ys, ws, first: int):
             loss = None
@@ -235,31 +460,20 @@ class SeqTrainer:
 
     @torch.no_grad()
     def evaluate(self, params, tokens, targets, weights) -> float:
-        """Weighted next-token accuracy over the test set, in chunks of
-        ``batch_size`` sequences; the ``(hits, weight)`` sums add up on the
-        device and reach the host in one fetch."""
-        cfg = self.config
-        attn = _attn_for(cfg)
-        num = torch.zeros((), device=tokens.device)
-        den = torch.zeros((), device=tokens.device)
-        for i in range(0, tokens.shape[0], cfg.batch_size):
-            n, d = transformer.lm_correct_sums(
-                params, tokens[i:i + cfg.batch_size], targets[i:i + cfg.batch_size],
-                weights[i:i + cfg.batch_size], cfg.spec, attn_fn=attn,
-                compute_dtype=cfg.dtype(),
-            )
-            num += n
-            den += d
+        """Weighted next-token accuracy over the test set (``_shard_sums``):
+        the global ``(hits, weight)`` sums reach the host in one fetch."""
+        num, den = _shard_sums(self.config, self.grid, self._attn, self.positions,
+                               transformer.lm_correct_sums)(params, tokens, targets, weights)
         return float(num / den)
 
     def _warm_up(self, params, opt_state, xs, ys, ws) -> None:
         """Outside the clock (where the JAX trainer compiles): one discarded
         train step of this config on the first batch, which builds the
-        flash kernels (flash on CUDA), loads cuBLAS and PyTorch's kernels
-        and sizes the allocator. It launches each flash kernel once per
-        layer. The step is functional: ``params`` and ``opt_state`` are not
-        changed."""
-        _step_body(self.config)(params, opt_state, xs[0], ys[0], ws[0])
+        flash kernels (flash on CUDA), loads cuBLAS and PyTorch's kernels,
+        sets up the process group's communicators and sizes the allocator.
+        It launches each flash kernel once per layer. The step is
+        functional: ``params`` and ``opt_state`` are not changed."""
+        self.step_fn()(params, opt_state, xs[0], ys[0], ws[0])
         barrier(self.device)
 
     def train(self, log: Callable[[str], None] = print) -> LMResult:
@@ -269,13 +483,12 @@ class SeqTrainer:
         xs = self.stage_batches(ds.tokens, batch_num, bs)
         ys = self.stage_batches(ds.targets, batch_num, bs)
         ws = self.stage_batches(ds.weights, batch_num, bs)
-        n_test = ds.test_tokens.shape[0]
-        xte, yte, wte = (self.stage_batches(a, 1, n_test)[0]
+        xte, yte, wte = (self.stage_test(a)
                          for a in (ds.test_tokens, ds.test_targets, ds.test_weights))
         params = tree.map(torch.clone, self.params)
-        opt_state = AdamState(step=self.opt_state.step.clone(),
-                              m=tree.map(torch.clone, self.opt_state.m),
-                              v=tree.map(torch.clone, self.opt_state.v))
+        opt_state = dataclasses.replace(
+            self.opt_state, step=self.opt_state.step.clone(),
+            m=tree.map(torch.clone, self.opt_state.m), v=tree.map(torch.clone, self.opt_state.v))
         spans = eval_spans(batch_num, cfg.eval_every)
         fns = {k: self.span_program(k) for k in {k for _, k, _ in spans}}
         t0 = time.perf_counter()

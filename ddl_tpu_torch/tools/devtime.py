@@ -33,8 +33,10 @@ more than a kernel's length (``device_minus_launch_ms`` reports it: the
 launch latency, a few microseconds, plus that offset). ``kernel`` (a
 regular expression) restricts the sum to the kernel's own launches. The
 tracer may lose the first device events after it starts, so untimed calls
-run first inside the profiler. A range with no device time raises: the
-reading never falls back to events.
+run first inside the profiler. A range with no device time (the tracer
+dropped a record) costs the reading its window: it is taken once more in a
+new profiler session, and ``profile_windows`` says how many it took; a
+second such window raises. The reading never falls back to events.
 
 Needs a CUDA card.
 """
@@ -87,6 +89,10 @@ def _windows(events) -> list[tuple[float, float]]:
     return [wins[i] for i in sorted(wins)]
 
 
+class MissingDeviceTime(RuntimeError):
+    """A call's range holds no device time."""
+
+
 def per_call_ms(events, reps: int,
                 kernel: str | None = None) -> tuple[list[float], set[str], list[float]]:
     """Each call's device ms from the profiler's events: the device events
@@ -119,7 +125,7 @@ def per_call_ms(events, reps: int,
             offsets_ms.append((e.time_range.start - t) / 1e3)
     for i, us in enumerate(total_us):
         if us <= 0:
-            raise RuntimeError(f"devtime: the profiler recorded no device time for "
+            raise MissingDeviceTime(f"devtime: the profiler recorded no device time for "
                                f"{kernel or 'the call'} in call {i} of {reps}")
     return [us / 1e3 for us in total_us], names, offsets_ms
 
@@ -129,31 +135,38 @@ def device_ms(fn: Callable[[], object], *, reps: int = 50, warm: int = 3,
     """Device time of ``fn()`` per call over ``reps`` calls (after ``warm``
     untimed ones), with ``flush()`` before each call if given. Only device
     events whose name matches ``kernel`` count, if given. Returns ms
-    (median), mean, min, max, the call count and the device events' names."""
+    (median), mean, min, max, the call count, the device events' names and
+    the profiler windows taken (2 when the first lost a call's record)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # Untimed calls first (at least 3, and 20 ms): the tracer may miss
-        # device work launched right after it starts.
-        t0, warmed = time.perf_counter(), 0
-        while warmed < 3 or time.perf_counter() - t0 < 0.02:
-            fn()
-            torch.cuda.synchronize()
-            warmed += 1
-        for i in range(reps):
-            if flush is not None:
-                flush()
-            torch.cuda.synchronize()
-            with record_function(f"{_TAG}{i}"):
+    for window in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # Untimed calls first (at least 3, and 20 ms): the tracer may miss
+            # device work launched right after it starts.
+            t0, warmed = time.perf_counter(), 0
+            while warmed < 3 or time.perf_counter() - t0 < 0.02:
                 fn()
                 torch.cuda.synchronize()
-    per_call, names, offsets = per_call_ms(prof.events(), reps, kernel)
+                warmed += 1
+            for i in range(reps):
+                if flush is not None:
+                    flush()
+                torch.cuda.synchronize()
+                with record_function(f"{_TAG}{i}"):
+                    fn()
+                    torch.cuda.synchronize()
+        try:
+            per_call, names, offsets = per_call_ms(prof.events(), reps, kernel)
+            break
+        except MissingDeviceTime:
+            if window == 2:
+                raise
     return {"ms": statistics.median(per_call), "mean_ms": statistics.fmean(per_call),
             "min_ms": min(per_call), "max_ms": max(per_call), "calls": reps,
-            "device_events": sorted(names),
+            "device_events": sorted(names), "profile_windows": window,
             "device_minus_launch_ms": [min(offsets), statistics.median(offsets), max(offsets)]}
 
 
@@ -186,5 +199,6 @@ def timings(fn: Callable[[], object], flush: L2Flush, *, kernel: str | None = No
             "cold_min_max_ms": [cold["min_ms"], cold["max_ms"]],
             "hot_min_max_ms": [hot["min_ms"], hot["max_ms"]],
             "device_events": cold["device_events"],
+            "profile_windows": {"cold": cold["profile_windows"], "hot": hot["profile_windows"]},
             "device_minus_launch_ms": {"cold": cold["device_minus_launch_ms"],
                                        "hot": hot["device_minus_launch_ms"]}}

@@ -1,14 +1,17 @@
 """Where a train step's time goes on the card, for the port's main paths.
 
     python -m ddl_tpu_torch.tools.step_anatomy [--variant cnn|lm|async|serve] [--batch-size N] [--steps N] [--out FILE]
+        [--seq-scheme full|ring|ulysses] [--seq-layout contiguous|zigzag] [--zero1]
 
 ``--variant cnn`` (the default) runs the ZeRO-1 sync step
 (``make_sharded_step``: one worker, ``num_ps=2``, layout ``flat``) at full
 width over an NCCL world of one, batch 100 by default. ``--variant lm``
-runs the decoder-LM train step (``strategies/seq.py::_step_body``, scheme
-full) at the widest LM width the repo defines (benchmarks/lm_bench.py:
-vocab 256, d_model 512, 8 heads, 4 layers, d_ff 2048), T = 2048, batch 4 by
-default, fp32. ``--variant async`` runs the async parameter server's round
+runs the decoder-LM train step (``SeqTrainer.step_fn``) at the widest LM
+width the repo defines (benchmarks/lm_bench.py: vocab 256, d_model 512, 8
+heads, 4 layers, d_ff 2048), T = 2048, batch 4 by default, fp32, over an
+NCCL world of one: scheme full in xla and flash by default, or with
+``--seq-scheme ring|ulysses`` (``--seq-layout``, ``--zero1``) that scheme
+against full on the same local attention (ring: xla, ulysses: flash). ``--variant async`` runs the async parameter server's round
 (``strategies/async_ps.py::make_async_round``, one worker, batch 100 a push
 by default) at the CNN's full width over the same world: ``async_sharding``
 (``num_ps=2``, block, folded onto the rank) and ``async`` (the replicated
@@ -24,7 +27,7 @@ line:
 - ``steady``: host-clock ms per step over ``--steps`` steps after a
   warm-up, closed by ``torch.cuda.synchronize``, for the two versions in
   turns (plain, kernel, kernel, plain): plain and fused Adam for the CNN,
-  ``attn_impl`` xla and flash for the LM, sync and the two async serves
+  ``attn_impl`` xla and flash for the LM (or full and the scheme), sync and the two async serves
   (sync, async_sharding, async, async, async_sharding, sync) for async; and
   images/s or tokens/s (the LM also gives each impl's peak allocated
   memory over its own runs). Serve: one ``Scheduler.run`` of the whole
@@ -45,7 +48,8 @@ line:
   (``gather_bytes_ms``: the whole embedding table, every slot's attended
   width).
   Where the profiler records no device time, the breakdown reads "not
-  measured".
+  measured". The profiler slows the host, so the LM also gives the idle
+  share of its unprofiled steady step (``device_idle_share_of_steady``).
 
 Needs a CUDA card; raises without one.
 """
@@ -57,6 +61,7 @@ import dataclasses
 import json
 import os
 import re
+import statistics
 import tempfile
 import time
 
@@ -80,6 +85,7 @@ CNN_FAMILIES = (
 )
 LM_FAMILIES = (
     ("flash", re.compile(r"flash_(fwd|bwd_dkv|bwd_dq)_kernel")),
+    ("nccl", re.compile(r"nccl", re.I)),
     ("matmul", re.compile(r"gemm|cutlass|cublas|xmma|sgemm|splitK", re.I)),
     ("elementwise", re.compile(r"elementwise|vectorized|unrolled", re.I)),
 )
@@ -264,50 +270,71 @@ def async_variant(args, emit) -> None:
 
 def lm_variant(args, emit) -> None:
     from ..data.lm import synthesize_copy
-    from ..models.transformer import init_lm_params
     from ..ops import flash_attention
-    from ..ops.optimizers import adam_init
-    from ..strategies.seq import SeqConfig, _step_body
+    from ..strategies.seq import SeqConfig, SeqTrainer
     from ..utils import tree
 
-    dev = default_device("cuda")
     bs = args.batch_size or 4
     ds = synthesize_copy(num_train=4 * bs, num_test=0, seq_len=LM_SEQ_LEN, vocab=LM_SPEC.vocab,
                          seed=0)
-    stage = lambda a, dtype: torch.as_tensor(  # noqa: E731
-        a.reshape(4, bs, LM_SEQ_LEN)).to(dtype).to(dev)
-    xs, ys, ws = stage(ds.tokens, torch.long), stage(ds.targets, torch.long), stage(
-        ds.weights, torch.float32)
-    base = SeqConfig(scheme="full", batch_size=bs, learning_rate=1e-3, spec=LM_SPEC)
-    steps = {impl: _step_body(dataclasses.replace(base, attn_impl=impl))
-             for impl in ("xla", "flash")}
-    params = init_lm_params(torch.Generator().manual_seed(0), LM_SPEC, dev)
-    state = {"params": params, "opt": adam_init(params), "i": 0}
+    base = SeqConfig(scheme="full", batch_size=bs, learning_rate=1e-3, seed=0, spec=LM_SPEC)
+    if args.seq_scheme == "full" and not args.zero1:
+        versions = {impl: dataclasses.replace(base, attn_impl=impl) for impl in ("xla", "flash")}
+        subject = "flash"
+    else:
+        # The scheme against full on the same local attention.
+        impl = "xla" if args.seq_scheme == "ring" else "flash"
+        versions = {"full": dataclasses.replace(base, attn_impl=impl),
+                    "seq": dataclasses.replace(base, attn_impl=impl, scheme=args.seq_scheme,
+                                               seq_layout=args.seq_layout, zero1=args.zero1)}
+        subject = "seq"
     flash_attention.load_kernel()
-    peak = {"xla": 0, "flash": 0}  # bytes allocated at most during one impl's runs
+    with tempfile.TemporaryDirectory() as store:
+        world = init_world(1, 0, f"file://{os.path.join(store, 'store')}", "cuda")
+        try:
+            trainers = {v: SeqTrainer(c, ds, world=world) for v, c in versions.items()}
+            steps = {v: t.step_fn() for v, t in trainers.items()}
+            batches = {v: [t.stage_batches(a, 4, bs) for a in (ds.tokens, ds.targets, ds.weights)]
+                       for v, t in trainers.items()}
+            state = {v: [t.params, t.opt_state] for v, t in trainers.items()}
+            peak = dict.fromkeys(versions, 0)  # bytes allocated at most during a version's runs
+            count = {"i": 0}
 
-    def run(impl, n):
-        torch.cuda.reset_peak_memory_stats(dev)
-        for _ in range(n):
-            i = state["i"] % xs.shape[0]
-            state["params"], state["opt"], _ = steps[impl](state["params"], state["opt"],
-                                                           xs[i], ys[i], ws[i])
-            state["i"] += 1
-        peak[impl] = max(peak[impl], torch.cuda.max_memory_allocated(dev))
+            def run(version, n):
+                torch.cuda.reset_peak_memory_stats()
+                xs, ys, ws = batches[version]
+                for _ in range(n):
+                    i = count["i"] % xs.shape[0]
+                    state[version][0], state[version][1], _ = steps[version](
+                        *state[version], xs[i], ys[i], ws[i])
+                    count["i"] += 1
+                peak[version] = max(peak[version], torch.cuda.max_memory_allocated())
 
-    run("flash", 3)  # warm-up
-    run("xla", 3)
-    torch.cuda.synchronize()
-    ms = steady_ms(run, ("xla", "flash", "flash", "xla"), args.steps)
-    tokens = bs * LM_SEQ_LEN
-    emit({"phase": "steady", "variant": "lm", "batch_size": bs, "seq_len": LM_SEQ_LEN,
-          "steps": args.steps, "xla_ms_per_step": ms["xla"], "flash_ms_per_step": ms["flash"],
-          "flash_tokens_per_sec": [tokens / (t * 1e-3) for t in ms["flash"]],
-          "xla_tokens_per_sec": [tokens / (t * 1e-3) for t in ms["xla"]],
-          "peak_memory_gb": {impl: b / 1e9 for impl, b in peak.items()}})
-    emit({"phase": "anatomy", "variant": "lm", "attn_impl": "flash", "batch_size": bs,
-          "seq_len": LM_SEQ_LEN, **anatomy(lambda n: run("flash", n), 5, LM_FAMILIES)})
-    if not all(bool(torch.isfinite(t).all()) for t in tree.leaves(state["opt"].m)):
+            for v in versions:  # warm-up
+                run(v, 3)
+            torch.cuda.synchronize()
+            ms = steady_ms(run, (*versions, *reversed(versions)), args.steps)
+            tokens = bs * LM_SEQ_LEN
+            config = {"seq_scheme": args.seq_scheme, "seq_layout": args.seq_layout,
+                      "zero1": args.zero1, "attn_impl": versions[subject].attn_impl}
+            emit({"phase": "steady", "variant": "lm", **config, "batch_size": bs,
+                  "seq_len": LM_SEQ_LEN, "steps": args.steps,
+                  **{f"{v}_ms_per_step": ms[v] for v in versions},
+                  **{f"{v}_tokens_per_sec": [tokens / (t * 1e-3) for t in ms[v]]
+                     for v in versions},
+                  "peak_memory_gb": {v: b / 1e9 for v, b in peak.items()}})
+            anat = anatomy(lambda n: run(subject, n), 5, LM_FAMILIES)
+            if "device_busy_ms_per_step" in anat:
+                # The profiler slows the host: the idle share of the unprofiled
+                # steady step (the median of its turns) beside the traced one.
+                steady = statistics.median(ms[subject])
+                anat["steady_ms_per_step"] = steady
+                anat["device_idle_share_of_steady"] = 1.0 - anat["device_busy_ms_per_step"] / steady
+            emit({"phase": "anatomy", "variant": "lm", **config, "version": subject,
+                  "batch_size": bs, "seq_len": LM_SEQ_LEN, **anat})
+        finally:
+            destroy_world()
+    if not all(bool(torch.isfinite(t).all()) for t in tree.leaves(state[subject][1].m)):
         raise AssertionError("non-finite optimizer state")
 
 
@@ -396,6 +423,12 @@ def main(argv=None) -> int:
     ap.add_argument("--batch-size", type=int, default=None,
                     help="images (cnn, default 100) or sequences (lm, default 4)")
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seq-scheme", default="full", choices=["full", "ring", "ulysses"],
+                    help="lm: the scheme timed against full (ring on xla attention, "
+                         "ulysses on flash)")
+    ap.add_argument("--seq-layout", default="contiguous", choices=["contiguous", "zigzag"],
+                    help="lm: the ring's layout")
+    ap.add_argument("--zero1", action="store_true", help="lm: the ZeRO-1 update")
     ap.add_argument("--out", default=None, help="also write the JSON lines here")
     args = ap.parse_args(argv)
     default_device("cuda")

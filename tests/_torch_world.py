@@ -1,19 +1,26 @@
-"""Worker of the spawned 2-rank gloo world in tests/test_torch_sync.py.
+"""Workers of the spawned gloo worlds: the 2-rank CNN world of
+tests/test_torch_sync.py (:func:`world_cases`) and the 4-rank LM world of
+tests/test_torch_seq_parallel.py (:func:`lm_world_cases`).
 
-Kept apart from the test module so the spawned children import only
+Kept apart from the test modules so the spawned children import only
 ``torch`` and ``ddl_tpu_torch`` (never JAX): ``multiprocessing`` imports this
 module, not the test file, to find the target.
 """
+
+import time
 
 import numpy as np
 import torch
 
 from ddl_tpu_torch.convert import async_state_to_numpy, params_from_numpy, params_to_numpy
+from ddl_tpu_torch.data.lm import synthesize_copy
 from ddl_tpu_torch.models import cnn
+from ddl_tpu_torch.models import transformer
 from ddl_tpu_torch.parallel.collectives import unflatten_params
 from ddl_tpu_torch.parallel.mesh import destroy_world, init_world
 from ddl_tpu_torch.ops.optimizers import adam_init
 from ddl_tpu_torch.strategies import async_ps
+from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
 from ddl_tpu_torch.strategies.sync import (
     make_dp_step,
     make_sharded_step,
@@ -21,6 +28,7 @@ from ddl_tpu_torch.strategies.sync import (
     sharded_adam_init,
 )
 from ddl_tpu_torch.train.config import TrainConfig
+from ddl_tpu_torch.utils import tree
 
 # Sync cases: name -> (num_ps, layout, grad_reduction). num_ps 1 is DP;
 # num_ps 3 at W = 2 folds the block layout onto the two ranks.
@@ -143,4 +151,57 @@ def world_cases(rank: int, world_size: int, store: str, inputs: str, out: str,
             _async_case(name, world, init, specs, axs, ays, x_test, y_test, results)
     finally:
         destroy_world()
+    np.savez(out, **results)
+
+
+# LM cases of the 4-rank world: name -> SeqConfig fields (num_workers x
+# data_parallel = 4 ranks).
+LM_CASES = {
+    "ring": dict(scheme="ring", num_workers=4),
+    "ring_zigzag": dict(scheme="ring", seq_layout="zigzag", num_workers=4),
+    "ulysses": dict(scheme="ulysses", num_workers=4),
+    "ulysses_flash": dict(scheme="ulysses", attn_impl="flash", num_workers=4),
+    "ring_zigzag_2x2": dict(scheme="ring", seq_layout="zigzag", num_workers=2,
+                            data_parallel=2),
+    "full_dp4": dict(scheme="full", num_workers=1, data_parallel=4),
+    "zero1_ring": dict(scheme="ring", zero1=True, num_workers=4),
+    "zero1_ulysses_2x2": dict(scheme="ulysses", zero1=True, num_workers=2, data_parallel=2),
+    # Recomputed blocks re-run the ring's shifts inside the backward pass.
+    "ring_zigzag_remat": dict(scheme="ring", seq_layout="zigzag", num_workers=4, remat=True),
+}
+LM_SPEC = transformer.LMSpec(vocab=16, d_model=32, num_heads=4, num_layers=2, d_ff=64)
+LM_DATA = dict(num_train=16, num_test=8, seq_len=32, vocab=16, seed=5)
+# 2 steps of batch 8, one span (and one eval) a step.
+LM_BASE = dict(epochs=1, batch_size=8, learning_rate=1e-3, eval_every=1, seed=2, spec=LM_SPEC)
+
+
+def lm_world_cases(rank: int, world_size: int, store: str, inputs: str, out: str) -> None:
+    """Every case of LM_CASES from the init in ``inputs`` (its leaves in
+    ``utils.tree.leaves`` order): params, span losses, the final loss and
+    accuracy, this rank's Adam state (moments by leaf, or its ZeRO-1
+    chunk) and the rank's wall time in seconds."""
+    start = time.perf_counter()
+    torch.set_num_threads(1)
+    data = np.load(inputs)
+    like = transformer.init_lm_params(torch.Generator().manual_seed(0), LM_SPEC)
+    init = tree.unflatten(like, [data[f"init/{i}"] for i in range(len(tree.leaves(like)))])
+    ds = synthesize_copy(**LM_DATA)
+    world = init_world(world_size, rank, store, "cpu")
+    results = {}
+    try:
+        for name, kw in LM_CASES.items():
+            trainer = SeqTrainer(SeqConfig(**LM_BASE, **kw), ds, init=init, world=world)
+            res = trainer.train(log=lambda s: None)
+            for i, leaf in enumerate(tree.leaves(res.params)):
+                results[f"{name}/p/{i}"] = leaf
+            results[f"{name}/span_losses"] = np.asarray(res.span_losses)
+            results[f"{name}/final"] = np.asarray([res.final_loss, res.final_accuracy])
+            opt = trainer.opt_state
+            results[f"{name}/step"] = np.asarray(int(opt.step))
+            for k in ("m", "v"):
+                for i, leaf in enumerate(tree.leaves(getattr(opt, k))):
+                    results[f"{name}/{k}/{i}"] = leaf.numpy()
+    finally:
+        destroy_world()
+    results["seconds"] = np.asarray(time.perf_counter() - start)
     np.savez(out, **results)

@@ -1,7 +1,7 @@
 """The port's CLI subset (ddl_tpu_torch/cli.py): the flag-to-config mapping
 of the JAX CLI, its --fused-adam validation, loud refusal of what is not
 ported, and tiny end-to-end runs on the CPU (sync_sharding, the three async
-variants and lm)."""
+variants and lm: full, the default ring, and Ulysses with ZeRO-1)."""
 
 import dataclasses
 import json
@@ -122,11 +122,15 @@ def test_lm_flags_keep_the_jax_spellings_and_defaults():
     assert (cfg.learning_rate, cfg.seed, cfg.batch_size, cfg.spec.d_ff) == (3e-3, 5, 16, 64)
     default = cli.lm_config_from_args(ours.parse_args(["lm", "--seq-scheme", "full"]))
     assert (default.batch_size, default.learning_rate, default.compute_dtype) == (32, 1e-3, None)
+    grid = cli.lm_config_from_args(ours.parse_args([
+        "lm", "--num-workers", "2", "--data-parallel", "2", "--zero1", "--seq-layout", "zigzag"]))
+    assert (grid.scheme, grid.num_workers, grid.data_parallel, grid.zero1, grid.seq_layout) == (
+        "ring", 2, 2, True, "zigzag")
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["lm"], "pass --seq-scheme full"),
-    (["lm", "--seq-scheme", "ulysses"], "pass --seq-scheme full"),
+    (["lm", "--data-parallel", "0"], "--data-parallel must be >= 1"),
+    (["sync", "--zero1"], "--zero1 does not apply"),
     (["lm", "--seq-scheme", "full", "--keep-prob", "0.7"], "--keep-prob does not apply"),
     (["sync", "--attn-impl", "flash"], "--attn-impl does not apply"),
     (["single", "--bf16"], "ROADMAP"),
@@ -153,7 +157,44 @@ def test_lm_end_to_end_on_cpu(capsys):
     (["--num-workers", "2"], "cannot shard"),
     (["--batch-size", "128"], "exceeds 64 train sequences"),
     (["--vocab", "2"], "too small"),
+    (["--seq-scheme", "ulysses", "--num-workers", "4"], "ulysses needs per-device num_heads"),
+    (["--seq-layout", "zigzag"], "balances the RING"),
+    (["--data-parallel", "3"], "not divisible by data_parallel 3"),
 ])
 def test_lm_config_errors_exit_cleanly(extra, match):
     with pytest.raises(SystemExit, match=f"lm config error.*{match}"):
         cli.main(LM_SMOKE + extra)
+
+
+@pytest.mark.parametrize("extra,scheme", [
+    ([], "ring"),
+    (["--seq-scheme", "ring", "--seq-layout", "zigzag"], "ring"),
+    (["--seq-scheme", "ulysses", "--attn-impl", "flash", "--zero1"], "ulysses"),
+])
+def test_lm_sequence_schemes_end_to_end_on_cpu(extra, scheme, capsys, monkeypatch):
+    """The JAX CLI's default scheme (ring), the zigzag ring and Ulysses with
+    ZeRO-1 train at one rank on the CPU."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    argv = [a for a in LM_SMOKE if a not in ("--seq-scheme", "full", "--attn-impl", "flash")]
+    assert cli.main(argv + extra + ["--json", "--eval-every", "2"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["config"]["scheme"] == scheme and out["config"]["num_workers"] == 1
+    assert np.isfinite(out["final_loss"]) and 0.0 <= out["final_accuracy"] <= 1.0
+    assert [b for _, b, _ in out["history"]] == [0, 2, 3]
+
+
+def test_lm_multirank_needs_torchrun(monkeypatch):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 4"):
+        cli.main(LM_SMOKE + ["--seq-scheme", "ulysses", "--num-workers", "2",
+                             "--data-parallel", "2"])
+
+
+@pytest.mark.parametrize("flag,item", [
+    ("--tensor-parallel", "tensor parallelism"),
+    ("--pipeline-parallel", "the pipeline"),
+    ("--microbatches", "the pipeline"),
+])
+def test_lm_out_of_slice_flags_name_their_item(flag, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item 3: {item}"):
+        cli.main(LM_SMOKE + [flag, "2"])

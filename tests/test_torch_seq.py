@@ -9,7 +9,10 @@ data against the JAX package.
   tolerances of tests/test_lm.py's flash-vs-xla pin: the two sides run the
   same fp32 math in another order, and Adam moves each parameter by about
   lr whatever the gradient's size), and the same accuracy history.
-- What is not ported raises ``NotImplementedError`` naming ROADMAP; the JAX
+- The options the sequence-parallel slice ported (ring, Ulysses, zigzag,
+  ZeRO-1) train on one device without a world; W or dp above 1 without a
+  world raises; what is not ported (tensor and pipeline parallelism, the
+  bf16 policy) raises ``NotImplementedError`` naming ROADMAP; the JAX
   trainer's own checks raise the same ``ValueError``s.
 """
 
@@ -86,22 +89,36 @@ def test_seq_trainer_bf16_compute_keeps_fp32_masters():
     assert res.tokens_per_sec > 0 and res.step_stats.steps == 3
 
 
-@pytest.mark.parametrize("change", [
-    dict(scheme="ring"),
-    dict(scheme="ulysses"),
-    dict(num_workers=2, scheme="ring"),
-    dict(data_parallel=2),
-    dict(tensor_parallel=2),
-    dict(pipeline_parallel=2, microbatches=2),
-    dict(zero1=True),
-    dict(seq_layout="zigzag"),
-    dict(precision="bf16"),
+@pytest.mark.parametrize("change,outcome", [
+    (dict(scheme="ring"), "trains"),
+    (dict(scheme="ulysses"), "trains"),
+    (dict(num_workers=2, scheme="ring"), "needs a world"),
+    (dict(data_parallel=2), "needs a world"),
+    (dict(tensor_parallel=2), "ROADMAP queue 1, item 3: tensor parallelism"),
+    (dict(pipeline_parallel=2, microbatches=2), "ROADMAP queue 1, item 3: the pipeline"),
+    (dict(zero1=True), "trains"),
+    (dict(scheme="ring", seq_layout="zigzag"), "trains"),
+    (dict(precision="bf16"), "ROADMAP queue 1, item 4"),
 ])
-def test_out_of_slice_options_raise(change):
+def test_out_of_slice_options_raise(change, outcome):
+    """Before the sequence-parallel slice every one of these raised. Now the
+    ported ones train on one device (ZeRO-1 keeps one flat chunk of the
+    whole vector), a grid of more than one rank needs a world, and the rest
+    still name their ROADMAP item."""
     ds, _ = _datasets()
     kw = {**BASE, "spec": tt.TINY_SPEC, **change}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SeqTrainer(SeqConfig(**kw), ds, device="cpu")
+    if outcome == "needs a world":
+        with pytest.raises(ValueError, match="needs a world of 2 ranks"):
+            SeqTrainer(SeqConfig(**kw), ds, device="cpu")
+    elif outcome.startswith("ROADMAP"):
+        with pytest.raises(NotImplementedError, match=outcome):
+            SeqTrainer(SeqConfig(**kw), ds, device="cpu")
+    else:
+        trainer = SeqTrainer(SeqConfig(**kw), ds, device="cpu")
+        res = trainer.train(log=QUIET)
+        assert np.isfinite(res.final_loss) and int(trainer.opt_state.step) == 4
+        if change.get("zero1"):
+            assert trainer.opt_state.m.shape == (tt.TINY_SPEC.num_params(),)
 
 
 @pytest.mark.parametrize("change,match", [
@@ -110,6 +127,13 @@ def test_out_of_slice_options_raise(change):
     (dict(scheme="full", num_workers=2), "cannot shard"),
     (dict(batch_size=32), "exceeds 16 train sequences"),
     (dict(spec=dataclasses.replace(tt.TINY_SPEC, vocab=8)), "exceeds model vocab"),
+    (dict(scheme="ulysses", num_workers=4), "ulysses needs per-device num_heads"),
+    (dict(data_parallel=3), "not divisible by data_parallel 3"),
+    (dict(scheme="ring", seq_layout="zigzag", num_workers=3), "not divisible by 3 workers"),
+    (dict(scheme="ring", seq_layout="zigzag", num_workers=32), "needs seq_len % \\(2"),
+    (dict(scheme="ulysses", seq_layout="zigzag"), "balances the RING"),
+    (dict(microbatches=2), "requires pipeline_parallel > 1"),
+    (dict(data_parallel=0), "must be >= 1"),
 ])
 def test_jax_checks_raise_the_same_value_errors(change, match):
     ds, jds = _datasets()
