@@ -58,8 +58,10 @@ Phases, each printing one JSON line:
    ``flash_attention_bthd``'s autograd) against ``flash_attention_reference``
    (materialised fp32 scores, autograd gradients) for a loss ``sum(O * R)``
    with a seeded R, at [B, T, H, D] = [1, 64, 2, 16], [2, 200, 4, 32]
-   (ragged), [4, 2048, 8, 64] (the LM path's) and [1, 512, 2, 128], causal
-   and not. fp32: O within atol 1e-5 / rtol 1e-4, gradients within atol
+   (ragged), [4, 2048, 8, 64] (the LM path's), [1, 512, 2, 128] and [4,
+   2048, 4, 64] (lm_tp's: a tp-2 rank's half of the heads), causal and
+   not; the forward kernel's LSE against the plain log-sum-exp, within
+   O's tolerance. fp32: O within atol 1e-5 / rtol 1e-4, gradients within atol
    1e-4 / rtol 1e-3; bf16 inputs (and R) against the reference in fp32 on
    the same bf16 values: O within atol 2e-3 / rtol 1e-2, gradients within
    atol 1e-2 / rtol 1e-2.
@@ -94,6 +96,26 @@ Phases, each printing one JSON line:
    Ulysses + flash (atol 1e-5 / rtol 1e-4, tests/test_lm.py:335-341), each
    with its losses within rtol 1e-4 and the largest error's share of its
    tolerance printed.
+11t. lm_tp — tensor parallelism at tp 2 on the one card: two processes
+   spawned (the ``spawn`` start method: a fork after CUDA init is fatal),
+   each ``init_world(2, r, <file store>, "cuda", backend="gloo")`` on cuda:0
+   (NCCL takes one rank a card; gloo copies CUDA tensors through the host),
+   loading the build phase's libraries. On each rank, at lm_main's width,
+   fp32, T = 2048, batch 4, full + flash, 4 steps (plus the warm-up, an eval
+   after each): ``tensor_parallel=2``, then the same with ``zero1`` (the
+   hybrid). Each rank's flash counts, set to 0 just before each run, must
+   read lm_main's formula, every launch at [4, 2048, 4, 64] (its half of
+   the heads); losses, parameters and moments finite. Each rank prints its
+   step ms, its device idle share (its own kernels, profiled steady steps)
+   and peak memory, labelled "two processes on one card over gloo: not a
+   tp scaling figure". Then at T = 512, 2 steps from one init: tp 2 +
+   flash against this process's tp 1 + flash in the NCCL world of one
+   (atol 2e-5 / rtol 1e-3, final loss rtol 1e-4), the hybrid against tp-2
+   replicated (1e-5 / 1e-4), the two ranks' gathered params bitwise equal.
+   Last, serve_main's traffic (paged, greedy) at tp 2 on each rank, no
+   kernel launched, its tokens equal to a tp 1 serve's (a difference
+   printed with its top-2 margins). A rank that fails or outlives the
+   timeout fails the phase, its traceback printed.
 11a. serve_main — the port's serving path (``serve/``) at the width of
    benchmarks/serve_bench.py (the same LM, vocab 256, d_model 512, 8 heads,
    4 layers, d_ff 2048, the port's seeded init), ``ServeConfig(slots=8,
@@ -137,7 +159,8 @@ If the profiler records no device time for a kernel or a call, the phase
 fails; nothing falls back to CUDA events. Then one ``{"kernels": [...]}``
 line (each kernel's cold ``ms``, ``hot_ms``, ``call_ms`` and ``timer``; the
 Adam row's ``launches`` from phase 4 and ``async_launches`` from 5a; each
-flash row's ``launches`` from phase 9 and ``ulysses_launches`` from 11s), the
+flash row's ``launches`` from phase 9, ``ulysses_launches`` from 11s and
+``tp_launches`` (rank 0's, tp 2) from 11t), the
 ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no ``ok`` line. It needs no network and one card.
@@ -148,6 +171,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -173,7 +197,8 @@ BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 TF32X3_OPS_PER_S = TF32_OPS_PER_S / 3
 
 # The flash-attention phases.
-FLASH_SHAPES = ((1, 64, 2, 16), (2, 200, 4, 32), (4, 2048, 8, 64), (1, 512, 2, 128))
+FLASH_SHAPES = ((1, 64, 2, 16), (2, 200, 4, 32), (4, 2048, 8, 64), (1, 512, 2, 128),
+                (4, 2048, 4, 64))  # the last: lm_tp's, a tp-2 rank's half of the heads
 FLASH_MAIN = (4, 2048, 8, 64)  # the LM path's [B, T, H, D]
 # dtype name -> ((atol, rtol) of O, (atol, rtol) of the gradients). bf16: O
 # differs from the fp32 reference by its own rounding (2^-9 relative); the
@@ -522,6 +547,11 @@ def check_flash(torch, fa) -> dict:
                 name = str(dtype).split(".")[-1]
                 (oa, orl), (ga, grl) = FLASH_TOL[name]
                 checks = {"o": _close(out, want, oa, orl)}
+                # The forward's LSE, which both backward kernels read.
+                scale = 1.0 / math.sqrt(shape[-1])
+                _, lse = fa.flash_fwd(*(t.detach() for t in got), causal, scale)
+                _, lse_want = fa.flash_fwd_reference(q, k, v, causal, scale)
+                checks["lse"] = _close(lse, lse_want, oa, orl)
                 for n, a, b in zip("qkv", got, ref):
                     checks[f"d{n}"] = _close(a.grad, b.grad, ga, grl)
                 errs = {n: e for n, (_, e, _) in checks.items()}
@@ -535,7 +565,7 @@ def check_flash(torch, fa) -> dict:
                     worst["fwd"] = max(worst["fwd"], errs["o"])
                     worst["bwd_dkv"] = max(worst["bwd_dkv"], errs["dk"], errs["dv"])
                     worst["bwd_dq"] = max(worst["bwd_dq"], errs["dq"])
-                del q, k, v, r, got, out, ref, want
+                del q, k, v, r, got, out, ref, want, lse, lse_want
     torch.cuda.empty_cache()
     return worst
 
@@ -577,9 +607,16 @@ def lm_spec():
 
 
 def _finite_state(torch, trainer) -> bool:
+    """Every parameter and every moment of the trainer's optimizer state
+    (any of its kinds: tree, flat chunk, or the hybrid's chunk and tp
+    shards) is finite."""
+    import dataclasses
+
     from ddl_tpu_torch.utils import tree
 
-    state = [trainer.params, trainer.opt_state.m, trainer.opt_state.v]
+    opt = trainer.opt_state
+    state = [trainer.params] + [getattr(opt, f.name) for f in dataclasses.fields(opt)
+                                if f.name != "step"]
     return all(bool(torch.isfinite(t).all()) for t in tree.leaves(state))
 
 
@@ -788,6 +825,306 @@ def lm_seq(torch, fa, world) -> dict:
     if bad:
         raise AssertionError(f"lm_seq: schemes differ: {bad}")
     return runs
+
+
+# The lm_tp phase: tensor parallelism at tp 2 as two processes on the one
+# card over gloo (NCCL takes one rank a card), each on half the heads.
+LM_TP = 2
+LM_TP_STEPS = 4
+LM_TP_RUNS = (
+    ("tp2_full_flash", dict(scheme="full", attn_impl="flash", tensor_parallel=LM_TP)),
+    ("hybrid_full_flash", dict(scheme="full", attn_impl="flash", tensor_parallel=LM_TP,
+                               zero1=True)),
+)
+LM_TP_TIMEOUT_S = 600
+LM_TP_LABEL = "two processes on one card over gloo: not a tp scaling figure"
+
+
+def _tp_rank_run(torch, fa, world, name, kw, shapes):
+    """One T = 2048 run of lm_tp on this rank: launches (and the shapes they
+    ran at), step ms, the device's idle share over profiled steady steps,
+    peak memory."""
+    from ddl_tpu_torch.data.lm import synthesize_copy
+    from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
+    from ddl_tpu_torch.tools.step_anatomy import LM_FAMILIES, anatomy
+
+    spec, bs, seq_len = lm_spec(), 4, 2048
+    ds = synthesize_copy(num_train=LM_TP_STEPS * bs, num_test=bs, seq_len=seq_len,
+                         vocab=spec.vocab, seed=4)
+    cfg = SeqConfig(batch_size=bs, learning_rate=1e-3, eval_every=1, seed=4, spec=spec, **kw)
+    trainer = SeqTrainer(cfg, ds, world=world)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in fa.launches:
+        fa.launches[key] = 0
+        shapes[key] = set()
+    result = trainer.train(log=lambda s: None)
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    ran_at = {k: sorted(v) for k, v in shapes.items()}
+    evals = len(result.history) * -(-ds.test_tokens.shape[0] // bs)
+    finite = (all(math.isfinite(x) for x in result.span_losses)
+              and _finite_state(torch, trainer))
+    # Steady steps under the profiler (each process sees its own kernels).
+    step = trainer.step_fn()
+    xs, ys, ws = (trainer.stage_batches(a, LM_TP_STEPS, bs)
+                  for a in (ds.tokens, ds.targets, ds.weights))
+    state = [trainer.params, trainer.opt_state]
+
+    def run(n):
+        for i in range(n):
+            state[0], state[1], _ = step(*state, xs[i % LM_TP_STEPS], ys[i % LM_TP_STEPS],
+                                         ws[i % LM_TP_STEPS])
+
+    # gloo's copies through the host show as memcpy on the device.
+    anat = anatomy(run, 3, LM_FAMILIES + (("copy", re.compile(r"memcpy|memset", re.I)),))
+    stats = result.step_stats
+    if "device_busy_ms_per_step" in anat:
+        # The profiler slows the host: the busy time over the unprofiled
+        # step's median beside the traced window's share.
+        anat["device_idle_share_of_steady"] = (1.0 - anat["device_busy_ms_per_step"]
+                                               / stats.p50_ms)
+    return dict(
+        run=name, rank=world.rank, label=LM_TP_LABEL, steps=LM_TP_STEPS, seq_len=seq_len,
+        batch_size=bs, launches=launches, ran_at=ran_at, evals=evals,
+        adam_step=int(trainer.opt_state.step), finite=finite,
+        step_ms={"p50": stats.p50_ms, "p95": stats.p95_ms, "mean": stats.mean_ms,
+                 "spans": stats.steps},
+        device_idle_share=anat.get("device_idle_share", "not measured"),
+        device_idle_share_of_steady=anat.get("device_idle_share_of_steady", "not measured"),
+        device_busy_ms_per_step=anat.get("device_busy_ms_per_step", "not measured"),
+        device_ms_per_step_by_family=anat.get("family_ms_per_step", "not measured"),
+        profiled_wall_ms_per_step=anat.get("wall_ms_per_step"),
+        peak_memory_gb=peak / 1e9, span_losses=result.span_losses,
+        final_accuracy=result.final_accuracy,
+    )
+
+
+def lm_tp_rank(rank: int, store: str, inputs: str, out: str) -> None:
+    """One rank of lm_tp, in a spawned process: a gloo world of LM_TP ranks
+    on cuda:0, the kernels loaded from the build phase's libraries. Writes
+    ``out``.json (and ``out``.npz, the equivalence runs' gathered params);
+    a failure writes its traceback to ``out``.err and re-raises."""
+    import traceback
+
+    import numpy as np
+    import torch
+
+    try:
+        from ddl_tpu_torch.data.lm import synthesize_copy, synthesize_prompts
+        from ddl_tpu_torch.models.transformer import init_lm_params
+        from ddl_tpu_torch.ops import build, fused_adam
+        from ddl_tpu_torch.ops import flash_attention as fa
+        from ddl_tpu_torch.parallel.mesh import destroy_world, init_world, make_grid
+        from ddl_tpu_torch.serve import InferenceEngine, Request, Scheduler, ServeConfig
+        from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
+        from ddl_tpu_torch.utils import tree
+
+        for name in build.KERNEL_SOURCES:
+            if not build.library_path(name).exists():
+                raise RuntimeError(f"lm_tp: the build phase's {name} library is missing")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        # Record the shape of every flash launch (the wrapper still counts).
+        shapes = {key: set() for key in fa.launches}
+        launch = fa._launch
+
+        def recording(key, name, tensors, q, causal, scale):
+            shapes[key].add(tuple(q.shape))
+            return launch(key, name, tensors, q, causal, scale)
+
+        fa._launch = recording
+        world = init_world(LM_TP, rank, store, "cuda", backend="gloo")
+        results, arrays = {"device": str(world.device)}, {}
+        try:
+            for name, kw in LM_TP_RUNS:
+                row = _tp_rank_run(torch, fa, world, name, kw, shapes)
+                emit("lm_tp_rank", **row)
+                results[name] = row
+            # Equivalence: T = 512, 2 steps from the parent's init.
+            spec, bs = lm_spec(), 4
+            data = np.load(inputs)
+            like = init_lm_params(torch.Generator().manual_seed(0), spec)
+            init = tree.unflatten(like, [data[f"init/{i}"] for i in range(len(tree.leaves(like)))])
+            ds = synthesize_copy(num_train=2 * bs, num_test=bs, seq_len=512, vocab=spec.vocab,
+                                 seed=5)
+            for name, kw in LM_TP_RUNS:
+                res = SeqTrainer(SeqConfig(batch_size=bs, learning_rate=1e-3, eval_every=0,
+                                           seed=5, spec=spec, **kw), ds, init=init,
+                                 world=world).train(log=lambda s: None)
+                for i, leaf in enumerate(tree.leaves(res.params)):
+                    arrays[f"{name}/{i}"] = leaf
+                results[f"{name}/final_loss"] = res.final_loss
+            # The serve at tp 2 over serve_main's traffic (paged, greedy), the
+            # port's init from seed 0 sliced by tp index.
+            prompts = synthesize_prompts(**SERVE_PROMPTS)
+            grid = make_grid(world, 1, 1, LM_TP)
+            eng = InferenceEngine(ServeConfig(spec=spec, slots=8, capacity=512, page_size=64,
+                                              tensor_parallel=LM_TP), grid=grid)
+            margins = {i: [] for i in range(len(prompts))}
+            decode = eng.decode
+
+            def margin_recording(last, lengths, rids, active, **k):
+                nxt, logits = decode(last, lengths, rids, active, **k)
+                srt = np.sort(logits, axis=-1)
+                for i in np.nonzero(np.asarray(active, bool))[0]:
+                    margins[int(rids[i])].append(float(srt[i, -1] - srt[i, -2]))
+                return nxt, logits
+
+            eng.decode = margin_recording
+            zero_launches(fused_adam, fa)
+            t0 = time.perf_counter()
+            done, stats = Scheduler(eng).run(
+                [Request(id=i, prompt=p, max_new_tokens=SERVE_NEW) for i, p in enumerate(prompts)])
+            results["serve"] = dict(
+                seconds=time.perf_counter() - t0, local_heads=int(eng.cache.k.shape[3]),
+                kernel_launches=serve_launches("lm_tp serve", fused_adam, fa),
+                tokens={str(i): c.tokens for i, c in done.items()},
+                status={str(i): c.status for i, c in done.items()},
+                margins={str(i): m for i, m in margins.items()},
+                decode_tokens_per_s=stats.decode_tokens_per_s, label=LM_TP_LABEL)
+        finally:
+            destroy_world()
+        np.savez(out + ".npz", **arrays)
+        with open(out + ".json", "w") as f:
+            json.dump(results, f)
+    except BaseException:
+        with open(out + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def lm_tp(torch, fa, world) -> dict:
+    """Tensor parallelism at tp 2 on the one card: two spawned ranks in a
+    gloo world (:func:`lm_tp_rank`), held to their launch counts and shapes
+    and to this process's tp 1 runs (training in the NCCL world of one,
+    and serving)."""
+    import multiprocessing
+    import types
+
+    import numpy as np
+
+    from ddl_tpu_torch.convert import lm_params_to_numpy
+    from ddl_tpu_torch.data.lm import synthesize_copy, synthesize_prompts
+    from ddl_tpu_torch.models.transformer import init_lm_params
+    from ddl_tpu_torch.serve import Request
+    from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
+    from ddl_tpu_torch.utils import tree
+
+    start = time.perf_counter()
+    spec, bs = lm_spec(), 4
+    init = lm_params_to_numpy(init_lm_params(torch.Generator().manual_seed(6), spec))
+    ds = synthesize_copy(num_train=2 * bs, num_test=bs, seq_len=512, vocab=spec.vocab, seed=5)
+    tp1 = SeqTrainer(SeqConfig(scheme="full", attn_impl="flash", batch_size=bs,
+                               learning_rate=1e-3, eval_every=0, seed=5, spec=spec), ds,
+                     init=init, world=world).train(log=lambda s: None)
+    prompts = synthesize_prompts(**SERVE_PROMPTS)
+    serve_params = init_lm_params(torch.Generator().manual_seed(0), spec, "cuda")
+    tp1_serve = serve_run(serve_params, [Request(id=i, prompt=p, max_new_tokens=SERVE_NEW)
+                                         for i, p in enumerate(prompts)], page_size=64)
+    del serve_params
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "inputs.npz")
+        np.savez(inputs, **{f"init/{i}": a for i, a in enumerate(tree.leaves(init))})
+        outs = [os.path.join(tmp, f"rank{r}") for r in range(LM_TP)]
+        ctx = multiprocessing.get_context("spawn")  # a fork after CUDA init is fatal
+        procs = [ctx.Process(target=lm_tp_rank, args=(r, f"file://{tmp}/tp_store", inputs,
+                                                      outs[r])) for r in range(LM_TP)]
+        for pr in procs:
+            pr.start()
+        # Wait for both; a rank that fails leaves its peer blocked in a
+        # collective, so a failure (or the deadline) kills the rest at once.
+        deadline = time.monotonic() + LM_TP_TIMEOUT_S
+        while (any(pr.is_alive() for pr in procs) and time.monotonic() < deadline
+               and not any(pr.exitcode not in (None, 0) for pr in procs)):
+            time.sleep(0.5)
+        hung = [r for r, pr in enumerate(procs) if pr.is_alive()]
+        for r in hung:
+            procs[r].kill()
+            procs[r].join()
+        errors = {}
+        for r, pr in enumerate(procs):
+            if os.path.exists(outs[r] + ".err"):
+                with open(outs[r] + ".err") as f:
+                    errors[r] = f.read()
+        if hung or any(pr.exitcode != 0 for pr in procs):
+            for r, text in errors.items():
+                print(f"lm_tp rank {r} failed:\n{text}", file=sys.stderr, flush=True)
+            raise AssertionError(f"lm_tp: ranks killed (still running) {hung}, exit codes "
+                                 f"{[pr.exitcode for pr in procs]}")
+        ranks = []
+        for o in outs:
+            with open(o + ".json") as f:
+                ranks.append(json.load(f))
+        params = [dict(np.load(o + ".npz")) for o in outs]
+
+    failures = []
+    L, steps = spec.num_layers, LM_TP_STEPS + 1  # the warm-up's discarded step too
+    local = [bs, 2048, spec.num_heads // LM_TP, spec.head_dim]
+    for r, res in enumerate(ranks):
+        for name, _ in LM_TP_RUNS:
+            row = res[name]
+            want = {"fwd": L * (steps + row["evals"]), "bwd_dkv": L * steps,
+                    "bwd_dq": L * steps}
+            if row["launches"] != want:
+                failures.append(f"rank {r} {name}: flash launches {row['launches']}, want {want}")
+            if any(v != [local] for v in row["ran_at"].values()):
+                failures.append(f"rank {r} {name}: flash ran at {row['ran_at']}, want {local}")
+            if not row["finite"] or row["adam_step"] != LM_TP_STEPS:
+                failures.append(f"rank {r} {name}: finite {row['finite']}, "
+                                f"Adam step {row['adam_step']}")
+    # Equivalence at T = 512: tp 2 against tp 1, the hybrid against tp 2
+    # replicated, and the two ranks' gathered params bit for bit.
+    oracle = tree.leaves(tp1.params)
+    n = len(oracle)
+    tp2 = [params[0][f"tp2_full_flash/{i}"] for i in range(n)]
+    hybrid = [params[0][f"hybrid_full_flash/{i}"] for i in range(n)]
+    pairs = {}
+    for name, got, want, (atol, rtol), la, lb in (
+        ("tp2_vs_tp1", tp2, oracle, (2e-5, 1e-3), ranks[0]["tp2_full_flash/final_loss"],
+         tp1.final_loss),
+        ("hybrid_vs_tp2", hybrid, tp2, (1e-5, 1e-4), ranks[0]["hybrid_full_flash/final_loss"],
+         ranks[0]["tp2_full_flash/final_loss"]),
+    ):
+        err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+        share = max(float((np.abs(a - b) / (atol + rtol * np.abs(b))).max())
+                    for a, b in zip(got, want))
+        pairs[name] = dict(atol=atol, rtol=rtol, params_max_abs_diff=err,
+                           params_share_of_tolerance=share, loss=la, oracle_loss=lb,
+                           loss_rel_diff=abs(la - lb) / abs(lb))
+        if share > 1.0 or abs(la - lb) > 1e-4 * abs(lb):
+            failures.append(f"{name}: params share {share}, losses {la} vs {lb}")
+    ranks_bitwise = all(np.array_equal(params[0][k], params[1][k]) for k in params[0])
+    if not ranks_bitwise or sorted(params[0]) != sorted(params[1]):
+        failures.append("the two ranks' gathered params differ")
+    # The serve at tp 2 against tp 1: tokens equal on both ranks.
+    serve = {}
+    tp1_done, tp1_margins = tp1_serve[0], tp1_serve[3]
+    for r, res in enumerate(ranks):
+        sv = res["serve"]
+        done = {int(i): types.SimpleNamespace(tokens=t) for i, t in sv["tokens"].items()}
+        margins = {int(i): m for i, m in sv["margins"].items()}
+        diff = _first_difference(done, tp1_done, margins, tp1_margins)
+        bad = {i: s for i, s in sv["status"].items() if s != "ok"}
+        serve[f"rank{r}"] = dict(tokens_equal_tp1=diff is None, first_difference=diff,
+                                 not_ok=bad, local_heads=sv["local_heads"],
+                                 kernel_launches=sv["kernel_launches"],
+                                 seconds=sv["seconds"],
+                                 decode_tokens_per_s=sv["decode_tokens_per_s"],
+                                 label=sv["label"])
+        if diff is not None or bad or sv["local_heads"] != spec.num_heads // LM_TP:
+            failures.append(f"rank {r} serve: first difference {diff}, not ok {bad}")
+    out = dict(tp=LM_TP, backend="gloo", devices=[res["device"] for res in ranks],
+               launches={name: ranks[0][name]["launches"] for name, _ in LM_TP_RUNS},
+               launch_shape=local, equivalence=pairs, ranks_params_bitwise=ranks_bitwise,
+               serve=serve, label=LM_TP_LABEL, failures=failures,
+               seconds=time.perf_counter() - start)
+    emit("lm_tp", **out)
+    if failures:
+        raise AssertionError(f"lm_tp: {failures}")
+    return out
 
 
 # The serving phases: benchmarks/serve_bench.py's width and traffic.
@@ -1140,6 +1477,7 @@ def run_phases(torch, world, card: str):
     lm_flash_vs_xla(torch)
     lm_bf16(torch, flash_attention)
     seq_out = lm_seq(torch, flash_attention, world)
+    tp_out = lm_tp(torch, flash_attention, world)
 
     serve_params = init_lm_params(torch.Generator().manual_seed(0), lm_spec(), "cuda")
     serve_main(torch, serve_params, fused_adam, flash_attention)
@@ -1147,7 +1485,7 @@ def run_phases(torch, world, card: str):
     serve_vs_full_forward(torch, serve_params, fused_adam, flash_attention)
     del serve_params
     flash_tim = flash_timing(torch, flash_attention, devtime, flush, card)
-    return max_err, main_out, async_out, tim, flash_err, lm_out, seq_out, flash_tim
+    return max_err, main_out, async_out, tim, flash_err, lm_out, seq_out, tp_out, flash_tim
 
 
 def main() -> int:
@@ -1176,7 +1514,7 @@ def main() -> int:
         # (the CNN paths and lm_seq).
         world = init_world(1, 0, f"file://{os.path.join(store, 'store')}", "cuda")
         try:
-            (max_err, main_out, async_out, tim, flash_err, lm_out, seq_out,
+            (max_err, main_out, async_out, tim, flash_err, lm_out, seq_out, tp_out,
              flash_tim) = run_phases(torch, world, card)
         finally:
             destroy_world()
@@ -1208,6 +1546,7 @@ def main() -> int:
             "reached_from": "ddl_tpu/ops/attention.py:38",
             "launches": lm_out["launches"][key],
             "ulysses_launches": seq_out["ulysses_flash"]["launches"][key],
+            "tp_launches": tp_out["launches"]["tp2_full_flash"][key],
             "max_abs_err": flash_err[key],
             "ms": row["ms"],
             "hot_ms": row["hot_ms"],

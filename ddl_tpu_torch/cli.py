@@ -1,7 +1,8 @@
 """Command-line launcher for the port — the subset of ``ddl_tpu/cli.py``
 the ported slices carry: the seven CNN variants (single, sync and async,
-whole or sharded), the decoder LM over a [data-parallel, num-workers]
-grid (ring, Ulysses or full attention, ZeRO-1), and single-engine serving.
+whole or sharded), the decoder LM over a [data-parallel, num-workers,
+tensor-parallel] grid (ring, Ulysses or full attention, ZeRO-1, Megatron
+tensor parallelism), and single-engine serving, at tp 1 or over a tp group.
 
     python -m ddl_tpu_torch single
     python -m ddl_tpu_torch sync_sharding --num-workers 1 --num-ps 2 --layout flat --fused-adam
@@ -9,7 +10,9 @@ grid (ring, Ulysses or full attention, ZeRO-1), and single-engine serving.
     torchrun --nproc-per-node 4 -m ddl_tpu_torch sync --num-workers 4
     python -m ddl_tpu_torch lm --seq-scheme ulysses --attn-impl flash
     torchrun --nproc-per-node 4 -m ddl_tpu_torch lm --num-workers 2 --data-parallel 2 --zero1
+    torchrun --nproc-per-node 4 -m ddl_tpu_torch lm --num-workers 2 --tensor-parallel 2
     python -m ddl_tpu_torch serve --slots 8 --capacity 512 --page-size 64 --json
+    torchrun --nproc-per-node 2 -m ddl_tpu_torch serve --tensor-parallel 2 --json
 
 Flags are spelled as in the JAX CLI, with its defaults; a flag of another
 variant set away from its default is refused. One process drives one
@@ -44,7 +47,8 @@ VARIANTS = (
 # the others (as ddl_tpu/cli.py's _reject_foreign_flags).
 _CNN_ONLY = ("num_ps", "layout", "keep_prob", "staleness_seed", "data", "synthetic_train",
              "synthetic_test", "fused_adam", "tiny", "reference_compat")
-_MODEL = ("vocab", "d_model", "heads", "layers", "d_ff")  # the LM's width: lm and serve
+# The LM's width and its tp degree: lm and serve.
+_MODEL = ("vocab", "d_model", "heads", "layers", "d_ff", "tensor_parallel")
 _LM_TRAIN = ("seq_scheme", "seq_len", "train_seqs", "test_seqs", "target_accuracy",
              "attn_impl", "remat", "seq_layout", "data_parallel", "zero1")
 _LM_ONLY = _LM_TRAIN + _MODEL
@@ -56,7 +60,6 @@ _SERVE_ONLY = ("slots", "capacity", "max_new_tokens", "num_prompts", "prompt_min
 # JAX CLI flags of slices not ported yet, with their ROADMAP items: setting
 # one raises NotImplementedError, whatever the variant.
 _NOT_PORTED = {
-    "tensor_parallel": "ROADMAP queue 1, item 3: tensor parallelism",
     "pipeline_parallel": "ROADMAP queue 1, item 3: the pipeline",
     "microbatches": "ROADMAP queue 1, item 3: the pipeline",
     "kv_dtype": "ROADMAP queue 1, item 8: the int8 pool",
@@ -119,12 +122,13 @@ def build_parser() -> argparse.ArgumentParser:
     lm = p.add_argument_group(
         "lm options",
         "the 'lm' variant trains the decoder LM on the procedural copy task "
-        "(strategies/seq.py) over a [--data-parallel, --num-workers] grid of "
-        "processes, one a rank (torchrun beyond one); --num-workers is the "
-        "sequence-parallel degree (default: WORLD_SIZE / --data-parallel, else "
-        "1), --batch-size counts sequences (default 32), --lr defaults to 1e-3. "
-        "The model flags (--vocab, --d-model, --heads, --layers, --d-ff) also "
-        "size the 'serve' model",
+        "(strategies/seq.py) over a [--data-parallel, --num-workers, "
+        "--tensor-parallel] grid of processes, one a rank (torchrun beyond one); "
+        "--num-workers is the sequence-parallel degree (default: WORLD_SIZE / "
+        "(--data-parallel * --tensor-parallel), else 1), --batch-size counts "
+        "sequences (default 32), --lr defaults to 1e-3. The model flags (--vocab, "
+        "--d-model, --heads, --layers, --d-ff) and --tensor-parallel also size "
+        "the 'serve' model",
     )
     lm.add_argument("--seq-scheme", default="ring", choices=["ring", "ulysses", "full"],
                     help="cross-shard attention scheme: ring (K/V blocks passed around "
@@ -156,8 +160,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "--num-workers columns (ranks = DP * num-workers); --batch-size "
                          "must divide by DP")
     lm.add_argument("--zero1", action="store_true",
-                    help="ZeRO-1 over all ranks: reduce-scatter the gradient, Adam on "
-                         "each rank's flat chunk, all-gather the parameters")
+                    help="ZeRO-1 over the (data-parallel, num-workers) ranks: "
+                         "reduce-scatter the gradient, Adam on each rank's flat chunk, "
+                         "all-gather the parameters; with --tensor-parallel the hybrid "
+                         "(the tp-sharded leaves keep tree Adam on their shards)")
+    lm.add_argument("--tensor-parallel", type=int, default=1, metavar="TP",
+                    help="Megatron tensor parallelism: each block's QKV/W1 shard "
+                         "column-wise (H/TP heads, d_ff/TP hidden units a rank), WO/W2 "
+                         "row-wise with one completing all-reduce each; grid "
+                         "[data-parallel, num-workers, TP], tp minor; composes with "
+                         "--zero1 (the hybrid sharded optimizer). serve: the engine's "
+                         "tp group (torchrun --nproc-per-node TP)")
     # The pipeline (the JAX CLI's --pipeline-parallel, --microbatches) waits
     # for ROADMAP queue 1, item 3: parsed below so that setting one fails
     # with its item.
@@ -209,7 +222,6 @@ def build_parser() -> argparse.ArgumentParser:
                          "outstanding requests is refused with status 'shed' (N >= --slots)")
     # The JAX CLI's flags of later slices (_NOT_PORTED): parsed so that
     # setting one fails with its ROADMAP item, not a generic parse error.
-    sv.add_argument("--tensor-parallel", type=int, default=1, help="not ported")
     sv.add_argument("--kv-dtype", default=None, help="not ported")
     sv.add_argument("--checkpoint-dir", default=None, help="not ported")
     sv.add_argument("--replicas", type=int, default=None, help="not ported")
@@ -308,9 +320,11 @@ def lm_config_from_args(args):
     _reject_foreign_flags(args, "lm", _CNN_ONLY + _SERVE_ONLY)
     if args.data_parallel < 1:
         raise SystemExit(f"--data-parallel must be >= 1, got {args.data_parallel}")
-    # Default: every rank of the world, split over the dp rows.
+    if args.tensor_parallel < 1:
+        raise SystemExit(f"--tensor-parallel must be >= 1, got {args.tensor_parallel}")
+    # Default: every rank of the world, split between the dp rows and tp columns.
     num_workers = args.num_workers or max(
-        1, int(os.environ.get("WORLD_SIZE", "1")) // args.data_parallel)
+        1, int(os.environ.get("WORLD_SIZE", "1")) // (args.data_parallel * args.tensor_parallel))
     return SeqConfig(
         epochs=args.epochs,
         batch_size=args.batch_size or 32,
@@ -319,6 +333,7 @@ def lm_config_from_args(args):
         seed=args.seed,
         num_workers=num_workers,
         data_parallel=args.data_parallel,
+        tensor_parallel=args.tensor_parallel,
         scheme=args.seq_scheme,
         compute_dtype="bfloat16" if args.bf16 else None,
         target_accuracy=args.target_accuracy,
@@ -333,7 +348,7 @@ def lm_config_from_args(args):
 
 def _run_lm(args, device) -> int:
     """The ``lm`` variant: decoder-LM training on the copy task over the
-    [dp, num_workers] grid, one process a rank."""
+    [dp, num_workers, tp] grid, one process a rank."""
     from .data.lm import synthesize_copy
     from .parallel.mesh import destroy_world
     from .strategies.seq import SeqTrainer, check_config
@@ -349,7 +364,8 @@ def _run_lm(args, device) -> int:
     except ValueError as e:
         raise SystemExit(f"lm config error: {e}")
     with tempfile.TemporaryDirectory() as store_dir:
-        world = _join_world(cfg.num_workers * cfg.data_parallel, args.device, store_dir)
+        world = _join_world(cfg.num_workers * cfg.data_parallel * cfg.tensor_parallel,
+                            args.device, store_dir)
         try:
             trainer = SeqTrainer(cfg, dataset, world=world)
             result = trainer.train(log=print if world.rank == 0 else (lambda s: None))
@@ -381,16 +397,22 @@ def _run_lm(args, device) -> int:
 def _run_serve(args, device) -> int:
     """The ``serve`` variant: continuous-batching KV-cache decode over a
     seeded prompt set, warmed up outside the clock (JAX's ``_run_serve``,
-    one engine, tp 1)."""
-    from .data.lm import synthesize_prompts
+    one engine; at ``--tensor-parallel`` > 1 one engine a rank of the tp
+    group, every rank running the same scheduler, rank 0 printing). Every
+    config check runs before any rank joins the world."""
     from .models.transformer import LMSpec
-    from .serve import InferenceEngine, Request, Scheduler, ServeConfig
+    from .parallel.mesh import destroy_world, make_grid
+    from .serve import ServeConfig
+    from .serve.engine import check_config
 
     _reject_foreign_flags(args, "serve", _CNN_ONLY + _LM_TRAIN + _TRAIN_ONLY)
+    if args.tensor_parallel < 1:
+        raise SystemExit(f"--tensor-parallel must be >= 1, got {args.tensor_parallel}")
     spec = LMSpec(vocab=args.vocab, d_model=args.d_model, num_heads=args.heads,
                   num_layers=args.layers, d_ff=args.d_ff)
     cfg = ServeConfig(
         spec=spec, slots=args.slots, capacity=args.capacity,
+        tensor_parallel=args.tensor_parallel,
         temperature=args.temperature, top_k=args.top_k, seed=args.seed,
         compute_dtype="bfloat16" if args.bf16 else None,
         prefix_slots=args.prefix_cache, prefill_chunk=args.prefill_chunk,
@@ -407,7 +429,27 @@ def _run_serve(args, device) -> int:
             f"{args.max_new_tokens} exceeds --capacity {args.capacity}"
         )
     try:
-        engine = InferenceEngine(cfg, device=device)
+        check_config(cfg)
+    except (ValueError, KeyError) as e:
+        raise SystemExit(f"serve config error: {e}")
+    if args.tensor_parallel == 1:
+        return _serve(args, cfg, device, None)
+    with tempfile.TemporaryDirectory() as store_dir:
+        world = _join_world(args.tensor_parallel, args.device, store_dir)
+        try:
+            return _serve(args, cfg, device, make_grid(world, 1, 1, args.tensor_parallel))
+        finally:
+            destroy_world()
+
+
+def _serve(args, cfg, device, grid) -> int:
+    """One engine's run of the serve variant (this rank's, at tp > 1)."""
+    from .data.lm import synthesize_prompts
+    from .serve import InferenceEngine, Request, Scheduler
+
+    try:
+        engine = (InferenceEngine(cfg, grid=grid) if grid is not None
+                  else InferenceEngine(cfg, device=device))
     except (ValueError, KeyError) as e:
         raise SystemExit(f"serve config error: {e}")
     try:
@@ -427,6 +469,8 @@ def _run_serve(args, device) -> int:
     # percentiles and tok/s measure serving, not first-use set-up.
     scheduler.warmup(requests)
     done, stats = scheduler.run(requests)
+    if grid is not None and grid.rank != 0:
+        return 0
     for i in sorted(done):
         c = done[i]
         tag = "" if c.status == "ok" else f" [{c.status}]"

@@ -5,7 +5,10 @@ The port stores parameters in the JAX package's layout (HWIO convs,
 out]`` projections) and its ZeRO-1 Adam moments as the same flat per-shard
 vectors, so conversion is a check of names and shapes and a placement: no
 transposes. The serving KV caches convert likewise, with the drop row or
-page the port's caches add (``serve/cache.py``). Arrays cross as numpy (``np.asarray`` of a JAX array, or
+page the port's caches add (``serve/cache.py``). Under tensor parallelism a
+rank holds its Megatron shard of the LM (``models/partition.py``): the
+full JAX tree goes in and comes back out, the shards live on the ranks.
+Arrays cross as numpy (``np.asarray`` of a JAX array, or
 ``jax.tree.map(np.asarray, tree)``), so this module needs nothing of JAX.
 """
 
@@ -62,35 +65,50 @@ def sharded_adam_from_numpy(
     )
 
 
-def _tree_from_numpy(np_tree, shapes, device, path: str = ""):
-    """Check ``np_tree`` against the ``shapes`` tree (same dict keys, list
-    lengths and leaf shapes) and place it as float32 tensors."""
+def _check_tree(np_tree, shapes, path: str = "") -> None:
+    """Raise unless ``np_tree`` has the ``shapes`` tree's dict keys, list
+    lengths and leaf shapes."""
     if isinstance(shapes, dict):
         if not isinstance(np_tree, dict) or sorted(np_tree) != sorted(shapes):
             got = sorted(np_tree) if isinstance(np_tree, dict) else type(np_tree).__name__
             raise ValueError(f"{path or 'params'}: names {got} != {sorted(shapes)}")
-        return {k: _tree_from_numpy(np_tree[k], s, device, f"{path}/{k}") for k, s in shapes.items()}
-    if isinstance(shapes, list):
+        for k, s in shapes.items():
+            _check_tree(np_tree[k], s, f"{path}/{k}")
+    elif isinstance(shapes, list):
         if not isinstance(np_tree, (list, tuple)) or len(np_tree) != len(shapes):
             raise ValueError(f"{path}: want a list of {len(shapes)}, got {np_tree!r:.60}")
-        return [_tree_from_numpy(a, s, device, f"{path}/{i}")
-                for i, (a, s) in enumerate(zip(np_tree, shapes))]
-    a = np.asarray(np_tree)
-    if a.shape != tuple(shapes):
-        raise ValueError(f"{path}: shape {a.shape} != spec {tuple(shapes)}")
-    return torch.tensor(a, dtype=torch.float32, device=device)
+        for i, (a, s) in enumerate(zip(np_tree, shapes)):
+            _check_tree(a, s, f"{path}/{i}")
+    elif np.shape(np_tree) != tuple(shapes):
+        raise ValueError(f"{path}: shape {np.shape(np_tree)} != spec {tuple(shapes)}")
 
 
-def lm_params_from_numpy(np_tree, spec: LMSpec, device: str | torch.device) -> dict:
-    """JAX LM parameters (a nested tree of numpy arrays) -> the port's
-    float32 tree on ``device``. Raises unless the names, nesting and shapes
-    are exactly ``init_lm_params``' for ``spec``."""
-    return _tree_from_numpy(np_tree, param_shapes(spec), device)
+def lm_params_from_numpy(np_tree, spec: LMSpec, device: str | torch.device, *,
+                         tensor_parallel: int = 1, tp_index: int = 0) -> dict:
+    """JAX LM parameters (the full nested tree of numpy arrays) -> the
+    port's float32 tree on ``device``: at ``tensor_parallel > 1``, rank
+    ``tp_index``'s Megatron shard of it. Raises unless the names, nesting
+    and shapes are exactly ``init_lm_params``' for ``spec``."""
+    from .models.partition import lm_param_specs, shard_lm_params
+
+    _check_tree(np_tree, param_shapes(spec))
+    specs = lm_param_specs(spec, tensor_parallel)
+    shard = shard_lm_params(tree.map(np.asarray, np_tree), specs, tensor_parallel, tp_index)
+    return tree.map(lambda a: torch.tensor(a, dtype=torch.float32, device=device), shard)
 
 
 def lm_params_to_numpy(params) -> dict:
-    """The port's LM parameter tree -> numpy, in the JAX package's layout."""
+    """The port's LM parameter tree -> numpy, in the JAX package's layout.
+    Every tp rank's shard, in tp order, makes the full tree through
+    ``models.partition.gather_lm_params``."""
     return tree.map(lambda t: t.detach().cpu().numpy().copy(), params)
+
+
+def _template(spec: LMSpec) -> dict:
+    """Zero tensors in the shapes of ``spec``'s parameter tree: the
+    template the flat plans take their shapes from."""
+    return {k: [{n: torch.zeros(s) for n, s in blk.items()} for blk in v] if k == "blocks"
+            else torch.zeros(v) for k, v in param_shapes(spec).items()}
 
 
 def adam_state_from_numpy(step, m, v, spec: LMSpec, device: str | torch.device) -> AdamState:
@@ -127,14 +145,69 @@ def lm_sharded_adam_to_numpy(rank_states, spec: LMSpec) -> dict:
     """Inverse of :func:`lm_sharded_adam_from_numpy` over every rank's
     state (in rank order): ``{"step", "m", "v"}`` with params-shaped numpy
     ``m`` and ``v`` trees (padding dropped)."""
-    from .models.transformer import init_lm_params
     from .strategies.seq import _FlatPlan
 
-    plan = _FlatPlan(init_lm_params(torch.Generator().manual_seed(0), spec))
+    plan = _FlatPlan(_template(spec))
     out = {"step": np.asarray(int(rank_states[0].step), np.int32)}
     for k in ("m", "v"):
         flat = torch.cat([getattr(s, k).detach().cpu() for s in rank_states])
         out[k] = lm_params_to_numpy(plan.unflatten(flat))
+    return out
+
+
+def lm_hybrid_adam_from_numpy(step, m, v, spec: LMSpec, rank: int, *, tensor_parallel: int,
+                              data_ranks: int, device: str | torch.device):
+    """The hybrid ZeRO-1 x tp Adam state in its logical form (params-shaped
+    numpy ``m``/``v`` trees, JAX's ``_opt_for_save`` form) -> global rank
+    ``rank``'s ``strategies.seq.HybridAdam`` on a grid of ``data_ranks``
+    ``(dp, sp)`` ranks by ``tensor_parallel``: the replicated leaves
+    flattened in ``utils.tree.leaves`` order, zero-padded to
+    ``data_ranks`` equal chunks, chunk ``rank // tensor_parallel``; the
+    tp-sharded leaves as the rank's shards, in the same order."""
+    from .models.partition import lm_param_specs
+    from .parallel.collectives import chunk_size, pad_to
+    from .strategies.seq import HybridAdam, _HybridPlan
+
+    specs = lm_param_specs(spec, tensor_parallel)
+    t, data_index = rank % tensor_parallel, rank // tensor_parallel
+    parts = {}
+    for name, full in (("m", m), ("v", v)):
+        shard = lm_params_from_numpy(full, spec, "cpu", tensor_parallel=tensor_parallel,
+                                     tp_index=t)
+        plan = _HybridPlan(shard, specs)
+        rep, tp = plan.split(tree.leaves(shard))
+        flat = plan.flatten_rep(rep)
+        chunk = chunk_size(flat.numel(), data_ranks)
+        own = pad_to(flat, chunk * data_ranks)[data_index * chunk:(data_index + 1) * chunk]
+        parts[name] = (own.to(device), [x.to(device) for x in tp])
+    return HybridAdam(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+        m_flat=parts["m"][0], v_flat=parts["v"][0], m_tp=parts["m"][1], v_tp=parts["v"][1],
+    )
+
+
+def lm_hybrid_adam_to_numpy(rank_states, spec: LMSpec, *, tensor_parallel: int) -> dict:
+    """Inverse of :func:`lm_hybrid_adam_from_numpy` over every rank's state
+    (in global rank order): ``{"step", "m", "v"}`` with params-shaped
+    numpy trees (padding dropped). The flat chunks come from the ranks of
+    tp index 0 in chunk order, the tp shards from the first ``(dp, sp)``
+    cell's ranks."""
+    from .models.partition import gather_lm_params, lm_param_specs, shard_lm_params
+    from .strategies.seq import _HybridPlan
+
+    tp = tensor_parallel
+    specs = lm_param_specs(spec, tp)
+    full_like = _template(spec)
+    out = {"step": np.asarray(int(rank_states[0].step), np.int32)}
+    for k in ("m", "v"):
+        flat = torch.cat([getattr(s, f"{k}_flat").detach().cpu() for s in rank_states[::tp]])
+        shards = []
+        for t in range(tp):
+            plan = _HybridPlan(shard_lm_params(full_like, specs, tp, t), specs)
+            rep = plan.unflatten_rep(flat)
+            shards.append(lm_params_to_numpy(
+                plan.merge(rep, [x.detach().cpu() for x in getattr(rank_states[t], f"{k}_tp")])))
+        out[k] = gather_lm_params(shards, specs)
     return out
 
 

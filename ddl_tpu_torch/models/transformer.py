@@ -21,8 +21,19 @@ inside :func:`apply_lm`.
 The serving entry points ``apply_lm_cached`` (per-slot rings) and
 ``apply_lm_paged`` (the shared page pool) run each layer as
 :func:`apply_block` with an attention that writes the layer's k/v rows into
-a KV cache, in place, and attends over it (``ops/kv_cache.py``). The tensor-parallel hooks
-and the int8 pool wait for their slices.
+a KV cache, in place, and attends over it (``ops/kv_cache.py``). The int8
+pool waits for its slice.
+
+Tensor parallelism (Megatron): handed column-sharded ``wq/wk/wv/w1`` (and
+``b1``) and row-sharded ``wo/w2`` (``models/partition.py``), a block's
+attention and MLP outputs are partial sums over the tp ranks.
+``row_reduce`` (Megatron's ``g``, ``collectives.tp_allreduce``) completes
+them before ``b2`` is added; ``col_promote`` (``f``,
+``collectives.tp_promote``) marks where the tp-replicated residual stream
+enters the column-sharded matmuls, so its backward completes the partial
+cotangents. The local head count comes from ``wq``'s width, so each rank
+attends its own heads. ``None`` hooks are the tp 1 program, unchanged. The
+cached forwards take ``row_reduce`` only: they are never differentiated.
 """
 
 from __future__ import annotations
@@ -148,20 +159,29 @@ def rope(x: torch.Tensor, positions: torch.Tensor, base: float) -> torch.Tensor:
     return out.reshape(x.shape)
 
 
+def _identity(x):
+    return x
+
+
 def apply_block(
     h: torch.Tensor, blk: Params, spec: LMSpec, *, attn_fn: AttnFn, positions: torch.Tensor,
+    row_reduce: Callable | None = None, col_promote: Callable | None = None,
 ) -> torch.Tensor:
-    """One pre-LN transformer block on the residual stream ``h [B, T, E]``."""
+    """One pre-LN transformer block on the residual stream ``h [B, T, E]``;
+    ``row_reduce``/``col_promote`` are the tensor-parallel hooks (module
+    docstring)."""
     b, t, _ = h.shape
     heads = lambda a: a.reshape(b, t, -1, spec.head_dim)  # noqa: E731
-    x = _layernorm(h, blk["ln1_g"], blk["ln1_b"])
+    reduce_ = row_reduce or _identity
+    promote = col_promote or _identity
+    x = promote(_layernorm(h, blk["ln1_g"], blk["ln1_b"]))
     q = rope(heads(x @ blk["wq"]), positions, spec.rope_base)
     k = rope(heads(x @ blk["wk"]), positions, spec.rope_base)
     v = heads(x @ blk["wv"])
     a = attn_fn(q, k, v)
-    h = h + a.reshape(b, t, -1) @ blk["wo"]
-    x = _layernorm(h, blk["ln2_g"], blk["ln2_b"])
-    mlp = F.gelu(x @ blk["w1"] + blk["b1"], approximate="tanh") @ blk["w2"]
+    h = h + reduce_(a.reshape(b, t, -1) @ blk["wo"])
+    x = promote(_layernorm(h, blk["ln2_g"], blk["ln2_b"]))
+    mlp = reduce_(F.gelu(x @ blk["w1"] + blk["b1"], approximate="tanh") @ blk["w2"])
     return h + mlp + blk["b2"]
 
 
@@ -175,6 +195,8 @@ def apply_lm(
     positions: torch.Tensor | None = None,
     compute_dtype: torch.dtype | None = None,
     remat: bool = False,
+    row_reduce: Callable | None = None,
+    col_promote: Callable | None = None,
 ) -> torch.Tensor:
     """Forward pass: int tokens ``[B, T]`` -> fp32 logits ``[B, T, vocab]``.
 
@@ -190,7 +212,8 @@ def apply_lm(
         positions = pos_offset + torch.arange(t, device=h.device)
 
     def block(h, blk):
-        return apply_block(h, blk, spec, attn_fn=attn_fn, positions=positions)
+        return apply_block(h, blk, spec, attn_fn=attn_fn, positions=positions,
+                           row_reduce=row_reduce, col_promote=col_promote)
 
     for blk in params["blocks"]:
         h = checkpoint(block, h, blk, use_reentrant=False) if remat else block(h, blk)
@@ -210,6 +233,7 @@ def apply_lm_cached(
     positions: torch.Tensor | None = None,
     rows: torch.Tensor | None = None,
     compute_dtype: torch.dtype | None = None,
+    row_reduce: Callable | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Incremental (KV-cached) forward: int tokens ``[B, T]`` (the NEW
     elements of each slot) -> fp32 logits ``[B, T, vocab]``, updating the
@@ -250,7 +274,8 @@ def apply_lm_cached(
         return attn
 
     for i, blk in enumerate(params["blocks"]):
-        h = apply_block(h, blk, spec, attn_fn=attn_fn(i), positions=positions)
+        h = apply_block(h, blk, spec, attn_fn=attn_fn(i), positions=positions,
+                        row_reduce=row_reduce)
     h = _layernorm(h, params["lnf_g"], params["lnf_b"])
     return (h @ params["head"]).float(), cache_k, cache_v, cache_pos
 
@@ -267,6 +292,7 @@ def apply_lm_paged(
     positions: torch.Tensor,
     flat_rows: torch.Tensor,
     compute_dtype: torch.dtype | None = None,
+    row_reduce: Callable | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The same layer math as :func:`apply_lm_cached` against the PAGED pool:
     ``pool_k``/``pool_v [L, P + 1, page, H, D]`` and ``pool_pos [P + 1,
@@ -295,7 +321,8 @@ def apply_lm_paged(
         return attn
 
     for i, blk in enumerate(params["blocks"]):
-        h = apply_block(h, blk, spec, attn_fn=attn_fn(i), positions=positions)
+        h = apply_block(h, blk, spec, attn_fn=attn_fn(i), positions=positions,
+                        row_reduce=row_reduce)
     h = _layernorm(h, params["lnf_g"], params["lnf_b"])
     return (h @ params["head"]).float(), pool_k, pool_v, pool_pos
 
@@ -314,13 +341,14 @@ def ce_sums(
 def lm_loss_sums(
     params: Params, tokens, targets, weights, spec: LMSpec = LMSpec(), *,
     attn_fn: AttnFn, pos_offset: int = 0, positions=None, compute_dtype=None,
-    remat: bool = False,
+    remat: bool = False, row_reduce=None, col_promote=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Weighted next-token cross-entropy as ``(sum_ce, sum_weights)``: the
     caller owns the normalisation."""
     logits = apply_lm(
         params, tokens, spec, attn_fn=attn_fn, pos_offset=pos_offset,
         positions=positions, compute_dtype=compute_dtype, remat=remat,
+        row_reduce=row_reduce, col_promote=col_promote,
     )
     return ce_sums(logits, targets, weights)
 
@@ -328,13 +356,14 @@ def lm_loss_sums(
 def lm_correct_sums(
     params: Params, tokens, targets, weights, spec: LMSpec = LMSpec(), *,
     attn_fn: AttnFn, pos_offset: int = 0, positions=None, compute_dtype=None,
-    remat: bool = False,
+    remat: bool = False, row_reduce=None, col_promote=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Weighted top-1 next-token hits as ``(sum_correct, sum_weights)``
     (first maximum on ties, as ``jnp.argmax``)."""
     logits = apply_lm(
         params, tokens, spec, attn_fn=attn_fn, pos_offset=pos_offset,
         positions=positions, compute_dtype=compute_dtype, remat=remat,
+        row_reduce=row_reduce, col_promote=col_promote,
     )
     hits = (torch.argmax(logits, dim=-1) == targets).float()
     w = weights.float()

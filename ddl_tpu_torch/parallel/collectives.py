@@ -36,8 +36,17 @@ whose backward is the transpose JAX takes):
 ``LOCAL`` stands for "no process group": a ring or sequence axis of one
 whose collectives are identities and are not called.
 
-``tp_allreduce`` and ``tp_promote`` (the tensor-parallel pair) are not
-ported yet (ROADMAP queue 1, item 3: tensor parallelism).
+Tensor parallelism adds Megatron's conjugate pair, two autograd Functions
+over the tp group: :func:`tp_allreduce` (``g``: all-reduce forward,
+identity backward) completes a row-sharded matmul's partial sums, and
+:func:`tp_promote` (``f``: identity forward, all-reduce backward) marks
+where the tp-replicated residual stream enters the column-sharded matmuls.
+:func:`all_gather_list` gathers one vector a rank over a group as a list
+(the form gloo also takes for CUDA tensors).
+
+The reductions over the world take an optional ``group``: a process group
+that stands for the world in them (the LM's ``(dp, sp)`` group under
+tensor parallelism), of ``dist.get_world_size(group)`` ranks.
 """
 
 from __future__ import annotations
@@ -103,26 +112,31 @@ def pad_to(flat: torch.Tensor, padded_total: int) -> torch.Tensor:
     return torch.nn.functional.pad(flat, (0, padded_total - flat.shape[0]))
 
 
-def _reduce_scatter(rows: torch.Tensor, world: World, mean: bool) -> torch.Tensor:
-    """Sum ``rows`` ``[W, chunk]`` over the world; return this rank's
-    reduced row (divided by W when ``mean``, after the sum, as JAX does)."""
+def _size(world: World, group) -> int:
+    return world.size if group is None else dist.get_world_size(group)
+
+
+def _reduce_scatter(rows: torch.Tensor, world: World, mean: bool, group=None) -> torch.Tensor:
+    """Sum ``rows`` ``[W, chunk]`` over the world (or ``group``); return
+    this rank's reduced row (divided by W when ``mean``, after the sum, as
+    JAX does)."""
     out = torch.empty(rows.shape[1], dtype=rows.dtype, device=rows.device)
     # Passed flat: gloo takes only a 1-D [W * chunk] input.
-    dist.reduce_scatter_tensor(out, rows.reshape(-1), op=dist.ReduceOp.SUM)
+    dist.reduce_scatter_tensor(out, rows.reshape(-1), op=dist.ReduceOp.SUM, group=group)
     if mean:
-        out = out / world.size
+        out = out / rows.shape[0]
     return out
 
 
 def reduce_scatter_flat(
-    flat: torch.Tensor, world: World, *, mean: bool, chunk: int
+    flat: torch.Tensor, world: World, *, mean: bool, chunk: int, group=None
 ) -> torch.Tensor:
-    """Reduce-scatter a (padded) flat vector over the world; returns this
-    rank's reduced chunk ``[chunk]``. ``chunk`` is the layout's
-    ``max_shard``, so the row split matches the flat layout's lane-aligned
-    shard boundaries."""
-    W = world.size
-    return _reduce_scatter(pad_to(flat, chunk * W).view(W, chunk), world, mean)
+    """Reduce-scatter a (padded) flat vector over the world (or ``group``);
+    returns this rank's reduced chunk ``[chunk]``. ``chunk`` is the
+    layout's ``max_shard``, so the row split matches the flat layout's
+    lane-aligned shard boundaries."""
+    W = _size(world, group)
+    return _reduce_scatter(pad_to(flat, chunk * W).view(W, chunk), world, mean, group)
 
 
 # ---------------------------------------------------------------------------
@@ -185,17 +199,27 @@ def reduce_scatter_rows(
     return _reduce_scatter(owner_rows(flat, sl, index), world, mean)
 
 
-def all_reduce_sum(t: torch.Tensor, world: World) -> torch.Tensor:
-    """Sum ``t`` over the world in place (``lax.psum``); returns it."""
-    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+def all_reduce_sum(t: torch.Tensor, world: World, group=None) -> torch.Tensor:
+    """Sum ``t`` over the world (or ``group``) in place (``lax.psum``);
+    returns it."""
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
 
-def all_gather_flat(shard: torch.Tensor, world: World) -> torch.Tensor:
+def all_gather_flat(shard: torch.Tensor, world: World, group=None) -> torch.Tensor:
     """Concatenate every rank's ``[chunk]`` shard in rank order:
-    ``[W * chunk]``."""
-    out = torch.empty(world.size * shard.shape[0], dtype=shard.dtype, device=shard.device)
-    dist.all_gather_into_tensor(out, shard.contiguous())
+    ``[W * chunk]``, over the world (or ``group``)."""
+    out = torch.empty(_size(world, group) * shard.shape[0], dtype=shard.dtype,
+                      device=shard.device)
+    dist.all_gather_into_tensor(out, shard.contiguous(), group=group)
+    return out
+
+
+def all_gather_list(t: torch.Tensor, group) -> list[torch.Tensor]:
+    """Every rank's ``t`` (one shape on all) in group rank order, through
+    the list form of ``all_gather``."""
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, t.contiguous(), group=group)
     return out
 
 
@@ -374,3 +398,60 @@ def heads_to_seq(group, size: int, *xs: torch.Tensor) -> tuple[torch.Tensor, ...
     if group is LOCAL:
         return xs
     return _AllToAll.apply(group, size, 1, 2, *xs)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel conjugate pair (Megatron f/g)
+# ---------------------------------------------------------------------------
+
+
+def _group_sum(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+class _TPAllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        return _group_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _TPPromote(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _group_sum(g, ctx.group)
+
+
+def tp_allreduce(group):
+    """Megatron's ``g`` over the tp ``group``: all-reduce forward, identity
+    backward. It completes a row-sharded matmul's partial sums (the ``wo``
+    and ``w2`` outputs). Its output is consumed alike by every tp member,
+    so its cotangent is already the same on each; re-reducing it, as
+    ``torch.distributed.nn.functional.all_reduce``'s backward does, would
+    scale the gradients by the tp degree. Conjugate of
+    :func:`tp_promote`."""
+    if group is LOCAL:
+        return lambda x: x
+    return lambda x: _TPAllReduce.apply(group, x)
+
+
+def tp_promote(group):
+    """Megatron's ``f`` over the tp ``group``: identity forward, all-reduce
+    backward. Where the tp-replicated residual stream enters the
+    column-sharded matmuls each member's branch yields only a partial
+    cotangent; the all-reduce completes it, so the LayerNorms, earlier
+    blocks and the embedding see full gradients. Conjugate of
+    :func:`tp_allreduce`."""
+    if group is LOCAL:
+        return lambda x: x
+    return lambda x: _TPPromote.apply(group, x)

@@ -5,10 +5,19 @@ runs one process per worker, joined by ``torch.distributed``: NCCL on CUDA,
 gloo on the CPU (the test worlds). A world of one is a real process group,
 so the single-card path runs the same collective calls as a larger world.
 
-The LM's 2-D ``[data_parallel, num_workers]`` mesh (JAX's
-``make_mesh_2d``) is a :class:`Grid` over the world: rank ``dp_index *
-num_workers + sp_index`` (dp-major, the lex order of JAX's ``(dp, sp)``
-axes), with one process group a dp row for the sequence axis.
+The LM's 3-D ``[data_parallel, num_workers, tensor_parallel]`` mesh (JAX's
+``make_mesh_3d``; ``make_mesh_2d`` at tp 1) is a :class:`Grid` over the
+world: rank ``(dp_index * num_workers + sp_index) * tensor_parallel +
+tp_index``, tp minor, JAX's device order. Three kinds of process group
+split it: the tp group (the ranks of one ``(dp, sp)`` cell), the
+``(dp, sp)`` group (the ranks of one tp index, over which every gradient,
+loss and metric is summed) and the sp row (one ``(dp, tp)``, in sequence
+order: the ring's peers and Ulysses's all-to-all). A group that spans the
+whole world is the world's own group, so a world of one makes the same
+collective calls as a larger world; any other group of one rank, and the
+tp group at tp 1 always, is ``LOCAL``, whose collectives are identities
+and are never called (JAX's psum over an axis of size 1). So whether a
+collective runs is decided here, by the group, and nowhere else.
 
 Device rule: entry points run on ``cuda`` unless the caller asks for
 ``cpu``. Without a card they raise; they never fall back quietly.
@@ -24,6 +33,7 @@ import torch.distributed as dist
 # The JAX package's names for the data-parallel and sequence axes.
 DP_AXIS = "dp"
 SP_AXIS = "sp"
+TP_AXIS = "tp"
 LOCAL = "local"  # no process group: collectives over it are identities
 
 
@@ -58,19 +68,22 @@ def init_world(
     rank: int,
     init_method: str,
     device: str | torch.device | None = None,
+    *,
+    backend: str | None = None,
 ) -> World:
     """Join (or create) the process group: NCCL when ``device`` is CUDA,
-    gloo on the CPU. ``init_method`` is any ``torch.distributed`` URL
-    (``file://...``, ``tcp://localhost:<port>``, ``env://``). On CUDA,
-    rank ``r`` of a host uses card ``r % device_count``."""
+    gloo on the CPU, unless ``backend`` names one. ``init_method`` is any
+    ``torch.distributed`` URL (``file://...``, ``tcp://localhost:<port>``,
+    ``env://``). On CUDA, rank ``r`` of a host uses card ``r %
+    device_count``; NCCL takes one rank a card, while gloo (which copies
+    CUDA tensors through the host) lets several ranks share one."""
     dev = default_device(device)
     if dev.type == "cuda":
         if dev.index is None:
             dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
-        backend = "nccl"
-    else:
-        backend = "gloo"
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
     dist.init_process_group(
         backend, init_method=init_method, world_size=world_size, rank=rank
     )
@@ -79,49 +92,84 @@ def init_world(
 
 @dataclasses.dataclass(frozen=True)
 class Grid:
-    """This process's place on the ``[data_parallel, num_workers]`` grid.
-    ``world`` None is the grid of one without a process group (every
-    collective an identity). ``sp_group`` is this rank's dp row (None: the
-    whole world, when ``data_parallel`` is 1) and ``sp_ranks`` its global
-    ranks in sequence order."""
+    """This process's place on the ``[data_parallel, num_workers,
+    tensor_parallel]`` grid. ``world`` None is the grid of one without a
+    process group (every collective an identity). Each group is a process
+    group, None (the whole world's) or ``LOCAL`` (one rank; the module
+    docstring says when): ``sp_group`` is this rank's sp row, whose global
+    ranks in sequence order are ``sp_ranks``; ``tp_group`` its tp group;
+    ``data_group`` its ``(dp, sp)`` group."""
 
     world: World | None
     data_parallel: int
     num_workers: int
+    tensor_parallel: int
     sp_group: object
     sp_ranks: tuple[int, ...]
+    tp_group: object
+    data_group: object
 
     @property
     def rank(self) -> int:
         return 0 if self.world is None else self.world.rank
 
     @property
+    def tp_index(self) -> int:
+        return self.rank % self.tensor_parallel
+
+    @property
+    def data_index(self) -> int:
+        """This rank's place in its ``(dp, sp)`` group: ``dp_index *
+        num_workers + sp_index``, the chunk a ZeRO-1 reduce-scatter lands
+        here (JAX's lex order over the combined axes)."""
+        return self.rank // self.tensor_parallel
+
+    @property
     def dp_index(self) -> int:
-        return self.rank // self.num_workers
+        return self.data_index // self.num_workers
 
     @property
     def sp_index(self) -> int:
-        return self.rank % self.num_workers
+        return self.data_index % self.num_workers
 
 
-def make_grid(world: World | None, data_parallel: int, num_workers: int) -> Grid:
-    """The 2-D grid over ``world`` (``data_parallel * num_workers`` ranks).
-    Every rank creates every dp row's group, in row order, as
+def make_grid(world: World | None, data_parallel: int, num_workers: int,
+              tensor_parallel: int = 1) -> Grid:
+    """The 3-D grid over ``world`` (``data_parallel * num_workers *
+    tensor_parallel`` ranks). Every rank creates every group, in one order
+    (the tp groups, the ``(dp, sp)`` groups, the sp rows), as
     ``dist.new_group`` requires. ``world`` None: the grid of one."""
-    n = data_parallel * num_workers
+    dp, W, tp = data_parallel, num_workers, tensor_parallel
+    n = dp * W * tp
     if world is None:
         if n != 1:
-            raise ValueError(f"a {data_parallel} x {num_workers} grid needs a world of {n} ranks")
-        return Grid(None, 1, 1, LOCAL, (0,))
+            raise ValueError(f"a {dp} x {W} x {tp} grid needs a world of {n} ranks")
+        return Grid(None, 1, 1, 1, LOCAL, (0,), LOCAL, LOCAL)
     if world.size != n:
         raise ValueError(
-            f"data_parallel ({data_parallel}) x num_workers ({num_workers}) = {n} "
+            f"data_parallel ({dp}) x num_workers ({W}) x tensor_parallel ({tp}) = {n} "
             f"!= world size {world.size}"
         )
-    rows = [tuple(range(d * num_workers, (d + 1) * num_workers)) for d in range(data_parallel)]
-    groups = [dist.new_group(list(r)) for r in rows] if data_parallel > 1 else [None]
-    d = world.rank // num_workers
-    return Grid(world, data_parallel, num_workers, groups[d], rows[d])
+
+    def rank(d, s, t):
+        return (d * W + s) * tp + t
+
+    def groups(rows):
+        # The world's own group, LOCAL for one rank, else a new group.
+        return [None if len(r) == n else LOCAL if len(r) == 1 else dist.new_group(list(r))
+                for r in rows]
+
+    d, s, t = world.rank // (W * tp), world.rank // tp % W, world.rank % tp
+    cells = [(i, j) for i in range(dp) for j in range(W)]
+    tp_rows = [tuple(rank(i, j, u) for u in range(tp)) for i, j in cells]
+    # At tp 1 the f/g pair is no collective, even in a world of one.
+    tp_groups = [LOCAL] * len(cells) if tp == 1 else groups(tp_rows)
+    data_groups = groups([tuple(rank(i, j, u) for i, j in cells) for u in range(tp)])
+    sp_rows = [tuple(rank(i, j, u) for j in range(W)) for i in range(dp) for u in range(tp)]
+    sp_groups = groups(sp_rows)
+    row = d * tp + t
+    return Grid(world, dp, W, tp, sp_groups[row], sp_rows[row], tp_groups[d * W + s],
+                data_groups[t])
 
 
 def destroy_world() -> None:

@@ -1,5 +1,5 @@
-"""The serving KV caches — the port of ``ddl_tpu/serve/cache.py`` at
-``tensor_parallel == 1``: the slot-major ring (:class:`KVCache`, the
+"""The serving KV caches — the port of ``ddl_tpu/serve/cache.py``: the
+slot-major ring (:class:`KVCache`, the
 bit-exactness oracle and default) and the PAGED block-table pool
 (:class:`PagedKVCache` + the host allocator :class:`PagePool`), which pools
 capacity across slots and makes prefix reuse zero-copy (refcounted page
@@ -9,7 +9,9 @@ The port updates caches in place where JAX donates them, so every function
 here mutates its first argument and returns it. Each cache tensor carries
 one drop row (contiguous: row ``C`` of each slot; paged: page ``P``) that
 out-of-bounds writes land on (``ops.kv_cache``); the properties below and
-``convert.kv_cache_to_numpy`` see only the valid rows. The int8 pool's scale
+``convert.kv_cache_to_numpy`` see only the valid rows. Under tensor
+parallelism a rank's cache holds its own ``H/tp`` heads (JAX shards the
+head dimension over tp, ``cache_specs``), made by ``tensor_parallel=``. The int8 pool's scale
 planes wait for their slice (ROADMAP queue 1, item 8).
 """
 
@@ -46,10 +48,11 @@ class KVCache:
 
 
 def host_cache(spec: LMSpec, slots: int, capacity: int, dtype=torch.float32,
-               device: str | torch.device = "cpu") -> KVCache:
+               device: str | torch.device = "cpu", *, tensor_parallel: int = 1) -> KVCache:
     """Fresh cache: zero k/v, every row's position ``PAD_POS`` (nothing
-    attendable)."""
-    shape = (spec.num_layers, slots, capacity + 1, spec.num_heads, spec.head_dim)
+    attendable); one tp rank's ``H/tensor_parallel`` heads."""
+    shape = (spec.num_layers, slots, capacity + 1, spec.num_heads // tensor_parallel,
+             spec.head_dim)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
@@ -103,10 +106,13 @@ class PagedKVCache:
 
 
 def host_paged_cache(spec: LMSpec, num_pages: int, page_size: int, dtype=torch.float32,
-                     device: str | torch.device = "cpu") -> PagedKVCache:
+                     device: str | torch.device = "cpu", *,
+                     tensor_parallel: int = 1) -> PagedKVCache:
     """Fresh paged pool: zero k/v, every row ``PAD_POS`` (the free-list
-    invariant holds from birth)."""
-    shape = (spec.num_layers, num_pages + 1, page_size, spec.num_heads, spec.head_dim)
+    invariant holds from birth); one tp rank's ``H/tensor_parallel``
+    heads."""
+    shape = (spec.num_layers, num_pages + 1, page_size, spec.num_heads // tensor_parallel,
+             spec.head_dim)
     return PagedKVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),

@@ -1,5 +1,5 @@
 """The inference engine — the port of ``ddl_tpu/serve/engine.py``
-(``ServeConfig``, ``InferenceEngine``) at ``tensor_parallel == 1``.
+(``ServeConfig``, ``InferenceEngine``).
 
 Two programs cover a request's whole life, as in JAX:
 
@@ -39,8 +39,19 @@ partial boundary page (``page_copies``).
 D]`` pool plus a host block table per slot; admission reserves pages, and
 decode buckets on PAGE COUNT so attention tracks residency.
 
+**Tensor parallelism** (``tensor_parallel > 1``): one engine a rank of a tp
+group (``grid=``, ``parallel/mesh.py::make_grid``). A rank holds its
+column/row shard of the weights (``models/partition.py``, the training
+side's definition) and a contiguous or paged pool of its own heads only,
+so a pool row costs ``2·L·(H/tp)·D·itemsize`` bytes there. The cached
+forward completes the row-sharded partial sums with one all-reduce over
+the tp group, the training side's ``g`` (``collectives.tp_allreduce``,
+never differentiated here). Every rank runs the same
+deterministic scheduler and samples the same token from bit-identical
+reduced logits, so the host state never diverges.
+
 Not ported here, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``tensor_parallel > 1``, ``kv_dtype="int8"``, ``speculate_k > 0``,
+item: ``kv_dtype="int8"``, ``speculate_k > 0``,
 ``speculate_method="prompt"``, ``compute_dtype="bfloat16"``, checkpoint
 loading, and the page hand-off (``dump_slot_pages``, ``load_slot_pages``,
 ``alias_slot_pages``).
@@ -58,7 +69,10 @@ from ..models import transformer
 from ..models.transformer import LMSpec
 from ..ops import kv_cache
 from ..ops.kv_cache import PAD_POS
-from ..parallel.mesh import default_device
+from ..models.partition import lm_param_specs, shard_lm_params
+from ..parallel import collectives as coll
+from ..parallel.mesh import Grid, default_device
+from ..utils import tree
 from . import sampling
 from .cache import (
     KVCache,
@@ -84,10 +98,11 @@ class ServeConfig:
     = off; else a power of two >= 8) splits prompts into chunks interleaved
     with decode ticks, ``prefill_budget`` caps prefill tokens a tick (0 =
     one chunk). ``page_size > 0`` selects the paged pool of ``num_pages``
-    pages (0 = ``slots * capacity / page_size``). ``tensor_parallel > 1``,
-    ``kv_dtype``, ``speculate_k > 0``, a ``speculate_method`` other than
-    ``"ngram"`` and a bf16 ``compute_dtype`` are accepted here and refused
-    by the engine (not ported)."""
+    pages (0 = ``slots * capacity / page_size``). ``tensor_parallel`` is the
+    Megatron degree, which the engine's grid must have. ``kv_dtype``,
+    ``speculate_k > 0``, a ``speculate_method`` other than ``"ngram"`` and
+    a bf16 ``compute_dtype`` are accepted here and refused by the engine
+    (not ported)."""
 
     spec: LMSpec = LMSpec()
     slots: int = 4
@@ -107,12 +122,19 @@ class ServeConfig:
     speculate_method: str = "ngram"
 
 
-def _validate(config: ServeConfig) -> None:
+def check_config(config: ServeConfig) -> None:
     """JAX's constructor checks (``ValueError``), then the refusals of what
     this slice does not port (``NotImplementedError``)."""
     spec, tp = config.spec, config.tensor_parallel
     if tp < 1:
         raise ValueError(f"tensor_parallel must be >= 1, got {tp}")
+    if tp > 1:
+        if spec.num_heads % tp:
+            raise ValueError(
+                f"tensor_parallel needs num_heads ({spec.num_heads}) divisible by tp ({tp})"
+            )
+        if spec.d_ff % tp:
+            raise ValueError(f"tensor_parallel needs d_ff ({spec.d_ff}) divisible by tp ({tp})")
     if config.slots < 1 or config.capacity < 2:
         raise ValueError(f"need slots >= 1 and capacity >= 2, got "
                          f"{config.slots} / {config.capacity}")
@@ -168,7 +190,6 @@ def _validate(config: ServeConfig) -> None:
                 "slot needs at least one page; the pool could never fill the batch"
             )
     refused = (
-        (tp > 1, "tensor_parallel > 1 (ROADMAP queue 1, item 3: tensor parallelism)"),
         (config.kv_dtype is not None, "kv_dtype='int8' (ROADMAP queue 1, item 8: the int8 pool)"),
         (sk > 0, "speculate_k > 0 (ROADMAP queue 1, item 8: speculate)"),
         (config.speculate_method != "ngram",
@@ -183,22 +204,37 @@ def _validate(config: ServeConfig) -> None:
 
 class InferenceEngine:
     """Owns the params on the device, the cache state and the bucketed
-    prefill/decode pair. ``params`` is a host tree of numpy arrays (e.g.
-    JAX's ``jax.tree.map(np.asarray, params)``, checked by
+    prefill/decode pair. ``params`` is the full host tree of numpy arrays
+    (e.g. JAX's ``jax.tree.map(np.asarray, params)``, checked by
     ``convert.lm_params_from_numpy``); ``None`` seeds the
     port's own init from ``config.seed`` (not JAX's draw). ``placed_params``
-    shares a tree already on ``device``. Runs on ``cuda`` unless ``device``
-    says ``cpu``."""
+    shares a tree already on the device (at tp > 1, this rank's shard).
+    Runs on ``cuda`` unless ``device`` says ``cpu``; at ``tensor_parallel
+    > 1`` on the device of ``grid``, a grid of that tp degree whose tp
+    group is this engine's."""
 
     kind = "real"
 
     def __init__(self, config: ServeConfig, params=None, *, placed_params=None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, grid: Grid | None = None):
         if params is not None and placed_params is not None:
             raise ValueError("pass params (host tree, placed here) OR placed_params "
                              "(an already-placed tree to share), not both")
-        _validate(config)
-        self.device = default_device(device)
+        check_config(config)
+        tp = config.tensor_parallel
+        if tp > 1:
+            if grid is None or grid.tensor_parallel != tp:
+                raise ValueError(f"tensor_parallel={tp} serves over a grid of tp {tp} "
+                                 "(parallel.mesh.make_grid(world, 1, 1, tp)): pass grid=")
+            if device is not None:
+                raise ValueError("pass device or grid, not both (a grid has its device)")
+            self.device = grid.world.device
+            self._row_reduce = coll.tp_allreduce(grid.tp_group)
+            tp_index = grid.tp_index
+        else:
+            self.device = default_device(device)
+            self._row_reduce = None
+            tp_index = 0
         spec = config.spec
         self.config = config
         self.paged = config.page_size > 0
@@ -211,10 +247,13 @@ class InferenceEngine:
         if placed_params is not None:
             self.params = placed_params
         elif params is None:
-            gen = torch.Generator().manual_seed(config.seed)
-            self.params = transformer.init_lm_params(gen, spec, self.device)
+            # The full tree from the seed, then this rank's slice of it.
+            full = transformer.init_lm_params(torch.Generator().manual_seed(config.seed), spec)
+            shard = shard_lm_params(full, lm_param_specs(spec, tp), tp, tp_index)
+            self.params = tree.map(lambda t: t.contiguous().to(self.device), shard)
         else:
-            self.params = lm_params_from_numpy(params, spec, self.device)
+            self.params = lm_params_from_numpy(params, spec, self.device, tensor_parallel=tp,
+                                               tp_index=tp_index)
         # The width the LAST decode attended per slot (paged: the page-count
         # bucket's rows; contiguous: the capacity).
         self.last_attend_width = config.capacity
@@ -250,7 +289,8 @@ class InferenceEngine:
         cfg = self.config
         if self.paged:
             self.cache = host_paged_cache(cfg.spec, self.num_pages, self.page_size,
-                                          device=self.device)
+                                          device=self.device,
+                                          tensor_parallel=cfg.tensor_parallel)
             self.pages = PagePool(self.num_pages)
             self.tables = np.full((cfg.slots, self.max_pages), -1, np.int32)
             self.table_len = np.zeros(cfg.slots, np.int64)
@@ -260,9 +300,12 @@ class InferenceEngine:
                 self.prefix = PrefixIndex(cfg.prefix_slots,
                                           on_evict=lambda e: self._release_pages(e.pages))
             return
-        self.cache = host_cache(cfg.spec, cfg.slots, cfg.capacity, device=self.device)
+        tp = cfg.tensor_parallel
+        self.cache = host_cache(cfg.spec, cfg.slots, cfg.capacity, device=self.device,
+                                tensor_parallel=tp)
         if cfg.prefix_slots > 0:
-            self.pool = host_cache(cfg.spec, cfg.prefix_slots, cfg.capacity, device=self.device)
+            self.pool = host_cache(cfg.spec, cfg.prefix_slots, cfg.capacity, device=self.device,
+                                   tensor_parallel=tp)
             self.prefix = PrefixIndex(cfg.prefix_slots)
 
     # -- paged page management (host half) ---------------------------------
@@ -482,6 +525,7 @@ class InferenceEngine:
             logits, *_ = transformer.apply_lm_paged(
                 self.params, tok, self.cache.k, self.cache.v, self.cache.pos, self._put(table),
                 cfg.spec, positions=self._put(positions), flat_rows=self._put(flat),
+                row_reduce=self._row_reduce,
             )
         else:
             c = cfg.capacity
@@ -493,6 +537,7 @@ class InferenceEngine:
             logits, *_ = transformer.apply_lm_cached(
                 self.params, tok, self.cache.k[:, sl], self.cache.v[:, sl], self.cache.pos[sl],
                 cfg.spec, start=None, positions=self._put(positions), rows=self._put(rows),
+                row_reduce=self._row_reduce,
             )
         logits = logits[0, :t]
         # The sampled token is sequence element `base + t` of the request.
@@ -529,6 +574,7 @@ class InferenceEngine:
             logits, *_ = transformer.apply_lm_paged(
                 self.params, tok, self.cache.k, self.cache.v, self.cache.pos, self._put(table),
                 cfg.spec, positions=positions, flat_rows=self._put(flat),
+                row_reduce=self._row_reduce,
             )
         else:
             # Free slots still compute (fixed shapes) and write a PAD_POS row
@@ -536,7 +582,7 @@ class InferenceEngine:
             rows = self._put((lengths % cfg.capacity)[:, None])
             logits, *_ = transformer.apply_lm_cached(
                 self.params, tok, self.cache.k, self.cache.v, self.cache.pos, cfg.spec,
-                start=None, positions=positions, rows=rows,
+                start=None, positions=positions, rows=rows, row_reduce=self._row_reduce,
             )
         logits = logits[:, 0]
         # This step extends each sequence to length + 1 tokens: the sampled

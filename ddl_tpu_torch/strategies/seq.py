@@ -1,12 +1,23 @@
 """Decoder-LM training — the port of ``ddl_tpu/strategies/seq.py``.
 
-The trainer runs the decoder LM (``models/transformer.py``) over the 2-D
-``[data_parallel, num_workers]`` process grid (``parallel/mesh.py::Grid``,
-JAX's ``make_mesh_2d``): the batch shards over the dp rows and the sequence
-over the sp columns, each rank holding ``B/dp`` sequences x ``T/sp``
-positions. One process a rank: torchrun on a multi-card host, a world of
-one on one card, gloo worlds on the CPU; without a world (``world=None``)
+The trainer runs the decoder LM (``models/transformer.py``) over the 3-D
+``[data_parallel, num_workers, tensor_parallel]`` process grid
+(``parallel/mesh.py::Grid``, JAX's ``make_mesh_3d``, tp minor): the batch
+shards over dp and the sequence over sp, each rank holding ``B/dp``
+sequences x ``T/sp`` positions, and its tp peers the same tokens. One
+process a rank: torchrun on a multi-card host, a world of one on one card,
+gloo worlds on the CPU (or on one card); without a world (``world=None``)
 the grid is one rank and every collective is an identity.
+
+Tensor parallelism (``tensor_parallel > 1``, Megatron): each rank holds its
+column/row shard of the block weights (``models/partition.py``) and its
+moments, and the f/g pair (``_col_promote``, ``_row_reduce``) owns every
+reduction over the tp group in both directions, so a rank's gradients come
+out tp-complete and partial only over ``(dp, sp)``. Every sum (the
+gradients, the loss, the weights, the metrics) runs over the ``(dp, sp)``
+group, never over tp: summing over the world would count every token tp times.
+The init is the full tree from the seed, sliced by tp index, and
+``LMResult.params`` is the full tree, gathered over tp.
 
 Schemes (``SeqConfig.scheme``):
 
@@ -20,20 +31,22 @@ Schemes (``SeqConfig.scheme``):
 - ``full``: no sharding of the sequence (``num_workers`` 1).
 
 A step (``_step_body``) differentiates this rank's scored-token CE sum over
-the world's weight total (``_local_loss_fn``), all-reduces the flat
-gradient once over the world, and runs TF1 Adam over the tree. With
+the global weight total (``_local_loss_fn``), all-reduces the flat
+gradient once over ``(dp, sp)``, and runs TF1 Adam over the tree. With
 ``zero1`` (``_zero1_step_body``) the flat gradient is reduce-scattered
-over the world instead (the combined (dp, sp) axes, whose rank order is
-JAX's chunk order), each rank runs the plain flat Adam chain on its chunk
-(JAX's LM ZeRO-1 does not take the fused kernel) and the chunks are
-all-gathered back. The span loop, eval cadence and early stop are the JAX
+over the combined (dp, sp) axes instead (whose rank order is JAX's chunk
+order), each rank runs the plain flat Adam chain on its chunk (JAX's LM
+ZeRO-1 does not take the fused kernel) and the chunks are all-gathered
+back. ``zero1`` with tp is the hybrid (``_zero1_tp_step_body``,
+``HybridAdam``): ZeRO-1 over (dp, sp) for the tp-replicated leaves, tree
+Adam on the tp shards. The span loop, eval cadence and early stop are the JAX
 trainer's (``train/trainer.py::eval_spans``); each span is a host loop of
 eager steps closed by a device barrier.
 
-``SeqConfig`` keeps every JAX field and default. Tensor parallelism,
-pipeline parallelism and the ``bf16`` precision policy raise
-``NotImplementedError`` naming their ROADMAP items, and the JAX trainer's
-own checks raise the same ``ValueError``s (:func:`check_config`).
+``SeqConfig`` keeps every JAX field and default. Pipeline parallelism and
+the ``bf16`` precision policy raise ``NotImplementedError`` naming their
+ROADMAP items, and the JAX trainer's own checks raise the same
+``ValueError``s (:func:`check_config`).
 """
 
 from __future__ import annotations
@@ -50,13 +63,13 @@ import torch
 from .. import precision as _precision
 from ..convert import lm_params_from_numpy, lm_params_to_numpy
 from ..data.lm import LMDataset
-from ..models import transformer
+from ..models import partition, transformer
 from ..models.transformer import LMSpec
 from ..ops import flash_attention
 from ..ops.optimizers import AdamState, ShardedAdam, adam_init, adam_update
 from ..parallel import collectives as coll
 from ..parallel import ring
-from ..parallel.mesh import DP_AXIS, SP_AXIS, Grid, World, default_device, make_grid
+from ..parallel.mesh import DP_AXIS, LOCAL, SP_AXIS, Grid, World, default_device, make_grid
 from ..train.trainer import eval_spans, hit_target
 from ..utils import tree
 from ..utils.metrics import StepStats, StepTimer, barrier
@@ -64,10 +77,10 @@ from .sync import _adam_flat
 
 Scheme = Literal["ring", "ulysses", "full"]
 
-# The grid's axes, dp-major: rank = dp_index * num_workers + sp_index.
+# The axes every sum runs over (the (dp, sp) group), never tp: rank =
+# (dp_index * num_workers + sp_index) * tensor_parallel + tp_index.
 AXES = (DP_AXIS, SP_AXIS)
 # What is left of the LM trainer, in ROADMAP.md.
-ROADMAP_TP = "ROADMAP queue 1, item 3: tensor parallelism"
 ROADMAP_PP = "ROADMAP queue 1, item 3: the pipeline"
 LOCAL_GRID = make_grid(None, 1, 1)
 
@@ -83,12 +96,12 @@ class SeqConfig:
     seed: int = 0
     num_workers: int = 1  # sequence-parallel degree (sp axis)
     data_parallel: int = 1  # dp axis; ranks = data_parallel * num_workers
-    tensor_parallel: int = 1
+    tensor_parallel: int = 1  # Megatron tp degree (the grid's minor axis)
     scheme: Scheme = "ring"
     compute_dtype: str | None = None  # None = fp32; "bfloat16" = bf16 compute
     precision: str | None = None  # "fp32"; "bf16" is not ported yet
     target_accuracy: float | None = None
-    zero1: bool = False  # ZeRO-1 over the combined (dp, sp) axes
+    zero1: bool = False  # ZeRO-1 over the combined (dp, sp) axes (with tp: the hybrid)
     # Local attention for full and ulysses: "xla" = plain attention
     # (materialises [B, H, T, T] scores); "flash" = the CUDA flash kernels
     # (their plain version on the CPU).
@@ -189,7 +202,15 @@ def check_config(config: SeqConfig, dataset: LMDataset) -> None:
     if dataset.seq_len % max(W, 1):
         raise ValueError(f"seq_len {dataset.seq_len} not divisible by {W} workers")
     if tp > 1:
-        raise NotImplementedError(f"tensor_parallel={tp} is not ported yet ({ROADMAP_TP})")
+        if config.spec.num_heads % tp:
+            raise ValueError(
+                f"tensor_parallel needs num_heads ({config.spec.num_heads}) "
+                f"divisible by tp ({tp})"
+            )
+        if config.spec.d_ff % tp:
+            raise ValueError(
+                f"tensor_parallel needs d_ff ({config.spec.d_ff}) divisible by tp ({tp})"
+            )
     local_heads = config.spec.num_heads // max(tp, 1)
     if config.scheme == "ulysses" and local_heads % max(W, 1):
         raise ValueError(
@@ -242,16 +263,35 @@ def _shard_positions(config: SeqConfig, t_local: int, grid: Grid,
 
 
 def _psum(t: torch.Tensor, grid: Grid) -> torch.Tensor:
-    """``lax.psum`` over both axes: the sum over the world, in place."""
-    return t if grid.world is None else coll.all_reduce_sum(t, grid.world)
+    """``lax.psum`` over ``AXES``: the sum over the ``(dp, sp)`` group, in
+    place."""
+    if grid.data_group is LOCAL:
+        return t
+    return coll.all_reduce_sum(t, grid.world, group=grid.data_group)
+
+
+def _row_reduce(grid: Grid):
+    """Megatron's ``g`` for the row-sharded matmul outputs: all-reduce
+    forward, identity backward, over the tp group (an identity at tp 1,
+    whose tp group is ``LOCAL``)."""
+    return coll.tp_allreduce(grid.tp_group)
+
+
+def _col_promote(grid: Grid):
+    """Megatron's ``f``, :func:`_row_reduce`'s conjugate: identity forward,
+    all-reduce backward where the tp-replicated residual stream enters the
+    column-sharded matmuls, so the replicated leaves get full gradients.
+    An identity at tp 1."""
+    return coll.tp_promote(grid.tp_group)
 
 
 def _shard_sums(config: SeqConfig, grid: Grid, attn, positions, fn) -> Callable:
     """``(params, tokens, targets, weights) -> (num, den)`` of an
     accumulator-form metric ``fn`` (``lm_correct_sums``) over this rank's
     ``[n, T/W]`` shard, in chunks of ``batch_size`` sequences, summed over
-    the world in one all-reduce: the global sums, not a mean of shard
+    ``(dp, sp)`` in one all-reduce: the global sums, not a mean of shard
     means (the scored tokens sit unevenly across the sequence shards)."""
+    hooks = dict(row_reduce=_row_reduce(grid), col_promote=_col_promote(grid))
 
     def sums(params, tokens, targets, weights):
         out = torch.zeros(2, device=tokens.device)
@@ -259,7 +299,7 @@ def _shard_sums(config: SeqConfig, grid: Grid, attn, positions, fn) -> Callable:
         for i in range(0, tokens.shape[0], bs):
             num, den = fn(params, tokens[i:i + bs], targets[i:i + bs], weights[i:i + bs],
                           config.spec, attn_fn=attn, positions=positions,
-                          compute_dtype=config.dtype())
+                          compute_dtype=config.dtype(), **hooks)
             out += torch.stack([num, den])
         return _psum(out, grid)
 
@@ -269,14 +309,17 @@ def _shard_sums(config: SeqConfig, grid: Grid, attn, positions, fn) -> Callable:
 def _local_loss_fn(config: SeqConfig, grid: Grid, attn, tokens, targets, weights,
                    positions) -> Callable:
     """The loss a step differentiates: this shard's scored-token CE sum
-    over the world's weight total. The total depends on no parameter, so
-    the gradients are this rank's partial sums, which the step reduces."""
+    over the global weight total. The total depends on no parameter, so
+    the gradients are this rank's partial sums over ``(dp, sp)``, which the
+    step reduces, and tp-complete (the f/g pair inside the model owns every
+    tp reduction)."""
     den = _psum(weights.float().sum(), grid)
+    hooks = dict(row_reduce=_row_reduce(grid), col_promote=_col_promote(grid))
 
     def local_loss(p):
         num, _ = transformer.lm_loss_sums(
             p, tokens, targets, weights, config.spec, attn_fn=attn, positions=positions,
-            compute_dtype=config.dtype(), remat=config.remat,
+            compute_dtype=config.dtype(), remat=config.remat, **hooks,
         )
         return num / den
 
@@ -284,7 +327,7 @@ def _local_loss_fn(config: SeqConfig, grid: Grid, attn, tokens, targets, weights
 
 
 def _local_grads(config, grid, attn, positions, params, tokens, targets, weights):
-    """``(loss summed over the world, this rank's gradient leaves)``."""
+    """``(loss summed over (dp, sp), this rank's gradient leaves)``."""
     leaves = tree.map(lambda t: t.detach().requires_grad_(True), params)
     l_local = _local_loss_fn(config, grid, attn, tokens, targets, weights, positions)(leaves)
     grads = torch.autograd.grad(l_local, tree.leaves(leaves))
@@ -315,16 +358,18 @@ def _step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
                plan: _FlatPlan) -> Callable:
     """One train step: ``(params, opt_state, tokens, targets, weights) ->
     (params', opt_state', loss)`` — local gradients, ONE all-reduce of the
-    flat gradient over the world, then TF1 Adam over the tree."""
+    flat gradient over ``(dp, sp)`` (full gradients for the replicated
+    leaves, shard-full ones for the tp-sharded leaves), then TF1 Adam over
+    the tree (the moments placed like the parameters)."""
     attn = _attn_for(config, grid)
 
     def step(params, opt_state: AdamState, tokens, targets, weights):
         loss, grads = _local_grads(config, grid, attn, positions, params, tokens, targets,
                                    weights)
-        if grid.world is None:
+        if grid.data_group is LOCAL:
             grads = tree.unflatten(params, grads)
         else:
-            grads = plan.unflatten(coll.all_reduce_sum(_FlatPlan.flatten(grads), grid.world))
+            grads = plan.unflatten(_psum(_FlatPlan.flatten(grads), grid))
         with torch.no_grad():
             params, opt_state = adam_update(params, opt_state, grads, lr=config.learning_rate)
         return params, opt_state, loss
@@ -332,42 +377,151 @@ def _step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
     return step
 
 
+def _zero1_flat(grid: Grid, flat: torch.Tensor, chunk: int) -> torch.Tensor:
+    """This rank's reduced chunk ``data_index`` of the flat gradient: ONE
+    reduce-scatter over ``(dp, sp)``, which both sums the partials and
+    lands the chunk (JAX's psum_scatter over the combined axes)."""
+    if grid.data_group is LOCAL:
+        return coll.pad_to(flat, chunk)
+    return coll.reduce_scatter_flat(flat, grid.world, mean=False, chunk=chunk,
+                                    group=grid.data_group)
+
+
+def _zero1_gather(grid: Grid, p_new: torch.Tensor) -> torch.Tensor:
+    """Every ``(dp, sp)`` rank's updated chunk, in chunk order."""
+    if grid.data_group is LOCAL:
+        return p_new
+    return coll.all_gather_flat(p_new, grid.world, group=grid.data_group)
+
+
 def _zero1_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
                      plan: _FlatPlan) -> Callable:
-    """One ZeRO-1 step: local gradients, ONE reduce-scatter of the flat
-    gradient over the world (which both sums the dp/sp partials and lands
-    each rank its chunk ``dp_index * num_workers + sp_index``), the plain
-    flat Adam chain on the chunk, and an all-gather of the updated chunks."""
+    """One ZeRO-1 step: local gradients, the flat gradient reduce-scattered
+    over ``(dp, sp)`` (:func:`_zero1_flat`), the plain flat Adam chain on
+    this rank's chunk ``dp_index * num_workers + sp_index``, and an
+    all-gather of the updated chunks."""
     attn = _attn_for(config, grid)
     n_dev = config.data_parallel * config.num_workers
     chunk = coll.chunk_size(plan.total, n_dev)
-    mine = slice(grid.rank * chunk, (grid.rank + 1) * chunk)
+    mine = slice(grid.data_index * chunk, (grid.data_index + 1) * chunk)
 
     def step(params, opt: ShardedAdam, tokens, targets, weights):
         loss, grads = _local_grads(config, grid, attn, positions, params, tokens, targets,
                                    weights)
-        flat = _FlatPlan.flatten(grads)
-        if grid.world is None:
-            g_own = coll.pad_to(flat, chunk)
-        else:
-            g_own = coll.reduce_scatter_flat(flat, grid.world, mean=False, chunk=chunk)
+        g_own = _zero1_flat(grid, _FlatPlan.flatten(grads), chunk)
         with torch.no_grad():
             p_own = coll.pad_to(_FlatPlan.flatten(params), chunk * n_dev)[mine]
             p_new, opt = _adam_flat(p_own, opt, g_own, lr=config.learning_rate)
-            full = p_new if grid.world is None else coll.all_gather_flat(p_new, grid.world)
+            full = _zero1_gather(grid, p_new)
         return plan.unflatten(full), opt, loss
 
     return step
 
 
+@dataclasses.dataclass
+class HybridAdam:
+    """Optimizer state of ZeRO-1 x tensor parallelism (JAX's
+    ``HybridAdam``): the tp-REPLICATED leaves (embed, head, the LayerNorms,
+    ``b2``) flattened into this rank's chunk ``m_flat``/``v_flat`` of the
+    ``(dp, sp)``-sharded flat moments (the same on every tp peer), and the
+    tp-SHARDED leaves' moments ``m_tp``/``v_tp`` as lists shaped like this
+    rank's shards. One shared ``step`` drives both parts' bias
+    correction."""
+
+    step: torch.Tensor  # int32 scalar on the device
+    m_flat: torch.Tensor
+    v_flat: torch.Tensor
+    m_tp: list
+    v_tp: list
+
+
+class _HybridPlan:
+    """Leaf-aligned split of the (local) LM tree for the hybrid: the
+    tp-sharded leaves (a split dimension in ``specs``) keep their shapes,
+    the replicated rest gets a :class:`_FlatPlan` in ``utils.tree.leaves``
+    order (JAX's ``jax.tree.leaves`` order)."""
+
+    def __init__(self, template, specs):
+        self.like = template
+        self.tp_mask = tuple(s is not None for s in tree.leaves(specs))
+        if len(self.tp_mask) != len(tree.leaves(template)):
+            raise ValueError("spec and parameter trees differ")
+        self._rep = _FlatPlan(self.split(tree.leaves(template))[0])
+        self.rep_total = self._rep.total
+
+    def split(self, leaves) -> tuple[list, list]:
+        """A tree's leaves -> (replicated leaves, tp-sharded leaves)."""
+        rep = [x for x, m in zip(leaves, self.tp_mask) if not m]
+        tp = [x for x, m in zip(leaves, self.tp_mask) if m]
+        return rep, tp
+
+    def merge(self, rep: list, tp: list):
+        """Inverse of :meth:`split`: the tree."""
+        rep_it, tp_it = iter(rep), iter(tp)
+        return tree.unflatten(self.like, [next(tp_it) if m else next(rep_it)
+                                          for m in self.tp_mask])
+
+    flatten_rep = staticmethod(_FlatPlan.flatten)
+
+    def unflatten_rep(self, flat: torch.Tensor) -> list:
+        return self._rep.unflatten(flat)
+
+
+def _zero1_tp_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
+                        hplan: _HybridPlan) -> Callable:
+    """One hybrid ZeRO-1 x tp step: local gradients (``(dp, sp)``-partial,
+    tp-complete), then for the REPLICATED leaves the ZeRO-1 path over
+    ``(dp, sp)`` (one reduce-scatter of their flat gradient, the plain flat
+    Adam chain on this rank's chunk ``dp_index * num_workers + sp_index``,
+    as JAX's ``_adam_flat``, one all-gather; tp peers compute the same
+    chunk), and for the tp-SHARDED leaves an all-reduce over ``(dp, sp)``
+    per leaf, then tree Adam on the shard with the shared step."""
+    attn = _attn_for(config, grid)
+    n_dev = config.data_parallel * config.num_workers
+    chunk = coll.chunk_size(hplan.rep_total, n_dev)
+    mine = slice(grid.data_index * chunk, (grid.data_index + 1) * chunk)
+
+    def step(params, opt: HybridAdam, tokens, targets, weights):
+        loss, grads = _local_grads(config, grid, attn, positions, params, tokens, targets,
+                                   weights)
+        g_rep, g_tp = hplan.split(grads)
+        g_own = _zero1_flat(grid, hplan.flatten_rep(g_rep), chunk)
+        g_tp = [_psum(g, grid) for g in g_tp]
+        with torch.no_grad():
+            p_rep, p_tp = hplan.split(tree.leaves(params))
+            p_own = coll.pad_to(hplan.flatten_rep(p_rep), chunk * n_dev)[mine]
+            p_new, flat = _adam_flat(p_own, ShardedAdam(step=opt.step, m=opt.m_flat,
+                                                        v=opt.v_flat),
+                                     g_own, lr=config.learning_rate)
+            rep_new = hplan.unflatten_rep(_zero1_gather(grid, p_new))
+            tp_new, tp_state = adam_update(p_tp, AdamState(step=opt.step, m=opt.m_tp,
+                                                           v=opt.v_tp),
+                                           g_tp, lr=config.learning_rate)
+        new_opt = HybridAdam(step=flat.step, m_flat=flat.m, v_flat=flat.v, m_tp=tp_state.m,
+                             v_tp=tp_state.v)
+        return hplan.merge(rep_new, tp_new), new_opt, loss
+
+    return step
+
+
+def _clone_state(state):
+    """A copy of an optimizer state (any of the three kinds) whose tensors
+    the step may replace without touching the original."""
+    return dataclasses.replace(state, **{
+        f.name: tree.map(torch.clone, getattr(state, f.name))
+        for f in dataclasses.fields(state)})
+
+
 class SeqTrainer:
-    """LM trainer over the ``[data_parallel, num_workers]`` grid of
-    ``world`` (``init_world``; its device is the trainer's), or, without a
-    world, on one device (``cuda`` unless ``device="cpu"``) with ``dp =
-    num_workers = 1``. ``init`` is a numpy parameter tree in the JAX layout
-    (e.g. a JAX init); without it, a glorot init from ``config.seed``, the
-    same on every rank. Parameters are replicated on every rank; the Adam
-    moments too, or with ``zero1`` this rank's flat chunk."""
+    """LM trainer over the ``[data_parallel, num_workers, tensor_parallel]``
+    grid of ``world`` (``init_world``; its device is the trainer's), or,
+    without a world, on one device (``cuda`` unless ``device="cpu"``) with
+    ``dp = num_workers = tensor_parallel = 1``. ``init`` is the full numpy
+    parameter tree in the JAX layout (e.g. a JAX init); without it, a
+    glorot init from ``config.seed``, the same on every rank. Each rank
+    holds its tp shard of the parameters (all of them at tp 1) and Adam
+    moments placed likewise; with ``zero1`` this rank's flat chunk (at tp
+    > 1 the hybrid, :class:`HybridAdam`)."""
 
     def __init__(
         self,
@@ -382,16 +536,30 @@ class SeqTrainer:
             raise ValueError("pass device or world, not both (a world has its device)")
         self.config = config
         self.dataset = dataset
-        self.grid = make_grid(world, config.data_parallel, config.num_workers)
+        tp = config.tensor_parallel
+        self.grid = make_grid(world, config.data_parallel, config.num_workers, tp)
         self.device = world.device if world is not None else default_device(device)
-        if init is not None:
-            self.params = lm_params_from_numpy(init, config.spec, self.device)
-        else:
-            self.params = transformer.init_lm_params(
-                torch.Generator().manual_seed(config.seed), config.spec, self.device
-            )
+        self._specs = partition.lm_param_specs(config.spec, tp)
+        if init is None:
+            # The full tree from the seed, then this rank's slice of it.
+            init = lm_params_to_numpy(transformer.init_lm_params(
+                torch.Generator().manual_seed(config.seed), config.spec))
+        self.params = lm_params_from_numpy(init, config.spec, self.device, tensor_parallel=tp,
+                                           tp_index=self.grid.tp_index)
         self._plan = _FlatPlan(self.params)
-        if config.zero1:
+        self._hplan = _HybridPlan(self.params, self._specs) if config.zero1 and tp > 1 else None
+        if self._hplan is not None:
+            chunk = coll.chunk_size(self._hplan.rep_total,
+                                    config.data_parallel * config.num_workers)
+            _, tp_leaves = self._hplan.split(tree.leaves(self.params))
+            self.opt_state = HybridAdam(
+                step=torch.zeros((), dtype=torch.int32, device=self.device),
+                m_flat=torch.zeros(chunk, device=self.device),
+                v_flat=torch.zeros(chunk, device=self.device),
+                m_tp=[torch.zeros_like(x) for x in tp_leaves],
+                v_tp=[torch.zeros_like(x) for x in tp_leaves],
+            )
+        elif config.zero1:
             chunk = coll.chunk_size(self._plan.total, config.data_parallel * config.num_workers)
             zeros = lambda: torch.zeros(chunk, device=self.device)  # noqa: E731
             self.opt_state = ShardedAdam(
@@ -410,6 +578,8 @@ class SeqTrainer:
     def step_fn(self) -> Callable:
         """This config's train step, ``(params, opt, tokens, targets,
         weights) -> (params', opt', loss)`` on this rank's blocks."""
+        if self._hplan is not None:
+            return _zero1_tp_step_body(self.config, self.grid, self.positions, self._hplan)
         if self.config.zero1:
             return _zero1_step_body(self.config, self.grid, self.positions, self._plan)
         return _step_body(self.config, self.grid, self.positions, self._plan)
@@ -422,7 +592,7 @@ class SeqTrainer:
     def _local(self, arr: np.ndarray, rows: bool) -> torch.Tensor:
         """This rank's block of ``arr [..., B, T]`` on the device: its sp
         column's ``T/W`` positions and, with ``rows``, its dp row's ``B/dp``
-        sequences (token ids as int64)."""
+        sequences (token ids as int64). tp peers get the same block."""
         g, cfg = self.grid, self.config
         t = arr.shape[-1] // cfg.num_workers
         block = arr[..., g.sp_index * t:(g.sp_index + 1) * t]
@@ -476,6 +646,16 @@ class SeqTrainer:
         self.step_fn()(params, opt_state, xs[0], ys[0], ws[0])
         barrier(self.device)
 
+    def full_params(self, params) -> dict:
+        """The full numpy tree of this rank's ``params`` (JAX's global
+        arrays): at tp > 1 every tp shard, gathered over the tp group in one
+        all-gather of the flattened shard."""
+        if self.grid.tp_group is LOCAL:
+            return lm_params_to_numpy(params)
+        flats = coll.all_gather_list(_FlatPlan.flatten(params), self.grid.tp_group)
+        shards = [lm_params_to_numpy(self._plan.unflatten(f)) for f in flats]
+        return partition.gather_lm_params(shards, self._specs)
+
     def train(self, log: Callable[[str], None] = print) -> LMResult:
         cfg, ds, dev = self.config, self.dataset, self.device
         bs = cfg.batch_size
@@ -486,9 +666,7 @@ class SeqTrainer:
         xte, yte, wte = (self.stage_test(a)
                          for a in (ds.test_tokens, ds.test_targets, ds.test_weights))
         params = tree.map(torch.clone, self.params)
-        opt_state = dataclasses.replace(
-            self.opt_state, step=self.opt_state.step.clone(),
-            m=tree.map(torch.clone, self.opt_state.m), v=tree.map(torch.clone, self.opt_state.v))
+        opt_state = _clone_state(self.opt_state)
         spans = eval_spans(batch_num, cfg.eval_every)
         fns = {k: self.span_program(k) for k in {k for _, k, _ in spans}}
         t0 = time.perf_counter()
@@ -530,7 +708,7 @@ class SeqTrainer:
             f"({stats.tokens_per_sec:.0f} tokens/s)")
         self.params, self.opt_state = params, opt_state
         return LMResult(
-            params=lm_params_to_numpy(params),
+            params=self.full_params(params),
             final_accuracy=accuracy,
             final_loss=loss,
             wall_time_s=wall,

@@ -1,24 +1,34 @@
 """Workers of the spawned gloo worlds: the 2-rank CNN world of
 tests/test_torch_sync.py (:func:`world_cases`) and the 4-rank LM world of
-tests/test_torch_seq_parallel.py (:func:`lm_world_cases`).
+tests/test_torch_seq_parallel.py (:func:`lm_world_cases`: training on the
+3-D grid, then tp-2 serving as two tp groups of two ranks).
 
 Kept apart from the test modules so the spawned children import only
 ``torch`` and ``ddl_tpu_torch`` (never JAX): ``multiprocessing`` imports this
 module, not the test file, to find the target.
 """
 
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
-from ddl_tpu_torch.convert import async_state_to_numpy, params_from_numpy, params_to_numpy
-from ddl_tpu_torch.data.lm import synthesize_copy
+from ddl_tpu_torch.convert import (
+    async_state_to_numpy,
+    kv_cache_to_numpy,
+    lm_params_from_numpy,
+    params_from_numpy,
+    params_to_numpy,
+)
+from ddl_tpu_torch.data.lm import synthesize_copy, synthesize_prompts
 from ddl_tpu_torch.models import cnn
 from ddl_tpu_torch.models import transformer
-from ddl_tpu_torch.parallel.collectives import unflatten_params
-from ddl_tpu_torch.parallel.mesh import destroy_world, init_world
+from ddl_tpu_torch.parallel.collectives import tp_allreduce, unflatten_params
+from ddl_tpu_torch.parallel.mesh import destroy_world, init_world, make_grid
 from ddl_tpu_torch.ops.optimizers import adam_init
+from ddl_tpu_torch.serve import InferenceEngine, Request, Scheduler, ServeConfig
+from ddl_tpu_torch.serve.cache import host_cache, host_paged_cache
 from ddl_tpu_torch.strategies import async_ps
 from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
 from ddl_tpu_torch.strategies.sync import (
@@ -155,7 +165,7 @@ def world_cases(rank: int, world_size: int, store: str, inputs: str, out: str,
 
 
 # LM cases of the 4-rank world: name -> SeqConfig fields (num_workers x
-# data_parallel = 4 ranks).
+# data_parallel x tensor_parallel = 4 ranks).
 LM_CASES = {
     "ring": dict(scheme="ring", num_workers=4),
     "ring_zigzag": dict(scheme="ring", seq_layout="zigzag", num_workers=4),
@@ -168,18 +178,140 @@ LM_CASES = {
     "zero1_ulysses_2x2": dict(scheme="ulysses", zero1=True, num_workers=2, data_parallel=2),
     # Recomputed blocks re-run the ring's shifts inside the backward pass.
     "ring_zigzag_remat": dict(scheme="ring", seq_layout="zigzag", num_workers=4, remat=True),
+    # Tensor parallelism (Megatron), alone and with each other axis.
+    "tp4_full": dict(scheme="full", tensor_parallel=4),
+    "tp2_ulysses_flash_sp2": dict(scheme="ulysses", attn_impl="flash", num_workers=2,
+                                  tensor_parallel=2),
+    "tp2_ring_zigzag_sp2": dict(scheme="ring", seq_layout="zigzag", num_workers=2,
+                                tensor_parallel=2),
+    "tp2_full_dp2": dict(scheme="full", data_parallel=2, tensor_parallel=2),
+    # The hybrid ZeRO-1 x tp.
+    "hybrid_tp2_dp2": dict(scheme="full", zero1=True, data_parallel=2, tensor_parallel=2),
+    "hybrid_tp2_ring_sp2": dict(scheme="ring", zero1=True, num_workers=2, tensor_parallel=2),
 }
 LM_SPEC = transformer.LMSpec(vocab=16, d_model=32, num_heads=4, num_layers=2, d_ff=64)
 LM_DATA = dict(num_train=16, num_test=8, seq_len=32, vocab=16, seed=5)
 # 2 steps of batch 8, one span (and one eval) a step.
 LM_BASE = dict(epochs=1, batch_size=8, learning_rate=1e-3, eval_every=1, seed=2, spec=LM_SPEC)
 
+# Serving at tp 2 in the same world (two tp groups of two ranks), with the
+# LM's spec and init: name -> ServeConfig fields.
+SERVE_TP = 2
+SERVE_CASES = {
+    "contiguous-greedy": dict(slots=3, capacity=64),
+    "paged-sampled": dict(slots=3, capacity=64, page_size=8, temperature=0.7, top_k=5),
+}
+SERVE_PROMPTS = dict(num=6, min_len=3, max_len=20, vocab=16, seed=0)
+SERVE_NEW = 8
+SERVE_STATS = ("prefill_tokens", "decode_steps", "decode_tokens", "prefix_lookups",
+               "prefix_hits", "prefill_tokens_saved")
+
+
+def kv_calls():
+    """The cached forwards' inputs, as numpy, for both sides: ``cached``, a
+    padded prefill of 2 slots (ring capacity 16; tail positions PAD_POS,
+    tail rows dropped) then two one-token decodes with slot 1 inactive;
+    ``paged``, a prefill of each slot through its block table (pages of 4,
+    7 pages), then one decode with slot 0 inactive."""
+    pad = 2**31 - 1
+    rng = np.random.default_rng(7)
+    b, c, bucket, real = 2, 16, 8, np.array([6, 3])
+    t = np.arange(bucket)[None]
+    base = np.array([[2], [0]])
+    cached = [dict(tokens=rng.integers(1, 16, (b, bucket)).astype(np.int32),
+                   positions=np.where(t < real[:, None], base + t, pad).astype(np.int32),
+                   rows=np.where(t < real[:, None], (base + t) % c, c).astype(np.int32))]
+    lengths = base[:, 0] + real
+    for _ in range(2):
+        active = np.array([True, False])
+        cached.append(dict(tokens=rng.integers(1, 16, (b, 1)).astype(np.int32),
+                           positions=np.where(active, lengths, pad).astype(np.int32)[:, None],
+                           rows=(lengths % c).astype(np.int32)[:, None]))
+        lengths = lengths + active
+    ps, num_pages, max_pages = 4, 7, 4
+    tables = np.array([[3, 1, -1, -1], [0, 5, 2, -1]], np.int32)
+    paged = []
+    for slot, n, bucket in ((0, 7, 8), (1, 9, 16)):
+        t = np.arange(bucket)[None]
+        paged.append(dict(tokens=rng.integers(1, 16, (1, bucket)).astype(np.int32),
+                          table=tables[slot:slot + 1],
+                          positions=np.where(t < n, t, pad).astype(np.int32),
+                          logical=np.where(t < n, t, max_pages * ps).astype(np.int32)))
+    lengths, active = np.array([7, 9]), np.array([False, True])
+    paged.append(dict(tokens=rng.integers(1, 16, (2, 1)).astype(np.int32), table=tables,
+                      positions=np.where(active, lengths, pad).astype(np.int32)[:, None],
+                      logical=np.where(active, lengths, 4 * ps).astype(np.int32)[:, None]))
+    return dict(capacity=c, slots=b, page_size=ps, num_pages=num_pages, cached=cached,
+                paged=paged)
+
+
+def _serve_cases(world, init, results):
+    """Every serve case on each tp-2 group of the world, then the cached
+    and paged forwards call by call: completions, counters and the greedy
+    steps' top-2 logit margins; logits and this rank's local-head k/v."""
+    from ddl_tpu_torch.ops import kv_cache
+
+    grid = make_grid(world, world.size // SERVE_TP, 1, SERVE_TP)
+    prompts = synthesize_prompts(**SERVE_PROMPTS)
+    for name, kw in SERVE_CASES.items():
+        eng = InferenceEngine(ServeConfig(spec=LM_SPEC, tensor_parallel=SERVE_TP, **kw),
+                              params=init, grid=grid)
+        margins = []
+        decode = eng.decode
+
+        def recording(last, lengths, rids, active, **k):
+            nxt, logits = decode(last, lengths, rids, active, **k)
+            s = np.sort(logits[np.asarray(active, bool)], axis=-1)
+            margins.extend((s[:, -1] - s[:, -2]).tolist())
+            return nxt, logits
+
+        eng.decode = recording
+        done, stats = Scheduler(eng).run(
+            [Request(id=i, prompt=p, max_new_tokens=SERVE_NEW) for i, p in enumerate(prompts)])
+        key = f"serve/{name}"
+        for i, c in done.items():
+            results[f"{key}/{i}/tokens"] = np.asarray(c.tokens, np.int64)
+            results[f"{key}/{i}/steps"] = np.asarray([c.admitted_step, c.finished_step])
+            results[f"{key}/{i}/status"] = np.asarray(c.status)
+        results[f"{key}/stats"] = np.asarray([getattr(stats, f) for f in SERVE_STATS])
+        results[f"{key}/margins"] = np.asarray(margins)
+        results[f"{key}/local_heads"] = np.asarray(eng.cache.k.shape[3])
+    # The cached forwards on this rank's shard and head subset.
+    calls = kv_calls()
+    params = lm_params_from_numpy(init, LM_SPEC, "cpu", tensor_parallel=SERVE_TP,
+                                  tp_index=grid.tp_index)
+    reduce_ = tp_allreduce(grid.tp_group)
+    cache = host_cache(LM_SPEC, calls["slots"], calls["capacity"], tensor_parallel=SERVE_TP)
+    for i, call in enumerate(calls["cached"]):
+        logits, *_ = transformer.apply_lm_cached(
+            params, torch.from_numpy(call["tokens"]), cache.k, cache.v, cache.pos, LM_SPEC,
+            start=None, positions=torch.from_numpy(call["positions"]),
+            rows=torch.from_numpy(call["rows"]), row_reduce=reduce_)
+        results[f"kv/cached/{i}/logits"] = logits.numpy()
+        for k, a in kv_cache_to_numpy(cache).items():
+            results[f"kv/cached/{i}/{k}"] = a
+    pool = host_paged_cache(LM_SPEC, calls["num_pages"], calls["page_size"],
+                            tensor_parallel=SERVE_TP)
+    for i, call in enumerate(calls["paged"]):
+        table = torch.from_numpy(call["table"])
+        flat = kv_cache.table_rows(table, torch.from_numpy(call["logical"]), calls["page_size"],
+                                   calls["num_pages"])
+        logits, *_ = transformer.apply_lm_paged(
+            params, torch.from_numpy(call["tokens"]), pool.k, pool.v, pool.pos, table, LM_SPEC,
+            positions=torch.from_numpy(call["positions"]), flat_rows=flat, row_reduce=reduce_)
+        results[f"kv/paged/{i}/logits"] = logits.numpy()
+        for k, a in kv_cache_to_numpy(pool).items():
+            results[f"kv/paged/{i}/{k}"] = a
+    results["tp_index"] = np.asarray(grid.tp_index)
+
 
 def lm_world_cases(rank: int, world_size: int, store: str, inputs: str, out: str) -> None:
     """Every case of LM_CASES from the init in ``inputs`` (its leaves in
-    ``utils.tree.leaves`` order): params, span losses, the final loss and
-    accuracy, this rank's Adam state (moments by leaf, or its ZeRO-1
-    chunk) and the rank's wall time in seconds."""
+    ``utils.tree.leaves`` order): params (the full tree), span losses, the
+    final loss and accuracy, this rank's Adam state (each field's leaves:
+    moments by leaf, its ZeRO-1 chunk, or the hybrid's chunk and tp shards)
+    and the rank's wall time in seconds; then the serve cases
+    (:func:`_serve_cases`)."""
     start = time.perf_counter()
     torch.set_num_threads(1)
     data = np.load(inputs)
@@ -198,9 +330,12 @@ def lm_world_cases(rank: int, world_size: int, store: str, inputs: str, out: str
             results[f"{name}/final"] = np.asarray([res.final_loss, res.final_accuracy])
             opt = trainer.opt_state
             results[f"{name}/step"] = np.asarray(int(opt.step))
-            for k in ("m", "v"):
-                for i, leaf in enumerate(tree.leaves(getattr(opt, k))):
-                    results[f"{name}/{k}/{i}"] = leaf.numpy()
+            for f in dataclasses.fields(opt):
+                if f.name != "step":
+                    for i, leaf in enumerate(tree.leaves(getattr(opt, f.name))):
+                        results[f"{name}/{f.name}/{i}"] = leaf.numpy()
+        results["lm_seconds"] = np.asarray(time.perf_counter() - start)
+        _serve_cases(world, init, results)
     finally:
         destroy_world()
     results["seconds"] = np.asarray(time.perf_counter() - start)

@@ -1,7 +1,8 @@
 """The port's CLI subset (ddl_tpu_torch/cli.py): the flag-to-config mapping
 of the JAX CLI, its --fused-adam validation, loud refusal of what is not
 ported, and tiny end-to-end runs on the CPU (sync_sharding, the three async
-variants and lm: full, the default ring, and Ulysses with ZeRO-1)."""
+variants and lm: full, the default ring, and Ulysses with ZeRO-1). A
+multi-rank grid (sequence, data or tensor parallel) needs torchrun."""
 
 import dataclasses
 import json
@@ -126,6 +127,9 @@ def test_lm_flags_keep_the_jax_spellings_and_defaults():
         "lm", "--num-workers", "2", "--data-parallel", "2", "--zero1", "--seq-layout", "zigzag"]))
     assert (grid.scheme, grid.num_workers, grid.data_parallel, grid.zero1, grid.seq_layout) == (
         "ring", 2, 2, True, "zigzag")
+    assert grid.tensor_parallel == 1
+    tp = cli.lm_config_from_args(ours.parse_args(["lm", "--tensor-parallel", "2", "--zero1"]))
+    assert (tp.tensor_parallel, tp.num_workers, tp.zero1) == (2, 1, True)
 
 
 @pytest.mark.parametrize("argv,match", [
@@ -134,6 +138,8 @@ def test_lm_flags_keep_the_jax_spellings_and_defaults():
     (["lm", "--seq-scheme", "full", "--keep-prob", "0.7"], "--keep-prob does not apply"),
     (["sync", "--attn-impl", "flash"], "--attn-impl does not apply"),
     (["single", "--bf16"], "ROADMAP"),
+    (["lm", "--tensor-parallel", "0"], "--tensor-parallel must be >= 1"),
+    (["sync", "--tensor-parallel", "2"], "--tensor-parallel does not apply"),
 ])
 def test_lm_flag_refusals(argv, match):
     args = cli.build_parser().parse_args(argv)
@@ -160,6 +166,7 @@ def test_lm_end_to_end_on_cpu(capsys):
     (["--seq-scheme", "ulysses", "--num-workers", "4"], "ulysses needs per-device num_heads"),
     (["--seq-layout", "zigzag"], "balances the RING"),
     (["--data-parallel", "3"], "not divisible by data_parallel 3"),
+    (["--tensor-parallel", "3"], r"tensor_parallel needs num_heads \(2\) divisible by tp \(3\)"),
 ])
 def test_lm_config_errors_exit_cleanly(extra, match):
     with pytest.raises(SystemExit, match=f"lm config error.*{match}"):
@@ -191,10 +198,17 @@ def test_lm_multirank_needs_torchrun(monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--tensor-parallel", "tensor parallelism"),
+    # Tensor parallelism is ported: tp 2 is a world of 2 ranks, which needs
+    # torchrun (the id is the case's name from when it still raised).
+    pytest.param("--tensor-parallel", "torchrun", id="--tensor-parallel-tensor parallelism"),
     ("--pipeline-parallel", "the pipeline"),
     ("--microbatches", "the pipeline"),
 ])
-def test_lm_out_of_slice_flags_name_their_item(flag, item):
+def test_lm_out_of_slice_flags_name_their_item(flag, item, monkeypatch):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    if item == "torchrun":
+        with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
+            cli.main(LM_SMOKE + [flag, "2"])
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item 3: {item}"):
         cli.main(LM_SMOKE + [flag, "2"])

@@ -94,7 +94,10 @@ def test_seq_trainer_bf16_compute_keeps_fp32_masters():
     (dict(scheme="ulysses"), "trains"),
     (dict(num_workers=2, scheme="ring"), "needs a world"),
     (dict(data_parallel=2), "needs a world"),
-    (dict(tensor_parallel=2), "ROADMAP queue 1, item 3: tensor parallelism"),
+    # Tensor parallelism is ported: tp 2 needs a world of 2 ranks (the id
+    # is the case's name from when it still raised).
+    pytest.param(dict(tensor_parallel=2), "needs a world",
+                 id="change4-ROADMAP queue 1, item 3: tensor parallelism"),
     (dict(pipeline_parallel=2, microbatches=2), "ROADMAP queue 1, item 3: the pipeline"),
     (dict(zero1=True), "trains"),
     (dict(scheme="ring", seq_layout="zigzag"), "trains"),
@@ -103,8 +106,8 @@ def test_seq_trainer_bf16_compute_keeps_fp32_masters():
 def test_out_of_slice_options_raise(change, outcome):
     """Before the sequence-parallel slice every one of these raised. Now the
     ported ones train on one device (ZeRO-1 keeps one flat chunk of the
-    whole vector), a grid of more than one rank needs a world, and the rest
-    still name their ROADMAP item."""
+    whole vector), a grid of more than one rank (sequence, data or tensor
+    parallel) needs a world, and the rest still name their ROADMAP item."""
     ds, _ = _datasets()
     kw = {**BASE, "spec": tt.TINY_SPEC, **change}
     if outcome == "needs a world":

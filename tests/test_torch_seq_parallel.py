@@ -1,20 +1,37 @@
-"""The port's sequence-parallel LM trainer (ddl_tpu_torch/strategies/seq.py)
-in ONE spawned 4-rank gloo world against JAX's ``SeqTrainer`` on the
-virtual mesh (``make_mesh_2d(dp, W)`` over the first 4 of 8 CPU devices).
+"""The port's sequence- and tensor-parallel LM (ddl_tpu_torch/strategies/seq.py,
+serve/engine.py) in ONE spawned 4-rank gloo world against JAX's
+``SeqTrainer`` on the virtual mesh (``make_mesh_2d(dp, W)``, or
+``make_mesh_3d(dp, W, tp)`` at tp > 1, over the first 4 of 8 CPU devices)
+and JAX's tp-2 serving.
 
-Cases (``tests/_torch_world.py::LM_CASES``, sp x dp): ring contiguous 4x1,
-ring zigzag 4x1, Ulysses xla 4x1, Ulysses flash 4x1 (the port's plain flash
-against JAX's off-TPU reference), ring zigzag 2x2, full 1x4, ZeRO-1 ring
-4x1, ZeRO-1 Ulysses 2x2 and the zigzag ring 4x1 under ``remat``, at vocab
-16, d_model 32, 4 heads, 2 layers, d_ff 64, T 32, batch 8, 2 steps from one
-numpy init (JAX's). The JAX side runs each config's span program (k = 1)
-twice while the children run.
+Training cases (``tests/_torch_world.py::LM_CASES``, sp x dp x tp): ring
+contiguous 4x1x1, ring zigzag 4x1x1, Ulysses xla 4x1x1, Ulysses flash
+4x1x1 (the port's plain flash against JAX's off-TPU reference), ring
+zigzag 2x2x1, full 1x4x1, ZeRO-1 ring 4x1x1, ZeRO-1 Ulysses 2x2x1, the
+zigzag ring 4x1x1 under ``remat``; tensor parallel: full 1x1x4, Ulysses
+flash 2x1x2, zigzag ring 2x1x2, full 1x2x2, and the hybrid ZeRO-1 x tp at
+full 1x2x2 and ring 2x1x2; at vocab 16, d_model 32, 4 heads, 2 layers, d_ff
+64, T 32, batch 8, 2 steps from one numpy init (JAX's). The JAX side runs
+each config's span program (k = 1) twice while the children run.
 
 Tolerances: those ``tests/test_torch_seq.py`` holds the one-device LM to.
 Parameters and Adam moments within atol 2e-5 / rtol 1e-3 (the two sides
 run the same fp32 math in another order, and Adam moves each parameter by
 about lr whatever the gradient's size); span and final losses within rtol
-1e-4. ZeRO-1 moments go through ``convert.lm_sharded_adam_{to,from}_numpy``.
+1e-4. ZeRO-1 moments go through ``convert.lm_sharded_adam_{to,from}_numpy``,
+the hybrid's through ``convert.lm_hybrid_adam_{to,from}_numpy`` (JAX's
+``_opt_for_save`` form), the tp shards' through
+``convert.lm_params_to_numpy``.
+
+Serving: the same world as two tp-2 groups ({0, 1} and {2, 3}), each held
+to JAX's ``Scheduler.run`` at ``tensor_parallel=2`` (contiguous greedy,
+paged sampled: tokens, ``admitted_step``, ``finished_step``, ``status``
+and the ``ServeStats`` counters equal; greedy steps' top-2 margins above
+1e-5 so a near-tie fails loudly), and to JAX's ``apply_lm_cached`` and
+``apply_lm_paged`` under ``shard_map`` on a 2-device tp mesh, call by call:
+logits within atol 1e-5 (the cached logits' tolerance of
+tests/test_torch_kv_cache.py), each rank's local-head k/v within atol 1e-6
++ rtol 1e-5, positions exact.
 """
 
 import multiprocessing
@@ -24,12 +41,31 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import PartitionSpec as P
 
 from ddl_tpu.data.lm import synthesize_copy as j_synthesize_copy
+from ddl_tpu.data.lm import synthesize_prompts as j_synthesize_prompts
 from ddl_tpu.models import transformer as jt
+from ddl_tpu.models.partition import lm_param_specs as j_lm_param_specs
+from ddl_tpu.ops import kv_cache as jkv
+from ddl_tpu.parallel import collectives as jcoll
+from ddl_tpu.parallel.mesh import TP_AXIS, make_mesh
+from ddl_tpu.serve import InferenceEngine as JEngine
+from ddl_tpu.serve import Request as JRequest
+from ddl_tpu.serve import Scheduler as JScheduler
+from ddl_tpu.serve import ServeConfig as JServeConfig
+from ddl_tpu.serve import cache as jcache
 from ddl_tpu.strategies.seq import SeqConfig as JSeqConfig, SeqTrainer as JSeqTrainer
-from ddl_tpu_torch.convert import lm_sharded_adam_from_numpy, lm_sharded_adam_to_numpy
+from ddl_tpu_torch.convert import (
+    lm_hybrid_adam_from_numpy,
+    lm_hybrid_adam_to_numpy,
+    lm_params_to_numpy,
+    lm_sharded_adam_from_numpy,
+    lm_sharded_adam_to_numpy,
+)
+from ddl_tpu_torch.models import partition
 from ddl_tpu_torch.ops.optimizers import ShardedAdam
+from ddl_tpu_torch.strategies.seq import HybridAdam
 from ddl_tpu_torch.utils import tree
 
 import _torch_world
@@ -38,6 +74,9 @@ W = 4
 ATOL, RTOL = 2e-5, 1e-3
 LOSS_RTOL = 1e-4
 STEPS = 2
+MARGIN = 1e-5
+LOGITS_ATOL = 1e-5
+CACHE_ATOL, CACHE_RTOL = 1e-6, 1e-5
 
 
 def _jax_case(kw, jds):
@@ -77,12 +116,63 @@ def lm_world(tmp_path_factory):
 
     jds = j_synthesize_copy(**_torch_world.LM_DATA)
     want = {name: _jax_case(kw, jds) for name, kw in _torch_world.LM_CASES.items()}
+    want["serve"] = {name: _jax_serve(init, kw) for name, kw in _torch_world.SERVE_CASES.items()}
+    want["kv"] = _jax_kv(init)
 
     for pr in procs:
-        pr.join(timeout=180)
+        pr.join(timeout=240)
         assert not pr.is_alive() and pr.exitcode == 0, f"rank exit code {pr.exitcode}"
     got = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(W)]
     return got, want
+
+
+def _jax_serve(init, kw):
+    """JAX's ``Scheduler.run`` at tp 2 on the LM's spec and init."""
+    spec = jt.LMSpec(**vars(_torch_world.LM_SPEC))
+    eng = JEngine(JServeConfig(spec=spec, tensor_parallel=_torch_world.SERVE_TP, **kw),
+                  params=init)
+    prompts = j_synthesize_prompts(**_torch_world.SERVE_PROMPTS)
+    return JScheduler(eng).run([JRequest(id=i, prompt=p, max_new_tokens=_torch_world.SERVE_NEW)
+                                for i, p in enumerate(prompts)])
+
+
+def _jax_kv(init):
+    """JAX's cached and paged forwards at tp 2 (``shard_map`` over a 2-device
+    tp mesh, the head dim of the caches sharded, ``tp_allreduce`` as
+    ``row_reduce``, as JAX's engine runs them): each call's logits and
+    whole caches."""
+    spec = jt.LMSpec(**vars(_torch_world.LM_SPEC))
+    tp = _torch_world.SERVE_TP
+    mesh = make_mesh(tp, axis=TP_AXIS)
+    kv = P(None, None, None, TP_AXIS, None)
+    hooks = dict(spec=spec, row_reduce=jcoll.tp_allreduce(TP_AXIS))
+
+    def sharded(fn, n_rest):
+        return jax.jit(jax.shard_map(
+            fn, mesh=mesh, in_specs=(j_lm_param_specs(spec, tp), kv, kv, P()) + (P(),) * n_rest,
+            out_specs=(P(), kv, kv, P()), check_vma=False))
+
+    calls = _torch_world.kv_calls()
+    cached = sharded(lambda p, k, v, pos, tok, positions, rows: jt.apply_lm_cached(
+        p, tok, k, v, pos, start=jnp.zeros(tok.shape[0], jnp.int32), positions=positions,
+        rows=rows, **hooks), 3)
+    c = jcache.host_cache(spec, calls["slots"], calls["capacity"])
+    state, out = (c.k, c.v, c.pos), {"cached": [], "paged": []}
+    for call in calls["cached"]:
+        res = cached(init, *state, call["tokens"], call["positions"], call["rows"])
+        state = res[1:]
+        out["cached"].append(jax.tree.map(np.asarray, res))
+    paged = sharded(lambda p, k, v, pos, tok, table, positions, flat: jt.apply_lm_paged(
+        p, tok, k, v, pos, table, positions=positions, flat_rows=flat, **hooks), 4)
+    c = jcache.host_paged_cache(spec, calls["num_pages"], calls["page_size"])
+    state = (c.k, c.v, c.pos)
+    for call in calls["paged"]:
+        flat = jkv.table_rows(jnp.asarray(call["table"]), jnp.asarray(call["logical"]),
+                              calls["page_size"], calls["num_pages"])
+        res = paged(init, *state, call["tokens"], call["table"], call["positions"], flat)
+        state = res[1:]
+        out["paged"].append(jax.tree.map(np.asarray, res))
+    return out
 
 
 def _leaves(rank, name, what):
@@ -90,14 +180,21 @@ def _leaves(rank, name, what):
     return [rank[f"{name}/{what}/{i}"] for i in range(n)]
 
 
+def _tree(leaves, like):
+    return tree.unflatten(like, [np.asarray(x) for x in leaves])
+
+
 @pytest.mark.parametrize("name", list(_torch_world.LM_CASES))
 def test_four_rank_lm_world_matches_jax(name, lm_world):
     """Every rank's params, span losses and final loss, and the Adam moments
     (replicated: every rank's; ZeRO-1: each rank's chunk and the logical
-    trees put together from all four), match JAX's SeqTrainer."""
+    trees put together from all four; tp: every tp group's shards put
+    together; the hybrid: each rank's state and the logical trees), match
+    JAX's SeqTrainer."""
     got, want = lm_world
     jparams, jopt, jlosses = want[name]
-    zero1 = _torch_world.LM_CASES[name].get("zero1", False)
+    kw = _torch_world.LM_CASES[name]
+    zero1, tp = kw.get("zero1", False), kw.get("tensor_parallel", 1)
     spec = _torch_world.LM_SPEC
     for r, rank in enumerate(got):
         for a, b in zip(_leaves(rank, name, "p"), jax.tree.leaves(jparams), strict=True):
@@ -105,36 +202,110 @@ def test_four_rank_lm_world_matches_jax(name, lm_world):
         np.testing.assert_allclose(rank[f"{name}/span_losses"], jlosses, rtol=LOSS_RTOL)
         np.testing.assert_allclose(rank[f"{name}/final"][0], jlosses[-1], rtol=LOSS_RTOL)
         assert int(rank[f"{name}/step"]) == STEPS
-        if zero1:
+        if zero1 and tp > 1:
+            mine = lm_hybrid_adam_from_numpy(jopt.step, jopt.m, jopt.v, spec, r,
+                                             tensor_parallel=tp, data_ranks=W // tp, device="cpu")
+            for k in ("m_flat", "v_flat", "m_tp", "v_tp"):
+                for a, b in zip(_leaves(rank, name, k), tree.leaves(getattr(mine, k)),
+                                strict=True):
+                    np.testing.assert_allclose(a, b.numpy(), atol=ATOL, rtol=RTOL,
+                                               err_msg=f"rank {r} {name} {k}")
+        elif zero1:
             mine = lm_sharded_adam_from_numpy(jopt.step, jopt.m, jopt.v, spec, r, W, "cpu")
             np.testing.assert_allclose(rank[f"{name}/m/0"], mine.m.numpy(), atol=ATOL, rtol=RTOL)
             np.testing.assert_allclose(rank[f"{name}/v/0"], mine.v.numpy(), atol=ATOL, rtol=RTOL)
-        else:
+        elif tp == 1:
             for k in ("m", "v"):
                 for a, b in zip(_leaves(rank, name, k), jax.tree.leaves(getattr(jopt, k)),
                                 strict=True):
                     np.testing.assert_allclose(a, b, atol=ATOL, rtol=RTOL,
                                                err_msg=f"rank {r} {name} {k}")
-    if zero1:
+    if zero1 and tp > 1:
+        states = [HybridAdam(step=torch.tensor(int(rank[f"{name}/step"])),
+                             **{k: [torch.as_tensor(x) for x in _leaves(rank, name, k)]
+                                for k in ("m_tp", "v_tp")},
+                             **{k: torch.as_tensor(rank[f"{name}/{k}/0"])
+                                for k in ("m_flat", "v_flat")}) for rank in got]
+        logical = lm_hybrid_adam_to_numpy(states, spec, tensor_parallel=tp)
+    elif zero1:
         states = [ShardedAdam(step=torch.tensor(int(rank[f"{name}/step"])),
                               m=torch.as_tensor(rank[f"{name}/m/0"]),
                               v=torch.as_tensor(rank[f"{name}/v/0"])) for rank in got]
         logical = lm_sharded_adam_to_numpy(states, spec)
+    if zero1:
         assert int(logical["step"]) == int(jopt.step) == STEPS
         for k in ("m", "v"):
             for a, b in zip(tree.leaves(logical[k]), jax.tree.leaves(getattr(jopt, k)),
                             strict=True):
                 np.testing.assert_allclose(a, b, atol=ATOL, rtol=RTOL, err_msg=f"{name} {k}")
+    elif tp > 1:
+        # Each (dp, sp) cell's tp group: its ranks' shards put together.
+        specs = partition.lm_param_specs(spec, tp)
+        full = jax.tree.map(np.asarray, want[name][0])
+        like = partition.shard_lm_params(tree.map(np.asarray, full), specs, tp, 0)
+        for cell in range(W // tp):
+            for k in ("m", "v"):
+                shards = [tree.map(torch.as_tensor, _tree(_leaves(got[cell * tp + t], name, k),
+                                                          like)) for t in range(tp)]
+                logical = partition.gather_lm_params([lm_params_to_numpy(s) for s in shards],
+                                                     specs)
+                for a, b in zip(tree.leaves(logical), jax.tree.leaves(getattr(jopt, k)),
+                                strict=True):
+                    np.testing.assert_allclose(a, b, atol=ATOL, rtol=RTOL,
+                                               err_msg=f"{name} cell {cell} {k}")
+
+
+@pytest.mark.parametrize("name", list(_torch_world.SERVE_CASES))
+def test_four_rank_world_serves_at_tp2_as_jax(name, lm_world):
+    """Both tp-2 groups of the world serve every request as JAX's scheduler
+    at tp 2 does: tokens, steps, statuses and counters; each rank holds half
+    the heads."""
+    got, want = lm_world
+    jdone, jstats = want["serve"][name]
+    key = f"serve/{name}"
+    for r, rank in enumerate(got):
+        assert int(rank[f"{key}/local_heads"]) == _torch_world.LM_SPEC.num_heads // 2
+        for i, j in jdone.items():
+            assert rank[f"{key}/{i}/tokens"].tolist() == j.tokens, (r, i)
+            assert rank[f"{key}/{i}/steps"].tolist() == [j.admitted_step, j.finished_step]
+            assert str(rank[f"{key}/{i}/status"]) == j.status
+        assert rank[f"{key}/stats"].tolist() == [getattr(jstats, f)
+                                                 for f in _torch_world.SERVE_STATS]
+        if _torch_world.SERVE_CASES[name].get("temperature", 0.0) == 0.0:
+            margins = rank[f"{key}/margins"]
+            assert margins.size and margins.min() > MARGIN, margins.min()
+
+
+@pytest.mark.parametrize("kind", ["cached", "paged"])
+def test_four_rank_world_cached_forwards_at_tp2_match_jax(kind, lm_world):
+    """Every rank's cached (or paged) forward at tp 2, call by call: logits
+    and its own heads' k/v against JAX's sharded forward."""
+    got, want = lm_world
+    h = _torch_world.LM_SPEC.num_heads // _torch_world.SERVE_TP
+    calls = _torch_world.kv_calls()[kind]
+    for r, rank in enumerate(got):
+        t = int(rank["tp_index"])
+        for i, (call, res) in enumerate(zip(calls, want["kv"][kind], strict=True)):
+            logits, k, v, pos = res
+            valid = call["positions"] != 2**31 - 1  # PAD_POS rows: nothing attended
+            np.testing.assert_allclose(rank[f"kv/{kind}/{i}/logits"][valid], logits[valid],
+                                       atol=LOGITS_ATOL, err_msg=f"rank {r} call {i}")
+            for name, full in (("k", k), ("v", v)):
+                np.testing.assert_allclose(rank[f"kv/{kind}/{i}/{name}"],
+                                           full[..., t * h:(t + 1) * h, :], atol=CACHE_ATOL,
+                                           rtol=CACHE_RTOL, err_msg=f"rank {r} call {i} {name}")
+            np.testing.assert_array_equal(rank[f"kv/{kind}/{i}/pos"], pos)
 
 
 def test_four_rank_lm_world_ranks_agree_and_finish_in_time(lm_world):
     """Every rank ends with the same params, losses and accuracy (they are
-    replicated), and each rank runs every case in under 30 s."""
+    replicated, or at tp > 1 gathered over the tp group), and each rank runs
+    every training case in under 30 s."""
     got, _ = lm_world
     for name in _torch_world.LM_CASES:
         for rank in got[1:]:
             for a, b in zip(_leaves(rank, name, "p"), _leaves(got[0], name, "p")):
                 np.testing.assert_array_equal(a, b, err_msg=name)
             np.testing.assert_array_equal(rank[f"{name}/final"], got[0][f"{name}/final"])
-    seconds = max(float(rank["seconds"]) for rank in got)
+    seconds = max(float(rank["lm_seconds"]) for rank in got)
     assert seconds < 30, f"the 4-rank world took {seconds:.1f} s"

@@ -380,14 +380,28 @@ def test_an_aborted_run_returns_the_pool_whole():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(tensor_parallel=2), "tensor_parallel"),
-    (dict(tensor_parallel=3), "tensor_parallel"),  # refused before any divisibility check
+    # Tensor parallelism is ported (these two ids are the cases' names from
+    # when it still raised): tp 2 serves over a tp group of 2 ranks (held
+    # against JAX in tests/test_torch_seq_parallel.py), so without one it
+    # raises ValueError; tp 3 raises JAX's divisibility ValueError.
+    pytest.param(dict(tensor_parallel=2), "serves over a grid of tp 2",
+                 id="kw0-tensor_parallel"),
+    pytest.param(dict(tensor_parallel=3), "tensor_parallel needs num_heads",
+                 id="kw1-tensor_parallel"),
     (dict(page_size=8, kv_dtype="int8"), "int8"),
     (dict(page_size=8, speculate_k=2, slots=2), "speculate"),
     (dict(speculate_method="prompt"), "speculate_method"),
     (dict(compute_dtype="bfloat16"), "bfloat16"),
 ])
 def test_engine_refuses_what_is_not_ported(kw, what):
+    if "tensor_parallel" in kw:
+        with pytest.raises(ValueError, match=what) as ours:
+            InferenceEngine(ServeConfig(spec=TSPEC, capacity=64, **kw), device="cpu")
+        if kw["tensor_parallel"] == 3:
+            with pytest.raises(ValueError) as theirs:
+                JEngine(JConfig(spec=JSPEC, capacity=64, **kw))
+            assert str(ours.value) == str(theirs.value)
+        return
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
         InferenceEngine(ServeConfig(spec=TSPEC, capacity=64, **kw), device="cpu")
 
@@ -445,8 +459,16 @@ def test_cli_serve_cpu_smoke_paged_and_contiguous():
     ("--replicas", "2"), ("--traffic", "chat"), ("--slo", "chat:ttft=1"),
     ("--autoscale", ""), ("--roles", "prefill:1"), ("--speculate", "4"), ("--bf16", None),
 ])
-def test_cli_refuses_serve_flags_not_ported(flag, value):
+def test_cli_refuses_serve_flags_not_ported(flag, value, monkeypatch):
+    """Each flag of a slice not ported names its ROADMAP item. Tensor
+    parallelism is ported: tp 2 is a world of 2 ranks, which needs
+    torchrun."""
     argv = SMOKE + [flag] + ([value] if value is not None else [])
+    if flag == "--tensor-parallel":
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+        with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
+            cli.main(argv)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(argv)
 
@@ -459,6 +481,9 @@ def test_cli_refuses_serve_flags_not_ported(flag, value):
     (SMOKE + ["--prefill-chunk", "12"], "serve config error: prefill_chunk"),
     (["lm", "--device", "cpu", "--slots", "2"], "--slots does not apply to the lm variant"),
     (["single", "--device", "cpu", "--page-size", "8"], "--page-size does not apply"),
+    (SMOKE + ["--tensor-parallel", "3"],
+     r"serve config error: tensor_parallel needs num_heads \(2\) divisible by tp \(3\)"),
+    (SMOKE + ["--tensor-parallel", "0"], "--tensor-parallel must be >= 1"),
 ])
 def test_cli_flag_hygiene(argv, message):
     with pytest.raises(SystemExit, match=message):
