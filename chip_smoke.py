@@ -58,9 +58,9 @@ Phases, each printing one JSON line:
    ``flash_attention_bthd``'s autograd) against ``flash_attention_reference``
    (materialised fp32 scores, autograd gradients) for a loss ``sum(O * R)``
    with a seeded R, at [B, T, H, D] = [1, 64, 2, 16], [2, 200, 4, 32]
-   (ragged), [4, 2048, 8, 64] (the LM path's), [1, 512, 2, 128] and [4,
-   2048, 4, 64] (lm_tp's: a tp-2 rank's half of the heads), causal and
-   not; the forward kernel's LSE against the plain log-sum-exp, within
+   (ragged), [4, 2048, 8, 64] (the LM path's), [1, 512, 2, 128], [4,
+   2048, 4, 64] (lm_tp's: a tp-2 rank's half of the heads) and [1, 2048, 8,
+   64] (lm_pp's: one microbatch of 4), causal and not; the forward kernel's LSE against the plain log-sum-exp, within
    O's tolerance. fp32: O within atol 1e-5 / rtol 1e-4, gradients within atol
    1e-4 / rtol 1e-3; bf16 inputs (and R) against the reference in fp32 on
    the same bf16 values: O within atol 2e-3 / rtol 1e-2, gradients within
@@ -116,6 +116,25 @@ Phases, each printing one JSON line:
    kernel launched, its tokens equal to a tp 1 serve's (a difference
    printed with its top-2 margins). A rank that fails or outlives the
    timeout fails the phase, its traceback printed.
+11p. lm_pp — pipeline parallelism at pp 2 on the one card, spawned as
+   lm_tp's pair is (each rank one stage of 2 layers). On each rank, at
+   lm_main's width, fp32, T = 2048, batch 4, full + flash, 4 microbatches
+   (of 1 sequence), 4 steps (plus the warm-up, an eval after each): GPipe,
+   then 1F1B. Each rank's flash counts, set to 0 just before each run, must
+   read fwd = (L/pp) * (2M * (steps + 1) + eval batches) and dK/dV = dQ =
+   (L/pp) * M * (steps + 1) (the forward slot, then the backward slot's
+   recompute and backward), every training launch at [1, 2048, 8, 64] and
+   the eval's at [4, 2048, 8, 64]; each rank's peak of saved stage inputs
+   must equal what its row of the tick tables implies, the larger of the
+   two ``max_in_flight`` (4 for GPipe, 2 for 1F1B); losses, parameters and
+   moments finite. Each rank prints its step ms, its device idle share,
+   peak memory and its hop bytes a step (sent and received, and the
+   device-host copies gloo needs), labelled "two processes on one card
+   over gloo: not a pipeline scaling figure". Then at T = 512, 2 steps from
+   one init: GPipe against this process's pp 1 + flash in the NCCL world of
+   one and 1F1B against GPipe (atol 2e-5 / rtol 1e-3, final loss rtol 1e-4;
+   whether bitwise printed), and the two ranks' own shared leaves (embed,
+   head, the final LayerNorm) bitwise equal.
 11a. serve_main — the port's serving path (``serve/``) at the width of
    benchmarks/serve_bench.py (the same LM, vocab 256, d_model 512, 8 heads,
    4 layers, d_ff 2048, the port's seeded init), ``ServeConfig(slots=8,
@@ -159,8 +178,9 @@ If the profiler records no device time for a kernel or a call, the phase
 fails; nothing falls back to CUDA events. Then one ``{"kernels": [...]}``
 line (each kernel's cold ``ms``, ``hot_ms``, ``call_ms`` and ``timer``; the
 Adam row's ``launches`` from phase 4 and ``async_launches`` from 5a; each
-flash row's ``launches`` from phase 9, ``ulysses_launches`` from 11s and
-``tp_launches`` (rank 0's, tp 2) from 11t), the
+flash row's ``launches`` from phase 9, ``ulysses_launches`` from 11s,
+``tp_launches`` (rank 0's, tp 2) from 11t and ``pp_launches`` (rank 0's,
+GPipe) from 11p), the
 ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no ``ok`` line. It needs no network and one card.
@@ -198,7 +218,8 @@ TF32X3_OPS_PER_S = TF32_OPS_PER_S / 3
 
 # The flash-attention phases.
 FLASH_SHAPES = ((1, 64, 2, 16), (2, 200, 4, 32), (4, 2048, 8, 64), (1, 512, 2, 128),
-                (4, 2048, 4, 64))  # the last: lm_tp's, a tp-2 rank's half of the heads
+                (4, 2048, 4, 64),  # lm_tp's: a tp-2 rank's half of the heads
+                (1, 2048, 8, 64))  # lm_pp's: one microbatch of 4
 FLASH_MAIN = (4, 2048, 8, 64)  # the LM path's [B, T, H, D]
 # dtype name -> ((atol, rtol) of O, (atol, rtol) of the gradients). bf16: O
 # differs from the fp32 reference by its own rounding (2^-9 relative); the
@@ -840,16 +861,17 @@ LM_TP_TIMEOUT_S = 600
 LM_TP_LABEL = "two processes on one card over gloo: not a tp scaling figure"
 
 
-def _tp_rank_run(torch, fa, world, name, kw, shapes):
-    """One T = 2048 run of lm_tp on this rank: launches (and the shapes they
-    ran at), step ms, the device's idle share over profiled steady steps,
-    peak memory."""
+def _rank_run(torch, fa, world, name, kw, shapes, steps=LM_TP_STEPS, label=LM_TP_LABEL):
+    """One T = 2048 run of lm_tp or lm_pp on this rank: launches (and the
+    shapes they ran at, with their counts), step ms, the device's idle share
+    over profiled steady steps, peak memory; under a pipeline also the
+    rank's peak of saved stage inputs and its hop bytes a step."""
     from ddl_tpu_torch.data.lm import synthesize_copy
     from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
     from ddl_tpu_torch.tools.step_anatomy import LM_FAMILIES, anatomy
 
     spec, bs, seq_len = lm_spec(), 4, 2048
-    ds = synthesize_copy(num_train=LM_TP_STEPS * bs, num_test=bs, seq_len=seq_len,
+    ds = synthesize_copy(num_train=steps * bs, num_test=bs, seq_len=seq_len,
                          vocab=spec.vocab, seed=4)
     cfg = SeqConfig(batch_size=bs, learning_rate=1e-3, eval_every=1, seed=4, spec=spec, **kw)
     trainer = SeqTrainer(cfg, ds, world=world)
@@ -857,24 +879,31 @@ def _tp_rank_run(torch, fa, world, name, kw, shapes):
     torch.cuda.reset_peak_memory_stats()
     for key in fa.launches:
         fa.launches[key] = 0
-        shapes[key] = set()
+        shapes[key] = {}
     result = trainer.train(log=lambda s: None)
     launches = dict(fa.launches)
     peak = torch.cuda.max_memory_allocated()
     ran_at = {k: sorted(v) for k, v in shapes.items()}
+    ran_at_counts = {k: [[list(shape), n] for shape, n in sorted(v.items())]
+                     for k, v in shapes.items()}
+    rec = trainer.pipeline_record
+    pipeline = {} if rec is None else dict(
+        peak_saved=rec.peak_saved, pp_index=trainer.grid.pp_index,
+        hop_wire_bytes_per_step=rec.hop.wire_bytes / rec.steps,
+        hop_host_copy_bytes_per_step=rec.hop.host_copy_bytes / rec.steps,
+        hops_per_step=rec.hop.hops / rec.steps)
     evals = len(result.history) * -(-ds.test_tokens.shape[0] // bs)
     finite = (all(math.isfinite(x) for x in result.span_losses)
               and _finite_state(torch, trainer))
     # Steady steps under the profiler (each process sees its own kernels).
     step = trainer.step_fn()
-    xs, ys, ws = (trainer.stage_batches(a, LM_TP_STEPS, bs)
+    xs, ys, ws = (trainer.stage_batches(a, steps, bs)
                   for a in (ds.tokens, ds.targets, ds.weights))
     state = [trainer.params, trainer.opt_state]
 
     def run(n):
         for i in range(n):
-            state[0], state[1], _ = step(*state, xs[i % LM_TP_STEPS], ys[i % LM_TP_STEPS],
-                                         ws[i % LM_TP_STEPS])
+            state[0], state[1], _ = step(*state, xs[i % steps], ys[i % steps], ws[i % steps])
 
     # gloo's copies through the host show as memcpy on the device.
     anat = anatomy(run, 3, LM_FAMILIES + (("copy", re.compile(r"memcpy|memset", re.I)),))
@@ -885,8 +914,9 @@ def _tp_rank_run(torch, fa, world, name, kw, shapes):
         anat["device_idle_share_of_steady"] = (1.0 - anat["device_busy_ms_per_step"]
                                                / stats.p50_ms)
     return dict(
-        run=name, rank=world.rank, label=LM_TP_LABEL, steps=LM_TP_STEPS, seq_len=seq_len,
-        batch_size=bs, launches=launches, ran_at=ran_at, evals=evals,
+        run=name, rank=world.rank, label=label, steps=steps, seq_len=seq_len,
+        batch_size=bs, launches=launches, ran_at=ran_at, ran_at_counts=ran_at_counts,
+        evals=evals, **pipeline,
         adam_step=int(trainer.opt_state.step), finite=finite,
         step_ms={"p50": stats.p50_ms, "p95": stats.p95_ms, "mean": stats.mean_ms,
                  "spans": stats.steps},
@@ -898,6 +928,66 @@ def _tp_rank_run(torch, fa, world, name, kw, shapes):
         peak_memory_gb=peak / 1e9, span_losses=result.span_losses,
         final_accuracy=result.final_accuracy,
     )
+
+
+def _rank_setup(torch, fa, phase: str) -> dict:
+    """A spawned rank's start: the build phase's libraries present, TF32
+    off, and every flash launch's shape counted (the wrapper still counts
+    its launches). Returns the counts, key -> {shape: launches}."""
+    from ddl_tpu_torch.ops import build
+
+    for name in build.KERNEL_SOURCES:
+        if not build.library_path(name).exists():
+            raise RuntimeError(f"{phase}: the build phase's {name} library is missing")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shapes = {key: {} for key in fa.launches}
+    launch = fa._launch
+
+    def recording(key, name, tensors, q, causal, scale):
+        shapes[key][tuple(q.shape)] = shapes[key].get(tuple(q.shape), 0) + 1
+        return launch(key, name, tensors, q, causal, scale)
+
+    fa._launch = recording
+    return shapes
+
+
+def _spawn_ranks(target, n: int, tmp: str, inputs: str, phase: str, timeout_s: float):
+    """Runs ``target(rank, store, inputs, out)`` in ``n`` spawned processes
+    (a fork after CUDA init is fatal) and returns each rank's ``out``.json
+    and ``out``.npz. A rank that fails leaves its peers blocked in a
+    collective, so a failure (or the deadline) kills the rest at once; the
+    failed ranks' tracebacks are printed and the phase fails."""
+    import multiprocessing
+
+    import numpy as np
+
+    outs = [os.path.join(tmp, f"{phase}_rank{r}") for r in range(n)]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, f"file://{tmp}/{phase}_store", inputs,
+                                              outs[r])) for r in range(n)]
+    for pr in procs:
+        pr.start()
+    deadline = time.monotonic() + timeout_s
+    while (any(pr.is_alive() for pr in procs) and time.monotonic() < deadline
+           and not any(pr.exitcode not in (None, 0) for pr in procs)):
+        time.sleep(0.5)
+    hung = [r for r, pr in enumerate(procs) if pr.is_alive()]
+    for r in hung:
+        procs[r].kill()
+        procs[r].join()
+    if hung or any(pr.exitcode != 0 for pr in procs):
+        for r in range(n):
+            if os.path.exists(outs[r] + ".err"):
+                with open(outs[r] + ".err") as f:
+                    print(f"{phase} rank {r} failed:\n{f.read()}", file=sys.stderr, flush=True)
+        raise AssertionError(f"{phase}: ranks killed (still running) {hung}, exit codes "
+                             f"{[pr.exitcode for pr in procs]}")
+    ranks = []
+    for o in outs:
+        with open(o + ".json") as f:
+            ranks.append(json.load(f))
+    return ranks, [dict(np.load(o + ".npz")) for o in outs]
 
 
 def lm_tp_rank(rank: int, store: str, inputs: str, out: str) -> None:
@@ -913,32 +1003,19 @@ def lm_tp_rank(rank: int, store: str, inputs: str, out: str) -> None:
     try:
         from ddl_tpu_torch.data.lm import synthesize_copy, synthesize_prompts
         from ddl_tpu_torch.models.transformer import init_lm_params
-        from ddl_tpu_torch.ops import build, fused_adam
         from ddl_tpu_torch.ops import flash_attention as fa
+        from ddl_tpu_torch.ops import fused_adam
         from ddl_tpu_torch.parallel.mesh import destroy_world, init_world, make_grid
         from ddl_tpu_torch.serve import InferenceEngine, Request, Scheduler, ServeConfig
         from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
         from ddl_tpu_torch.utils import tree
 
-        for name in build.KERNEL_SOURCES:
-            if not build.library_path(name).exists():
-                raise RuntimeError(f"lm_tp: the build phase's {name} library is missing")
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        # Record the shape of every flash launch (the wrapper still counts).
-        shapes = {key: set() for key in fa.launches}
-        launch = fa._launch
-
-        def recording(key, name, tensors, q, causal, scale):
-            shapes[key].add(tuple(q.shape))
-            return launch(key, name, tensors, q, causal, scale)
-
-        fa._launch = recording
+        shapes = _rank_setup(torch, fa, "lm_tp")
         world = init_world(LM_TP, rank, store, "cuda", backend="gloo")
         results, arrays = {"device": str(world.device)}, {}
         try:
             for name, kw in LM_TP_RUNS:
-                row = _tp_rank_run(torch, fa, world, name, kw, shapes)
+                row = _rank_run(torch, fa, world, name, kw, shapes)
                 emit("lm_tp_rank", **row)
                 results[name] = row
             # Equivalence: T = 512, 2 steps from the parent's init.
@@ -999,7 +1076,6 @@ def lm_tp(torch, fa, world) -> dict:
     gloo world (:func:`lm_tp_rank`), held to their launch counts and shapes
     and to this process's tp 1 runs (training in the NCCL world of one,
     and serving)."""
-    import multiprocessing
     import types
 
     import numpy as np
@@ -1028,37 +1104,7 @@ def lm_tp(torch, fa, world) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         inputs = os.path.join(tmp, "inputs.npz")
         np.savez(inputs, **{f"init/{i}": a for i, a in enumerate(tree.leaves(init))})
-        outs = [os.path.join(tmp, f"rank{r}") for r in range(LM_TP)]
-        ctx = multiprocessing.get_context("spawn")  # a fork after CUDA init is fatal
-        procs = [ctx.Process(target=lm_tp_rank, args=(r, f"file://{tmp}/tp_store", inputs,
-                                                      outs[r])) for r in range(LM_TP)]
-        for pr in procs:
-            pr.start()
-        # Wait for both; a rank that fails leaves its peer blocked in a
-        # collective, so a failure (or the deadline) kills the rest at once.
-        deadline = time.monotonic() + LM_TP_TIMEOUT_S
-        while (any(pr.is_alive() for pr in procs) and time.monotonic() < deadline
-               and not any(pr.exitcode not in (None, 0) for pr in procs)):
-            time.sleep(0.5)
-        hung = [r for r, pr in enumerate(procs) if pr.is_alive()]
-        for r in hung:
-            procs[r].kill()
-            procs[r].join()
-        errors = {}
-        for r, pr in enumerate(procs):
-            if os.path.exists(outs[r] + ".err"):
-                with open(outs[r] + ".err") as f:
-                    errors[r] = f.read()
-        if hung or any(pr.exitcode != 0 for pr in procs):
-            for r, text in errors.items():
-                print(f"lm_tp rank {r} failed:\n{text}", file=sys.stderr, flush=True)
-            raise AssertionError(f"lm_tp: ranks killed (still running) {hung}, exit codes "
-                                 f"{[pr.exitcode for pr in procs]}")
-        ranks = []
-        for o in outs:
-            with open(o + ".json") as f:
-                ranks.append(json.load(f))
-        params = [dict(np.load(o + ".npz")) for o in outs]
+        ranks, params = _spawn_ranks(lm_tp_rank, LM_TP, tmp, inputs, "lm_tp", LM_TP_TIMEOUT_S)
 
     failures = []
     L, steps = spec.num_layers, LM_TP_STEPS + 1  # the warm-up's discarded step too
@@ -1124,6 +1170,195 @@ def lm_tp(torch, fa, world) -> dict:
     emit("lm_tp", **out)
     if failures:
         raise AssertionError(f"lm_tp: {failures}")
+    return out
+
+
+# The lm_pp phase: pipeline parallelism at pp 2 as two processes on the one
+# card over gloo, each holding half the layers.
+LM_PP = 2
+LM_PP_M = 4
+LM_PP_STEPS = 4
+LM_PP_RUNS = (
+    ("gpipe", dict(scheme="full", attn_impl="flash", pipeline_parallel=LM_PP,
+                   microbatches=LM_PP_M)),
+    ("1f1b", dict(scheme="full", attn_impl="flash", pipeline_parallel=LM_PP,
+                  microbatches=LM_PP_M, pipeline_schedule="1f1b")),
+)
+LM_PP_TIMEOUT_S = 600
+LM_PP_LABEL = "two processes on one card over gloo: not a pipeline scaling figure"
+SHARED = ("embed", "head", "lnf_g", "lnf_b")
+
+
+def lm_pp_rank(rank: int, store: str, inputs: str, out: str) -> None:
+    """One rank (one stage) of lm_pp, in a spawned process: a gloo world of
+    LM_PP ranks on cuda:0, the kernels loaded from the build phase's
+    libraries. Writes ``out``.json (each T = 2048 run's row) and
+    ``out``.npz (the T = 512 runs' gathered params and this rank's own
+    shared leaves); a failure writes its traceback to ``out``.err and
+    re-raises."""
+    import traceback
+
+    import numpy as np
+    import torch
+
+    try:
+        from ddl_tpu_torch.data.lm import synthesize_copy
+        from ddl_tpu_torch.models.transformer import init_lm_params
+        from ddl_tpu_torch.ops import flash_attention as fa
+        from ddl_tpu_torch.parallel.mesh import destroy_world, init_world
+        from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
+        from ddl_tpu_torch.utils import tree
+
+        shapes = _rank_setup(torch, fa, "lm_pp")
+        world = init_world(LM_PP, rank, store, "cuda", backend="gloo")
+        results, arrays = {"device": str(world.device)}, {}
+        try:
+            for name, kw in LM_PP_RUNS:
+                row = _rank_run(torch, fa, world, name, kw, shapes, steps=LM_PP_STEPS,
+                                label=LM_PP_LABEL)
+                emit("lm_pp_rank", **row)
+                results[name] = row
+            # Equivalence: T = 512, 2 steps from the parent's init.
+            spec, bs = lm_spec(), 4
+            data = np.load(inputs)
+            like = init_lm_params(torch.Generator().manual_seed(0), spec)
+            init = tree.unflatten(like, [data[f"init/{i}"] for i in range(len(tree.leaves(like)))])
+            ds = synthesize_copy(num_train=2 * bs, num_test=bs, seq_len=512, vocab=spec.vocab,
+                                 seed=5)
+            for name, kw in LM_PP_RUNS:
+                trainer = SeqTrainer(SeqConfig(batch_size=bs, learning_rate=1e-3, eval_every=0,
+                                               seed=5, spec=spec, **kw), ds, init=init,
+                                     world=world)
+                res = trainer.train(log=lambda s: None)
+                for i, leaf in enumerate(tree.leaves(res.params)):
+                    arrays[f"{name}/{i}"] = leaf
+                for k in SHARED:
+                    arrays[f"{name}/shared/{k}"] = trainer.params[k].cpu().numpy()
+                results[f"{name}/final_loss"] = res.final_loss
+        finally:
+            destroy_world()
+        np.savez(out + ".npz", **arrays)
+        with open(out + ".json", "w") as f:
+            json.dump(results, f)
+    except BaseException:
+        with open(out + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _row_peak(f_tab, b_tab, s: int) -> int:
+    """The most stage inputs stage ``s``'s row of the tables holds at once:
+    forwarded microbatches not yet backwarded."""
+    live = peak = 0
+    for f, b in zip(f_tab[s], b_tab[s]):
+        live += int(f >= 0)
+        peak = max(peak, live)
+        live -= int(b >= 0)
+    return peak
+
+
+def lm_pp(torch, fa, world) -> dict:
+    """Pipeline parallelism at pp 2 on the one card: two spawned ranks in a
+    gloo world (:func:`lm_pp_rank`), held to their launch counts and shapes,
+    their saved-input peaks, and to this process's pp 1 run in the NCCL
+    world of one."""
+    import numpy as np
+
+    from ddl_tpu_torch.convert import lm_params_to_numpy
+    from ddl_tpu_torch.data.lm import synthesize_copy
+    from ddl_tpu_torch.models.transformer import init_lm_params
+    from ddl_tpu_torch.pipeline import max_in_flight, schedule_tables
+    from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
+    from ddl_tpu_torch.utils import tree
+
+    start = time.perf_counter()
+    spec, bs = lm_spec(), 4
+    init = lm_params_to_numpy(init_lm_params(torch.Generator().manual_seed(7), spec))
+    ds = synthesize_copy(num_train=2 * bs, num_test=bs, seq_len=512, vocab=spec.vocab, seed=5)
+    pp1 = SeqTrainer(SeqConfig(scheme="full", attn_impl="flash", batch_size=bs,
+                               learning_rate=1e-3, eval_every=0, seed=5, spec=spec), ds,
+                     init=init, world=world).train(log=lambda s: None)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "inputs.npz")
+        np.savez(inputs, **{f"init/{i}": a for i, a in enumerate(tree.leaves(init))})
+        ranks, params = _spawn_ranks(lm_pp_rank, LM_PP, tmp, inputs, "lm_pp", LM_PP_TIMEOUT_S)
+
+    failures = []
+    per_stage = spec.num_layers // LM_PP
+    steps = LM_PP_STEPS + 1  # the warm-up's discarded step too
+    micro = [bs // LM_PP_M, 2048, spec.num_heads, spec.head_dim]
+    whole = [bs, 2048, spec.num_heads, spec.head_dim]
+    peaks = {}
+    for name, kw in LM_PP_RUNS:
+        f_tab, b_tab = schedule_tables(kw.get("pipeline_schedule", "gpipe"), LM_PP, LM_PP_M)
+        peaks[name] = []
+        for r, res in enumerate(ranks):
+            row = res[name]
+            train = per_stage * LM_PP_M * steps
+            want = {"fwd": 2 * train + per_stage * row["evals"], "bwd_dkv": train,
+                    "bwd_dq": train}
+            if row["launches"] != want:
+                failures.append(f"rank {r} {name}: flash launches {row['launches']}, want {want}")
+            # Training at the microbatch's shape; the eval at its chunk's.
+            want_at = {"fwd": [[micro, 2 * train], [whole, per_stage * row["evals"]]],
+                       "bwd_dkv": [[micro, train]], "bwd_dq": [[micro, train]]}
+            got_at = {k: sorted(v) for k, v in row["ran_at_counts"].items()}
+            if got_at != {k: sorted(v) for k, v in want_at.items()}:
+                failures.append(f"rank {r} {name}: flash ran at {got_at}, want {want_at}")
+            peak = _row_peak(f_tab, b_tab, row["pp_index"])
+            peaks[name].append(row["peak_saved"])
+            if row["peak_saved"] != peak:
+                failures.append(f"rank {r} {name}: {row['peak_saved']} saved inputs at the "
+                                f"peak, its table row implies {peak}")
+            if not row["finite"] or row["adam_step"] != LM_PP_STEPS:
+                failures.append(f"rank {r} {name}: finite {row['finite']}, "
+                                f"Adam step {row['adam_step']}")
+        if max(peaks[name]) != max_in_flight(f_tab, b_tab):
+            failures.append(f"{name}: peaks {peaks[name]}, max_in_flight "
+                            f"{max_in_flight(f_tab, b_tab)}")
+    # Equivalence at T = 512: GPipe against pp 1, 1F1B against GPipe, and the
+    # ranks' own shared leaves bit for bit.
+    oracle = tree.leaves(pp1.params)
+    n = len(oracle)
+    got = {name: [params[0][f"{name}/{i}"] for i in range(n)] for name, _ in LM_PP_RUNS}
+    pairs = {}
+    for name, a, b, la, lb in (
+        ("gpipe_vs_pp1", got["gpipe"], oracle, ranks[0]["gpipe/final_loss"], pp1.final_loss),
+        ("1f1b_vs_gpipe", got["1f1b"], got["gpipe"], ranks[0]["1f1b/final_loss"],
+         ranks[0]["gpipe/final_loss"]),
+    ):
+        atol, rtol = 2e-5, 1e-3
+        err = max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+        share = max(float((np.abs(x - y) / (atol + rtol * np.abs(y))).max())
+                    for x, y in zip(a, b))
+        pairs[name] = dict(atol=atol, rtol=rtol, params_max_abs_diff=err,
+                           params_share_of_tolerance=share,
+                           bitwise=all(np.array_equal(x, y) for x, y in zip(a, b)), loss=la,
+                           oracle_loss=lb, loss_rel_diff=abs(la - lb) / abs(lb))
+        if share > 1.0 or abs(la - lb) > 1e-4 * abs(lb):
+            failures.append(f"{name}: params share {share}, losses {la} vs {lb}")
+    shared_bitwise = all(np.array_equal(params[0][f"{name}/shared/{k}"],
+                                        params[1][f"{name}/shared/{k}"])
+                         for name, _ in LM_PP_RUNS for k in SHARED)
+    ranks_bitwise = all(np.array_equal(params[0][k], params[1][k]) for k in params[0])
+    if not shared_bitwise or not ranks_bitwise:
+        failures.append(f"the ranks' shared leaves (bitwise {shared_bitwise}) or gathered "
+                        f"params (bitwise {ranks_bitwise}) differ")
+    rows = {name: [{k: res[name][k] for k in (
+        "pp_index", "step_ms", "device_idle_share", "device_idle_share_of_steady",
+        "device_busy_ms_per_step", "device_ms_per_step_by_family", "peak_memory_gb",
+        "peak_saved", "hop_wire_bytes_per_step", "hop_host_copy_bytes_per_step",
+        "hops_per_step")} for res in ranks] for name, _ in LM_PP_RUNS}
+    out = dict(pp=LM_PP, microbatches=LM_PP_M, backend="gloo",
+               devices=[res["device"] for res in ranks],
+               launches={name: ranks[0][name]["launches"] for name, _ in LM_PP_RUNS},
+               launch_shape=micro, peak_saved=peaks, ranks=rows, equivalence=pairs,
+               shared_leaves_bitwise=shared_bitwise, ranks_params_bitwise=ranks_bitwise,
+               label=LM_PP_LABEL, failures=failures, seconds=time.perf_counter() - start)
+    emit("lm_pp", **out)
+    if failures:
+        raise AssertionError(f"lm_pp: {failures}")
     return out
 
 
@@ -1478,6 +1713,7 @@ def run_phases(torch, world, card: str):
     lm_bf16(torch, flash_attention)
     seq_out = lm_seq(torch, flash_attention, world)
     tp_out = lm_tp(torch, flash_attention, world)
+    pp_out = lm_pp(torch, flash_attention, world)
 
     serve_params = init_lm_params(torch.Generator().manual_seed(0), lm_spec(), "cuda")
     serve_main(torch, serve_params, fused_adam, flash_attention)
@@ -1485,7 +1721,8 @@ def run_phases(torch, world, card: str):
     serve_vs_full_forward(torch, serve_params, fused_adam, flash_attention)
     del serve_params
     flash_tim = flash_timing(torch, flash_attention, devtime, flush, card)
-    return max_err, main_out, async_out, tim, flash_err, lm_out, seq_out, tp_out, flash_tim
+    return (max_err, main_out, async_out, tim, flash_err, lm_out, seq_out, tp_out, pp_out,
+            flash_tim)
 
 
 def main() -> int:
@@ -1514,7 +1751,7 @@ def main() -> int:
         # (the CNN paths and lm_seq).
         world = init_world(1, 0, f"file://{os.path.join(store, 'store')}", "cuda")
         try:
-            (max_err, main_out, async_out, tim, flash_err, lm_out, seq_out, tp_out,
+            (max_err, main_out, async_out, tim, flash_err, lm_out, seq_out, tp_out, pp_out,
              flash_tim) = run_phases(torch, world, card)
         finally:
             destroy_world()
@@ -1547,6 +1784,7 @@ def main() -> int:
             "launches": lm_out["launches"][key],
             "ulysses_launches": seq_out["ulysses_flash"]["launches"][key],
             "tp_launches": tp_out["launches"]["tp2_full_flash"][key],
+            "pp_launches": pp_out["launches"]["gpipe"][key],
             "max_abs_err": flash_err[key],
             "ms": row["ms"],
             "hot_ms": row["hot_ms"],

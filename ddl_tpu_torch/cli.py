@@ -1,8 +1,9 @@
 """Command-line launcher for the port — the subset of ``ddl_tpu/cli.py``
 the ported slices carry: the seven CNN variants (single, sync and async,
 whole or sharded), the decoder LM over a [data-parallel, num-workers,
-tensor-parallel] grid (ring, Ulysses or full attention, ZeRO-1, Megatron
-tensor parallelism), and single-engine serving, at tp 1 or over a tp group.
+tensor-parallel, pipeline-parallel] grid (ring, Ulysses or full attention,
+ZeRO-1, Megatron tensor parallelism, GPipe or 1F1B pipeline stages), and
+single-engine serving, at tp 1 or over a tp group.
 
     python -m ddl_tpu_torch single
     python -m ddl_tpu_torch sync_sharding --num-workers 1 --num-ps 2 --layout flat --fused-adam
@@ -11,6 +12,7 @@ tensor parallelism), and single-engine serving, at tp 1 or over a tp group.
     python -m ddl_tpu_torch lm --seq-scheme ulysses --attn-impl flash
     torchrun --nproc-per-node 4 -m ddl_tpu_torch lm --num-workers 2 --data-parallel 2 --zero1
     torchrun --nproc-per-node 4 -m ddl_tpu_torch lm --num-workers 2 --tensor-parallel 2
+    torchrun --nproc-per-node 2 -m ddl_tpu_torch lm --pipeline-parallel 2 --microbatches 4
     python -m ddl_tpu_torch serve --slots 8 --capacity 512 --page-size 64 --json
     torchrun --nproc-per-node 2 -m ddl_tpu_torch serve --tensor-parallel 2 --json
 
@@ -50,7 +52,8 @@ _CNN_ONLY = ("num_ps", "layout", "keep_prob", "staleness_seed", "data", "synthet
 # The LM's width and its tp degree: lm and serve.
 _MODEL = ("vocab", "d_model", "heads", "layers", "d_ff", "tensor_parallel")
 _LM_TRAIN = ("seq_scheme", "seq_len", "train_seqs", "test_seqs", "target_accuracy",
-             "attn_impl", "remat", "seq_layout", "data_parallel", "zero1")
+             "attn_impl", "remat", "seq_layout", "data_parallel", "zero1",
+             "pipeline_parallel", "microbatches", "pipeline_schedule")
 _LM_ONLY = _LM_TRAIN + _MODEL
 _TRAIN_ONLY = ("num_workers", "epochs", "batch_size", "lr", "eval_every")
 _SERVE_ONLY = ("slots", "capacity", "max_new_tokens", "num_prompts", "prompt_min",
@@ -60,8 +63,6 @@ _SERVE_ONLY = ("slots", "capacity", "max_new_tokens", "num_prompts", "prompt_min
 # JAX CLI flags of slices not ported yet, with their ROADMAP items: setting
 # one raises NotImplementedError, whatever the variant.
 _NOT_PORTED = {
-    "pipeline_parallel": "ROADMAP queue 1, item 3: the pipeline",
-    "microbatches": "ROADMAP queue 1, item 3: the pipeline",
     "kv_dtype": "ROADMAP queue 1, item 8: the int8 pool",
     "checkpoint_dir": "ROADMAP queue 1, item 5: checkpoints",
     "replicas": "ROADMAP queue 1, item 8: the router",
@@ -123,8 +124,9 @@ def build_parser() -> argparse.ArgumentParser:
         "lm options",
         "the 'lm' variant trains the decoder LM on the procedural copy task "
         "(strategies/seq.py) over a [--data-parallel, --num-workers, "
-        "--tensor-parallel] grid of processes, one a rank (torchrun beyond one); "
-        "--num-workers is the sequence-parallel degree (default: WORLD_SIZE / "
+        "--tensor-parallel, --pipeline-parallel] grid of processes, one a rank "
+        "(torchrun beyond one); --num-workers is the sequence-parallel degree "
+        "(default: 1 under --pipeline-parallel, else WORLD_SIZE / "
         "(--data-parallel * --tensor-parallel), else 1), --batch-size counts "
         "sequences (default 32), --lr defaults to 1e-3. The model flags (--vocab, "
         "--d-model, --heads, --layers, --d-ff) and --tensor-parallel also size "
@@ -171,11 +173,21 @@ def build_parser() -> argparse.ArgumentParser:
                          "[data-parallel, num-workers, TP], tp minor; composes with "
                          "--zero1 (the hybrid sharded optimizer). serve: the engine's "
                          "tp group (torchrun --nproc-per-node TP)")
-    # The pipeline (the JAX CLI's --pipeline-parallel, --microbatches) waits
-    # for ROADMAP queue 1, item 3: parsed below so that setting one fails
-    # with its item.
-    lm.add_argument("--pipeline-parallel", type=int, default=1, help="not ported")
-    lm.add_argument("--microbatches", type=int, default=1, help="not ported")
+    lm.add_argument("--pipeline-parallel", type=int, default=1, metavar="PP",
+                    help="pipeline parallelism: the layer stack in PP contiguous stages "
+                         "over the grid's minor pp axis, activations handed stage to "
+                         "stage; needs --layers divisible by PP, --microbatches >= 2, "
+                         "--num-workers 1 --seq-scheme full; composes with "
+                         "--data-parallel and --tensor-parallel on the grid [dp, 1, tp, "
+                         "PP] (not with --zero1 or sequence parallelism)")
+    lm.add_argument("--microbatches", type=int, default=1, metavar="M",
+                    help="microbatches streamed through the pipeline a step (their "
+                         "gradients summed; bubble (PP-1)/(M+PP-1)); must divide the "
+                         "per-dp-row batch; requires --pipeline-parallel > 1")
+    lm.add_argument("--pipeline-schedule", default="gpipe", choices=["gpipe", "1f1b"],
+                    help="microbatch schedule: gpipe (all forwards, then all backwards; "
+                         "M saved stage inputs a stage) or 1f1b (one forward, one "
+                         "backward; min(PP, M) saved: the same bubble, less memory)")
     sv = p.add_argument_group(
         "serve options",
         "the 'serve' variant runs KV-cache autoregressive decode with continuous "
@@ -322,9 +334,27 @@ def lm_config_from_args(args):
         raise SystemExit(f"--data-parallel must be >= 1, got {args.data_parallel}")
     if args.tensor_parallel < 1:
         raise SystemExit(f"--tensor-parallel must be >= 1, got {args.tensor_parallel}")
-    # Default: every rank of the world, split between the dp rows and tp columns.
-    num_workers = args.num_workers or max(
-        1, int(os.environ.get("WORLD_SIZE", "1")) // (args.data_parallel * args.tensor_parallel))
+    if args.pipeline_parallel < 1:
+        raise SystemExit(f"--pipeline-parallel must be >= 1, got {args.pipeline_parallel}")
+    if args.num_workers:
+        num_workers = args.num_workers
+    elif args.pipeline_parallel > 1:
+        # A pipeline has no sequence axis (validate_topology wants
+        # num_workers 1): never default it to the spare ranks.
+        num_workers = 1
+    else:
+        # Default: every rank of the world, split between the dp rows and tp columns.
+        num_workers = max(1, int(os.environ.get("WORLD_SIZE", "1"))
+                          // (args.data_parallel * args.tensor_parallel))
+    scheme = args.seq_scheme
+    if args.pipeline_parallel > 1 and scheme == "ring":
+        # The stages hold the whole sequence, so the parser's ring default
+        # maps to the stage-local full attention, loudly (rank 0 says so; an
+        # explicit --seq-scheme ulysses still fails validation).
+        if os.environ.get("RANK", "0") == "0":
+            print("[ddl_tpu] --pipeline-parallel: sequence is whole per "
+                  "stage; using --seq-scheme full")
+        scheme = "full"
     return SeqConfig(
         epochs=args.epochs,
         batch_size=args.batch_size or 32,
@@ -334,7 +364,10 @@ def lm_config_from_args(args):
         num_workers=num_workers,
         data_parallel=args.data_parallel,
         tensor_parallel=args.tensor_parallel,
-        scheme=args.seq_scheme,
+        pipeline_parallel=args.pipeline_parallel,
+        microbatches=args.microbatches,
+        pipeline_schedule=args.pipeline_schedule,
+        scheme=scheme,
         compute_dtype="bfloat16" if args.bf16 else None,
         target_accuracy=args.target_accuracy,
         zero1=args.zero1,
@@ -348,7 +381,7 @@ def lm_config_from_args(args):
 
 def _run_lm(args, device) -> int:
     """The ``lm`` variant: decoder-LM training on the copy task over the
-    [dp, num_workers, tp] grid, one process a rank."""
+    [dp, num_workers, tp, pp] grid, one process a rank."""
     from .data.lm import synthesize_copy
     from .parallel.mesh import destroy_world
     from .strategies.seq import SeqTrainer, check_config
@@ -364,8 +397,8 @@ def _run_lm(args, device) -> int:
     except ValueError as e:
         raise SystemExit(f"lm config error: {e}")
     with tempfile.TemporaryDirectory() as store_dir:
-        world = _join_world(cfg.num_workers * cfg.data_parallel * cfg.tensor_parallel,
-                            args.device, store_dir)
+        world = _join_world(cfg.num_workers * cfg.data_parallel * cfg.tensor_parallel
+                            * cfg.pipeline_parallel, args.device, store_dir)
         try:
             trainer = SeqTrainer(cfg, dataset, world=world)
             result = trainer.train(log=print if world.rank == 0 else (lambda s: None))

@@ -84,16 +84,19 @@ def _check_tree(np_tree, shapes, path: str = "") -> None:
 
 
 def lm_params_from_numpy(np_tree, spec: LMSpec, device: str | torch.device, *,
-                         tensor_parallel: int = 1, tp_index: int = 0) -> dict:
+                         tensor_parallel: int = 1, tp_index: int = 0,
+                         pipeline_parallel: int = 1, pp_index: int = 0) -> dict:
     """JAX LM parameters (the full nested tree of numpy arrays) -> the
     port's float32 tree on ``device``: at ``tensor_parallel > 1``, rank
-    ``tp_index``'s Megatron shard of it. Raises unless the names, nesting
-    and shapes are exactly ``init_lm_params``' for ``spec``."""
-    from .models.partition import lm_param_specs, shard_lm_params
+    ``tp_index``'s Megatron shard of it; at ``pipeline_parallel > 1``,
+    stage ``pp_index``'s blocks and the shared leaves
+    (``models.partition.shard_stage_params``). Raises unless the names,
+    nesting and shapes are exactly ``init_lm_params``' for ``spec``."""
+    from .models.partition import shard_stage_params
 
     _check_tree(np_tree, param_shapes(spec))
-    specs = lm_param_specs(spec, tensor_parallel)
-    shard = shard_lm_params(tree.map(np.asarray, np_tree), specs, tensor_parallel, tp_index)
+    shard = shard_stage_params(tree.map(np.asarray, np_tree), spec, pipeline_parallel,
+                               pp_index, tensor_parallel, tp_index)
     return tree.map(lambda a: torch.tensor(a, dtype=torch.float32, device=device), shard)
 
 
@@ -208,6 +211,41 @@ def lm_hybrid_adam_to_numpy(rank_states, spec: LMSpec, *, tensor_parallel: int) 
             shards.append(lm_params_to_numpy(
                 plan.merge(rep, [x.detach().cpu() for x in getattr(rank_states[t], f"{k}_tp")])))
         out[k] = gather_lm_params(shards, specs)
+    return out
+
+
+def lm_pipeline_adam_from_numpy(step, m, v, spec: LMSpec, *, pipeline_parallel: int,
+                                pp_index: int, tensor_parallel: int = 1, tp_index: int = 0,
+                                device: str | torch.device) -> AdamState:
+    """The pipeline's Adam state in its logical form (params-shaped numpy
+    ``m``/``v`` trees, JAX's ``_opt_for_save`` form) -> the tree
+    ``AdamState`` of rank ``(tp_index, pp_index)``: its stage's moments,
+    placed like its parameters (:func:`lm_params_from_numpy`)."""
+    kw = dict(tensor_parallel=tensor_parallel, tp_index=tp_index,
+              pipeline_parallel=pipeline_parallel, pp_index=pp_index)
+    return AdamState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+        m=lm_params_from_numpy(m, spec, device, **kw),
+        v=lm_params_from_numpy(v, spec, device, **kw),
+    )
+
+
+def lm_pipeline_adam_to_numpy(rank_states, spec: LMSpec, *, pipeline_parallel: int,
+                              tensor_parallel: int = 1) -> dict:
+    """Inverse of :func:`lm_pipeline_adam_from_numpy` over the states of
+    the ranks of one ``(dp, sp)`` cell, in global rank order (rank ``t *
+    pipeline_parallel + p`` holds tp shard ``t`` of stage ``p``):
+    ``{"step", "m", "v"}`` with params-shaped numpy trees."""
+    from .models.partition import (
+        gather_lm_params, gather_stage_params, lm_param_specs, stage_spec)
+
+    pp, tp = pipeline_parallel, tensor_parallel
+    specs = lm_param_specs(stage_spec(spec, pp), tp)
+    out = {"step": np.asarray(int(rank_states[0].step), np.int32)}
+    for k in ("m", "v"):
+        stages = [gather_lm_params([lm_params_to_numpy(getattr(rank_states[t * pp + p], k))
+                                    for t in range(tp)], specs) for p in range(pp)]
+        out[k] = gather_stage_params(stages)
     return out
 
 

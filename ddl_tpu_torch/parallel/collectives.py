@@ -44,6 +44,11 @@ where the tp-replicated residual stream enters the column-sharded matmuls.
 :func:`all_gather_list` gathers one vector a rank over a group as a list
 (the form gloo also takes for CUDA tensors).
 
+Pipeline parallelism adds :func:`stage_hop`, one tick's point-to-point
+exchange between neighbouring stages (``lax.ppermute`` over the pp axis in
+JAX): the activations go to the next stage, the cotangents to the previous
+one, all in one ``batch_isend_irecv``.
+
 The reductions over the world take an optional ``group``: a process group
 that stands for the world in them (the LM's ``(dp, sp)`` group under
 tensor parallelism), of ``dist.get_world_size(group)`` ranks.
@@ -455,3 +460,61 @@ def tp_promote(group):
     if group is LOCAL:
         return lambda x: x
     return lambda x: _TPPromote.apply(group, x)
+
+
+# ---------------------------------------------------------------------------
+# Pipeline stage hops
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class HopTally:
+    """Bytes moved by :func:`stage_hop`: ``wire_bytes`` sent and received
+    by this rank, ``host_copy_bytes`` copied between the device and host
+    buffers on the way (a gloo group's CUDA tensors), ``hops`` the calls."""
+
+    wire_bytes: int = 0
+    host_copy_bytes: int = 0
+    hops: int = 0
+
+
+def stage_hop(sends, recvs, group, tally: HopTally | None = None) -> list[torch.Tensor]:
+    """One tick's exchange between pipeline neighbours: each ``(tensor,
+    dst)`` of ``sends`` goes to global rank ``dst`` and each ``(like, src)``
+    of ``recvs`` arrives from global rank ``src`` into a new tensor of
+    ``like``'s shape, dtype and device; one ``batch_isend_irecv`` over
+    ``group`` carries them all (``ring_shift``'s pattern: both neighbours
+    read the same tick tables, so every send meets its receive). Returns
+    the received tensors in ``recvs`` order.
+
+    gloo's point-to-point takes CPU tensors only, so on a gloo group a CUDA
+    tensor crosses through a host buffer, copied explicitly (decided by
+    the group's backend); NCCL takes the device tensors themselves."""
+    staged = dist.get_backend(group) == "gloo"
+    ops, bufs, host = [], [], 0
+    for x, dst in sends:
+        x = x.detach().contiguous()
+        if staged and x.is_cuda:
+            x = x.cpu()
+            host += x.numel() * x.element_size()
+        ops.append(dist.P2POp(dist.isend, x, dst, group))
+    for like, src in recvs:
+        on_host = staged and like.is_cuda
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if on_host else like.device)
+        bufs.append((buf, like.device if on_host else None))
+        ops.append(dist.P2POp(dist.irecv, buf, src, group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    out = []
+    for buf, device in bufs:
+        if device is not None:
+            host += buf.numel() * buf.element_size()
+            buf = buf.to(device)
+        out.append(buf)
+    if tally is not None:
+        tally.hops += 1
+        tally.host_copy_bytes += host
+        tally.wire_bytes += sum(x.numel() * x.element_size() for x, _ in sends)
+        tally.wire_bytes += sum(b.numel() * b.element_size() for b, _ in bufs)
+    return out

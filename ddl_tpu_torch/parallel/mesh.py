@@ -19,6 +19,16 @@ tp group at tp 1 always, is ``LOCAL``, whose collectives are identities
 and are never called (JAX's psum over an axis of size 1). So whether a
 collective runs is decided here, by the group, and nowhere else.
 
+Pipeline parallelism (``pipeline_parallel > 1``) adds a minor pp axis, JAX's
+``make_mesh_4d`` ``[dp, sp, tp, pp]``: rank ``((dp_index * num_workers +
+sp_index) * tensor_parallel + tp_index) * pipeline_parallel + pp_index``.
+Each group above then holds one pp index, and two more kinds split the
+grid: the pp group (one ``(dp, sp, tp)``, in stage order: a stage's
+neighbours) and the shared group (one tp index over ``(dp, sp, pp)``, over
+which the stage-replicated leaves' gradients and the loss are summed). At
+pp 1 the grid is the 3-D one: the same ranks, groups and ``new_group``
+calls.
+
 Device rule: entry points run on ``cuda`` unless the caller asks for
 ``cpu``. Without a card they raise; they never fall back quietly.
 """
@@ -34,6 +44,7 @@ import torch.distributed as dist
 DP_AXIS = "dp"
 SP_AXIS = "sp"
 TP_AXIS = "tp"
+PP_AXIS = "pp"
 LOCAL = "local"  # no process group: collectives over it are identities
 
 
@@ -93,12 +104,15 @@ def init_world(
 @dataclasses.dataclass(frozen=True)
 class Grid:
     """This process's place on the ``[data_parallel, num_workers,
-    tensor_parallel]`` grid. ``world`` None is the grid of one without a
-    process group (every collective an identity). Each group is a process
-    group, None (the whole world's) or ``LOCAL`` (one rank; the module
-    docstring says when): ``sp_group`` is this rank's sp row, whose global
-    ranks in sequence order are ``sp_ranks``; ``tp_group`` its tp group;
-    ``data_group`` its ``(dp, sp)`` group."""
+    tensor_parallel, pipeline_parallel]`` grid. ``world`` None is the grid
+    of one without a process group (every collective an identity). Each
+    group is a process group, None (the whole world's) or ``LOCAL`` (one
+    rank; the module docstring says when): ``sp_group`` is this rank's sp
+    row, whose global ranks in sequence order are ``sp_ranks``;
+    ``tp_group`` its tp group; ``data_group`` its ``(dp, sp)`` group;
+    ``pp_group`` its pp group, whose global ranks in stage order are
+    ``pp_ranks``; ``shared_group`` its ``(dp, sp, pp)`` group (its
+    ``data_group`` at pp 1)."""
 
     world: World | None
     data_parallel: int
@@ -108,21 +122,29 @@ class Grid:
     sp_ranks: tuple[int, ...]
     tp_group: object
     data_group: object
+    pipeline_parallel: int = 1
+    pp_group: object = LOCAL
+    pp_ranks: tuple[int, ...] = (0,)
+    shared_group: object = LOCAL
 
     @property
     def rank(self) -> int:
         return 0 if self.world is None else self.world.rank
 
     @property
+    def pp_index(self) -> int:
+        return self.rank % self.pipeline_parallel
+
+    @property
     def tp_index(self) -> int:
-        return self.rank % self.tensor_parallel
+        return self.rank // self.pipeline_parallel % self.tensor_parallel
 
     @property
     def data_index(self) -> int:
         """This rank's place in its ``(dp, sp)`` group: ``dp_index *
         num_workers + sp_index``, the chunk a ZeRO-1 reduce-scatter lands
         here (JAX's lex order over the combined axes)."""
-        return self.rank // self.tensor_parallel
+        return self.rank // (self.tensor_parallel * self.pipeline_parallel)
 
     @property
     def dp_index(self) -> int:
@@ -134,42 +156,60 @@ class Grid:
 
 
 def make_grid(world: World | None, data_parallel: int, num_workers: int,
-              tensor_parallel: int = 1) -> Grid:
-    """The 3-D grid over ``world`` (``data_parallel * num_workers *
-    tensor_parallel`` ranks). Every rank creates every group, in one order
-    (the tp groups, the ``(dp, sp)`` groups, the sp rows), as
+              tensor_parallel: int = 1, pipeline_parallel: int = 1) -> Grid:
+    """The grid over ``world`` (``data_parallel * num_workers *
+    tensor_parallel * pipeline_parallel`` ranks). Every rank creates every
+    group, in one order (the tp groups, the ``(dp, sp)`` groups, the sp
+    rows; at pp > 1 then the pp groups and the shared groups), as
     ``dist.new_group`` requires. ``world`` None: the grid of one."""
-    dp, W, tp = data_parallel, num_workers, tensor_parallel
-    n = dp * W * tp
+    dp, W, tp, pp = data_parallel, num_workers, tensor_parallel, pipeline_parallel
+    n = dp * W * tp * pp
     if world is None:
         if n != 1:
-            raise ValueError(f"a {dp} x {W} x {tp} grid needs a world of {n} ranks")
+            dims = f"{dp} x {W} x {tp}" + (f" x {pp}" if pp > 1 else "")
+            raise ValueError(f"a {dims} grid needs a world of {n} ranks")
         return Grid(None, 1, 1, 1, LOCAL, (0,), LOCAL, LOCAL)
     if world.size != n:
         raise ValueError(
-            f"data_parallel ({dp}) x num_workers ({W}) x tensor_parallel ({tp}) = {n} "
-            f"!= world size {world.size}"
+            f"data_parallel ({dp}) x num_workers ({W}) x tensor_parallel ({tp}) "
+            + (f"x pipeline_parallel ({pp}) " if pp > 1 else "")
+            + f"= {n} != world size {world.size}"
         )
 
-    def rank(d, s, t):
-        return (d * W + s) * tp + t
+    def rank(d, s, t, p=0):
+        return ((d * W + s) * tp + t) * pp + p
 
     def groups(rows):
         # The world's own group, LOCAL for one rank, else a new group.
         return [None if len(r) == n else LOCAL if len(r) == 1 else dist.new_group(list(r))
                 for r in rows]
 
-    d, s, t = world.rank // (W * tp), world.rank // tp % W, world.rank % tp
+    r = world.rank
+    d, s, t, p = r // (W * tp * pp), r // (tp * pp) % W, r // pp % tp, r % pp
     cells = [(i, j) for i in range(dp) for j in range(W)]
-    tp_rows = [tuple(rank(i, j, u) for u in range(tp)) for i, j in cells]
+    lanes = [(u, q) for u in range(tp) for q in range(pp)]  # (tp, pp) positions
+    tp_rows = [tuple(rank(i, j, u, q) for u in range(tp)) for i, j in cells
+               for q in range(pp)]
     # At tp 1 the f/g pair is no collective, even in a world of one.
-    tp_groups = [LOCAL] * len(cells) if tp == 1 else groups(tp_rows)
-    data_groups = groups([tuple(rank(i, j, u) for i, j in cells) for u in range(tp)])
-    sp_rows = [tuple(rank(i, j, u) for j in range(W)) for i in range(dp) for u in range(tp)]
+    tp_groups = [LOCAL] * len(tp_rows) if tp == 1 else groups(tp_rows)
+    data_groups = groups([tuple(rank(i, j, u, q) for i, j in cells) for u, q in lanes])
+    sp_rows = [tuple(rank(i, j, u, q) for j in range(W)) for i in range(dp)
+               for u, q in lanes]
     sp_groups = groups(sp_rows)
-    row = d * tp + t
-    return Grid(world, dp, W, tp, sp_groups[row], sp_rows[row], tp_groups[d * W + s],
-                data_groups[t])
+    lane = t * pp + p
+    data_group = data_groups[lane]
+    grid = Grid(world, dp, W, tp, sp_groups[d * tp * pp + lane], sp_rows[d * tp * pp + lane],
+                tp_groups[(d * W + s) * pp + p], data_group, pp_ranks=(r,),
+                shared_group=data_group)
+    if pp == 1:
+        return grid
+    pp_rows = [tuple(rank(i, j, u, q) for q in range(pp)) for i, j in cells for u in range(tp)]
+    pp_groups = groups(pp_rows)
+    shared_groups = groups([tuple(rank(i, j, u, q) for i, j in cells for q in range(pp))
+                            for u in range(tp)])
+    row = (d * W + s) * tp + t
+    return dataclasses.replace(grid, pipeline_parallel=pp, pp_group=pp_groups[row],
+                               pp_ranks=pp_rows[row], shared_group=shared_groups[t])
 
 
 def destroy_world() -> None:

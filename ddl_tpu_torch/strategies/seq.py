@@ -43,10 +43,18 @@ Adam on the tp shards. The span loop, eval cadence and early stop are the JAX
 trainer's (``train/trainer.py::eval_spans``); each span is a host loop of
 eager steps closed by a device barrier.
 
-``SeqConfig`` keeps every JAX field and default. Pipeline parallelism and
-the ``bf16`` precision policy raise ``NotImplementedError`` naming their
-ROADMAP items, and the JAX trainer's own checks raise the same
-``ValueError``s (:func:`check_config`).
+Pipeline parallelism (``pipeline_parallel > 1``, ``pipeline/``) adds the
+minor pp axis, the grid ``[dp, 1, tp, pp]``: each rank holds its stage's
+blocks (tp-sharded) and the stage-replicated embed, final LayerNorm and
+head, and Adam moments placed likewise; the step streams ``microbatches``
+through the stages by the GPipe or 1F1B tables and the eval hands one chunk
+at a time stage to stage. ``LMResult.params`` is the full tree, gathered
+over tp and pp.
+
+``SeqConfig`` keeps every JAX field and default. The ``bf16`` precision
+policy (and the legacy bf16 compute under pipeline parallelism) raises
+``NotImplementedError`` naming its ROADMAP item, and the JAX trainer's own
+checks raise the same ``ValueError``s (:func:`check_config`).
 """
 
 from __future__ import annotations
@@ -70,6 +78,9 @@ from ..ops.optimizers import AdamState, ShardedAdam, adam_init, adam_update
 from ..parallel import collectives as coll
 from ..parallel import ring
 from ..parallel.mesh import DP_AXIS, LOCAL, SP_AXIS, Grid, World, default_device, make_grid
+from ..pipeline import trainer as pipeline_trainer
+from ..pipeline.schedule import SCHEDULES
+from ..pipeline.step import PipelineRecord, make_pipeline_eval_body
 from ..train.trainer import eval_spans, hit_target
 from ..utils import tree
 from ..utils.metrics import StepStats, StepTimer, barrier
@@ -80,8 +91,8 @@ Scheme = Literal["ring", "ulysses", "full"]
 # The axes every sum runs over (the (dp, sp) group), never tp: rank =
 # (dp_index * num_workers + sp_index) * tensor_parallel + tp_index.
 AXES = (DP_AXIS, SP_AXIS)
-# What is left of the LM trainer, in ROADMAP.md.
-ROADMAP_PP = "ROADMAP queue 1, item 3: the pipeline"
+# Where the bf16 policy lands, in ROADMAP.md.
+ROADMAP_BF16 = "ROADMAP queue 1, item 4"
 LOCAL_GRID = make_grid(None, 1, 1)
 
 
@@ -122,8 +133,9 @@ class SeqConfig:
         return self.policy().compute_dtype
 
     def validate_topology(self) -> None:
-        """JAX's pipeline topology checks; a pipeline raises
-        ``NotImplementedError`` (not ported yet)."""
+        """JAX's pipeline topology checks, in its order and with its texts:
+        ``check_config`` runs them before anything else, and
+        ``pipeline.make_pipeline_program`` builds a step without them."""
         pp, m = self.pipeline_parallel, self.microbatches
         if pp < 1:
             raise ValueError(f"pipeline_parallel must be >= 1, got {pp}")
@@ -135,9 +147,45 @@ class SeqConfig:
                 "(microbatching exists to fill the pipeline; without "
                 "stages it only re-associates the batch)"
             )
-        if pp > 1:
-            raise NotImplementedError(
-                f"pipeline_parallel={pp} is not ported yet ({ROADMAP_PP})"
+        if pp == 1:
+            return
+        if self.spec.num_layers % pp:
+            raise ValueError(
+                f"pipeline_parallel ({pp}) must divide num_layers "
+                f"({self.spec.num_layers}) — stages are contiguous "
+                "equal layer blocks"
+            )
+        if m < 2:
+            raise ValueError(
+                f"pipeline_parallel ({pp}) > 1 requires microbatches > 1 "
+                f"— one microbatch leaves (pp-1)/pp = {pp - 1}/{pp} of "
+                "every step idle (the GPipe bubble); pass "
+                "--microbatches >= 2"
+            )
+        if self.batch_size % (self.data_parallel * m):
+            raise ValueError(
+                f"microbatches ({m}) x data_parallel "
+                f"({self.data_parallel}) must divide the global batch "
+                f"({self.batch_size}) — each dp row streams equal "
+                "microbatches through the stages"
+            )
+        if self.num_workers != 1 or self.scheme != "full":
+            raise ValueError(
+                "pipeline_parallel composes with data/tensor parallelism "
+                "only: use num_workers=1 and scheme='full' (sequence x "
+                "pipeline is rejected — README composition matrix)"
+            )
+        if self.zero1:
+            raise ValueError(
+                "zero1 x pipeline_parallel is not supported: the "
+                "pipeline Adam path keeps stage-local optimizer state "
+                "(already sharded pp-fold with the layers); see the "
+                "README composition matrix"
+            )
+        if self.pipeline_schedule not in SCHEDULES:
+            raise ValueError(
+                f"unknown pipeline_schedule {self.pipeline_schedule!r} "
+                f"(choices: {', '.join(SCHEDULES)})"
             )
 
 
@@ -251,6 +299,11 @@ def check_config(config: SeqConfig, dataset: LMDataset) -> None:
         )
     _attn_for(config)  # unknown attn_impl / scheme / layout; full with sharding
     config.policy()  # precision="bf16" raises; unknown dtypes are ValueErrors
+    if config.pipeline_parallel > 1 and config.dtype() is not None:
+        raise NotImplementedError(
+            f"compute_dtype={config.compute_dtype!r} with pipeline_parallel > 1 is not "
+            f"ported yet ({ROADMAP_BF16}: the bf16 policy)"
+        )
 
 
 def _shard_positions(config: SeqConfig, t_local: int, grid: Grid,
@@ -513,15 +566,17 @@ def _clone_state(state):
 
 
 class SeqTrainer:
-    """LM trainer over the ``[data_parallel, num_workers, tensor_parallel]``
-    grid of ``world`` (``init_world``; its device is the trainer's), or,
-    without a world, on one device (``cuda`` unless ``device="cpu"``) with
-    ``dp = num_workers = tensor_parallel = 1``. ``init`` is the full numpy
+    """LM trainer over the ``[data_parallel, num_workers, tensor_parallel,
+    pipeline_parallel]`` grid of ``world`` (``init_world``; its device is
+    the trainer's), or, without a world, on one device (``cuda`` unless
+    ``device="cpu"``) with every degree 1. ``init`` is the full numpy
     parameter tree in the JAX layout (e.g. a JAX init); without it, a
     glorot init from ``config.seed``, the same on every rank. Each rank
-    holds its tp shard of the parameters (all of them at tp 1) and Adam
-    moments placed likewise; with ``zero1`` this rank's flat chunk (at tp
-    > 1 the hybrid, :class:`HybridAdam`)."""
+    holds its stage (all layers at pp 1) of its tp shard of the parameters
+    (all of them at tp 1) and Adam moments placed likewise; with ``zero1``
+    this rank's flat chunk (at tp > 1 the hybrid, :class:`HybridAdam`).
+    At pp > 1, ``pipeline_record`` gathers the steps' saved-input peak and
+    hop bytes."""
 
     def __init__(
         self,
@@ -536,16 +591,18 @@ class SeqTrainer:
             raise ValueError("pass device or world, not both (a world has its device)")
         self.config = config
         self.dataset = dataset
-        tp = config.tensor_parallel
-        self.grid = make_grid(world, config.data_parallel, config.num_workers, tp)
+        tp, pp = config.tensor_parallel, config.pipeline_parallel
+        self.grid = make_grid(world, config.data_parallel, config.num_workers, tp, pp)
         self.device = world.device if world is not None else default_device(device)
-        self._specs = partition.lm_param_specs(config.spec, tp)
+        self._specs = partition.lm_param_specs(partition.stage_spec(config.spec, pp), tp)
         if init is None:
             # The full tree from the seed, then this rank's slice of it.
             init = lm_params_to_numpy(transformer.init_lm_params(
                 torch.Generator().manual_seed(config.seed), config.spec))
         self.params = lm_params_from_numpy(init, config.spec, self.device, tensor_parallel=tp,
-                                           tp_index=self.grid.tp_index)
+                                           tp_index=self.grid.tp_index, pipeline_parallel=pp,
+                                           pp_index=self.grid.pp_index)
+        self.pipeline_record = PipelineRecord() if pp > 1 else None
         self._plan = _FlatPlan(self.params)
         self._hplan = _HybridPlan(self.params, self._specs) if config.zero1 and tp > 1 else None
         if self._hplan is not None:
@@ -578,6 +635,9 @@ class SeqTrainer:
     def step_fn(self) -> Callable:
         """This config's train step, ``(params, opt, tokens, targets,
         weights) -> (params', opt', loss)`` on this rank's blocks."""
+        if self.config.pipeline_parallel > 1:
+            return pipeline_trainer.pipeline_step(self.config, self.grid, self.positions,
+                                                  self.pipeline_record)
         if self._hplan is not None:
             return _zero1_tp_step_body(self.config, self.grid, self.positions, self._hplan)
         if self.config.zero1:
@@ -630,10 +690,15 @@ class SeqTrainer:
 
     @torch.no_grad()
     def evaluate(self, params, tokens, targets, weights) -> float:
-        """Weighted next-token accuracy over the test set (``_shard_sums``):
-        the global ``(hits, weight)`` sums reach the host in one fetch."""
-        num, den = _shard_sums(self.config, self.grid, self._attn, self.positions,
-                               transformer.lm_correct_sums)(params, tokens, targets, weights)
+        """Weighted next-token accuracy over the test set (``_shard_sums``,
+        or the pipeline's eval at pp > 1): the global ``(hits, weight)``
+        sums reach the host in one fetch."""
+        if self.config.pipeline_parallel > 1:
+            sums = make_pipeline_eval_body(self.config, self.grid, self.positions)
+        else:
+            sums = _shard_sums(self.config, self.grid, self._attn, self.positions,
+                               transformer.lm_correct_sums)
+        num, den = sums(params, tokens, targets, weights)
         return float(num / den)
 
     def _warm_up(self, params, opt_state, xs, ys, ws) -> None:
@@ -641,20 +706,32 @@ class SeqTrainer:
         train step of this config on the first batch, which builds the
         flash kernels (flash on CUDA), loads cuBLAS and PyTorch's kernels,
         sets up the process group's communicators and sizes the allocator.
-        It launches each flash kernel once per layer. The step is
+        It launches each flash kernel once per layer (under a pipeline, as
+        a step does: per microbatch and stage layer). The step is
         functional: ``params`` and ``opt_state`` are not changed."""
         self.step_fn()(params, opt_state, xs[0], ys[0], ws[0])
         barrier(self.device)
 
     def full_params(self, params) -> dict:
-        """The full numpy tree of this rank's ``params`` (JAX's global
-        arrays): at tp > 1 every tp shard, gathered over the tp group in one
-        all-gather of the flattened shard."""
-        if self.grid.tp_group is LOCAL:
-            return lm_params_to_numpy(params)
-        flats = coll.all_gather_list(_FlatPlan.flatten(params), self.grid.tp_group)
-        shards = [lm_params_to_numpy(self._plan.unflatten(f)) for f in flats]
-        return partition.gather_lm_params(shards, self._specs)
+        """The full numpy tree of this rank's ``params`` in the standard
+        form (JAX's global arrays, ``_result_params``): at tp > 1 every tp
+        shard, gathered over the tp group in one all-gather of the
+        flattened shard; at pp > 1 then every stage, gathered over the pp
+        group likewise."""
+        g = self.grid
+        if g.tp_group is LOCAL:
+            stage = lm_params_to_numpy(params)
+        else:
+            flats = coll.all_gather_list(_FlatPlan.flatten(params), g.tp_group)
+            shards = [lm_params_to_numpy(self._plan.unflatten(f)) for f in flats]
+            stage = partition.gather_lm_params(shards, self._specs)
+        if g.pipeline_parallel == 1:
+            return stage
+        plan = _FlatPlan(tree.map(torch.from_numpy, stage))
+        flat = _FlatPlan.flatten(plan.like).to(self.device)
+        stages = [lm_params_to_numpy(plan.unflatten(f)) for f in
+                  coll.all_gather_list(flat, g.pp_group)]
+        return partition.gather_stage_params(stages)
 
     def train(self, log: Callable[[str], None] = print) -> LMResult:
         cfg, ds, dev = self.config, self.dataset, self.device

@@ -1,7 +1,8 @@
 """Workers of the spawned gloo worlds: the 2-rank CNN world of
 tests/test_torch_sync.py (:func:`world_cases`) and the 4-rank LM world of
 tests/test_torch_seq_parallel.py (:func:`lm_world_cases`: training on the
-3-D grid, then tp-2 serving as two tp groups of two ranks).
+3-D grid and the pipeline's 4-D one, then tp-2 serving as two tp groups of
+two ranks).
 
 Kept apart from the test modules so the spawned children import only
 ``torch`` and ``ddl_tpu_torch`` (never JAX): ``multiprocessing`` imports this
@@ -188,8 +189,18 @@ LM_CASES = {
     # The hybrid ZeRO-1 x tp.
     "hybrid_tp2_dp2": dict(scheme="full", zero1=True, data_parallel=2, tensor_parallel=2),
     "hybrid_tp2_ring_sp2": dict(scheme="ring", zero1=True, num_workers=2, tensor_parallel=2),
+    # Pipeline parallelism on the [dp, 1, tp, pp] grid; pp 4 takes the
+    # 4-layer variant of the spec (its own init in the world's inputs).
+    "dp2_pp2": dict(scheme="full", data_parallel=2, pipeline_parallel=2, microbatches=2),
+    "dp2_pp2_1f1b": dict(scheme="full", data_parallel=2, pipeline_parallel=2, microbatches=2,
+                         pipeline_schedule="1f1b"),
+    "tp2_pp2_flash": dict(scheme="full", attn_impl="flash", tensor_parallel=2,
+                          pipeline_parallel=2, microbatches=2, pipeline_schedule="1f1b"),
+    "pp4_1f1b": dict(scheme="full", pipeline_parallel=4, microbatches=4,
+                     pipeline_schedule="1f1b", spec="LM_SPEC_4L"),
 }
 LM_SPEC = transformer.LMSpec(vocab=16, d_model=32, num_heads=4, num_layers=2, d_ff=64)
+LM_SPEC_4L = dataclasses.replace(LM_SPEC, num_layers=4)
 LM_DATA = dict(num_train=16, num_test=8, seq_len=32, vocab=16, seed=5)
 # 2 steps of batch 8, one span (and one eval) a step.
 LM_BASE = dict(epochs=1, batch_size=8, learning_rate=1e-3, eval_every=1, seed=2, spec=LM_SPEC)
@@ -305,25 +316,45 @@ def _serve_cases(world, init, results):
     results["tp_index"] = np.asarray(grid.tp_index)
 
 
+def lm_case_config(kw: dict) -> dict:
+    """A case's ``SeqConfig`` fields: LM_BASE with the case's, its ``spec``
+    named by this module's attribute."""
+    kw = dict(kw)
+    if "spec" in kw:
+        kw["spec"] = globals()[kw["spec"]]
+    return {**LM_BASE, **kw}
+
+
+def _init(data, key: str, spec):
+    like = transformer.init_lm_params(torch.Generator().manual_seed(0), spec)
+    return tree.unflatten(like, [data[f"{key}/{i}"] for i in range(len(tree.leaves(like)))])
+
+
 def lm_world_cases(rank: int, world_size: int, store: str, inputs: str, out: str) -> None:
     """Every case of LM_CASES from the init in ``inputs`` (its leaves in
-    ``utils.tree.leaves`` order): params (the full tree), span losses, the
-    final loss and accuracy, this rank's Adam state (each field's leaves:
-    moments by leaf, its ZeRO-1 chunk, or the hybrid's chunk and tp shards)
-    and the rank's wall time in seconds; then the serve cases
-    (:func:`_serve_cases`)."""
+    ``utils.tree.leaves`` order; ``init4`` the 4-layer spec's): params (the
+    full tree), span losses, the final loss and accuracy, this rank's Adam
+    state (each field's leaves: moments by leaf, its ZeRO-1 chunk, or the
+    hybrid's chunk and tp shards; a pipeline stage's moments), a pipeline
+    rank's own shared leaves and saved-input peak, and the rank's wall time
+    in seconds; then the serve cases (:func:`_serve_cases`)."""
     start = time.perf_counter()
     torch.set_num_threads(1)
     data = np.load(inputs)
-    like = transformer.init_lm_params(torch.Generator().manual_seed(0), LM_SPEC)
-    init = tree.unflatten(like, [data[f"init/{i}"] for i in range(len(tree.leaves(like)))])
+    init = _init(data, "init", LM_SPEC)
+    inits = {LM_SPEC.num_layers: init, LM_SPEC_4L.num_layers: _init(data, "init4", LM_SPEC_4L)}
     ds = synthesize_copy(**LM_DATA)
     world = init_world(world_size, rank, store, "cpu")
     results = {}
     try:
         for name, kw in LM_CASES.items():
-            trainer = SeqTrainer(SeqConfig(**LM_BASE, **kw), ds, init=init, world=world)
+            cfg = SeqConfig(**lm_case_config(kw))
+            trainer = SeqTrainer(cfg, ds, init=inits[cfg.spec.num_layers], world=world)
             res = trainer.train(log=lambda s: None)
+            if trainer.pipeline_record is not None:
+                for k in ("embed", "head", "lnf_g", "lnf_b"):
+                    results[f"{name}/shared/{k}"] = trainer.params[k].numpy()
+                results[f"{name}/peak_saved"] = np.asarray(trainer.pipeline_record.peak_saved)
             for i, leaf in enumerate(tree.leaves(res.params)):
                 results[f"{name}/p/{i}"] = leaf
             results[f"{name}/span_losses"] = np.asarray(res.span_losses)

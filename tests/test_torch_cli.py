@@ -140,6 +140,8 @@ def test_lm_flags_keep_the_jax_spellings_and_defaults():
     (["single", "--bf16"], "ROADMAP"),
     (["lm", "--tensor-parallel", "0"], "--tensor-parallel must be >= 1"),
     (["sync", "--tensor-parallel", "2"], "--tensor-parallel does not apply"),
+    (["lm", "--pipeline-parallel", "0"], "--pipeline-parallel must be >= 1"),
+    (["sync", "--pipeline-schedule", "1f1b"], "--pipeline-schedule does not apply"),
 ])
 def test_lm_flag_refusals(argv, match):
     args = cli.build_parser().parse_args(argv)
@@ -197,18 +199,45 @@ def test_lm_multirank_needs_torchrun(monkeypatch):
                              "--data-parallel", "2"])
 
 
-@pytest.mark.parametrize("flag,item", [
-    # Tensor parallelism is ported: tp 2 is a world of 2 ranks, which needs
-    # torchrun (the id is the case's name from when it still raised).
-    pytest.param("--tensor-parallel", "torchrun", id="--tensor-parallel-tensor parallelism"),
-    ("--pipeline-parallel", "the pipeline"),
-    ("--microbatches", "the pipeline"),
+@pytest.mark.parametrize("flags,outcome", [
+    # Tensor and pipeline parallelism are ported (the ids are the cases'
+    # names from when they still raised): tp 2 is a world of 2 ranks, which
+    # needs torchrun; each pipeline flag alone is JAX's config error, both
+    # together a world of 2 ranks.
+    pytest.param(["--tensor-parallel", "2"], "torchrun --nproc-per-node 2",
+                 id="--tensor-parallel-tensor parallelism"),
+    pytest.param(["--pipeline-parallel", "2"],
+                 r"lm config error.*pipeline_parallel \(2\) > 1 requires microbatches > 1",
+                 id="--pipeline-parallel-the pipeline"),
+    pytest.param(["--microbatches", "2"],
+                 r"lm config error.*microbatches \(2\) > 1 requires pipeline_parallel > 1",
+                 id="--microbatches-the pipeline"),
+    (["--pipeline-parallel", "2", "--microbatches", "2"], "torchrun --nproc-per-node 2"),
+    (["--pipeline-parallel", "2", "--microbatches", "2", "--data-parallel", "2",
+      "--pipeline-schedule", "1f1b"], "torchrun --nproc-per-node 4"),
 ])
-def test_lm_out_of_slice_flags_name_their_item(flag, item, monkeypatch):
+def test_lm_out_of_slice_flags_name_their_item(flags, outcome, monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)
-    if item == "torchrun":
-        with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
-            cli.main(LM_SMOKE + [flag, "2"])
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item 3: {item}"):
-        cli.main(LM_SMOKE + [flag, "2"])
+    with pytest.raises(SystemExit, match=outcome):
+        cli.main(LM_SMOKE + flags)
+
+
+@pytest.mark.parametrize("extra,schedule", [([], "gpipe"), (["--pipeline-schedule", "1f1b"],
+                                                            "1f1b")])
+def test_lm_pipeline_defaults_as_jax(extra, schedule, capsys, monkeypatch):
+    """Under --pipeline-parallel the CLI defaults as JAX's: --num-workers
+    1 whatever the world, and the parser's ring default mapped to full with
+    JAX's printed line; --pipeline-schedule takes JAX's choices."""
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    argv = [a for a in LM_SMOKE if a not in ("--seq-scheme", "full")]
+    argv += ["--pipeline-parallel", "2", "--microbatches", "4", "--data-parallel", "2"] + extra
+    cfg = cli.lm_config_from_args(cli.build_parser().parse_args(argv))
+    assert capsys.readouterr().out.splitlines() == [
+        "[ddl_tpu] --pipeline-parallel: sequence is whole per stage; using --seq-scheme full"]
+    assert (cfg.scheme, cfg.num_workers, cfg.data_parallel) == ("full", 1, 2)
+    assert (cfg.pipeline_parallel, cfg.microbatches, cfg.pipeline_schedule) == (2, 4, schedule)
+    choices = lambda p: p._option_string_actions["--pipeline-schedule"].choices  # noqa: E731
+    assert choices(cli.build_parser()) == choices(j_parser())
+    explicit = cli.lm_config_from_args(cli.build_parser().parse_args(
+        argv + ["--seq-scheme", "ulysses"]))
+    assert explicit.scheme == "ulysses" and capsys.readouterr().out == ""

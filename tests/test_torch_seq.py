@@ -10,10 +10,11 @@ data against the JAX package.
   same fp32 math in another order, and Adam moves each parameter by about
   lr whatever the gradient's size), and the same accuracy history.
 - The options the sequence-parallel slice ported (ring, Ulysses, zigzag,
-  ZeRO-1) train on one device without a world; W or dp above 1 without a
-  world raises; what is not ported (tensor and pipeline parallelism, the
-  bf16 policy) raises ``NotImplementedError`` naming ROADMAP; the JAX
-  trainer's own checks raise the same ``ValueError``s.
+  ZeRO-1) train on one device without a world; W, dp, tp or pp above 1
+  without a world raises; what is not ported (the bf16 policy, and the
+  legacy bf16 compute under a pipeline) raises ``NotImplementedError``
+  naming ROADMAP; the JAX trainer's own checks raise the same
+  ``ValueError``s.
 """
 
 import dataclasses
@@ -98,16 +99,23 @@ def test_seq_trainer_bf16_compute_keeps_fp32_masters():
     # is the case's name from when it still raised).
     pytest.param(dict(tensor_parallel=2), "needs a world",
                  id="change4-ROADMAP queue 1, item 3: tensor parallelism"),
-    (dict(pipeline_parallel=2, microbatches=2), "ROADMAP queue 1, item 3: the pipeline"),
+    # The pipeline is ported: pp 2 needs a world of 2 ranks (the id is the
+    # case's name from when it still raised).
+    pytest.param(dict(pipeline_parallel=2, microbatches=2), "needs a world",
+                 id="change5-ROADMAP queue 1, item 3: the pipeline"),
     (dict(zero1=True), "trains"),
     (dict(scheme="ring", seq_layout="zigzag"), "trains"),
     (dict(precision="bf16"), "ROADMAP queue 1, item 4"),
+    (dict(pipeline_parallel=2, microbatches=2, compute_dtype="bfloat16"),
+     "ROADMAP queue 1, item 4"),
 ])
 def test_out_of_slice_options_raise(change, outcome):
     """Before the sequence-parallel slice every one of these raised. Now the
     ported ones train on one device (ZeRO-1 keeps one flat chunk of the
-    whole vector), a grid of more than one rank (sequence, data or tensor
-    parallel) needs a world, and the rest still name their ROADMAP item."""
+    whole vector), a grid of more than one rank (sequence, data, tensor or
+    pipeline parallel) needs a world, and the rest (the bf16 policy, and
+    the legacy bf16 compute under a pipeline) still name their ROADMAP
+    item."""
     ds, _ = _datasets()
     kw = {**BASE, "spec": tt.TINY_SPEC, **change}
     if outcome == "needs a world":

@@ -10,9 +10,12 @@ contiguous 4x1x1, ring zigzag 4x1x1, Ulysses xla 4x1x1, Ulysses flash
 zigzag 2x2x1, full 1x4x1, ZeRO-1 ring 4x1x1, ZeRO-1 Ulysses 2x2x1, the
 zigzag ring 4x1x1 under ``remat``; tensor parallel: full 1x1x4, Ulysses
 flash 2x1x2, zigzag ring 2x1x2, full 1x2x2, and the hybrid ZeRO-1 x tp at
-full 1x2x2 and ring 2x1x2; at vocab 16, d_model 32, 4 heads, 2 layers, d_ff
-64, T 32, batch 8, 2 steps from one numpy init (JAX's). The JAX side runs
-each config's span program (k = 1) twice while the children run.
+full 1x2x2 and ring 2x1x2; pipeline parallel (dp x tp x pp, scheme full,
+JAX's ``make_mesh_4d``): GPipe 2x1x2 and 1F1B 2x1x2 at 2 microbatches,
+1F1B + flash 1x2x2 at 2, and 1F1B 1x1x4 at 4 microbatches on a 4-layer
+variant of the spec; at vocab 16, d_model 32, 4 heads, 2 layers, d_ff 64,
+T 32, batch 8, 2 steps from one numpy init (JAX's). The JAX side runs each
+config's span program (k = 1) twice while the children run.
 
 Tolerances: those ``tests/test_torch_seq.py`` holds the one-device LM to.
 Parameters and Adam moments within atol 2e-5 / rtol 1e-3 (the two sides
@@ -21,7 +24,10 @@ about lr whatever the gradient's size); span and final losses within rtol
 1e-4. ZeRO-1 moments go through ``convert.lm_sharded_adam_{to,from}_numpy``,
 the hybrid's through ``convert.lm_hybrid_adam_{to,from}_numpy`` (JAX's
 ``_opt_for_save`` form), the tp shards' through
-``convert.lm_params_to_numpy``.
+``convert.lm_params_to_numpy``, a pipeline's stages' through
+``convert.lm_pipeline_adam_to_numpy``. A pipeline's stage-replicated leaves
+are bitwise equal on its pp ranks, and each rank's peak of saved stage
+inputs is its tick-table row's.
 
 Serving: the same world as two tp-2 groups ({0, 1} and {2, 3}), each held
 to JAX's ``Scheduler.run`` at ``tensor_parallel=2`` (contiguous greedy,
@@ -60,11 +66,13 @@ from ddl_tpu_torch.convert import (
     lm_hybrid_adam_from_numpy,
     lm_hybrid_adam_to_numpy,
     lm_params_to_numpy,
+    lm_pipeline_adam_to_numpy,
     lm_sharded_adam_from_numpy,
     lm_sharded_adam_to_numpy,
 )
 from ddl_tpu_torch.models import partition
-from ddl_tpu_torch.ops.optimizers import ShardedAdam
+from ddl_tpu_torch.ops.optimizers import AdamState, ShardedAdam
+from ddl_tpu_torch.pipeline import schedule_tables
 from ddl_tpu_torch.strategies.seq import HybridAdam
 from ddl_tpu_torch.utils import tree
 
@@ -82,8 +90,8 @@ CACHE_ATOL, CACHE_RTOL = 1e-6, 1e-5
 def _jax_case(kw, jds):
     """Two steps of JAX's span program for one case: (params, the
     params-shaped Adam state, the per-step losses)."""
-    cfg = JSeqConfig(**{**_torch_world.LM_BASE, "spec": jt.LMSpec(
-        **vars(_torch_world.LM_SPEC))}, **kw)
+    cfg = _torch_world.lm_case_config(kw)
+    cfg = JSeqConfig(**{**cfg, "spec": jt.LMSpec(**vars(cfg["spec"]))})
     trainer = JSeqTrainer(cfg, jds)
     bs = cfg.batch_size
     xs, ys, ws = (trainer.stage_batches(a, STEPS, bs)
@@ -103,10 +111,13 @@ def lm_world(tmp_path_factory):
     """Every rank's results of every LM case, and JAX's."""
     tmp = tmp_path_factory.mktemp("lm_world")
     spec = jt.LMSpec(**vars(_torch_world.LM_SPEC))
-    init = jax.tree.map(np.asarray, jt.init_lm_params(
-        jax.random.PRNGKey(_torch_world.LM_BASE["seed"]), spec))
+    key = jax.random.PRNGKey(_torch_world.LM_BASE["seed"])
+    init = jax.tree.map(np.asarray, jt.init_lm_params(key, spec))
+    init4 = jax.tree.map(np.asarray, jt.init_lm_params(key, jt.LMSpec(
+        **vars(_torch_world.LM_SPEC_4L))))
     inputs = tmp / "inputs.npz"
-    np.savez(inputs, **{f"init/{i}": a for i, a in enumerate(jax.tree.leaves(init))})
+    np.savez(inputs, **{f"init/{i}": a for i, a in enumerate(jax.tree.leaves(init))},
+             **{f"init4/{i}": a for i, a in enumerate(jax.tree.leaves(init4))})
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_torch_world.lm_world_cases, args=(
         r, W, f"file://{tmp / 'store'}", str(inputs), str(tmp / f"rank{r}.npz")))
@@ -189,13 +200,15 @@ def test_four_rank_lm_world_matches_jax(name, lm_world):
     """Every rank's params, span losses and final loss, and the Adam moments
     (replicated: every rank's; ZeRO-1: each rank's chunk and the logical
     trees put together from all four; tp: every tp group's shards put
-    together; the hybrid: each rank's state and the logical trees), match
-    JAX's SeqTrainer."""
+    together; the hybrid: each rank's state and the logical trees; a
+    pipeline: every (dp, sp) cell's stages and tp shards put together),
+    match JAX's SeqTrainer."""
     got, want = lm_world
     jparams, jopt, jlosses = want[name]
     kw = _torch_world.LM_CASES[name]
     zero1, tp = kw.get("zero1", False), kw.get("tensor_parallel", 1)
-    spec = _torch_world.LM_SPEC
+    pp = kw.get("pipeline_parallel", 1)
+    spec = _torch_world.lm_case_config(kw)["spec"]
     for r, rank in enumerate(got):
         for a, b in zip(_leaves(rank, name, "p"), jax.tree.leaves(jparams), strict=True):
             np.testing.assert_allclose(a, b, atol=ATOL, rtol=RTOL, err_msg=f"rank {r} {name}")
@@ -214,7 +227,7 @@ def test_four_rank_lm_world_matches_jax(name, lm_world):
             mine = lm_sharded_adam_from_numpy(jopt.step, jopt.m, jopt.v, spec, r, W, "cpu")
             np.testing.assert_allclose(rank[f"{name}/m/0"], mine.m.numpy(), atol=ATOL, rtol=RTOL)
             np.testing.assert_allclose(rank[f"{name}/v/0"], mine.v.numpy(), atol=ATOL, rtol=RTOL)
-        elif tp == 1:
+        elif tp == 1 and pp == 1:
             for k in ("m", "v"):
                 for a, b in zip(_leaves(rank, name, k), jax.tree.leaves(getattr(jopt, k)),
                                 strict=True):
@@ -238,6 +251,27 @@ def test_four_rank_lm_world_matches_jax(name, lm_world):
             for a, b in zip(tree.leaves(logical[k]), jax.tree.leaves(getattr(jopt, k)),
                             strict=True):
                 np.testing.assert_allclose(a, b, atol=ATOL, rtol=RTOL, err_msg=f"{name} {k}")
+    elif pp > 1:
+        # Each (dp, sp) cell's ranks: rank t * pp + p of it holds tp shard
+        # t of stage p.
+        full = jax.tree.map(np.asarray, want[name][0])
+        n = tp * pp
+        for cell in range(W // n):
+            states = []
+            for i in range(n):
+                like = partition.shard_stage_params(full, spec, pp, i % pp, tp, i // pp)
+                rank = got[cell * n + i]
+                states.append(AdamState(step=torch.tensor(int(rank[f"{name}/step"])), **{
+                    k: tree.map(torch.as_tensor, _tree(_leaves(rank, name, k), like))
+                    for k in ("m", "v")}))
+            logical = lm_pipeline_adam_to_numpy(states, spec, pipeline_parallel=pp,
+                                                tensor_parallel=tp)
+            assert int(logical["step"]) == int(jopt.step) == STEPS
+            for k in ("m", "v"):
+                for a, b in zip(tree.leaves(logical[k]), jax.tree.leaves(getattr(jopt, k)),
+                                strict=True):
+                    np.testing.assert_allclose(a, b, atol=ATOL, rtol=RTOL,
+                                               err_msg=f"{name} cell {cell} {k}")
     elif tp > 1:
         # Each (dp, sp) cell's tp group: its ranks' shards put together.
         specs = partition.lm_param_specs(spec, tp)
@@ -309,3 +343,24 @@ def test_four_rank_lm_world_ranks_agree_and_finish_in_time(lm_world):
             np.testing.assert_array_equal(rank[f"{name}/final"], got[0][f"{name}/final"])
     seconds = max(float(rank["lm_seconds"]) for rank in got)
     assert seconds < 30, f"the 4-rank world took {seconds:.1f} s"
+
+
+@pytest.mark.parametrize("name", [n for n, kw in _torch_world.LM_CASES.items()
+                                  if kw.get("pipeline_parallel", 1) > 1])
+def test_four_rank_pipeline_ranks_share_leaves_and_hold_their_row(name, lm_world):
+    """A pipeline's stage-replicated leaves (embed, head, the final
+    LayerNorm) are bitwise equal on every rank, and each rank's peak of
+    saved stage inputs is what its row of the tick tables implies (GPipe:
+    M on every stage; 1F1B: min(pp - s, M))."""
+    got, _ = lm_world
+    kw = _torch_world.LM_CASES[name]
+    pp, m = kw["pipeline_parallel"], kw["microbatches"]
+    f_tab, b_tab = schedule_tables(kw.get("pipeline_schedule", "gpipe"), pp, m)
+    for r, rank in enumerate(got):
+        for k in ("embed", "head", "lnf_g", "lnf_b"):
+            np.testing.assert_array_equal(rank[f"{name}/shared/{k}"], got[0][f"{name}/shared/{k}"],
+                                          err_msg=f"rank {r} {name} {k}")
+        s = r % pp
+        live = [int(sum(f_tab[s, :t + 1] >= 0) - sum(b_tab[s, :t] >= 0))
+                for t in range(f_tab.shape[1])]
+        assert int(rank[f"{name}/peak_saved"]) == max(live), (r, name)
