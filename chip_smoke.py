@@ -174,13 +174,55 @@ Phases, each printing one JSON line:
    path; the plain versions and SDPA by the sum of their device events a
    call.
 
+Precision phases (the bf16 policy, ``precision="bf16"``: bf16 compute and
+bf16 gradient sums, fp32 masters and moments; and the CNN's conv_matmul
+modes), each raising on failure, at the main paths' widths. bf16 is held
+to fp32 within JAX's bound (tests/test_precision.py: |got - ref| <= 0.1
+|ref| + 0.05), and bf16 to bf16 (another grid, the same policy) with
+losses within rtol 1e-2 and the parameter updates from one init within
+0.2 of the update in norm (``BF16_UPDATE_REL``), or bit for bit where the
+two runs make the same sums in another order only:
+
+a. precision_cnn_bf16 (after 5b) — phase 4's run under the policy (images
+   staged in bf16): 20 fused-Adam launches, finite, fp32 masters and
+   moments; then 20 steps at keep_prob 1 from one init, fp32 and bf16, a
+   loss a step, within JAX's bound.
+b. precision_conv_matmul — the four patches-matmul modes against the conv
+   lowering, fp32, cuDNN deterministic: logits of a batch of 100 at atol
+   1e-5, logits and the 14 gradients of JAX's test batch (8 images) at
+   atol 1e-5 and 2e-5 / rtol 1e-4 (tests/test_model.py); each lowering's
+   gradients against an fp64 run printed.
+c. precision_lm (after 11) — lm_main's run under the policy: lm_main's
+   launch counts, every span loss within JAX's bound of lm_main's, fp32
+   masters and moments; tokens/s beside lm_main's.
+d. precision_lm_seq — Ulysses + flash + ZeRO-1 over the NCCL world of one,
+   fp32 then bf16, 2 steps at T = 2048: the reduce-scatter's input dtype
+   and bytes at every call (51,458,048 fp32, 25,729,024 bf16), the flash
+   launches, the losses within JAX's bound.
+e. in 11t, ``tp2_full_flash_bf16`` and ``hybrid_full_flash_bf16`` (T =
+   2048, launches and shapes as the fp32 runs'; T = 512: tp 2 against this
+   process's tp 1 under the policy, the hybrid against tp 2 at the fp32
+   hybrid pair's 1e-5 / rtol 1e-4).
+f. in 11p, ``gpipe_bf16`` and ``1f1b_bf16`` (T = 2048, launches, shapes and
+   peaks as the fp32 runs', hop bytes 16,777,216 a step a rank against
+   33,554,432 in fp32; T = 512: GPipe against pp 1 under the policy, 1F1B
+   against GPipe bitwise). Phase 7 holds the bf16 kernels at [1, 2048, 8,
+   64].
+g. precision_serve (after 11c) — serve_main's traffic with
+   ``compute_dtype="bfloat16"``: pools in bf16, 8,192 bytes a row, all
+   ``ok``, decode tokens/s, TTFT and ITL beside serve_main's, paged ≡
+   contiguous tokens up to the first near-tie (a first difference only at
+   a top-2 margin below 0.0625), no kernel launched.
+
 If the profiler records no device time for a kernel or a call, the phase
 fails; nothing falls back to CUDA events. Then one ``{"kernels": [...]}``
 line (each kernel's cold ``ms``, ``hot_ms``, ``call_ms`` and ``timer``; the
-Adam row's ``launches`` from phase 4 and ``async_launches`` from 5a; each
-flash row's ``launches`` from phase 9, ``ulysses_launches`` from 11s,
-``tp_launches`` (rank 0's, tp 2) from 11t and ``pp_launches`` (rank 0's,
-GPipe) from 11p), the
+Adam row's ``launches`` from phase 4, ``async_launches`` from 5a and
+``bf16_launches`` from a; each flash row's ``launches`` from phase 9,
+``ulysses_launches`` from 11s, ``tp_launches`` (rank 0's, tp 2) from 11t
+and ``pp_launches`` (rank 0's, GPipe) from 11p, and under the policy
+``bf16_launches`` (c), ``bf16_ulysses_zero1_launches`` (d),
+``bf16_tp_launches`` (e) and ``bf16_pp_launches`` (f)), the
 ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no ``ok`` line. It needs no network and one card.
@@ -479,6 +521,188 @@ def async_equivalence(torch, world) -> dict:
     return out
 
 
+# The precision phases' tolerances. bf16 against fp32 (JAX's
+# tests/test_precision.py): |got - ref| <= BF16_VS_FP32_RTOL * |ref| +
+# BF16_VS_FP32_ATOL. bf16 against bf16 (another grid, the same policy):
+# losses at rtol BF16_LOSS_RTOL (2.5 bf16 ulps), and the parameter updates
+# from one init within ||Δa - Δb|| <= BF16_UPDATE_REL * ||Δb||
+# (:func:`_update_rel_diff`), set from readings: tp 2 against tp 1 0.0495
+# and GPipe against pp 1 0.0143 on an NVIDIA H100 80GB HBM3, 700.00 W;
+# 0.081 at most in the CPU tests, where one CNN sample of eight swapped
+# gives 0.39.
+BF16_VS_FP32_RTOL, BF16_VS_FP32_ATOL = 0.1, 0.05
+BF16_LOSS_RTOL = 1e-2
+BF16_UPDATE_REL = 0.2
+BF16_NEAR_TIE = 0.0625  # a bf16 token may flip only below this top-2 margin
+# conv_matmul against the conv lowering (JAX's tests/test_model.py).
+CONV_MATMUL_LOGITS_ATOL = 1e-5
+CONV_MATMUL_GRAD_TOL = (2e-5, 1e-4)
+
+
+def _fp32_state(torch, trainer) -> bool:
+    """Every parameter and moment of the trainer is a float32 tensor."""
+    return all(t.dtype == torch.float32 for t in _state_leaves(trainer))
+
+
+def _update_rel_diff(got, want, init) -> float:
+    """||got - want|| / ||want - init|| over all leaves: how far two runs'
+    parameter updates from one init part, relative to the update."""
+    import numpy as np
+
+    num = sum(float(np.sum((np.asarray(a, np.float64) - b) ** 2)) for a, b in zip(got, want))
+    den = sum(float(np.sum((np.asarray(b, np.float64) - c) ** 2)) for b, c in zip(want, init))
+    return math.sqrt(num / den) if den else 0.0
+
+
+def _param_pair(got, want, init, loss, oracle_loss, *, loss_rtol, atol=None, rtol=0.0,
+                update_rel=None, bitwise=False) -> dict:
+    """Two runs' parameter leaves from one ``init`` and final losses, held
+    elementwise (``atol`` / ``rtol``), by their updates in norm
+    (``update_rel``, :func:`_update_rel_diff`) or bit for bit; the row
+    printed, with ``ok``."""
+    import numpy as np
+
+    urd = _update_rel_diff(got, want, init)
+    same = all(np.array_equal(a, b) for a, b in zip(got, want, strict=True))
+    row = dict(loss_rtol=loss_rtol, params_max_abs_diff=max(
+        float(np.abs(a - b).max()) for a, b in zip(got, want)), update_rel_diff=urd,
+        bitwise=same, loss=loss, oracle_loss=oracle_loss,
+        loss_rel_diff=abs(loss - oracle_loss) / abs(oracle_loss))
+    ok = abs(loss - oracle_loss) <= loss_rtol * abs(oracle_loss) and (same or not bitwise)
+    if atol is not None:
+        share = max(float((np.abs(a - b) / (atol + rtol * np.abs(b))).max())
+                    for a, b in zip(got, want))
+        row.update(atol=atol, rtol=rtol, params_share_of_tolerance=share)
+        ok = ok and share <= 1.0
+    if update_rel is not None:
+        row.update(update_rel_limit=update_rel)
+        ok = ok and urd <= update_rel
+    row["ok"] = ok
+    return row
+
+
+def _bf16_vs_fp32(got, ref) -> tuple[bool, float]:
+    """(every loss within JAX's bf16-against-fp32 bound, the largest share
+    of it)."""
+    share = max(abs(a - b) / (BF16_VS_FP32_RTOL * abs(b) + BF16_VS_FP32_ATOL)
+                for a, b in zip(got, ref, strict=True))
+    return share <= 1.0, share
+
+
+def cnn_bf16(torch, world, fused_adam, main_out) -> dict:
+    """Precision a: the CNN main path under ``precision="bf16"`` (images
+    staged in bf16, bf16 convs and matmuls, fp32 masters, moments and
+    gradients into the fused-Adam kernel), then the same trainer at
+    keep_prob 1 from one init, fp32 and bf16, step by step."""
+    from ddl_tpu_torch.convert import params_to_numpy
+    from ddl_tpu_torch.data.mnist import load_mnist
+    from ddl_tpu_torch.models import cnn
+    from ddl_tpu_torch.strategies.sync import SyncTrainer
+    from ddl_tpu_torch.train.config import TrainConfig
+
+    quiet = lambda s: None  # noqa: E731
+    start = time.perf_counter()
+    base = dict(batch_size=100, num_workers=1, num_ps=2, layout="flat", fused_adam=True)
+    ds = load_mnist(path=None, synthetic_train=MAIN_STEPS * 100, synthetic_test=1000, seed=0)
+    trainer = SyncTrainer(TrainConfig(keep_prob=0.5, eval_every=10, seed=0, precision="bf16",
+                                      **base), ds, world=world)
+    fused_adam.launches = 0
+    result = trainer.train(log=quiet)
+    launches = fused_adam.launches
+    failures = []
+    if launches != MAIN_STEPS:
+        failures.append(f"fused-Adam launched {launches} times, want {MAIN_STEPS}")
+    if not (all(math.isfinite(x) for x in result.span_losses) and _finite_state(torch, trainer)):
+        failures.append("non-finite loss, parameter or moment")
+    if not _fp32_state(torch, trainer):
+        failures.append("masters or moments are not float32")
+    # fp32 against bf16, keep_prob 1, one init, a loss a step.
+    init = params_to_numpy(cnn.init_params(torch.Generator().manual_seed(1), "cpu"))
+    small = load_mnist(path=None, synthetic_train=MAIN_STEPS * 100, synthetic_test=100, seed=1)
+    losses = {}
+    for prec in ("fp32", "bf16"):
+        cfg = TrainConfig(keep_prob=1.0, eval_every=1, seed=1, precision=prec, **base)
+        losses[prec] = SyncTrainer(cfg, small, world=world, init=init).train(
+            log=quiet).span_losses
+    ok, share = _bf16_vs_fp32(losses["bf16"], losses["fp32"])
+    if not ok:
+        failures.append(f"bf16 losses off the fp32 run: share {share}")
+    stats = result.step_stats
+    out = dict(steps=MAIN_STEPS, launches=launches, images_per_sec=result.images_per_sec,
+               fp32_images_per_sec=main_out["images_per_sec"],
+               span_ms={"p50": stats.p50_ms, "p95": stats.p95_ms, "mean": stats.mean_ms},
+               fp32_span_ms=main_out["span_ms"], span_losses=result.span_losses,
+               final_accuracy=result.final_accuracy, masters_fp32=_fp32_state(torch, trainer),
+               vs_fp32=dict(steps=MAIN_STEPS, keep_prob=1.0, bf16=losses["bf16"],
+                            fp32=losses["fp32"], share_of_tolerance=share,
+                            rtol=BF16_VS_FP32_RTOL, atol=BF16_VS_FP32_ATOL),
+               failures=failures, seconds=time.perf_counter() - start)
+    emit("precision_cnn_bf16", **out)
+    if failures:
+        raise AssertionError(f"precision_cnn_bf16: {failures}")
+    return out
+
+
+def cnn_conv_matmul(torch) -> dict:
+    """Precision b: each patches-matmul mode of the full-width CNN against
+    the conv lowering on the card, fp32 (TF32 off): the logits of a batch of
+    100 (the main path's), and the logits and 14 gradients of JAX's test
+    batch (8 uniform images, labels i % 10; tests/test_model.py). At batch
+    100 some pre-activation lies within 1e-7 of a ReLU or max-pool tie, and
+    the two lowerings' last-bit differences then route that gradient
+    differently (5.7e-4 on fc1's bias on the CPU), so the gradients are
+    held on JAX's batch. cuDNN runs its deterministic algorithms here: its
+    fp32 conv backward carries most of the difference (printed: each
+    lowering's gradients against an fp64 run of the conv lowering), and its
+    other algorithms move it from run to run."""
+    from ddl_tpu_torch.models import cnn
+    from ddl_tpu_torch.train.trainer import value_and_grad
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    params = cnn.init_params(torch.Generator().manual_seed(8), dev)
+    x100 = torch.rand((100, 784), generator=gen, device=dev)
+    x = torch.rand((8, 784), generator=gen, device=dev)
+    y = torch.nn.functional.one_hot(torch.arange(8, device=dev) % 10, 10).float()
+    ga, gr = CONV_MATMUL_GRAD_TOL
+    _, exact = value_and_grad({k: v.double() for k, v in params.items()}, x.double(),
+                              y.double(), None, 1.0)
+
+    def vs_exact(grads):
+        return max(_close(grads[k], exact[k], ga, gr)[2] for k in grads)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref100 = cnn.apply_fn(params, x100)
+        ref_logits = cnn.apply_fn(params, x)
+        _, ref_grads = value_and_grad(params, x, y, None, 1.0)
+        out, failures = {"none": dict(grads_share_vs_fp64=vs_exact(ref_grads))}, []
+        for mode in ("first", "tail", "first+tail", "all"):
+            logits100 = cnn.apply_fn(params, x100, conv_matmul=mode)
+            logits = cnn.apply_fn(params, x, conv_matmul=mode)
+            _, grads = value_and_grad(params, x, y, None, 1.0, conv_matmul=mode)
+            torch.cuda.synchronize()
+            checks = {"logits100": _close(logits100, ref100, CONV_MATMUL_LOGITS_ATOL, 0.0),
+                      "logits": _close(logits, ref_logits, CONV_MATMUL_LOGITS_ATOL, 0.0)}
+            checks.update({k: _close(grads[k], ref_grads[k], ga, gr) for k in grads})
+            out[mode] = dict(logits100_max_abs=checks["logits100"][1],
+                             logits_max_abs=checks["logits"][1],
+                             grads_max_abs=max(e for k, (_, e, _) in checks.items()
+                                               if k in grads),
+                             share_of_tolerance=max(sh for _, _, sh in checks.values()),
+                             grads_share_vs_fp64=vs_exact(grads))
+            if not all(ok for ok, _, _ in checks.values()):
+                failures.append(mode)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    emit("precision_conv_matmul", batches=[100, 8], logits_atol=CONV_MATMUL_LOGITS_ATOL,
+         grads_atol=ga, grads_rtol=gr, cudnn_deterministic=True, modes=out, failures=failures)
+    if failures:
+        raise AssertionError(f"precision_conv_matmul: modes off the conv lowering: {failures}")
+    return out
+
+
 def timing(torch, fused_adam, devtime, flush, card: str) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -627,18 +851,22 @@ def lm_spec():
     return LMSpec(vocab=256, d_model=512, num_heads=8, num_layers=4, d_ff=2048)
 
 
-def _finite_state(torch, trainer) -> bool:
+def _state_leaves(trainer) -> list:
     """Every parameter and every moment of the trainer's optimizer state
     (any of its kinds: tree, flat chunk, or the hybrid's chunk and tp
-    shards) is finite."""
+    shards)."""
     import dataclasses
 
     from ddl_tpu_torch.utils import tree
 
     opt = trainer.opt_state
-    state = [trainer.params] + [getattr(opt, f.name) for f in dataclasses.fields(opt)
-                                if f.name != "step"]
-    return all(bool(torch.isfinite(t).all()) for t in tree.leaves(state))
+    return tree.leaves([trainer.params] + [getattr(opt, f.name) for f in
+                                           dataclasses.fields(opt) if f.name != "step"])
+
+
+def _finite_state(torch, trainer) -> bool:
+    """Every parameter and moment of the trainer is finite."""
+    return all(bool(torch.isfinite(t).all()) for t in _state_leaves(trainer))
 
 
 def lm_main(torch, fa) -> dict:
@@ -744,6 +972,120 @@ def lm_bf16(torch, fa) -> dict:
     if not (all(math.isfinite(x) for x in result.span_losses) and _finite_state(torch, trainer)):
         raise AssertionError("non-finite loss, parameter or moment on the bf16 LM path")
     return out
+
+
+def lm_policy(torch, fa, lm_out) -> dict:
+    """Precision c: lm_main's run (the same init, data and steps) under
+    ``precision="bf16"``: the bf16 flash kernels counted as lm_main's,
+    every span loss within JAX's bound of lm_main's fp32 one, fp32 masters
+    and moments."""
+    from ddl_tpu_torch.data.lm import synthesize_copy
+    from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
+
+    spec, bs, seq_len = lm_spec(), 4, 2048
+    cfg = SeqConfig(scheme="full", attn_impl="flash", batch_size=bs, learning_rate=1e-3,
+                    eval_every=4, seed=0, spec=spec, precision="bf16")
+    ds = synthesize_copy(num_train=LM_STEPS * bs, num_test=8, seq_len=seq_len,
+                         vocab=spec.vocab, seed=0)
+    trainer = SeqTrainer(cfg, ds)
+    for key in fa.launches:
+        fa.launches[key] = 0
+    result = trainer.train(log=lambda s: None)
+    launches = dict(fa.launches)
+    eval_batches = len(result.history) * -(-ds.test_tokens.shape[0] // bs)
+    steps = LM_STEPS + 1  # the warm-up's discarded step too
+    want = {"fwd": spec.num_layers * (steps + eval_batches),
+            "bwd_dkv": spec.num_layers * steps, "bwd_dq": spec.num_layers * steps}
+    failures = []
+    if launches != want:
+        failures.append(f"flash launches {launches}, want {want}")
+    if not (all(math.isfinite(x) for x in result.span_losses) and _finite_state(torch, trainer)):
+        failures.append("non-finite loss, parameter or moment")
+    if not _fp32_state(torch, trainer):
+        failures.append("masters or moments are not float32")
+    ok, share = _bf16_vs_fp32(result.span_losses, lm_out["span_losses"])
+    if not ok:
+        failures.append(f"bf16 losses off lm_main's fp32 ones: share {share}")
+    stats = result.step_stats
+    out = dict(steps=LM_STEPS, batch_size=bs, seq_len=seq_len, launches=launches,
+               tokens_per_sec=result.tokens_per_sec, fp32_tokens_per_sec=lm_out["tokens_per_sec"],
+               span_ms={"p50": stats.p50_ms, "p95": stats.p95_ms, "mean": stats.mean_ms,
+                        "spans": stats.steps},
+               fp32_span_ms=lm_out["span_ms"], span_losses=result.span_losses,
+               fp32_span_losses=lm_out["span_losses"], share_of_tolerance=share,
+               final_accuracy=result.final_accuracy, masters_fp32=_fp32_state(torch, trainer),
+               failures=failures)
+    emit("precision_lm", **out)
+    if failures:
+        raise AssertionError(f"precision_lm: {failures}")
+    return out
+
+
+def lm_seq_policy(torch, fa, world) -> dict:
+    """Precision d: Ulysses + flash + ZeRO-1 over the NCCL world of one at
+    T = 2048, fp32 then ``precision="bf16"``, 2 steps each from one init:
+    the ZeRO-1 reduce-scatter's input dtype and bytes recorded at every
+    call (bf16, half the fp32 run's), the bf16 run's flash launches
+    counted, its losses within JAX's bound of the fp32 run's."""
+    from ddl_tpu_torch.convert import lm_params_to_numpy
+    from ddl_tpu_torch.data.lm import synthesize_copy
+    from ddl_tpu_torch.models.transformer import init_lm_params
+    from ddl_tpu_torch.parallel import collectives as coll
+    from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
+
+    spec, bs, seq_len, n = lm_spec(), 4, 2048, 2
+    init = lm_params_to_numpy(init_lm_params(torch.Generator().manual_seed(9), spec))
+    ds = synthesize_copy(num_train=n * bs, num_test=bs, seq_len=seq_len, vocab=spec.vocab,
+                         seed=9)
+    calls = []
+    scatter = coll.reduce_scatter_flat
+
+    def recording(flat, *a, **k):
+        calls.append((str(flat.dtype).split(".")[-1], flat.numel() * flat.element_size()))
+        return scatter(flat, *a, **k)
+
+    runs, failures = {}, []
+    coll.reduce_scatter_flat = recording
+    try:
+        for prec in ("fp32", "bf16"):
+            cfg = SeqConfig(scheme="ulysses", attn_impl="flash", zero1=True, batch_size=bs,
+                            learning_rate=1e-3, eval_every=0, seed=9, spec=spec, precision=prec)
+            trainer = SeqTrainer(cfg, ds, init=init, world=world)
+            calls.clear()
+            for key in fa.launches:
+                fa.launches[key] = 0
+            res = trainer.train(log=lambda s: None)
+            L, steps = spec.num_layers, n + 1  # the warm-up's discarded step too
+            evals = len(res.history) * -(-ds.test_tokens.shape[0] // bs)
+            want = {"fwd": L * (steps + evals), "bwd_dkv": L * steps, "bwd_dq": L * steps}
+            runs[prec] = dict(launches=dict(fa.launches), reduce_scatter=sorted(set(calls)),
+                              reduce_scatter_calls=len(calls), span_losses=res.span_losses,
+                              masters_fp32=_fp32_state(torch, trainer),
+                              finite=_finite_state(torch, trainer))
+            if runs[prec]["launches"] != want:
+                failures.append(f"{prec}: flash launches {runs[prec]['launches']}, want {want}")
+            if not (runs[prec]["masters_fp32"] and runs[prec]["finite"]):
+                failures.append(f"{prec}: masters or moments not finite float32")
+            del trainer
+    finally:
+        coll.reduce_scatter_flat = scatter
+    fp32_bytes = 4 * spec.num_params()
+    want_rs = {"fp32": [("float32", fp32_bytes)], "bf16": [("bfloat16", fp32_bytes // 2)]}
+    for prec, rs in want_rs.items():
+        if runs[prec]["reduce_scatter"] != rs or runs[prec]["reduce_scatter_calls"] != n + 1:
+            failures.append(f"{prec}: reduce-scatter moved {runs[prec]['reduce_scatter']} in "
+                            f"{runs[prec]['reduce_scatter_calls']} calls, want {rs} in {n + 1}")
+    ok, share = _bf16_vs_fp32(runs["bf16"]["span_losses"], runs["fp32"]["span_losses"])
+    if not ok:
+        failures.append(f"bf16 losses off the fp32 run: share {share}")
+    emit("precision_lm_seq", scheme="ulysses", zero1=True, seq_len=seq_len, steps=n,
+         reduce_scatter_bytes={p: r["reduce_scatter"][0][1] if r["reduce_scatter"] else None
+                               for p, r in runs.items()},
+         runs=runs, share_of_tolerance=share, failures=failures)
+    if failures:
+        raise AssertionError(f"precision_lm_seq: {failures}")
+    torch.cuda.empty_cache()
+    return runs
 
 
 # The lm_seq phase: runs at T = 2048 (name, SeqConfig fields), and the
@@ -856,6 +1198,12 @@ LM_TP_RUNS = (
     ("tp2_full_flash", dict(scheme="full", attn_impl="flash", tensor_parallel=LM_TP)),
     ("hybrid_full_flash", dict(scheme="full", attn_impl="flash", tensor_parallel=LM_TP,
                                zero1=True)),
+    # Precision e: the same two under the bf16 policy (bf16 activations
+    # through the tp all-reduces, bf16 gradient sums).
+    ("tp2_full_flash_bf16", dict(scheme="full", attn_impl="flash", tensor_parallel=LM_TP,
+                                 precision="bf16")),
+    ("hybrid_full_flash_bf16", dict(scheme="full", attn_impl="flash", tensor_parallel=LM_TP,
+                                    zero1=True, precision="bf16")),
 )
 LM_TP_TIMEOUT_S = 600
 LM_TP_LABEL = "two processes on one card over gloo: not a tp scaling figure"
@@ -1038,17 +1386,7 @@ def lm_tp_rank(rank: int, store: str, inputs: str, out: str) -> None:
             grid = make_grid(world, 1, 1, LM_TP)
             eng = InferenceEngine(ServeConfig(spec=spec, slots=8, capacity=512, page_size=64,
                                               tensor_parallel=LM_TP), grid=grid)
-            margins = {i: [] for i in range(len(prompts))}
-            decode = eng.decode
-
-            def margin_recording(last, lengths, rids, active, **k):
-                nxt, logits = decode(last, lengths, rids, active, **k)
-                srt = np.sort(logits, axis=-1)
-                for i in np.nonzero(np.asarray(active, bool))[0]:
-                    margins[int(rids[i])].append(float(srt[i, -1] - srt[i, -2]))
-                return nxt, logits
-
-            eng.decode = margin_recording
+            margins = record_margins(eng)
             zero_launches(fused_adam, fa)
             t0 = time.perf_counter()
             done, stats = Scheduler(eng).run(
@@ -1091,9 +1429,10 @@ def lm_tp(torch, fa, world) -> dict:
     spec, bs = lm_spec(), 4
     init = lm_params_to_numpy(init_lm_params(torch.Generator().manual_seed(6), spec))
     ds = synthesize_copy(num_train=2 * bs, num_test=bs, seq_len=512, vocab=spec.vocab, seed=5)
-    tp1 = SeqTrainer(SeqConfig(scheme="full", attn_impl="flash", batch_size=bs,
-                               learning_rate=1e-3, eval_every=0, seed=5, spec=spec), ds,
-                     init=init, world=world).train(log=lambda s: None)
+    tp1, tp1_bf16 = (SeqTrainer(SeqConfig(scheme="full", attn_impl="flash", batch_size=bs,
+                                          learning_rate=1e-3, eval_every=0, seed=5, spec=spec,
+                                          precision=prec), ds, init=init, world=world
+                                ).train(log=lambda s: None) for prec in (None, "bf16"))
     prompts = synthesize_prompts(**SERVE_PROMPTS)
     serve_params = init_lm_params(torch.Generator().manual_seed(0), spec, "cuda")
     tp1_serve = serve_run(serve_params, [Request(id=i, prompt=p, max_new_tokens=SERVE_NEW)
@@ -1122,26 +1461,30 @@ def lm_tp(torch, fa, world) -> dict:
                 failures.append(f"rank {r} {name}: finite {row['finite']}, "
                                 f"Adam step {row['adam_step']}")
     # Equivalence at T = 512: tp 2 against tp 1, the hybrid against tp 2
-    # replicated, and the two ranks' gathered params bit for bit.
-    oracle = tree.leaves(tp1.params)
-    n = len(oracle)
-    tp2 = [params[0][f"tp2_full_flash/{i}"] for i in range(n)]
-    hybrid = [params[0][f"hybrid_full_flash/{i}"] for i in range(n)]
+    # replicated (each in fp32 and under the bf16 policy), and the two
+    # ranks' gathered params bit for bit.
+    n = len(tree.leaves(tp1.params))
+    got = {name: [params[0][f"{name}/{i}"] for i in range(n)] for name, _ in LM_TP_RUNS}
+    loss = {name: ranks[0][f"{name}/final_loss"] for name, _ in LM_TP_RUNS}
+    # The hybrid repeats tp 2's sums in another order only, so it is held
+    # as closely under the policy as in fp32.
+    fp32_tol = dict(atol=2e-5, rtol=1e-3, loss_rtol=1e-4)
+    hybrid_tol = dict(atol=1e-5, rtol=1e-4, loss_rtol=1e-4)
+    bf16_tol = dict(update_rel=BF16_UPDATE_REL, loss_rtol=BF16_LOSS_RTOL)
     pairs = {}
-    for name, got, want, (atol, rtol), la, lb in (
-        ("tp2_vs_tp1", tp2, oracle, (2e-5, 1e-3), ranks[0]["tp2_full_flash/final_loss"],
-         tp1.final_loss),
-        ("hybrid_vs_tp2", hybrid, tp2, (1e-5, 1e-4), ranks[0]["hybrid_full_flash/final_loss"],
-         ranks[0]["tp2_full_flash/final_loss"]),
+    for name, a_name, want, tol, lb in (
+        ("tp2_vs_tp1", "tp2_full_flash", tree.leaves(tp1.params), fp32_tol, tp1.final_loss),
+        ("hybrid_vs_tp2", "hybrid_full_flash", got["tp2_full_flash"], hybrid_tol,
+         loss["tp2_full_flash"]),
+        ("tp2_bf16_vs_tp1_bf16", "tp2_full_flash_bf16", tree.leaves(tp1_bf16.params), bf16_tol,
+         tp1_bf16.final_loss),
+        ("hybrid_bf16_vs_tp2_bf16", "hybrid_full_flash_bf16", got["tp2_full_flash_bf16"],
+         hybrid_tol, loss["tp2_full_flash_bf16"]),
     ):
-        err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
-        share = max(float((np.abs(a - b) / (atol + rtol * np.abs(b))).max())
-                    for a, b in zip(got, want))
-        pairs[name] = dict(atol=atol, rtol=rtol, params_max_abs_diff=err,
-                           params_share_of_tolerance=share, loss=la, oracle_loss=lb,
-                           loss_rel_diff=abs(la - lb) / abs(lb))
-        if share > 1.0 or abs(la - lb) > 1e-4 * abs(lb):
-            failures.append(f"{name}: params share {share}, losses {la} vs {lb}")
+        pairs[name] = row = _param_pair(got[a_name], want, tree.leaves(init), loss[a_name], lb,
+                                        **tol)
+        if not row["ok"]:
+            failures.append(f"{name}: {row}")
     ranks_bitwise = all(np.array_equal(params[0][k], params[1][k]) for k in params[0])
     if not ranks_bitwise or sorted(params[0]) != sorted(params[1]):
         failures.append("the two ranks' gathered params differ")
@@ -1183,7 +1526,19 @@ LM_PP_RUNS = (
                    microbatches=LM_PP_M)),
     ("1f1b", dict(scheme="full", attn_impl="flash", pipeline_parallel=LM_PP,
                   microbatches=LM_PP_M, pipeline_schedule="1f1b")),
+    # Precision f: both under the bf16 policy (bf16 hops and gradient sums).
+    ("gpipe_bf16", dict(scheme="full", attn_impl="flash", pipeline_parallel=LM_PP,
+                        microbatches=LM_PP_M, precision="bf16")),
+    ("1f1b_bf16", dict(scheme="full", attn_impl="flash", pipeline_parallel=LM_PP,
+                       microbatches=LM_PP_M, pipeline_schedule="1f1b", precision="bf16")),
 )
+
+
+def lm_pp_hop_bytes(spec, elem_bytes: int, bs: int = 4, seq_len: int = 2048) -> int:
+    """A rank's hop bytes a step: M activations and M cotangents of [B/M,
+    T, d_model] sent or received (lm_main's width: 33,554,432 in fp32,
+    16,777,216 in bf16)."""
+    return 2 * LM_PP_M * (bs // LM_PP_M) * seq_len * spec.d_model * elem_bytes
 LM_PP_TIMEOUT_S = 600
 LM_PP_LABEL = "two processes on one card over gloo: not a pipeline scaling figure"
 SHARED = ("embed", "head", "lnf_g", "lnf_b")
@@ -1275,9 +1630,10 @@ def lm_pp(torch, fa, world) -> dict:
     spec, bs = lm_spec(), 4
     init = lm_params_to_numpy(init_lm_params(torch.Generator().manual_seed(7), spec))
     ds = synthesize_copy(num_train=2 * bs, num_test=bs, seq_len=512, vocab=spec.vocab, seed=5)
-    pp1 = SeqTrainer(SeqConfig(scheme="full", attn_impl="flash", batch_size=bs,
-                               learning_rate=1e-3, eval_every=0, seed=5, spec=spec), ds,
-                     init=init, world=world).train(log=lambda s: None)
+    pp1, pp1_bf16 = (SeqTrainer(SeqConfig(scheme="full", attn_impl="flash", batch_size=bs,
+                                          learning_rate=1e-3, eval_every=0, seed=5, spec=spec,
+                                          precision=prec), ds, init=init, world=world
+                                ).train(log=lambda s: None) for prec in (None, "bf16"))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         inputs = os.path.join(tmp, "inputs.npz")
@@ -1311,33 +1667,37 @@ def lm_pp(torch, fa, world) -> dict:
             if row["peak_saved"] != peak:
                 failures.append(f"rank {r} {name}: {row['peak_saved']} saved inputs at the "
                                 f"peak, its table row implies {peak}")
+            hop = lm_pp_hop_bytes(spec, 2 if kw.get("precision") == "bf16" else 4)
+            if row["hop_wire_bytes_per_step"] != hop:
+                failures.append(f"rank {r} {name}: {row['hop_wire_bytes_per_step']} hop bytes "
+                                f"a step, want {hop}")
             if not row["finite"] or row["adam_step"] != LM_PP_STEPS:
                 failures.append(f"rank {r} {name}: finite {row['finite']}, "
                                 f"Adam step {row['adam_step']}")
         if max(peaks[name]) != max_in_flight(f_tab, b_tab):
             failures.append(f"{name}: peaks {peaks[name]}, max_in_flight "
                             f"{max_in_flight(f_tab, b_tab)}")
-    # Equivalence at T = 512: GPipe against pp 1, 1F1B against GPipe, and the
-    # ranks' own shared leaves bit for bit.
-    oracle = tree.leaves(pp1.params)
-    n = len(oracle)
+    # Equivalence at T = 512: GPipe against pp 1, 1F1B against GPipe (fp32
+    # and under the bf16 policy, where 1F1B must be bitwise), and the ranks'
+    # own shared leaves bit for bit.
+    n = len(tree.leaves(pp1.params))
     got = {name: [params[0][f"{name}/{i}"] for i in range(n)] for name, _ in LM_PP_RUNS}
+    loss = {name: ranks[0][f"{name}/final_loss"] for name, _ in LM_PP_RUNS}
+    fp32_tol = dict(atol=2e-5, rtol=1e-3, loss_rtol=1e-4)
+    bf16_tol = dict(update_rel=BF16_UPDATE_REL, loss_rtol=BF16_LOSS_RTOL)
     pairs = {}
-    for name, a, b, la, lb in (
-        ("gpipe_vs_pp1", got["gpipe"], oracle, ranks[0]["gpipe/final_loss"], pp1.final_loss),
-        ("1f1b_vs_gpipe", got["1f1b"], got["gpipe"], ranks[0]["1f1b/final_loss"],
-         ranks[0]["gpipe/final_loss"]),
+    for name, a_name, b, lb, tol in (
+        ("gpipe_vs_pp1", "gpipe", tree.leaves(pp1.params), pp1.final_loss, fp32_tol),
+        ("1f1b_vs_gpipe", "1f1b", got["gpipe"], loss["gpipe"], fp32_tol),
+        ("gpipe_bf16_vs_pp1_bf16", "gpipe_bf16", tree.leaves(pp1_bf16.params),
+         pp1_bf16.final_loss, bf16_tol),
+        ("1f1b_bf16_vs_gpipe_bf16", "1f1b_bf16", got["gpipe_bf16"], loss["gpipe_bf16"],
+         dict(bitwise=True, loss_rtol=BF16_LOSS_RTOL)),
     ):
-        atol, rtol = 2e-5, 1e-3
-        err = max(float(np.abs(x - y).max()) for x, y in zip(a, b))
-        share = max(float((np.abs(x - y) / (atol + rtol * np.abs(y))).max())
-                    for x, y in zip(a, b))
-        pairs[name] = dict(atol=atol, rtol=rtol, params_max_abs_diff=err,
-                           params_share_of_tolerance=share,
-                           bitwise=all(np.array_equal(x, y) for x, y in zip(a, b)), loss=la,
-                           oracle_loss=lb, loss_rel_diff=abs(la - lb) / abs(lb))
-        if share > 1.0 or abs(la - lb) > 1e-4 * abs(lb):
-            failures.append(f"{name}: params share {share}, losses {la} vs {lb}")
+        pairs[name] = row = _param_pair(got[a_name], b, tree.leaves(init), loss[a_name], lb,
+                                        **tol)
+        if not row["ok"]:
+            failures.append(f"{name}: {row}")
     shared_bitwise = all(np.array_equal(params[0][f"{name}/shared/{k}"],
                                         params[1][f"{name}/shared/{k}"])
                          for name, _ in LM_PP_RUNS for k in SHARED)
@@ -1395,31 +1755,51 @@ def serve_engine(params, **kw):
                            placed_params=params, device="cuda")
 
 
-def serve_run(params, requests, *, warmup=False, **kw):
-    """(completions, stats, engine, per-request top-2 margins of each step,
-    the active rows' logits of each decode tick) of one ``Scheduler.run``
-    over a fresh engine."""
+def record_margins(eng, ticks=None) -> dict:
+    """Wraps ``eng``'s prefill and decode to keep, per request id, the top-2
+    logit margin of each sampled token in order (the last prefill block's,
+    then each decode step's), and in ``ticks`` (a list) the active rows'
+    logits of each decode tick. Returns the margins dict."""
     import numpy as np
 
+    margins = {}
+    prefill, decode = eng.prefill, eng.decode
+
+    def top2(rows):
+        s = np.sort(rows, axis=-1)
+        return s[..., -1] - s[..., -2]
+
+    def rec_prefill(prompt, *, slot, request_id, base=0, _bucket=None):
+        tok, logits = prefill(prompt, slot=slot, request_id=request_id, base=base,
+                              _bucket=_bucket)
+        margins[request_id] = [float(top2(logits[-1]))]  # the last block's sample
+        return tok, logits
+
+    def rec_decode(last, lengths, rids, active, **k):
+        nxt, logits = decode(last, lengths, rids, active, **k)
+        act = np.asarray(active, bool)
+        for i, m in zip(np.nonzero(act)[0], top2(logits[act])):
+            margins[int(rids[i])].append(float(m))
+        if ticks is not None:
+            ticks.append(logits[act])
+        return nxt, logits
+
+    eng.prefill, eng.decode = rec_prefill, rec_decode
+    return margins
+
+
+def serve_run(params, requests, *, warmup=False, **kw):
+    """(completions, stats, engine, per-request top-2 margins of each
+    sampled token, the active rows' logits of each decode tick) of one
+    ``Scheduler.run`` over a fresh engine."""
     from ddl_tpu_torch.serve import Scheduler
 
     eng = serve_engine(params, **kw)
     sched = Scheduler(eng)
     if warmup:
         sched.warmup(requests)
-    margins = {r.id: [] for r in requests}
     ticks = []
-    decode = eng.decode
-
-    def recording(last, lengths, rids, active, **k):
-        nxt, logits = decode(last, lengths, rids, active, **k)
-        s = np.sort(logits, axis=-1)
-        for i in np.nonzero(np.asarray(active, bool))[0]:
-            margins[int(rids[i])].append(float(s[i, -1] - s[i, -2]))
-        ticks.append(logits[np.asarray(active, bool)])
-        return nxt, logits
-
-    eng.decode = recording
+    margins = record_margins(eng, ticks)
     done, stats = sched.run(requests)
     return done, stats, eng, margins, ticks
 
@@ -1465,13 +1845,14 @@ def serve_main(torch, params, fused_adam, fa) -> dict:
 
 
 def _first_difference(a, b, margins_a, margins_b):
-    """(request, step, top-2 margins there) of the first differing token."""
+    """(request, step, top-2 margins there) of the first differing token
+    (margins as :func:`record_margins` keeps them: step k's is the k-th)."""
     for i in sorted(a):
         ta, tb = a[i].tokens, b[i].tokens
         if ta != tb:
             step = next((k for k, (x, y) in enumerate(zip(ta, tb)) if x != y),
                         min(len(ta), len(tb)))
-            at = lambda m: m[i][step - 1] if 0 < step <= len(m[i]) else None  # noqa: E731
+            at = lambda m: m[i][step] if step < len(m[i]) else None  # noqa: E731
             return {"request": i, "step": step, "margin_a": at(margins_a),
                     "margin_b": at(margins_b)}
     return None
@@ -1579,6 +1960,68 @@ def serve_vs_full_forward(torch, params, fused_adam, fa) -> dict:
             raise AssertionError(f"serve logits != full forward (page_size={ps}): {err}")
     emit("serve_vs_full_forward", atol=atol, rtol=rtol, prompt_len=len(prompt),
          decode_steps=steps, seconds=time.perf_counter() - start, **out)
+    return out
+
+
+def serve_bf16(torch, params, fused_adam, fa, fp32_out) -> dict:
+    """Precision g: serve_main's traffic with ``compute_dtype="bfloat16"``:
+    the pools in bf16 (8,192 bytes a row at this width), every request
+    ``ok``, decode tokens/s, TTFT and ITL beside serve_main's fp32 run, and
+    paged ≡ contiguous tokens up to the first near-tie (a first difference
+    only at a top-2 margin below BF16_NEAR_TIE on either side). No kernel
+    of ``csrc/`` launches."""
+    from ddl_tpu_torch.data.lm import synthesize_prompts
+    from ddl_tpu_torch.serve import Request, Scheduler
+    from ddl_tpu_torch.serve.cache import kv_row_bytes
+
+    prompts = synthesize_prompts(**SERVE_PROMPTS)
+    requests = [Request(id=i, prompt=p, max_new_tokens=SERVE_NEW) for i, p in enumerate(prompts)]
+    start = time.perf_counter()
+    zero_launches(fused_adam, fa)
+    eng = serve_engine(params, page_size=64, compute_dtype="bfloat16")
+    spec = eng.config.spec
+    row_bytes = kv_row_bytes(spec, None, eng.config.pool_dtype())
+    pool_row_bytes = (2 * spec.num_layers * spec.num_heads * spec.head_dim
+                      * eng.cache.k.element_size())
+    sched = Scheduler(eng)
+    sched.warmup(requests)
+    torch.cuda.synchronize()
+    done, stats = sched.run(requests)
+    failures = []
+    half = kv_row_bytes(spec, None, torch.float32) // 2  # 8,192 at serve_main's width
+    if (row_bytes, pool_row_bytes) != (half, half) or eng.cache.k.dtype != torch.bfloat16:
+        failures.append(f"pool {eng.cache.k.dtype}, {row_bytes} / {pool_row_bytes} bytes a row, "
+                        f"want {half}")
+    bad = {i: (c.status, len(c.tokens)) for i, c in done.items()
+           if c.status != "ok" or len(c.tokens) != SERVE_NEW}
+    if bad or len(done) != len(prompts):
+        failures.append(f"requests not ok: {bad}")
+    paged = serve_run(params, requests, page_size=64, compute_dtype="bfloat16")
+    contiguous = serve_run(params, requests, compute_dtype="bfloat16")
+    diff = _first_difference(paged[0], contiguous[0], paged[3], contiguous[3])
+    equal = sum(paged[0][i].tokens == contiguous[0][i].tokens for i in paged[0])
+    if diff is not None:
+        margins = [m for m in (diff["margin_a"], diff["margin_b"]) if m is not None]
+        if not margins or min(margins) >= BF16_NEAR_TIE:
+            failures.append(f"paged != contiguous off a near-tie: {diff}")
+    launches = serve_launches("precision_serve", fused_adam, fa)
+    out = dict(
+        compute_dtype="bfloat16", requests=len(done), new_tokens=SERVE_NEW, slots=8,
+        capacity=512, page_size=64, kv_row_bytes=row_bytes,
+        fp32_kv_row_bytes=kv_row_bytes(spec, None, torch.float32), kernel_launches=launches,
+        decode_tokens_per_s=stats.decode_tokens_per_s,
+        fp32_decode_tokens_per_s=fp32_out["decode_tokens_per_s"],
+        decode_tick_ms={"p50": stats.latency.p50_ms, "p95": stats.latency.p95_ms},
+        fp32_decode_tick_ms=fp32_out["decode_tick_ms"],
+        ttft_ms={"p50": stats.ttft.p50_ms, "p95": stats.ttft.p95_ms},
+        fp32_ttft_ms=fp32_out["ttft_ms"],
+        itl_ms={"p50": stats.itl.p50_ms, "p95": stats.itl.p95_ms}, fp32_itl_ms=fp32_out["itl_ms"],
+        paged_vs_contiguous=dict(requests_equal=equal, first_difference=diff,
+                                 near_tie=BF16_NEAR_TIE),
+        failures=failures, seconds=time.perf_counter() - start)
+    emit("precision_serve", **out)
+    if failures:
+        raise AssertionError(f"precision_serve: {failures}")
     return out
 
 
@@ -1702,6 +2145,8 @@ def run_phases(torch, world, card: str):
     fused_vs_plain(torch, world)
     async_out = async_main(torch, world, fused_adam)
     async_equivalence(torch, world)
+    cnn_bf16_out = cnn_bf16(torch, world, fused_adam, main_out)
+    cnn_conv_matmul(torch)
 
     flush = devtime.L2Flush(torch.device("cuda"))
     tim = timing(torch, fused_adam, devtime, flush, card)
@@ -1711,18 +2156,22 @@ def run_phases(torch, world, card: str):
     lm_out = lm_main(torch, flash_attention)
     lm_flash_vs_xla(torch)
     lm_bf16(torch, flash_attention)
+    policy_out = lm_policy(torch, flash_attention, lm_out)
+    seq_policy_out = lm_seq_policy(torch, flash_attention, world)
     seq_out = lm_seq(torch, flash_attention, world)
     tp_out = lm_tp(torch, flash_attention, world)
     pp_out = lm_pp(torch, flash_attention, world)
 
     serve_params = init_lm_params(torch.Generator().manual_seed(0), lm_spec(), "cuda")
-    serve_main(torch, serve_params, fused_adam, flash_attention)
+    serve_out = serve_main(torch, serve_params, fused_adam, flash_attention)
     serve_equivalence(serve_params, fused_adam, flash_attention)
     serve_vs_full_forward(torch, serve_params, fused_adam, flash_attention)
+    serve_bf16(torch, serve_params, fused_adam, flash_attention, serve_out)
     del serve_params
     flash_tim = flash_timing(torch, flash_attention, devtime, flush, card)
+    bf16 = dict(cnn=cnn_bf16_out, lm=policy_out, seq=seq_policy_out)
     return (max_err, main_out, async_out, tim, flash_err, lm_out, seq_out, tp_out, pp_out,
-            flash_tim)
+            flash_tim, bf16)
 
 
 def main() -> int:
@@ -1752,7 +2201,7 @@ def main() -> int:
         world = init_world(1, 0, f"file://{os.path.join(store, 'store')}", "cuda")
         try:
             (max_err, main_out, async_out, tim, flash_err, lm_out, seq_out, tp_out, pp_out,
-             flash_tim) = run_phases(torch, world, card)
+             flash_tim, bf16) = run_phases(torch, world, card)
         finally:
             destroy_world()
 
@@ -1763,6 +2212,7 @@ def main() -> int:
         "replaces": "ddl_tpu/ops/pallas_adam.py:54",
         "launches": main_out["launches"],
         "async_launches": async_out["launches"],
+        "bf16_launches": bf16["cnn"]["launches"],
         "max_abs_err": max_err,
         "ms": tim["ms"],
         "hot_ms": tim["hot_ms"],
@@ -1785,6 +2235,10 @@ def main() -> int:
             "ulysses_launches": seq_out["ulysses_flash"]["launches"][key],
             "tp_launches": tp_out["launches"]["tp2_full_flash"][key],
             "pp_launches": pp_out["launches"]["gpipe"][key],
+            "bf16_launches": bf16["lm"]["launches"][key],
+            "bf16_ulysses_zero1_launches": bf16["seq"]["bf16"]["launches"][key],
+            "bf16_tp_launches": tp_out["launches"]["tp2_full_flash_bf16"][key],
+            "bf16_pp_launches": pp_out["launches"]["gpipe_bf16"][key],
             "max_abs_err": flash_err[key],
             "ms": row["ms"],
             "hot_ms": row["hot_ms"],

@@ -19,7 +19,7 @@ Layout:
     serve/       single-engine LM serving: KV caches, engine, scheduler, sampling
     train/       config + single-device CNN trainer
     utils/       step timing, parameter trees
-    precision.py the LM's fp32 / bf16-compute contract
+    precision.py the fp32 / bf16 precision policy
     convert.py   weight carry-over from the JAX package (as numpy)
     csrc/        CUDA sources, built with nvcc at first use
     tools/       step anatomy on the card

@@ -13,6 +13,8 @@ single-engine serving, at tp 1 or over a tp group.
     torchrun --nproc-per-node 4 -m ddl_tpu_torch lm --num-workers 2 --data-parallel 2 --zero1
     torchrun --nproc-per-node 4 -m ddl_tpu_torch lm --num-workers 2 --tensor-parallel 2
     torchrun --nproc-per-node 2 -m ddl_tpu_torch lm --pipeline-parallel 2 --microbatches 4
+    python -m ddl_tpu_torch sync_sharding --precision bf16 --conv-matmul tail
+    python -m ddl_tpu_torch lm --precision bf16 --seq-scheme full --attn-impl flash
     python -m ddl_tpu_torch serve --slots 8 --capacity 512 --page-size 64 --json
     torchrun --nproc-per-node 2 -m ddl_tpu_torch serve --tensor-parallel 2 --json
 
@@ -21,8 +23,10 @@ variant set away from its default is refused. One process drives one
 device: a multi-worker run is launched with ``torchrun``, whose ``RANK`` /
 ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT`` variables this reads; a
 run of one worker makes a world of one itself. Runs on ``cuda``
-unless ``--device cpu``, in fp32 with TF32 off unless ``--bf16`` (the JAX
-CLI's bf16 default on a TPU does not carry over).
+unless ``--device cpu``, in fp32 with TF32 off unless ``--precision bf16``
+(bf16 compute and bf16 gradient sums, fp32 master weights and moments) or
+the legacy ``--bf16`` (bf16 compute only); the JAX CLI's bf16 default on a
+TPU does not carry over, as JAX on a GPU defaults to fp32.
 """
 
 from __future__ import annotations
@@ -48,7 +52,8 @@ VARIANTS = (
 # Flags of one variant group, each refused, set away from its default, by
 # the others (as ddl_tpu/cli.py's _reject_foreign_flags).
 _CNN_ONLY = ("num_ps", "layout", "keep_prob", "staleness_seed", "data", "synthetic_train",
-             "synthetic_test", "fused_adam", "tiny", "reference_compat")
+             "synthetic_test", "fused_adam", "conv1_matmul", "conv_matmul", "conv_channels",
+             "fc_sizes", "tiny", "reference_compat")
 # The LM's width and its tp degree: lm and serve.
 _MODEL = ("vocab", "d_model", "heads", "layers", "d_ff", "tensor_parallel")
 _LM_TRAIN = ("seq_scheme", "seq_len", "train_seqs", "test_seqs", "target_accuracy",
@@ -110,14 +115,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fused-adam", action="store_true",
                    help="run the sharded update through the hand-written "
                         "CUDA fused-Adam kernel")
+    p.add_argument("--conv1-matmul", action="store_true",
+                   help="run the 1-input-channel first conv as an explicit "
+                        "patches-matmul (im2col and one matmul)")
+    p.add_argument("--conv-matmul", default="none",
+                   choices=["none", "first", "tail", "first+tail", "all"],
+                   help="which conv stages run as explicit patches-matmuls: first "
+                        "(= --conv1-matmul), tail (convs 3-4, the small-spatial "
+                        "stages), first+tail, all")
+    p.add_argument("--conv-channels", type=_int_tuple, default=None, metavar="C1,C2,C3,C4",
+                   help="conv widths of the model family (default 32,64,128,256, the "
+                        "reference architecture)")
+    p.add_argument("--fc-sizes", type=_int_tuple, default=None, metavar="F1,F2",
+                   help="FC widths of the model family (default 1024,512)")
     p.add_argument("--tiny", action="store_true",
-                   help="narrow model preset (conv 4,8,8,8, fc 32,16)")
+                   help="narrow model preset (--conv-channels 4,8,8,8 --fc-sizes 32,16)")
     p.add_argument("--reference-compat", action="store_true",
                    help="summed (not averaged) gradients and identical "
                         "batches on every worker, as the reference")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 compute with fp32 master weights and moments "
-                        "(lm only; the CNN variants' bf16 is not ported yet)")
+                   help="bfloat16 compute with fp32 gradient sums, master weights and "
+                        "moments (the legacy compute-only thread)")
+    p.add_argument("--fp32", action="store_true",
+                   help="fp32 compute (the default on this port)")
+    p.add_argument("--precision", default=None, choices=["fp32", "bf16"],
+                   help="precision policy: fp32 = the default programs; bf16 = bf16 "
+                        "activations AND gradient sums with fp32 master weights and "
+                        "Adam moments. Owns the compute dtype: mutually exclusive with "
+                        "--bf16/--fp32")
     p.add_argument("--json", action="store_true",
                    help="print one JSON summary line at the end")
     lm = p.add_argument_group(
@@ -245,6 +270,32 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _int_tuple(text: str) -> tuple[int, ...]:
+    try:
+        return tuple(int(t) for t in text.split(","))
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"expected comma-separated ints, got {text!r}")
+
+
+def _resolve_precision(args) -> str | None:
+    """The --precision policy name (None = the legacy compute_dtype
+    thread); a policy beside --bf16/--fp32 exits, as the JAX CLI's."""
+    if args.precision is not None and (args.bf16 or args.fp32):
+        raise SystemExit("--precision owns the compute dtype; drop --bf16/--fp32")
+    return args.precision
+
+
+def _resolve_dtype(args) -> str | None:
+    """The legacy compute dtype: None under --precision (the policy owns
+    it), "bfloat16" for --bf16, else fp32 (None). JAX's default of bf16 on
+    a TPU platform has no counterpart: JAX on a GPU defaults to fp32."""
+    if _resolve_precision(args) is not None:
+        return None
+    if args.bf16 and args.fp32:
+        raise SystemExit("--bf16 and --fp32 are mutually exclusive")
+    return "bfloat16" if args.bf16 else None
+
+
 def _reject_foreign_flags(args, variant: str, dests: tuple[str, ...]) -> None:
     defaults = build_parser()
     for dest in dests:
@@ -257,11 +308,6 @@ def config_from_args(args, num_workers: int):
     from .train.config import TrainConfig
 
     _reject_foreign_flags(args, args.variant, _LM_ONLY + _SERVE_ONLY)
-    if args.bf16:
-        raise SystemExit(
-            f"--bf16 for {args.variant}: the CNN's bf16 compute is not ported yet "
-            "(ROADMAP queue 1, item 4)"
-        )
 
     sharded = "sharding" in args.variant
     layout = args.layout or ("zigzag" if args.variant.endswith("greedy") else "block")
@@ -287,6 +333,14 @@ def config_from_args(args, num_workers: int):
             "other variants (and num_ps <= 1, which is pure DP) use "
             "different update programs and would silently ignore it"
         )
+    conv_channels, fc_sizes = args.conv_channels, args.fc_sizes
+    if args.tiny:
+        conv_channels = conv_channels or TINY_CONV_CHANNELS
+        fc_sizes = fc_sizes or TINY_FC_SIZES
+    if conv_channels is not None and (len(conv_channels) != 4 or min(conv_channels) < 1):
+        raise SystemExit("--conv-channels takes exactly 4 positive widths")
+    if fc_sizes is not None and (len(fc_sizes) != 2 or min(fc_sizes) < 1):
+        raise SystemExit("--fc-sizes takes exactly 2 positive widths")
     return TrainConfig(
         epochs=args.epochs,
         batch_size=batch_size,
@@ -300,9 +354,13 @@ def config_from_args(args, num_workers: int):
         grad_reduction="sum" if args.reference_compat else "mean",
         shard_data=shard_data,
         staleness_seed=args.staleness_seed,
+        compute_dtype=_resolve_dtype(args),
+        precision=_resolve_precision(args),
         fused_adam=args.fused_adam,
-        conv_channels=TINY_CONV_CHANNELS if args.tiny else (32, 64, 128, 256),
-        fc_sizes=TINY_FC_SIZES if args.tiny else (1024, 512),
+        conv1_matmul=args.conv1_matmul,
+        conv_matmul=args.conv_matmul,
+        conv_channels=conv_channels or (32, 64, 128, 256),
+        fc_sizes=fc_sizes or (1024, 512),
     )
 
 
@@ -368,7 +426,8 @@ def lm_config_from_args(args):
         microbatches=args.microbatches,
         pipeline_schedule=args.pipeline_schedule,
         scheme=scheme,
-        compute_dtype="bfloat16" if args.bf16 else None,
+        compute_dtype=_resolve_dtype(args),
+        precision=_resolve_precision(args),
         target_accuracy=args.target_accuracy,
         zero1=args.zero1,
         attn_impl=args.attn_impl,
@@ -443,11 +502,15 @@ def _run_serve(args, device) -> int:
         raise SystemExit(f"--tensor-parallel must be >= 1, got {args.tensor_parallel}")
     spec = LMSpec(vocab=args.vocab, d_model=args.d_model, num_heads=args.heads,
                   num_layers=args.layers, d_ff=args.d_ff)
+    # The engine has no optimizer boundary: a precision policy here is its
+    # compute dtype ("bf16" -> bfloat16, "fp32" -> fp32).
+    prec = _resolve_precision(args)
+    serve_dtype = "bfloat16" if prec == "bf16" else None if prec == "fp32" else _resolve_dtype(args)
     cfg = ServeConfig(
         spec=spec, slots=args.slots, capacity=args.capacity,
         tensor_parallel=args.tensor_parallel,
         temperature=args.temperature, top_k=args.top_k, seed=args.seed,
-        compute_dtype="bfloat16" if args.bf16 else None,
+        compute_dtype=serve_dtype,
         prefix_slots=args.prefix_cache, prefill_chunk=args.prefill_chunk,
         prefill_budget=args.prefill_budget, page_size=args.page_size,
         num_pages=args.num_pages,

@@ -15,7 +15,10 @@ package's; the weights are permuted to OIHW inside :func:`apply_fn`. The
 NHWC flatten order before FC1 is kept too (``permute(0, 2, 3, 1)``).
 
 Convs and matmuls go to cuDNN/cuBLAS: XLA lowered them outside any Pallas
-kernel. Only ``conv_matmul="none"`` is ported.
+kernel. ``conv_matmul`` runs chosen conv stages as an explicit im2col
+(``F.unfold``) and one matmul instead (:func:`_patches_block`), as JAX's
+patches-matmul does. ``compute_dtype=torch.bfloat16`` casts parameters and
+activations inside the forward while the logits and the loss stay fp32.
 """
 
 from __future__ import annotations
@@ -142,29 +145,68 @@ def _conv_block(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
     return F.max_pool2d(y, 2, 2, ceil_mode=True)
 
 
+def _patches_block(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`_conv_block` as patches @ matmul (any cin), JAX's
+    ``_patches_block``: the SAME 5x5 patches (``F.unfold``, feature order
+    ``(cin, kh, kw)``, as ``lax.conv_general_dilated_patches`` gives them)
+    times the HWIO weight reordered to ``(cin, kh, kw)`` rows, as one
+    ``[N*H*W, cin*kh*kw] @ [cin*kh*kw, cout]`` product. NCHW in and out."""
+    n, _, hh, ww = h.shape
+    kh, kw, _, cout = w.shape
+    patches = F.unfold(h, (kh, kw), padding=(kh // 2, kw // 2))  # [N, cin*kh*kw, H*W]
+    wmat = w.permute(2, 0, 1, 3).reshape(-1, cout)
+    y = patches.transpose(1, 2).reshape(n * hh * ww, -1) @ wmat + b  # NHWC rows
+    y = F.relu(y).reshape(n, hh, ww, cout).permute(0, 3, 1, 2)
+    return F.max_pool2d(y, 2, 2, ceil_mode=True)
+
+
+# Which conv stages run as patches-matmuls, per mode (index = stage).
+CONV_MATMUL_MODES: dict[str, tuple[bool, bool, bool, bool]] = {
+    "none": (False, False, False, False),
+    "first": (True, False, False, False),  # the cin = 1 stage
+    "tail": (False, False, True, True),  # the small-spatial stages (7x7, 4x4)
+    "first+tail": (True, False, True, True),
+    "all": (True, True, True, True),
+}
+
+
 def apply_fn(
     params: Params,
     x: torch.Tensor,
     *,
     dropout_gen: torch.Generator | None = None,
     keep_prob: float = 0.5,
+    compute_dtype: torch.dtype | None = None,
+    first_conv_matmul: bool = False,
+    conv_matmul: str | None = None,
 ) -> torch.Tensor:
     """Forward pass: ``[N, 784]`` -> fp32 logits ``[N, 10]``.
 
     ``dropout_gen=None`` disables dropout (eval). With a generator the two
     dropout sites draw two independent masks from it, matching the
     reference's two ``tf.nn.dropout`` calls (model.py:74,82).
+    ``compute_dtype`` casts the parameters and ``x`` (their gradients come
+    back in the parameters' own dtype). ``conv_matmul`` names which conv
+    stages run as patches-matmuls (:data:`CONV_MATMUL_MODES`);
+    ``first_conv_matmul=True`` is the older alias of ``"first"``.
     """
+    if conv_matmul is None:
+        conv_matmul = "first" if first_conv_matmul else "none"
+    as_matmul = CONV_MATMUL_MODES[conv_matmul]
+    if compute_dtype is not None:
+        params = {k: p.to(compute_dtype) for k, p in params.items()}
+        x = x.to(compute_dtype)
     h = x.reshape(-1, 1, 28, 28)  # NHWC with C=1 is NCHW with C=1
-    for wn, bn in (("v0", "v1"), ("v2", "v3"), ("v4", "v5"), ("v6", "v7")):
-        h = _conv_block(h, params[wn], params[bn])
+    for stage, (wn, bn) in enumerate((("v0", "v1"), ("v2", "v3"), ("v4", "v5"), ("v6", "v7"))):
+        block = _patches_block if as_matmul[stage] else _conv_block
+        h = block(h, params[wn], params[bn])
     # JAX flattens NHWC: channels fastest.
     h = h.permute(0, 2, 3, 1).reshape(h.shape[0], params["v8"].shape[0])
     h = F.relu(h @ params["v8"] + params["v9"])
     h = _dropout(h, dropout_gen, keep_prob)
     h = h @ params["v10"] + params["v11"]  # no activation (model.py:79)
     h = _dropout(h, dropout_gen, keep_prob)
-    return h @ params["v12"] + params["v13"]
+    return (h @ params["v12"] + params["v13"]).float()
 
 
 def loss_fn(
@@ -174,9 +216,14 @@ def loss_fn(
     *,
     dropout_gen: torch.Generator | None = None,
     keep_prob: float = 0.5,
+    compute_dtype: torch.dtype | None = None,
+    first_conv_matmul: bool = False,
+    conv_matmul: str | None = None,
 ) -> torch.Tensor:
     """Mean softmax cross-entropy (model.py:91-92)."""
-    logits = apply_fn(params, x, dropout_gen=dropout_gen, keep_prob=keep_prob)
+    logits = apply_fn(params, x, dropout_gen=dropout_gen, keep_prob=keep_prob,
+                      compute_dtype=compute_dtype, first_conv_matmul=first_conv_matmul,
+                      conv_matmul=conv_matmul)
     logprobs = F.log_softmax(logits, dim=-1)
     return -torch.mean(torch.sum(y_onehot * logprobs, dim=-1))
 

@@ -27,6 +27,11 @@ stage-replicated ``SHARED_LEAVES`` over ``(dp, sp, pp)`` (``shared_group``;
 only their owner stage's are nonzero, so the sum is also the broadcast).
 Then TF1 Adam over the rank's tree. The Megatron f/g Functions run inside
 the stage unchanged, in lockstep across the tp group at every tick.
+
+Precision, as JAX's: under bf16 compute the stage casts its parameters to
+bf16 (their gradients still accumulate in fp32), so the activations and
+cotangents the hops carry are bf16; under ``precision="bf16"`` the
+policy's ``cast_grads`` / ``upcast_grads`` also bracket the step-end sums.
 """
 
 from __future__ import annotations
@@ -73,11 +78,19 @@ def _sum_leaves(leaves: list, grid: Grid, group) -> list:
     return [x.view_as(like) for x, like in zip(flat.split([x.numel() for x in leaves]), leaves)]
 
 
+def _compute_params(config, params):
+    """``params`` cast to the config's compute dtype (JAX's in-stage cast;
+    the identity in fp32)."""
+    dtype = config.dtype()
+    return params if dtype is None else tree.map(lambda a: a.to(dtype), params)
+
+
 def make_stage_fn(config, grid: Grid):
     """``(stage_fn, blocks_fwd)`` of this rank's stage.
 
     ``stage_fn(params, h_in, tokens, targets, weights, positions) -> (h_out,
-    num)``: stage 0 embeds ``tokens`` (``h_in`` unused), every stage applies
+    num)``: the parameters cast to the compute dtype, stage 0 embeds
+    ``tokens`` (``h_in`` unused), every stage applies
     its ``L/pp`` blocks (``transformer.apply_block``, the oracle's layer
     unit; each block checkpointed under ``config.remat`` when grad is on, as
     JAX's ``jax.checkpoint``), and only the last stage runs the final
@@ -104,6 +117,7 @@ def make_stage_fn(config, grid: Grid):
         return h
 
     def stage_fn(params, h_in, tokens, targets, weights, positions):
+        params = _compute_params(config, params)
         h = params["embed"][tokens] if first else h_in
         h = blocks_fwd(params["blocks"], h, positions)
         if not last:
@@ -130,6 +144,8 @@ def make_pipeline_step_body(config, grid: Grid, tables, positions: torch.Tensor,
     next_rank = None if last else grid.pp_ranks[s + 1]
     stage_fn, _ = make_stage_fn(config, grid)
     tally = record.hop if record is not None else None
+    pol = config.policy()
+    act_dtype = config.dtype() or torch.float32
 
     def step(params, opt_state, tokens, targets, weights):
         b_loc, t_seq = tokens.shape
@@ -140,7 +156,8 @@ def make_pipeline_step_body(config, grid: Grid, tables, positions: torch.Tensor,
         den = _sum(weights.float().sum(), grid, grid.data_group)
         inv_den = 1.0 / den
         leaves = tree.map(lambda t: t.detach().requires_grad_(True), params)
-        like = torch.empty((mb, t_seq, config.spec.d_model), device=tokens.device)
+        like = torch.empty((mb, t_seq, config.spec.d_model), dtype=act_dtype,
+                           device=tokens.device)
         saved, inbox, ctbox = {}, {}, {}
         num_acc = torch.zeros((), device=tokens.device)
         peak = 0
@@ -181,13 +198,14 @@ def make_pipeline_step_body(config, grid: Grid, tables, positions: torch.Tensor,
                 for (box, j, _), x in zip(arrivals, got):
                     box[j] = x
         loss = _sum(num_acc, grid, grid.shared_group) * inv_den
-        grads = tree.map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
-                         leaves)
+        grads = pol.cast_grads(tree.map(
+            lambda p: p.grad if p.grad is not None else torch.zeros_like(p), leaves))
         shared = _sum_leaves([grads[k] for k in SHARED_LEAVES], grid, grid.shared_group)
         grads.update(zip(SHARED_LEAVES, shared))
         block_grads = tree.leaves(grads["blocks"])
         grads["blocks"] = tree.unflatten(grads["blocks"],
                                          _sum_leaves(block_grads, grid, grid.data_group))
+        grads = pol.upcast_grads(grads)
         with torch.no_grad():
             params, opt_state = adam_update(params, opt_state, grads, lr=lr)
         if record is not None:
@@ -211,8 +229,10 @@ def make_pipeline_eval_body(config, grid: Grid, positions: torch.Tensor):
     first, last = s == 0, s == pp - 1
     _, blocks_fwd = make_stage_fn(config, grid)
     e = config.spec.d_model
+    act_dtype = config.dtype() or torch.float32
 
     def sums(params, tokens, targets, weights):
+        params = _compute_params(config, params)
         num = torch.zeros((), device=tokens.device)
         bs = config.batch_size
         for i in range(0, tokens.shape[0], bs):
@@ -220,7 +240,7 @@ def make_pipeline_eval_body(config, grid: Grid, positions: torch.Tensor):
             if first:
                 h = params["embed"][x]
             else:
-                like = torch.empty((*x.shape, e), device=tokens.device)
+                like = torch.empty((*x.shape, e), dtype=act_dtype, device=tokens.device)
                 (h,) = coll.stage_hop([], [(like, grid.pp_ranks[s - 1])], grid.pp_group)
             h = blocks_fwd(params["blocks"], h, positions)
             if not last:

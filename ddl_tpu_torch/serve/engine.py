@@ -50,11 +50,15 @@ never differentiated here). Every rank runs the same
 deterministic scheduler and samples the same token from bit-identical
 reduced logits, so the host state never diverges.
 
+**Compute dtype** (``compute_dtype="bfloat16"``): the cached forwards
+cast the weights and activations to bf16 (logits stay fp32) and the KV
+pools (contiguous, paged and the prefix pool) are allocated in bf16, so a
+pool row costs half its fp32 bytes.
+
 Not ported here, each raising ``NotImplementedError`` naming its ROADMAP
 item: ``kv_dtype="int8"``, ``speculate_k > 0``,
-``speculate_method="prompt"``, ``compute_dtype="bfloat16"``, checkpoint
-loading, and the page hand-off (``dump_slot_pages``, ``load_slot_pages``,
-``alias_slot_pages``).
+``speculate_method="prompt"``, checkpoint loading, and the page hand-off
+(``dump_slot_pages``, ``load_slot_pages``, ``alias_slot_pages``).
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import precision as _precision
 from ..convert import lm_params_from_numpy
 from ..models import transformer
 from ..models.transformer import LMSpec
@@ -99,10 +104,10 @@ class ServeConfig:
     with decode ticks, ``prefill_budget`` caps prefill tokens a tick (0 =
     one chunk). ``page_size > 0`` selects the paged pool of ``num_pages``
     pages (0 = ``slots * capacity / page_size``). ``tensor_parallel`` is the
-    Megatron degree, which the engine's grid must have. ``kv_dtype``,
-    ``speculate_k > 0``, a ``speculate_method`` other than ``"ngram"`` and
-    a bf16 ``compute_dtype`` are accepted here and refused by the engine
-    (not ported)."""
+    Megatron degree, which the engine's grid must have. ``compute_dtype``
+    is None (fp32), ``"float32"`` or ``"bfloat16"``. ``kv_dtype``,
+    ``speculate_k > 0`` and a ``speculate_method`` other than ``"ngram"``
+    are accepted here and refused by the engine (not ported)."""
 
     spec: LMSpec = LMSpec()
     slots: int = 4
@@ -111,7 +116,7 @@ class ServeConfig:
     temperature: float = 0.0  # 0 = greedy
     top_k: int = 0  # 0 = full vocab (temperature > 0 only)
     seed: int = 0
-    compute_dtype: str | None = None  # None = fp32
+    compute_dtype: str | None = None  # None = fp32; "bfloat16" = bf16 compute and pools
     prefix_slots: int = 0
     prefill_chunk: int = 0
     prefill_budget: int = 0
@@ -120,6 +125,15 @@ class ServeConfig:
     kv_dtype: str | None = None
     speculate_k: int = 0
     speculate_method: str = "ngram"
+
+    def dtype(self) -> torch.dtype | None:
+        """The compute dtype as a torch dtype (None = fp32, no cast), as
+        the precision policy resolves it: another dtype raises."""
+        return _precision.resolve(None, self.compute_dtype).compute_dtype
+
+    def pool_dtype(self) -> torch.dtype:
+        """The dtype the KV pools are allocated in: the compute dtype."""
+        return self.dtype() or torch.float32
 
 
 def check_config(config: ServeConfig) -> None:
@@ -165,6 +179,7 @@ def check_config(config: ServeConfig) -> None:
                          "(the contiguous layout has no page pool)")
     if config.num_pages < 0:
         raise ValueError(f"num_pages must be >= 0, got {config.num_pages}")
+    config.dtype()  # fp32 or bf16 compute only
     if config.kv_dtype not in (None, "int8"):
         raise ValueError(f"kv_dtype must be None or 'int8', got {config.kv_dtype!r}")
     if config.kv_dtype == "int8" and not ps:
@@ -194,8 +209,6 @@ def check_config(config: ServeConfig) -> None:
         (sk > 0, "speculate_k > 0 (ROADMAP queue 1, item 8: speculate)"),
         (config.speculate_method != "ngram",
          f"speculate_method={config.speculate_method!r} (ROADMAP queue 1, item 8: speculate)"),
-        (config.compute_dtype is not None,
-         f"compute_dtype={config.compute_dtype!r} (ROADMAP queue 1, item 4: bf16 precision)"),
     )
     for bad, what in refused:
         if bad:
@@ -274,7 +287,8 @@ class InferenceEngine:
 
     def handoff_bytes(self, n_pages: int) -> int:
         """Device bytes ``n_pages`` pages represent (``kv_row_bytes``)."""
-        return int(n_pages) * self.page_size * kv_row_bytes(self.config.spec, self.config.kv_dtype)
+        return int(n_pages) * self.page_size * kv_row_bytes(
+            self.config.spec, self.config.kv_dtype, self.config.pool_dtype())
 
     def _put(self, a) -> torch.Tensor:
         """A host array (or CPU tensor) on the device."""
@@ -289,7 +303,7 @@ class InferenceEngine:
         cfg = self.config
         if self.paged:
             self.cache = host_paged_cache(cfg.spec, self.num_pages, self.page_size,
-                                          device=self.device,
+                                          cfg.pool_dtype(), device=self.device,
                                           tensor_parallel=cfg.tensor_parallel)
             self.pages = PagePool(self.num_pages)
             self.tables = np.full((cfg.slots, self.max_pages), -1, np.int32)
@@ -301,11 +315,11 @@ class InferenceEngine:
                                           on_evict=lambda e: self._release_pages(e.pages))
             return
         tp = cfg.tensor_parallel
-        self.cache = host_cache(cfg.spec, cfg.slots, cfg.capacity, device=self.device,
-                                tensor_parallel=tp)
+        self.cache = host_cache(cfg.spec, cfg.slots, cfg.capacity, cfg.pool_dtype(),
+                                device=self.device, tensor_parallel=tp)
         if cfg.prefix_slots > 0:
-            self.pool = host_cache(cfg.spec, cfg.prefix_slots, cfg.capacity, device=self.device,
-                                   tensor_parallel=tp)
+            self.pool = host_cache(cfg.spec, cfg.prefix_slots, cfg.capacity, cfg.pool_dtype(),
+                                   device=self.device, tensor_parallel=tp)
             self.prefix = PrefixIndex(cfg.prefix_slots)
 
     # -- paged page management (host half) ---------------------------------
@@ -525,7 +539,7 @@ class InferenceEngine:
             logits, *_ = transformer.apply_lm_paged(
                 self.params, tok, self.cache.k, self.cache.v, self.cache.pos, self._put(table),
                 cfg.spec, positions=self._put(positions), flat_rows=self._put(flat),
-                row_reduce=self._row_reduce,
+                compute_dtype=cfg.dtype(), row_reduce=self._row_reduce,
             )
         else:
             c = cfg.capacity
@@ -537,7 +551,7 @@ class InferenceEngine:
             logits, *_ = transformer.apply_lm_cached(
                 self.params, tok, self.cache.k[:, sl], self.cache.v[:, sl], self.cache.pos[sl],
                 cfg.spec, start=None, positions=self._put(positions), rows=self._put(rows),
-                row_reduce=self._row_reduce,
+                compute_dtype=cfg.dtype(), row_reduce=self._row_reduce,
             )
         logits = logits[0, :t]
         # The sampled token is sequence element `base + t` of the request.
@@ -574,7 +588,7 @@ class InferenceEngine:
             logits, *_ = transformer.apply_lm_paged(
                 self.params, tok, self.cache.k, self.cache.v, self.cache.pos, self._put(table),
                 cfg.spec, positions=positions, flat_rows=self._put(flat),
-                row_reduce=self._row_reduce,
+                compute_dtype=cfg.dtype(), row_reduce=self._row_reduce,
             )
         else:
             # Free slots still compute (fixed shapes) and write a PAD_POS row
@@ -582,7 +596,8 @@ class InferenceEngine:
             rows = self._put((lengths % cfg.capacity)[:, None])
             logits, *_ = transformer.apply_lm_cached(
                 self.params, tok, self.cache.k, self.cache.v, self.cache.pos, cfg.spec,
-                start=None, positions=positions, rows=rows, row_reduce=self._row_reduce,
+                start=None, positions=positions, rows=rows, compute_dtype=cfg.dtype(),
+                row_reduce=self._row_reduce,
             )
         logits = logits[:, 0]
         # This step extends each sequence to length + 1 tokens: the sampled

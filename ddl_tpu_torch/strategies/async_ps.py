@@ -36,7 +36,9 @@ Two serve placements, as in the JAX package:
 The kernel updates ``ps``, ``m`` and ``v`` in place, so every value the JAX
 package keeps across pushes is a copy here: a replica row, the chunk after
 each push. The schedule is read on the host; the serve is a Python loop of
-W pushes. Checkpoint, resume, preemption, profiling and dispatch-timeout
+W pushes. The island's compute dtype and patches-matmul stages are the
+single-device step's (``train.trainer.model_kwargs``); its gradients, and
+so every push, stay fp32 under every precision policy. Checkpoint, resume, preemption, profiling and dispatch-timeout
 hooks are not ported (ROADMAP queue 1, item 5).
 """
 
@@ -65,6 +67,8 @@ from ..train.trainer import (
     evaluate,
     hit_target,
     initial_params,
+    model_kwargs,
+    staging_dtype,
     value_and_grad,
 )
 from ..utils.metrics import StepTimer, barrier
@@ -169,6 +173,7 @@ def make_async_round(
     lr = config.learning_rate
     sharded = layout is not None
     reassembly = _reassembly(layout, dev)
+    model_kw = model_kwargs(config)
     if sharded:
         sl = coll.owner_slices(layout, W)
         rows_index = torch.as_tensor(sl.slice_idx, dtype=torch.long, device=dev)
@@ -183,7 +188,7 @@ def make_async_round(
             cnn.dropout_generator(config.seed, ground, rank, dev)
             if config.keep_prob < 1.0 else None
         )
-        loss, grads = value_and_grad(params, x, y, gen, config.keep_prob)
+        loss, grads = value_and_grad(params, x, y, gen, config.keep_prob, **model_kw)
         loss = coll.all_reduce_sum(loss.reshape(1), world)[0] / W
         return loss, coll.flatten_params(grads, spec)
 
@@ -357,7 +362,8 @@ class AsyncTrainer:
         W, dev = world.size, world.device
         log = log if world.rank == 0 else (lambda s: None)
         xs_np, ys_np, rounds = self._batches()
-        xs, ys = torch.as_tensor(xs_np).to(dev), torch.as_tensor(ys_np).to(dev)
+        xs = torch.as_tensor(xs_np).to(dev, staging_dtype(cfg))
+        ys = torch.as_tensor(ys_np).to(dev)
         x_test = torch.as_tensor(np.asarray(self.dataset.x_test, np.float32)).to(dev)
         y_test = torch.as_tensor(one_hot(self.dataset.y_test)).to(dev)
         state = self.state.clone()
@@ -375,7 +381,7 @@ class AsyncTrainer:
         gen = (cnn.dropout_generator(cfg.seed, 0, world.rank, dev)
                if cfg.keep_prob < 1.0 else None)
         value_and_grad(coll.unflatten_params(state.replica(world.rank), self.spec),
-                       xs[0], ys[0], gen, cfg.keep_prob)
+                       xs[0], ys[0], gen, cfg.keep_prob, **model_kwargs(cfg))
         if x_test.shape[0]:
             evaluate(self.logical(state.ps), x_test, y_test)
             if cfg.eval_every:

@@ -51,9 +51,14 @@ through the stages by the GPipe or 1F1B tables and the eval hands one chunk
 at a time stage to stage. ``LMResult.params`` is the full tree, gathered
 over tp and pp.
 
-``SeqConfig`` keeps every JAX field and default. The ``bf16`` precision
-policy (and the legacy bf16 compute under pipeline parallelism) raises
-``NotImplementedError`` naming its ROADMAP item, and the JAX trainer's own
+Precision (``SeqConfig.policy()``, ``ddl_tpu_torch/precision.py``): under
+bf16 compute the loss casts the parameters and activations to bf16; under
+``precision="bf16"`` every step body also brackets its explicit gradient
+sums with the policy's ``cast_grads`` / ``upcast_grads``, where JAX's do,
+so the all-reduce, the ZeRO-1 reduce-scatter and the hybrid's per-leaf
+sums move bf16 and Adam sees fp32. Master weights and moments stay fp32.
+
+``SeqConfig`` keeps every JAX field and default, and the JAX trainer's own
 checks raise the same ``ValueError``s (:func:`check_config`).
 """
 
@@ -91,8 +96,6 @@ Scheme = Literal["ring", "ulysses", "full"]
 # The axes every sum runs over (the (dp, sp) group), never tp: rank =
 # (dp_index * num_workers + sp_index) * tensor_parallel + tp_index.
 AXES = (DP_AXIS, SP_AXIS)
-# Where the bf16 policy lands, in ROADMAP.md.
-ROADMAP_BF16 = "ROADMAP queue 1, item 4"
 LOCAL_GRID = make_grid(None, 1, 1)
 
 
@@ -110,7 +113,7 @@ class SeqConfig:
     tensor_parallel: int = 1  # Megatron tp degree (the grid's minor axis)
     scheme: Scheme = "ring"
     compute_dtype: str | None = None  # None = fp32; "bfloat16" = bf16 compute
-    precision: str | None = None  # "fp32"; "bf16" is not ported yet
+    precision: str | None = None  # policy "fp32" or "bf16"; None defers to compute_dtype
     target_accuracy: float | None = None
     zero1: bool = False  # ZeRO-1 over the combined (dp, sp) axes (with tp: the hybrid)
     # Local attention for full and ulysses: "xla" = plain attention
@@ -243,8 +246,7 @@ def _attn_for(config: SeqConfig, grid: Grid = LOCAL_GRID) -> Callable:
 
 def check_config(config: SeqConfig, dataset: LMDataset) -> None:
     """Every check of the JAX ``SeqTrainer.__init__``, in its order and with
-    its ``ValueError`` texts; what is not ported raises
-    ``NotImplementedError``. Needs no process group."""
+    its ``ValueError`` texts. Needs no process group."""
     W, dp, tp = config.num_workers, config.data_parallel, config.tensor_parallel
     config.validate_topology()
     if dataset.seq_len % max(W, 1):
@@ -298,12 +300,7 @@ def check_config(config: SeqConfig, dataset: LMDataset) -> None:
             f"tensor_parallel ({tp}) must be >= 1"
         )
     _attn_for(config)  # unknown attn_impl / scheme / layout; full with sharding
-    config.policy()  # precision="bf16" raises; unknown dtypes are ValueErrors
-    if config.pipeline_parallel > 1 and config.dtype() is not None:
-        raise NotImplementedError(
-            f"compute_dtype={config.compute_dtype!r} with pipeline_parallel > 1 is not "
-            f"ported yet ({ROADMAP_BF16}: the bf16 policy)"
-        )
+    config.policy()  # an unknown policy or dtype, or a conflicting pair, raises
 
 
 def _shard_positions(config: SeqConfig, t_local: int, grid: Grid,
@@ -413,16 +410,19 @@ def _step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
     (params', opt_state', loss)`` — local gradients, ONE all-reduce of the
     flat gradient over ``(dp, sp)`` (full gradients for the replicated
     leaves, shard-full ones for the tp-sharded leaves), then TF1 Adam over
-    the tree (the moments placed like the parameters)."""
+    the tree (the moments placed like the parameters). The policy's casts
+    bracket the sum (at a world of one too, as JAX's psum over an axis of
+    one keeps them)."""
     attn = _attn_for(config, grid)
+    pol = config.policy()
 
     def step(params, opt_state: AdamState, tokens, targets, weights):
         loss, grads = _local_grads(config, grid, attn, positions, params, tokens, targets,
                                    weights)
-        if grid.data_group is LOCAL:
-            grads = tree.unflatten(params, grads)
-        else:
+        grads = pol.cast_grads(tree.unflatten(params, grads))
+        if grid.data_group is not LOCAL:
             grads = plan.unflatten(_psum(_FlatPlan.flatten(grads), grid))
+        grads = pol.upcast_grads(grads)
         with torch.no_grad():
             params, opt_state = adam_update(params, opt_state, grads, lr=config.learning_rate)
         return params, opt_state, loss
@@ -452,8 +452,11 @@ def _zero1_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
     """One ZeRO-1 step: local gradients, the flat gradient reduce-scattered
     over ``(dp, sp)`` (:func:`_zero1_flat`), the plain flat Adam chain on
     this rank's chunk ``dp_index * num_workers + sp_index``, and an
-    all-gather of the updated chunks."""
+    all-gather of the updated chunks. Under ``precision="bf16"`` the flat
+    gradient is cast before the reduce-scatter and this rank's chunk
+    upcast after it."""
     attn = _attn_for(config, grid)
+    pol = config.policy()
     n_dev = config.data_parallel * config.num_workers
     chunk = coll.chunk_size(plan.total, n_dev)
     mine = slice(grid.data_index * chunk, (grid.data_index + 1) * chunk)
@@ -461,7 +464,8 @@ def _zero1_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
     def step(params, opt: ShardedAdam, tokens, targets, weights):
         loss, grads = _local_grads(config, grid, attn, positions, params, tokens, targets,
                                    weights)
-        g_own = _zero1_flat(grid, _FlatPlan.flatten(grads), chunk)
+        g_own = pol.upcast_grads(_zero1_flat(grid, _FlatPlan.flatten(pol.cast_grads(grads)),
+                                             chunk))
         with torch.no_grad():
             p_own = coll.pad_to(_FlatPlan.flatten(params), chunk * n_dev)[mine]
             p_new, opt = _adam_flat(p_own, opt, g_own, lr=config.learning_rate)
@@ -528,8 +532,11 @@ def _zero1_tp_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
     Adam chain on this rank's chunk ``dp_index * num_workers + sp_index``,
     as JAX's ``_adam_flat``, one all-gather; tp peers compute the same
     chunk), and for the tp-SHARDED leaves an all-reduce over ``(dp, sp)``
-    per leaf, then tree Adam on the shard with the shared step."""
+    per leaf, then tree Adam on the shard with the shared step. Under
+    ``precision="bf16"`` both subtrees' sums move bf16 and upcast at their
+    Adam boundary."""
     attn = _attn_for(config, grid)
+    pol = config.policy()
     n_dev = config.data_parallel * config.num_workers
     chunk = coll.chunk_size(hplan.rep_total, n_dev)
     mine = slice(grid.data_index * chunk, (grid.data_index + 1) * chunk)
@@ -537,9 +544,9 @@ def _zero1_tp_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
     def step(params, opt: HybridAdam, tokens, targets, weights):
         loss, grads = _local_grads(config, grid, attn, positions, params, tokens, targets,
                                    weights)
-        g_rep, g_tp = hplan.split(grads)
-        g_own = _zero1_flat(grid, hplan.flatten_rep(g_rep), chunk)
-        g_tp = [_psum(g, grid) for g in g_tp]
+        g_rep, g_tp = hplan.split(pol.cast_grads(grads))
+        g_own = pol.upcast_grads(_zero1_flat(grid, hplan.flatten_rep(g_rep), chunk))
+        g_tp = [pol.upcast_grads(_psum(g, grid)) for g in g_tp]
         with torch.no_grad():
             p_rep, p_tp = hplan.split(tree.leaves(params))
             p_own = coll.pad_to(hplan.flatten_rep(p_rep), chunk * n_dev)[mine]

@@ -15,6 +15,12 @@ collective call). Per step, the collective schedule is the JAX package's:
 
 With ``grad_reduction="mean"`` and no dropout every sync strategy is
 step-equivalent to the single-device trainer on the same global batch.
+
+The compute dtype (the precision policy's) and the patches-matmul stages
+are the single-device step's (``train.trainer.model_kwargs``). As in JAX,
+the CNN's sums cast no gradient: the in-loss cast's backward upcasts, so
+the flat gradient that reaches Adam (and the fused kernel, which takes
+float32 only) is fp32 under every policy.
 """
 
 from __future__ import annotations
@@ -42,7 +48,9 @@ from ..train.config import TrainConfig
 from ..train.trainer import (
     TrainResult,
     initial_params,
+    model_kwargs,
     run_spans,
+    staging_dtype,
     steps_span,
     value_and_grad,
 )
@@ -82,7 +90,7 @@ def _local_grads(config: TrainConfig, params, x, y, gstep: int, world: World):
         cnn.dropout_generator(config.seed, gstep, world.rank, x.device)
         if config.keep_prob < 1.0 else None
     )
-    return value_and_grad(params, x, y, gen, config.keep_prob)
+    return value_and_grad(params, x, y, gen, config.keep_prob, **model_kwargs(config))
 
 
 def make_dp_step(config: TrainConfig, world: World) -> Callable:
@@ -264,7 +272,7 @@ class SyncTrainer:
             xs = x.reshape(batch_num, bs, fx)
             ys = y.reshape(batch_num, bs, fy)
         dev = world.device
-        return (torch.as_tensor(np.ascontiguousarray(xs)).to(dev),
+        return (torch.as_tensor(np.ascontiguousarray(xs)).to(dev, staging_dtype(cfg)),
                 torch.as_tensor(np.ascontiguousarray(ys)).to(dev))
 
     def train(self, log: Callable[[str], None] = print) -> TrainResult:

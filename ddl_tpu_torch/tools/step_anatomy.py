@@ -25,15 +25,16 @@ contiguous layout and the paged one (page 64). Each reports, as one JSON
 line:
 
 - ``steady``: host-clock ms per step over ``--steps`` steps after a
-  warm-up, closed by ``torch.cuda.synchronize``, for the two versions in
-  turns (plain, kernel, kernel, plain): plain and fused Adam for the CNN,
-  ``attn_impl`` xla and flash for the LM (or full and the scheme), sync and the two async serves
-  (sync, async_sharding, async, async, async_sharding, sync) for async; and
-  images/s or tokens/s (the LM also gives each impl's peak allocated
+  warm-up, closed by ``torch.cuda.synchronize``, for the versions in
+  turns, forward then back (plain, kernel, kernel_bf16, kernel_bf16,
+  kernel, plain): plain, fused and fused_bf16 Adam for the CNN,
+  ``attn_impl`` xla, flash and flash_bf16 for the LM (or full and the
+  scheme), sync and the two async serves for async; and
+  images/s or tokens/s (the LM also gives each version's peak allocated
   memory over its own runs). Serve: one ``Scheduler.run`` of the whole
-  traffic a turn (contiguous, paged, paged, contiguous, each after
+  traffic a turn (contiguous, paged, paged_bf16, and back, each after
   ``warmup``): decode tokens/s, host ms a decode tick, TTFT and ITL;
-- ``anatomy``: a ``torch.profiler`` trace of a few steps of the kernel
+- ``anatomy``: a ``torch.profiler`` trace of a few steps of each kernel
   version (async: of each serve): device time per step by kernel family
   (CNN and async: conv, matmul, pool, fused Adam, NCCL, other; LM: the
   flash kernels, cuBLAS matmuls,
@@ -50,6 +51,11 @@ line:
   Where the profiler records no device time, the breakdown reads "not
   measured". The profiler slows the host, so the LM also gives the idle
   share of its unprofiled steady step (``device_idle_share_of_steady``).
+
+The cnn, lm (``full``, no ZeRO-1) and serve variants also time and
+profile their kernel path under the bf16 precision policy, in turns with
+the others: ``fused_bf16`` (bf16-staged images), ``flash_bf16`` and
+``paged_bf16`` (``compute_dtype`` bfloat16, a bf16 pool).
 
 Needs a CUDA card; raises without one.
 """
@@ -75,6 +81,7 @@ from ..ops.optimizers import ShardedAdam
 from ..parallel.mesh import default_device, destroy_world, init_world
 from ..strategies.sync import make_sharded_step, resolve_layout, sharded_adam_init
 from ..train.config import TrainConfig
+from ..train.trainer import staging_dtype
 
 CNN_FAMILIES = (
     ("fused_adam", re.compile(r"adam_flat_\w*kernel")),
@@ -173,32 +180,39 @@ def cnn_variant(args, emit) -> None:
     xs = torch.as_tensor(ds.x_train.reshape(10, bs, 784)).to(dev)
     ys = torch.as_tensor(one_hot(ds.y_train).reshape(10, bs, 10)).to(dev)
     init = params_to_numpy(cnn.init_params(torch.Generator().manual_seed(0), "cpu"))
+    # version -> config fields; the fused ones are profiled.
+    fields = {"plain": dict(fused_adam=False), "fused": dict(fused_adam=True),
+              "fused_bf16": dict(fused_adam=True, precision="bf16")}
+    names, profiled = tuple(fields), ("fused", "fused_bf16")
     with tempfile.TemporaryDirectory() as store:
         world = init_world(1, 0, f"file://{os.path.join(store, 'store')}", "cuda")
         try:
             steps = {}
-            for fused in (False, True):
+            for v in names:
                 cfg = TrainConfig(batch_size=bs, num_workers=1, num_ps=2, layout="flat",
-                                  fused_adam=fused, keep_prob=0.5)
+                                  keep_prob=0.5, **fields[v])
                 layout = resolve_layout(cfg, 1)
-                steps[fused] = (make_sharded_step(cfg, world, layout), layout)
+                steps[v] = (make_sharded_step(cfg, world, layout), layout,
+                            xs.to(staging_dtype(cfg)))
             state = {"params": {k: torch.tensor(v, device=dev) for k, v in init.items()},
-                     "opt": sharded_adam_init(world, steps[True][1]), "step": 0}
+                     "opt": sharded_adam_init(world, steps["fused"][1]), "step": 0}
 
-            def run(fused, n):
-                state["params"], state["opt"] = _run(steps[fused][0], state["params"],
-                                                     state["opt"], xs, ys, n, state["step"])
+            def run(version, n):
+                step, _, xv = steps[version]
+                state["params"], state["opt"] = _run(step, state["params"], state["opt"], xv,
+                                                     ys, n, state["step"])
                 state["step"] += n
 
-            run(True, 5)  # warm-up
-            run(False, 5)
+            for v in names:  # warm-up
+                run(v, 5)
             torch.cuda.synchronize()
-            ms = steady_ms(run, (False, True, True, False), args.steps)
+            ms = steady_ms(run, (*names, *reversed(names)), args.steps)
             emit({"phase": "steady", "variant": "cnn", "batch_size": bs, "steps": args.steps,
-                  "plain_ms_per_step": ms[False], "fused_ms_per_step": ms[True],
-                  "fused_images_per_sec": [bs / (t * 1e-3) for t in ms[True]]})
-            emit({"phase": "anatomy", "variant": "cnn", "batch_size": bs,
-                  **anatomy(lambda n: run(True, n), 10, CNN_FAMILIES)})
+                  **{f"{v}_ms_per_step": ms[v] for v in names},
+                  **{f"{v}_images_per_sec": [bs / (t * 1e-3) for t in ms[v]] for v in names}})
+            for v in profiled:
+                emit({"phase": "anatomy", "variant": "cnn", "version": v, "batch_size": bs,
+                      **anatomy(lambda n: run(v, n), 10, CNN_FAMILIES)})
             if not isinstance(state["opt"], ShardedAdam) or not torch.isfinite(
                     state["opt"].m).all():
                 raise AssertionError("non-finite optimizer state")
@@ -280,14 +294,15 @@ def lm_variant(args, emit) -> None:
     base = SeqConfig(scheme="full", batch_size=bs, learning_rate=1e-3, seed=0, spec=LM_SPEC)
     if args.seq_scheme == "full" and not args.zero1:
         versions = {impl: dataclasses.replace(base, attn_impl=impl) for impl in ("xla", "flash")}
-        subject = "flash"
+        versions["flash_bf16"] = dataclasses.replace(base, attn_impl="flash", precision="bf16")
+        subjects = ("flash", "flash_bf16")
     else:
         # The scheme against full on the same local attention.
         impl = "xla" if args.seq_scheme == "ring" else "flash"
         versions = {"full": dataclasses.replace(base, attn_impl=impl),
                     "seq": dataclasses.replace(base, attn_impl=impl, scheme=args.seq_scheme,
                                                seq_layout=args.seq_layout, zero1=args.zero1)}
-        subject = "seq"
+        subjects = ("seq",)
     flash_attention.load_kernel()
     with tempfile.TemporaryDirectory() as store:
         world = init_world(1, 0, f"file://{os.path.join(store, 'store')}", "cuda")
@@ -316,26 +331,31 @@ def lm_variant(args, emit) -> None:
             ms = steady_ms(run, (*versions, *reversed(versions)), args.steps)
             tokens = bs * LM_SEQ_LEN
             config = {"seq_scheme": args.seq_scheme, "seq_layout": args.seq_layout,
-                      "zero1": args.zero1, "attn_impl": versions[subject].attn_impl}
+                      "zero1": args.zero1}
             emit({"phase": "steady", "variant": "lm", **config, "batch_size": bs,
                   "seq_len": LM_SEQ_LEN, "steps": args.steps,
                   **{f"{v}_ms_per_step": ms[v] for v in versions},
                   **{f"{v}_tokens_per_sec": [tokens / (t * 1e-3) for t in ms[v]]
                      for v in versions},
                   "peak_memory_gb": {v: b / 1e9 for v, b in peak.items()}})
-            anat = anatomy(lambda n: run(subject, n), 5, LM_FAMILIES)
-            if "device_busy_ms_per_step" in anat:
-                # The profiler slows the host: the idle share of the unprofiled
-                # steady step (the median of its turns) beside the traced one.
-                steady = statistics.median(ms[subject])
-                anat["steady_ms_per_step"] = steady
-                anat["device_idle_share_of_steady"] = 1.0 - anat["device_busy_ms_per_step"] / steady
-            emit({"phase": "anatomy", "variant": "lm", **config, "version": subject,
-                  "batch_size": bs, "seq_len": LM_SEQ_LEN, **anat})
+            for v in subjects:
+                anat = anatomy(lambda n: run(v, n), 5, LM_FAMILIES)
+                if "device_busy_ms_per_step" in anat:
+                    # The profiler slows the host: the idle share of the
+                    # unprofiled steady step (the median of its turns)
+                    # beside the traced one.
+                    steady = statistics.median(ms[v])
+                    anat["steady_ms_per_step"] = steady
+                    anat["device_idle_share_of_steady"] = (
+                        1.0 - anat["device_busy_ms_per_step"] / steady)
+                emit({"phase": "anatomy", "variant": "lm", **config, "version": v,
+                      "attn_impl": versions[v].attn_impl, "precision": versions[v].precision,
+                      "batch_size": bs, "seq_len": LM_SEQ_LEN, **anat})
         finally:
             destroy_world()
-    if not all(bool(torch.isfinite(t).all()) for t in tree.leaves(state[subject][1].m)):
-        raise AssertionError("non-finite optimizer state")
+    for v in subjects:
+        if not all(bool(torch.isfinite(t).all()) for t in tree.leaves(state[v][1].m)):
+            raise AssertionError(f"{v}: non-finite optimizer state")
 
 
 def serve_variant(args, emit) -> None:
@@ -351,11 +371,14 @@ def serve_variant(args, emit) -> None:
     prompts = synthesize_prompts(num=16, min_len=16, max_len=128, vocab=LM_SPEC.vocab, seed=0)
     requests = [Request(id=i, prompt=p, max_new_tokens=new) for i, p in enumerate(prompts)]
     params = init_lm_params(torch.Generator().manual_seed(0), LM_SPEC, dev)
-    layouts = {"contiguous": 0, "paged": 64}
+    # version -> (page size, compute dtype): the two layouts, and the paged
+    # one in bf16.
+    layouts = {"contiguous": (0, None), "paged": (64, None), "paged_bf16": (64, "bfloat16")}
     scheds = {name: Scheduler(InferenceEngine(
-        ServeConfig(spec=LM_SPEC, slots=slots, capacity=capacity, page_size=ps),
-        placed_params=params, device=dev)) for name, ps in layouts.items()}
-    order = ("contiguous", "paged", "paged", "contiguous")
+        ServeConfig(spec=LM_SPEC, slots=slots, capacity=capacity, page_size=ps,
+                    compute_dtype=dtype),
+        placed_params=params, device=dev)) for name, (ps, dtype) in layouts.items()}
+    order = (*layouts, *reversed(layouts))
     runs = {name: [] for name in layouts}
     for name in order:
         sched = scheds[name]
@@ -373,10 +396,10 @@ def serve_variant(args, emit) -> None:
     emit({"phase": "steady", "variant": "serve", "slots": slots, "capacity": capacity,
           "requests": len(requests), "new_tokens": new, "order": list(order), "runs": runs})
     e, vocab = LM_SPEC.d_model, LM_SPEC.vocab
-    weight_bytes = 4 * LM_SPEC.num_params()
-    kv_row = 2 * LM_SPEC.num_layers * e * 4  # K and V of every layer, fp32
+    weight_bytes = 4 * LM_SPEC.num_params()  # the fp32 weights, cast at use under bf16
     for name, sched in scheds.items():
         eng = sched.engine
+        kv_row = 2 * LM_SPEC.num_layers * e * eng.cache.k.element_size()  # K and V, every layer
         eng.reset()
         lengths = np.array([len(p) for p in prompts[:slots]], np.int32)
         last = np.array([eng.prefill(p, slot=s, request_id=s)[0]

@@ -1,10 +1,7 @@
 """Training configuration — the port of ``ddl_tpu/train/config.py``.
 
 Same field names and defaults as the JAX package's ``TrainConfig``, so a
-config (or its ``dataclasses.asdict``) reads the same in both. Fields whose
-feature is not ported yet are kept, and a value that would need that
-feature raises ``NotImplementedError`` naming the ROADMAP item, rather than
-being ignored.
+config (or its ``dataclasses.asdict``) reads the same in both.
 
 Compat flags quarantine the reference's accidental semantics (default =
 correct, flag = reproduce): ``grad_reduction="sum"`` sums worker gradients
@@ -40,18 +37,51 @@ class TrainConfig:
     # Async: the seed of the arrival schedule (strategies/async_ps.py).
     staleness_seed: int = 0
 
-    # Precision: only fp32 is ported (bf16 is ROADMAP queue 1, item 4).
+    # Compute dtype of the forward/backward pass: None = fp32; "bfloat16"
+    # casts parameters and activations inside the loss (logits and loss
+    # stay fp32).
     compute_dtype: str | None = None
+    # Precision policy (ddl_tpu_torch.precision): "fp32" or "bf16" (bf16
+    # compute, fp32 master weights and moments). None defers to
+    # compute_dtype above.
     precision: str | None = None
+
+    def policy(self):
+        """The resolved precision policy, the one compute-dtype authority
+        every trainer reads (``precision.resolve`` rejects a conflicting
+        precision/compute_dtype pair)."""
+        from .. import precision as _precision
+
+        return _precision.resolve(self.precision, self.compute_dtype)
 
     # Sharded update: run the hand-written CUDA fused-Adam kernel
     # (ops/fused_adam.py) instead of the plain PyTorch chain.
     fused_adam: bool = False
 
-    # Patches-matmul conv lowering: only "none" is ported (ROADMAP queue 1,
-    # item 6: the CNN's conv_matmul modes).
+    # Which conv stages run as explicit patches-matmuls (im2col and a
+    # matmul, models/cnn.py CONV_MATMUL_MODES): "none", "first", "tail"
+    # (convs 3-4), "first+tail" or "all". conv1_matmul is the older alias
+    # of "first" and composes with the mode (conv_matmul_mode).
     conv1_matmul: bool = False
     conv_matmul: Literal["none", "first", "tail", "first+tail", "all"] = "none"
+
+    def conv_matmul_mode(self) -> str:
+        """The effective patches-matmul selection the trainers pass to
+        ``cnn.apply_fn``: ``conv1_matmul`` composes with the mode ("none"
+        -> "first", "tail" -> "first+tail"); a mode that keeps the first
+        conv as a convolution and has no rule raises ``ValueError``."""
+        mode = self.conv_matmul
+        if self.conv1_matmul:
+            if mode == "none":
+                return "first"
+            if mode == "tail":
+                return "first+tail"
+            if mode not in ("first", "first+tail", "all"):
+                raise ValueError(
+                    f"conv_matmul mode {mode!r} does not include the first stage and "
+                    "has no conv1_matmul composition rule"
+                )
+        return mode
 
     # Early stop at the first eval reaching this accuracy (None = run all).
     target_accuracy: float | None = None
@@ -61,18 +91,11 @@ class TrainConfig:
     fc_sizes: tuple[int, int] = (1024, 512)
 
     def __post_init__(self):
-        if self.compute_dtype not in (None, "float32") or self.precision not in (None, "fp32"):
-            raise NotImplementedError(
-                "only fp32 compute is ported; bf16 waits for ROADMAP queue 1 "
-                "(precision in the port)"
-            )
-        if self.conv1_matmul or self.conv_matmul != "none":
-            raise NotImplementedError(
-                "conv_matmul modes other than 'none' are not ported yet "
-                "(ROADMAP queue 1, item 6: the CNN's conv_matmul modes)"
-            )
         if self.grad_reduction not in ("mean", "sum"):
             raise ValueError(f"grad_reduction must be mean or sum, got {self.grad_reduction!r}")
+        # A bad policy, dtype or conv1_matmul composition raises here.
+        self.policy()
+        self.conv_matmul_mode()
 
     def model_specs(self):
         """(name, shape) specs for this config's model-family instance."""

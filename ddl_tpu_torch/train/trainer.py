@@ -10,6 +10,9 @@ the step timer measures.
 
 The dropout stream is a pure function of ``(seed, global step, worker)``
 (``cnn.dropout_generator``), so span chunking never changes the masks.
+The compute dtype and the conv stages run as patches-matmuls come from the
+config (``TrainConfig.policy()``, ``conv_matmul_mode()``); under bf16
+compute the train images are staged in bf16 (:func:`staging_dtype`).
 Checkpoint, guard, health, goodput and profile hooks are not ported yet
 (ROADMAP queue 1, items 5 and 7).
 """
@@ -59,24 +62,48 @@ def value_and_grad(
     y: torch.Tensor,
     gen: torch.Generator | None,
     keep_prob: float,
+    **model_kw,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Loss and the gradient of every parameter (``jax.value_and_grad`` of
-    ``cnn.loss_fn``)."""
+    ``cnn.loss_fn``); ``model_kw`` are ``loss_fn``'s ``compute_dtype`` and
+    ``conv_matmul`` (:func:`model_kwargs`). The gradients have the
+    parameters' dtype whatever the compute dtype (the cast's backward
+    upcasts them)."""
     leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
-    loss = cnn.loss_fn(leaves, x, y, dropout_gen=gen, keep_prob=keep_prob)
+    loss = cnn.loss_fn(leaves, x, y, dropout_gen=gen, keep_prob=keep_prob, **model_kw)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), dict(zip(leaves, grads))
 
 
+def model_kwargs(config: TrainConfig) -> dict:
+    """``cnn.loss_fn``'s compute dtype (from the precision policy) and
+    patches-matmul stages (``conv_matmul_mode``) under ``config``; an
+    unknown mode raises (a bad policy or dtype raised in ``TrainConfig``)."""
+    mode = config.conv_matmul_mode()
+    if mode not in cnn.CONV_MATMUL_MODES:
+        raise ValueError(f"unknown conv_matmul mode {mode!r} "
+                         f"(choices: {', '.join(cnn.CONV_MATMUL_MODES)})")
+    return dict(compute_dtype=config.policy().compute_dtype, conv_matmul=mode)
+
+
+def staging_dtype(config: TrainConfig) -> torch.dtype:
+    """The dtype the TRAIN images are staged in on the device: bf16 under
+    bf16 compute (the per-step cast disappears and the staged epoch
+    halves), float32 otherwise, as JAX's ``staging_dtype``. Labels and the
+    test set stay fp32."""
+    return torch.bfloat16 if config.policy().compute_dtype is not None else torch.float32
+
+
 def make_train_step(config: TrainConfig) -> Step:
     """The single-device train step: forward/backward, then TF1 Adam."""
+    model_kw = model_kwargs(config)
 
     def step(params, opt_state: AdamState, x, y, gstep: int):
         gen = (
             cnn.dropout_generator(config.seed, gstep, 0, x.device)
             if config.keep_prob < 1.0 else None
         )
-        loss, grads = value_and_grad(params, x, y, gen, config.keep_prob)
+        loss, grads = value_and_grad(params, x, y, gen, config.keep_prob, **model_kw)
         with torch.no_grad():
             params, opt_state = adam_update(
                 params, opt_state, grads, lr=config.learning_rate
@@ -207,7 +234,7 @@ def run_spans(
     # library handles and kernels; the state is not touched.
     t0 = time.perf_counter()
     if batch_num:
-        value_and_grad(params, xs[0], ys[0], None, 1.0)
+        value_and_grad(params, xs[0], ys[0], None, 1.0, **model_kwargs(config))
     if x_test.shape[0]:
         evaluate(params, x_test, y_test)
     barrier(device)
@@ -279,7 +306,7 @@ class SingleChipTrainer:
         # Explicit feature dims: batch_num may be 0 (dataset < one batch).
         x = np.asarray(ds.x_train, np.float32)[:n]
         y = one_hot(ds.y_train)[:n]
-        xs = torch.as_tensor(x.reshape(batch_num, bs, x.shape[-1])).to(dev)
+        xs = torch.as_tensor(x.reshape(batch_num, bs, x.shape[-1])).to(dev, staging_dtype(cfg))
         ys = torch.as_tensor(y.reshape(batch_num, bs, y.shape[-1])).to(dev)
         x_test = torch.as_tensor(np.asarray(ds.x_test, np.float32)).to(dev)
         y_test = torch.as_tensor(one_hot(ds.y_test)).to(dev)

@@ -9,7 +9,9 @@ Kept apart from the test modules so the spawned children import only
 module, not the test file, to find the target.
 """
 
+import contextlib
 import dataclasses
+import math
 import time
 
 import numpy as np
@@ -25,6 +27,7 @@ from ddl_tpu_torch.convert import (
 from ddl_tpu_torch.data.lm import synthesize_copy, synthesize_prompts
 from ddl_tpu_torch.models import cnn
 from ddl_tpu_torch.models import transformer
+from ddl_tpu_torch.parallel import collectives as coll
 from ddl_tpu_torch.parallel.collectives import tp_allreduce, unflatten_params
 from ddl_tpu_torch.parallel.mesh import destroy_world, init_world, make_grid
 from ddl_tpu_torch.ops.optimizers import adam_init
@@ -198,7 +201,36 @@ LM_CASES = {
                           pipeline_parallel=2, microbatches=2, pipeline_schedule="1f1b"),
     "pp4_1f1b": dict(scheme="full", pipeline_parallel=4, microbatches=4,
                      pipeline_schedule="1f1b", spec="LM_SPEC_4L"),
+    # The bf16 policy: bf16 compute, and bf16 gradient sums in the
+    # replicated body, ZeRO-1, the hybrid and the pipeline (with bf16 hops).
+    "ulysses_flash_bf16": dict(scheme="ulysses", attn_impl="flash", num_workers=4,
+                               precision="bf16"),
+    "zero1_ulysses_2x2_bf16": dict(scheme="ulysses", zero1=True, num_workers=2,
+                                   data_parallel=2, precision="bf16"),
+    "hybrid_tp2_dp2_bf16": dict(scheme="full", zero1=True, data_parallel=2, tensor_parallel=2,
+                                precision="bf16"),
+    "dp2_pp2_bf16": dict(scheme="full", data_parallel=2, pipeline_parallel=2, microbatches=2,
+                         precision="bf16"),
+    # The fp32 policy, each bitwise its precision=None twin (FP32_TWINS).
+    "hybrid_tp2_dp2_fp32": dict(scheme="full", zero1=True, data_parallel=2, tensor_parallel=2,
+                                precision="fp32"),
+    "dp2_pp2_fp32": dict(scheme="full", data_parallel=2, pipeline_parallel=2, microbatches=2,
+                         precision="fp32"),
 }
+FP32_TWINS = {"hybrid_tp2_dp2_fp32": "hybrid_tp2_dp2", "dp2_pp2_fp32": "dp2_pp2"}
+# Each bf16 case's fp32 twin, and the collectives its gradient sums take:
+# the replicated body's all-reduce, ZeRO-1's reduce-scatter, the hybrid's
+# reduce-scatter (replicated subtree) and per-leaf all-reduce (tp subtree),
+# the pipeline's step-end shared and block all-reduces.
+BF16_TWINS = {
+    "ulysses_flash_bf16": ("ulysses_flash", {"all_reduce_sum"}),
+    "zero1_ulysses_2x2_bf16": ("zero1_ulysses_2x2", {"reduce_scatter_flat"}),
+    "hybrid_tp2_dp2_bf16": ("hybrid_tp2_dp2_fp32", {"reduce_scatter_flat", "all_reduce_sum"}),
+    "dp2_pp2_bf16": ("dp2_pp2_fp32", {"all_reduce_sum"}),
+}
+# The sum collectives a step's gradients may take; an input of more than 2
+# elements is a gradient sum (the loss and metric sums hold 1 and 2).
+WIRE_FNS = ("all_reduce_sum", "reduce_scatter_flat")
 LM_SPEC = transformer.LMSpec(vocab=16, d_model=32, num_heads=4, num_layers=2, d_ff=64)
 LM_SPEC_4L = dataclasses.replace(LM_SPEC, num_layers=4)
 LM_DATA = dict(num_train=16, num_test=8, seq_len=32, vocab=16, seed=5)
@@ -211,6 +243,7 @@ SERVE_TP = 2
 SERVE_CASES = {
     "contiguous-greedy": dict(slots=3, capacity=64),
     "paged-sampled": dict(slots=3, capacity=64, page_size=8, temperature=0.7, top_k=5),
+    "paged-greedy-bf16": dict(slots=3, capacity=64, page_size=8, compute_dtype="bfloat16"),
 }
 SERVE_PROMPTS = dict(num=6, min_len=3, max_len=20, vocab=16, seed=0)
 SERVE_NEW = 8
@@ -256,10 +289,38 @@ def kv_calls():
                 paged=paged)
 
 
+def record_margins(engine) -> dict:
+    """Wrap an engine's (JAX's or the port's) prefill and decode to keep,
+    per request, the top-2 logit margin of each kept sample: the last
+    prefill block's, then each decode step's."""
+    margins = {}
+    prefill, decode = engine.prefill, engine.decode
+
+    def top2(row):
+        s = np.sort(np.asarray(row), axis=-1)
+        return float(s[..., -1] - s[..., -2])
+
+    def rec_prefill(prompt, *, slot, request_id, base=0, _bucket=None):
+        tok, logits = prefill(prompt, slot=slot, request_id=request_id, base=base,
+                              _bucket=_bucket)
+        margins[request_id] = [top2(np.asarray(logits)[-1])]
+        return tok, logits
+
+    def rec_decode(last, lengths, rids, active, **k):
+        nxt, logits = decode(last, lengths, rids, active, **k)
+        for i in np.nonzero(np.asarray(active, bool))[0]:
+            margins[int(rids[i])].append(top2(np.asarray(logits)[i]))
+        return nxt, logits
+
+    engine.prefill, engine.decode = rec_prefill, rec_decode
+    return margins
+
+
 def _serve_cases(world, init, results):
     """Every serve case on each tp-2 group of the world, then the cached
-    and paged forwards call by call: completions, counters and the greedy
-    steps' top-2 logit margins; logits and this rank's local-head k/v."""
+    and paged forwards call by call: completions, counters and each
+    request's top-2 logit margins (prefill, then decode steps); logits and
+    this rank's local-head k/v."""
     from ddl_tpu_torch.ops import kv_cache
 
     grid = make_grid(world, world.size // SERVE_TP, 1, SERVE_TP)
@@ -267,16 +328,7 @@ def _serve_cases(world, init, results):
     for name, kw in SERVE_CASES.items():
         eng = InferenceEngine(ServeConfig(spec=LM_SPEC, tensor_parallel=SERVE_TP, **kw),
                               params=init, grid=grid)
-        margins = []
-        decode = eng.decode
-
-        def recording(last, lengths, rids, active, **k):
-            nxt, logits = decode(last, lengths, rids, active, **k)
-            s = np.sort(logits[np.asarray(active, bool)], axis=-1)
-            margins.extend((s[:, -1] - s[:, -2]).tolist())
-            return nxt, logits
-
-        eng.decode = recording
+        margins = record_margins(eng)
         done, stats = Scheduler(eng).run(
             [Request(id=i, prompt=p, max_new_tokens=SERVE_NEW) for i, p in enumerate(prompts)])
         key = f"serve/{name}"
@@ -284,8 +336,9 @@ def _serve_cases(world, init, results):
             results[f"{key}/{i}/tokens"] = np.asarray(c.tokens, np.int64)
             results[f"{key}/{i}/steps"] = np.asarray([c.admitted_step, c.finished_step])
             results[f"{key}/{i}/status"] = np.asarray(c.status)
+            results[f"{key}/{i}/margins"] = np.asarray(margins[i])
         results[f"{key}/stats"] = np.asarray([getattr(stats, f) for f in SERVE_STATS])
-        results[f"{key}/margins"] = np.asarray(margins)
+        results[f"{key}/pool_dtype"] = np.asarray(str(eng.cache.k.dtype))
         results[f"{key}/local_heads"] = np.asarray(eng.cache.k.shape[3])
     # The cached forwards on this rank's shard and head subset.
     calls = kv_calls()
@@ -316,6 +369,39 @@ def _serve_cases(world, init, results):
     results["tp_index"] = np.asarray(grid.tp_index)
 
 
+@contextlib.contextmanager
+def record_wire(log: list):
+    """Append ``"fn:dtype:numel"`` to ``log`` for each gradient sum made
+    through :data:`WIRE_FNS` while the block runs (the step bodies call
+    them through the collectives module, where they are wrapped)."""
+    saved = {n: getattr(coll, n) for n in WIRE_FNS}
+
+    def wrap(name, fn):
+        def call(t, *args, **kw):
+            if t.numel() > 2:
+                log.append(f"{name}:{str(t.dtype).removeprefix('torch.')}:{t.numel()}")
+            return fn(t, *args, **kw)
+        return call
+
+    for n, fn in saved.items():
+        setattr(coll, n, wrap(n, fn))
+    try:
+        yield log
+    finally:
+        for n, fn in saved.items():
+            setattr(coll, n, fn)
+
+
+def update_rel_diff(got, want, init) -> float:
+    """``||got - want|| / ||want - init||`` over all leaves: how far two
+    runs' parameter updates from one init part, relative to the update."""
+    num = sum(float(np.sum((np.asarray(a, np.float64) - np.asarray(b)) ** 2))
+              for a, b in zip(got, want, strict=True))
+    den = sum(float(np.sum((np.asarray(b, np.float64) - np.asarray(c)) ** 2))
+              for b, c in zip(want, init, strict=True))
+    return math.sqrt(num / den)
+
+
 def lm_case_config(kw: dict) -> dict:
     """A case's ``SeqConfig`` fields: LM_BASE with the case's, its ``spec``
     named by this module's attribute."""
@@ -337,7 +423,9 @@ def lm_world_cases(rank: int, world_size: int, store: str, inputs: str, out: str
     state (each field's leaves: moments by leaf, its ZeRO-1 chunk, or the
     hybrid's chunk and tp shards; a pipeline stage's moments), a pipeline
     rank's own shared leaves and saved-input peak, and the rank's wall time
-    in seconds; then the serve cases (:func:`_serve_cases`)."""
+    in seconds, and its gradient sums' inputs (:func:`record_wire`); then
+    ``out + ".lm_done"`` marks the timed LM cases done, and the serve cases
+    run (:func:`_serve_cases`)."""
     start = time.perf_counter()
     torch.set_num_threads(1)
     data = np.load(inputs)
@@ -349,8 +437,10 @@ def lm_world_cases(rank: int, world_size: int, store: str, inputs: str, out: str
     try:
         for name, kw in LM_CASES.items():
             cfg = SeqConfig(**lm_case_config(kw))
-            trainer = SeqTrainer(cfg, ds, init=inits[cfg.spec.num_layers], world=world)
-            res = trainer.train(log=lambda s: None)
+            with record_wire([]) as wire:
+                trainer = SeqTrainer(cfg, ds, init=inits[cfg.spec.num_layers], world=world)
+                res = trainer.train(log=lambda s: None)
+            results[f"{name}/wire"] = np.asarray(wire, dtype=str)
             if trainer.pipeline_record is not None:
                 for k in ("embed", "head", "lnf_g", "lnf_b"):
                     results[f"{name}/shared/{k}"] = trainer.params[k].numpy()
@@ -366,6 +456,7 @@ def lm_world_cases(rank: int, world_size: int, store: str, inputs: str, out: str
                     for i, leaf in enumerate(tree.leaves(getattr(opt, f.name))):
                         results[f"{name}/{f.name}/{i}"] = leaf.numpy()
         results["lm_seconds"] = np.asarray(time.perf_counter() - start)
+        open(out + ".lm_done", "w").close()  # the parent's JAX side may start
         _serve_cases(world, init, results)
     finally:
         destroy_world()

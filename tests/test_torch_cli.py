@@ -1,8 +1,12 @@
 """The port's CLI subset (ddl_tpu_torch/cli.py): the flag-to-config mapping
-of the JAX CLI, its --fused-adam validation, loud refusal of what is not
-ported, and tiny end-to-end runs on the CPU (sync_sharding, the three async
-variants and lm: full, the default ring, and Ulysses with ZeRO-1). A
-multi-rank grid (sequence, data or tensor parallel) needs torchrun."""
+of the JAX CLI (the precision flags --precision, --bf16 and --fp32, the
+CNN's --conv-matmul, --conv1-matmul, --conv-channels and --fc-sizes
+included, with JAX's exits for their conflicts and bad widths), its
+--fused-adam validation, loud refusal of what is not ported, and tiny
+end-to-end runs on the CPU (sync_sharding, the three async variants, lm:
+full, the default ring, and Ulysses with ZeRO-1, and the bf16 policy on
+the CNN and the LM). A multi-rank grid (sequence, data or tensor parallel)
+needs torchrun."""
 
 import dataclasses
 import json
@@ -13,10 +17,16 @@ import pytest
 from ddl_tpu.cli import build_parser as j_parser, config_from_args as j_config
 from ddl_tpu_torch import cli
 
+PRECISION_FLAGS = ("--precision", "--bf16", "--fp32")
+
 
 def _configs(argv, num_workers):
+    """The port's and JAX's config for ``argv``; JAX's CLI defaults to bf16
+    on a TPU only, so it is pinned to fp32 where ``argv`` names no
+    precision."""
     t_args = cli.build_parser().parse_args(argv)
-    j_args = j_parser().parse_args(argv + ["--num-workers", str(num_workers), "--fp32"])
+    pin = [] if any(f in argv for f in PRECISION_FLAGS) else ["--fp32"]
+    j_args = j_parser().parse_args(argv + ["--num-workers", str(num_workers)] + pin)
     return cli.config_from_args(t_args, num_workers), j_config(j_args)
 
 
@@ -30,10 +40,86 @@ def _configs(argv, num_workers):
     (["async_sharding", "--num-ps", "3", "--staleness-seed", "5"], 3),
     (["async_sharding_greedy", "--tiny", "--batch-size", "50"], 4),
     (["async", "--reference-compat", "--epochs", "2"], 2),
+    (["single", "--precision", "bf16", "--conv-matmul", "tail"], 1),
+    (["sync_sharding", "--bf16", "--conv1-matmul", "--fused-adam"], 1),
+    (["async", "--precision", "fp32", "--conv-matmul", "all"], 2),
+    (["single", "--fp32", "--conv1-matmul", "--conv-matmul", "tail"], 1),
+    (["sync", "--conv-channels", "8,8,16,16", "--fc-sizes", "64,32"], 2),
+    (["single", "--tiny", "--fc-sizes", "20,10"], 1),
 ])
 def test_flags_map_to_the_same_config(argv, workers):
     got, want = _configs(argv, workers)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.policy().name == want.policy().name
+    assert got.conv_matmul_mode() == want.conv_matmul_mode()
+
+
+@pytest.mark.parametrize("argv", [
+    ["single", "--precision", "bf16", "--bf16"],
+    ["sync", "--precision", "fp32", "--fp32"],
+    ["single", "--bf16", "--fp32"],
+    ["single", "--conv-channels", "4,8,8"],
+    ["single", "--conv-channels", "4,8,8,0"],
+    ["async", "--fc-sizes", "32"],
+    ["single", "--tiny", "--fc-sizes", "16,-1"],
+])
+def test_precision_and_width_flags_exit_as_jax(argv):
+    """A precision flag beside another, or a bad width, exits with JAX's
+    message."""
+    with pytest.raises(SystemExit) as ours:
+        cli.config_from_args(cli.build_parser().parse_args(argv), 1)
+    with pytest.raises(SystemExit) as theirs:
+        j_config(j_parser().parse_args(argv))
+    assert str(ours.value) == str(theirs.value)
+
+
+@pytest.mark.parametrize("argv", [
+    ["lm", "--precision", "bf16", "--bf16"],
+    ["lm", "--bf16", "--fp32"],
+])
+def test_lm_precision_flag_conflicts_exit_as_jax(argv):
+    from ddl_tpu.cli import _resolve_dtype as j_resolve_dtype
+
+    with pytest.raises(SystemExit) as ours:
+        cli.lm_config_from_args(cli.build_parser().parse_args(argv))
+    with pytest.raises(SystemExit) as theirs:
+        j_resolve_dtype(j_parser().parse_args(argv))
+    assert str(ours.value) == str(theirs.value)
+
+
+def test_precision_flags_keep_the_jax_spellings():
+    ours, theirs = cli.build_parser(), j_parser()
+    for flag in ("--precision", "--conv-matmul"):
+        assert (ours._option_string_actions[flag].choices
+                == theirs._option_string_actions[flag].choices), flag
+    for dest in ("precision", "fp32", "bf16", "conv1_matmul", "conv_matmul", "conv_channels",
+                 "fc_sizes"):
+        assert ours.get_default(dest) == theirs.get_default(dest), dest
+    lm = cli.lm_config_from_args(ours.parse_args(["lm", "--precision", "bf16"]))
+    assert (lm.precision, lm.compute_dtype, lm.policy().reduces_in_bf16) == ("bf16", None, True)
+
+
+@pytest.mark.parametrize("variant,extra", [
+    ("sync_sharding", ["--num-ps", "2", "--layout", "flat", "--fused-adam",
+                       "--conv-matmul", "first+tail"]),
+    ("async_sharding", ["--conv1-matmul"]),
+])
+def test_cnn_bf16_end_to_end_on_cpu(variant, extra, capsys, monkeypatch, tmp_path):
+    """The bf16 policy and the patches-matmul stages train the CNN from the
+    CLI at one worker."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    rc = cli.main([
+        variant, "--device", "cpu", "--tiny", "--precision", "bf16", "--synthetic-train", "256",
+        "--synthetic-test", "64", "--batch-size", "32", "--eval-every", "4",
+        "--data", str(tmp_path / "absent.pkl"), "--json", *extra,
+    ])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cfg = out["config"]
+    assert cfg["precision"] == "bf16" and cfg["compute_dtype"] is None
+    assert (cfg["conv_matmul"], cfg["conv1_matmul"]) == (
+        ("first+tail", False) if variant == "sync_sharding" else ("none", True))
+    assert 0.0 <= out["final_accuracy"] <= 1.0 and out["images_per_sec"] > 0
 
 
 @pytest.mark.parametrize("argv", [
@@ -137,7 +223,9 @@ def test_lm_flags_keep_the_jax_spellings_and_defaults():
     (["sync", "--zero1"], "--zero1 does not apply"),
     (["lm", "--seq-scheme", "full", "--keep-prob", "0.7"], "--keep-prob does not apply"),
     (["sync", "--attn-impl", "flash"], "--attn-impl does not apply"),
-    (["single", "--bf16"], "ROADMAP"),
+    # The CNN's bf16 compute is ported (the id is the case's name from when
+    # it still raised); --bf16 beside --fp32 is JAX's refusal.
+    pytest.param(["single", "--bf16", "--fp32"], "mutually exclusive", id="argv4-ROADMAP"),
     (["lm", "--tensor-parallel", "0"], "--tensor-parallel must be >= 1"),
     (["sync", "--tensor-parallel", "2"], "--tensor-parallel does not apply"),
     (["lm", "--pipeline-parallel", "0"], "--pipeline-parallel must be >= 1"),
@@ -159,6 +247,15 @@ def test_lm_end_to_end_on_cpu(capsys):
     assert np.isfinite(out["final_loss"]) and 0.0 <= out["final_accuracy"] <= 1.0
     assert [b for _, b, _ in out["history"]] == [0, 2, 3]
     assert out["step_stats"]["steps"] == 3 and out["tokens_per_sec"] > 0
+
+
+@pytest.mark.parametrize("extra", [["--precision", "bf16"], ["--bf16", "--remat"]])
+def test_lm_bf16_end_to_end_on_cpu(extra, capsys):
+    assert cli.main(LM_SMOKE + ["--json", "--eval-every", "2"] + extra) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    policy = (out["config"]["precision"], out["config"]["compute_dtype"])
+    assert policy == (("bf16", None) if "--precision" in extra else (None, "bfloat16"))
+    assert np.isfinite(out["final_loss"]) and [b for _, b, _ in out["history"]] == [0, 2, 3]
 
 
 @pytest.mark.parametrize("extra,match", [

@@ -113,16 +113,23 @@ def test_cpu_fused_adam_never_builds_the_kernel(monkeypatch):
 
 
 def test_unsupported_options_raise():
+    """The bf16 policy and the conv_matmul modes are ported (each held to
+    JAX in tests/test_torch_precision.py and tests/test_torch_model.py);
+    what neither package supports still raises, before any step runs."""
     from ddl_tpu_torch.train import TrainConfig
+    from ddl_tpu_torch.train.trainer import model_kwargs
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig(precision="bf16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig(compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig(conv_matmul="tail")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig(conv1_matmul=True)
+    assert model_kwargs(TrainConfig(precision="bf16"))["compute_dtype"] == torch.bfloat16
+    assert model_kwargs(TrainConfig(conv1_matmul=True, conv_matmul="tail"))["conv_matmul"] == (
+        "first+tail")
+    with pytest.raises(ValueError, match="unknown precision policy"):
+        model_kwargs(TrainConfig(precision="fp16"))
+    with pytest.raises(ValueError, match="unsupported compute_dtype"):
+        model_kwargs(TrainConfig(compute_dtype="float16"))
+    with pytest.raises(ValueError, match="unknown conv_matmul mode"):
+        model_kwargs(TrainConfig(conv_matmul="half"))
+    with pytest.raises(ValueError, match="no conv1_matmul composition rule"):
+        model_kwargs(TrainConfig(conv1_matmul=True, conv_matmul="half"))
 
 
 def test_kernel_library_named_by_source_hash():

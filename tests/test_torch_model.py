@@ -116,3 +116,77 @@ def test_glorot_init_stats_and_shapes():
     assert w.std() == pytest.approx(limit / np.sqrt(3), rel=0.05)
     q = tcnn.init_params(torch.Generator().manual_seed(3), "cpu")
     assert all(torch.equal(p[k], q[k]) for k in p)
+
+
+# Patches-matmul lowering: JAX's tests/test_model.py tolerances for the
+# conv_matmul modes (logits atol 1e-5, gradients atol 2e-5 / rtol 1e-4).
+CM_LOGITS_ATOL = 1e-5
+CM_GRAD_ATOL, CM_GRAD_RTOL = 2e-5, 1e-4
+
+
+@pytest.mark.parametrize("mode", list(tcnn.CONV_MATMUL_MODES))
+def test_conv_matmul_modes_match_jax(mode):
+    """Each mode's logits and 14 gradients against JAX's ``apply_fn`` and
+    ``grad(loss_fn)`` with the same mode (JAX at Precision.HIGHEST), and
+    against the port's conv lowering."""
+    assert tcnn.CONV_MATMUL_MODES == jcnn.CONV_MATMUL_MODES
+    specs = SPECS["small"]
+    params, x, y = _inputs(specs, seed=4)
+    hi = jax.lax.Precision.HIGHEST
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    logits_j = np.asarray(jcnn.apply_fn(jp, jnp.asarray(x), precision=hi, conv_matmul=mode))
+    grads_j = jax.grad(jcnn.loss_fn)(jp, jnp.asarray(x), jnp.asarray(y), precision=hi,
+                                     conv_matmul=mode)
+    tp = params_from_numpy(params, "cpu", specs)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    logits_t = tcnn.apply_fn(tp, xt, conv_matmul=mode).numpy()
+    _, grads_t = value_and_grad(tp, xt, yt, None, 1.0, conv_matmul=mode)
+    _, grads_conv = value_and_grad(tp, xt, yt, None, 1.0)
+    np.testing.assert_allclose(logits_t, logits_j, atol=CM_LOGITS_ATOL, rtol=0)
+    np.testing.assert_allclose(logits_t, tcnn.apply_fn(tp, xt).numpy(), atol=CM_LOGITS_ATOL,
+                               rtol=0)
+    for name in grads_t:
+        for want in (np.asarray(grads_j[name]), grads_conv[name].numpy()):
+            np.testing.assert_allclose(grads_t[name].numpy(), want, atol=CM_GRAD_ATOL,
+                                       rtol=CM_GRAD_RTOL, err_msg=f"{mode} grad {name}")
+    first = tcnn.apply_fn(tp, xt, first_conv_matmul=True).numpy()
+    np.testing.assert_array_equal(first, tcnn.apply_fn(tp, xt, conv_matmul="first").numpy())
+
+
+@pytest.mark.parametrize("conv1", [False, True])
+@pytest.mark.parametrize("mode", list(tcnn.CONV_MATMUL_MODES) + ["half"])
+def test_conv_matmul_mode_composes_as_jax(conv1, mode):
+    """``conv1_matmul`` composes with the mode as JAX's
+    ``TrainConfig.conv_matmul_mode`` (none -> first, tail -> first+tail),
+    and a mode with no rule raises the same ``ValueError``."""
+    from ddl_tpu.train.config import TrainConfig as JConfig
+    from ddl_tpu_torch.train.config import TrainConfig
+
+    def run(cls):
+        try:  # the port's config raises at construction, JAX's at the call
+            return cls(conv1_matmul=conv1, conv_matmul=mode).conv_matmul_mode()
+        except ValueError as e:
+            return f"ValueError: {e}"
+
+    assert run(TrainConfig) == run(JConfig)
+
+
+@pytest.mark.parametrize("mode", ["none", "first+tail"])
+def test_bf16_compute_logits_match_jax(mode):
+    """``compute_dtype=bfloat16``: fp32 logits from bf16 convs and matmuls
+    within 2 bf16 ulps of the largest logit of JAX's (both round every op
+    to bf16, in another order), and fp32 gradients of the fp32 leaves."""
+    specs = SPECS["small"]
+    params, x, y = _inputs(specs, seed=5)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    logits_j = np.asarray(jcnn.apply_fn(jp, jnp.asarray(x), compute_dtype=jnp.bfloat16,
+                                        conv_matmul=mode))
+    tp = params_from_numpy(params, "cpu", specs)
+    logits_t = tcnn.apply_fn(tp, torch.from_numpy(x), compute_dtype=torch.bfloat16,
+                             conv_matmul=mode)
+    assert logits_t.dtype == torch.float32
+    scale = float(np.abs(logits_j).max())
+    np.testing.assert_allclose(logits_t.numpy(), logits_j, atol=2 * 2.0**-8 * scale, rtol=0)
+    _, grads = value_and_grad(tp, torch.from_numpy(x), torch.from_numpy(y), None, 1.0,
+                              compute_dtype=torch.bfloat16, conv_matmul=mode)
+    assert all(g.dtype == torch.float32 and torch.isfinite(g).all() for g in grads.values())

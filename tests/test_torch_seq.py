@@ -10,11 +10,10 @@ data against the JAX package.
   same fp32 math in another order, and Adam moves each parameter by about
   lr whatever the gradient's size), and the same accuracy history.
 - The options the sequence-parallel slice ported (ring, Ulysses, zigzag,
-  ZeRO-1) train on one device without a world; W, dp, tp or pp above 1
-  without a world raises; what is not ported (the bf16 policy, and the
-  legacy bf16 compute under a pipeline) raises ``NotImplementedError``
-  naming ROADMAP; the JAX trainer's own checks raise the same
-  ``ValueError``s.
+  ZeRO-1) and the bf16 policy train on one device without a world; W, dp,
+  tp or pp above 1 without a world raises; the JAX trainer's own checks
+  raise the same ``ValueError``s. (The bf16 policy's parity with JAX is
+  tests/test_torch_precision.py's.)
 """
 
 import dataclasses
@@ -105,29 +104,30 @@ def test_seq_trainer_bf16_compute_keeps_fp32_masters():
                  id="change5-ROADMAP queue 1, item 3: the pipeline"),
     (dict(zero1=True), "trains"),
     (dict(scheme="ring", seq_layout="zigzag"), "trains"),
-    (dict(precision="bf16"), "ROADMAP queue 1, item 4"),
-    (dict(pipeline_parallel=2, microbatches=2, compute_dtype="bfloat16"),
-     "ROADMAP queue 1, item 4"),
+    # The bf16 policy is ported: it trains on one device, and bf16 under a
+    # pipeline needs a world of 2 ranks (the ids are the cases' names from
+    # when they still raised).
+    pytest.param(dict(precision="bf16"), "trains", id="change8-ROADMAP queue 1, item 4"),
+    pytest.param(dict(pipeline_parallel=2, microbatches=2, compute_dtype="bfloat16"),
+                 "needs a world", id="change9-ROADMAP queue 1, item 4"),
 ])
 def test_out_of_slice_options_raise(change, outcome):
     """Before the sequence-parallel slice every one of these raised. Now the
     ported ones train on one device (ZeRO-1 keeps one flat chunk of the
-    whole vector), a grid of more than one rank (sequence, data, tensor or
-    pipeline parallel) needs a world, and the rest (the bf16 policy, and
-    the legacy bf16 compute under a pipeline) still name their ROADMAP
-    item."""
+    whole vector, the bf16 policy fp32 masters and moments), and a grid of
+    more than one rank (sequence, data, tensor or pipeline parallel) needs
+    a world."""
     ds, _ = _datasets()
     kw = {**BASE, "spec": tt.TINY_SPEC, **change}
     if outcome == "needs a world":
         with pytest.raises(ValueError, match="needs a world of 2 ranks"):
             SeqTrainer(SeqConfig(**kw), ds, device="cpu")
-    elif outcome.startswith("ROADMAP"):
-        with pytest.raises(NotImplementedError, match=outcome):
-            SeqTrainer(SeqConfig(**kw), ds, device="cpu")
     else:
         trainer = SeqTrainer(SeqConfig(**kw), ds, device="cpu")
         res = trainer.train(log=QUIET)
         assert np.isfinite(res.final_loss) and int(trainer.opt_state.step) == 4
+        assert all(t.dtype == torch.float32 for t in tree.leaves(
+            [trainer.params, trainer.opt_state.m, trainer.opt_state.v]))
         if change.get("zero1"):
             assert trainer.opt_state.m.shape == (tt.TINY_SPEC.num_params(),)
 
@@ -169,7 +169,10 @@ def test_precision_resolves_as_jax(prec, dtype):
 
 
 @pytest.mark.parametrize("prec,dtype,error", [
-    ("bf16", None, NotImplementedError), (None, "float16", ValueError),
+    # The bf16 policy is ported (the id is the case's name from when it
+    # still raised); its refusal is a conflicting compute dtype.
+    pytest.param("bf16", "float32", ValueError, id="bf16-None-NotImplementedError"),
+    (None, "float16", ValueError),
     ("fp16", None, ValueError), ("fp32", "bfloat16", ValueError), ("fp32", "float32", ValueError),
 ])
 def test_precision_refusals(prec, dtype, error):

@@ -13,15 +13,25 @@ flash 2x1x2, zigzag ring 2x1x2, full 1x2x2, and the hybrid ZeRO-1 x tp at
 full 1x2x2 and ring 2x1x2; pipeline parallel (dp x tp x pp, scheme full,
 JAX's ``make_mesh_4d``): GPipe 2x1x2 and 1F1B 2x1x2 at 2 microbatches,
 1F1B + flash 1x2x2 at 2, and 1F1B 1x1x4 at 4 microbatches on a 4-layer
-variant of the spec; at vocab 16, d_model 32, 4 heads, 2 layers, d_ff 64,
+variant of the spec; under ``precision="bf16"`` (bf16 gradient sums)
+Ulysses + flash 4x1x1 (the replicated body), ZeRO-1 Ulysses 2x2x1, the
+hybrid at full 1x2x2 and GPipe 2x1x2 (bf16 hops); and two cases under
+``precision="fp32"``, each bitwise its ``precision=None`` twin; at vocab 16, d_model 32, 4 heads, 2 layers, d_ff 64,
 T 32, batch 8, 2 steps from one numpy init (JAX's). The JAX side runs each
-config's span program (k = 1) twice while the children run.
+config's span program (k = 1) twice once the children's timed LM cases
+are done, while they serve.
 
 Tolerances: those ``tests/test_torch_seq.py`` holds the one-device LM to.
 Parameters and Adam moments within atol 2e-5 / rtol 1e-3 (the two sides
 run the same fp32 math in another order, and Adam moves each parameter by
 about lr whatever the gradient's size); span and final losses within rtol
-1e-4. ZeRO-1 moments go through ``convert.lm_sharded_adam_{to,from}_numpy``,
+1e-4. The bf16 cases are held to tests/test_torch_precision.py's bf16
+tolerances: the parameter updates from the init in norm,
+||Δa - Δb|| <= 0.2 ||Δb|| (measured 0.074 at most), losses within rtol
+1e-2, and the moments, which carry each side's bf16 rounding of the
+gradients, in norm: ||a - b|| <= 0.1 ||b||. Each bf16 case's gradient
+sums take bfloat16 inputs where its fp32 twin's take float32 ones
+(``_torch_world.BF16_TWINS``). ZeRO-1 moments go through ``convert.lm_sharded_adam_{to,from}_numpy``,
 the hybrid's through ``convert.lm_hybrid_adam_{to,from}_numpy`` (JAX's
 ``_opt_for_save`` form), the tp shards' through
 ``convert.lm_params_to_numpy``, a pipeline's stages' through
@@ -33,7 +43,10 @@ Serving: the same world as two tp-2 groups ({0, 1} and {2, 3}), each held
 to JAX's ``Scheduler.run`` at ``tensor_parallel=2`` (contiguous greedy,
 paged sampled: tokens, ``admitted_step``, ``finished_step``, ``status``
 and the ``ServeStats`` counters equal; greedy steps' top-2 margins above
-1e-5 so a near-tie fails loudly), and to JAX's ``apply_lm_cached`` and
+1e-5 so a near-tie fails loudly; in bf16, ``compute_dtype="bfloat16"``,
+tokens equal up to the first near-tie: a first difference only at a
+top-2 margin below 0.0625 on either side, as tests/test_torch_precision.py
+holds tp-1 bf16 serving), and to JAX's ``apply_lm_cached`` and
 ``apply_lm_paged`` under ``shard_map`` on a 2-device tp mesh, call by call:
 logits within atol 1e-5 (the cached logits' tolerance of
 tests/test_torch_kv_cache.py), each rank's local-head k/v within atol 1e-6
@@ -41,6 +54,7 @@ tests/test_torch_kv_cache.py), each rank's local-head k/v within atol 1e-6
 """
 
 import multiprocessing
+import time
 
 import jax
 import jax.numpy as jnp
@@ -83,6 +97,10 @@ ATOL, RTOL = 2e-5, 1e-3
 LOSS_RTOL = 1e-4
 STEPS = 2
 MARGIN = 1e-5
+# bf16 cases (tests/test_torch_precision.py): loss rtol, moments' norm
+# tolerance, and the top-2 margin under which a token may flip.
+BF16_LOSS_RTOL, BF16_MOMENT_NORM_RTOL, BF16_NEAR_TIE = 1e-2, 0.1, 0.0625
+BF16_UPDATE_REL = 0.2  # ||Δa - Δb|| / ||Δb|| of the updates; measured 0.074 at most
 LOGITS_ATOL = 1e-5
 CACHE_ATOL, CACHE_RTOL = 1e-6, 1e-5
 
@@ -124,11 +142,22 @@ def lm_world(tmp_path_factory):
         for r in range(W)]
     for pr in procs:
         pr.start()
+    # The ranks' LM cases are timed (test_four_rank_lm_world_ranks_agree_and_
+    # finish_in_time): the JAX side waits for them, then runs beside the
+    # ranks' serve cases.
+    deadline = time.monotonic() + 240
+    while not all((tmp / f"rank{r}.npz.lm_done").exists() for r in range(W)):
+        assert all(pr.is_alive() or pr.exitcode == 0 for pr in procs), [
+            pr.exitcode for pr in procs]
+        assert time.monotonic() < deadline, "the ranks' LM cases did not finish"
+        time.sleep(0.05)
 
     jds = j_synthesize_copy(**_torch_world.LM_DATA)
     want = {name: _jax_case(kw, jds) for name, kw in _torch_world.LM_CASES.items()}
     want["serve"] = {name: _jax_serve(init, kw) for name, kw in _torch_world.SERVE_CASES.items()}
     want["kv"] = _jax_kv(init)
+    want["init"] = {spec.num_layers: jax.tree.leaves(init),
+                    _torch_world.LM_SPEC_4L.num_layers: jax.tree.leaves(init4)}
 
     for pr in procs:
         pr.join(timeout=240)
@@ -138,13 +167,17 @@ def lm_world(tmp_path_factory):
 
 
 def _jax_serve(init, kw):
-    """JAX's ``Scheduler.run`` at tp 2 on the LM's spec and init."""
+    """JAX's ``Scheduler.run`` at tp 2 on the LM's spec and init, and each
+    request's top-2 margins."""
     spec = jt.LMSpec(**vars(_torch_world.LM_SPEC))
     eng = JEngine(JServeConfig(spec=spec, tensor_parallel=_torch_world.SERVE_TP, **kw),
                   params=init)
+    margins = _torch_world.record_margins(eng)
     prompts = j_synthesize_prompts(**_torch_world.SERVE_PROMPTS)
-    return JScheduler(eng).run([JRequest(id=i, prompt=p, max_new_tokens=_torch_world.SERVE_NEW)
-                                for i, p in enumerate(prompts)])
+    done, stats = JScheduler(eng).run([JRequest(id=i, prompt=p,
+                                                max_new_tokens=_torch_world.SERVE_NEW)
+                                       for i, p in enumerate(prompts)])
+    return done, stats, margins
 
 
 def _jax_kv(init):
@@ -206,14 +239,30 @@ def test_four_rank_lm_world_matches_jax(name, lm_world):
     got, want = lm_world
     jparams, jopt, jlosses = want[name]
     kw = _torch_world.LM_CASES[name]
+    bf16 = kw.get("precision") == "bf16"
+    loss_rtol = BF16_LOSS_RTOL if bf16 else LOSS_RTOL
+
+    def close(a, b, what):
+        a, b = np.asarray(a), np.asarray(b)
+        if not bf16:
+            np.testing.assert_allclose(a, b, atol=ATOL, rtol=RTOL, err_msg=what)
+        else:
+            err = np.linalg.norm(a - b)
+            assert err <= BF16_MOMENT_NORM_RTOL * np.linalg.norm(b), (what, err)
+
     zero1, tp = kw.get("zero1", False), kw.get("tensor_parallel", 1)
     pp = kw.get("pipeline_parallel", 1)
     spec = _torch_world.lm_case_config(kw)["spec"]
     for r, rank in enumerate(got):
-        for a, b in zip(_leaves(rank, name, "p"), jax.tree.leaves(jparams), strict=True):
-            np.testing.assert_allclose(a, b, atol=ATOL, rtol=RTOL, err_msg=f"rank {r} {name}")
-        np.testing.assert_allclose(rank[f"{name}/span_losses"], jlosses, rtol=LOSS_RTOL)
-        np.testing.assert_allclose(rank[f"{name}/final"][0], jlosses[-1], rtol=LOSS_RTOL)
+        mine, theirs = _leaves(rank, name, "p"), jax.tree.leaves(jparams)
+        if bf16:
+            rel = _torch_world.update_rel_diff(mine, theirs, want["init"][spec.num_layers])
+            assert rel <= BF16_UPDATE_REL, (r, name, rel)
+        else:
+            for a, b in zip(mine, theirs, strict=True):
+                close(a, b, f"rank {r} {name}")
+        np.testing.assert_allclose(rank[f"{name}/span_losses"], jlosses, rtol=loss_rtol)
+        np.testing.assert_allclose(rank[f"{name}/final"][0], jlosses[-1], rtol=loss_rtol)
         assert int(rank[f"{name}/step"]) == STEPS
         if zero1 and tp > 1:
             mine = lm_hybrid_adam_from_numpy(jopt.step, jopt.m, jopt.v, spec, r,
@@ -221,18 +270,16 @@ def test_four_rank_lm_world_matches_jax(name, lm_world):
             for k in ("m_flat", "v_flat", "m_tp", "v_tp"):
                 for a, b in zip(_leaves(rank, name, k), tree.leaves(getattr(mine, k)),
                                 strict=True):
-                    np.testing.assert_allclose(a, b.numpy(), atol=ATOL, rtol=RTOL,
-                                               err_msg=f"rank {r} {name} {k}")
+                    close(a, b.numpy(), f"rank {r} {name} {k}")
         elif zero1:
             mine = lm_sharded_adam_from_numpy(jopt.step, jopt.m, jopt.v, spec, r, W, "cpu")
-            np.testing.assert_allclose(rank[f"{name}/m/0"], mine.m.numpy(), atol=ATOL, rtol=RTOL)
-            np.testing.assert_allclose(rank[f"{name}/v/0"], mine.v.numpy(), atol=ATOL, rtol=RTOL)
+            close(rank[f"{name}/m/0"], mine.m.numpy(), f"rank {r} {name} m")
+            close(rank[f"{name}/v/0"], mine.v.numpy(), f"rank {r} {name} v")
         elif tp == 1 and pp == 1:
             for k in ("m", "v"):
                 for a, b in zip(_leaves(rank, name, k), jax.tree.leaves(getattr(jopt, k)),
                                 strict=True):
-                    np.testing.assert_allclose(a, b, atol=ATOL, rtol=RTOL,
-                                               err_msg=f"rank {r} {name} {k}")
+                    close(a, b, f"rank {r} {name} {k}")
     if zero1 and tp > 1:
         states = [HybridAdam(step=torch.tensor(int(rank[f"{name}/step"])),
                              **{k: [torch.as_tensor(x) for x in _leaves(rank, name, k)]
@@ -250,7 +297,7 @@ def test_four_rank_lm_world_matches_jax(name, lm_world):
         for k in ("m", "v"):
             for a, b in zip(tree.leaves(logical[k]), jax.tree.leaves(getattr(jopt, k)),
                             strict=True):
-                np.testing.assert_allclose(a, b, atol=ATOL, rtol=RTOL, err_msg=f"{name} {k}")
+                close(a, b, f"{name} {k}")
     elif pp > 1:
         # Each (dp, sp) cell's ranks: rank t * pp + p of it holds tp shard
         # t of stage p.
@@ -270,8 +317,7 @@ def test_four_rank_lm_world_matches_jax(name, lm_world):
             for k in ("m", "v"):
                 for a, b in zip(tree.leaves(logical[k]), jax.tree.leaves(getattr(jopt, k)),
                                 strict=True):
-                    np.testing.assert_allclose(a, b, atol=ATOL, rtol=RTOL,
-                                               err_msg=f"{name} cell {cell} {k}")
+                    close(a, b, f"{name} cell {cell} {k}")
     elif tp > 1:
         # Each (dp, sp) cell's tp group: its ranks' shards put together.
         specs = partition.lm_param_specs(spec, tp)
@@ -285,8 +331,24 @@ def test_four_rank_lm_world_matches_jax(name, lm_world):
                                                      specs)
                 for a, b in zip(tree.leaves(logical), jax.tree.leaves(getattr(jopt, k)),
                                 strict=True):
-                    np.testing.assert_allclose(a, b, atol=ATOL, rtol=RTOL,
-                                               err_msg=f"{name} cell {cell} {k}")
+                    close(a, b, f"{name} cell {cell} {k}")
+
+
+@pytest.mark.parametrize("name", list(_torch_world.BF16_TWINS))
+def test_four_rank_bf16_gradient_sums_move_bf16(name, lm_world):
+    """Every gradient sum of a bf16 case takes a bfloat16 input at each of
+    its sites (``BF16_TWINS``), and its fp32 twin makes the same sums, of
+    the same sizes in the same order, in float32: the policy's casts
+    bracket each sum, and nothing upcasts on the wire."""
+    got, _ = lm_world
+    twin, fns = _torch_world.BF16_TWINS[name]
+    for r, rank in enumerate(got):
+        mine = [w.split(":") for w in rank[f"{name}/wire"].tolist()]
+        theirs = [w.split(":") for w in rank[f"{twin}/wire"].tolist()]
+        assert {f for f, _, _ in mine} == fns, (r, mine)
+        assert {d for _, d, _ in mine} == {"bfloat16"}, (r, mine)
+        assert {d for _, d, _ in theirs} == {"float32"}, (r, theirs)
+        assert [(f, n) for f, _, n in mine] == [(f, n) for f, _, n in theirs], r
 
 
 @pytest.mark.parametrize("name", list(_torch_world.SERVE_CASES))
@@ -295,18 +357,27 @@ def test_four_rank_world_serves_at_tp2_as_jax(name, lm_world):
     at tp 2 does: tokens, steps, statuses and counters; each rank holds half
     the heads."""
     got, want = lm_world
-    jdone, jstats = want["serve"][name]
+    jdone, jstats, jmargins = want["serve"][name]
     key = f"serve/{name}"
+    kw = _torch_world.SERVE_CASES[name]
+    bf16 = kw.get("compute_dtype") == "bfloat16"
     for r, rank in enumerate(got):
         assert int(rank[f"{key}/local_heads"]) == _torch_world.LM_SPEC.num_heads // 2
+        assert str(rank[f"{key}/pool_dtype"]) == ("torch.bfloat16" if bf16 else "torch.float32")
         for i, j in jdone.items():
-            assert rank[f"{key}/{i}/tokens"].tolist() == j.tokens, (r, i)
+            tokens = rank[f"{key}/{i}/tokens"].tolist()
+            if bf16 and tokens != j.tokens:
+                step = next(k for k, (x, y) in enumerate(zip(tokens, j.tokens)) if x != y)
+                near = min(rank[f"{key}/{i}/margins"][step], jmargins[i][step])
+                assert near < BF16_NEAR_TIE, (r, i, step, near)
+            else:
+                assert tokens == j.tokens, (r, i)
             assert rank[f"{key}/{i}/steps"].tolist() == [j.admitted_step, j.finished_step]
             assert str(rank[f"{key}/{i}/status"]) == j.status
         assert rank[f"{key}/stats"].tolist() == [getattr(jstats, f)
                                                  for f in _torch_world.SERVE_STATS]
-        if _torch_world.SERVE_CASES[name].get("temperature", 0.0) == 0.0:
-            margins = rank[f"{key}/margins"]
+        if kw.get("temperature", 0.0) == 0.0 and not bf16:
+            margins = np.concatenate([rank[f"{key}/{i}/margins"] for i in jdone])
             assert margins.size and margins.min() > MARGIN, margins.min()
 
 
@@ -343,6 +414,21 @@ def test_four_rank_lm_world_ranks_agree_and_finish_in_time(lm_world):
             np.testing.assert_array_equal(rank[f"{name}/final"], got[0][f"{name}/final"])
     seconds = max(float(rank["lm_seconds"]) for rank in got)
     assert seconds < 30, f"the 4-rank world took {seconds:.1f} s"
+
+
+@pytest.mark.parametrize("name", list(_torch_world.FP32_TWINS))
+def test_four_rank_fp32_policy_is_bitwise_the_default(name, lm_world):
+    """``precision="fp32"`` gives every rank the same bits as its
+    ``precision=None`` twin: params, losses and the optimizer state (the
+    policy's hooks are the identity off bf16)."""
+    got, _ = lm_world
+    twin = _torch_world.FP32_TWINS[name]
+    for rank in got:
+        ours = sorted(k for k in rank if k.startswith(f"{name}/"))
+        theirs = sorted(k for k in rank if k.startswith(f"{twin}/"))
+        assert [k[len(name):] for k in ours] == [k[len(twin):] for k in theirs]
+        for k in ours:
+            np.testing.assert_array_equal(rank[k], rank[twin + k[len(name):]], err_msg=k)
 
 
 @pytest.mark.parametrize("name", [n for n, kw in _torch_world.LM_CASES.items()

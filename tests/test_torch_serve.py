@@ -391,7 +391,10 @@ def test_an_aborted_run_returns_the_pool_whole():
     (dict(page_size=8, kv_dtype="int8"), "int8"),
     (dict(page_size=8, speculate_k=2, slots=2), "speculate"),
     (dict(speculate_method="prompt"), "speculate_method"),
-    (dict(compute_dtype="bfloat16"), "bfloat16"),
+    # bf16 serving is ported (tests/test_torch_precision.py; the id is the
+    # case's name from when it still raised): a dtype the engine does not
+    # serve in is a ValueError.
+    pytest.param(dict(compute_dtype="float16"), "unsupported compute_dtype", id="kw5-bfloat16"),
 ])
 def test_engine_refuses_what_is_not_ported(kw, what):
     if "tensor_parallel" in kw:
@@ -401,6 +404,10 @@ def test_engine_refuses_what_is_not_ported(kw, what):
             with pytest.raises(ValueError) as theirs:
                 JEngine(JConfig(spec=JSPEC, capacity=64, **kw))
             assert str(ours.value) == str(theirs.value)
+        return
+    if "compute_dtype" in kw:
+        with pytest.raises(ValueError, match=what):
+            InferenceEngine(ServeConfig(spec=TSPEC, capacity=64, **kw), device="cpu")
         return
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
         InferenceEngine(ServeConfig(spec=TSPEC, capacity=64, **kw), device="cpu")
@@ -462,8 +469,12 @@ def test_cli_serve_cpu_smoke_paged_and_contiguous():
 def test_cli_refuses_serve_flags_not_ported(flag, value, monkeypatch):
     """Each flag of a slice not ported names its ROADMAP item. Tensor
     parallelism is ported: tp 2 is a world of 2 ranks, which needs
-    torchrun."""
+    torchrun. bf16 serving is ported: --bf16 serves in bf16."""
     argv = SMOKE + [flag] + ([value] if value is not None else [])
+    if flag == "--bf16":
+        out = _cli_json(argv)
+        assert out["config"]["compute_dtype"] == "bfloat16" and len(out["completions"]) == 6
+        return
     if flag == "--tensor-parallel":
         monkeypatch.delenv("WORLD_SIZE", raising=False)
         with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
