@@ -214,6 +214,40 @@ g. precision_serve (after 11c) — serve_main's traffic with
    contiguous tokens up to the first near-tie (a first difference only at
    a top-2 margin below 0.0625), no kernel launched.
 
+Resilience phases (checkpoints, resume, preemption, the non-finite guard
+with rollback, serving from a checkpoint), each raising on failure:
+
+r1. resume_sync (after 5b) — phase 4's CNN at eval_every 1 (a span a step),
+   cuDNN deterministic: 20 steps, against a run that ``should_stop`` stops
+   after step 10 and ``resume="auto"`` continues to 20: params, moments and
+   the step bitwise equal, fused-Adam 10 + 10 launches, the step-10 save
+   verified, the restored chunk 16-byte aligned; one save and one load of
+   the state timed (ms, array and file bytes, the ``nvidia-smi`` line).
+r2. resume_async — 5a's ``async_sharding``, 20 rounds against 10 + 10: the
+   serve state bitwise equal, 20 launches over the pair, the save verified
+   and timed.
+r3. cli_preempt — two subprocesses of ``python -m ddl_tpu_torch
+   sync_sharding`` (through ``runpy``, cuDNN deterministic) at r1's
+   configuration: ``--checkpoint-dir D --checkpoint-every 10 --inject-fault
+   sigterm@10`` exits 0 preempted with saves at 10 and 11; then
+   ``--inject-fault truncate_ckpt --resume auto`` falls back to step 10 and
+   finishes; D's final checkpoint bitwise r1's uninterrupted state.
+r4. guard_zero1 (after 11s) — Ulysses + flash + ZeRO-1 in the NCCL world of
+   one: a step on a batch with one NaN loss weight leaves the params and
+   the flat chunk's moments and step bitwise unchanged (flag 1); a clean
+   step moves them (flag 0).
+r5. guard_lm (after 11p) — lm_main's LM, 5 steps, eval every step: the
+   clean run (saved); ``nan_grads@2`` with the guard skips step 2 (the
+   step-2 and step-3 saves bitwise equal) with the clean run's flash
+   launches; ``nan_grads@2x2``, ``max_bad_steps=2``, a save a step: one
+   rollback, two skips, final params bitwise the clean run's; guarded and
+   unguarded steady steps timed in turns; one save and load timed.
+r6. serve_checkpoint — serve_main's configuration and traffic from
+   ``InferenceEngine.from_checkpoint`` on r5's clean save: the tokens of an
+   engine built from that run's ``result.params``.
+r7. in 11p, GPipe's T = 512 run also saves (rank 0 writes); this process
+   loads it as a pp-1 trainer: the params bitwise the pp-2 run's.
+
 If the profiler records no device time for a kernel or a call, the phase
 fails; nothing falls back to CUDA events. Then one ``{"kernels": [...]}``
 line (each kernel's cold ``ms``, ``hot_ms``, ``call_ms`` and ``timer``; the
@@ -222,7 +256,9 @@ Adam row's ``launches`` from phase 4, ``async_launches`` from 5a and
 ``ulysses_launches`` from 11s, ``tp_launches`` (rank 0's, tp 2) from 11t
 and ``pp_launches`` (rank 0's, GPipe) from 11p, and under the policy
 ``bf16_launches`` (c), ``bf16_ulysses_zero1_launches`` (d),
-``bf16_tp_launches`` (e) and ``bf16_pp_launches`` (f)), the
+``bf16_tp_launches`` (e) and ``bf16_pp_launches`` (f); the Adam row's
+``resume_launches`` and ``resume_async_launches`` (r1, r2), each flash
+row's ``guard_launches`` and ``guard_rollback_launches`` (r5)), the
 ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no ``ok`` line. It needs no network and one card.
@@ -1584,7 +1620,10 @@ def lm_pp_rank(rank: int, store: str, inputs: str, out: str) -> None:
                 trainer = SeqTrainer(SeqConfig(batch_size=bs, learning_rate=1e-3, eval_every=0,
                                                seed=5, spec=spec, **kw), ds, init=init,
                                      world=world)
-                res = trainer.train(log=lambda s: None)
+                # GPipe's epoch-end save (rank 0 writes), which the parent
+                # loads as a pp-1 trainer: no extra step.
+                ckpt = os.path.join(os.path.dirname(out), "ck_gpipe") if name == "gpipe" else None
+                res = trainer.train(log=lambda s: None, checkpoint_dir=ckpt)
                 for i, leaf in enumerate(tree.leaves(res.params)):
                     arrays[f"{name}/{i}"] = leaf
                 for k in SHARED:
@@ -1639,6 +1678,16 @@ def lm_pp(torch, fa, world) -> dict:
         inputs = os.path.join(tmp, "inputs.npz")
         np.savez(inputs, **{f"init/{i}": a for i, a in enumerate(tree.leaves(init))})
         ranks, params = _spawn_ranks(lm_pp_rank, LM_PP, tmp, inputs, "lm_pp", LM_PP_TIMEOUT_S)
+        # The pp-2 GPipe run's checkpoint, loaded by a pp-1 trainer.
+        from ddl_tpu_torch.utils.checkpoint import load_checkpoint
+
+        pp1_trainer = SeqTrainer(SeqConfig(scheme="full", attn_impl="flash", batch_size=bs,
+                                           learning_rate=1e-3, eval_every=0, seed=5, spec=spec),
+                                 ds, init=init, world=world)
+        host, ckpt_step, _ = load_checkpoint(os.path.join(tmp, "ck_gpipe", "ckpt.npz"),
+                                             pp1_trainer.checkpoint_like())
+        loaded = pp1_trainer.full_params(pp1_trainer._place_params(host["params"]))
+        del pp1_trainer
 
     failures = []
     per_stage = spec.num_layers // LM_PP
@@ -1698,6 +1747,13 @@ def lm_pp(torch, fa, world) -> dict:
                                         **tol)
         if not row["ok"]:
             failures.append(f"{name}: {row}")
+    n_leaves = len(tree.leaves(loaded))
+    ckpt_bitwise = ckpt_step == 2 and all(
+        a.tobytes() == params[0][f"gpipe/{i}"].tobytes()
+        for i, a in enumerate(tree.leaves(loaded))) and n_leaves == n
+    if not ckpt_bitwise:
+        failures.append(f"the pp-2 GPipe checkpoint (step {ckpt_step}) loaded at pp 1 differs "
+                        "from the run's params")
     shared_bitwise = all(np.array_equal(params[0][f"{name}/shared/{k}"],
                                         params[1][f"{name}/shared/{k}"])
                          for name, _ in LM_PP_RUNS for k in SHARED)
@@ -1715,6 +1771,7 @@ def lm_pp(torch, fa, world) -> dict:
                launches={name: ranks[0][name]["launches"] for name, _ in LM_PP_RUNS},
                launch_shape=micro, peak_saved=peaks, ranks=rows, equivalence=pairs,
                shared_leaves_bitwise=shared_bitwise, ranks_params_bitwise=ranks_bitwise,
+               checkpoint_loaded_at_pp1_bitwise=ckpt_bitwise,
                label=LM_PP_LABEL, failures=failures, seconds=time.perf_counter() - start)
     emit("lm_pp", **out)
     if failures:
@@ -2133,6 +2190,395 @@ def flash_timing(torch, fa, devtime, flush, card: str) -> dict:
     return out
 
 
+# The resilience phases: checkpoints, resume, preemption, the non-finite
+# guard with rollback, and serving from a checkpoint, over the main paths'
+# kernels. Resume and rollback must be bitwise: the CNN's dropout stream is
+# a function of (seed, step, worker), the LM has no RNG, and cuDNN runs its
+# deterministic algorithms in the CNN phases (set here, not in the package).
+RESUME_STEPS = 20
+RESUME_STOP = 10
+GUARD_STEPS = 5
+GUARD_TURNS = 7  # the guard's cost: unguarded and guarded turns, alternating
+
+
+class StopAt:
+    """A ``should_stop`` that turns true at its ``n``-th poll (one poll a
+    span in a world of one)."""
+
+    def __init__(self, n: int):
+        self.n, self.polls = n, 0
+
+    def __call__(self) -> bool:
+        self.polls += 1
+        return self.polls >= self.n
+
+
+class Deterministic:
+    """cuDNN's deterministic algorithms for a phase, the previous setting
+    restored after."""
+
+    def __init__(self, torch):
+        self.cudnn = torch.backends.cudnn
+
+    def __enter__(self):
+        self.saved = (self.cudnn.deterministic, self.cudnn.benchmark)
+        self.cudnn.deterministic, self.cudnn.benchmark = True, False
+
+    def __exit__(self, *exc):
+        self.cudnn.deterministic, self.cudnn.benchmark = self.saved
+
+
+def _file_arrays(path) -> dict:
+    import numpy as np
+
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files if k != "__meta__"}
+
+
+def _same_arrays(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape and a[k].tobytes() == b[k].tobytes()
+        for k in a)
+
+
+def save_load_timing(torch, for_save, place, like, path, card: str) -> dict:
+    """One save of the live state (its checkpoint form gathered to the host,
+    the .npz and manifest written durably) and one load (read, verified
+    shapes and dtypes, placed back on the card), by the wall clock:
+    ms and bytes (the arrays' bytes, the npz members before zip overhead,
+    and the file's)."""
+    from ddl_tpu_torch.utils.checkpoint import host_arrays, load_checkpoint, save_checkpoint
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = for_save()
+    save_checkpoint(path, host, step=0)
+    t1 = time.perf_counter()
+    tree, _, _ = load_checkpoint(path, like)
+    placed = place(tree)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    arrays = host_arrays(host)
+    del placed
+    return dict(save_ms=(t1 - t0) * 1e3, load_ms=(t2 - t1) * 1e3,
+                array_bytes=sum(a.nbytes for a in arrays.values()),
+                file_bytes=os.path.getsize(path), arrays=len(arrays), nvidia_smi=card)
+
+
+def _resume_cnn_config(**kw):
+    from ddl_tpu_torch.train.config import TrainConfig
+
+    return TrainConfig(batch_size=100, num_workers=1, num_ps=2, layout="flat", fused_adam=True,
+                       keep_prob=0.5, eval_every=1, seed=0, **kw)
+
+
+def resume_sync(torch, world, fused_adam, card: str) -> dict:
+    """The main path's CNN, 20 steps, against the same run stopped by
+    ``should_stop`` after step 10 and resumed with ``resume="auto"``:
+    params, moments and the step bitwise equal, fused-Adam 10 + 10
+    launches, the step-10 save verified."""
+    from ddl_tpu_torch.data.mnist import load_mnist
+    from ddl_tpu_torch.strategies.sync import SyncTrainer
+    from ddl_tpu_torch.utils.checkpoint import host_arrays, verify_checkpoint
+
+    start = time.perf_counter()
+    quiet = lambda s: None  # noqa: E731
+    cfg = _resume_cnn_config()
+    ds = load_mnist(path=None, synthetic_train=RESUME_STEPS * 100, synthetic_test=100, seed=0)
+    with Deterministic(torch), tempfile.TemporaryDirectory() as tmp:
+        fused_adam.launches = 0
+        full = SyncTrainer(cfg, ds, world=world)
+        full.train(log=quiet)
+        launches = {"uninterrupted": fused_adam.launches}
+        d = os.path.join(tmp, "ck")
+        fused_adam.launches = 0
+        pre = SyncTrainer(cfg, ds, world=world).train(log=quiet, checkpoint_dir=d,
+                                                      should_stop=StopAt(RESUME_STOP))
+        launches["stopped"] = fused_adam.launches
+        fused_adam.launches = 0
+        resumed = SyncTrainer(cfg, ds, world=world)
+        res = resumed.train(log=quiet, checkpoint_dir=d, resume="auto")
+        launches["resumed"] = fused_adam.launches
+        saved_ok = verify_checkpoint(os.path.join(d, f"ckpt-{RESUME_STOP:08d}.npz"))
+        io = full.state_io()
+        golden = host_arrays(io.for_save(full.params, full.opt_state))
+        got = host_arrays(io.for_save(resumed.params, resumed.opt_state))
+        aligned = resumed.opt_state.m.data_ptr() % 16 == 0 and resumed.opt_state.v.is_contiguous()
+        timing = save_load_timing(torch, lambda: io.for_save(full.params, full.opt_state),
+                                  lambda t: io.place(t), io.like,
+                                  os.path.join(tmp, "timing.npz"), card)
+    bitwise = _same_arrays(golden, got)
+    out = dict(steps=RESUME_STEPS, stop=RESUME_STOP, preempted=pre.preempted,
+               resumed_from_step=res.resumed_from_step, launches=launches,
+               step_ckpt_verified=saved_ok, bitwise=bitwise, restored_chunk_aligned=aligned,
+               checkpoint=timing, seconds=time.perf_counter() - start)
+    emit("resume_sync", **out)
+    want = {"uninterrupted": RESUME_STEPS, "stopped": RESUME_STOP,
+            "resumed": RESUME_STEPS - RESUME_STOP}
+    if not (pre.preempted and res.resumed_from_step == RESUME_STOP and launches == want
+            and saved_ok and bitwise and aligned):
+        raise AssertionError(f"resume_sync: {out}")
+    out["golden"] = golden
+    return out
+
+
+def resume_async(torch, world, fused_adam, card: str) -> dict:
+    """async_main's ``async_sharding``, 20 rounds, against the same run
+    stopped after round 10 and resumed: the whole serve state bitwise
+    equal, 20 fused-Adam launches over the pair."""
+    from ddl_tpu_torch.data.mnist import load_mnist
+    from ddl_tpu_torch.strategies.async_ps import AsyncTrainer
+    from ddl_tpu_torch.train.config import TrainConfig
+    from ddl_tpu_torch.utils.checkpoint import host_arrays, verify_checkpoint
+
+    start = time.perf_counter()
+    quiet = lambda s: None  # noqa: E731
+    cfg = TrainConfig(batch_size=100, num_workers=1, num_ps=2, layout="block", keep_prob=0.5,
+                      eval_every=RESUME_STOP, seed=0)
+    ds = load_mnist(path=None, synthetic_train=ASYNC_ROUNDS * 100, synthetic_test=100, seed=0)
+    with Deterministic(torch), tempfile.TemporaryDirectory() as tmp:
+        full = AsyncTrainer(cfg, ds, world=world)
+        full.train(log=quiet)
+        d = os.path.join(tmp, "ck")
+        fused_adam.launches = 0
+        pre = AsyncTrainer(cfg, ds, world=world).train(log=quiet, checkpoint_dir=d,
+                                                       should_stop=StopAt(1))
+        stopped = fused_adam.launches
+        resumed = AsyncTrainer(cfg, ds, world=world)
+        res = resumed.train(log=quiet, checkpoint_dir=d, resume="auto")
+        launches = fused_adam.launches
+        saved_ok = verify_checkpoint(os.path.join(d, f"ckpt-{RESUME_STOP:08d}.npz"))
+        golden = host_arrays({"state": full._state_for_save(full.state)})
+        got = host_arrays({"state": resumed._state_for_save(resumed.state)})
+        timing = save_load_timing(torch, lambda: {"state": full._state_for_save(full.state)},
+                                  lambda t: full._place_state(t["state"]),
+                                  {"state": full._state_like()},
+                                  os.path.join(tmp, "timing.npz"), card)
+    bitwise = _same_arrays(golden, got)
+    out = dict(rounds=ASYNC_ROUNDS, stop=RESUME_STOP, preempted=pre.preempted,
+               resumed_from_step=res.resumed_from_step, launches_stopped=stopped,
+               launches=launches, t=int(resumed.state.t), step_ckpt_verified=saved_ok,
+               bitwise=bitwise, checkpoint=timing, seconds=time.perf_counter() - start)
+    emit("resume_async", **out)
+    if not (pre.preempted and res.resumed_from_step == RESUME_STOP and stopped == RESUME_STOP
+            and launches == ASYNC_ROUNDS and out["t"] == ASYNC_ROUNDS and saved_ok
+            and bitwise):
+        raise AssertionError(f"resume_async: {out}")
+    return out
+
+
+def cli_preempt(torch, golden: dict) -> dict:
+    """The CLI's preemption path in two subprocesses (no signal reaches this
+    process), at resume_sync's configuration: ``--inject-fault sigterm@10``
+    stops after step 11 with saves at 10 and 11; ``truncate_ckpt`` damages
+    the newest and ``--resume auto`` falls back to step 10 and finishes.
+    The final checkpoint must be resume_sync's uninterrupted state, bitwise.
+    Each child is ``python -m ddl_tpu_torch`` run through ``runpy`` with
+    cuDNN deterministic, as resume_sync's runs."""
+    start = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = ["sync_sharding", "--num-ps", "2", "--layout", "flat", "--fused-adam",
+            "--synthetic-train", str(RESUME_STEPS * 100), "--synthetic-test", "100",
+            "--eval-every", "1", "--seed", "0", "--json"]
+    boot = ("import runpy, sys, torch; torch.backends.cudnn.deterministic = True; "
+            "torch.backends.cudnn.benchmark = False; sys.argv = ['ddl_tpu_torch'] + "
+            "sys.argv[1:]; runpy.run_module('ddl_tpu_torch', run_name='__main__', "
+            "alter_sys=True)")
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "ck")
+        for extra in (["--checkpoint-every", "10", "--inject-fault", f"sigterm@{RESUME_STOP}"],
+                      ["--inject-fault", "truncate_ckpt", "--resume", "auto"]):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", boot] + base + ["--checkpoint-dir", d]
+                                  + extra, cwd=root, capture_output=True, text=True,
+                                  timeout=600)
+            files = sorted(f for f in os.listdir(d) if f.endswith(".npz")) \
+                if os.path.isdir(d) else []
+            lines = proc.stdout.strip().splitlines()
+            summary = json.loads(lines[-1]) if proc.returncode == 0 and lines else {}
+            runs.append(dict(rc=proc.returncode, seconds=time.perf_counter() - t0,
+                             preempted=summary.get("preempted"),
+                             resumed_from_step=summary.get("resumed_from_step"), files=files,
+                             chaos=[s for s in lines if "chaos" in s or "skipping" in s]))
+            if proc.returncode != 0:
+                print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr, flush=True)
+        final = _file_arrays(os.path.join(d, "ckpt.npz"))
+    bitwise = _same_arrays(final, golden)
+    out = dict(runs=runs, final_bitwise_uninterrupted=bitwise,
+               seconds=time.perf_counter() - start)
+    emit("cli_preempt", **out)
+    first, second = runs
+    if not (first["rc"] == 0 and first["preempted"] is True
+            and first["files"] == [f"ckpt-{RESUME_STOP:08d}.npz",
+                                   f"ckpt-{RESUME_STOP + 1:08d}.npz", "ckpt.npz"]
+            and second["rc"] == 0 and second["resumed_from_step"] == RESUME_STOP
+            and second["preempted"] is False and bitwise):
+        raise AssertionError(f"cli_preempt: {out}")
+    return out
+
+
+def _lm_guard_setup(steps: int):
+    from ddl_tpu_torch.data.lm import synthesize_copy
+    from ddl_tpu_torch.strategies.seq import SeqConfig
+
+    spec, bs = lm_spec(), 4
+    cfg = SeqConfig(scheme="full", attn_impl="flash", batch_size=bs, learning_rate=1e-3,
+                    eval_every=1, seed=0, spec=spec)
+    ds = synthesize_copy(num_train=steps * bs, num_test=bs, seq_len=2048, vocab=spec.vocab,
+                         seed=6)
+    return cfg, ds
+
+
+def guard_lm(torch, fa, card: str, tmp: str) -> dict:
+    """lm_main's LM, 5 steps, T 2048, full + flash: (a) ``nan_grads@2`` with
+    the guard skips step 2 (the step-2 and step-3 saves bitwise equal,
+    params, moments and the step counter) with the clean run's flash
+    launches; (b) ``nan_grads@2x2``, ``max_bad_steps=2``, a save a step:
+    one rollback, two skips, final params bitwise the clean run's; (c) the
+    guard's cost: guarded and unguarded steady steps in turns. The clean
+    run's save (``tmp``/clean) is what serve_checkpoint serves."""
+    from ddl_tpu_torch.resilience import FaultInjector, FaultSpec
+    from ddl_tpu_torch.strategies.seq import SeqTrainer
+    from ddl_tpu_torch.utils import tree
+
+    start = time.perf_counter()
+    quiet = lambda s: None  # noqa: E731
+    cfg, ds = _lm_guard_setup(GUARD_STEPS)
+    zero_flash = lambda: fa.launches.update(dict.fromkeys(fa.launches, 0))  # noqa: E731
+    zero_flash()
+    clean_dir = os.path.join(tmp, "clean")
+    clean = SeqTrainer(cfg, ds).train(log=quiet, checkpoint_dir=clean_dir)
+    clean_launches = dict(fa.launches)
+    # (a) one skipped step.
+    zero_flash()
+    d = os.path.join(tmp, "skip")
+    skip = SeqTrainer(cfg, ds).train(log=quiet, checkpoint_dir=d, checkpoint_every=1,
+                                     checkpoint_keep=GUARD_STEPS, guard=True,
+                                     fault_injector=FaultInjector(FaultSpec(kind="nan_grads", step=2)))
+    skip_launches = dict(fa.launches)
+    before = _file_arrays(os.path.join(d, "ckpt-00000002.npz"))
+    after = _file_arrays(os.path.join(d, "ckpt-00000003.npz"))
+    unchanged = _same_arrays(before, after)
+    # (b) a rollback.
+    zero_flash()
+    rb = SeqTrainer(cfg, ds).train(log=quiet, checkpoint_dir=os.path.join(tmp, "rollback"),
+                                   checkpoint_every=1, max_bad_steps=2,
+                                   fault_injector=FaultInjector(FaultSpec(kind="nan_grads", step=2, count=2)))
+    rollback_launches = dict(fa.launches)
+    rb_bitwise = all(a.tobytes() == b.tobytes()
+                     for a, b in zip(tree.leaves(rb.params), tree.leaves(clean.params)))
+    # (c) the guard's cost, in turns.
+    tr = SeqTrainer(cfg, ds)
+    xs, ys, ws = (tr.stage_batches(a, GUARD_STEPS, cfg.batch_size)
+                  for a in (ds.tokens, ds.targets, ds.weights))
+    progs = {g: tr.span_program(1, guard=g) for g in (False, True)}
+    state = {g: [tr.params, tr.opt_state] for g in (False, True)}
+    for g in (False, True):  # one untimed step each
+        state[g][:2] = progs[g](*state[g], xs, ys, ws, 0)[:2]
+    times = {False: [], True: []}
+    for _ in range(GUARD_TURNS):
+        for g in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(GUARD_STEPS):
+                state[g][:2] = progs[g](*state[g], xs, ys, ws, i)[:2]
+            torch.cuda.synchronize()
+            times[g].append((time.perf_counter() - t0) * 1e3 / GUARD_STEPS)
+    ratios = sorted(b / a for a, b in zip(times[False], times[True]))
+    cost = {"unguarded_ms": times[False], "guarded_ms": times[True], "turn_ratios": ratios,
+            "median_ratio": ratios[GUARD_TURNS // 2]}
+    timing = save_load_timing(
+        torch, lambda: {"params": tr._params_for_save(tr.params),
+                        "opt": tr._opt_for_save(tr.opt_state)},
+        lambda t: (tr._place_params(t["params"]), tr._place_opt(t["opt"])),
+        tr.checkpoint_like(), os.path.join(tmp, "timing.npz"), card)
+    os.unlink(os.path.join(tmp, "timing.npz"))
+    out = dict(steps=GUARD_STEPS, seq_len=2048, batch_size=cfg.batch_size,
+               clean_launches=clean_launches, skip=dict(
+                   skipped_steps=skip.skipped_steps, rollbacks=skip.rollbacks,
+                   state_unchanged_across_step_2=unchanged, launches=skip_launches),
+               rollback=dict(rollbacks=rb.rollbacks, skipped_steps=rb.skipped_steps,
+                             params_bitwise_clean=rb_bitwise, launches=rollback_launches),
+               guard_cost=cost, checkpoint=timing, nvidia_smi=card,
+               seconds=time.perf_counter() - start)
+    emit("guard_lm", **out)
+    if not (skip.skipped_steps == 1 and skip.rollbacks == 0 and unchanged
+            and skip_launches == clean_launches and rb.rollbacks == 1
+            and rb.skipped_steps == 2 and rb_bitwise):
+        raise AssertionError(f"guard_lm: {out}")
+    out["clean_params"] = clean.params
+    out["clean_ckpt"] = os.path.join(clean_dir, "ckpt.npz")
+    return out
+
+
+def guard_zero1(torch, fa, world) -> dict:
+    """The guard's skip under Ulysses + ZeRO-1 in the NCCL world of one: a
+    step on a batch with one NaN loss weight leaves the params, the flat
+    chunk's moments and the step bitwise unchanged (flag 1); a clean step
+    moves them (flag 0)."""
+    import dataclasses
+
+    import numpy as np
+
+    from ddl_tpu_torch.strategies.seq import SeqTrainer
+    from ddl_tpu_torch.utils import tree
+
+    cfg, ds = _lm_guard_setup(2)
+    cfg = dataclasses.replace(cfg, scheme="ulysses", zero1=True)
+    tr = SeqTrainer(cfg, ds, world=world)
+    w = np.array(ds.weights, copy=True)
+    w[0, 0] = np.nan
+    xs, ys = (tr.stage_batches(a, 2, cfg.batch_size) for a in (ds.tokens, ds.targets))
+    ws = tr.stage_batches(w, 2, cfg.batch_size)
+    prog = tr.span_program(1, guard=True)
+    for key in fa.launches:
+        fa.launches[key] = 0
+    p, o, _, flag = prog(tr.params, tr.opt_state, xs, ys, ws, 0)
+    launches = dict(fa.launches)
+    unchanged = (all(torch.equal(a, b) for a, b in zip(tree.leaves(p), tree.leaves(tr.params)))
+                 and torch.equal(o.m, tr.opt_state.m) and torch.equal(o.v, tr.opt_state.v)
+                 and int(o.step) == int(tr.opt_state.step))
+    p2, o2, _, flag2 = prog(tr.params, tr.opt_state, xs, ys, ws, 1)
+    moved = not torch.equal(o2.m, tr.opt_state.m) and int(o2.step) == 1
+    out = dict(skip_flag=int(flag[0]), chunk_unchanged=unchanged, clean_flag=int(flag2[0]),
+               clean_step_moved=moved, launches=launches, chunk=int(tr.opt_state.m.numel()))
+    emit("guard_zero1", **out)
+    if not (out["skip_flag"] == 1 and unchanged and out["clean_flag"] == 0 and moved):
+        raise AssertionError(f"guard_zero1: {out}")
+    return out
+
+
+def serve_checkpoint(torch, guard_out: dict) -> dict:
+    """serve_main's configuration and traffic served by
+    ``InferenceEngine.from_checkpoint`` on guard_lm's clean save: the
+    tokens of an engine built from that run's ``result.params``."""
+    from ddl_tpu_torch.data.lm import synthesize_prompts
+    from ddl_tpu_torch.serve import InferenceEngine, Request, Scheduler, ServeConfig
+
+    start = time.perf_counter()
+    cfg = ServeConfig(spec=lm_spec(), slots=8, capacity=512, page_size=64)
+    prompts = synthesize_prompts(**SERVE_PROMPTS)
+    t0 = time.perf_counter()
+    from_ckpt = InferenceEngine.from_checkpoint(cfg, guard_out["clean_ckpt"], device="cuda")
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    tokens = []
+    for eng in (from_ckpt, InferenceEngine(cfg, params=guard_out["clean_params"],
+                                           device="cuda")):
+        done, _ = Scheduler(eng).run([Request(id=i, prompt=p, max_new_tokens=SERVE_NEW)
+                                      for i, p in enumerate(prompts)])
+        tokens.append({i: done[i].tokens for i in sorted(done)})
+        if not all(c.status == "ok" and len(c.tokens) == SERVE_NEW for c in done.values()):
+            raise AssertionError("serve_checkpoint: a request did not finish ok")
+    out = dict(requests=len(prompts), new_tokens=SERVE_NEW, tokens_equal=tokens[0] == tokens[1],
+               from_checkpoint_ms=load_ms, seconds=time.perf_counter() - start)
+    emit("serve_checkpoint", **out)
+    if not out["tokens_equal"]:
+        raise AssertionError(f"serve_checkpoint: {out}")
+    return out
+
+
 def run_phases(torch, world, card: str):
     """Every phase after the build, in order; returns what the kernels line
     reads."""
@@ -2145,6 +2591,9 @@ def run_phases(torch, world, card: str):
     fused_vs_plain(torch, world)
     async_out = async_main(torch, world, fused_adam)
     async_equivalence(torch, world)
+    resume_out = resume_sync(torch, world, fused_adam, card)
+    resume_async_out = resume_async(torch, world, fused_adam, card)
+    cli_preempt(torch, resume_out.pop("golden"))
     cnn_bf16_out = cnn_bf16(torch, world, fused_adam, main_out)
     cnn_conv_matmul(torch)
 
@@ -2159,8 +2608,13 @@ def run_phases(torch, world, card: str):
     policy_out = lm_policy(torch, flash_attention, lm_out)
     seq_policy_out = lm_seq_policy(torch, flash_attention, world)
     seq_out = lm_seq(torch, flash_attention, world)
+    guard_zero1(torch, flash_attention, world)
     tp_out = lm_tp(torch, flash_attention, world)
     pp_out = lm_pp(torch, flash_attention, world)
+    with tempfile.TemporaryDirectory() as tmp:
+        guard_out = guard_lm(torch, flash_attention, card, tmp)
+        serve_checkpoint(torch, guard_out)
+        del guard_out["clean_params"]
 
     serve_params = init_lm_params(torch.Generator().manual_seed(0), lm_spec(), "cuda")
     serve_out = serve_main(torch, serve_params, fused_adam, flash_attention)
@@ -2170,8 +2624,9 @@ def run_phases(torch, world, card: str):
     del serve_params
     flash_tim = flash_timing(torch, flash_attention, devtime, flush, card)
     bf16 = dict(cnn=cnn_bf16_out, lm=policy_out, seq=seq_policy_out)
+    resilience = dict(sync=resume_out, async_=resume_async_out, guard=guard_out)
     return (max_err, main_out, async_out, tim, flash_err, lm_out, seq_out, tp_out, pp_out,
-            flash_tim, bf16)
+            flash_tim, bf16, resilience)
 
 
 def main() -> int:
@@ -2201,7 +2656,7 @@ def main() -> int:
         world = init_world(1, 0, f"file://{os.path.join(store, 'store')}", "cuda")
         try:
             (max_err, main_out, async_out, tim, flash_err, lm_out, seq_out, tp_out, pp_out,
-             flash_tim, bf16) = run_phases(torch, world, card)
+             flash_tim, bf16, resilience) = run_phases(torch, world, card)
         finally:
             destroy_world()
 
@@ -2213,6 +2668,8 @@ def main() -> int:
         "launches": main_out["launches"],
         "async_launches": async_out["launches"],
         "bf16_launches": bf16["cnn"]["launches"],
+        "resume_launches": resilience["sync"]["launches"],
+        "resume_async_launches": resilience["async_"]["launches"],
         "max_abs_err": max_err,
         "ms": tim["ms"],
         "hot_ms": tim["hot_ms"],
@@ -2239,6 +2696,8 @@ def main() -> int:
             "bf16_ulysses_zero1_launches": bf16["seq"]["bf16"]["launches"][key],
             "bf16_tp_launches": tp_out["launches"]["tp2_full_flash_bf16"][key],
             "bf16_pp_launches": pp_out["launches"]["gpipe_bf16"][key],
+            "guard_launches": resilience["guard"]["skip"]["launches"][key],
+            "guard_rollback_launches": resilience["guard"]["rollback"]["launches"][key],
             "max_abs_err": flash_err[key],
             "ms": row["ms"],
             "hot_ms": row["hot_ms"],

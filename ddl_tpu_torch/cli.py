@@ -17,6 +17,10 @@ single-engine serving, at tp 1 or over a tp group.
     python -m ddl_tpu_torch lm --precision bf16 --seq-scheme full --attn-impl flash
     python -m ddl_tpu_torch serve --slots 8 --capacity 512 --page-size 64 --json
     torchrun --nproc-per-node 2 -m ddl_tpu_torch serve --tensor-parallel 2 --json
+    python -m ddl_tpu_torch sync_sharding --checkpoint-dir ck --checkpoint-every 10 --resume auto
+    python -m ddl_tpu_torch lm --checkpoint-dir ck --checkpoint-every 1 --max-bad-steps 2 \
+        --inject-fault nan_grads@1x2
+    python -m ddl_tpu_torch serve --checkpoint-dir ck --json
 
 Flags are spelled as in the JAX CLI, with its defaults; a flag of another
 variant set away from its default is refused. One process drives one
@@ -60,7 +64,8 @@ _LM_TRAIN = ("seq_scheme", "seq_len", "train_seqs", "test_seqs", "target_accurac
              "attn_impl", "remat", "seq_layout", "data_parallel", "zero1",
              "pipeline_parallel", "microbatches", "pipeline_schedule")
 _LM_ONLY = _LM_TRAIN + _MODEL
-_TRAIN_ONLY = ("num_workers", "epochs", "batch_size", "lr", "eval_every")
+_TRAIN_ONLY = ("num_workers", "epochs", "batch_size", "lr", "eval_every", "checkpoint_every",
+               "resume", "dispatch_timeout", "max_bad_steps")
 _SERVE_ONLY = ("slots", "capacity", "max_new_tokens", "num_prompts", "prompt_min",
                "prompt_max", "temperature", "top_k", "prefix_cache", "prefill_chunk",
                "prefill_budget", "page_size", "num_pages", "ttft_deadline",
@@ -69,7 +74,6 @@ _SERVE_ONLY = ("slots", "capacity", "max_new_tokens", "num_prompts", "prompt_min
 # one raises NotImplementedError, whatever the variant.
 _NOT_PORTED = {
     "kv_dtype": "ROADMAP queue 1, item 8: the int8 pool",
-    "checkpoint_dir": "ROADMAP queue 1, item 5: checkpoints",
     "replicas": "ROADMAP queue 1, item 8: the router",
     "traffic": "ROADMAP queue 1, item 8: the router",
     "slo": "ROADMAP queue 1, item 8: the router",
@@ -145,6 +149,36 @@ def build_parser() -> argparse.ArgumentParser:
                         "--bf16/--fp32")
     p.add_argument("--json", action="store_true",
                    help="print one JSON summary line at the end")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save an atomic rolling checkpoint (params + optimizer state) at "
+                        "every epoch end, in the format both packages read; serve: load "
+                        "the params (only) of a training checkpoint of any topology")
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                   help="additionally checkpoint every N batches (async: N rounds); "
+                        "0 = epoch end only")
+    p.add_argument("--resume", nargs="?", const="latest", default=None,
+                   choices=["latest", "auto"], metavar="MODE",
+                   help="resume from --checkpoint-dir: bare --resume (or 'latest') loads "
+                        "the rolling checkpoint exactly; 'auto' discovers the newest VALID "
+                        "save (corrupt or truncated files are checksum-verified out and "
+                        "resume falls back to the previous retained one); a missing "
+                        "checkpoint starts fresh either way")
+    p.add_argument("--max-bad-steps", type=int, default=None, metavar="K",
+                   help="single/lm: run the non-finite guarded step (a step whose "
+                        "gradients hold a NaN or Inf applies the identity) and roll back "
+                        "to the last good checkpoint after K CONSECUTIVE skipped steps, "
+                        "replaying from its step (requires --checkpoint-dir)")
+    p.add_argument("--inject-fault", default=None, metavar="SPEC",
+                   help="deterministic chaos (resilience/faults.py): nan_grads@K[xN] / "
+                        "inf_grads@K[xN] on single/lm (poison N batches from global step "
+                        "K; a trailing '!' persists through rollbacks); sigterm@K (a real "
+                        "SIGTERM once step K completes) and corrupt_ckpt / truncate_ckpt "
+                        "(damage the latest checkpoint at startup, then prove --resume "
+                        "auto) on every training variant; serve: stall@REQID and "
+                        "replica_crash parse, and are refused (not ported)")
+    p.add_argument("--dispatch-timeout", type=float, default=0.0, metavar="SECONDS",
+                   help="fail with a diagnosis (instead of hanging forever) if a training "
+                        "span or eval does not complete in SECONDS; <= 0 disables")
     lm = p.add_argument_group(
         "lm options",
         "the 'lm' variant trains the decoder LM on the procedural copy task "
@@ -217,8 +251,9 @@ def build_parser() -> argparse.ArgumentParser:
         "serve options",
         "the 'serve' variant runs KV-cache autoregressive decode with continuous "
         "batching (serve/) over a seeded prompt set on one device; the model flags, "
-        "--seed and --json apply as usual; the model's weights are the port's own "
-        "seeded init",
+        "--seed and --json apply as usual; the weights are the port's own seeded "
+        "init, or with --checkpoint-dir the params of a training checkpoint of any "
+        "topology (no optimizer state required)",
     )
     sv.add_argument("--slots", type=int, default=4,
                     help="continuous-batching width: concurrent sequences decoded per step")
@@ -260,7 +295,6 @@ def build_parser() -> argparse.ArgumentParser:
     # The JAX CLI's flags of later slices (_NOT_PORTED): parsed so that
     # setting one fails with its ROADMAP item, not a generic parse error.
     sv.add_argument("--kv-dtype", default=None, help="not ported")
-    sv.add_argument("--checkpoint-dir", default=None, help="not ported")
     sv.add_argument("--replicas", type=int, default=None, help="not ported")
     sv.add_argument("--traffic", default=None, help="not ported")
     sv.add_argument("--slo", default=None, help="not ported")
@@ -294,6 +328,119 @@ def _resolve_dtype(args) -> str | None:
     if args.bf16 and args.fp32:
         raise SystemExit("--bf16 and --fp32 are mutually exclusive")
     return "bfloat16" if args.bf16 else None
+
+
+def _install_sigterm_flag(enabled: bool) -> dict:
+    """Graceful preemption (a SIGTERM before the machine is reclaimed, or
+    an operator's Ctrl-C): finish the span in flight, save the rolling
+    checkpoint, exit 0, so a later --resume run continues where this one
+    stopped. Returns the flag dict the trainer's ``should_stop`` reads."""
+    term = {"flag": False}
+    if enabled:
+        import signal
+
+        def _handler_for(signum):
+            def _on_sig(sig, frame):
+                # Flag only, no IO in the handler (a print here can hit
+                # CPython's reentrant-BufferedWriter guard). Restoring the
+                # default lets a second delivery terminate at once.
+                term["flag"] = True
+                signal.signal(signum, signal.SIG_DFL)
+
+            return _on_sig
+
+        signal.signal(signal.SIGTERM, _handler_for(signal.SIGTERM))
+        signal.signal(signal.SIGINT, _handler_for(signal.SIGINT))
+    return term
+
+
+def _fatal_timeout(e) -> int:
+    """The dispatch watchdog's exit: the watched call is still wedged in
+    native code, and a normal exit would re-enter the wedged runtime
+    through its finalizers and hang; report, flush, and leave."""
+    print(f"[ddl_tpu] FATAL: {e}", file=sys.stderr)
+    sys.stderr.flush()
+    sys.stdout.flush()
+    os._exit(1)
+
+
+def _check_resilience_flags(args) -> None:
+    """JAX's checks of --max-bad-steps, --inject-fault and --resume, with
+    its texts. The port takes --inject-fault on every training variant:
+    the kinds that need no guard (sigterm, corrupt_ckpt, truncate_ckpt)
+    also run on sync and async (:func:`_make_injector`)."""
+    if args.max_bad_steps is not None:
+        if args.max_bad_steps < 1:
+            raise SystemExit(f"--max-bad-steps must be >= 1, got {args.max_bad_steps}")
+        if args.variant not in ("single", "lm"):
+            raise SystemExit("--max-bad-steps applies to the single/lm variants (the "
+                             "guarded trainers)")
+        if not args.checkpoint_dir:
+            raise SystemExit("--max-bad-steps rollback requires --checkpoint-dir")
+    if args.resume and not args.checkpoint_dir and args.variant != "serve":
+        # serve refuses --resume as a training flag (_TRAIN_ONLY), as JAX's.
+        raise SystemExit("--resume requires --checkpoint-dir")
+
+
+def _make_injector(args, variant: str):
+    """Resolve ``--inject-fault`` for this variant: checks the kind against
+    the variant, applies startup checkpoint chaos (corrupt or truncate the
+    latest save in --checkpoint-dir, on rank 0 only; pair it with --resume
+    auto) and returns the runtime ``FaultInjector`` (None when no runtime
+    fault is armed). As JAX's: a serve kind needs the serve variant, and
+    the data-poisoning kinds the guarded trainers (single, lm); beyond
+    JAX's, sigterm and the checkpoint kinds also run on sync and async."""
+    if not args.inject_fault:
+        return None
+    from .resilience import faults
+
+    try:
+        spec = faults.parse_fault(args.inject_fault)
+    except ValueError as e:
+        raise SystemExit(f"--inject-fault: {e}")
+    if spec.kind in faults.SERVE_KINDS:
+        if variant != "serve":
+            raise SystemExit(f"--inject-fault {spec.kind} applies to the serve variant")
+        return faults.FaultInjector(spec)
+    if variant == "serve" or (variant not in ("single", "lm")
+                              and spec.kind not in ("sigterm",) + faults.CKPT_KINDS):
+        raise SystemExit(
+            f"--inject-fault {spec.kind} applies to the single/lm "
+            "variants (the guarded trainers)"
+        )
+    if spec.kind in faults.CKPT_KINDS:
+        from .train.trainer import checkpoint_file
+        from .utils.checkpoint import find_latest_valid
+
+        if not args.checkpoint_dir:
+            raise SystemExit(f"--inject-fault {spec.kind} needs --checkpoint-dir")
+        if os.environ.get("RANK", "0") != "0":
+            return None  # rank 0 damages the file before the world forms
+        found = find_latest_valid(args.checkpoint_dir)
+        target = found[0] if found else checkpoint_file(args.checkpoint_dir)
+        if not os.path.exists(target):
+            raise SystemExit(f"--inject-fault {spec.kind}: no checkpoint at {target}")
+        if spec.kind == "corrupt_ckpt":
+            faults.corrupt_checkpoint(target, seed=args.seed)
+        else:
+            faults.truncate_checkpoint(target)
+        print(f"[ddl_tpu] chaos: {spec.kind} applied to {target}")
+        return None
+    return faults.FaultInjector(spec)
+
+
+def _train_kwargs(args, injector) -> dict:
+    """The resilience keywords every trainer's ``train`` takes, from the
+    flags; the SIGTERM flag is installed when there is a checkpoint dir."""
+    term = _install_sigterm_flag(bool(args.checkpoint_dir))
+    return dict(checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every,
+                resume=args.resume, should_stop=lambda: term["flag"],
+                dispatch_timeout=args.dispatch_timeout, fault_injector=injector)
+
+
+def _resilience_json(result) -> dict:
+    return {"resumed_from_step": result.resumed_from_step, "preempted": result.preempted,
+            "skipped_steps": result.skipped_steps, "rollbacks": result.rollbacks}
 
 
 def _reject_foreign_flags(args, variant: str, dests: tuple[str, ...]) -> None:
@@ -455,12 +602,19 @@ def _run_lm(args, device) -> int:
         check_config(cfg, dataset)
     except ValueError as e:
         raise SystemExit(f"lm config error: {e}")
+    from .parallel.mesh import AcceleratorTimeout
+
+    injector = _make_injector(args, "lm")
+    train_kw = _train_kwargs(args, injector)
     with tempfile.TemporaryDirectory() as store_dir:
         world = _join_world(cfg.num_workers * cfg.data_parallel * cfg.tensor_parallel
                             * cfg.pipeline_parallel, args.device, store_dir)
         try:
             trainer = SeqTrainer(cfg, dataset, world=world)
-            result = trainer.train(log=print if world.rank == 0 else (lambda s: None))
+            result = trainer.train(log=print if world.rank == 0 else (lambda s: None),
+                                   max_bad_steps=args.max_bad_steps or 0, **train_kw)
+        except AcceleratorTimeout as e:
+            return _fatal_timeout(e)
         finally:
             destroy_world()
     if world.rank != 0:
@@ -482,6 +636,7 @@ def _run_lm(args, device) -> int:
             "compile_time_s": result.compile_time_s,
             "step_stats": dataclasses.asdict(result.step_stats)
                           if result.step_stats else None,
+            **_resilience_json(result),
         }))
     return 0
 
@@ -528,26 +683,43 @@ def _run_serve(args, device) -> int:
         check_config(cfg)
     except (ValueError, KeyError) as e:
         raise SystemExit(f"serve config error: {e}")
+    from .train.trainer import checkpoint_file
+
+    # The checkpoint path is checked before any engine is built, and the
+    # loaded tree goes straight to the constructor (no throwaway init).
+    ckpt = checkpoint_file(args.checkpoint_dir)
+    if ckpt is not None and not os.path.exists(ckpt):
+        raise SystemExit(f"no checkpoint at {ckpt}")
+    injector = _make_injector(args, "serve")
     if args.tensor_parallel == 1:
-        return _serve(args, cfg, device, None)
+        return _serve(args, cfg, device, None, injector)
     with tempfile.TemporaryDirectory() as store_dir:
         world = _join_world(args.tensor_parallel, args.device, store_dir)
         try:
-            return _serve(args, cfg, device, make_grid(world, 1, 1, args.tensor_parallel))
+            return _serve(args, cfg, device, make_grid(world, 1, 1, args.tensor_parallel),
+                          injector)
         finally:
             destroy_world()
 
 
-def _serve(args, cfg, device, grid) -> int:
-    """One engine's run of the serve variant (this rank's, at tp > 1)."""
+def _serve(args, cfg, device, grid, injector) -> int:
+    """One engine's run of the serve variant (this rank's, at tp > 1).
+    A serve fault ``injector`` reaches the scheduler, which refuses it
+    (ROADMAP queue 1, item 8)."""
     from .data.lm import synthesize_prompts
     from .serve import InferenceEngine, Request, Scheduler
 
+    from .train.trainer import checkpoint_file
+
+    ckpt = checkpoint_file(args.checkpoint_dir)
+    where = dict(grid=grid) if grid is not None else dict(device=device)
     try:
-        engine = (InferenceEngine(cfg, grid=grid) if grid is not None
-                  else InferenceEngine(cfg, device=device))
+        engine = (InferenceEngine.from_checkpoint(cfg, ckpt, **where) if ckpt is not None
+                  else InferenceEngine(cfg, **where))
     except (ValueError, KeyError) as e:
         raise SystemExit(f"serve config error: {e}")
+    if ckpt is not None and (grid is None or grid.rank == 0):
+        print(f"[ddl_tpu] serving params from {ckpt} (params-only load)")
     try:
         prompts = synthesize_prompts(num=args.num_prompts, min_len=args.prompt_min,
                                      max_len=args.prompt_max, vocab=args.vocab, seed=args.seed)
@@ -558,7 +730,7 @@ def _serve(args, cfg, device, grid) -> int:
     try:
         scheduler = Scheduler(engine, ttft_deadline_s=args.ttft_deadline,
                               deadline_s=args.request_deadline,
-                              shed_threshold=args.shed_threshold)
+                              shed_threshold=args.shed_threshold, injector=injector)
     except ValueError as e:
         raise SystemExit(f"serve config error: {e}")
     # Every program shape runs once outside the reported run: the latency
@@ -626,6 +798,7 @@ def main(argv: list[str] | None = None) -> int:
     from .data.mnist import load_mnist
     from .parallel.mesh import default_device, destroy_world
 
+    _check_resilience_flags(args)
     device = default_device(args.device)
     if device.type == "cuda":
         # fp32 runs in full fp32: keep cuDNN convs and cuBLAS matmuls out of
@@ -645,11 +818,18 @@ def main(argv: list[str] | None = None) -> int:
         synthetic_train=args.synthetic_train,
         synthetic_test=args.synthetic_test,
     )
+    from .parallel.mesh import AcceleratorTimeout
+
     rank = 0
+    train_kw = _train_kwargs(args, _make_injector(args, args.variant))
     if args.variant == "single":
         from .train.trainer import SingleChipTrainer
 
-        result = SingleChipTrainer(cfg, dataset, device=device).train()
+        try:
+            result = SingleChipTrainer(cfg, dataset, device=device).train(
+                max_bad_steps=args.max_bad_steps or 0, **train_kw)
+        except AcceleratorTimeout as e:
+            return _fatal_timeout(e)
     else:
         if args.variant.startswith("async"):
             from .strategies.async_ps import AsyncTrainer as Trainer
@@ -660,7 +840,10 @@ def main(argv: list[str] | None = None) -> int:
             world = _join_world(num_workers, args.device, store_dir)
             try:
                 rank = world.rank
-                result = Trainer(cfg, dataset, world=world).train()
+                result = Trainer(cfg, dataset, world=world).train(
+                    log=print if rank == 0 else (lambda s: None), **train_kw)
+            except AcceleratorTimeout as e:
+                return _fatal_timeout(e)
             finally:
                 destroy_world()
     if rank != 0:
@@ -688,6 +871,7 @@ def main(argv: list[str] | None = None) -> int:
             "compile_time_s": result.compile_time_s,
             "step_stats": dataclasses.asdict(result.step_stats)
                           if result.step_stats else None,
+            **_resilience_json(result),
         }))
     return 0
 

@@ -114,6 +114,13 @@ def _template(spec: LMSpec) -> dict:
             else torch.zeros(v) for k, v in param_shapes(spec).items()}
 
 
+def lm_zeros_numpy(spec: LMSpec) -> dict:
+    """Numpy float32 zeros in the shapes of ``spec``'s full parameter tree:
+    the template a checkpoint load reads shapes and dtypes from."""
+    return {k: [{n: np.zeros(s, np.float32) for n, s in blk.items()} for blk in v]
+            if k == "blocks" else np.zeros(v, np.float32) for k, v in param_shapes(spec).items()}
+
+
 def adam_state_from_numpy(step, m, v, spec: LMSpec, device: str | torch.device) -> AdamState:
     """Tree-shaped TF1 Adam state (the JAX package's ``AdamState`` over the
     LM tree, as numpy) -> the port's, with ``m`` and ``v`` checked like the

@@ -212,6 +212,49 @@ def make_grid(world: World | None, data_parallel: int, num_workers: int,
                                pp_ranks=pp_rows[row], shared_group=shared_groups[t])
 
 
+class AcceleratorTimeout(RuntimeError):
+    """A watchdogged call did not complete: the device (or a peer rank) is
+    presumed dead or unreachable. The wedged thread is STILL blocked in
+    native code, so after reporting, the process should leave through
+    ``os._exit`` (a normal interpreter exit can re-enter the wedged runtime
+    through its finalizers and hang anyway)."""
+
+
+def run_within(fn, timeout_s: float, *, what: str = "operation"):
+    """Run ``fn`` on a daemon watchdog thread; return its result, re-raise
+    its exception, or raise :class:`AcceleratorTimeout` after ``timeout_s``
+    seconds. A synchronize or a collective can block indefinitely when the
+    card or a peer dies and cannot be interrupted, only abandoned (see
+    :class:`AcceleratorTimeout` for the exit contract). PyTorch's current
+    CUDA device is per thread, so the watchdog thread first takes the
+    caller's: a rank on ``cuda:k`` must not synchronize ``cuda:0``."""
+    import threading
+
+    device = (torch.cuda.current_device()
+              if torch.cuda.is_available() and torch.cuda.is_initialized() else None)
+    outcome: list[tuple[bool, object]] = []
+
+    def run():
+        try:
+            if device is not None:
+                torch.cuda.set_device(device)
+            outcome.append((True, fn()))
+        except BaseException as e:  # surface the real error, not a timeout
+            outcome.append((False, e))
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout_s)
+    if not outcome:
+        raise AcceleratorTimeout(
+            f"{what} did not complete within {timeout_s:.0f}s"
+        )
+    ok, value = outcome[0]
+    if not ok:
+        raise value
+    return value
+
+
 def destroy_world() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -130,12 +130,19 @@ def make_stage_fn(config, grid: Grid):
 
 
 def make_pipeline_step_body(config, grid: Grid, tables, positions: torch.Tensor, *,
-                            lr: float, record: PipelineRecord | None = None):
+                            lr: float, record: PipelineRecord | None = None,
+                            guard_groups: list | None = None):
     """One pipeline train step on this rank: ``(params, opt_state, tokens,
-    targets, weights) -> (params', opt_state', loss)``, ``tokens`` this dp
-    row's ``[B/dp, T]``, split into ``M`` microbatches streamed by the
-    ``(f_tab, b_tab)`` pair of ``tables``. ``record`` (optional) gathers
-    the steps' saved-input peak and hop bytes."""
+    targets, weights) -> (params', opt_state', loss[, skipped])``,
+    ``tokens`` this dp row's ``[B/dp, T]``, split into ``M`` microbatches
+    streamed by the ``(f_tab, b_tab)`` pair of ``tables``. ``record``
+    (optional) gathers the steps' saved-input peak and hop bytes.
+
+    ``guard_groups`` (None: unguarded) turns on the non-finite guard
+    (``resilience.guard``, JAX's ``pipeline/step.py`` guard): for each
+    parameter leaf the groups its count sums over (the stage's blocks over
+    pp and, where tp-sharded, tp), so the count is global and every stage
+    takes the same branch; the skip flag comes back fourth."""
     f_tab, b_tab = tables
     pp, s = grid.pipeline_parallel, grid.pp_index
     m = int(f_tab.max()) + 1
@@ -207,11 +214,19 @@ def make_pipeline_step_body(config, grid: Grid, tables, positions: torch.Tensor,
                                          _sum_leaves(block_grads, grid, grid.data_group))
         grads = pol.upcast_grads(grads)
         with torch.no_grad():
-            params, opt_state = adam_update(params, opt_state, grads, lr=lr)
+            new_params, new_opt = adam_update(params, opt_state, grads, lr=lr)
         if record is not None:
             record.peak_saved = max(record.peak_saved, peak)
             record.steps += 1
-        return params, opt_state, loss.detach()
+        if guard_groups is None:
+            return new_params, new_opt, loss.detach()
+        from ..obs.health import nonfinite_count
+        from ..resilience.guard import apply_guard
+
+        with torch.no_grad():
+            new_params, new_opt, skipped = apply_guard(
+                nonfinite_count(grads, guard_groups), params, opt_state, new_params, new_opt)
+        return new_params, new_opt, loss.detach(), skipped
 
     return step
 

@@ -22,14 +22,16 @@ from .step import PipelineRecord, make_pipeline_step_body
 
 
 def pipeline_step(config, grid: Grid, positions: torch.Tensor,
-                  record: PipelineRecord | None = None):
+                  record: PipelineRecord | None = None, guard_groups: list | None = None):
     """This config's pipeline train step on this rank of ``grid``:
-    ``(params, opt, tokens, targets, weights) -> (params', opt', loss)``
-    over this dp row's batch, the stage's params and their Adam state."""
+    ``(params, opt, tokens, targets, weights) -> (params', opt', loss[,
+    skipped])`` over this dp row's batch, the stage's params and their Adam
+    state; ``guard_groups`` (``strategies.seq.guard_groups``) guards it."""
     tables = schedule_tables(config.pipeline_schedule, grid.pipeline_parallel,
                              config.microbatches)
     return make_pipeline_step_body(config, grid, tables, positions,
-                                   lr=config.learning_rate, record=record)
+                                   lr=config.learning_rate, record=record,
+                                   guard_groups=guard_groups)
 
 
 def make_pipeline_program(config, tokens, targets, weights, *, world: World | None = None,

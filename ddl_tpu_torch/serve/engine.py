@@ -50,15 +50,21 @@ never differentiated here). Every rank runs the same
 deterministic scheduler and samples the same token from bit-identical
 reduced logits, so the host state never diverges.
 
-**Compute dtype** (``compute_dtype="bfloat16"``): the cached forwards
-cast the weights and activations to bf16 (logits stay fp32) and the KV
-pools (contiguous, paged and the prefix pool) are allocated in bf16, so a
-pool row costs half its fp32 bytes.
+**Compute dtype** (``compute_dtype="bfloat16"`` or ``"float16"``, as JAX's
+engine passes either through): the cached forwards cast the weights and
+activations to it (logits stay fp32) and the KV pools (contiguous, paged
+and the prefix pool) are allocated in it, so a pool row costs half its
+fp32 bytes.
+
+**Serving a checkpoint** (:meth:`InferenceEngine.from_checkpoint`,
+:meth:`InferenceEngine.load_params`): the params only, from a trainer
+checkpoint of any topology (``utils/checkpoint.py``, either package's),
+sharded here for tp; optimizer and step state are ignored.
 
 Not ported here, each raising ``NotImplementedError`` naming its ROADMAP
 item: ``kv_dtype="int8"``, ``speculate_k > 0``,
-``speculate_method="prompt"``, checkpoint loading, and the page hand-off
-(``dump_slot_pages``, ``load_slot_pages``, ``alias_slot_pages``).
+``speculate_method="prompt"``, and the page hand-off (``dump_slot_pages``,
+``load_slot_pages``, ``alias_slot_pages``).
 """
 
 from __future__ import annotations
@@ -69,7 +75,7 @@ import numpy as np
 import torch
 
 from .. import precision as _precision
-from ..convert import lm_params_from_numpy
+from ..convert import lm_params_from_numpy, lm_zeros_numpy
 from ..models import transformer
 from ..models.transformer import LMSpec
 from ..ops import kv_cache
@@ -91,6 +97,8 @@ from .cache import (
 from .prefix import PrefixIndex
 
 SPECULATE_METHODS = ("ngram", "prompt")
+# The compute dtypes the engine serves in, by name (None: fp32, no cast).
+SERVE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16, "float16": torch.float16}
 _HANDOFF = "ROADMAP queue 1, item 8: preempt/adopt and page dump/load"
 
 
@@ -105,7 +113,7 @@ class ServeConfig:
     one chunk). ``page_size > 0`` selects the paged pool of ``num_pages``
     pages (0 = ``slots * capacity / page_size``). ``tensor_parallel`` is the
     Megatron degree, which the engine's grid must have. ``compute_dtype``
-    is None (fp32), ``"float32"`` or ``"bfloat16"``. ``kv_dtype``,
+    is None (fp32), ``"float32"``, ``"bfloat16"`` or ``"float16"``. ``kv_dtype``,
     ``speculate_k > 0`` and a ``speculate_method`` other than ``"ngram"``
     are accepted here and refused by the engine (not ported)."""
 
@@ -116,7 +124,7 @@ class ServeConfig:
     temperature: float = 0.0  # 0 = greedy
     top_k: int = 0  # 0 = full vocab (temperature > 0 only)
     seed: int = 0
-    compute_dtype: str | None = None  # None = fp32; "bfloat16" = bf16 compute and pools
+    compute_dtype: str | None = None  # None = fp32; "bfloat16"/"float16": compute and pools
     prefix_slots: int = 0
     prefill_chunk: int = 0
     prefill_budget: int = 0
@@ -127,9 +135,18 @@ class ServeConfig:
     speculate_method: str = "ngram"
 
     def dtype(self) -> torch.dtype | None:
-        """The compute dtype as a torch dtype (None = fp32, no cast), as
-        the precision policy resolves it: another dtype raises."""
-        return _precision.resolve(None, self.compute_dtype).compute_dtype
+        """The compute dtype as a torch dtype (None = fp32, no cast). JAX's
+        engine takes any dtype the name gives (``jnp.dtype``), with no
+        precision policy in between; the port serves in the three its
+        models run in (:data:`SERVE_DTYPES`) and raises ``ValueError`` for
+        another."""
+        if self.compute_dtype is None:
+            return None
+        name = _precision.dtype_name(self.compute_dtype)
+        if name not in SERVE_DTYPES:
+            raise ValueError(f"unsupported compute_dtype {self.compute_dtype!r} for serving "
+                             f"(choices: {', '.join(SERVE_DTYPES)})")
+        return SERVE_DTYPES[name]
 
     def pool_dtype(self) -> torch.dtype:
         """The dtype the KV pools are allocated in: the compute dtype."""
@@ -179,7 +196,7 @@ def check_config(config: ServeConfig) -> None:
                          "(the contiguous layout has no page pool)")
     if config.num_pages < 0:
         raise ValueError(f"num_pages must be >= 0, got {config.num_pages}")
-    config.dtype()  # fp32 or bf16 compute only
+    config.dtype()  # fp32, bf16 or fp16 compute only
     if config.kv_dtype not in (None, "int8"):
         raise ValueError(f"kv_dtype must be None or 'int8', got {config.kv_dtype!r}")
     if config.kv_dtype == "int8" and not ps:
@@ -215,6 +232,15 @@ def check_config(config: ServeConfig) -> None:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
+def _load_host_params(path, spec: LMSpec) -> dict:
+    """The params-only host tree of any trainer checkpoint; the template is
+    numpy zeros of the standard shapes (only shapes and dtypes are read)."""
+    from ..utils.checkpoint import load_params
+
+    host, _, _ = load_params(path, lm_zeros_numpy(spec))
+    return host
+
+
 class InferenceEngine:
     """Owns the params on the device, the cache state and the bucketed
     prefill/decode pair. ``params`` is the full host tree of numpy arrays
@@ -248,6 +274,7 @@ class InferenceEngine:
             self.device = default_device(device)
             self._row_reduce = None
             tp_index = 0
+        self._tp_index = tp_index
         spec = config.spec
         self.config = config
         self.paged = config.page_size > 0
@@ -275,15 +302,24 @@ class InferenceEngine:
         self.reset()
 
     @classmethod
-    def from_checkpoint(cls, config: ServeConfig, path) -> "InferenceEngine":
-        raise NotImplementedError(
-            "serving from a checkpoint is not ported yet (ROADMAP queue 1, item 5: checkpoints)"
-        )
+    def from_checkpoint(cls, config: ServeConfig, path, *,
+                        device: str | torch.device | None = None,
+                        grid: Grid | None = None) -> "InferenceEngine":
+        """An engine serving a checkpoint's params directly: the loaded
+        host tree goes to the constructor, so no throwaway random init is
+        ever placed. Same params-only contract as :meth:`load_params`."""
+        return cls(config, params=_load_host_params(path, config.spec), device=device,
+                   grid=grid)
 
     def load_params(self, path) -> None:
-        raise NotImplementedError(
-            "serving from a checkpoint is not ported yet (ROADMAP queue 1, item 5: checkpoints)"
-        )
+        """Params-only checkpoint load (``utils.checkpoint.load_params``):
+        a trainer checkpoint of ANY topology; optimizer and step state are
+        ignored if present and not required. At tp > 1 this rank keeps its
+        shard."""
+        tp = self.config.tensor_parallel
+        self.params = lm_params_from_numpy(_load_host_params(path, self.config.spec),
+                                           self.config.spec, self.device, tensor_parallel=tp,
+                                           tp_index=self._tp_index)
 
     def handoff_bytes(self, n_pages: int) -> int:
         """Device bytes ``n_pages`` pages represent (``kv_row_bytes``)."""

@@ -38,8 +38,18 @@ package keeps across pushes is a copy here: a replica row, the chunk after
 each push. The schedule is read on the host; the serve is a Python loop of
 W pushes. The island's compute dtype and patches-matmul stages are the
 single-device step's (``train.trainer.model_kwargs``); its gradients, and
-so every push, stay fp32 under every precision policy. Checkpoint, resume, preemption, profiling and dispatch-timeout
-hooks are not ported (ROADMAP queue 1, item 5).
+so every push, stay fp32 under every precision policy.
+
+Resilience (JAX's ``AsyncTrainer.train`` hooks): a checkpoint at every
+epoch end and every ``checkpoint_every`` rounds holds JAX's ``AsyncState``
+in its device layout (``ps``/``m``/``v`` as the serve lays them out,
+``workers`` ``[W, total]``, ``t``), moved through
+``convert.async_state_to_numpy``/``from_numpy``; a resume realigns onto
+this run's chunk grid; preemption and saves fall at round-chunk
+boundaries; the dispatch watchdog covers each chunk. The restored serve
+vectors are fresh contiguous buffers, which the fused kernel updates in
+place. As in JAX, the async trainer has no non-finite guard. Profiling is
+ROADMAP queue 1, item 7.
 """
 
 from __future__ import annotations
@@ -52,7 +62,7 @@ from typing import Callable, Mapping
 import numpy as np
 import torch
 
-from ..convert import params_to_numpy
+from ..convert import async_state_from_numpy, async_state_to_numpy, params_to_numpy
 from ..data.mnist import Dataset, one_hot
 from ..models import cnn
 from ..ops.fused_adam import adam_flat_fused, load_kernel
@@ -63,14 +73,22 @@ from ..parallel.mesh import World
 from ..train.config import TrainConfig
 from ..train.trainer import (
     TrainResult,
+    check_injector,
+    CHECKPOINT_KEEP,
+    check_preempt,
+    checkpoint_file,
     correct_total,
     evaluate,
+    guarded,
     hit_target,
     initial_params,
     model_kwargs,
+    save_crossed,
     staging_dtype,
+    try_resume,
     value_and_grad,
 )
+from ..utils.checkpoint import save_checkpoint_world
 from ..utils.metrics import StepTimer, barrier
 from .sync import resolve_layout
 
@@ -354,10 +372,54 @@ class AsyncTrainer:
             ys = y[:n].reshape(rounds, bs, y.shape[-1])
         return np.ascontiguousarray(xs), np.ascontiguousarray(ys), rounds
 
-    def train(self, log: Callable[[str], None] = print) -> TrainResult:
+    def _state_for_save(self, state: AsyncState) -> AsyncState:
+        """The checkpoint form: JAX's global ``AsyncState`` as numpy (every
+        rank's chunks and replica rows gathered: a collective at W > 1,
+        which every rank calls)."""
+        W, sharded = self.world.size, self.serve_layout is not None
+        if sharded and W > 1:
+            ranks = [AsyncState(*parts, t=state.t) for parts in zip(
+                *(coll.all_gather_flat(x, self.world).view(W, -1)
+                  for x in (state.ps, state.m, state.v)),
+                coll.all_gather_flat(state.workers.reshape(-1), self.world).view(W, 1, -1))]
+        else:
+            ranks = [state]
+        return AsyncState(**async_state_to_numpy(ranks, sharded=sharded))
+
+    def _state_like(self) -> AsyncState:
+        """Template of the checkpoint form: the global shapes, ``t`` int32."""
+        W, s = self.world.size, self.state
+        rows = W if self.serve_layout is not None else 1
+        z = lambda t: np.zeros((t.shape[0] * rows,), np.float32)  # noqa: E731
+        return AsyncState(ps=z(s.ps), m=z(s.m), v=z(s.v),
+                          workers=np.zeros((W, s.workers.shape[1]), np.float32),
+                          t=np.zeros((), np.int32))
+
+    def _place_state(self, host: AsyncState) -> AsyncState:
+        """Host (checkpoint) state onto this rank: its chunk and replica
+        row (sharded serve) or everything (replicated), fresh buffers."""
+        return async_state_from_numpy(host, self.world.rank, self.world.size,
+                                      sharded=self.serve_layout is not None,
+                                      device=self.world.device)
+
+    def train(
+        self,
+        log: Callable[[str], None] = print,
+        *,
+        checkpoint_dir: str | None = None,
+        checkpoint_every: int = 0,
+        resume=False,
+        should_stop: Callable[[], bool] | None = None,
+        dispatch_timeout: float = 0.0,
+        fault_injector=None,
+    ) -> TrainResult:
         """Train ``config.epochs`` epochs in round chunks of ``eval_every``
         rounds, each followed by the PS eval and the per-worker eval; only
-        rank 0 logs."""
+        rank 0 logs. Checkpoints count rounds (``checkpoint_every``); a
+        resume lands on the chunk grid (module docstring);
+        ``fault_injector`` takes the kinds that need no guard
+        (``sigterm``)."""
+        check_injector(fault_injector, "async")
         cfg, world = self.config, self.world
         W, dev = world.size, world.device
         log = log if world.rank == 0 else (lambda s: None)
@@ -367,8 +429,27 @@ class AsyncTrainer:
         x_test = torch.as_tensor(np.asarray(self.dataset.x_test, np.float32)).to(dev)
         y_test = torch.as_tensor(one_hot(self.dataset.y_test)).to(dev)
         state = self.state.clone()
+        ckpt = checkpoint_file(checkpoint_dir)
+        tree, start_round = try_resume(ckpt, resume, {"state": self._state_like()}, log)
+        if tree is not None:
+            state = self._place_state(tree["state"])
         chunk_rounds = cfg.eval_every or rounds
-        chunks = [(lo, min(rounds, lo + chunk_rounds)) for lo in range(0, rounds, chunk_rounds)]
+
+        def chunks_from(start: int) -> list[tuple[int, int]]:
+            """Round chunks from ``start``, realigned to this run's grid
+            (multiples of ``chunk_rounds``): a resume may land mid-chunk
+            when the saving run used another cadence; every remaining
+            round runs, none is skipped."""
+            out, lo = [], start
+            while lo < rounds:
+                hi = min(rounds, (lo // chunk_rounds + 1) * chunk_rounds)
+                out.append((lo, hi))
+                lo = hi
+            return out
+
+        chunks = chunks_from(0)
+        resume_epoch, resume_lo = divmod(start_round, rounds) if rounds else (0, 0)
+        resume_chunks = chunks_from(resume_lo) if resume_lo else chunks
 
         # Warm-up outside the clock: the first collective (sets up the
         # communicator), the kernel build, one discarded forward/backward
@@ -393,37 +474,62 @@ class AsyncTrainer:
         worker_history: list[tuple[int, int, list[float]]] = []
         losses = []  # device tensors, fetched after the loop
         timer = StepTimer()
-        stopped = False
+        stopped = preempted = False
+        span_idx = 0
         ps_full = None
+
+        def dispatch(lo, hi, sched, ground):
+            out = self._run(state, xs[lo:hi], ys[lo:hi], sched, ground)
+            barrier(dev)
+            return out
+
         start = time.perf_counter()
         for epoch in range(cfg.epochs):
             scheds = async_schedule(cfg.staleness_seed + epoch, W, rounds)
-            for lo, hi in chunks:
+            for lo, hi in (resume_chunks if epoch == resume_epoch else chunks):
+                ground = epoch * rounds + lo
+                if ground < start_round:
+                    continue  # already done by the resumed run
+                span_idx += 1
                 with timer.step(images=cfg.batch_size * W * (hi - lo)):
-                    state, ps_full, loss = self._run(
-                        state, xs[lo:hi], ys[lo:hi], scheds[lo:hi], epoch * rounds + lo
-                    )
-                    barrier(dev)
+                    state, ps_full, loss = guarded(
+                        lambda: dispatch(lo, hi, scheds[lo:hi], ground), dispatch_timeout,
+                        f"round dispatch at global round {ground}")
                 losses.append(loss)
                 if cfg.eval_every:
-                    acc = evaluate(coll.unflatten_params(ps_full, self.spec), x_test, y_test)
+                    acc = guarded(
+                        lambda: evaluate(coll.unflatten_params(ps_full, self.spec), x_test,
+                                         y_test),
+                        dispatch_timeout, f"eval after round {lo}")
                     history.append((epoch, lo, acc))
                     log(f"epoch: {epoch} round: {lo} accuracy: {acc}")
                     # Each worker's stale-replica accuracy: the spread shows
                     # the staleness.
-                    waccs = self._eval_workers(state, x_test, y_test)
+                    waccs = guarded(lambda: self._eval_workers(state, x_test, y_test),
+                                    dispatch_timeout, f"worker eval after round {lo}")
                     worker_history.append((epoch, lo, waccs))
                     log("worker accuracies: " + " ".join(f"{a:.4f}" for a in waccs))
                     stopped = hit_target(cfg, acc)
-                if stopped:
+                if fault_injector is not None:
+                    fault_injector.maybe_sigterm(epoch * rounds + hi)
+                preempted = preempted or check_preempt(should_stop, log, ckpt is not None,
+                                                       span_idx)
+                if ckpt and save_crossed(ground, hi - lo, checkpoint_every,
+                                         hi == rounds or stopped or preempted):
+                    save_checkpoint_world(ckpt, {"state": self._state_for_save(state)},
+                                          world=world, step=epoch * rounds + hi,
+                                          extra={"epoch": epoch}, keep=CHECKPOINT_KEEP)
+                if stopped or preempted:
                     break
             if stopped:
                 log(f"target accuracy {cfg.target_accuracy} reached")
+            if stopped or preempted:
                 break
         end = time.perf_counter()
         params = (coll.unflatten_params(ps_full, self.spec) if ps_full is not None
-                  else self.logical(state.ps))
-        final_acc = evaluate(params, x_test, y_test)
+                  else self.logical(state.ps))  # a fully resumed run runs no round
+        final_acc = guarded(lambda: evaluate(params, x_test, y_test), dispatch_timeout,
+                            "final eval")
         log(f"final accuracy: {final_acc}")
         self.state = state
         train_time = timer.total_s
@@ -436,6 +542,8 @@ class AsyncTrainer:
             images_per_sec=timer.total_images / train_time if train_time > 0 else 0.0,
             compile_time_s=warmup,
             step_stats=timer.stats(),
+            resumed_from_step=start_round,
+            preempted=preempted,
             span_losses=[float(x) for x in losses],
             worker_history=worker_history,
         )

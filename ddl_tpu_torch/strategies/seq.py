@@ -60,6 +60,17 @@ sums move bf16 and Adam sees fp32. Master weights and moments stay fp32.
 
 ``SeqConfig`` keeps every JAX field and default, and the JAX trainer's own
 checks raise the same ``ValueError``s (:func:`check_config`).
+
+Resilience (JAX's ``SeqTrainer.train`` hooks): checkpoints hold the standard
+per-layer params-shaped form of the parameters and Adam moments whatever
+the dp, sp, tp or pp (:meth:`SeqTrainer._opt_for_save`), so a save at one
+topology resumes at any other, and in the JAX package; resume, preemption,
+the dispatch watchdog, and the non-finite guard in every step body (the
+replicated all-reduce, ZeRO-1, the hybrid and the pipeline's) with rollback
+to the last good checkpoint. The LM has no RNG and its flash kernels are
+bit-equal on a repeat, so a resumed or rolled-back run is bitwise the
+uninterrupted one. With the guard off every step body does exactly its
+unguarded work.
 """
 
 from __future__ import annotations
@@ -74,9 +85,17 @@ import numpy as np
 import torch
 
 from .. import precision as _precision
-from ..convert import lm_params_from_numpy, lm_params_to_numpy
+from ..convert import (
+    lm_hybrid_adam_from_numpy,
+    lm_params_from_numpy,
+    lm_params_to_numpy,
+    lm_pipeline_adam_from_numpy,
+    lm_sharded_adam_from_numpy,
+    lm_zeros_numpy,
+)
 from ..data.lm import LMDataset
 from ..models import partition, transformer
+from ..obs.health import flat_grad_sq_nonfinite, nonfinite_count
 from ..models.transformer import LMSpec
 from ..ops import flash_attention
 from ..ops.optimizers import AdamState, ShardedAdam, adam_init, adam_update
@@ -86,8 +105,19 @@ from ..parallel.mesh import DP_AXIS, LOCAL, SP_AXIS, Grid, World, default_device
 from ..pipeline import trainer as pipeline_trainer
 from ..pipeline.schedule import SCHEDULES
 from ..pipeline.step import PipelineRecord, make_pipeline_eval_body
-from ..train.trainer import eval_spans, hit_target
+from ..train.trainer import (
+    CHECKPOINT_KEEP,
+    check_preempt,
+    checkpoint_file,
+    eval_spans,
+    guarded,
+    hit_target,
+    resume_plan,
+    save_crossed,
+    try_resume,
+)
 from ..utils import tree
+from ..utils.checkpoint import save_checkpoint_world
 from ..utils.metrics import StepStats, StepTimer, barrier
 from .sync import _adam_flat
 
@@ -194,8 +224,7 @@ class SeqConfig:
 
 @dataclasses.dataclass
 class LMResult:
-    """The JAX ``LMResult`` without the fields of features not ported yet
-    (resume, preemption, the non-finite guard), plus the span losses."""
+    """The JAX ``LMResult``, plus the span losses."""
 
     params: dict  # numpy tree, JAX layout
     final_accuracy: float  # weighted next-token accuracy on the test set
@@ -206,6 +235,10 @@ class LMResult:
     tokens_per_sec: float  # scored + unscored tokens (B * T) / train_time_s
     compile_time_s: float = 0.0  # warm-up before the clock, kernel build included
     step_stats: StepStats | None = None
+    resumed_from_step: int = 0  # global batch restored from a checkpoint
+    preempted: bool = False  # stopped early by should_stop (e.g. SIGTERM)
+    skipped_steps: int = 0  # updates skipped by the non-finite guard
+    rollbacks: int = 0  # guard escalations to the last good checkpoint
     span_losses: list[float] = dataclasses.field(default_factory=list)  # last loss per span
 
 
@@ -404,17 +437,51 @@ class _FlatPlan:
         return tree.unflatten(self.like, [x.view(s) for x, s in zip(parts, self.shapes)])
 
 
+def guard_groups(params, specs, grid: Grid) -> list[tuple]:
+    """For each leaf of the parameter tree ``params`` (``utils.tree.leaves``
+    order), the groups its non-finite gradient count sums over, as its
+    partition spec names them (JAX's ``obs.health`` per-spec psums): the
+    tp group for a tp-sharded leaf, and under a pipeline the pp group for
+    the stage's blocks. ``specs`` is ``partition.lm_param_specs`` of this
+    rank's stage (None at tp 1)."""
+    pp = (grid.pp_group,) if grid.pipeline_parallel > 1 else ()
+    out = []
+    for key in sorted(params):
+        n = len(tree.leaves(params[key]))
+        for s in (tree.leaves(specs[key]) if specs is not None else [None] * n):
+            out.append((pp if key == "blocks" else ()) + ((grid.tp_group,) if s is not None
+                                                          else ()))
+    return out
+
+
+def _guarded_update(guard: bool, nonfinite: Callable, params, opt, new_params, new_opt,
+                    loss) -> tuple:
+    """A step body's return: ``(params', opt', loss)`` unguarded; guarded,
+    the update selected against the non-finite count
+    (``resilience.guard.apply_guard``, ``nonfinite()`` computed only
+    then) and the skip flag appended."""
+    if not guard:
+        return new_params, new_opt, loss
+    from ..resilience.guard import apply_guard
+
+    new_params, new_opt, skipped = apply_guard(nonfinite(), params, opt, new_params, new_opt)
+    return new_params, new_opt, loss, skipped
+
+
 def _step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
-               plan: _FlatPlan) -> Callable:
+               plan: _FlatPlan, guard: bool = False, specs=None) -> Callable:
     """One train step: ``(params, opt_state, tokens, targets, weights) ->
     (params', opt_state', loss)`` — local gradients, ONE all-reduce of the
     flat gradient over ``(dp, sp)`` (full gradients for the replicated
     leaves, shard-full ones for the tp-sharded leaves), then TF1 Adam over
     the tree (the moments placed like the parameters). The policy's casts
     bracket the sum (at a world of one too, as JAX's psum over an axis of
-    one keeps them)."""
+    one keeps them). ``guard=True`` (the partition ``specs`` given)
+    selects the old state on a non-finite gradient and returns the skip
+    flag fourth."""
     attn = _attn_for(config, grid)
     pol = config.policy()
+    groups = guard_groups(plan.like, specs, grid) if guard else None
 
     def step(params, opt_state: AdamState, tokens, targets, weights):
         loss, grads = _local_grads(config, grid, attn, positions, params, tokens, targets,
@@ -424,8 +491,11 @@ def _step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
             grads = plan.unflatten(_psum(_FlatPlan.flatten(grads), grid))
         grads = pol.upcast_grads(grads)
         with torch.no_grad():
-            params, opt_state = adam_update(params, opt_state, grads, lr=config.learning_rate)
-        return params, opt_state, loss
+            new_params, new_opt = adam_update(params, opt_state, grads,
+                                              lr=config.learning_rate)
+            out = _guarded_update(guard, lambda: nonfinite_count(grads, groups), params,
+                                  opt_state, new_params, new_opt, loss)
+        return out
 
     return step
 
@@ -448,13 +518,15 @@ def _zero1_gather(grid: Grid, p_new: torch.Tensor) -> torch.Tensor:
 
 
 def _zero1_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
-                     plan: _FlatPlan) -> Callable:
+                     plan: _FlatPlan, guard: bool = False) -> Callable:
     """One ZeRO-1 step: local gradients, the flat gradient reduce-scattered
     over ``(dp, sp)`` (:func:`_zero1_flat`), the plain flat Adam chain on
     this rank's chunk ``dp_index * num_workers + sp_index``, and an
     all-gather of the updated chunks. Under ``precision="bf16"`` the flat
     gradient is cast before the reduce-scatter and this rank's chunk
-    upcast after it."""
+    upcast after it. ``guard=True`` counts the non-finite elements of the
+    flat chunks (disjoint over ``(dp, sp)``: one sum is the global count)
+    and returns the skip flag fourth."""
     attn = _attn_for(config, grid)
     pol = config.policy()
     n_dev = config.data_parallel * config.num_workers
@@ -468,9 +540,12 @@ def _zero1_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
                                              chunk))
         with torch.no_grad():
             p_own = coll.pad_to(_FlatPlan.flatten(params), chunk * n_dev)[mine]
-            p_new, opt = _adam_flat(p_own, opt, g_own, lr=config.learning_rate)
+            p_new, new_opt = _adam_flat(p_own, opt, g_own, lr=config.learning_rate)
             full = _zero1_gather(grid, p_new)
-        return plan.unflatten(full), opt, loss
+            out = _guarded_update(
+                guard, lambda: flat_grad_sq_nonfinite(g_own, grid.data_group)[1], params,
+                opt, plan.unflatten(full), new_opt, loss)
+        return out
 
     return step
 
@@ -525,7 +600,7 @@ class _HybridPlan:
 
 
 def _zero1_tp_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
-                        hplan: _HybridPlan) -> Callable:
+                        hplan: _HybridPlan, guard: bool = False) -> Callable:
     """One hybrid ZeRO-1 x tp step: local gradients (``(dp, sp)``-partial,
     tp-complete), then for the REPLICATED leaves the ZeRO-1 path over
     ``(dp, sp)`` (one reduce-scatter of their flat gradient, the plain flat
@@ -534,7 +609,9 @@ def _zero1_tp_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
     chunk), and for the tp-SHARDED leaves an all-reduce over ``(dp, sp)``
     per leaf, then tree Adam on the shard with the shared step. Under
     ``precision="bf16"`` both subtrees' sums move bf16 and upcast at their
-    Adam boundary."""
+    Adam boundary. ``guard=True`` counts the flat chunks' non-finite
+    elements over ``(dp, sp)`` plus the tp shards' over tp, and returns the
+    skip flag fourth."""
     attn = _attn_for(config, grid)
     pol = config.policy()
     n_dev = config.data_parallel * config.num_workers
@@ -557,9 +634,16 @@ def _zero1_tp_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
             tp_new, tp_state = adam_update(p_tp, AdamState(step=opt.step, m=opt.m_tp,
                                                            v=opt.v_tp),
                                            g_tp, lr=config.learning_rate)
-        new_opt = HybridAdam(step=flat.step, m_flat=flat.m, v_flat=flat.v, m_tp=tp_state.m,
-                             v_tp=tp_state.v)
-        return hplan.merge(rep_new, tp_new), new_opt, loss
+            new_opt = HybridAdam(step=flat.step, m_flat=flat.m, v_flat=flat.v,
+                                 m_tp=tp_state.m, v_tp=tp_state.v)
+
+            def nonfinite():
+                _, nf = flat_grad_sq_nonfinite(g_own, grid.data_group)
+                return nf + nonfinite_count(g_tp, [(grid.tp_group,)] * len(g_tp))
+
+            out = _guarded_update(guard, nonfinite, params, opt, hplan.merge(rep_new, tp_new),
+                                  new_opt, loss)
+        return out
 
     return step
 
@@ -639,17 +723,22 @@ class SeqTrainer:
         self.positions = _shard_positions(config, t_local, self.grid, self.device)
         self._attn = _attn_for(config, self.grid)
 
-    def step_fn(self) -> Callable:
+    def step_fn(self, guard: bool = False) -> Callable:
         """This config's train step, ``(params, opt, tokens, targets,
-        weights) -> (params', opt', loss)`` on this rank's blocks."""
+        weights) -> (params', opt', loss[, skipped])`` on this rank's
+        blocks; ``guard=True`` is the non-finite guarded step."""
         if self.config.pipeline_parallel > 1:
-            return pipeline_trainer.pipeline_step(self.config, self.grid, self.positions,
-                                                  self.pipeline_record)
+            return pipeline_trainer.pipeline_step(
+                self.config, self.grid, self.positions, self.pipeline_record,
+                guard_groups=guard_groups(self.params, self._specs, self.grid) if guard else None)
         if self._hplan is not None:
-            return _zero1_tp_step_body(self.config, self.grid, self.positions, self._hplan)
+            return _zero1_tp_step_body(self.config, self.grid, self.positions, self._hplan,
+                                       guard=guard)
         if self.config.zero1:
-            return _zero1_step_body(self.config, self.grid, self.positions, self._plan)
-        return _step_body(self.config, self.grid, self.positions, self._plan)
+            return _zero1_step_body(self.config, self.grid, self.positions, self._plan,
+                                    guard=guard)
+        return _step_body(self.config, self.grid, self.positions, self._plan, guard=guard,
+                          specs=self._specs)
 
     def _permuted(self, arr: np.ndarray) -> np.ndarray:
         """The layout's sequence permutation (identity when contiguous):
@@ -681,17 +770,20 @@ class SeqTrainer:
         dp)."""
         return self._local(self._permuted(np.asarray(arr)), rows=False)
 
-    def span_program(self, k: int) -> Callable:
-        """``(params, opt, xs, ys, ws, first) -> (params, opt, last_loss)``:
-        ``k`` consecutive steps over the staged batches ``first ..
-        first + k - 1``."""
-        step = self.step_fn()
+    def span_program(self, k: int, guard: bool = False) -> Callable:
+        """``(params, opt, xs, ys, ws, first) -> (params, opt, last_loss[,
+        skipped])``: ``k`` consecutive steps over the staged batches
+        ``first .. first + k - 1``; guarded, the steps' skip flags come
+        back stacked, ``[k]`` int32 on the device."""
+        step = self.step_fn(guard)
 
         def run(params, opt_state, xs, ys, ws, first: int):
-            loss = None
+            loss, flags = None, []
             for i in range(first, first + k):
-                params, opt_state, loss = step(params, opt_state, xs[i], ys[i], ws[i])
-            return params, opt_state, loss
+                out = step(params, opt_state, xs[i], ys[i], ws[i])
+                params, opt_state, loss = out[:3]
+                flags.extend(out[3:])
+            return (params, opt_state, loss) + ((torch.stack(flags),) if flags else ())
 
         return run
 
@@ -740,53 +832,236 @@ class SeqTrainer:
                   coll.all_gather_list(flat, g.pp_group)]
         return partition.gather_stage_params(stages)
 
-    def train(self, log: Callable[[str], None] = print) -> LMResult:
+    # -- checkpoint form: params-shaped m/v in every mode ---------------------
+
+    def _opt_like(self) -> AdamState:
+        """Template of the checkpointed optimizer state: Adam ``m``/``v`` as
+        params-shaped trees in every mode (the STANDARD per-layer form), so
+        a save of a ZeRO-1, hybrid or pipeline run resumes a replicated run,
+        and the other way round, at any topology."""
+        return AdamState(step=np.zeros((), np.int32), m=lm_zeros_numpy(self.config.spec),
+                         v=lm_zeros_numpy(self.config.spec))
+
+    def checkpoint_like(self) -> dict:
+        """Template of the whole checkpoint: ``{"params", "opt"}``."""
+        return {"params": lm_zeros_numpy(self.config.spec), "opt": self._opt_like()}
+
+    def _params_for_save(self, params) -> dict:
+        """Live params -> the checkpoint's standard host form: every tp
+        shard and pp stage gathered (:meth:`full_params`, a collective)."""
+        return self.full_params(params)
+
+    def _place_params(self, host_tree) -> dict:
+        """Standard-form params -> this rank's placement (its tp shard of
+        its pp stage), fresh tensors."""
+        g = self.grid
+        return lm_params_from_numpy(host_tree, self.config.spec, self.device,
+                                    tensor_parallel=g.tensor_parallel, tp_index=g.tp_index,
+                                    pipeline_parallel=g.pipeline_parallel,
+                                    pp_index=g.pp_index)
+
+    def _opt_for_save(self, opt_state) -> AdamState:
+        """The live optimizer state -> the checkpoint form: the ZeRO-1 flat
+        chunks all-gathered over ``(dp, sp)`` and unflattened (the hybrid's
+        merged with its tp shards), then, like the params, every tp shard
+        and pp stage gathered (a collective: every rank calls it)."""
+        def full(part):
+            if self._hplan is not None:
+                flat = _zero1_gather(self.grid, getattr(opt_state, f"{part}_flat"))
+                local = self._hplan.merge(self._hplan.unflatten_rep(flat),
+                                          getattr(opt_state, f"{part}_tp"))
+            elif self.config.zero1:
+                local = self._plan.unflatten(_zero1_gather(self.grid, getattr(opt_state, part)))
+            else:
+                local = getattr(opt_state, part)
+            return self.full_params(local)
+
+        return AdamState(step=np.asarray(int(opt_state.step), np.int32), m=full("m"),
+                         v=full("v"))
+
+    def _place_opt(self, opt_tree):
+        """A checkpoint-form optimizer state -> this rank's mode: tree Adam
+        placed like the params, this rank's ZeRO-1 chunk, or the hybrid
+        split (``convert``'s forms), fresh tensors."""
+        cfg, g = self.config, self.grid
+        step, m, v = opt_tree.step, opt_tree.m, opt_tree.v
+        n_dev = cfg.data_parallel * cfg.num_workers
+        if self._hplan is not None:
+            return lm_hybrid_adam_from_numpy(step, m, v, cfg.spec, g.rank,
+                                             tensor_parallel=cfg.tensor_parallel,
+                                             data_ranks=n_dev, device=self.device)
+        if cfg.zero1:
+            return lm_sharded_adam_from_numpy(step, m, v, cfg.spec, g.data_index, n_dev,
+                                              self.device)
+        return lm_pipeline_adam_from_numpy(step, m, v, cfg.spec,
+                                           pipeline_parallel=g.pipeline_parallel,
+                                           pp_index=g.pp_index,
+                                           tensor_parallel=g.tensor_parallel,
+                                           tp_index=g.tp_index, device=self.device)
+
+    def train(
+        self,
+        log: Callable[[str], None] = print,
+        *,
+        checkpoint_dir: str | None = None,
+        checkpoint_every: int = 0,
+        resume=False,
+        should_stop: Callable[[], bool] | None = None,
+        dispatch_timeout: float = 0.0,
+        guard: bool = False,
+        max_bad_steps: int = 0,
+        max_rollbacks: int = 3,
+        fault_injector=None,
+        checkpoint_keep: int = CHECKPOINT_KEEP,
+    ) -> LMResult:
+        """Train ``config.epochs`` epochs with JAX's persistence contract:
+        a rolling checkpoint at every epoch end (and every
+        ``checkpoint_every`` batches), keeping the last ``checkpoint_keep``
+        step-stamped files; ``resume`` (``True``/``"latest"`` loads the
+        rolling file, ``"auto"`` the newest VALID save) realigned onto this
+        run's span grid; graceful preemption through ``should_stop``; the
+        ``dispatch_timeout`` watchdog. ``guard=True`` (implied by
+        ``max_bad_steps > 0``) runs the guarded step in every mode: a
+        non-finite gradient applies the identity, and ``max_bad_steps``
+        consecutive skips roll back to the last good checkpoint and replay
+        from its step (the data stream is indexed by step), at most
+        ``max_rollbacks`` times. ``fault_injector`` is the deterministic
+        chaos hook (``resilience.faults``)."""
         cfg, ds, dev = self.config, self.dataset, self.device
         bs = cfg.batch_size
         batch_num = ds.num_train // bs
+        inj = fault_injector
+        guard_on = bool(guard) or max_bad_steps > 0
+        monitor = None
+        if guard_on:
+            from ..resilience.guard import GuardMonitor
+
+            monitor = GuardMonitor(max_bad_steps, max_rollbacks=max_rollbacks)
+        world = self.grid.world
+
+        def stage_ws() -> torch.Tensor:
+            # The grad-fault injection point: one non-finite loss weight
+            # makes the loss and every gradient non-finite.
+            w = ds.weights
+            if inj is not None and inj.poisons_data():
+                w = inj.poison_batches(np.asarray(w), batch_num, bs)
+            return self.stage_batches(w, batch_num, bs)
+
         xs = self.stage_batches(ds.tokens, batch_num, bs)
         ys = self.stage_batches(ds.targets, batch_num, bs)
-        ws = self.stage_batches(ds.weights, batch_num, bs)
+        ws = stage_ws()
         xte, yte, wte = (self.stage_test(a)
                          for a in (ds.test_tokens, ds.test_targets, ds.test_weights))
         params = tree.map(torch.clone, self.params)
         opt_state = _clone_state(self.opt_state)
+        ckpt = checkpoint_file(checkpoint_dir)
+        like = self.checkpoint_like()
+        restored, start_step = try_resume(ckpt, resume, like, log)
+        if restored is not None:
+            params = self._place_params(restored["params"])
+            opt_state = self._place_opt(restored["opt"])
         spans = eval_spans(batch_num, cfg.eval_every)
-        fns = {k: self.span_program(k) for k in {k for _, k, _ in spans}}
+        fns: dict[int, Callable] = {}
+
+        def fn_for(k: int) -> Callable:
+            # On demand: a resume or a rollback realigns the spans.
+            if k not in fns:
+                fns[k] = self.span_program(k, guard=guard_on)
+            return fns[k]
+
         t0 = time.perf_counter()
         self._warm_up(params, opt_state, xs, ys, ws)
         warmup = time.perf_counter() - t0
+
+        def rollback() -> int:
+            """Guard escalation: restore the newest valid checkpoint at or
+            before the streak's first bad step (pruning the abandoned newer
+            saves), heal a transient injected fault (restaging clean
+            weights), and return the step to re-enter at."""
+            nonlocal params, opt_state, ws
+            from ..resilience.guard import rollback_state
+
+            rtree, rstep = rollback_state(checkpoint_dir, monitor, like, log, world)
+            params = self._place_params(rtree["params"])
+            opt_state = self._place_opt(rtree["opt"])
+            if inj is not None and inj.heal():
+                ws = stage_ws()
+            barrier(dev)
+            return rstep
+
+        def dispatch(k: int, first: int):
+            out = fn_for(k)(params, opt_state, xs, ys, ws, first)
+            barrier(dev)
+            return out
 
         timer = StepTimer()
         history: list[tuple[int, int, float]] = []
         span_losses: list[float] = []
         accuracy = loss = float("nan")
         tokens_per_batch = bs * ds.seq_len
-        hit = False
+        hit = preempted = False
         epoch = 0  # epochs=0: eval-only run
+        span_idx = 0
+        resumed_from = start_step
         start = time.perf_counter()
-        for epoch in range(cfg.epochs):
-            for first, k, eval_after in spans:
-                with timer.step(images=k * tokens_per_batch):
-                    params, opt_state, l_dev = fns[k](params, opt_state, xs, ys, ws, first)
-                    barrier(dev)
-                loss = float(l_dev)
-                span_losses.append(loss)
-                if eval_after:
-                    accuracy = self.evaluate(params, xte, yte, wte)
-                    history.append((epoch, first + k - 1, accuracy))
-                    log(f"epoch {epoch} batch {first + k - 1} "
-                        f"loss {loss:.4f} test_accuracy {accuracy:.4f}")
-                    hit = hit_target(cfg, accuracy)
+        while True:
+            rolled = False
+            resume_epoch, resume_spans = resume_plan(start_step, batch_num, cfg.eval_every,
+                                                     spans)
+            for epoch in range(cfg.epochs):
+                for first, k, eval_after in (resume_spans if epoch == resume_epoch else spans):
+                    gstep = epoch * batch_num + first
+                    if gstep < start_step:
+                        continue  # already done by the resumed run
+                    span_idx += 1
+                    with timer.step(images=k * tokens_per_batch):
+                        out = guarded(lambda: dispatch(k, first), dispatch_timeout,
+                                      f"span dispatch at global batch {gstep}")
+                    params, opt_state, l_dev = out[:3]
+                    if guard_on:
+                        # The loss and the span's skip flags in one fetch.
+                        host = torch.cat([l_dev.reshape(1).float(), out[3].float()]).tolist()
+                        loss, skipped = host[0], host[1:]
+                    else:
+                        loss = float(l_dev)
+                    span_losses.append(loss)
+                    if guard_on and monitor.observe(skipped, gstep):
+                        start_step = rollback()
+                        monitor.rolled_back(start_step)
+                        rolled = True
+                        break
+                    if eval_after:
+                        accuracy = guarded(lambda: self.evaluate(params, xte, yte, wte),
+                                           dispatch_timeout, f"eval after batch {first + k - 1}")
+                        history.append((epoch, first + k - 1, accuracy))
+                        log(f"epoch {epoch} batch {first + k - 1} "
+                            f"loss {loss:.4f} test_accuracy {accuracy:.4f}")
+                        hit = hit_target(cfg, accuracy)
+                    if inj is not None:
+                        inj.maybe_sigterm(gstep + k)
+                    preempted = preempted or check_preempt(should_stop, log, ckpt is not None,
+                                                           span_idx)
+                    if ckpt and save_crossed(gstep, k, checkpoint_every,
+                                             first + k == batch_num or hit or preempted):
+                        save_checkpoint_world(
+                            ckpt, {"params": self._params_for_save(params),
+                                   "opt": self._opt_for_save(opt_state)},
+                            world=world, step=gstep + k, extra={"epoch": epoch},
+                            keep=checkpoint_keep)
+                    if hit or preempted:
+                        break
                 if hit:
+                    log(f"target accuracy {cfg.target_accuracy} reached")
+                if rolled or hit or preempted:
                     break
-            if hit:
-                log(f"target accuracy {cfg.target_accuracy} reached")
+            if not rolled:
                 break
         wall = time.perf_counter() - start
         if not (history and history[-1][:2] == (epoch, batch_num - 1)) and not hit:
-            accuracy = self.evaluate(params, xte, yte, wte)
-            history.append((epoch, batch_num - 1, accuracy))
+            accuracy = guarded(lambda: self.evaluate(params, xte, yte, wte), dispatch_timeout,
+                               "final eval")
+            if not preempted:
+                history.append((epoch, batch_num - 1, accuracy))
         stats = timer.stats()
         log(f"final test_accuracy {accuracy:.4f} loss {loss:.4f} "
             f"({stats.tokens_per_sec:.0f} tokens/s)")
@@ -801,5 +1076,9 @@ class SeqTrainer:
             tokens_per_sec=stats.tokens_per_sec,
             compile_time_s=warmup,
             step_stats=stats,
+            resumed_from_step=resumed_from,
+            preempted=preempted,
+            skipped_steps=monitor.skipped_steps if monitor else 0,
+            rollbacks=monitor.rollbacks if monitor else 0,
             span_losses=span_losses,
         )

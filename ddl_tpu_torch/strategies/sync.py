@@ -21,6 +21,14 @@ are the single-device step's (``train.trainer.model_kwargs``). As in JAX,
 the CNN's sums cast no gradient: the in-loss cast's backward upcasts, so
 the flat gradient that reaches Adam (and the fused kernel, which takes
 float32 only) is fp32 under every policy.
+
+Checkpoints (``train.trainer.run_spans``'s hooks, JAX's ``SyncTrainer.train``)
+hold the ZeRO-1 moments params-shaped (:meth:`SyncTrainer._opt_for_save`),
+the layout-free form, so a save at one topology or layout resumes at any
+other, and into the single-device trainer (elastic resume). A resume lays
+them back into this rank's padded flat chunk (``coll.from_logical``) as a
+fresh contiguous buffer, the layout the fused kernel's launch plan was
+built for. As in JAX, the sync steps have no non-finite guard.
 """
 
 from __future__ import annotations
@@ -45,10 +53,14 @@ from ..parallel import collectives as coll
 from ..parallel.layout import LayoutAssignment, assign_layout, fold_shards
 from ..parallel.mesh import World
 from ..train.config import TrainConfig
+from ..convert import params_to_numpy, sharded_adam_from_numpy
 from ..train.trainer import (
+    StateIO,
     TrainResult,
+    check_injector,
     initial_params,
     model_kwargs,
+    put_array,
     run_spans,
     staging_dtype,
     steps_span,
@@ -275,8 +287,90 @@ class SyncTrainer:
         return (torch.as_tensor(np.ascontiguousarray(xs)).to(dev, staging_dtype(cfg)),
                 torch.as_tensor(np.ascontiguousarray(ys)).to(dev))
 
-    def train(self, log: Callable[[str], None] = print) -> TrainResult:
-        """Train ``config.epochs`` epochs; only rank 0 logs."""
+    def _ckpt_spec(self) -> coll.FlatSpec:
+        return coll.FlatSpec.from_layout(self.layout, self._shapes)
+
+    def _opt_like(self):
+        """Host template of the checkpointed optimizer state: replicated
+        Adam as it is (DP); ZeRO-1 m/v as PARAMS-SHAPED trees, the
+        layout-independent form (a flat vector would not be elastic: each
+        layout orders the variables differently)."""
+        if self.layout is None:
+            return self.opt_state
+        zeros = {n: np.zeros(s, np.float32) for n, s in self._shapes.items()}
+        return ShardedAdam(step=np.zeros((), np.int32), m=zeros,
+                           v={n: z.copy() for n, z in zeros.items()})
+
+    def _opt_for_save(self, opt_state):
+        """The checkpoint form of the optimizer state (:meth:`_opt_like`):
+        every rank's ZeRO-1 chunk all-gathered (a collective: every rank
+        calls it), put in logical order (``coll.to_logical``) and
+        unflattened."""
+        if self.layout is None:
+            return opt_state
+        spec = self._ckpt_spec()
+
+        def unflat(chunk):
+            padded = coll.all_gather_flat(chunk, self.world).cpu().numpy()
+            logical = torch.from_numpy(coll.to_logical(padded, self.layout))
+            return params_to_numpy(coll.unflatten_params(logical, spec))
+
+        return ShardedAdam(step=np.asarray(int(opt_state.step), np.int32),
+                           m=unflat(opt_state.m), v=unflat(opt_state.v))
+
+    def _place_state(self, params, opt_state):
+        """Host (checkpoint) state onto this rank: params replicated; Adam
+        replicated (DP), or the params-shaped m/v re-flattened in THIS
+        layout's order, scattered into the padded owner-major vector
+        (``coll.from_logical``) and cut to this rank's chunk, fresh and
+        contiguous (``convert.sharded_adam_from_numpy``)."""
+        dev = self.world.device
+        params = {k: put_array(v, dev) for k, v in params.items()}
+        if self.layout is None:
+            return params, AdamState(
+                step=put_array(opt_state.step, dev),
+                m={k: put_array(v, dev) for k, v in opt_state.m.items()},
+                v={k: put_array(v, dev) for k, v in opt_state.v.items()})
+        spec = self._ckpt_spec()
+        chunk = self.layout.max_shard
+        mine = slice(self.world.rank * chunk, (self.world.rank + 1) * chunk)
+
+        def refit(tree):
+            logical = np.concatenate([np.asarray(tree[n], np.float32).reshape(-1)
+                                      for n in spec.order])
+            return coll.from_logical(logical, self.layout, self.world.size * chunk)[mine]
+
+        return params, sharded_adam_from_numpy(opt_state.step, refit(opt_state.m),
+                                               refit(opt_state.v), dev)
+
+    def state_io(self) -> StateIO:
+        """The checkpoint form, JAX's ``{"params", "opt"}`` with
+        :meth:`_opt_like`'s optimizer state; rank 0 writes."""
+        like = {"params": {k: np.zeros(s, np.float32) for k, s in self._shapes.items()},
+                "opt": self._opt_like()}
+        return StateIO(
+            like=like,
+            for_save=lambda p, o: {"params": p, "opt": self._opt_for_save(o)},
+            place=lambda tree: self._place_state(tree["params"], tree["opt"]),
+            world=self.world,
+        )
+
+    def train(
+        self,
+        log: Callable[[str], None] = print,
+        *,
+        checkpoint_dir: str | None = None,
+        checkpoint_every: int = 0,
+        resume=False,
+        should_stop: Callable[[], bool] | None = None,
+        dispatch_timeout: float = 0.0,
+        fault_injector=None,
+    ) -> TrainResult:
+        """Train ``config.epochs`` epochs; only rank 0 logs. The hooks are
+        JAX's ``SyncTrainer.train``'s (``train.trainer.run_spans``), with
+        the single-device trainer's retention of the last saves and a
+        ``fault_injector`` for the kinds that need no guard (``sigterm``)."""
+        check_injector(fault_injector, "sync")
         cfg, ds, world = self.config, self.dataset, self.world
         batch_num = ds.num_train // cfg.batch_size
         xs, ys = self._stage_epoch(batch_num)
@@ -289,8 +383,11 @@ class SyncTrainer:
         coll.all_reduce_sum(torch.zeros(1, device=dev), world)
         self.params, self.opt_state, result = run_spans(
             cfg,
-            lambda k: make_sync_epoch(cfg, world, self.layout, self._shapes, k),
+            lambda k, guard: make_sync_epoch(cfg, world, self.layout, self._shapes, k),
             params, copy.deepcopy(self.opt_state), xs, ys, x_test, y_test, dev,
-            log if world.rank == 0 else (lambda s: None),
+            log if world.rank == 0 else (lambda s: None), self.state_io(),
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every, resume=resume,
+            should_stop=should_stop, dispatch_timeout=dispatch_timeout,
+            fault_injector=fault_injector,
         )
         return result

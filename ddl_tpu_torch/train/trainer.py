@@ -13,30 +13,42 @@ The dropout stream is a pure function of ``(seed, global step, worker)``
 The compute dtype and the conv stages run as patches-matmuls come from the
 config (``TrainConfig.policy()``, ``conv_matmul_mode()``); under bf16
 compute the train images are staged in bf16 (:func:`staging_dtype`).
-Checkpoint, guard, health, goodput and profile hooks are not ported yet
-(ROADMAP queue 1, items 5 and 7).
+
+The span loop (:func:`run_spans`, shared by ``SingleChipTrainer`` and
+``SyncTrainer``) carries JAX's resilience hooks: a checkpoint at every epoch
+end and every ``checkpoint_every`` steps (``utils/checkpoint.py``, the
+format both packages read), resume (``"auto"`` skips corrupt saves) realigned
+onto this run's span grid (:func:`resume_plan`), graceful preemption
+(:func:`check_preempt`, agreed over the world), the dispatch watchdog
+(:func:`guarded`), and on the single-device step, as in JAX, the non-finite
+guard with rollback (``resilience/guard.py``) and the fault injector. The
+health, goodput and profile hooks are ROADMAP queue 1, item 7.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 import time
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..convert import params_from_numpy, params_to_numpy
 from ..data.mnist import Dataset, one_hot
 from ..models import cnn
 from ..ops.optimizers import AdamState, adam_init, adam_update
-from ..parallel.mesh import default_device
+from ..parallel import multihost
+from ..parallel.mesh import AcceleratorTimeout, World, default_device, run_within
+from ..utils.checkpoint import load_checkpoint, save_checkpoint_world
 from ..utils.metrics import StepStats, StepTimer, barrier
 from .config import TrainConfig
 
 # A train step: (params, opt_state, x, y_onehot, global_step) ->
-# (params', opt_state', loss).
+# (params', opt_state', loss[, skipped]).
 Step = Callable[[dict, object, torch.Tensor, torch.Tensor, int], tuple]
 
 
@@ -50,6 +62,10 @@ class TrainResult:
     images_per_sec: float  # images / train_time_s
     compile_time_s: float = 0.0  # warm-up before the clock (no compiler here)
     step_stats: StepStats | None = None  # per-span time percentiles
+    resumed_from_step: int = 0  # global step restored from a checkpoint (0 = fresh)
+    preempted: bool = False  # stopped early by should_stop (e.g. SIGTERM)
+    skipped_steps: int = 0  # updates skipped by the non-finite guard
+    rollbacks: int = 0  # guard escalations to the last good checkpoint
     span_losses: list[float] = dataclasses.field(default_factory=list)  # mean loss per span
     # Async only: (epoch, round, [accuracy of each worker's stale replica])
     # per eval point. None for the sync and single trainers.
@@ -94,8 +110,12 @@ def staging_dtype(config: TrainConfig) -> torch.dtype:
     return torch.bfloat16 if config.policy().compute_dtype is not None else torch.float32
 
 
-def make_train_step(config: TrainConfig) -> Step:
-    """The single-device train step: forward/backward, then TF1 Adam."""
+def make_train_step(config: TrainConfig, guard: bool = False) -> Step:
+    """The single-device train step: forward/backward, then TF1 Adam.
+    ``guard=True`` applies the identity instead of the update whenever the
+    gradients hold a non-finite element (``resilience.guard.apply_guard``,
+    on the device) and returns the step's int32 skip flag as a fourth
+    output; ``guard=False`` is the unguarded step, op for op."""
     model_kw = model_kwargs(config)
 
     def step(params, opt_state: AdamState, x, y, gstep: int):
@@ -105,47 +125,64 @@ def make_train_step(config: TrainConfig) -> Step:
         )
         loss, grads = value_and_grad(params, x, y, gen, config.keep_prob, **model_kw)
         with torch.no_grad():
-            params, opt_state = adam_update(
+            new_params, new_opt = adam_update(
                 params, opt_state, grads, lr=config.learning_rate
             )
-        return params, opt_state, loss
+            if not guard:
+                return new_params, new_opt, loss
+            from ..obs.health import nonfinite_count
+            from ..resilience.guard import apply_guard
+
+            new_params, new_opt, skipped = apply_guard(
+                nonfinite_count(grads), params, opt_state, new_params, new_opt)
+        return new_params, new_opt, loss, skipped
 
     return step
 
 
 def steps_span(step: Step, k: int) -> Callable:
     """``k`` consecutive steps over device-resident batches:
-    ``(params, opt, xs, ys, first, goff) -> (params, opt, mean_loss)``,
-    with ``xs``/``ys`` ``[B, bs, ...]``, ``first`` the span's first batch
-    and ``goff`` its first global step (the dropout stream's position)."""
+    ``(params, opt, xs, ys, first, goff) -> (params, opt, mean_loss[,
+    skipped])``, with ``xs``/``ys`` ``[B, bs, ...]``, ``first`` the span's
+    first batch and ``goff`` its first global step (the dropout stream's
+    position). A guarded step's flags come back stacked, ``[k]`` int32 on
+    the device."""
 
     def run(params, opt_state, xs, ys, first: int, goff: int):
-        losses = []
+        losses, flags = [], []
         for i in range(k):
-            params, opt_state, loss = step(
-                params, opt_state, xs[first + i], ys[first + i], goff + i
-            )
-            losses.append(loss)
-        return params, opt_state, torch.stack(losses).mean()
+            out = step(params, opt_state, xs[first + i], ys[first + i], goff + i)
+            params, opt_state = out[0], out[1]
+            losses.append(out[2])
+            flags.extend(out[3:])
+        done = (params, opt_state, torch.stack(losses).mean())
+        return done + ((torch.stack(flags),) if flags else ())
 
     return run
 
 
-def make_epoch_chunk(config: TrainConfig, k: int) -> Callable:
+def make_epoch_chunk(config: TrainConfig, k: int, guard: bool = False) -> Callable:
     """The single-device ``k``-step span program (see :func:`steps_span`)."""
-    return steps_span(make_train_step(config), k)
+    return steps_span(make_train_step(config, guard=guard), k)
 
 
-def eval_spans(batch_num: int, eval_every: int) -> list[tuple[int, int, bool]]:
+def eval_spans(
+    batch_num: int, eval_every: int, start: int = 0
+) -> list[tuple[int, int, bool]]:
     """Chunk an epoch into ``(first_batch, num_batches, eval_after)`` spans
     ending at the reference's eval points: after batches 0, 10, 20, ...
-    (mnist_sync/worker.py:71-72), plus a no-eval tail."""
-    if batch_num <= 0:
+    (mnist_sync/worker.py:71-72), plus a no-eval tail.
+
+    ``start`` begins the stream mid-epoch at that batch (a resume from a
+    checkpoint whose saving run used another cadence): the first span is
+    shortened so that its end realigns with this run's eval grid, and
+    every batch from ``start`` on is trained."""
+    if batch_num <= 0 or start >= batch_num or start < 0:
         return []
     if not eval_every:
-        return [(0, batch_num, False)]
+        return [(start, batch_num - start, False)]
     spans = []
-    first = 0
+    first = start
     while first < batch_num:
         if first == 0:
             last = 0
@@ -156,6 +193,172 @@ def eval_spans(batch_num: int, eval_every: int) -> list[tuple[int, int, bool]]:
         spans.append((first, last - first + 1, last % eval_every == 0))
         first = last + 1
     return spans
+
+
+def resume_plan(
+    start_step: int, batch_num: int, eval_every: int,
+    spans: list[tuple[int, int, bool]],
+) -> tuple[int, list[tuple[int, int, bool]]]:
+    """``(resume_epoch, resume_spans)``: ``resume_spans`` replaces
+    ``spans`` for the resume epoch only. A checkpoint written under another
+    eval or checkpoint cadence can land ``start_step`` mid-span of this
+    run's grid; the realigned stream starts exactly there, so every
+    remaining batch trains."""
+    resume_epoch, resume_first = (
+        divmod(start_step, batch_num) if batch_num else (0, 0)
+    )
+    resume_spans = (
+        eval_spans(batch_num, eval_every, resume_first)
+        if resume_first else spans
+    )
+    return resume_epoch, resume_spans
+
+
+def checkpoint_file(checkpoint_dir: str | os.PathLike | None) -> str | None:
+    """The rolling checkpoint path inside ``checkpoint_dir`` (its atomic
+    ``os.replace`` makes one rolling file crash-safe, utils/checkpoint.py)."""
+    if checkpoint_dir is None:
+        return None
+    return os.path.join(os.fspath(checkpoint_dir), "ckpt.npz")
+
+
+def try_resume(ckpt_path: str | None, resume, like, log: Callable[[str], None]):
+    """Load the rolling checkpoint if resuming. Returns ``(tree | None,
+    step)``, ``step`` the global steps already completed (0 = fresh).
+
+    ``resume`` is falsy (a fresh run), truthy (load ``ckpt_path``
+    exactly) or ``"auto"``: the newest VALID checkpoint in the directory
+    (``utils.checkpoint.find_latest_valid``), corrupt or truncated saves
+    verified out and logged, so a torn latest file resumes from the
+    previous retained one. A missing file starts fresh; the caller places
+    the arrays."""
+    if not resume:
+        return None, 0
+    if ckpt_path is None:
+        raise ValueError("resume requires a checkpoint directory")
+    if resume == "auto":
+        from ..utils.checkpoint import find_latest_valid
+
+        found = find_latest_valid(os.path.dirname(ckpt_path) or ".", log=log)
+        if found is None:
+            log(f"[resume] no valid checkpoint near {ckpt_path}; "
+                "starting fresh")
+            return None, 0
+        ckpt_path = found[0]
+    elif not os.path.exists(ckpt_path):
+        log(f"[resume] no checkpoint at {ckpt_path}; starting fresh")
+        return None, 0
+    try:
+        tree, step, _extra = load_checkpoint(ckpt_path, like)
+    except (KeyError, ValueError) as e:
+        raise RuntimeError(
+            f"checkpoint {ckpt_path} is incompatible with this trainer's "
+            f"state (different strategy family, model width, or an older "
+            f"checkpoint format): {e}. Delete the checkpoint to start "
+            "fresh, or resume with the original configuration."
+        ) from e
+    step = int(step or 0)
+    log(f"[resume] restored global step {step} from {ckpt_path}")
+    return tree, step
+
+
+# Step-stamped saves kept beside the rolling file: the previous one is the
+# fallback when the newest is damaged (JAX's default).
+CHECKPOINT_KEEP = 2
+
+# Spans between two preemption agreements in a world of several ranks:
+# each agreement is one collective, so polling it every span taxes the
+# steady state. Agreeing at spans 1, 1 + 4, 1 + 8, ... bounds the
+# SIGTERM-to-stop latency at 4 spans. A world of one checks every span.
+PREEMPT_AGREE_EVERY = 4
+
+
+def check_preempt(
+    should_stop: Callable[[], bool] | None,
+    log: Callable[[str], None],
+    has_checkpoint: bool,
+    span_idx: int = 1,
+) -> bool:
+    """Graceful-preemption probe, polled once a span: when ``should_stop``
+    (e.g. the CLI's SIGTERM flag) turns true, the trainer saves its rolling
+    checkpoint and returns cleanly instead of dying mid-epoch.
+
+    In a world of several ranks the local flag goes through
+    ``multihost.agree_flag``, so every rank stops at the SAME span (one
+    rank saving, a collective, while another starts the next span's
+    collectives would deadlock). So ``should_stop`` must be passed on every
+    rank or on none, and the agreement runs only at spans 1, 1 + N, ...
+    (N = ``PREEMPT_AGREE_EVERY``; ``span_idx`` is the trainer's 1-based
+    span counter, the same on every rank)."""
+    if should_stop is None:
+        return False
+    if (dist.is_initialized() and dist.get_world_size() > 1
+            and (span_idx - 1) % PREEMPT_AGREE_EVERY):
+        return False  # off-cadence span: no collective
+    if not multihost.agree_flag(should_stop()):
+        return False
+    log("preempted: saving checkpoint and stopping after this span"
+        if has_checkpoint else
+        "preempted: stopping after this span (no checkpoint dir — "
+        "progress is NOT saved)")
+    return True
+
+
+def save_crossed(gstep: int, k: int, every: int, epoch_end: bool) -> bool:
+    """Checkpoint cadence: save at every epoch end, and whenever the span
+    ``[gstep, gstep + k)`` crosses a multiple of ``every`` (0 = epoch ends
+    only). Spans are the save boundaries."""
+    if epoch_end:
+        return True
+    return bool(every) and (gstep + k) // every > gstep // every
+
+
+def guarded(fn, timeout_s: float, what: str):
+    """Run ``fn`` under the watchdog (``mesh.run_within``): a dead card or
+    peer leaves a synchronize or a collective blocked forever, and a
+    timeout turns that into :class:`~ddl_tpu_torch.parallel.mesh.
+    AcceleratorTimeout` with the recovery route. ``timeout_s <= 0`` is a
+    plain call (no thread)."""
+    if timeout_s <= 0:
+        return fn()
+    try:
+        return run_within(fn, timeout_s, what=what)
+    except AcceleratorTimeout as e:
+        raise AcceleratorTimeout(
+            f"{e} — accelerator backend presumed unreachable. Training "
+            "state up to the last checkpoint is safe; rerun with --resume "
+            "once the backend is back."
+        ) from None
+
+
+@dataclasses.dataclass
+class StateIO:
+    """How a trainer's live state crosses a checkpoint: ``like`` is the
+    template of the checkpoint form (shapes and dtypes), ``for_save(params,
+    opt)`` that form on the host (a collective in a world of several ranks:
+    every rank calls it), ``place(tree) -> (params, opt)`` its inverse onto
+    this rank's devices and shards; ``world`` says who writes."""
+
+    like: Any
+    for_save: Callable[[Any, Any], Any]
+    place: Callable[[Any], tuple]
+    world: World | None = None
+
+
+def put_array(a, device) -> torch.Tensor:
+    """A host array as a FRESH tensor on ``device`` (its own contiguous
+    storage, dtype kept): what a restored buffer must be."""
+    return torch.tensor(np.asarray(a), device=device)
+
+
+def check_injector(fault_injector, family: str) -> None:
+    """The sync and async strategies have no non-finite guard (as in JAX):
+    a fault that poisons the data would train through NaNs there."""
+    if fault_injector is not None and fault_injector.spec.kind in ("nan_grads", "inf_grads"):
+        raise ValueError(
+            f"fault {fault_injector.spec.kind} needs the non-finite guard, which the "
+            f"{family} trainer does not have (the single and lm trainers do)"
+        )
 
 
 def eval_chunks(x, y, batch: int):
@@ -211,7 +414,7 @@ def initial_params(config: TrainConfig, init, device: torch.device) -> dict:
 
 def run_spans(
     config: TrainConfig,
-    span_fn: Callable[[int], Callable],
+    span_fn: Callable[[int, bool], Callable],
     params,
     opt_state,
     xs: torch.Tensor,
@@ -220,15 +423,53 @@ def run_spans(
     y_test: torch.Tensor,
     device: torch.device,
     log: Callable[[str], None],
+    io: StateIO | None = None,
+    *,
+    checkpoint_dir: str | None = None,
+    checkpoint_every: int = 0,
+    resume=False,
+    should_stop: Callable[[], bool] | None = None,
+    dispatch_timeout: float = 0.0,
+    guard: bool = False,
+    max_bad_steps: int = 0,
+    max_rollbacks: int = 3,
+    fault_injector=None,
+    checkpoint_keep: int = CHECKPOINT_KEEP,
+    stage_xs: Callable[[], torch.Tensor] | None = None,
 ):
-    """The span loop every trainer shares: warm up, then run each epoch's
-    eval spans, timing each one to a device barrier, with the reference's
-    eval cadence and the early-stop target. ``span_fn(k)`` gives the
-    ``k``-step span program. Returns ``(params, opt_state, TrainResult)``
-    with ``params`` still on the device (``result.params`` is numpy)."""
+    """The span loop every CNN trainer shares: resume, warm up, then run
+    each epoch's eval spans, timing each one to a device barrier, with the
+    reference's eval cadence, the early-stop target and the resilience
+    hooks of the JAX trainers' loops (module docstring). ``span_fn(k,
+    guard)`` gives the ``k``-step span program; ``io`` moves the state
+    across checkpoints (needed with ``checkpoint_dir``); ``stage_xs``
+    restages the train images after a guard rollback heals an injected
+    fault. Returns ``(params, opt_state, TrainResult)`` with ``params``
+    still on the device (``result.params`` is numpy)."""
+    guard_on = bool(guard) or max_bad_steps > 0
+    inj = fault_injector
+    monitor = None
+    if guard_on:
+        from ..resilience.guard import GuardMonitor
+
+        monitor = GuardMonitor(max_bad_steps, max_rollbacks=max_rollbacks)
+    world = io.world if io is not None else None
+    ckpt = checkpoint_file(checkpoint_dir)
+    if ckpt is not None and io is None:
+        raise ValueError("checkpoint_dir needs the trainer's StateIO")
+    tree, start_step = try_resume(ckpt, resume, io.like if io else None, log)
+    if tree is not None:
+        params, opt_state = io.place(tree)
     batch_num = xs.shape[0]
     spans = eval_spans(batch_num, config.eval_every)
-    fns = {k: span_fn(k) for k in {k for _, k, _ in spans}}
+    fns: dict[int, Callable] = {}
+
+    def fn_for(k: int) -> Callable:
+        # On demand: a rollback can realign the spans onto new lengths.
+        if k not in fns:
+            fns[k] = span_fn(k, guard_on)
+        return fns[k]
+
     # Warm-up outside the clock (the JAX package compiles here): one
     # forward/backward on the first batch (discarded) and one eval load the
     # library handles and kernels; the state is not touched.
@@ -239,31 +480,80 @@ def run_spans(
         evaluate(params, x_test, y_test)
     barrier(device)
     warmup = time.perf_counter() - t0
+    resumed_from = start_step
+
+    def rollback() -> int:
+        """Guard escalation: restore the newest valid checkpoint at or
+        before the streak's first bad step (``rollback_state`` prunes the
+        abandoned newer saves), heal a transient injected fault
+        (restaging clean data), and return the step to re-enter at."""
+        nonlocal params, opt_state, xs
+        from ..resilience.guard import rollback_state
+
+        rtree, rstep = rollback_state(checkpoint_dir, monitor, io.like, log, world)
+        params, opt_state = io.place(rtree)
+        if inj is not None and inj.heal():
+            xs = stage_xs()
+        barrier(device)
+        return rstep
+
+    def dispatch(k: int, first: int, gstep: int):
+        out = fn_for(k)(params, opt_state, xs, ys, first, gstep)
+        barrier(device)
+        return out
+
     history: list[tuple[int, int, float]] = []
     losses = []  # device tensors, fetched after the loop
     timer = StepTimer()
-    stopped = False
+    stopped = preempted = False
+    span_idx = 0
     start = time.perf_counter()
-    for epoch in range(config.epochs):
-        for first, k, eval_after in spans:
-            gstep = epoch * batch_num + first
-            with timer.step(images=k * config.batch_size):
-                params, opt_state, loss = fns[k](params, opt_state, xs, ys, first, gstep)
-                barrier(device)
-            losses.append(loss)
-            if eval_after:
-                cnt = first + k - 1
-                acc = evaluate(params, x_test, y_test)
-                history.append((epoch, cnt, acc))
-                log(f"epoch: {epoch} batch: {cnt} accuracy: {acc}")
-                stopped = hit_target(config, acc)
+    while True:
+        rolled = False
+        resume_epoch, resume_spans = resume_plan(start_step, batch_num, config.eval_every, spans)
+        for epoch in range(config.epochs):
+            for first, k, eval_after in (resume_spans if epoch == resume_epoch else spans):
+                gstep = epoch * batch_num + first
+                if gstep < start_step:
+                    continue  # already done by the resumed run
+                span_idx += 1
+                with timer.step(images=k * config.batch_size):
+                    out = guarded(lambda: dispatch(k, first, gstep), dispatch_timeout,
+                                  f"span dispatch at global step {gstep}")
+                params, opt_state = out[0], out[1]
+                losses.append(out[2])
+                if guard_on and monitor.observe(out[3].cpu().numpy(), gstep):
+                    start_step = rollback()
+                    monitor.rolled_back(start_step)
+                    rolled = True
+                    break
+                if eval_after:
+                    cnt = first + k - 1
+                    acc = guarded(lambda: evaluate(params, x_test, y_test), dispatch_timeout,
+                                  f"eval after batch {cnt}")
+                    history.append((epoch, cnt, acc))
+                    log(f"epoch: {epoch} batch: {cnt} accuracy: {acc}")
+                    stopped = hit_target(config, acc)
+                if inj is not None:
+                    inj.maybe_sigterm(gstep + k)
+                preempted = preempted or check_preempt(should_stop, log, ckpt is not None,
+                                                       span_idx)
+                if ckpt and save_crossed(gstep, k, checkpoint_every,
+                                         first + k == batch_num or stopped or preempted):
+                    save_checkpoint_world(ckpt, io.for_save(params, opt_state), world=world,
+                                          step=gstep + k, extra={"epoch": epoch},
+                                          keep=checkpoint_keep)
+                if stopped or preempted:
+                    break
             if stopped:
+                log(f"target accuracy {config.target_accuracy} reached")
+            if rolled or stopped or preempted:
                 break
-        if stopped:
-            log(f"target accuracy {config.target_accuracy} reached")
+        if not rolled:
             break
     end = time.perf_counter()
-    final_acc = evaluate(params, x_test, y_test)
+    final_acc = guarded(lambda: evaluate(params, x_test, y_test), dispatch_timeout,
+                        "final eval")
     log(f"final accuracy: {final_acc}")
     train_time = timer.total_s
     return params, opt_state, TrainResult(
@@ -275,6 +565,10 @@ def run_spans(
         images_per_sec=timer.total_images / train_time if train_time > 0 else 0.0,
         compile_time_s=warmup,
         step_stats=timer.stats(),
+        resumed_from_step=resumed_from,
+        preempted=preempted,
+        skipped_steps=monitor.skipped_steps if monitor else 0,
+        rollbacks=monitor.rollbacks if monitor else 0,
         span_losses=[float(x) for x in losses],
     )
 
@@ -297,7 +591,45 @@ class SingleChipTrainer:
         self.params = initial_params(config, init, self.device)
         self.opt_state = adam_init(self.params)
 
-    def train(self, log: Callable[[str], None] = print) -> TrainResult:
+    def state_io(self) -> StateIO:
+        """The checkpoint form, JAX's ``{"params": params, "opt":
+        AdamState}``: the live tensors are their own template."""
+        dev = self.device
+
+        def place(tree):
+            opt = tree["opt"]
+            return ({k: put_array(v, dev) for k, v in tree["params"].items()},
+                    AdamState(step=put_array(opt.step, dev),
+                              m={k: put_array(v, dev) for k, v in opt.m.items()},
+                              v={k: put_array(v, dev) for k, v in opt.v.items()}))
+
+        return StateIO(like={"params": self.params, "opt": self.opt_state},
+                       for_save=lambda p, o: {"params": p, "opt": o}, place=place)
+
+    def train(
+        self,
+        log: Callable[[str], None] = print,
+        *,
+        checkpoint_dir: str | None = None,
+        checkpoint_every: int = 0,
+        resume=False,
+        should_stop: Callable[[], bool] | None = None,
+        dispatch_timeout: float = 0.0,
+        guard: bool = False,
+        max_bad_steps: int = 0,
+        max_rollbacks: int = 3,
+        fault_injector=None,
+        checkpoint_keep: int = CHECKPOINT_KEEP,
+    ) -> TrainResult:
+        """Train ``config.epochs`` epochs (:func:`run_spans`). Resilience,
+        as JAX's: ``resume`` accepts ``"auto"`` (the newest VALID
+        checkpoint); saves keep the last ``checkpoint_keep`` step-stamped
+        files; ``guard=True`` (implied by ``max_bad_steps > 0``) runs the
+        non-finite guarded step, and ``max_bad_steps`` consecutive skips
+        roll back to the last good checkpoint (a checkpoint dir is needed)
+        and replay from there, at most ``max_rollbacks`` times;
+        ``fault_injector`` is the deterministic chaos hook
+        (``resilience.faults``)."""
         cfg, ds, dev = self.config, self.dataset, self.device
         bs = cfg.batch_size
         batch_num = ds.num_train // bs
@@ -306,13 +638,28 @@ class SingleChipTrainer:
         # Explicit feature dims: batch_num may be 0 (dataset < one batch).
         x = np.asarray(ds.x_train, np.float32)[:n]
         y = one_hot(ds.y_train)[:n]
-        xs = torch.as_tensor(x.reshape(batch_num, bs, x.shape[-1])).to(dev, staging_dtype(cfg))
+
+        def stage_xs() -> torch.Tensor:
+            # The grad-fault injection point: a poisoned image pixel makes
+            # the loss, and so every gradient, non-finite through the real
+            # forward.
+            arr = x
+            if fault_injector is not None and fault_injector.poisons_data():
+                arr = fault_injector.poison_batches(arr, batch_num, bs)
+            return torch.as_tensor(arr.reshape(batch_num, bs, x.shape[-1])).to(
+                dev, staging_dtype(cfg))
+
+        xs = stage_xs()
         ys = torch.as_tensor(y.reshape(batch_num, bs, y.shape[-1])).to(dev)
         x_test = torch.as_tensor(np.asarray(ds.x_test, np.float32)).to(dev)
         y_test = torch.as_tensor(one_hot(ds.y_test)).to(dev)
         params = {k: v.clone() for k, v in self.params.items()}
         self.params, self.opt_state, result = run_spans(
-            cfg, lambda k: make_epoch_chunk(cfg, k), params, copy.deepcopy(self.opt_state),
-            xs, ys, x_test, y_test, dev, log,
+            cfg, lambda k, g: make_epoch_chunk(cfg, k, guard=g), params,
+            copy.deepcopy(self.opt_state), xs, ys, x_test, y_test, dev, log, self.state_io(),
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every, resume=resume,
+            should_stop=should_stop, dispatch_timeout=dispatch_timeout, guard=guard,
+            max_bad_steps=max_bad_steps, max_rollbacks=max_rollbacks,
+            fault_injector=fault_injector, checkpoint_keep=checkpoint_keep, stage_xs=stage_xs,
         )
         return result

@@ -2,7 +2,8 @@
 tests/test_torch_sync.py (:func:`world_cases`) and the 4-rank LM world of
 tests/test_torch_seq_parallel.py (:func:`lm_world_cases`: training on the
 3-D grid and the pipeline's 4-D one, then tp-2 serving as two tp groups of
-two ranks).
+two ranks, then the checkpoint and resilience cases,
+:func:`_resilience_cases`).
 
 Kept apart from the test modules so the spawned children import only
 ``torch`` and ``ddl_tpu_torch`` (never JAX): ``multiprocessing`` imports this
@@ -12,6 +13,7 @@ module, not the test file, to find the target.
 import contextlib
 import dataclasses
 import math
+import os
 import time
 
 import numpy as np
@@ -31,6 +33,8 @@ from ddl_tpu_torch.parallel import collectives as coll
 from ddl_tpu_torch.parallel.collectives import tp_allreduce, unflatten_params
 from ddl_tpu_torch.parallel.mesh import destroy_world, init_world, make_grid
 from ddl_tpu_torch.ops.optimizers import adam_init
+from ddl_tpu_torch.resilience import FaultInjector, FaultSpec
+from ddl_tpu_torch.utils import checkpoint as ck
 from ddl_tpu_torch.serve import InferenceEngine, Request, Scheduler, ServeConfig
 from ddl_tpu_torch.serve.cache import host_cache, host_paged_cache
 from ddl_tpu_torch.strategies import async_ps
@@ -251,6 +255,92 @@ SERVE_STATS = ("prefill_tokens", "decode_steps", "decode_tokens", "prefix_lookup
                "prefix_hits", "prefill_tokens_saved")
 
 
+# The checkpoint and resilience family, after the serve cases (outside the
+# timed LM cases): a JAX-written standard-form checkpoint placed at each
+# topology and written back (RES_ROUND_TRIPS); a preemption that rank 0
+# alone asks for, agreed by the world, then resume="auto" (the hybrid); a
+# rollback (the pipeline); the guard's skip in the ZeRO-1, hybrid and
+# pipeline bodies (RES_GUARD); a preempted ZeRO-1 2x2 save that the parent
+# resumes at one rank (elastic); and the tp-2 engine serving the hybrid's
+# checkpoint.
+RES_ROUND_TRIPS = ("zero1_ulysses_2x2", "hybrid_tp2_dp2", "dp2_pp2", "tp2_pp2_flash")
+RES_GUARD = ("zero1_ulysses_2x2", "hybrid_tp2_dp2", "dp2_pp2")
+RES_STANDARD = "jax_standard.npz"  # the parent writes it with JAX's save_checkpoint
+
+
+def res_dir(inputs: str, name: str) -> str:
+    return os.path.join(os.path.dirname(inputs), "res", name)
+
+
+def _guard_skip(trainer, ds) -> tuple[bool, int]:
+    """One guarded step on a batch with one NaN loss weight: (params and
+    optimizer state bitwise unchanged, the skip flag)."""
+    bs = trainer.config.batch_size
+    w = np.array(ds.weights, copy=True)
+    w[0, 0] = np.nan
+    xs, ys, ws = (trainer.stage_batches(a, 1, bs) for a in (ds.tokens, ds.targets, w))
+    p, o, _, skipped = trainer.span_program(1, guard=True)(
+        trainer.params, trainer.opt_state, xs, ys, ws, 0)
+    same = all(torch.equal(a, b) for a, b in zip(tree.leaves(p), tree.leaves(trainer.params)))
+    for f in dataclasses.fields(o):
+        same &= all(torch.equal(a, b) for a, b in zip(
+            tree.leaves([getattr(o, f.name)]), tree.leaves([getattr(trainer.opt_state, f.name)])))
+    return same, int(skipped[0])
+
+
+def _resilience_cases(world, inits, ds, inputs, results):
+    quiet = lambda s: None  # noqa: E731
+
+    def trainer(name):
+        cfg = SeqConfig(**lm_case_config(LM_CASES[name]))
+        return SeqTrainer(cfg, ds, init=inits[cfg.spec.num_layers], world=world)
+
+    src = os.path.join(os.path.dirname(inputs), RES_STANDARD)
+    for name in RES_ROUND_TRIPS:
+        tr = trainer(name)
+        host, step, extra = ck.load_checkpoint(src, tr.checkpoint_like())
+        back = {"params": tr._params_for_save(tr._place_params(host["params"])),
+                "opt": tr._opt_for_save(tr._place_opt(host["opt"]))}
+        ck.save_checkpoint_world(os.path.join(res_dir(inputs, name), "ckpt.npz"), back,
+                                 world=world, step=step, extra=extra, keep=2)
+    for name in RES_GUARD:
+        same, flag = _guard_skip(trainer(name), ds)
+        results[f"res/guard/{name}"] = np.asarray([same, flag])
+    # Preemption agreed by the world though only rank 0 asks, then resume.
+    d = res_dir(inputs, "preempt_hybrid")
+    pre = trainer("hybrid_tp2_dp2").train(log=quiet, checkpoint_dir=d,
+                                          should_stop=lambda: world.rank == 0)
+    tr = trainer("hybrid_tp2_dp2")
+    res = tr.train(log=quiet, checkpoint_dir=d, resume="auto")
+    results["res/preempt_hybrid/flags"] = np.asarray([pre.preempted, res.resumed_from_step])
+    for i, leaf in enumerate(tree.leaves(res.params)):
+        results[f"res/preempt_hybrid/p/{i}"] = leaf
+    for f in ("m_flat", "v_flat", "m_tp", "v_tp"):
+        for i, leaf in enumerate(tree.leaves(getattr(tr.opt_state, f))):
+            results[f"res/preempt_hybrid/{f}/{i}"] = leaf.numpy()
+    # The tp-2 engine serves the hybrid's final checkpoint as its params.
+    grid = make_grid(world, world.size // SERVE_TP, 1, SERVE_TP)
+    cfg = ServeConfig(spec=LM_SPEC, tensor_parallel=SERVE_TP, slots=2, capacity=48)
+    prompts = synthesize_prompts(**{**SERVE_PROMPTS, "num": 3})
+    tokens = []
+    for eng in (InferenceEngine.from_checkpoint(cfg, os.path.join(d, "ckpt.npz"), grid=grid),
+                InferenceEngine(cfg, params=res.params, grid=grid)):
+        done, _ = Scheduler(eng).run([Request(id=i, prompt=p, max_new_tokens=SERVE_NEW)
+                                      for i, p in enumerate(prompts)])
+        tokens.append([done[i].tokens for i in sorted(done)])
+    results["res/serve_ckpt_equal"] = np.asarray(tokens[0] == tokens[1])
+    # A rollback in the pipeline: NaN at step 1, back to the step-1 save.
+    res = trainer("dp2_pp2").train(
+        log=quiet, checkpoint_dir=res_dir(inputs, "rollback_pp"), checkpoint_every=1,
+        max_bad_steps=1, fault_injector=FaultInjector(FaultSpec(kind="nan_grads", step=1)))
+    results["res/rollback_pp/flags"] = np.asarray([res.rollbacks, res.skipped_steps])
+    for i, leaf in enumerate(tree.leaves(res.params)):
+        results[f"res/rollback_pp/p/{i}"] = leaf
+    # A preempted ZeRO-1 2x2 save, for the parent's elastic resume.
+    trainer("zero1_ulysses_2x2").train(log=quiet, checkpoint_dir=res_dir(inputs, "elastic"),
+                                       should_stop=lambda: True)
+
+
 def kv_calls():
     """The cached forwards' inputs, as numpy, for both sides: ``cached``, a
     padded prefill of 2 slots (ring capacity 16; tail positions PAD_POS,
@@ -458,6 +548,7 @@ def lm_world_cases(rank: int, world_size: int, store: str, inputs: str, out: str
         results["lm_seconds"] = np.asarray(time.perf_counter() - start)
         open(out + ".lm_done", "w").close()  # the parent's JAX side may start
         _serve_cases(world, init, results)
+        _resilience_cases(world, inits, ds, inputs, results)
     finally:
         destroy_world()
     results["seconds"] = np.asarray(time.perf_counter() - start)

@@ -43,6 +43,9 @@ def forbidden_imports(tree: ast.AST) -> list[str]:
 def test_port_imports_no_jax_and_no_ddl_tpu():
     files = sorted((ROOT / "ddl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    for module in ("utils/checkpoint.py", "resilience/__init__.py", "resilience/faults.py",
+                   "resilience/guard.py", "obs/health.py", "parallel/multihost.py"):
+        assert ROOT / "ddl_tpu_torch" / module in files, module
     bad = {}
     for path in files:
         found = forbidden_imports(ast.parse(path.read_text(), filename=str(path)))

@@ -51,9 +51,24 @@ holds tp-1 bf16 serving), and to JAX's ``apply_lm_cached`` and
 logits within atol 1e-5 (the cached logits' tolerance of
 tests/test_torch_kv_cache.py), each rank's local-head k/v within atol 1e-6
 + rtol 1e-5, positions exact.
+
+Checkpoints and resilience (``_torch_world._resilience_cases``, after the
+serve cases, so outside the timed LM cases): a standard-form checkpoint
+written by JAX's ``save_checkpoint`` is placed at ZeRO-1 2x2, the hybrid,
+GPipe 2x1x2 and 1F1B + flash 1x2x2, taken back to the checkpoint form and
+written by rank 0, and JAX reads it back bitwise, with an equal manifest;
+the guard skips a NaN step in the ZeRO-1, hybrid and pipeline bodies with
+every rank's state bitwise unchanged; a preemption that rank 0 alone asks
+for stops every rank at the same span and ``resume="auto"`` finishes the
+hybrid bitwise its uninterrupted case; a pipeline rollback finishes bitwise
+its case; the tp-2 engine serves the hybrid's checkpoint with the tokens of
+its params; and a ZeRO-1 2x2 save resumes at one rank (elastic) within the
+tolerances above.
 """
 
+import json
 import multiprocessing
+import os
 import time
 
 import jax
@@ -75,7 +90,9 @@ from ddl_tpu.serve import Request as JRequest
 from ddl_tpu.serve import Scheduler as JScheduler
 from ddl_tpu.serve import ServeConfig as JServeConfig
 from ddl_tpu.serve import cache as jcache
+from ddl_tpu.ops import AdamState as JAdamState
 from ddl_tpu.strategies.seq import SeqConfig as JSeqConfig, SeqTrainer as JSeqTrainer
+from ddl_tpu.utils import checkpoint as jck
 from ddl_tpu_torch.convert import (
     lm_hybrid_adam_from_numpy,
     lm_hybrid_adam_to_numpy,
@@ -87,7 +104,8 @@ from ddl_tpu_torch.convert import (
 from ddl_tpu_torch.models import partition
 from ddl_tpu_torch.ops.optimizers import AdamState, ShardedAdam
 from ddl_tpu_torch.pipeline import schedule_tables
-from ddl_tpu_torch.strategies.seq import HybridAdam
+from ddl_tpu_torch.data.lm import synthesize_copy
+from ddl_tpu_torch.strategies.seq import HybridAdam, SeqConfig, SeqTrainer
 from ddl_tpu_torch.utils import tree
 
 import _torch_world
@@ -136,6 +154,15 @@ def lm_world(tmp_path_factory):
     inputs = tmp / "inputs.npz"
     np.savez(inputs, **{f"init/{i}": a for i, a in enumerate(jax.tree.leaves(init))},
              **{f"init4/{i}": a for i, a in enumerate(jax.tree.leaves(init4))})
+    # The resilience cases' JAX-written checkpoint: a seeded standard-form
+    # tree (params and params-shaped Adam moments).
+    rng = np.random.default_rng(13)
+    rand = lambda: jax.tree.map(  # noqa: E731
+        lambda a: rng.standard_normal(a.shape).astype(np.float32), init)
+    standard = {"params": rand(), "opt": JAdamState(step=np.asarray(9, np.int32), m=rand(),
+                                                    v=rand())}
+    jck.save_checkpoint(tmp / _torch_world.RES_STANDARD, standard, step=9,
+                        extra={"epoch": 1}, keep=2)
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_torch_world.lm_world_cases, args=(
         r, W, f"file://{tmp / 'store'}", str(inputs), str(tmp / f"rank{r}.npz")))
@@ -158,6 +185,7 @@ def lm_world(tmp_path_factory):
     want["kv"] = _jax_kv(init)
     want["init"] = {spec.num_layers: jax.tree.leaves(init),
                     _torch_world.LM_SPEC_4L.num_layers: jax.tree.leaves(init4)}
+    want["tmp"], want["standard"] = tmp, standard
 
     for pr in procs:
         pr.join(timeout=240)
@@ -450,3 +478,70 @@ def test_four_rank_pipeline_ranks_share_leaves_and_hold_their_row(name, lm_world
         live = [int(sum(f_tab[s, :t + 1] >= 0) - sum(b_tab[s, :t] >= 0))
                 for t in range(f_tab.shape[1])]
         assert int(rank[f"{name}/peak_saved"]) == max(live), (r, name)
+
+
+# -- checkpoints and resilience across the ranks ------------------------------------
+
+
+@pytest.mark.parametrize("name", _torch_world.RES_ROUND_TRIPS)
+def test_four_rank_checkpoint_round_trips_through_every_topology(name, lm_world):
+    """JAX writes the standard form; the ranks place it at ``name``'s
+    topology (ZeRO-1 chunks, hybrid split, pipeline stages, tp shards),
+    gather it back and rank 0 writes; JAX reads it back bitwise."""
+    _, want = lm_world
+    path = os.path.join(want["tmp"], "res", name, "ckpt.npz")
+    back, step, extra = jck.load_checkpoint(path, want["standard"])
+    assert (step, extra) == (9, {"epoch": 1}) and jck.verify_checkpoint(path)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(want["standard"])):
+        assert np.asarray(a).dtype == np.asarray(b).dtype
+        assert np.asarray(a).tobytes() == np.asarray(b).tobytes()
+    with open(path + ".manifest.json") as f, open(os.path.join(
+            want["tmp"], _torch_world.RES_STANDARD + ".manifest.json")) as g:
+        assert json.load(f) == json.load(g)
+
+
+@pytest.mark.parametrize("name", _torch_world.RES_GUARD)
+def test_four_rank_guard_skips_in_every_body(name, lm_world):
+    got, _ = lm_world
+    for r, rank in enumerate(got):
+        assert rank[f"res/guard/{name}"].tolist() == [1, 1], (r, name)
+
+
+def test_four_rank_preemption_is_agreed_and_resumes_bitwise(lm_world):
+    """Rank 0 alone asks to stop; every rank stops after the first span
+    (the agreement), saves, and ``resume="auto"`` finishes the hybrid
+    bitwise its uninterrupted case, params and optimizer state; the tp-2
+    engine serves that checkpoint with its params' tokens."""
+    got, _ = lm_world
+    name = "hybrid_tp2_dp2"
+    for r, rank in enumerate(got):
+        assert rank["res/preempt_hybrid/flags"].tolist() == [1, 1], r
+        for a, b in zip(_leaves(rank, "res/preempt_hybrid", "p"), _leaves(rank, name, "p")):
+            np.testing.assert_array_equal(a, b)
+        for f in ("m_flat", "v_flat", "m_tp", "v_tp"):
+            for a, b in zip(_leaves(rank, "res/preempt_hybrid", f), _leaves(rank, name, f)):
+                np.testing.assert_array_equal(a, b, err_msg=f)
+        assert bool(rank["res/serve_ckpt_equal"]), r
+
+
+def test_four_rank_pipeline_rollback_is_bitwise_its_clean_run(lm_world):
+    got, _ = lm_world
+    for r, rank in enumerate(got):
+        assert rank["res/rollback_pp/flags"].tolist() == [1, 1], r
+        for a, b in zip(_leaves(rank, "res/rollback_pp", "p"), _leaves(rank, "dp2_pp2", "p")):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_elastic_resume_from_four_ranks_to_one(lm_world):
+    """The ZeRO-1 2x2 run preempted after its first step resumes at one
+    rank (ZeRO-1 over a group of one) and lands on the 4-rank case's
+    params within the tolerances above."""
+    got, want = lm_world
+    kw = {**_torch_world.lm_case_config(_torch_world.LM_CASES["zero1_ulysses_2x2"]),
+          "num_workers": 1, "data_parallel": 1}
+    res = SeqTrainer(SeqConfig(**kw), synthesize_copy(**_torch_world.LM_DATA), device="cpu").train(log=lambda s: None, resume="auto",
+                                         checkpoint_dir=os.path.join(want["tmp"], "res",
+                                                                     "elastic"))
+    assert res.resumed_from_step == 1
+    for a, b in zip(tree.leaves(res.params), _leaves(got[0], "zero1_ulysses_2x2", "p")):
+        np.testing.assert_allclose(a, b, atol=ATOL, rtol=RTOL)

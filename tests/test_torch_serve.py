@@ -391,10 +391,11 @@ def test_an_aborted_run_returns_the_pool_whole():
     (dict(page_size=8, kv_dtype="int8"), "int8"),
     (dict(page_size=8, speculate_k=2, slots=2), "speculate"),
     (dict(speculate_method="prompt"), "speculate_method"),
-    # bf16 serving is ported (tests/test_torch_precision.py; the id is the
-    # case's name from when it still raised): a dtype the engine does not
-    # serve in is a ValueError.
-    pytest.param(dict(compute_dtype="float16"), "unsupported compute_dtype", id="kw5-bfloat16"),
+    # bf16 and fp16 serving are ported (tests/test_torch_precision.py,
+    # tests/test_torch_resilience.py; the id is the case's name from when
+    # bf16 still raised): a dtype the engine does not serve in is a
+    # ValueError.
+    pytest.param(dict(compute_dtype="float64"), "unsupported compute_dtype", id="kw5-bfloat16"),
 ])
 def test_engine_refuses_what_is_not_ported(kw, what):
     if "tensor_parallel" in kw:
@@ -424,9 +425,14 @@ def test_scheduler_and_engine_refuse_what_is_not_ported():
     sched = Scheduler(eng)
     for call in (lambda: sched.preempt(0), lambda: sched.adopt(None), sched.abandon,
                  lambda: eng.dump_slot_pages(0), lambda: eng.load_slot_pages(0, 0, 0, 0),
-                 lambda: eng.alias_slot_pages(1, 0, 4), lambda: eng.load_params("x"),
-                 lambda: InferenceEngine.from_checkpoint(eng.config, "x")):
+                 lambda: eng.alias_slot_pages(1, 0, 4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+    # Serving a checkpoint is ported (tests/test_torch_resilience.py): a
+    # missing file is the loader's error.
+    for call in (lambda: eng.load_params("x"),
+                 lambda: InferenceEngine.from_checkpoint(eng.config, "x", device="cpu")):
+        with pytest.raises(FileNotFoundError):
             call()
     with pytest.raises(ValueError, match="allow_window"):
         Scheduler(eng, allow_window=True)
@@ -469,8 +475,13 @@ def test_cli_serve_cpu_smoke_paged_and_contiguous():
 def test_cli_refuses_serve_flags_not_ported(flag, value, monkeypatch):
     """Each flag of a slice not ported names its ROADMAP item. Tensor
     parallelism is ported: tp 2 is a world of 2 ranks, which needs
-    torchrun. bf16 serving is ported: --bf16 serves in bf16."""
+    torchrun. bf16 serving is ported: --bf16 serves in bf16. Serving a
+    checkpoint is ported: a directory without one exits, as JAX's CLI."""
     argv = SMOKE + [flag] + ([value] if value is not None else [])
+    if flag == "--checkpoint-dir":
+        with pytest.raises(SystemExit, match="no checkpoint at ck/ckpt.npz"):
+            cli.main(argv)
+        return
     if flag == "--bf16":
         out = _cli_json(argv)
         assert out["config"]["compute_dtype"] == "bfloat16" and len(out["completions"]) == 6
