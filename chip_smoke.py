@@ -248,6 +248,35 @@ r6. serve_checkpoint — serve_main's configuration and traffic from
 r7. in 11p, GPipe's T = 512 run also saves (rank 0 writes); this process
    loads it as a pp-1 trainer: the params bitwise the pp-2 run's.
 
+Observability phases (``ddl_tpu_torch/obs``: the metric registry, tracer,
+in-step health, MFU, memory, the profiler bracket), each raising on
+failure:
+
+o1. obs_lm (after 12: run before it, obs_lm's profiled run left
+   flash_timing's dK/dV timer without its first call's device records) —
+   lm_main's run again with a registry, a tracer,
+   anomaly rules (step_time, mfu) and ``profile_dir``: flash launches
+   lm_main's (60 / 36 / 36), final params bitwise lm_main's, no non-finite
+   gradient element, ``train_param_norm`` within rtol 1e-5 of the float64
+   norm of the params it describes (those the last span's last step
+   started from), ``train_mfu`` in (0, 1] against the fp32 row,
+   ``device_memory_peak_bytes`` = ``max_memory_allocated``, the
+   ``torch.profiler`` trace naming the three flash kernels, one
+   ``train/span`` record a span; then lm_main's run timed off, on, on, off
+   (registry and tracer, no profiler), not gated.
+o2. obs_cli — ``python -m ddl_tpu_torch sync_sharding --fused-adam`` at
+   phase 4's configuration with ``--metrics-out``, ``--trace-dir`` and
+   ``--metrics-interval 5`` in a subprocess: the manifest first (the card's
+   name and power limit in it), ``train_mfu`` and
+   ``train_run_images_per_sec`` finite and positive, the host trace one
+   ``train/run`` span, and 20 fused-Adam kernels in the profiler's trace.
+o3. in r5, the skip and the rollback runs with a registry and a tracer:
+   ``train_skipped_steps_total`` 1 with a ``guard_skip`` event at step 2;
+   then ``train_rollbacks_total`` 1, 2 skips, the events guard_skip,
+   guard_skip, guard_rollback.
+o4. in 11p, GPipe's T = 512 run and its pp-1 oracle with a registry: each
+   rank's ``train_grad_norm`` within 2e-5 + 1e-3 of the oracle's.
+
 If the profiler records no device time for a kernel or a call, the phase
 fails; nothing falls back to CUDA events. Then one ``{"kernels": [...]}``
 line (each kernel's cold ``ms``, ``hot_ms``, ``call_ms`` and ``timer``; the
@@ -258,7 +287,10 @@ and ``pp_launches`` (rank 0's, GPipe) from 11p, and under the policy
 ``bf16_launches`` (c), ``bf16_ulysses_zero1_launches`` (d),
 ``bf16_tp_launches`` (e) and ``bf16_pp_launches`` (f); the Adam row's
 ``resume_launches`` and ``resume_async_launches`` (r1, r2), each flash
-row's ``guard_launches`` and ``guard_rollback_launches`` (r5)), the
+row's ``guard_launches`` and ``guard_rollback_launches`` (r5); under
+telemetry each flash row's ``obs_launches`` and ``obs_profiled_launches``
+(o1: counted, and read from the profiler's trace) and the Adam row's
+``obs_cli_profiled_launches`` (o2)), the
 ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no ``ok`` line. It needs no network and one card.
@@ -905,18 +937,28 @@ def _finite_state(torch, trainer) -> bool:
     return all(bool(torch.isfinite(t).all()) for t in _state_leaves(trainer))
 
 
-def lm_main(torch, fa) -> dict:
+def _lm_main_setup():
+    """lm_main's configuration and data (obs_lm runs them again)."""
     from ddl_tpu_torch.data.lm import synthesize_copy
-    from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
+    from ddl_tpu_torch.strategies.seq import SeqConfig
+
+    spec = lm_spec()
+    cfg = SeqConfig(scheme="full", attn_impl="flash", batch_size=4, learning_rate=1e-3,
+                    eval_every=4, seed=0, spec=spec)
+    ds = synthesize_copy(num_train=LM_STEPS * 4, num_test=8, seq_len=2048,
+                         vocab=spec.vocab, seed=0)
+    return cfg, ds
+
+
+def lm_main(torch, fa) -> dict:
+    from ddl_tpu_torch.strategies.seq import SeqTrainer
+    from ddl_tpu_torch.utils import tree
 
     spec = lm_spec()
     if spec.num_params() != 12_864_512 or spec.head_dim != 64:
         raise AssertionError(f"unexpected LM width {spec}")
-    bs, seq_len = 4, 2048
-    cfg = SeqConfig(scheme="full", attn_impl="flash", batch_size=bs, learning_rate=1e-3,
-                    eval_every=4, seed=0, spec=spec)
-    ds = synthesize_copy(num_train=LM_STEPS * bs, num_test=8, seq_len=seq_len,
-                         vocab=spec.vocab, seed=0)
+    cfg, ds = _lm_main_setup()
+    bs, seq_len = cfg.batch_size, ds.seq_len
     trainer = SeqTrainer(cfg, ds)
     for key in fa.launches:
         fa.launches[key] = 0
@@ -945,6 +987,177 @@ def lm_main(torch, fa) -> dict:
                  "spans": stats.steps},
     )
     emit("lm_main", **out)
+    out["params"] = tree.leaves(trainer.params)  # obs_lm's metrics-off oracle
+    return out
+
+
+def _profiled_kernels(path: str) -> dict:
+    """Kernel launches by name in one ``torch.profiler`` Chrome trace
+    (``utils.metrics.trace``'s file): the device events of category
+    ``kernel``."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+    return counts
+
+
+def _capture_health_params(trainer) -> dict:
+    """Wrap ``trainer.step_fn`` so that ``seen["params"]`` holds the params
+    of the last step run at the full health level: the tensors whose norm
+    ``train_param_norm`` reports (the steps are functional, so they are
+    not changed afterwards)."""
+    from ddl_tpu_torch.obs.health import HEALTH_FULL
+
+    seen, make = {}, trainer.step_fn
+
+    def step_fn(guard=False):
+        step = make(guard)
+
+        def run(params, opt, *args, health=0):
+            if health == HEALTH_FULL:
+                seen["params"] = params
+            return step(params, opt, *args, health=health) if health else step(params, opt,
+                                                                                 *args)
+        return run
+
+    trainer.step_fn = step_fn
+    return seen
+
+
+def obs_lm(torch, fa, lm_out) -> dict:
+    """The observability plane on lm_main's LM: the same run with a metric
+    registry, a tracer, anomaly rules and the profiler on. Gates: the flash
+    launches lm_main's (metrics add no kernel), the final params bitwise
+    lm_main's (telemetry reads, never writes), no non-finite gradient
+    element, ``train_param_norm`` equal to a float64 norm of the params it
+    describes (those the last span's last step started from) at rtol
+    1e-5, ``train_mfu`` in (0, 1] against the fp32 row,
+    ``device_memory_peak_bytes`` = ``torch.cuda.max_memory_allocated``, the
+    profiler's trace naming the three flash kernels, the host trace one
+    ``train/span`` a span. Then, ungated, the step ms with metrics and
+    tracer on against off, in turns (off, on, on, off)."""
+    from ddl_tpu_torch.obs import MetricRegistry, Tracer
+    from ddl_tpu_torch.obs.anomaly import AnomalyDetector, parse_anomaly_rules
+    from ddl_tpu_torch.strategies.seq import SeqTrainer
+    from ddl_tpu_torch.train.trainer import eval_spans
+    from ddl_tpu_torch.utils import tree
+
+    start = time.perf_counter()
+    quiet = lambda s: None  # noqa: E731
+    cfg, ds = _lm_main_setup()
+    off_params = lm_out.pop("params")
+    with tempfile.TemporaryDirectory() as tmp:
+        reg = MetricRegistry()
+        tracer = Tracer(os.path.join(tmp, "host_trace_p0.jsonl"), keep=True)
+        det = AnomalyDetector(parse_anomaly_rules("step_time:min=2;mfu:direction=low,min=2"),
+                              reg, tracer)
+        trainer = SeqTrainer(cfg, ds)
+        seen = _capture_health_params(trainer)
+        fa.launches.update(dict.fromkeys(fa.launches, 0))
+        torch.cuda.reset_peak_memory_stats()
+        res = trainer.train(log=quiet, metrics=reg, tracer=tracer, anomaly_detector=det,
+                            profile_dir=tmp)
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(fa.launches)
+        tracer.close()
+        kernels = _profiled_kernels(os.path.join(tmp, "torch_profile_p0.json"))
+    named = {key: sum(n for k, n in kernels.items() if f"{name}_kernel" in k)
+             for key, (name, _) in FLASH_KERNELS.items()}
+    spans = sum(r["name"] == "train/span" for r in tracer.records)
+    want_spans = len(eval_spans(ds.num_train // cfg.batch_size, cfg.eval_every))
+    bitwise = all(a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+                  for a, b in zip(tree.leaves(trainer.params), off_params))
+    norm64 = math.sqrt(sum(float((t.double() ** 2).sum()) for t in tree.leaves(seen["params"])))
+    gauge = {name: reg.gauge(name).value() for name in (
+        "train_param_norm", "train_grad_norm", "train_update_norm", "train_mfu",
+        "train_tokens_per_sec", "comms_bytes_per_step", "goodput_fraction")}
+    nonfinite = reg.counter("train_nonfinite_grads_total").value()
+    mem_peak = reg.gauge("device_memory_peak_bytes").value(device=0)
+    # Telemetry's cost: whole runs in turns, off, on, on, off (no profiler).
+    turns = []
+    for on in (False, True, True, False):
+        kw = dict(metrics=MetricRegistry(), tracer=Tracer()) if on else {}
+        r = SeqTrainer(cfg, ds).train(log=quiet, **kw)
+        turns.append(dict(metrics=on, step_ms=r.train_time_s * 1e3 / LM_STEPS,
+                          span_p50_ms=r.step_stats.p50_ms))
+    off_ms = [t["step_ms"] for t in turns if not t["metrics"]]
+    on_ms = [t["step_ms"] for t in turns if t["metrics"]]
+    out = dict(steps=LM_STEPS, launches=launches, lm_main_launches=lm_out["launches"],
+               params_bitwise_metrics_off=bitwise, nonfinite_grads_total=nonfinite,
+               param_norm=gauge["train_param_norm"], param_norm_float64=norm64,
+               gauges=gauge, device_memory_peak_bytes=mem_peak, max_memory_allocated=peak,
+               profiled_flash_kernels=named, host_train_spans=spans, spans=want_spans,
+               anomalies=det.summary(), final_loss=res.final_loss, turns=turns,
+               on_over_off=sum(on_ms) / sum(off_ms), seconds=time.perf_counter() - start)
+    emit("obs_lm", **out)
+    failures = []
+    if launches != lm_out["launches"]:
+        failures.append(f"flash launches {launches} with metrics, {lm_out['launches']} without")
+    if not bitwise:
+        failures.append("params with metrics differ from lm_main's")
+    if nonfinite != 0:
+        failures.append(f"{nonfinite} non-finite gradient elements")
+    if abs(gauge["train_param_norm"] - norm64) > 1e-5 * norm64:
+        failures.append(f"train_param_norm {gauge['train_param_norm']}, float64 {norm64}")
+    if not 0.0 < gauge["train_mfu"] <= 1.0:
+        failures.append(f"train_mfu {gauge['train_mfu']}")
+    if mem_peak != peak:
+        failures.append(f"device_memory_peak_bytes {mem_peak}, max_memory_allocated {peak}")
+    if not all(named.values()):
+        failures.append(f"flash kernels in the profiler's trace: {named}")
+    if spans != want_spans:
+        failures.append(f"{spans} train/span records for {want_spans} spans")
+    if failures:
+        raise AssertionError(f"obs_lm: {failures}")
+    out["named"] = named
+    return out
+
+
+def obs_cli(torch) -> dict:
+    """The telemetry flags through the CLI: one subprocess of ``python -m
+    ddl_tpu_torch sync_sharding --fused-adam`` at phase 4's configuration
+    (batch 100, ``--num-ps 2 --layout flat``, 2,000 images: 20 steps) with
+    ``--metrics-out``, ``--trace-dir`` and ``--metrics-interval``. Gates:
+    the metrics file's first record is the manifest (with the card's name
+    and power limit), the last snapshot holds a finite positive
+    ``train_mfu`` and ``train_run_images_per_sec``, the host trace its
+    ``train/run`` span, and the profiler's trace 20 fused-Adam kernels."""
+    start = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        mpath, tdir = os.path.join(tmp, "m.jsonl"), os.path.join(tmp, "trace")
+        argv = ["sync_sharding", "--num-ps", "2", "--layout", "flat", "--fused-adam",
+                "--batch-size", "100", "--synthetic-train", str(MAIN_STEPS * 100),
+                "--synthetic-test", "100", "--metrics-out", mpath, "--trace-dir", tdir,
+                "--metrics-interval", "5", "--json"]
+        proc = subprocess.run([sys.executable, "-m", "ddl_tpu_torch"] + argv, cwd=root,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr, flush=True)
+            raise AssertionError(f"obs_cli: exit code {proc.returncode}")
+        recs = [json.loads(line) for line in open(mpath)]
+        host = [json.loads(line)["name"] for line in
+                open(os.path.join(tdir, "host_trace_p0.jsonl"))]
+        kernels = _profiled_kernels(os.path.join(tdir, "torch_profile_p0.json"))
+    adam = sum(n for k, n in kernels.items() if re.search(ADAM_KERNEL, k))
+    last = {m["name"]: m.get("value") for m in recs[-1]["metrics"]}
+    man = recs[0]
+    out = dict(manifest={k: man.get(k) for k in ("record", "schema", "variant", "device_name",
+                                                 "power_limit", "torch_version",
+                                                 "cuda_version")},
+               gauges=last, host_trace=host, adam_launches_profiled=adam,
+               summary=json.loads(proc.stdout.strip().splitlines()[-1]),
+               seconds=time.perf_counter() - start)
+    emit("obs_cli", **out)
+    ok = (man["record"] == "manifest" and man.get("device_name")
+          and all(math.isfinite(last.get(k) or float("nan")) and last[k] > 0
+                  for k in ("train_mfu", "train_run_images_per_sec"))
+          and host == ["train/run"] and adam == MAIN_STEPS)
+    if not ok:
+        raise AssertionError(f"obs_cli: {out}")
     return out
 
 
@@ -1595,6 +1808,7 @@ def lm_pp_rank(rank: int, store: str, inputs: str, out: str) -> None:
     try:
         from ddl_tpu_torch.data.lm import synthesize_copy
         from ddl_tpu_torch.models.transformer import init_lm_params
+        from ddl_tpu_torch.obs import MetricRegistry
         from ddl_tpu_torch.ops import flash_attention as fa
         from ddl_tpu_torch.parallel.mesh import destroy_world, init_world
         from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
@@ -1623,7 +1837,12 @@ def lm_pp_rank(rank: int, store: str, inputs: str, out: str) -> None:
                 # GPipe's epoch-end save (rank 0 writes), which the parent
                 # loads as a pp-1 trainer: no extra step.
                 ckpt = os.path.join(os.path.dirname(out), "ck_gpipe") if name == "gpipe" else None
-                res = trainer.train(log=lambda s: None, checkpoint_dir=ckpt)
+                # GPipe's run with metrics on: its train_grad_norm against
+                # the pp-1 oracle's.
+                reg = MetricRegistry() if name == "gpipe" else None
+                res = trainer.train(log=lambda s: None, checkpoint_dir=ckpt, metrics=reg)
+                if reg is not None:
+                    results[f"{name}/grad_norm"] = reg.gauge("train_grad_norm").value()
                 for i, leaf in enumerate(tree.leaves(res.params)):
                     arrays[f"{name}/{i}"] = leaf
                 for k in SHARED:
@@ -1661,6 +1880,7 @@ def lm_pp(torch, fa, world) -> dict:
     from ddl_tpu_torch.convert import lm_params_to_numpy
     from ddl_tpu_torch.data.lm import synthesize_copy
     from ddl_tpu_torch.models.transformer import init_lm_params
+    from ddl_tpu_torch.obs import MetricRegistry
     from ddl_tpu_torch.pipeline import max_in_flight, schedule_tables
     from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
     from ddl_tpu_torch.utils import tree
@@ -1669,10 +1889,12 @@ def lm_pp(torch, fa, world) -> dict:
     spec, bs = lm_spec(), 4
     init = lm_params_to_numpy(init_lm_params(torch.Generator().manual_seed(7), spec))
     ds = synthesize_copy(num_train=2 * bs, num_test=bs, seq_len=512, vocab=spec.vocab, seed=5)
+    pp1_reg = MetricRegistry()
     pp1, pp1_bf16 = (SeqTrainer(SeqConfig(scheme="full", attn_impl="flash", batch_size=bs,
                                           learning_rate=1e-3, eval_every=0, seed=5, spec=spec,
                                           precision=prec), ds, init=init, world=world
-                                ).train(log=lambda s: None) for prec in (None, "bf16"))
+                                ).train(log=lambda s: None, metrics=reg)
+                     for prec, reg in ((None, pp1_reg), ("bf16", None)))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         inputs = os.path.join(tmp, "inputs.npz")
@@ -1747,6 +1969,13 @@ def lm_pp(torch, fa, world) -> dict:
                                         **tol)
         if not row["ok"]:
             failures.append(f"{name}: {row}")
+    # Metrics in GPipe's run: the global grad norm of its last step against
+    # the pp-1 oracle's, at the parameters' tolerance.
+    grad_norm = dict(gpipe=[res["gpipe/grad_norm"] for res in ranks],
+                     pp1=pp1_reg.gauge("train_grad_norm").value())
+    if not all(abs(g - grad_norm["pp1"]) <= 2e-5 + 1e-3 * abs(grad_norm["pp1"])
+               for g in grad_norm["gpipe"]):
+        failures.append(f"GPipe's train_grad_norm {grad_norm}")
     n_leaves = len(tree.leaves(loaded))
     ckpt_bitwise = ckpt_step == 2 and all(
         a.tobytes() == params[0][f"gpipe/{i}"].tobytes()
@@ -1771,7 +2000,7 @@ def lm_pp(torch, fa, world) -> dict:
                launches={name: ranks[0][name]["launches"] for name, _ in LM_PP_RUNS},
                launch_shape=micro, peak_saved=peaks, ranks=rows, equivalence=pairs,
                shared_leaves_bitwise=shared_bitwise, ranks_params_bitwise=ranks_bitwise,
-               checkpoint_loaded_at_pp1_bitwise=ckpt_bitwise,
+               checkpoint_loaded_at_pp1_bitwise=ckpt_bitwise, grad_norm=grad_norm,
                label=LM_PP_LABEL, failures=failures, seconds=time.perf_counter() - start)
     emit("lm_pp", **out)
     if failures:
@@ -2438,6 +2667,7 @@ def guard_lm(torch, fa, card: str, tmp: str) -> dict:
     one rollback, two skips, final params bitwise the clean run's; (c) the
     guard's cost: guarded and unguarded steady steps in turns. The clean
     run's save (``tmp``/clean) is what serve_checkpoint serves."""
+    from ddl_tpu_torch.obs import MetricRegistry, Tracer
     from ddl_tpu_torch.resilience import FaultInjector, FaultSpec
     from ddl_tpu_torch.strategies.seq import SeqTrainer
     from ddl_tpu_torch.utils import tree
@@ -2453,19 +2683,32 @@ def guard_lm(torch, fa, card: str, tmp: str) -> dict:
     # (a) one skipped step.
     zero_flash()
     d = os.path.join(tmp, "skip")
+    # With metrics and a tracer on: the guard's counters and events.
+    skip_reg, skip_tr = MetricRegistry(), Tracer()
     skip = SeqTrainer(cfg, ds).train(log=quiet, checkpoint_dir=d, checkpoint_every=1,
                                      checkpoint_keep=GUARD_STEPS, guard=True,
-                                     fault_injector=FaultInjector(FaultSpec(kind="nan_grads", step=2)))
+                                     fault_injector=FaultInjector(FaultSpec(kind="nan_grads", step=2)),
+                                     metrics=skip_reg, tracer=skip_tr)
     skip_launches = dict(fa.launches)
+    skip_obs = dict(
+        skipped_steps_total=skip_reg.counter("train_skipped_steps_total").value(),
+        nonfinite_grads_total=skip_reg.counter("train_nonfinite_grads_total").value(),
+        guard_skip_events=[r["attrs"] for r in skip_tr.records if r["name"] == "guard_skip"])
     before = _file_arrays(os.path.join(d, "ckpt-00000002.npz"))
     after = _file_arrays(os.path.join(d, "ckpt-00000003.npz"))
     unchanged = _same_arrays(before, after)
     # (b) a rollback.
     zero_flash()
+    rb_reg, rb_tr = MetricRegistry(), Tracer()
     rb = SeqTrainer(cfg, ds).train(log=quiet, checkpoint_dir=os.path.join(tmp, "rollback"),
                                    checkpoint_every=1, max_bad_steps=2,
-                                   fault_injector=FaultInjector(FaultSpec(kind="nan_grads", step=2, count=2)))
+                                   fault_injector=FaultInjector(FaultSpec(kind="nan_grads", step=2, count=2)),
+                                   metrics=rb_reg, tracer=rb_tr)
     rollback_launches = dict(fa.launches)
+    rb_obs = dict(
+        rollbacks_total=rb_reg.counter("train_rollbacks_total").value(),
+        skipped_steps_total=rb_reg.counter("train_skipped_steps_total").value(),
+        events=[r["name"] for r in rb_tr.records if r["name"].startswith("guard_")])
     rb_bitwise = all(a.tobytes() == b.tobytes()
                      for a, b in zip(tree.leaves(rb.params), tree.leaves(clean.params)))
     # (c) the guard's cost, in turns.
@@ -2497,15 +2740,21 @@ def guard_lm(torch, fa, card: str, tmp: str) -> dict:
     out = dict(steps=GUARD_STEPS, seq_len=2048, batch_size=cfg.batch_size,
                clean_launches=clean_launches, skip=dict(
                    skipped_steps=skip.skipped_steps, rollbacks=skip.rollbacks,
-                   state_unchanged_across_step_2=unchanged, launches=skip_launches),
+                   state_unchanged_across_step_2=unchanged, launches=skip_launches,
+                   metrics=skip_obs),
                rollback=dict(rollbacks=rb.rollbacks, skipped_steps=rb.skipped_steps,
-                             params_bitwise_clean=rb_bitwise, launches=rollback_launches),
+                             params_bitwise_clean=rb_bitwise, launches=rollback_launches,
+                             metrics=rb_obs),
                guard_cost=cost, checkpoint=timing, nvidia_smi=card,
                seconds=time.perf_counter() - start)
     emit("guard_lm", **out)
     if not (skip.skipped_steps == 1 and skip.rollbacks == 0 and unchanged
             and skip_launches == clean_launches and rb.rollbacks == 1
-            and rb.skipped_steps == 2 and rb_bitwise):
+            and rb.skipped_steps == 2 and rb_bitwise
+            and skip_obs["skipped_steps_total"] == 1 and skip_obs["nonfinite_grads_total"] > 0
+            and [e["gstep"] for e in skip_obs["guard_skip_events"]] == [2]
+            and rb_obs["rollbacks_total"] == 1 and rb_obs["skipped_steps_total"] == 2
+            and rb_obs["events"] == ["guard_skip", "guard_skip", "guard_rollback"]):
         raise AssertionError(f"guard_lm: {out}")
     out["clean_params"] = clean.params
     out["clean_ckpt"] = os.path.join(clean_dir, "ckpt.npz")
@@ -2623,10 +2872,16 @@ def run_phases(torch, world, card: str):
     serve_bf16(torch, serve_params, fused_adam, flash_attention, serve_out)
     del serve_params
     flash_tim = flash_timing(torch, flash_attention, devtime, flush, card)
+    # Last: on an H100, with obs_lm's profiled run before it, flash_timing's
+    # dK/dV timer lost its first call's device records, once in both of
+    # its profiler windows.
+    obs_lm_out = obs_lm(torch, flash_attention, lm_out)
+    obs_cli_out = obs_cli(torch)
     bf16 = dict(cnn=cnn_bf16_out, lm=policy_out, seq=seq_policy_out)
     resilience = dict(sync=resume_out, async_=resume_async_out, guard=guard_out)
+    obs = dict(lm=obs_lm_out, cli=obs_cli_out)
     return (max_err, main_out, async_out, tim, flash_err, lm_out, seq_out, tp_out, pp_out,
-            flash_tim, bf16, resilience)
+            flash_tim, bf16, resilience, obs)
 
 
 def main() -> int:
@@ -2656,7 +2911,7 @@ def main() -> int:
         world = init_world(1, 0, f"file://{os.path.join(store, 'store')}", "cuda")
         try:
             (max_err, main_out, async_out, tim, flash_err, lm_out, seq_out, tp_out, pp_out,
-             flash_tim, bf16, resilience) = run_phases(torch, world, card)
+             flash_tim, bf16, resilience, obs) = run_phases(torch, world, card)
         finally:
             destroy_world()
 
@@ -2670,6 +2925,7 @@ def main() -> int:
         "bf16_launches": bf16["cnn"]["launches"],
         "resume_launches": resilience["sync"]["launches"],
         "resume_async_launches": resilience["async_"]["launches"],
+        "obs_cli_profiled_launches": obs["cli"]["adam_launches_profiled"],
         "max_abs_err": max_err,
         "ms": tim["ms"],
         "hot_ms": tim["hot_ms"],
@@ -2698,6 +2954,8 @@ def main() -> int:
             "bf16_pp_launches": pp_out["launches"]["gpipe_bf16"][key],
             "guard_launches": resilience["guard"]["skip"]["launches"][key],
             "guard_rollback_launches": resilience["guard"]["rollback"]["launches"][key],
+            "obs_launches": obs["lm"]["launches"][key],
+            "obs_profiled_launches": obs["lm"]["named"][key],
             "max_abs_err": flash_err[key],
             "ms": row["ms"],
             "hot_ms": row["hot_ms"],

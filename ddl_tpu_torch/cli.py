@@ -36,6 +36,7 @@ TPU does not carry over, as JAX on a GPU defaults to fp32.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -80,7 +81,13 @@ _NOT_PORTED = {
     "autoscale": "ROADMAP queue 1, item 8: the controller",
     "roles": "ROADMAP queue 1, item 8: disagg",
     "speculate": "ROADMAP queue 1, item 8: speculate",
+    "slo_rules": "ROADMAP queue 1, item 8, part 8: serve observability",
 }
+# The telemetry flags, ported on every training variant; serving's
+# telemetry is ROADMAP queue 1, item 8, part 8.
+_OBS_FLAGS = ("profile", "metrics_out", "metrics_interval", "prom_port", "peak_flops",
+              "ici_bw", "anomaly_rules", "trace_dir")
+_SERVE_OBS = "ROADMAP queue 1, item 8, part 8: serve observability"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -179,6 +186,46 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dispatch-timeout", type=float, default=0.0, metavar="SECONDS",
                    help="fail with a diagnosis (instead of hanging forever) if a training "
                         "span or eval does not complete in SECONDS; <= 0 disables")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="capture a torch.profiler trace of the training loop into DIR "
+                        "(one Chrome trace a rank, torch_profile_p<rank>.json; view in "
+                        "Perfetto)")
+    p.add_argument("--metrics-out", default=None, metavar="FILE",
+                   help="write run telemetry as JSONL (ddl_tpu_torch.obs registry "
+                        "snapshots: counters/gauges/histograms; the FIRST record is a run "
+                        "manifest with the torch and CUDA versions, the card's name and "
+                        "power limit, the grid's shape, the config and the git sha). On "
+                        "single/lm this also enables the in-step health signals (grad "
+                        "norm, per-subtree param/update norms, non-finite counters)")
+    p.add_argument("--metrics-interval", type=int, default=None, metavar="N",
+                   help="record the health norms every N global steps (default 10; "
+                        "read with the span barrier, never an extra per-step sync); "
+                        "requires --metrics-out")
+    p.add_argument("--prom-port", type=int, default=None, metavar="PORT",
+                   help="serve the live metric registry over HTTP from a daemon thread: "
+                        "GET /metrics returns the Prometheus text exposition "
+                        "(byte-identical to prometheus_text()), GET /healthz a liveness "
+                        "JSON. PORT 0 binds an ephemeral port (printed at startup)")
+    p.add_argument("--peak-flops", type=float, default=None, metavar="FLOPS",
+                   help="per-device peak FLOP/s for the train_mfu gauge "
+                        "(ddl_tpu_torch.obs.cost): overrides the device table (the H100's "
+                        "bf16 and fp32 rows; the CPU falls back to a nominal anchor)")
+    p.add_argument("--ici-bw", type=float, default=None, metavar="BPS",
+                   help="per-device interconnect bytes/s for the comms roofline gauges "
+                        "(ddl_tpu_torch.obs.comms): overrides the device table (the "
+                        "H100's NVLink; the CPU falls back to a nominal anchor)")
+    p.add_argument("--anomaly-rules", default=None, metavar="SPEC",
+                   help="streaming anomaly detection (ddl_tpu_torch.obs.anomaly): "
+                        "';'-joined SIGNAL[:window=W,min=M,threshold=Z,direction="
+                        "high|low|both,scale=S] segments, rolling median/MAD baselines "
+                        "with anomaly_total{signal=} counters and 'anomaly' trace events; "
+                        "the trainers' signals are step_time and mfu. Applies to "
+                        "single/lm")
+    p.add_argument("--trace-dir", default=None, metavar="DIR",
+                   help="capture a structured trace into DIR: host spans as "
+                        "host_trace_p<rank>.jsonl (convert to Chrome/Perfetto with "
+                        "'python -m ddl_tpu_torch.obs.trace in.jsonl out.json') PLUS the "
+                        "torch.profiler timeline of the card in the same directory")
     lm = p.add_argument_group(
         "lm options",
         "the 'lm' variant trains the decoder LM on the procedural copy task "
@@ -301,6 +348,7 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--autoscale", default=None, help="not ported")
     sv.add_argument("--roles", default=None, help="not ported")
     sv.add_argument("--speculate", default=None, help="not ported")
+    sv.add_argument("--slo-rules", default=None, help="not ported")
     return p
 
 
@@ -441,6 +489,106 @@ def _train_kwargs(args, injector) -> dict:
 def _resilience_json(result) -> dict:
     return {"resumed_from_step": result.resumed_from_step, "preempted": result.preempted,
             "skipped_steps": result.skipped_steps, "rollbacks": result.rollbacks}
+
+
+def _check_obs_flags(args) -> None:
+    """JAX's checks of the telemetry flags, with its texts; on serve they
+    are not ported (ROADMAP queue 1, item 8, part 8)."""
+    if args.variant == "serve":
+        defaults = build_parser()
+        for dest in _OBS_FLAGS:
+            if getattr(args, dest) != defaults.get_default(dest):
+                raise NotImplementedError(
+                    f"--{dest.replace('_', '-')} on serve is not ported yet ({_SERVE_OBS})")
+    if args.metrics_interval is not None:
+        if args.metrics_interval < 1:
+            raise SystemExit(f"--metrics-interval must be >= 1, got {args.metrics_interval}")
+        if args.metrics_out is None:
+            raise SystemExit("--metrics-interval requires --metrics-out")
+    else:
+        args.metrics_interval = 10
+    if args.anomaly_rules and args.variant not in ("single", "lm", "serve"):
+        # The sync/async span loops take no per-span feed (as JAX's).
+        raise SystemExit("--anomaly-rules applies to the single/lm/serve variants")
+
+
+def _build_obs(args, *, config=None, grid=None, rank: int = 0):
+    """``(registry, writer, tracer)`` from the telemetry flags, None where
+    off (JAX's ``_build_obs``). A registry exists whenever anything reads
+    it live (the JSONL writer, the /metrics endpoint, an anomaly detector),
+    on EVERY rank: the health sums are collectives. The writer (manifest
+    first) is rank 0's alone; each rank traces into its own
+    ``host_trace_p<rank>.jsonl``."""
+    registry = writer = tracer = None
+    if args.metrics_out or args.prom_port is not None or args.anomaly_rules:
+        from .obs import MetricRegistry
+
+        registry = MetricRegistry()
+    if args.metrics_out and rank == 0:
+        from .obs import MetricsWriter, run_manifest
+
+        writer = MetricsWriter(args.metrics_out, registry,
+                               run_manifest(config=config, mesh=grid,
+                                            extra={"variant": args.variant}))
+    if args.trace_dir:
+        from .obs.trace import Tracer, host_trace_file
+
+        tracer = Tracer(host_trace_file(args.trace_dir))
+    return registry, writer, tracer
+
+
+def _start_exporter(args, registry, rank: int = 0):
+    """``--prom-port``: the /metrics + /healthz endpoint on rank 0's
+    registry (None when the flag is off); close it in the run's
+    ``finally``."""
+    if args.prom_port is None or rank != 0:
+        return None
+    from .obs.export import MetricsExporter
+
+    try:
+        exp = MetricsExporter(registry, args.prom_port).start()
+    except OSError as e:
+        raise SystemExit(f"--prom-port {args.prom_port}: {e}")
+    print(f"[ddl_tpu] metrics endpoint: {exp.url('/metrics')} "
+          f"(healthz: {exp.url('/healthz')})")
+    return exp
+
+
+def _make_anomaly(args, registry, tracer=None):
+    """``--anomaly-rules``: the streaming detector on the run's registry;
+    None when the flag is off."""
+    if not args.anomaly_rules:
+        return None
+    from .obs.anomaly import AnomalyDetector, parse_anomaly_rules
+
+    try:
+        return AnomalyDetector(parse_anomaly_rules(args.anomaly_rules), registry,
+                               tracer=tracer)
+    except ValueError as e:
+        raise SystemExit(f"--anomaly-rules: {e}")
+
+
+def _anomaly_report(detector):
+    """End-of-run ``--anomaly-rules`` lines (one a signal); the JSON digest,
+    None without a detector."""
+    if detector is None:
+        return None
+    digest = detector.summary()
+    for signal in sorted(digest):
+        row = digest[signal]
+        ticks = row["fired_ticks"]
+        print(f"anomaly signal {signal}: {row['alerts']} alerts"
+              f"{' at ticks ' + str(ticks) if ticks else ''}")
+    return digest
+
+
+def _close_obs(*parts) -> None:
+    """Close the exporter, tracer and writer that exist: on any exit with
+    a live interpreter the metrics file ends with a forced final
+    snapshot."""
+    for part in parts:
+        if part is not None:
+            part.close()
 
 
 def _reject_foreign_flags(args, variant: str, dests: tuple[str, ...]) -> None:
@@ -609,16 +757,33 @@ def _run_lm(args, device) -> int:
     with tempfile.TemporaryDirectory() as store_dir:
         world = _join_world(cfg.num_workers * cfg.data_parallel * cfg.tensor_parallel
                             * cfg.pipeline_parallel, args.device, store_dir)
+        registry = writer = tracer = exporter = None
         try:
             trainer = SeqTrainer(cfg, dataset, world=world)
-            result = trainer.train(log=print if world.rank == 0 else (lambda s: None),
-                                   max_bad_steps=args.max_bad_steps or 0, **train_kw)
+            registry, writer, tracer = _build_obs(args, config=cfg, grid=trainer.grid,
+                                                  rank=world.rank)
+            detector = _make_anomaly(args, registry, tracer)
+            exporter = _start_exporter(args, registry, world.rank)
+            result = trainer.train(
+                log=print if world.rank == 0 else (lambda s: None),
+                max_bad_steps=args.max_bad_steps or 0,
+                # --trace-dir captures the card's timeline beside the host
+                # spans (an explicit --profile dir wins for the profiler).
+                profile_dir=args.profile or args.trace_dir,
+                metrics=registry, metrics_interval=args.metrics_interval,
+                metrics_writer=writer, tracer=tracer, peak_flops=args.peak_flops,
+                ici_bw=args.ici_bw, anomaly_detector=detector, **train_kw)
+            if registry is not None:
+                registry.gauge("train_final_accuracy").set(result.final_accuracy)
+                registry.gauge("train_run_tokens_per_sec").set(result.tokens_per_sec)
         except AcceleratorTimeout as e:
             return _fatal_timeout(e)
         finally:
+            _close_obs(exporter, tracer, writer)
             destroy_world()
     if world.rank != 0:
         return 0
+    anomaly_digest = _anomaly_report(detector)
     print(f"training time: {result.train_time_s:.2f}s "
           f"({result.tokens_per_sec:.0f} tokens/s, "
           f"warm-up {result.compile_time_s:.1f}s excluded)")
@@ -626,6 +791,7 @@ def _run_lm(args, device) -> int:
         print(json.dumps({
             "variant": "lm",
             "device": str(device),
+            "anomaly_rules": anomaly_digest,
             "config": {**dataclasses.asdict(cfg), "seq_len": args.seq_len,
                        "train_seqs": args.train_seqs},
             "final_accuracy": result.final_accuracy,
@@ -787,6 +953,26 @@ def _serve(args, cfg, device, grid, injector) -> int:
     return 0
 
 
+def _run_gauges(args, cfg, registry, result, device) -> None:
+    """JAX's end-of-run gauges of the CNN variants: the final accuracy and
+    the run's images/s; on sync and async, whose span loops take no
+    per-span telemetry, also one end-of-run ``train_mfu`` from the
+    analytic per-image FLOPs over the run's workers."""
+    registry.gauge("train_final_accuracy").set(result.final_accuracy)
+    registry.gauge("train_run_images_per_sec").set(result.images_per_sec)
+    if args.variant != "single" and result.train_time_s > 0:
+        from .obs import cost
+
+        registry.gauge("train_mfu").set(cost.mfu(
+            cost.cnn_train_step_flops(1, cfg.conv_channels, cfg.fc_sizes)
+            * result.images_per_sec * result.train_time_s,
+            result.train_time_s,
+            max(1, cfg.num_workers),
+            cost.peak_flops_per_device(device, args.peak_flops,
+                                       precision=cfg.policy().mfu_kind),
+        ))
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -798,6 +984,7 @@ def main(argv: list[str] | None = None) -> int:
     from .data.mnist import load_mnist
     from .parallel.mesh import default_device, destroy_world
 
+    _check_obs_flags(args)
     _check_resilience_flags(args)
     device = default_device(args.device)
     if device.type == "cuda":
@@ -820,32 +1007,50 @@ def main(argv: list[str] | None = None) -> int:
     )
     from .parallel.mesh import AcceleratorTimeout
 
-    rank = 0
     train_kw = _train_kwargs(args, _make_injector(args, args.variant))
-    if args.variant == "single":
-        from .train.trainer import SingleChipTrainer
-
+    with tempfile.TemporaryDirectory() as store_dir:
+        world = None
+        if args.variant != "single":
+            world = _join_world(num_workers, args.device, store_dir)
+        rank = world.rank if world is not None else 0
+        registry = writer = tracer = exporter = detector = None
         try:
-            result = SingleChipTrainer(cfg, dataset, device=device).train(
-                max_bad_steps=args.max_bad_steps or 0, **train_kw)
+            registry, writer, tracer = _build_obs(args, config=cfg, rank=rank)
+            exporter = _start_exporter(args, registry, rank)
+            run_span = contextlib.nullcontext()
+            if args.variant == "single":
+                from .train.trainer import SingleChipTrainer
+
+                detector = _make_anomaly(args, registry, tracer)
+                trainer = SingleChipTrainer(cfg, dataset, device=device)
+                train_kw.update(max_bad_steps=args.max_bad_steps or 0, metrics=registry,
+                                metrics_interval=args.metrics_interval,
+                                metrics_writer=writer, tracer=tracer,
+                                peak_flops=args.peak_flops, ici_bw=args.ici_bw,
+                                anomaly_detector=detector)
+            else:
+                if args.variant.startswith("async"):
+                    from .strategies.async_ps import AsyncTrainer as Trainer
+                else:
+                    from .strategies.sync import SyncTrainer as Trainer
+                trainer = Trainer(cfg, dataset, world=world)
+                train_kw["log"] = print if rank == 0 else (lambda s: None)
+                if tracer is not None:
+                    # The sync/async trainers take no tracer (as JAX's):
+                    # one run-level span wraps the whole training call.
+                    run_span = tracer.span("train/run", variant=args.variant)
+            with run_span:
+                result = trainer.train(profile_dir=args.profile or args.trace_dir,
+                                       **train_kw)
+            if registry is not None:
+                _run_gauges(args, cfg, registry, result, device)
         except AcceleratorTimeout as e:
             return _fatal_timeout(e)
-    else:
-        if args.variant.startswith("async"):
-            from .strategies.async_ps import AsyncTrainer as Trainer
-        else:
-            from .strategies.sync import SyncTrainer as Trainer
-
-        with tempfile.TemporaryDirectory() as store_dir:
-            world = _join_world(num_workers, args.device, store_dir)
-            try:
-                rank = world.rank
-                result = Trainer(cfg, dataset, world=world).train(
-                    log=print if rank == 0 else (lambda s: None), **train_kw)
-            except AcceleratorTimeout as e:
-                return _fatal_timeout(e)
-            finally:
+        finally:
+            _close_obs(exporter, tracer, writer)
+            if world is not None:
                 destroy_world()
+    anomaly_digest = _anomaly_report(detector) if rank == 0 else None
     if rank != 0:
         return 0
     print(f"training time: {result.train_time_s:.2f}s "
@@ -857,6 +1062,7 @@ def main(argv: list[str] | None = None) -> int:
         print(json.dumps({
             "variant": args.variant,
             "device": str(device),
+            "anomaly_rules": anomaly_digest,
             "config": dataclasses.asdict(cfg),
             "final_accuracy": result.final_accuracy,
             "history": [[e, b, round(a, 6)] for e, b, a in result.history],

@@ -1,4 +1,36 @@
-"""Observability — the port of ``ddl_tpu/obs``. Only the two counts the
-non-finite step guard needs are ported (``health.py``); the registry,
-tracer, goodput, cost, memory, comms, SLO and anomaly planes are ROADMAP
-queue 1, item 7."""
+"""Observability — the port of ``ddl_tpu/obs``: the telemetry every
+trainer reports through.
+
+- :mod:`.registry`: counters, gauges and histograms with label sets, the
+  JSONL ``MetricsWriter`` (run manifest first) and the Prometheus text
+  exposition;
+- :mod:`.trace`: nestable host wall-clock spans and instant events as
+  JSONL, their Chrome/Perfetto conversion, and ``trace_context`` (the host
+  tracer with the ``torch.profiler`` trace, ``utils.metrics.trace``);
+- :mod:`.health`: in-step health signals (grad, param and update norms,
+  non-finite counts), device tensors summed over each leaf's partition
+  groups;
+- :mod:`.cost`: analytic FLOPs (JAX's integers), the device peak table and
+  ``mfu``;
+- :mod:`.memory`: device memory watermarks and the compile counters;
+- :mod:`.goodput`: per-phase wall-time attribution;
+- :mod:`.comms`: the per-program collective ledger from the collective
+  call sites' tally, the interconnect roofline;
+- :mod:`.anomaly`, :mod:`.slo`: streaming robust-z anomaly detection and
+  burn-rate SLO monitors (host logic);
+- :mod:`.export`: the ``/metrics`` + ``/healthz`` pull endpoint.
+
+The CLI surfaces it through ``--metrics-out``, ``--metrics-interval``,
+``--trace-dir``, ``--profile``, ``--prom-port``, ``--peak-flops``,
+``--ici-bw`` and ``--anomaly-rules`` on every training variant. JAX's
+offline ``obs/analyze.py`` and the serve hooks come with the rest of
+serving (ROADMAP queue 1, item 8).
+"""
+
+from .registry import (  # noqa: F401
+    MetricRegistry,
+    MetricsWriter,
+    NoSamplesError,
+    run_manifest,
+)
+from .trace import NULL_TRACER, Tracer, trace_context  # noqa: F401

@@ -52,10 +52,21 @@ one, all in one ``batch_isend_irecv``.
 The reductions over the world take an optional ``group``: a process group
 that stands for the world in them (the LM's ``(dp, sp)`` group under
 tensor parallelism), of ``dist.get_world_size(group)`` ranks.
+
+Every call site also reports itself to the collective tally
+(:func:`tally`, :func:`note`): inside a ``with tally() as records:`` block
+each collective a rank makes appends ``{"op", "bytes", "group"}``, ``op`` in XLA's vocabulary (``all-reduce``,
+``reduce-scatter``, ``all-gather``, ``all-to-all``,
+``collective-permute``) and ``bytes`` the RESULT bytes this rank receives,
+as JAX's HLO ledger counts them (``obs/comms.py``). Outside such a block
+(the trainers open one only while a metric registry is live) nothing is
+recorded.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Mapping
 
@@ -65,6 +76,36 @@ import torch.distributed as dist
 
 from .layout import LayoutAssignment
 from .mesh import LOCAL, World
+
+
+_TALLY: contextvars.ContextVar[list | None] = contextvars.ContextVar("comms_tally",
+                                                                   default=None)
+
+
+@contextlib.contextmanager
+def tally():
+    """Record every collective call site's ``{op, bytes, group}`` made in
+    the block into the yielded list (module docstring)."""
+    records: list = []
+    token = _TALLY.set(records)
+    try:
+        yield records
+    finally:
+        _TALLY.reset(token)
+
+
+def note(op: str, result, group, nbytes: int | None = None) -> None:
+    """One collective of kind ``op`` over ``group`` (None: the world's)
+    whose result on this rank is ``result`` (or ``nbytes`` bytes), for the
+    open :func:`tally`, if any. A sum over the ``(dp, sp)`` axes whose group
+    is ``LOCAL`` (one rank, no call made) is noted too: JAX's mesh always
+    has those axes, and XLA keeps its all-reduces over an axis of one."""
+    records = _TALLY.get()
+    if records is None:
+        return
+    if nbytes is None:
+        nbytes = result.numel() * result.element_size()
+    records.append({"op": op, "bytes": int(nbytes), "group": group})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,6 +169,7 @@ def _reduce_scatter(rows: torch.Tensor, world: World, mean: bool, group=None) ->
     out = torch.empty(rows.shape[1], dtype=rows.dtype, device=rows.device)
     # Passed flat: gloo takes only a 1-D [W * chunk] input.
     dist.reduce_scatter_tensor(out, rows.reshape(-1), op=dist.ReduceOp.SUM, group=group)
+    note("reduce-scatter", out, group)
     if mean:
         out = out / rows.shape[0]
     return out
@@ -208,6 +250,7 @@ def all_reduce_sum(t: torch.Tensor, world: World, group=None) -> torch.Tensor:
     """Sum ``t`` over the world (or ``group``) in place (``lax.psum``);
     returns it."""
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    note("all-reduce", t, group)
     return t
 
 
@@ -217,6 +260,7 @@ def all_gather_flat(shard: torch.Tensor, world: World, group=None) -> torch.Tens
     out = torch.empty(_size(world, group) * shard.shape[0], dtype=shard.dtype,
                       device=shard.device)
     dist.all_gather_into_tensor(out, shard.contiguous(), group=group)
+    note("all-gather", out, group)
     return out
 
 
@@ -225,6 +269,7 @@ def all_gather_list(t: torch.Tensor, group) -> list[torch.Tensor]:
     the list form of ``all_gather``."""
     out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(out, t.contiguous(), group=group)
+    note("all-gather", t, group, nbytes=sum(x.numel() * x.element_size() for x in out))
     return out
 
 
@@ -241,6 +286,7 @@ def all_to_all_rows(rows: torch.Tensor, world: World) -> torch.Tensor:
     slices to their owners and its return of refreshed replica pieces."""
     out = torch.empty_like(rows)
     dist.all_to_all_single(out, rows.contiguous())
+    note("all-to-all", out, None)
     return out
 
 
@@ -302,6 +348,8 @@ def _shift(xs, dst: int, src: int, group) -> tuple[torch.Tensor, ...]:
         ops += [dist.P2POp(dist.isend, x, dst, group), dist.P2POp(dist.irecv, out, src, group)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
+    note("collective-permute", None, group,
+         nbytes=sum(x.numel() * x.element_size() for x in outs))
     return tuple(outs)
 
 
@@ -368,6 +416,7 @@ def _all_to_all(group, size: int, xs, split_axis: int, concat_axis: int):
         send[:, i].copy_(split)
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
+    note("all-to-all", recv, group)
     out = []
     for i in range(len(xs)):
         # Row s came from group rank s: it goes to block s of concat_axis.
@@ -413,6 +462,7 @@ def heads_to_seq(group, size: int, *xs: torch.Tensor) -> tuple[torch.Tensor, ...
 def _group_sum(x: torch.Tensor, group) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    note("all-reduce", out, group)
     return out
 
 
@@ -512,6 +562,9 @@ def stage_hop(sends, recvs, group, tally: HopTally | None = None) -> list[torch.
             host += buf.numel() * buf.element_size()
             buf = buf.to(device)
         out.append(buf)
+    if out:
+        note("collective-permute", None, group,
+             nbytes=sum(b.numel() * b.element_size() for b in out))
     if tally is not None:
         tally.hops += 1
         tally.host_copy_bytes += host

@@ -227,18 +227,22 @@ def run_within(fn, timeout_s: float, *, what: str = "operation"):
     card or a peer dies and cannot be interrupted, only abandoned (see
     :class:`AcceleratorTimeout` for the exit contract). PyTorch's current
     CUDA device is per thread, so the watchdog thread first takes the
-    caller's: a rank on ``cuda:k`` must not synchronize ``cuda:0``."""
+    caller's: a rank on ``cuda:k`` must not synchronize ``cuda:0``. ``fn``
+    runs in a copy of the caller's context, so an open collective tally
+    (``collectives.tally``) sees its calls."""
+    import contextvars
     import threading
 
     device = (torch.cuda.current_device()
               if torch.cuda.is_available() and torch.cuda.is_initialized() else None)
     outcome: list[tuple[bool, object]] = []
+    ctx = contextvars.copy_context()
 
     def run():
         try:
             if device is not None:
                 torch.cuda.set_device(device)
-            outcome.append((True, fn()))
+            outcome.append((True, ctx.run(fn)))
         except BaseException as e:  # surface the real error, not a timeout
             outcome.append((False, e))
 

@@ -43,6 +43,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models import transformer
 from ..models.partition import SHARED_LEAVES
+from ..obs import health as hlt
+from ..obs.health import HEALTH_OFF
 from ..ops.optimizers import adam_update
 from ..parallel import collectives as coll
 from ..parallel.mesh import LOCAL, Grid
@@ -65,6 +67,7 @@ def _sum(t: torch.Tensor, grid: Grid, group) -> torch.Tensor:
     """``lax.psum`` over ``group`` of ``grid`` (None: the world's; an
     identity over ``LOCAL``), in place."""
     if group is LOCAL:
+        coll.note("all-reduce", t, LOCAL)
         return t
     return coll.all_reduce_sum(t, grid.world, group=group)
 
@@ -72,7 +75,11 @@ def _sum(t: torch.Tensor, grid: Grid, group) -> torch.Tensor:
 def _sum_leaves(leaves: list, grid: Grid, group) -> list:
     """Each of ``leaves`` summed over ``group``: one all-reduce of their
     concatenation."""
-    if group is LOCAL or not leaves:
+    if not leaves:
+        return leaves
+    if group is LOCAL:
+        coll.note("all-reduce", None, LOCAL, nbytes=sum(x.numel() * x.element_size()
+                                                         for x in leaves))
         return leaves
     flat = _sum(torch.cat([x.reshape(-1) for x in leaves]), grid, group)
     return [x.view_as(like) for x, like in zip(flat.split([x.numel() for x in leaves]), leaves)]
@@ -131,18 +138,20 @@ def make_stage_fn(config, grid: Grid):
 
 def make_pipeline_step_body(config, grid: Grid, tables, positions: torch.Tensor, *,
                             lr: float, record: PipelineRecord | None = None,
-                            guard_groups: list | None = None):
+                            groups: list | None = None, guard: bool = False):
     """One pipeline train step on this rank: ``(params, opt_state, tokens,
-    targets, weights) -> (params', opt_state', loss[, skipped])``,
+    targets, weights[, health]) -> (params', opt_state', loss[, health
+    dict][, skipped])``,
     ``tokens`` this dp row's ``[B/dp, T]``, split into ``M`` microbatches
     streamed by the ``(f_tab, b_tab)`` pair of ``tables``. ``record``
     (optional) gathers the steps' saved-input peak and hop bytes.
 
-    ``guard_groups`` (None: unguarded) turns on the non-finite guard
-    (``resilience.guard``, JAX's ``pipeline/step.py`` guard): for each
-    parameter leaf the groups its count sums over (the stage's blocks over
-    pp and, where tp-sharded, tp), so the count is global and every stage
-    takes the same branch; the skip flag comes back fourth."""
+    ``guard`` turns on the non-finite guard (``resilience.guard``, JAX's
+    ``pipeline/step.py`` guard) and a ``health`` level the health dict
+    (``obs.health``, JAX's ``pipeline/step.py:284``); ``groups`` holds, for
+    each parameter leaf, the groups its count and squared sums sum over
+    (the stage's blocks over pp and, where tp-sharded, tp), so both are
+    global and every stage takes the same branch."""
     f_tab, b_tab = tables
     pp, s = grid.pipeline_parallel, grid.pp_index
     m = int(f_tab.max()) + 1
@@ -154,7 +163,7 @@ def make_pipeline_step_body(config, grid: Grid, tables, positions: torch.Tensor,
     pol = config.policy()
     act_dtype = config.dtype() or torch.float32
 
-    def step(params, opt_state, tokens, targets, weights):
+    def step(params, opt_state, tokens, targets, weights, health=HEALTH_OFF):
         b_loc, t_seq = tokens.shape
         mb = b_loc // m
         xs, ys, ws = (a.reshape(m, mb, t_seq) for a in (tokens, targets, weights))
@@ -218,15 +227,10 @@ def make_pipeline_step_body(config, grid: Grid, tables, positions: torch.Tensor,
         if record is not None:
             record.peak_saved = max(record.peak_saved, peak)
             record.steps += 1
-        if guard_groups is None:
-            return new_params, new_opt, loss.detach()
-        from ..obs.health import nonfinite_count
-        from ..resilience.guard import apply_guard
-
-        with torch.no_grad():
-            new_params, new_opt, skipped = apply_guard(
-                nonfinite_count(grads, guard_groups), params, opt_state, new_params, new_opt)
-        return new_params, new_opt, loss.detach(), skipped
+        return hlt.finish_step(
+            guard, health, lambda: hlt.nonfinite_count(grads, groups),
+            lambda new, nf: hlt.health_signals(grads, params, new, groups, nf),
+            params, opt_state, new_params, new_opt, loss.detach())
 
     return step
 

@@ -22,16 +22,19 @@ from .step import PipelineRecord, make_pipeline_step_body
 
 
 def pipeline_step(config, grid: Grid, positions: torch.Tensor,
-                  record: PipelineRecord | None = None, guard_groups: list | None = None):
+                  record: PipelineRecord | None = None, groups: list | None = None,
+                  guard: bool = False):
     """This config's pipeline train step on this rank of ``grid``:
-    ``(params, opt, tokens, targets, weights) -> (params', opt', loss[,
-    skipped])`` over this dp row's batch, the stage's params and their Adam
-    state; ``guard_groups`` (``strategies.seq.guard_groups``) guards it."""
+    ``(params, opt, tokens, targets, weights[, health]) -> (params', opt',
+    loss[, health dict][, skipped])`` over this dp row's batch, the stage's
+    params and their Adam state; ``groups`` (``strategies.seq.guard_groups``)
+    are the leaves' partition groups of the guard (``guard``) and health
+    sums."""
     tables = schedule_tables(config.pipeline_schedule, grid.pipeline_parallel,
                              config.microbatches)
     return make_pipeline_step_body(config, grid, tables, positions,
                                    lr=config.learning_rate, record=record,
-                                   guard_groups=guard_groups)
+                                   groups=groups, guard=guard)
 
 
 def make_pipeline_program(config, tokens, targets, weights, *, world: World | None = None,

@@ -20,17 +20,16 @@ valid checkpoint at or before the streak's first bad step
 (:func:`rollback_state`) and re-enters its span loop there, which re-seeds
 the data stream (batches are indexed by global step, so position is the
 seed). ``max_rollbacks`` bounds the retries: a persistent fault raises
-instead of cycling. The monitor's registry and tracer hooks are ROADMAP
-queue 1, item 7 (observability) and refuse anything but None.
+instead of cycling. With a ``registry`` the monitor counts
+``train_skipped_steps_total`` and ``train_rollbacks_total``, and with a
+``tracer`` it traces ``guard_skip`` and ``guard_rollback`` events (JAX's
+names).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-_OBS = "ROADMAP queue 1, item 7: observability"
-
 
 def rollback_state(checkpoint_dir, monitor: "GuardMonitor", like, log, world=None):
     """The trainer-agnostic half of a guard rollback: locate the newest
@@ -133,11 +132,10 @@ class GuardMonitor:
             raise ValueError(
                 f"max_rollbacks must be >= 1, got {max_rollbacks}"
             )
-        for name, hook in (("registry", registry), ("tracer", tracer)):
-            if hook is not None:
-                raise NotImplementedError(f"GuardMonitor({name}=...) is not ported yet ({_OBS})")
         self.max_bad_steps = max_bad_steps
         self.max_rollbacks = max_rollbacks
+        self.registry = registry
+        self.tracer = tracer
         self.skipped_steps = 0
         self.rollbacks = 0
         self.consecutive = 0
@@ -157,6 +155,15 @@ class GuardMonitor:
                     self.streak_start = first_gstep + j
                 self.consecutive += 1
                 self.skipped_steps += 1
+                if self.registry is not None:
+                    self.registry.counter(
+                        "train_skipped_steps_total",
+                        "optimizer updates skipped by the non-finite "
+                        "gradient guard",
+                    ).inc()
+                if self.tracer:
+                    self.tracer.event("guard_skip", gstep=first_gstep + j,
+                                      consecutive=self.consecutive)
                 if self.max_bad_steps \
                         and self.consecutive >= self.max_bad_steps:
                     return True
@@ -171,6 +178,15 @@ class GuardMonitor:
         self.rollbacks += 1
         self.consecutive = 0
         self.streak_start = None
+        if self.registry is not None:
+            self.registry.counter(
+                "train_rollbacks_total",
+                "rollbacks to the last good checkpoint after "
+                "max_bad_steps consecutive guarded skips",
+            ).inc()
+        if self.tracer:
+            self.tracer.event("guard_rollback", to_step=int(to_step),
+                              rollbacks=self.rollbacks)
         if self.rollbacks > self.max_rollbacks:
             raise RuntimeError(
                 f"guard escalation: {self.rollbacks} rollbacks exceed "

@@ -48,8 +48,8 @@ in its device layout (``ps``/``m``/``v`` as the serve lays them out,
 this run's chunk grid; preemption and saves fall at round-chunk
 boundaries; the dispatch watchdog covers each chunk. The restored serve
 vectors are fresh contiguous buffers, which the fused kernel updates in
-place. As in JAX, the async trainer has no non-finite guard. Profiling is
-ROADMAP queue 1, item 7.
+place. As in JAX, the async trainer has no non-finite guard, and its one
+telemetry hook is the profiler bracket (``profile_dir``).
 """
 
 from __future__ import annotations
@@ -89,7 +89,7 @@ from ..train.trainer import (
     value_and_grad,
 )
 from ..utils.checkpoint import save_checkpoint_world
-from ..utils.metrics import StepTimer, barrier
+from ..utils.metrics import StepTimer, barrier, trace
 from .sync import resolve_layout
 
 __all__ = [
@@ -412,13 +412,16 @@ class AsyncTrainer:
         should_stop: Callable[[], bool] | None = None,
         dispatch_timeout: float = 0.0,
         fault_injector=None,
+        profile_dir: str | None = None,
     ) -> TrainResult:
         """Train ``config.epochs`` epochs in round chunks of ``eval_every``
         rounds, each followed by the PS eval and the per-worker eval; only
         rank 0 logs. Checkpoints count rounds (``checkpoint_every``); a
         resume lands on the chunk grid (module docstring);
         ``fault_injector`` takes the kinds that need no guard
-        (``sigterm``)."""
+        (``sigterm``); ``profile_dir`` runs the rounds, after the warm-up,
+        under ``torch.profiler`` (``utils.metrics.trace``), as JAX's
+        ``AsyncTrainer.train`` (its only telemetry hook)."""
         check_injector(fault_injector, "async")
         cfg, world = self.config, self.world
         W, dev = world.size, world.device
@@ -484,47 +487,48 @@ class AsyncTrainer:
             return out
 
         start = time.perf_counter()
-        for epoch in range(cfg.epochs):
-            scheds = async_schedule(cfg.staleness_seed + epoch, W, rounds)
-            for lo, hi in (resume_chunks if epoch == resume_epoch else chunks):
-                ground = epoch * rounds + lo
-                if ground < start_round:
-                    continue  # already done by the resumed run
-                span_idx += 1
-                with timer.step(images=cfg.batch_size * W * (hi - lo)):
-                    state, ps_full, loss = guarded(
-                        lambda: dispatch(lo, hi, scheds[lo:hi], ground), dispatch_timeout,
-                        f"round dispatch at global round {ground}")
-                losses.append(loss)
-                if cfg.eval_every:
-                    acc = guarded(
-                        lambda: evaluate(coll.unflatten_params(ps_full, self.spec), x_test,
-                                         y_test),
-                        dispatch_timeout, f"eval after round {lo}")
-                    history.append((epoch, lo, acc))
-                    log(f"epoch: {epoch} round: {lo} accuracy: {acc}")
-                    # Each worker's stale-replica accuracy: the spread shows
-                    # the staleness.
-                    waccs = guarded(lambda: self._eval_workers(state, x_test, y_test),
-                                    dispatch_timeout, f"worker eval after round {lo}")
-                    worker_history.append((epoch, lo, waccs))
-                    log("worker accuracies: " + " ".join(f"{a:.4f}" for a in waccs))
-                    stopped = hit_target(cfg, acc)
-                if fault_injector is not None:
-                    fault_injector.maybe_sigterm(epoch * rounds + hi)
-                preempted = preempted or check_preempt(should_stop, log, ckpt is not None,
-                                                       span_idx)
-                if ckpt and save_crossed(ground, hi - lo, checkpoint_every,
-                                         hi == rounds or stopped or preempted):
-                    save_checkpoint_world(ckpt, {"state": self._state_for_save(state)},
-                                          world=world, step=epoch * rounds + hi,
-                                          extra={"epoch": epoch}, keep=CHECKPOINT_KEEP)
+        with trace(profile_dir, dev):
+            for epoch in range(cfg.epochs):
+                scheds = async_schedule(cfg.staleness_seed + epoch, W, rounds)
+                for lo, hi in (resume_chunks if epoch == resume_epoch else chunks):
+                    ground = epoch * rounds + lo
+                    if ground < start_round:
+                        continue  # already done by the resumed run
+                    span_idx += 1
+                    with timer.step(images=cfg.batch_size * W * (hi - lo)):
+                        state, ps_full, loss = guarded(
+                            lambda: dispatch(lo, hi, scheds[lo:hi], ground), dispatch_timeout,
+                            f"round dispatch at global round {ground}")
+                    losses.append(loss)
+                    if cfg.eval_every:
+                        acc = guarded(
+                            lambda: evaluate(coll.unflatten_params(ps_full, self.spec), x_test,
+                                             y_test),
+                            dispatch_timeout, f"eval after round {lo}")
+                        history.append((epoch, lo, acc))
+                        log(f"epoch: {epoch} round: {lo} accuracy: {acc}")
+                        # Each worker's stale-replica accuracy: the spread shows
+                        # the staleness.
+                        waccs = guarded(lambda: self._eval_workers(state, x_test, y_test),
+                                        dispatch_timeout, f"worker eval after round {lo}")
+                        worker_history.append((epoch, lo, waccs))
+                        log("worker accuracies: " + " ".join(f"{a:.4f}" for a in waccs))
+                        stopped = hit_target(cfg, acc)
+                    if fault_injector is not None:
+                        fault_injector.maybe_sigterm(epoch * rounds + hi)
+                    preempted = preempted or check_preempt(should_stop, log, ckpt is not None,
+                                                           span_idx)
+                    if ckpt and save_crossed(ground, hi - lo, checkpoint_every,
+                                             hi == rounds or stopped or preempted):
+                        save_checkpoint_world(ckpt, {"state": self._state_for_save(state)},
+                                              world=world, step=epoch * rounds + hi,
+                                              extra={"epoch": epoch}, keep=CHECKPOINT_KEEP)
+                    if stopped or preempted:
+                        break
+                if stopped:
+                    log(f"target accuracy {cfg.target_accuracy} reached")
                 if stopped or preempted:
                     break
-            if stopped:
-                log(f"target accuracy {cfg.target_accuracy} reached")
-            if stopped or preempted:
-                break
         end = time.perf_counter()
         params = (coll.unflatten_params(ps_full, self.spec) if ps_full is not None
                   else self.logical(state.ps))  # a fully resumed run runs no round

@@ -95,7 +95,8 @@ from ..convert import (
 )
 from ..data.lm import LMDataset
 from ..models import partition, transformer
-from ..obs.health import flat_grad_sq_nonfinite, nonfinite_count
+from ..obs import health as hlt
+from ..obs.health import HEALTH_FULL, HEALTH_OFF, flat_grad_sq_nonfinite, nonfinite_count
 from ..models.transformer import LMSpec
 from ..ops import flash_attention
 from ..ops.optimizers import AdamState, ShardedAdam, adam_init, adam_update
@@ -107,6 +108,9 @@ from ..pipeline.schedule import SCHEDULES
 from ..pipeline.step import PipelineRecord, make_pipeline_eval_body
 from ..train.trainer import (
     CHECKPOINT_KEEP,
+    SpanMetrics,
+    attributed,
+    check_detector,
     check_preempt,
     checkpoint_file,
     eval_spans,
@@ -114,11 +118,12 @@ from ..train.trainer import (
     hit_target,
     resume_plan,
     save_crossed,
+    span_health,
     try_resume,
 )
 from ..utils import tree
 from ..utils.checkpoint import save_checkpoint_world
-from ..utils.metrics import StepStats, StepTimer, barrier
+from ..utils.metrics import StepStats, StepTimer, barrier, trace
 from .sync import _adam_flat
 
 Scheme = Literal["ring", "ulysses", "full"]
@@ -349,6 +354,7 @@ def _psum(t: torch.Tensor, grid: Grid) -> torch.Tensor:
     """``lax.psum`` over ``AXES``: the sum over the ``(dp, sp)`` group, in
     place."""
     if grid.data_group is LOCAL:
+        coll.note("all-reduce", t, LOCAL)
         return t
     return coll.all_reduce_sum(t, grid.world, group=grid.data_group)
 
@@ -454,20 +460,6 @@ def guard_groups(params, specs, grid: Grid) -> list[tuple]:
     return out
 
 
-def _guarded_update(guard: bool, nonfinite: Callable, params, opt, new_params, new_opt,
-                    loss) -> tuple:
-    """A step body's return: ``(params', opt', loss)`` unguarded; guarded,
-    the update selected against the non-finite count
-    (``resilience.guard.apply_guard``, ``nonfinite()`` computed only
-    then) and the skip flag appended."""
-    if not guard:
-        return new_params, new_opt, loss
-    from ..resilience.guard import apply_guard
-
-    new_params, new_opt, skipped = apply_guard(nonfinite(), params, opt, new_params, new_opt)
-    return new_params, new_opt, loss, skipped
-
-
 def _step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
                plan: _FlatPlan, guard: bool = False, specs=None) -> Callable:
     """One train step: ``(params, opt_state, tokens, targets, weights) ->
@@ -476,26 +468,31 @@ def _step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
     leaves, shard-full ones for the tp-sharded leaves), then TF1 Adam over
     the tree (the moments placed like the parameters). The policy's casts
     bracket the sum (at a world of one too, as JAX's psum over an axis of
-    one keeps them). ``guard=True`` (the partition ``specs`` given)
-    selects the old state on a non-finite gradient and returns the skip
-    flag fourth."""
+    one keeps them). ``guard=True`` selects the old state on a non-finite
+    gradient and returns the skip flag last; a ``health`` level
+    (``obs.health``) returns the health dict after the loss, each leaf's
+    sums over the groups its partition ``specs`` name."""
     attn = _attn_for(config, grid)
     pol = config.policy()
-    groups = guard_groups(plan.like, specs, grid) if guard else None
+    groups = guard_groups(plan.like, specs, grid)
 
-    def step(params, opt_state: AdamState, tokens, targets, weights):
+    def step(params, opt_state: AdamState, tokens, targets, weights, health=HEALTH_OFF):
         loss, grads = _local_grads(config, grid, attn, positions, params, tokens, targets,
                                    weights)
         grads = pol.cast_grads(tree.unflatten(params, grads))
         if grid.data_group is not LOCAL:
             grads = plan.unflatten(_psum(_FlatPlan.flatten(grads), grid))
+        else:
+            coll.note("all-reduce", None, LOCAL,
+                      nbytes=plan.total * tree.leaves(grads)[0].element_size())
         grads = pol.upcast_grads(grads)
         with torch.no_grad():
             new_params, new_opt = adam_update(params, opt_state, grads,
                                               lr=config.learning_rate)
-            out = _guarded_update(guard, lambda: nonfinite_count(grads, groups), params,
-                                  opt_state, new_params, new_opt, loss)
-        return out
+        return hlt.finish_step(
+            guard, health, lambda: nonfinite_count(grads, groups),
+            lambda new, nf: hlt.health_signals(grads, params, new, groups, nf),
+            params, opt_state, new_params, new_opt, loss)
 
     return step
 
@@ -505,6 +502,7 @@ def _zero1_flat(grid: Grid, flat: torch.Tensor, chunk: int) -> torch.Tensor:
     reduce-scatter over ``(dp, sp)``, which both sums the partials and
     lands the chunk (JAX's psum_scatter over the combined axes)."""
     if grid.data_group is LOCAL:
+        coll.note("reduce-scatter", None, LOCAL, nbytes=chunk * flat.element_size())
         return coll.pad_to(flat, chunk)
     return coll.reduce_scatter_flat(flat, grid.world, mean=False, chunk=chunk,
                                     group=grid.data_group)
@@ -513,6 +511,7 @@ def _zero1_flat(grid: Grid, flat: torch.Tensor, chunk: int) -> torch.Tensor:
 def _zero1_gather(grid: Grid, p_new: torch.Tensor) -> torch.Tensor:
     """Every ``(dp, sp)`` rank's updated chunk, in chunk order."""
     if grid.data_group is LOCAL:
+        coll.note("all-gather", p_new, LOCAL)
         return p_new
     return coll.all_gather_flat(p_new, grid.world, group=grid.data_group)
 
@@ -526,14 +525,16 @@ def _zero1_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
     gradient is cast before the reduce-scatter and this rank's chunk
     upcast after it. ``guard=True`` counts the non-finite elements of the
     flat chunks (disjoint over ``(dp, sp)``: one sum is the global count)
-    and returns the skip flag fourth."""
+    and returns the skip flag last; a ``health`` level takes the grad norm
+    from the chunks likewise and the param and update norms from the full
+    (replicated) trees."""
     attn = _attn_for(config, grid)
     pol = config.policy()
     n_dev = config.data_parallel * config.num_workers
     chunk = coll.chunk_size(plan.total, n_dev)
     mine = slice(grid.data_index * chunk, (grid.data_index + 1) * chunk)
 
-    def step(params, opt: ShardedAdam, tokens, targets, weights):
+    def step(params, opt: ShardedAdam, tokens, targets, weights, health=HEALTH_OFF):
         loss, grads = _local_grads(config, grid, attn, positions, params, tokens, targets,
                                    weights)
         g_own = pol.upcast_grads(_zero1_flat(grid, _FlatPlan.flatten(pol.cast_grads(grads)),
@@ -542,10 +543,15 @@ def _zero1_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
             p_own = coll.pad_to(_FlatPlan.flatten(params), chunk * n_dev)[mine]
             p_new, new_opt = _adam_flat(p_own, opt, g_own, lr=config.learning_rate)
             full = _zero1_gather(grid, p_new)
-            out = _guarded_update(
-                guard, lambda: flat_grad_sq_nonfinite(g_own, grid.data_group)[1], params,
-                opt, plan.unflatten(full), new_opt, loss)
-        return out
+
+        def signals(new, _nf):
+            sq, count = flat_grad_sq_nonfinite(g_own, grid.data_group)
+            return {"grad_norm": sq.sqrt(), "nonfinite_grads": count,
+                    **hlt.norm_signals(params, new)}
+
+        return hlt.finish_step(
+            guard, health, lambda: flat_grad_sq_nonfinite(g_own, grid.data_group)[1],
+            signals, params, opt, plan.unflatten(full), new_opt, loss)
 
     return step
 
@@ -600,7 +606,7 @@ class _HybridPlan:
 
 
 def _zero1_tp_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
-                        hplan: _HybridPlan, guard: bool = False) -> Callable:
+                        hplan: _HybridPlan, specs, guard: bool = False) -> Callable:
     """One hybrid ZeRO-1 x tp step: local gradients (``(dp, sp)``-partial,
     tp-complete), then for the REPLICATED leaves the ZeRO-1 path over
     ``(dp, sp)`` (one reduce-scatter of their flat gradient, the plain flat
@@ -611,14 +617,16 @@ def _zero1_tp_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
     ``precision="bf16"`` both subtrees' sums move bf16 and upcast at their
     Adam boundary. ``guard=True`` counts the flat chunks' non-finite
     elements over ``(dp, sp)`` plus the tp shards' over tp, and returns the
-    skip flag fourth."""
+    skip flag last; a ``health`` level sums the squares likewise, and the
+    param and update norms over each leaf's partition groups."""
     attn = _attn_for(config, grid)
     pol = config.policy()
     n_dev = config.data_parallel * config.num_workers
     chunk = coll.chunk_size(hplan.rep_total, n_dev)
     mine = slice(grid.data_index * chunk, (grid.data_index + 1) * chunk)
+    groups = guard_groups(hplan.like, specs, grid)
 
-    def step(params, opt: HybridAdam, tokens, targets, weights):
+    def step(params, opt: HybridAdam, tokens, targets, weights, health=HEALTH_OFF):
         loss, grads = _local_grads(config, grid, attn, positions, params, tokens, targets,
                                    weights)
         g_rep, g_tp = hplan.split(pol.cast_grads(grads))
@@ -637,13 +645,19 @@ def _zero1_tp_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
             new_opt = HybridAdam(step=flat.step, m_flat=flat.m, v_flat=flat.v,
                                  m_tp=tp_state.m, v_tp=tp_state.v)
 
-            def nonfinite():
-                _, nf = flat_grad_sq_nonfinite(g_own, grid.data_group)
-                return nf + nonfinite_count(g_tp, [(grid.tp_group,)] * len(g_tp))
+        def nonfinite():
+            _, nf = flat_grad_sq_nonfinite(g_own, grid.data_group)
+            return nf + nonfinite_count(g_tp, [(grid.tp_group,)] * len(g_tp))
 
-            out = _guarded_update(guard, nonfinite, params, opt, hplan.merge(rep_new, tp_new),
-                                  new_opt, loss)
-        return out
+        def signals(new, nf):
+            sq, _ = flat_grad_sq_nonfinite(g_own, grid.data_group)
+            sq = sq + hlt.sq_sum(g_tp, (grid.tp_group,))
+            return {"grad_norm": sq.sqrt(),
+                    "nonfinite_grads": nf if nf is not None else nonfinite(),
+                    **hlt.norm_signals(params, new, groups)}
+
+        return hlt.finish_step(guard, health, nonfinite, signals, params, opt,
+                               hplan.merge(rep_new, tp_new), new_opt, loss)
 
     return step
 
@@ -725,15 +739,16 @@ class SeqTrainer:
 
     def step_fn(self, guard: bool = False) -> Callable:
         """This config's train step, ``(params, opt, tokens, targets,
-        weights) -> (params', opt', loss[, skipped])`` on this rank's
-        blocks; ``guard=True`` is the non-finite guarded step."""
+        weights[, health]) -> (params', opt', loss[, health dict][,
+        skipped])`` on this rank's blocks; ``guard=True`` is the non-finite
+        guarded step, ``health`` a level of ``obs.health``."""
         if self.config.pipeline_parallel > 1:
             return pipeline_trainer.pipeline_step(
                 self.config, self.grid, self.positions, self.pipeline_record,
-                guard_groups=guard_groups(self.params, self._specs, self.grid) if guard else None)
+                groups=guard_groups(self.params, self._specs, self.grid), guard=guard)
         if self._hplan is not None:
             return _zero1_tp_step_body(self.config, self.grid, self.positions, self._hplan,
-                                       guard=guard)
+                                       self._specs, guard=guard)
         if self.config.zero1:
             return _zero1_step_body(self.config, self.grid, self.positions, self._plan,
                                     guard=guard)
@@ -771,19 +786,27 @@ class SeqTrainer:
         return self._local(self._permuted(np.asarray(arr)), rows=False)
 
     def span_program(self, k: int, guard: bool = False) -> Callable:
-        """``(params, opt, xs, ys, ws, first) -> (params, opt, last_loss[,
-        skipped])``: ``k`` consecutive steps over the staged batches
-        ``first .. first + k - 1``; guarded, the steps' skip flags come
-        back stacked, ``[k]`` int32 on the device."""
+        """``(params, opt, xs, ys, ws, first[, health]) -> (params, opt,
+        last_loss[, healths][, skipped])``: ``k`` consecutive steps over
+        the staged batches ``first .. first + k - 1``; at a ``health``
+        level (``train.trainer.span_health``) the steps' health dicts come
+        back as a list; guarded, the steps' skip flags come back stacked,
+        ``[k]`` int32 on the device."""
         step = self.step_fn(guard)
 
-        def run(params, opt_state, xs, ys, ws, first: int):
-            loss, flags = None, []
-            for i in range(first, first + k):
-                out = step(params, opt_state, xs[i], ys[i], ws[i])
+        def run(params, opt_state, xs, ys, ws, first: int, health: int = HEALTH_OFF):
+            loss, flags, hs = None, [], []
+            for i in range(k):
+                lvl = span_health(health, i, k)
+                j = first + i
+                out = (step(params, opt_state, xs[j], ys[j], ws[j], health=lvl) if lvl
+                       else step(params, opt_state, xs[j], ys[j], ws[j]))
                 params, opt_state, loss = out[:3]
-                flags.extend(out[3:])
-            return (params, opt_state, loss) + ((torch.stack(flags),) if flags else ())
+                if lvl:
+                    hs.append(out[3])
+                flags.extend(out[3 + bool(lvl):])
+            return ((params, opt_state, loss) + ((hs,) if hs else ())
+                    + ((torch.stack(flags),) if flags else ()))
 
         return run
 
@@ -800,15 +823,23 @@ class SeqTrainer:
         num, den = sums(params, tokens, targets, weights)
         return float(num / den)
 
-    def _warm_up(self, params, opt_state, xs, ys, ws) -> None:
+    def _warm_up(self, params, opt_state, xs, ys, ws, guard: bool = False,
+                 health: int = HEALTH_OFF) -> None:
         """Outside the clock (where the JAX trainer compiles): one discarded
         train step of this config on the first batch, which builds the
         flash kernels (flash on CUDA), loads cuBLAS and PyTorch's kernels,
         sets up the process group's communicators and sizes the allocator.
         It launches each flash kernel once per layer (under a pipeline, as
         a step does: per microbatch and stage layer). The step is
-        functional: ``params`` and ``opt_state`` are not changed."""
-        self.step_fn()(params, opt_state, xs[0], ys[0], ws[0])
+        functional: ``params`` and ``opt_state`` are not changed. Under
+        telemetry (``health`` a level) it is the step the spans run, guard
+        (``guard``) and health included, so the collective tally of its
+        call is the span program's ledger (``obs.comms``)."""
+        step = self.step_fn(guard)
+        if health:
+            step(params, opt_state, xs[0], ys[0], ws[0], health=health)
+        else:
+            step(params, opt_state, xs[0], ys[0], ws[0])
         barrier(self.device)
 
     def full_params(self, params) -> dict:
@@ -906,13 +937,21 @@ class SeqTrainer:
         checkpoint_dir: str | None = None,
         checkpoint_every: int = 0,
         resume=False,
+        profile_dir: str | None = None,
         should_stop: Callable[[], bool] | None = None,
         dispatch_timeout: float = 0.0,
+        metrics=None,
+        metrics_interval: int = 10,
+        metrics_writer=None,
+        tracer=None,
         guard: bool = False,
         max_bad_steps: int = 0,
         max_rollbacks: int = 3,
         fault_injector=None,
         checkpoint_keep: int = CHECKPOINT_KEEP,
+        peak_flops: float | None = None,
+        ici_bw: float | None = None,
+        anomaly_detector=None,
     ) -> LMResult:
         """Train ``config.epochs`` epochs with JAX's persistence contract:
         a rolling checkpoint at every epoch end (and every
@@ -926,8 +965,25 @@ class SeqTrainer:
         consecutive skips roll back to the last good checkpoint and replay
         from its step (the data stream is indexed by step), at most
         ``max_rollbacks`` times. ``fault_injector`` is the deterministic
-        chaos hook (``resilience.faults``)."""
+        chaos hook (``resilience.faults``).
+
+        Telemetry, JAX's: ``metrics`` (an ``obs.MetricRegistry``) turns on
+        the health signals of every step body (the non-finite count every
+        step, the norms on the last step of spans crossing
+        ``metrics_interval`` global steps), ``train_loss``,
+        ``train_tokens_per_sec``, ``train_mfu`` over the grid's devices
+        against ``peak_flops`` (default: the device's row of ``obs.cost``),
+        the comms roofline from the collective ledger against ``ici_bw``,
+        the goodput phases, memory watermarks and ``anomaly_detector``
+        (same registry). ``tracer`` spans every dispatch and eval;
+        ``metrics_writer`` flushes on its own interval; ``profile_dir``
+        runs the span loop, after the warm-up, under ``torch.profiler``.
+        With ``metrics=None`` every step does exactly its own work."""
+        from ..obs.trace import NULL_TRACER
+
         cfg, ds, dev = self.config, self.dataset, self.device
+        tracer = tracer if tracer is not None else NULL_TRACER
+        check_detector(metrics, anomaly_detector)
         bs = cfg.batch_size
         batch_num = ds.num_train // bs
         inj = fault_injector
@@ -936,8 +992,22 @@ class SeqTrainer:
         if guard_on:
             from ..resilience.guard import GuardMonitor
 
-            monitor = GuardMonitor(max_bad_steps, max_rollbacks=max_rollbacks)
+            monitor = GuardMonitor(max_bad_steps, max_rollbacks=max_rollbacks,
+                                   registry=metrics, tracer=tracer)
         world = self.grid.world
+        sm = None
+        if metrics is not None:
+            from ..obs.cost import lm_train_step_flops
+
+            g = self.grid
+            sm = SpanMetrics(
+                metrics, tracer, device=dev,
+                n_dev=g.data_parallel * g.num_workers * g.tensor_parallel
+                * g.pipeline_parallel,
+                step_flops=lm_train_step_flops(cfg.spec, bs, ds.seq_len, remat=cfg.remat),
+                precision=cfg.policy().mfu_kind, items="tokens", interval=metrics_interval,
+                writer=metrics_writer, peak_flops=peak_flops, ici_bw=ici_bw,
+                anomaly_detector=anomaly_detector, grid=g)
 
         def stage_ws() -> torch.Tensor:
             # The grad-fault injection point: one non-finite loss weight
@@ -947,11 +1017,14 @@ class SeqTrainer:
                 w = inj.poison_batches(np.asarray(w), batch_num, bs)
             return self.stage_batches(w, batch_num, bs)
 
-        xs = self.stage_batches(ds.tokens, batch_num, bs)
-        ys = self.stage_batches(ds.targets, batch_num, bs)
-        ws = stage_ws()
-        xte, yte, wte = (self.stage_test(a)
-                         for a in (ds.test_tokens, ds.test_targets, ds.test_weights))
+        with attributed(sm, "staging"):
+            xs = self.stage_batches(ds.tokens, batch_num, bs)
+            ys = self.stage_batches(ds.targets, batch_num, bs)
+            ws = stage_ws()
+            xte, yte, wte = (self.stage_test(a)
+                             for a in (ds.test_tokens, ds.test_targets, ds.test_weights))
+            if sm is not None:
+                barrier(dev)
         params = tree.map(torch.clone, self.params)
         opt_state = _clone_state(self.opt_state)
         ckpt = checkpoint_file(checkpoint_dir)
@@ -970,8 +1043,33 @@ class SeqTrainer:
             return fns[k]
 
         t0 = time.perf_counter()
-        self._warm_up(params, opt_state, xs, ys, ws)
+        if sm is None:
+            self._warm_up(params, opt_state, xs, ys, ws)
+        else:
+            # Under telemetry the warm-up is the spans' own step (guard and
+            # health included) and one eval, each tallied for its ledger.
+            with coll.tally() as records:
+                self._warm_up(params, opt_state, xs, ys, ws, guard_on, HEALTH_FULL)
+            _, resume_spans0 = resume_plan(start_step, batch_num, cfg.eval_every, spans)
+            sm.compiled("train_span", records, {k for _, k, _ in spans + resume_spans0},
+                        t0=t0, t1=time.perf_counter())
         warmup = time.perf_counter() - t0
+        eval_warm = [sm is not None]  # the first eval is the eval program's warm-up
+
+        def evaluate(what: str) -> float:
+            """The test accuracy under the watchdog; under telemetry, the
+            first call (the eval kernels' first launch) is also the eval
+            program's "compile", tallied for its ledger and timed, its time
+            left to the ``eval`` phase it runs in."""
+            fn = lambda: self.evaluate(params, xte, yte, wte)  # noqa: E731
+            if not eval_warm[0]:
+                return guarded(fn, dispatch_timeout, what)
+            eval_warm[0] = False
+            te0 = time.perf_counter()
+            with coll.tally() as records:
+                acc = guarded(fn, dispatch_timeout, what)
+            sm.compiled("eval", records, t0=te0, t1=time.perf_counter(), attribute=False)
+            return acc
 
         def rollback() -> int:
             """Guard escalation: restore the newest valid checkpoint at or
@@ -989,8 +1087,9 @@ class SeqTrainer:
             barrier(dev)
             return rstep
 
-        def dispatch(k: int, first: int):
-            out = fn_for(k)(params, opt_state, xs, ys, ws, first)
+        def dispatch(k: int, first: int, health: int):
+            args = (params, opt_state, xs, ys, ws, first)
+            out = fn_for(k)(*args, health=health) if health else fn_for(k)(*args)
             barrier(dev)
             return out
 
@@ -1004,64 +1103,81 @@ class SeqTrainer:
         span_idx = 0
         resumed_from = start_step
         start = time.perf_counter()
-        while True:
-            rolled = False
-            resume_epoch, resume_spans = resume_plan(start_step, batch_num, cfg.eval_every,
-                                                     spans)
-            for epoch in range(cfg.epochs):
-                for first, k, eval_after in (resume_spans if epoch == resume_epoch else spans):
-                    gstep = epoch * batch_num + first
-                    if gstep < start_step:
-                        continue  # already done by the resumed run
-                    span_idx += 1
-                    with timer.step(images=k * tokens_per_batch):
-                        out = guarded(lambda: dispatch(k, first), dispatch_timeout,
-                                      f"span dispatch at global batch {gstep}")
-                    params, opt_state, l_dev = out[:3]
-                    if guard_on:
-                        # The loss and the span's skip flags in one fetch.
-                        host = torch.cat([l_dev.reshape(1).float(), out[3].float()]).tolist()
-                        loss, skipped = host[0], host[1:]
-                    else:
-                        loss = float(l_dev)
-                    span_losses.append(loss)
-                    if guard_on and monitor.observe(skipped, gstep):
-                        start_step = rollback()
-                        monitor.rolled_back(start_step)
-                        rolled = True
+        with trace(profile_dir, dev):
+            while True:
+                rolled = False
+                resume_epoch, resume_spans = resume_plan(start_step, batch_num,
+                                                         cfg.eval_every, spans)
+                for epoch in range(cfg.epochs):
+                    for first, k, eval_after in (resume_spans if epoch == resume_epoch
+                                                 else spans):
+                        gstep = epoch * batch_num + first
+                        if gstep < start_step:
+                            continue  # already done by the resumed run
+                        span_idx += 1
+                        lvl = sm.level(gstep, k, first + k == batch_num) if sm else HEALTH_OFF
+                        with timer.step(images=k * tokens_per_batch), \
+                                tracer.span("train/span", gstep=gstep, k=k):
+                            out = guarded(lambda: dispatch(k, first, lvl), dispatch_timeout,
+                                          f"span dispatch at global batch {gstep}")
+                        params, opt_state, l_dev = out[:3]
+                        if guard_on:
+                            # The loss and the span's skip flags in one fetch.
+                            host = torch.cat([l_dev.reshape(1).float(),
+                                              out[-1].float()]).tolist()
+                            loss, skipped = host[0], host[1:]
+                        else:
+                            loss = float(l_dev)
+                        span_losses.append(loss)
+                        if sm is not None:
+                            sm.span(gstep, k, k * tokens_per_batch, timer._times[-1], 0.0,
+                                    int(sum(skipped)) if guard_on else 0,
+                                    hlt.fetch_span(out[3]), lvl == HEALTH_FULL, loss=loss)
+                        if guard_on and monitor.observe(skipped, gstep):
+                            with attributed(sm, "stall"):
+                                start_step = rollback()
+                                monitor.rolled_back(start_step)
+                            rolled = True
+                            break
+                        if eval_after:
+                            with attributed(sm, "eval"), \
+                                    tracer.span("train/eval", gstep=gstep + k):
+                                accuracy = evaluate(f"eval after batch {first + k - 1}")
+                            if metrics is not None:
+                                metrics.gauge("train_eval_accuracy").set(accuracy)
+                            history.append((epoch, first + k - 1, accuracy))
+                            log(f"epoch {epoch} batch {first + k - 1} "
+                                f"loss {loss:.4f} test_accuracy {accuracy:.4f}")
+                            hit = hit_target(cfg, accuracy)
+                        if inj is not None:
+                            inj.maybe_sigterm(gstep + k)
+                        preempted = preempted or check_preempt(should_stop, log,
+                                                               ckpt is not None, span_idx)
+                        if ckpt and save_crossed(gstep, k, checkpoint_every,
+                                                 first + k == batch_num or hit or preempted):
+                            with attributed(sm, "checkpoint_io"):
+                                save_checkpoint_world(
+                                    ckpt, {"params": self._params_for_save(params),
+                                           "opt": self._opt_for_save(opt_state)},
+                                    world=world, step=gstep + k, extra={"epoch": epoch},
+                                    keep=checkpoint_keep)
+                        if hit or preempted:
+                            break
+                    if hit:
+                        log(f"target accuracy {cfg.target_accuracy} reached")
+                    if rolled or hit or preempted:
                         break
-                    if eval_after:
-                        accuracy = guarded(lambda: self.evaluate(params, xte, yte, wte),
-                                           dispatch_timeout, f"eval after batch {first + k - 1}")
-                        history.append((epoch, first + k - 1, accuracy))
-                        log(f"epoch {epoch} batch {first + k - 1} "
-                            f"loss {loss:.4f} test_accuracy {accuracy:.4f}")
-                        hit = hit_target(cfg, accuracy)
-                    if inj is not None:
-                        inj.maybe_sigterm(gstep + k)
-                    preempted = preempted or check_preempt(should_stop, log, ckpt is not None,
-                                                           span_idx)
-                    if ckpt and save_crossed(gstep, k, checkpoint_every,
-                                             first + k == batch_num or hit or preempted):
-                        save_checkpoint_world(
-                            ckpt, {"params": self._params_for_save(params),
-                                   "opt": self._opt_for_save(opt_state)},
-                            world=world, step=gstep + k, extra={"epoch": epoch},
-                            keep=checkpoint_keep)
-                    if hit or preempted:
-                        break
-                if hit:
-                    log(f"target accuracy {cfg.target_accuracy} reached")
-                if rolled or hit or preempted:
+                if not rolled:
                     break
-            if not rolled:
-                break
         wall = time.perf_counter() - start
         if not (history and history[-1][:2] == (epoch, batch_num - 1)) and not hit:
-            accuracy = guarded(lambda: self.evaluate(params, xte, yte, wte), dispatch_timeout,
-                               "final eval")
+            with attributed(sm, "eval"):
+                accuracy = evaluate("final eval")
             if not preempted:
                 history.append((epoch, batch_num - 1, accuracy))
+        if sm is not None:
+            # Final publish: the tail brackets land in the gauges.
+            sm.gp.publish()
         stats = timer.stats()
         log(f"final test_accuracy {accuracy:.4f} loss {loss:.4f} "
             f"({stats.tokens_per_sec:.0f} tokens/s)")

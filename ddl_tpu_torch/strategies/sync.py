@@ -365,11 +365,14 @@ class SyncTrainer:
         should_stop: Callable[[], bool] | None = None,
         dispatch_timeout: float = 0.0,
         fault_injector=None,
+        profile_dir: str | None = None,
     ) -> TrainResult:
         """Train ``config.epochs`` epochs; only rank 0 logs. The hooks are
         JAX's ``SyncTrainer.train``'s (``train.trainer.run_spans``), with
         the single-device trainer's retention of the last saves and a
-        ``fault_injector`` for the kinds that need no guard (``sigterm``)."""
+        ``fault_injector`` for the kinds that need no guard (``sigterm``);
+        as in JAX, the only telemetry hook is ``profile_dir``, the
+        ``torch.profiler`` bracket around the span loop."""
         check_injector(fault_injector, "sync")
         cfg, ds, world = self.config, self.dataset, self.world
         batch_num = ds.num_train // cfg.batch_size
@@ -388,6 +391,6 @@ class SyncTrainer:
             log if world.rank == 0 else (lambda s: None), self.state_io(),
             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every, resume=resume,
             should_stop=should_stop, dispatch_timeout=dispatch_timeout,
-            fault_injector=fault_injector,
+            fault_injector=fault_injector, profile_dir=profile_dir,
         )
         return result

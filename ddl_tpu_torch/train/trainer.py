@@ -21,12 +21,23 @@ format both packages read), resume (``"auto"`` skips corrupt saves) realigned
 onto this run's span grid (:func:`resume_plan`), graceful preemption
 (:func:`check_preempt`, agreed over the world), the dispatch watchdog
 (:func:`guarded`), and on the single-device step, as in JAX, the non-finite
-guard with rollback (``resilience/guard.py``) and the fault injector. The
-health, goodput and profile hooks are ROADMAP queue 1, item 7.
+guard with rollback (``resilience/guard.py``) and the fault injector.
+
+Telemetry, as JAX's span loop records it (``obs/``), only while a metric
+registry is passed (``metrics``): the non-finite gradient count of every
+step and the health norms of the last step of each span that crosses
+``metrics_interval`` (``obs.health``), ``train_mfu`` against the device's
+peak (``obs.cost``), the comms roofline from the per-program collective
+ledger (``obs.comms``), the goodput phases (``obs.goodput``), memory
+watermarks, the anomaly feed, and ``train/span`` / ``train/eval`` spans
+on a ``tracer``. ``profile_dir`` brackets the span loop, after the warm-up,
+with ``torch.profiler`` (``utils.metrics.trace``). With ``metrics=None`` a
+step does exactly its work: no health op, no tally, no clock read.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import os
@@ -41,14 +52,17 @@ from ..convert import params_from_numpy, params_to_numpy
 from ..data.mnist import Dataset, one_hot
 from ..models import cnn
 from ..ops.optimizers import AdamState, adam_init, adam_update
+from ..parallel import collectives as coll
 from ..parallel import multihost
 from ..parallel.mesh import AcceleratorTimeout, World, default_device, run_within
 from ..utils.checkpoint import load_checkpoint, save_checkpoint_world
-from ..utils.metrics import StepStats, StepTimer, barrier
+from ..obs import health as hlt
+from ..obs.health import HEALTH_COUNT, HEALTH_FULL, HEALTH_OFF
+from ..utils.metrics import StepStats, StepTimer, barrier, trace
 from .config import TrainConfig
 
-# A train step: (params, opt_state, x, y_onehot, global_step) ->
-# (params', opt_state', loss[, skipped]).
+# A train step: (params, opt_state, x, y_onehot, global_step[, health]) ->
+# (params', opt_state', loss[, health dict][, skipped]).
 Step = Callable[[dict, object, torch.Tensor, torch.Tensor, int], tuple]
 
 
@@ -114,11 +128,13 @@ def make_train_step(config: TrainConfig, guard: bool = False) -> Step:
     """The single-device train step: forward/backward, then TF1 Adam.
     ``guard=True`` applies the identity instead of the update whenever the
     gradients hold a non-finite element (``resilience.guard.apply_guard``,
-    on the device) and returns the step's int32 skip flag as a fourth
-    output; ``guard=False`` is the unguarded step, op for op."""
+    on the device) and returns the step's int32 skip flag LAST.
+    ``health`` (``obs.health``'s level: off, the non-finite count, or the
+    whole signal dict of the APPLIED update) appends the health dict
+    after the loss. With both off it is the plain step, op for op."""
     model_kw = model_kwargs(config)
 
-    def step(params, opt_state: AdamState, x, y, gstep: int):
+    def step(params, opt_state: AdamState, x, y, gstep: int, health: int = HEALTH_OFF):
         gen = (
             cnn.dropout_generator(config.seed, gstep, 0, x.device)
             if config.keep_prob < 1.0 else None
@@ -128,35 +144,44 @@ def make_train_step(config: TrainConfig, guard: bool = False) -> Step:
             new_params, new_opt = adam_update(
                 params, opt_state, grads, lr=config.learning_rate
             )
-            if not guard:
-                return new_params, new_opt, loss
-            from ..obs.health import nonfinite_count
-            from ..resilience.guard import apply_guard
-
-            new_params, new_opt, skipped = apply_guard(
-                nonfinite_count(grads), params, opt_state, new_params, new_opt)
-        return new_params, new_opt, loss, skipped
+        return hlt.finish_step(
+            guard, health, lambda: hlt.nonfinite_count(grads),
+            lambda new, nf: hlt.health_signals(grads, params, new, nonfinite=nf),
+            params, opt_state, new_params, new_opt, loss)
 
     return step
 
 
+def span_health(health: int, i: int, k: int) -> int:
+    """Step ``i``'s health level in a span of ``k`` run at ``health``: the
+    whole dict only on the last step (the one ``record_health`` reads),
+    the non-finite count on every other."""
+    return HEALTH_COUNT if health == HEALTH_FULL and i < k - 1 else health
+
+
 def steps_span(step: Step, k: int) -> Callable:
     """``k`` consecutive steps over device-resident batches:
-    ``(params, opt, xs, ys, first, goff) -> (params, opt, mean_loss[,
-    skipped])``, with ``xs``/``ys`` ``[B, bs, ...]``, ``first`` the span's
-    first batch and ``goff`` its first global step (the dropout stream's
-    position). A guarded step's flags come back stacked, ``[k]`` int32 on
+    ``(params, opt, xs, ys, first, goff[, health]) -> (params, opt,
+    mean_loss[, healths][, skipped])``, with ``xs``/``ys`` ``[B, bs,
+    ...]``, ``first`` the span's first batch and ``goff`` its first global
+    step (the dropout stream's position). ``health`` (a level of
+    ``obs.health``, :func:`span_health`) returns the steps' health dicts
+    as a list; a guarded step's flags come back stacked, ``[k]`` int32 on
     the device."""
 
-    def run(params, opt_state, xs, ys, first: int, goff: int):
-        losses, flags = [], []
+    def run(params, opt_state, xs, ys, first: int, goff: int, health: int = HEALTH_OFF):
+        losses, flags, hs = [], [], []
         for i in range(k):
-            out = step(params, opt_state, xs[first + i], ys[first + i], goff + i)
+            lvl = span_health(health, i, k)
+            args = (params, opt_state, xs[first + i], ys[first + i], goff + i)
+            out = step(*args, health=lvl) if lvl else step(*args)
             params, opt_state = out[0], out[1]
             losses.append(out[2])
-            flags.extend(out[3:])
+            if lvl:
+                hs.append(out[3])
+            flags.extend(out[3 + bool(lvl):])
         done = (params, opt_state, torch.stack(losses).mean())
-        return done + ((torch.stack(flags),) if flags else ())
+        return done + ((hs,) if hs else ()) + ((torch.stack(flags),) if flags else ())
 
     return run
 
@@ -412,6 +437,129 @@ def initial_params(config: TrainConfig, init, device: torch.device) -> dict:
     return cnn.init_params(gen, device, specs)
 
 
+class SpanMetrics:
+    """The telemetry of a span loop (JAX's per-span metrics block, shared
+    here by every trainer): built only when a registry is live.
+    ``step_flops`` are one train step's analytic FLOPs over ``n_dev``
+    devices of ``device``'s kind at the policy's ``precision`` row;
+    ``items`` names the throughput gauge (``images`` or ``tokens``);
+    ``grid`` labels the ledger's process groups with mesh axes."""
+
+    def __init__(self, metrics, tracer, *, step_flops: int, n_dev: int, device,
+                 precision: str, items: str, interval: int, writer=None,
+                 peak_flops: float | None = None, ici_bw: float | None = None,
+                 anomaly_detector=None, grid=None):
+        from ..obs import comms, cost
+        from ..obs.goodput import GoodputTracker
+        from ..obs.memory import MemorySampler
+
+        self.metrics, self.tracer, self.writer = metrics, tracer, writer
+        self.detector, self.grid = anomaly_detector, grid
+        self.step_flops, self.n_dev, self.items = step_flops, n_dev, items
+        self.interval = interval
+        self.gp = GoodputTracker(metrics, "train")
+        self.peak = cost.peak_flops_per_device(device, peak_flops, precision=precision)
+        self.bw = comms.ici_bw_per_device(device, ici_bw)
+        self.mem = MemorySampler(metrics, [device])
+        self.span_bytes: dict[int, int] = {}
+
+    def level(self, gstep: int, k: int, epoch_end: bool) -> int:
+        """The health level of the span ``[gstep, gstep + k)``: the whole
+        dict when it crosses the metrics interval (or ends the epoch), the
+        non-finite count otherwise."""
+        return HEALTH_FULL if save_crossed(gstep, k, self.interval, epoch_end) else HEALTH_COUNT
+
+    def compiled(self, kind: str, records, ks=(0,), t0=None, t1=None,
+                 attribute: bool = True) -> None:
+        """One warm-up call of the span (``kind="train_span"``, one per
+        distinct span length ``ks``) or eval program: JAX's compile
+        counter and span (the bracket ``t0..t1`` goes to the first length,
+        the others count as instants), the goodput ``compile`` phase, and
+        each program's collective ledger from the warm-up's tallied
+        ``records``, one step's worth times the span length (None: no
+        ledger, as JAX's CNN trainer publishes none for its eval).
+        ``attribute=False`` leaves the bracket out of goodput (a warm-up
+        call that is also a run's own work, attributed there)."""
+        from ..obs.comms import publish_program_ledger
+        from ..obs.memory import record_compile
+
+        for i, k in enumerate(sorted(ks)):
+            br = dict(t0=t0, t1=t1) if i == 0 else {}
+            record_compile(self.metrics, self.tracer, kind, **br,
+                           **({"k": k} if kind == "train_span" else {}))
+            if records is not None:
+                led = publish_program_ledger(self.metrics, records, program=f"{kind}[{k}]",
+                                             grid=self.grid, repeat=max(k, 1))
+                self.span_bytes[k] = led["total_bytes"]
+        if t0 is not None and attribute:
+            self.gp.add("compile", t1 - t0)
+
+    def span(self, gstep: int, k: int, items: int, span_s: float, compile_in_span: float,
+             n_skip: int, health: dict, full: bool, loss: float | None = None) -> None:
+        """Record one dispatched span (JAX's order): loss, step, span
+        seconds, throughput, MFU, the comms roofline, the goodput split,
+        the anomaly feed, the non-finite counts of every step, and on a
+        ``full`` span the health gauges and memory watermarks; then the
+        writer's rate-limited flush."""
+        from ..obs import comms
+        from ..obs import health as hlt
+        from ..obs.cost import mfu
+        from ..obs.goodput import attribute_train_span
+
+        m = self.metrics
+        if loss is not None:
+            m.gauge("train_loss").set(loss)
+        m.gauge("train_step").set(gstep + k)
+        m.histogram("train_span_seconds",
+                    "wall seconds per dispatched span program").observe(span_s)
+        m.gauge(f"train_{self.items}_per_sec").set(items / span_s if span_s else 0.0)
+        mfu_val = mfu(self.step_flops * k, span_s, self.n_dev, self.peak)
+        m.gauge("train_mfu").set(mfu_val)
+        cb = self.span_bytes.get(k, 0) / k
+        rl = comms.roofline(self.step_flops, cb, self.n_dev, self.peak, self.bw)
+        m.gauge("comms_bytes_per_step").set(cb)
+        for key in ("comms_time_model_s", "compute_time_model_s", "step_time_model_s",
+                    "comms_fraction"):
+            m.gauge(key).set(rl[key])
+        sb = m.gauge("step_bound")
+        sb.set(float(rl["bound"] == "compute"), bound="compute")
+        sb.set(float(rl["bound"] == "comms"), bound="comms")
+        attribute_train_span(self.gp, span_s, compile_in_span, n_skip, k)
+        if self.detector is not None:
+            self.detector.tick({"step_time": span_s / k, "mfu": mfu_val})
+        hlt.record_nonfinite(m, health["nonfinite_grads"])
+        if full:
+            hlt.record_health(m, health, include_nonfinite=False)
+            self.mem.sample()
+        if self.writer is not None:
+            self.writer.maybe_flush()
+
+
+
+@contextlib.contextmanager
+def attributed(sm: SpanMetrics | None, phase: str):
+    """Attribute the block's wall time to the goodput ``phase`` of ``sm``;
+    without telemetry (``sm`` None), no clock read at all."""
+    if sm is None:
+        yield
+        return
+    t0 = time.perf_counter()
+    yield
+    sm.gp.add(phase, time.perf_counter() - t0)
+
+
+def check_detector(metrics, anomaly_detector) -> None:
+    """JAX's refusal of an anomaly detector built on another registry than
+    the trainer's ``metrics`` (or with no registry at all)."""
+    if anomaly_detector is not None and (metrics is None
+                                         or anomaly_detector.registry is not metrics):
+        raise ValueError(
+            "anomaly_detector must be built on the registry passed "
+            "as metrics= (its anomaly_* metrics would otherwise land "
+            "where nothing reads them)"
+        )
+
+
 def run_spans(
     config: TrainConfig,
     span_fn: Callable[[int, bool], Callable],
@@ -428,31 +576,59 @@ def run_spans(
     checkpoint_dir: str | None = None,
     checkpoint_every: int = 0,
     resume=False,
+    profile_dir: str | None = None,
     should_stop: Callable[[], bool] | None = None,
     dispatch_timeout: float = 0.0,
+    metrics=None,
+    metrics_interval: int = 10,
+    metrics_writer=None,
+    tracer=None,
     guard: bool = False,
     max_bad_steps: int = 0,
     max_rollbacks: int = 3,
     fault_injector=None,
     checkpoint_keep: int = CHECKPOINT_KEEP,
+    peak_flops: float | None = None,
+    ici_bw: float | None = None,
+    anomaly_detector=None,
     stage_xs: Callable[[], torch.Tensor] | None = None,
+    staging_s: float = 0.0,
 ):
     """The span loop every CNN trainer shares: resume, warm up, then run
     each epoch's eval spans, timing each one to a device barrier, with the
-    reference's eval cadence, the early-stop target and the resilience
-    hooks of the JAX trainers' loops (module docstring). ``span_fn(k,
-    guard)`` gives the ``k``-step span program; ``io`` moves the state
-    across checkpoints (needed with ``checkpoint_dir``); ``stage_xs``
-    restages the train images after a guard rollback heals an injected
-    fault. Returns ``(params, opt_state, TrainResult)`` with ``params``
-    still on the device (``result.params`` is numpy)."""
+    reference's eval cadence, the early-stop target, the resilience hooks
+    and the telemetry of the JAX trainers' loops (module docstring).
+    ``span_fn(k, guard)`` gives the ``k``-step span program; ``io`` moves
+    the state across checkpoints (needed with ``checkpoint_dir``);
+    ``stage_xs`` restages the train images after a guard rollback heals an
+    injected fault; ``staging_s`` is the caller's staging time (goodput's
+    ``staging``). Returns ``(params, opt_state, TrainResult)`` with
+    ``params`` still on the device (``result.params`` is numpy)."""
+    from ..obs.trace import NULL_TRACER
+
+    tracer = tracer if tracer is not None else NULL_TRACER
+    check_detector(metrics, anomaly_detector)
     guard_on = bool(guard) or max_bad_steps > 0
     inj = fault_injector
     monitor = None
     if guard_on:
         from ..resilience.guard import GuardMonitor
 
-        monitor = GuardMonitor(max_bad_steps, max_rollbacks=max_rollbacks)
+        monitor = GuardMonitor(max_bad_steps, max_rollbacks=max_rollbacks,
+                               registry=metrics, tracer=tracer)
+    sm = None
+    if metrics is not None:
+        from ..obs.cost import cnn_train_step_flops
+
+        sm = SpanMetrics(metrics, tracer, device=device, n_dev=1,
+                         step_flops=cnn_train_step_flops(config.batch_size,
+                                                         config.conv_channels,
+                                                         config.fc_sizes),
+                         precision=config.policy().mfu_kind, items="images",
+                         interval=metrics_interval, writer=metrics_writer,
+                         peak_flops=peak_flops, ici_bw=ici_bw,
+                         anomaly_detector=anomaly_detector)
+        sm.gp.add("staging", staging_s)
     world = io.world if io is not None else None
     ckpt = checkpoint_file(checkpoint_dir)
     if ckpt is not None and io is None:
@@ -472,14 +648,26 @@ def run_spans(
 
     # Warm-up outside the clock (the JAX package compiles here): one
     # forward/backward on the first batch (discarded) and one eval load the
-    # library handles and kernels; the state is not touched.
+    # library handles and kernels; the state is not touched. Under
+    # telemetry, each is one "compile" (obs.memory) whose collectives the
+    # tally records (obs.comms).
     t0 = time.perf_counter()
-    if batch_num:
-        value_and_grad(params, xs[0], ys[0], None, 1.0, **model_kwargs(config))
-    if x_test.shape[0]:
-        evaluate(params, x_test, y_test)
-    barrier(device)
+    with (coll.tally() if sm is not None else contextlib.nullcontext([])) as records:
+        if batch_num:
+            value_and_grad(params, xs[0], ys[0], None, 1.0, **model_kwargs(config))
+        if sm is not None:
+            barrier(device)
+            t1 = time.perf_counter()
+        if x_test.shape[0]:
+            evaluate(params, x_test, y_test)
+        barrier(device)
     warmup = time.perf_counter() - t0
+    if sm is not None:
+        _, resume_spans0 = resume_plan(start_step, batch_num, config.eval_every, spans)
+        sm.compiled("train_span", list(records), {k for _, k, _ in spans + resume_spans0},
+                    t0=t0, t1=t1)
+        if x_test.shape[0]:
+            sm.compiled("eval", None, t0=t1, t1=t0 + warmup)
     resumed_from = start_step
 
     def rollback() -> int:
@@ -497,8 +685,9 @@ def run_spans(
         barrier(device)
         return rstep
 
-    def dispatch(k: int, first: int, gstep: int):
-        out = fn_for(k)(params, opt_state, xs, ys, first, gstep)
+    def dispatch(k: int, first: int, gstep: int, health: int):
+        args = (params, opt_state, xs, ys, first, gstep)
+        out = fn_for(k)(*args, health=health) if health else fn_for(k)(*args)
         barrier(device)
         return out
 
@@ -508,52 +697,72 @@ def run_spans(
     stopped = preempted = False
     span_idx = 0
     start = time.perf_counter()
-    while True:
-        rolled = False
-        resume_epoch, resume_spans = resume_plan(start_step, batch_num, config.eval_every, spans)
-        for epoch in range(config.epochs):
-            for first, k, eval_after in (resume_spans if epoch == resume_epoch else spans):
-                gstep = epoch * batch_num + first
-                if gstep < start_step:
-                    continue  # already done by the resumed run
-                span_idx += 1
-                with timer.step(images=k * config.batch_size):
-                    out = guarded(lambda: dispatch(k, first, gstep), dispatch_timeout,
-                                  f"span dispatch at global step {gstep}")
-                params, opt_state = out[0], out[1]
-                losses.append(out[2])
-                if guard_on and monitor.observe(out[3].cpu().numpy(), gstep):
-                    start_step = rollback()
-                    monitor.rolled_back(start_step)
-                    rolled = True
+    with trace(profile_dir, device):
+        while True:
+            rolled = False
+            resume_epoch, resume_spans = resume_plan(start_step, batch_num, config.eval_every,
+                                                     spans)
+            for epoch in range(config.epochs):
+                for first, k, eval_after in (resume_spans if epoch == resume_epoch else spans):
+                    gstep = epoch * batch_num + first
+                    if gstep < start_step:
+                        continue  # already done by the resumed run
+                    span_idx += 1
+                    lvl = sm.level(gstep, k, first + k == batch_num) if sm else HEALTH_OFF
+                    with timer.step(images=k * config.batch_size), \
+                            tracer.span("train/span", gstep=gstep, k=k):
+                        out = guarded(lambda: dispatch(k, first, gstep, lvl), dispatch_timeout,
+                                      f"span dispatch at global step {gstep}")
+                    params, opt_state = out[0], out[1]
+                    losses.append(out[2])
+                    skipped = out[-1].cpu().numpy() if guard_on else None
+                    if sm is not None:
+                        from ..obs.health import fetch_span
+
+                        sm.span(gstep, k, k * config.batch_size, timer._times[-1], 0.0,
+                                int(skipped.sum()) if guard_on else 0, fetch_span(out[3]),
+                                lvl == HEALTH_FULL)
+                    if guard_on and monitor.observe(skipped, gstep):
+                        with attributed(sm, "stall"):
+                            start_step = rollback()
+                            monitor.rolled_back(start_step)
+                        rolled = True
+                        break
+                    if eval_after:
+                        cnt = first + k - 1
+                        with attributed(sm, "eval"), tracer.span("train/eval", gstep=gstep + k):
+                            acc = guarded(lambda: evaluate(params, x_test, y_test),
+                                          dispatch_timeout, f"eval after batch {cnt}")
+                        if metrics is not None:
+                            metrics.gauge("train_eval_accuracy").set(acc)
+                        history.append((epoch, cnt, acc))
+                        log(f"epoch: {epoch} batch: {cnt} accuracy: {acc}")
+                        stopped = hit_target(config, acc)
+                    if inj is not None:
+                        inj.maybe_sigterm(gstep + k)
+                    preempted = preempted or check_preempt(should_stop, log, ckpt is not None,
+                                                           span_idx)
+                    if ckpt and save_crossed(gstep, k, checkpoint_every,
+                                             first + k == batch_num or stopped or preempted):
+                        with attributed(sm, "checkpoint_io"):
+                            save_checkpoint_world(ckpt, io.for_save(params, opt_state),
+                                                  world=world, step=gstep + k,
+                                                  extra={"epoch": epoch}, keep=checkpoint_keep)
+                    if stopped or preempted:
+                        break
+                if stopped:
+                    log(f"target accuracy {config.target_accuracy} reached")
+                if rolled or stopped or preempted:
                     break
-                if eval_after:
-                    cnt = first + k - 1
-                    acc = guarded(lambda: evaluate(params, x_test, y_test), dispatch_timeout,
-                                  f"eval after batch {cnt}")
-                    history.append((epoch, cnt, acc))
-                    log(f"epoch: {epoch} batch: {cnt} accuracy: {acc}")
-                    stopped = hit_target(config, acc)
-                if inj is not None:
-                    inj.maybe_sigterm(gstep + k)
-                preempted = preempted or check_preempt(should_stop, log, ckpt is not None,
-                                                       span_idx)
-                if ckpt and save_crossed(gstep, k, checkpoint_every,
-                                         first + k == batch_num or stopped or preempted):
-                    save_checkpoint_world(ckpt, io.for_save(params, opt_state), world=world,
-                                          step=gstep + k, extra={"epoch": epoch},
-                                          keep=checkpoint_keep)
-                if stopped or preempted:
-                    break
-            if stopped:
-                log(f"target accuracy {config.target_accuracy} reached")
-            if rolled or stopped or preempted:
+            if not rolled:
                 break
-        if not rolled:
-            break
     end = time.perf_counter()
-    final_acc = guarded(lambda: evaluate(params, x_test, y_test), dispatch_timeout,
-                        "final eval")
+    with attributed(sm, "eval"):
+        final_acc = guarded(lambda: evaluate(params, x_test, y_test), dispatch_timeout,
+                            "final eval")
+    if sm is not None:
+        # Final publish: the tail brackets land in the gauges.
+        sm.gp.publish()
     log(f"final accuracy: {final_acc}")
     train_time = timer.total_s
     return params, opt_state, TrainResult(
@@ -613,13 +822,21 @@ class SingleChipTrainer:
         checkpoint_dir: str | None = None,
         checkpoint_every: int = 0,
         resume=False,
+        profile_dir: str | None = None,
         should_stop: Callable[[], bool] | None = None,
         dispatch_timeout: float = 0.0,
+        metrics=None,
+        metrics_interval: int = 10,
+        metrics_writer=None,
+        tracer=None,
         guard: bool = False,
         max_bad_steps: int = 0,
         max_rollbacks: int = 3,
         fault_injector=None,
         checkpoint_keep: int = CHECKPOINT_KEEP,
+        peak_flops: float | None = None,
+        ici_bw: float | None = None,
+        anomaly_detector=None,
     ) -> TrainResult:
         """Train ``config.epochs`` epochs (:func:`run_spans`). Resilience,
         as JAX's: ``resume`` accepts ``"auto"`` (the newest VALID
@@ -629,11 +846,21 @@ class SingleChipTrainer:
         roll back to the last good checkpoint (a checkpoint dir is needed)
         and replay from there, at most ``max_rollbacks`` times;
         ``fault_injector`` is the deterministic chaos hook
-        (``resilience.faults``)."""
+        (``resilience.faults``). Telemetry, as JAX's: ``metrics`` (an
+        ``obs.MetricRegistry``) turns on the health signals, fetched with
+        the span barrier and recorded on spans crossing
+        ``metrics_interval`` steps, ``train_mfu`` against ``peak_flops``
+        (default: the device's row of ``obs.cost``), the comms roofline
+        against ``ici_bw``, the goodput phases, memory watermarks and
+        ``anomaly_detector`` (built on the same registry); ``tracer``
+        (``obs.Tracer``) spans every dispatch and eval; ``metrics_writer``
+        flushes on its own interval; ``profile_dir`` runs the span loop
+        under ``torch.profiler``."""
         cfg, ds, dev = self.config, self.dataset, self.device
         bs = cfg.batch_size
         batch_num = ds.num_train // bs
         n = batch_num * bs
+        t_stage0 = time.perf_counter() if metrics is not None else 0.0
         # Sequential batching, no shuffle (single.py:14-15).
         # Explicit feature dims: batch_num may be 0 (dataset < one batch).
         x = np.asarray(ds.x_train, np.float32)[:n]
@@ -654,12 +881,19 @@ class SingleChipTrainer:
         x_test = torch.as_tensor(np.asarray(ds.x_test, np.float32)).to(dev)
         y_test = torch.as_tensor(one_hot(ds.y_test)).to(dev)
         params = {k: v.clone() for k, v in self.params.items()}
+        staging_s = 0.0
+        if metrics is not None:
+            barrier(dev)  # the host-to-device copies land before the clock reads
+            staging_s = time.perf_counter() - t_stage0
         self.params, self.opt_state, result = run_spans(
             cfg, lambda k, g: make_epoch_chunk(cfg, k, guard=g), params,
             copy.deepcopy(self.opt_state), xs, ys, x_test, y_test, dev, log, self.state_io(),
             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every, resume=resume,
-            should_stop=should_stop, dispatch_timeout=dispatch_timeout, guard=guard,
-            max_bad_steps=max_bad_steps, max_rollbacks=max_rollbacks,
-            fault_injector=fault_injector, checkpoint_keep=checkpoint_keep, stage_xs=stage_xs,
+            profile_dir=profile_dir, should_stop=should_stop, dispatch_timeout=dispatch_timeout,
+            metrics=metrics, metrics_interval=metrics_interval, metrics_writer=metrics_writer,
+            tracer=tracer, guard=guard, max_bad_steps=max_bad_steps,
+            max_rollbacks=max_rollbacks, fault_injector=fault_injector,
+            checkpoint_keep=checkpoint_keep, peak_flops=peak_flops, ici_bw=ici_bw,
+            anomaly_detector=anomaly_detector, stage_xs=stage_xs, staging_s=staging_s,
         )
         return result

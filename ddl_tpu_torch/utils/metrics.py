@@ -1,15 +1,16 @@
 """Step timing — the port of ``ddl_tpu/utils/metrics.py``.
 
-A steady-state step timer with percentile stats. On the card, PyTorch
-returns before the device finishes, so every timed step closes with
-:func:`barrier` (``torch.cuda.synchronize``). The profiler wrapper
-(``trace``) is not ported yet.
+A steady-state step timer with percentile stats, and :func:`trace`, the
+profiler bracket (``torch.profiler`` in place of ``jax.profiler``). On the
+card, PyTorch returns before the device finishes, so every timed step
+closes with :func:`barrier` (``torch.cuda.synchronize``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -74,23 +75,34 @@ class StepStats:
 
 
 class StepTimer:
-    """Per-step wall-clock timer. A "step" is one timed unit — the trainers
-    time each span of ``k`` train steps as one step and pass its image
-    count. The caller closes each ``step()`` with :func:`barrier`."""
+    """Per-step wall-clock timer with warm-up exclusion. A "step" is one
+    timed unit: the trainers time each span of ``k`` train steps as one
+    step and pass its image (or token) count. The caller closes each
+    ``step()`` with :func:`barrier`. ``stats()`` leaves out the first
+    ``warmup`` steps; ``total_s`` keeps them."""
 
-    def __init__(self):
+    def __init__(self, batch_size: int | None = None, warmup: int = 0):
+        self.batch_size = batch_size
+        self.warmup = warmup
         self._times: list[float] = []
         self._images: list[int] = []
 
     @contextlib.contextmanager
-    def step(self, images: int):
+    def step(self, images: int | None = None):
         t0 = time.perf_counter()
         yield
         self._times.append(time.perf_counter() - t0)
-        self._images.append(images)
+        self._images.append(images if images is not None else (self.batch_size or 0))
+
+    def add(self, seconds: float, images: int = 0) -> None:
+        """Record one step bracketed elsewhere (a caller that learns its
+        item count only after the call)."""
+        self._times.append(float(seconds))
+        self._images.append(int(images))
 
     @property
     def total_s(self) -> float:
+        """Total timed seconds, warm-up included (throughput accounting)."""
         return float(sum(self._times))
 
     @property
@@ -98,4 +110,37 @@ class StepTimer:
         return int(sum(self._images))
 
     def stats(self) -> StepStats:
-        return StepStats.from_times(self._times, self._images)
+        return StepStats.from_times(self._times[self.warmup:], self._images[self.warmup:])
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None, device: torch.device | str | None = None):
+    """``torch.profiler`` over the block, written as ONE Chrome trace into
+    ``log_dir`` (``torch_profile_p<rank>.json``, viewable in Perfetto);
+    a no-op when ``log_dir`` is None. CPU and CUDA activities on a card
+    (``device`` cuda, or None with a card present), CPU alone otherwise.
+    No stacks, shapes or memory records, so the bracket stays cheap. The
+    trainers open it after their warm-up, as JAX's bracket opens after
+    compilation."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..obs.trace import _process_index
+
+    cuda = (torch.device(device).type == "cuda" if device is not None
+            else torch.cuda.is_available())
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=acts, record_shapes=False, with_stack=False,
+                   profile_memory=False)
+    prof.start()
+    try:
+        yield
+    finally:
+        if cuda:
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(
+            os.path.join(log_dir, f"torch_profile_p{_process_index()}.json"))

@@ -29,6 +29,7 @@ from ddl_tpu_torch.convert import (
 from ddl_tpu_torch.data.lm import synthesize_copy, synthesize_prompts
 from ddl_tpu_torch.models import cnn
 from ddl_tpu_torch.models import transformer
+from ddl_tpu_torch.obs import MetricRegistry
 from ddl_tpu_torch.parallel import collectives as coll
 from ddl_tpu_torch.parallel.collectives import tp_allreduce, unflatten_params
 from ddl_tpu_torch.parallel.mesh import destroy_world, init_world, make_grid
@@ -222,6 +223,11 @@ LM_CASES = {
                          precision="fp32"),
 }
 FP32_TWINS = {"hybrid_tp2_dp2_fp32": "hybrid_tp2_dp2", "dp2_pp2_fp32": "dp2_pp2"}
+# Cases trained with metrics on (a registry): ring + ZeRO-1, the hybrid and
+# GPipe at pp 2. Their FP32_TWINS run without, so those pins also hold
+# metrics-on params bitwise to metrics-off ones.
+OBS_CASES = ("zero1_ring", "hybrid_tp2_dp2", "dp2_pp2")
+OBS_KINDS = ("all-reduce", "reduce-scatter", "all-gather", "all-to-all", "collective-permute")
 # Each bf16 case's fp32 twin, and the collectives its gradient sums take:
 # the replicated body's all-reduce, ZeRO-1's reduce-scatter, the hybrid's
 # reduce-scatter (replicated subtree) and per-leaf all-reduce (tp subtree),
@@ -527,10 +533,17 @@ def lm_world_cases(rank: int, world_size: int, store: str, inputs: str, out: str
     try:
         for name, kw in LM_CASES.items():
             cfg = SeqConfig(**lm_case_config(kw))
+            reg = MetricRegistry() if name in OBS_CASES else None
             with record_wire([]) as wire:
                 trainer = SeqTrainer(cfg, ds, init=inits[cfg.spec.num_layers], world=world)
-                res = trainer.train(log=lambda s: None)
+                res = trainer.train(log=lambda s: None, metrics=reg)
             results[f"{name}/wire"] = np.asarray(wire, dtype=str)
+            if reg is not None:
+                led = reg.gauge("collective_bytes")
+                results[f"obs/{name}"] = np.asarray(
+                    [reg.gauge("train_grad_norm").value(),
+                     reg.counter("train_nonfinite_grads_total").value()]
+                    + [led.value(kind=k, program="train_span[1]") or 0 for k in OBS_KINDS])
             if trainer.pipeline_record is not None:
                 for k in ("embed", "head", "lnf_g", "lnf_b"):
                     results[f"{name}/shared/{k}"] = trainer.params[k].numpy()

@@ -2,8 +2,9 @@
 trainers' resume, preemption, guard and rollback hooks, serving from a
 checkpoint, the CLI's flags) against the JAX package's
 (tests/test_resilience.py and tests/test_checkpoint_resume.py, whose cases
-these are, less the serve-scheduler, observability and profile ones:
-ROADMAP queue 1, items 7 and 8).
+these are, less the serve-scheduler ones: ROADMAP queue 1, item 8; the
+observability ones are in tests/test_torch_obs.py, and ``GuardMonitor``'s
+registry and tracer hooks here).
 
 What JAX pins by value is held to JAX here: the fault specs ``parse_fault``
 reads and its errors, the data a ``FaultInjector`` poisons, the order a
@@ -213,9 +214,20 @@ def test_guard_monitor_escalation_policy_and_hooks():
     assert mon.streak_start == 12 and mon.skipped_steps == 3
     with pytest.raises(ValueError):
         GuardMonitor(max_bad_steps=-1)
-    for hook in ("registry", "tracer"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            GuardMonitor(1, **{hook: object()})
+    # The registry and tracer hooks: JAX's counters and events on one stream.
+    from ddl_tpu.obs import MetricRegistry as JRegistry, Tracer as JTracer
+    from ddl_tpu_torch.obs import MetricRegistry, Tracer
+
+    sides = []
+    for mon_cls, reg, tr in ((GuardMonitor, MetricRegistry(), Tracer()),
+                             (JGuardMonitor, JRegistry(), JTracer())):
+        mon = mon_cls(2, max_rollbacks=2, registry=reg, tracer=tr)
+        assert mon.observe([0, 1, 1, 0], first_gstep=5)
+        mon.rolled_back(4)
+        mon.observe([1, 0], first_gstep=4)
+        sides.append((reg.prometheus_text(), [(r["name"], r["attrs"]) for r in tr.records]))
+    assert sides[0] == sides[1]
+    assert "train_skipped_steps_total 3" in sides[0][0]
 
 
 def test_run_within_and_agree_flag():

@@ -52,6 +52,14 @@ logits within atol 1e-5 (the cached logits' tolerance of
 tests/test_torch_kv_cache.py), each rank's local-head k/v within atol 1e-6
 + rtol 1e-5, positions exact.
 
+Metrics (``_torch_world.OBS_CASES``: ZeRO-1 over the ring, the hybrid at
+full 1x2x2 and GPipe 2x1x2 train with a registry, JAX's side runs its
+health program): the last step's ``train_grad_norm`` at the losses' rtol,
+and one step's collective ledger by kind against JAX's HLO ledger, the
+gradient collectives to the byte (``SCALAR_BYTES`` pins the scalar bytes
+that differ); the cases' ``FP32_TWINS`` run without metrics, so their pin
+also holds metrics-on params bitwise to metrics-off ones.
+
 Checkpoints and resilience (``_torch_world._resilience_cases``, after the
 serve cases, so outside the timed LM cases): a standard-form checkpoint
 written by JAX's ``save_checkpoint`` is placed at ZeRO-1 2x2, the hybrid,
@@ -90,6 +98,8 @@ from ddl_tpu.serve import Request as JRequest
 from ddl_tpu.serve import Scheduler as JScheduler
 from ddl_tpu.serve import ServeConfig as JServeConfig
 from ddl_tpu.serve import cache as jcache
+from ddl_tpu.obs import MetricRegistry as JRegistry
+from ddl_tpu.obs import comms as jcomms
 from ddl_tpu.ops import AdamState as JAdamState
 from ddl_tpu.strategies.seq import SeqConfig as JSeqConfig, SeqTrainer as JSeqTrainer
 from ddl_tpu.utils import checkpoint as jck
@@ -121,25 +131,43 @@ BF16_LOSS_RTOL, BF16_MOMENT_NORM_RTOL, BF16_NEAR_TIE = 1e-2, 0.1, 0.0625
 BF16_UPDATE_REL = 0.2  # ||Δa - Δb|| / ||Δb|| of the updates; measured 0.074 at most
 LOGITS_ATOL = 1e-5
 CACHE_ATOL, CACHE_RTOL = 1e-6, 1e-5
+# The metrics cases' ledger bytes of one step, the port's tally less JAX's
+# HLO ledger, by collective kind (test_four_rank_metrics_match_jax).
+SCALAR_BYTES = {"zero1_ring": {"all-reduce": 8, "collective-permute": -96},
+                "hybrid_tp2_dp2": {"all-reduce": 56}, "dp2_pp2": {"all-reduce": 32}}
 
 
-def _jax_case(kw, jds):
+def _jax_case(kw, jds, obs=False):
     """Two steps of JAX's span program for one case: (params, the
-    params-shaped Adam state, the per-step losses)."""
+    params-shaped Adam state, the per-step losses); with ``obs``, the
+    health program's (``obs.health``) and also the last step's grad norm
+    and non-finite count and, per collective kind, the bytes of its HLO
+    ledger (``obs.comms.publish_program_ledger``) as ``train_span[1]``."""
     cfg = _torch_world.lm_case_config(kw)
     cfg = JSeqConfig(**{**cfg, "spec": jt.LMSpec(**vars(cfg["spec"]))})
     trainer = JSeqTrainer(cfg, jds)
     bs = cfg.batch_size
     xs, ys, ws = (trainer.stage_batches(a, STEPS, bs)
                   for a in (jds.tokens, jds.targets, jds.weights))
-    run = trainer.span_program(1)
     p, o = trainer.params, trainer.opt_state
+    run = trainer.span_program(1, health=obs)
+    if obs:
+        run = run.lower(p, o, xs, ys, ws, jnp.int32(0)).compile()
+        reg = JRegistry()
+        jcomms.publish_program_ledger(reg, jcomms.program_text(run), program="train_span[1]",
+                                      mesh=trainer.mesh)
     losses = []
     for i in range(STEPS):
-        p, o, loss = run(p, o, xs, ys, ws, jnp.int32(i))
+        p, o, loss, *h = run(p, o, xs, ys, ws, jnp.int32(i))
         losses.append(float(loss))
-    return (jax.tree.map(np.asarray, trainer._result_params(p)),
-            jax.tree.map(np.asarray, trainer._opt_for_save(o)), losses)
+    out = (jax.tree.map(np.asarray, trainer._result_params(p)),
+           jax.tree.map(np.asarray, trainer._opt_for_save(o)), losses)
+    if not obs:
+        return out
+    led = reg.gauge("collective_bytes")
+    return out + (np.asarray([float(h[0]["grad_norm"][-1]), int(h[0]["nonfinite_grads"][-1])]
+                             + [led.value(kind=k, program="train_span[1]") or 0
+                                for k in _torch_world.OBS_KINDS]),)
 
 
 @pytest.fixture(scope="module")
@@ -180,7 +208,8 @@ def lm_world(tmp_path_factory):
         time.sleep(0.05)
 
     jds = j_synthesize_copy(**_torch_world.LM_DATA)
-    want = {name: _jax_case(kw, jds) for name, kw in _torch_world.LM_CASES.items()}
+    want = {name: _jax_case(kw, jds, obs=name in _torch_world.OBS_CASES)
+            for name, kw in _torch_world.LM_CASES.items()}
     want["serve"] = {name: _jax_serve(init, kw) for name, kw in _torch_world.SERVE_CASES.items()}
     want["kv"] = _jax_kv(init)
     want["init"] = {spec.num_layers: jax.tree.leaves(init),
@@ -265,7 +294,7 @@ def test_four_rank_lm_world_matches_jax(name, lm_world):
     pipeline: every (dp, sp) cell's stages and tp shards put together),
     match JAX's SeqTrainer."""
     got, want = lm_world
-    jparams, jopt, jlosses = want[name]
+    jparams, jopt, jlosses = want[name][:3]
     kw = _torch_world.LM_CASES[name]
     bf16 = kw.get("precision") == "bf16"
     loss_rtol = BF16_LOSS_RTOL if bf16 else LOSS_RTOL
@@ -444,11 +473,52 @@ def test_four_rank_lm_world_ranks_agree_and_finish_in_time(lm_world):
     assert seconds < 30, f"the 4-rank world took {seconds:.1f} s"
 
 
+@pytest.mark.parametrize("name", list(_torch_world.OBS_CASES))
+def test_four_rank_metrics_match_jax(name, lm_world):
+    """The cases trained with metrics on (``_torch_world.OBS_CASES``): on
+    every rank, the last step's ``train_grad_norm`` equals JAX's health
+    program's within the losses' rtol, no non-finite element, and the
+    gradient collectives of one step's ledger (``train_span[1]``) carry
+    JAX's bytes: ZeRO-1's reduce-scatter and all-gather to the byte, which
+    is also the layout formula of
+    ``benchmarks/results_cpu/collective_bytes_cpu.json`` (a reduce-scatter
+    result of ``max_shard`` elements, an all-gather of ``W * max_shard``)
+    at the LM's chunk. The other kinds carry scalars whose bytes differ,
+    pinned here (``SCALAR_BYTES``): the tally counts every scalar sum the
+    port makes (loss, weight total, health), where XLA dedupes and packs
+    JAX's into fewer, smaller all-reduces; and JAX's ring program moves 96
+    bytes a step more collective-permute than the port's ring shifts. The
+    pipeline's hop bytes match here (GPipe at dp 2, pp 2)."""
+    got, want = lm_world
+    jobs = want[name][3]
+    kinds = dict(zip(_torch_world.OBS_KINDS, jobs[2:]))
+    extra = SCALAR_BYTES[name]
+    for r, rank in enumerate(got):
+        obs = rank[f"obs/{name}"]
+        np.testing.assert_allclose(obs[0], jobs[0], rtol=LOSS_RTOL, err_msg=f"rank {r}")
+        assert obs[1] == jobs[1] == 0
+        ours = dict(zip(_torch_world.OBS_KINDS, obs[2:]))
+        for k in _torch_world.OBS_KINDS:
+            assert ours[k] == kinds[k] + extra.get(k, 0), (r, k, ours, kinds)
+    if name == "zero1_ring":
+        table = json.load(open(os.path.join(os.path.dirname(__file__), "..", "benchmarks",
+                                            "results_cpu", "collective_bytes_cpu.json")))
+        for row in table["layouts"]:
+            by = {c["op"]: c["bytes"] for c in row["collectives"]}
+            assert by["reduce-scatter"] == 4 * row["max_shard"]
+            assert by["all-gather"] == 4 * table["devices"] * row["max_shard"]
+        total = sum(a.size for a in want["init"][_torch_world.LM_SPEC.num_layers])
+        chunk = -(-total // W)
+        assert kinds["reduce-scatter"] == 4 * chunk and kinds["all-gather"] == 4 * W * chunk
+
+
 @pytest.mark.parametrize("name", list(_torch_world.FP32_TWINS))
 def test_four_rank_fp32_policy_is_bitwise_the_default(name, lm_world):
     """``precision="fp32"`` gives every rank the same bits as its
     ``precision=None`` twin: params, losses and the optimizer state (the
-    policy's hooks are the identity off bf16)."""
+    policy's hooks are the identity off bf16). The twins of the metrics
+    cases (``OBS_CASES``) ran without metrics: so the metrics-on params
+    are bitwise the metrics-off ones."""
     got, _ = lm_world
     twin = _torch_world.FP32_TWINS[name]
     for rank in got:
