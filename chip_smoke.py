@@ -277,6 +277,49 @@ o3. in r5, the skip and the rollback runs with a registry and a tracer:
 o4. in 11p, GPipe's T = 512 run and its pp-1 oracle with a registry: each
    rank's ``train_grad_norm`` within 2e-5 + 1e-3 of the oracle's.
 
+The serving fleet (after g, before 12), each phase one of
+benchmarks/serve_bench.py's fleet configurations at serve_main's width
+(``lm_spec()``, the port's init from seed 0, placed once and shared by every
+replica, capacity 512, pages of 64), each setting every kernel count to 0
+before it and failing if a flash or Adam kernel launched, each printing
+per-class decode tokens/s (a class's decoded tokens over the run's wall
+seconds), TTFT p95 and ITL p95, sheds, the prefix hit rate, the fleet and
+disagg digests, peak memory and seconds beside the card's ``nvidia-smi``
+line:
+
+f1. fleet_parity — serve_bench.py:582-598: the first 6 of serve_main's
+   prompts, 16 new tokens each, one arrival a tick, 8 slots: a 1-replica
+   router against the bare scheduler, tokens and every decode step's
+   logits bitwise equal.
+f2. fleet_router — serve_bench.py:617-648: chat (0.7 a tick, prompts
+   16-48, 16 new, 4 families of 12-token prefixes), longdoc (0.15,
+   64-160, 16 new) and bulk (0.5, 16-48, 24 new), horizon 20, seed 6, a 3x
+   bulk burst at ticks 4-11, 36 requests, over 2 replicas of 8 slots on
+   the contiguous rings (serve_bench's: a paged prefix entry needs a full
+   64-row page) with a 4-entry prefix cache, affinity window 12, shed
+   threshold 12 (bulk's
+   margin 6, longdoc's 3), affinity on and off, each arm twice: tokens and
+   placements equal across the two runs (sheds printed per class, not
+   gated).
+f3. fleet_handoff — one request preempted mid-decode on one engine and
+   adopted by another: tokens equal to its unpreempted run,
+   ``handoff_bytes_total`` equal to ``handoff_bytes(pages)``, both pools
+   whole; the dump and the load timed per page (CUDA-synchronized host
+   clock, median of 20).
+f4. fleet_autoscale — serve_bench.py:704-727: chat and bulk (0.4 and 0.5
+   a tick, prompts 8-24, 8 new), horizon 20, seed 8, a 5x bulk burst at
+   ticks 4-11, 28 requests, 1 replica of 2 slots, shed threshold 5, shed
+   only, under the controller (max 3, backlog 3, sustain 2, idle 6) and
+   under it with ``replica_crash@8:1``: every request completes exactly
+   once (no ``requeued`` left) and a request served in both controller
+   runs has the same tokens.
+f5. fleet_disagg — serve_bench.py:776-790: chat (0.4, prompts 8-16, 32
+   new), horizon 12, seed 5, 6 requests, 2 replicas of 4 slots, colocated
+   and as ("prefill", "decode"): tokens equal; the hand-off ledger printed.
+   Then the same fleet through the CLI (``serve --replicas 2 --roles
+   prefill=1,decode=1``, in this process, device left to its default): it
+   must serve on cuda with the router arm's tokens and hand-off ledger.
+
 If the profiler records no device time for a kernel or a call, the phase
 fails; nothing falls back to CUDA events. Then one ``{"kernels": [...]}``
 line (each kernel's cold ``ms``, ``hot_ms``, ``call_ms`` and ``timer``; the
@@ -2311,6 +2354,356 @@ def serve_bf16(torch, params, fused_adam, fa, fp32_out) -> dict:
     return out
 
 
+# The serving fleet's phases (benchmarks/serve_bench.py's configurations).
+FLEET_PARITY_NEW = 16
+FLEET_ROUTER_TRAFFIC = dict(
+    classes={"chat": dict(rate=0.7, prompt_min=16, prompt_max=48, max_new_tokens=16, families=4,
+                          family_prefix_len=12),
+             "longdoc": dict(rate=0.15, prompt_min=64, prompt_max=160, max_new_tokens=16),
+             "bulk": dict(rate=0.5, prompt_min=16, prompt_max=48, max_new_tokens=24)},
+    horizon=20, vocab=256, seed=6, burst=(4, 8, 3.0, "bulk"), max_requests=36)
+FLEET_AUTOSCALE_TRAFFIC = dict(
+    classes={"chat": dict(rate=0.4, prompt_min=8, prompt_max=24, max_new_tokens=8),
+             "bulk": dict(rate=0.5, prompt_min=8, prompt_max=24, max_new_tokens=8)},
+    horizon=20, vocab=256, seed=8, burst=(4, 8, 5.0, "bulk"), max_requests=28)
+FLEET_AUTOSCALE = dict(max_replicas=3, min_replicas=1, backlog_per_replica=3.0, sustain_ticks=2,
+                       idle_ticks=6)
+FLEET_CRASH = (8, 1)  # (global tick, replica): 2 in flight, 2 queued there
+FLEET_DISAGG_TRAFFIC = dict(
+    classes={"chat": dict(rate=0.4, prompt_min=8, prompt_max=16, max_new_tokens=32)},
+    horizon=12, vocab=256, seed=5, max_requests=6)
+FLEET_HANDOFF_AT = 24  # ticks before the preemption: 23 tokens decoded
+FLEET_HANDOFF_REPS = 20
+
+
+def fleet_config(**kw):
+    from ddl_tpu_torch.serve import ServeConfig
+
+    return ServeConfig(**{"spec": lm_spec(), "capacity": 512, "page_size": 64, **kw})
+
+
+def fleet_report(done, stats, wall_s: float, traffic) -> dict:
+    """Per class: requests, statuses, decoded tokens over the run's wall
+    seconds, TTFT p95 and ITL p95 (ms, from the shared tracer's records);
+    and the router's sheds, placements and prefix hit rate."""
+    cls_of = {m.id: getattr(m, "traffic_class", "default") for m in traffic}
+    per_class = {}
+    for name, row in stats.summary()["per_class"].items():
+        decoded = sum(max(0, len(c.tokens) - 1) for i, c in done.items() if cls_of[i] == name)
+        per_class[name] = dict(requests=row["requests"], ok=row["ok"], shed=row["shed"],
+                               decode_tokens_per_s=decoded / wall_s if wall_s else 0.0,
+                               ttft_p95_ms=row["ttft_ms"]["p95"], itl_p95_ms=row["itl_ms"]["p95"])
+    summary = stats.summary()
+    return dict(per_class=per_class, router_sheds=stats.router_sheds,
+                per_replica_requests=summary["per_replica_requests"],
+                affinity_placements=stats.affinity_placements,
+                load_placements=stats.load_placements, prefix_hit_rate=stats.prefix_hit_rate,
+                ticks=stats.ticks, wall_s=wall_s)
+
+
+def fleet_run(torch, params, traffic, rcfg, controller=None):
+    """(completions, stats, router, wall seconds) of one router run over
+    the shared placed params, warmed up first."""
+    from ddl_tpu_torch.serve import Router
+
+    router = Router(rcfg, controller=controller, device="cuda", placed_params=params)
+    router.warmup(traffic)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, stats = router.run(traffic)
+    torch.cuda.synchronize()
+    return done, stats, router, time.perf_counter() - t0
+
+
+def fleet_parity(torch, params, fused_adam, fa, card: str) -> dict:
+    import numpy as np
+
+    from ddl_tpu_torch.data.lm import synthesize_prompts
+    from ddl_tpu_torch.serve import ClassSpec, Request, Router, RouterConfig
+
+    start = time.perf_counter()
+    zero_launches(fused_adam, fa)
+    torch.cuda.reset_peak_memory_stats()
+    reqs = [Request(id=i, prompt=p, max_new_tokens=FLEET_PARITY_NEW, arrival=i)
+            for i, p in enumerate(synthesize_prompts(**SERVE_PROMPTS)[:6])]
+    bare, _, _, _, bare_ticks = serve_run(params, reqs, warmup=True, page_size=64)
+    router = Router(RouterConfig(serve=fleet_config(slots=8), replicas=1,
+                                 classes=(ClassSpec("default"),)),
+                    device="cuda", placed_params=params)
+    router.warmup(reqs)
+    ticks = []
+    record_margins(router.engines[0], ticks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, stats = router.run(reqs)
+    torch.cuda.synchronize()
+    report = fleet_report(done, stats, time.perf_counter() - t0, reqs)
+    tokens_equal = {i: c.tokens for i, c in done.items()} == {i: c.tokens for i, c in bare.items()}
+    logits_equal = len(ticks) == len(bare_ticks) and all(
+        np.array_equal(a, b) for a, b in zip(ticks, bare_ticks))
+    launches = serve_launches("fleet_parity", fused_adam, fa)
+    out = dict(card=card, requests=len(done), new_tokens=FLEET_PARITY_NEW, slots=8,
+               tokens_equal=tokens_equal, decode_logits_bitwise_equal=logits_equal,
+               decode_ticks=len(ticks), router=report, kernel_launches=launches,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               seconds=time.perf_counter() - start)
+    emit("fleet_parity", **out)
+    if not (tokens_equal and logits_equal):
+        raise AssertionError(f"fleet_parity: router != bare scheduler: {out}")
+    return out
+
+
+def fleet_router(torch, params, fused_adam, fa, card: str) -> dict:
+    import dataclasses
+
+    from ddl_tpu_torch.data.lm import synthesize_mixed_traffic
+    from ddl_tpu_torch.serve import ClassSpec, RouterConfig
+
+    start = time.perf_counter()
+    zero_launches(fused_adam, fa)
+    torch.cuda.reset_peak_memory_stats()
+    traffic = synthesize_mixed_traffic(**FLEET_ROUTER_TRAFFIC)
+    base = RouterConfig(
+        # serve_bench's router arms run the contiguous rings: a paged
+        # prefix entry needs a full page (64 rows), longer than chat's
+        # 12-token family prefixes.
+        serve=fleet_config(slots=8, prefix_slots=4, page_size=0), replicas=2, affinity_window=12,
+        classes=(ClassSpec("chat", ttft_slo_s=5.0, itl_slo_s=0.5, priority=0),
+                 ClassSpec("longdoc", ttft_slo_s=30.0, itl_slo_s=1.0, priority=1,
+                           shed_margin=3),
+                 ClassSpec("bulk", ttft_slo_s=120.0, itl_slo_s=5.0, priority=2, shed_margin=6)),
+        shed_threshold=12)
+    arms, failures = {}, []
+    for label, affinity in (("affinity_on", True), ("affinity_off", False)):
+        rcfg = dataclasses.replace(base, prefix_affinity=affinity)
+        runs = [fleet_run(torch, params, traffic, rcfg) for _ in range(2)]
+        (d1, s1, _, w1), (d2, s2, _, _) = runs
+        same_tokens = {i: (c.tokens, c.status) for i, c in d1.items()} == \
+            {i: (c.tokens, c.status) for i, c in d2.items()}
+        same_placements = s1.placements == s2.placements
+        if not (same_tokens and same_placements) or len(d1) != len(traffic):
+            failures.append(f"{label}: tokens equal {same_tokens}, placements equal "
+                            f"{same_placements}, {len(d1)} of {len(traffic)} completions")
+        arms[label] = dict(fleet_report(d1, s1, w1, traffic),
+                           chat_shed=s1.per_class["chat"].shed if "chat" in s1.per_class else 0,
+                           repeat_tokens_equal=same_tokens,
+                           repeat_placements_equal=same_placements)
+    launches = serve_launches("fleet_router", fused_adam, fa)
+    out = dict(card=card, requests=len(traffic), replicas=2, slots=8, arms=arms,
+               kernel_launches=launches, failures=failures,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               seconds=time.perf_counter() - start)
+    emit("fleet_router", **out)
+    if failures:
+        raise AssertionError(f"fleet_router: {failures}")
+    return out
+
+
+def fleet_handoff(torch, params, fused_adam, fa, card: str) -> dict:
+    """One preempt -> adopt round trip between two engines on the card, and
+    the dump and the load timed per page."""
+    import statistics
+
+    from ddl_tpu_torch.data.lm import synthesize_prompts
+    from ddl_tpu_torch.obs import MetricRegistry
+    from ddl_tpu_torch.serve import Request, Scheduler
+
+    start = time.perf_counter()
+    zero_launches(fused_adam, fa)
+    torch.cuda.reset_peak_memory_stats()
+    req = Request(id=0, prompt=synthesize_prompts(**SERVE_PROMPTS)[0], max_new_tokens=SERVE_NEW)
+    want, _, _, _, _ = serve_run(params, [req], warmup=True, page_size=64)
+    reg = MetricRegistry()
+    a, b = (Scheduler(serve_engine(params, page_size=64), registry=reg if i == 0 else None)
+            for i in range(2))
+    a.warmup([req])
+    b.warmup([req])
+    a.begin()
+    b.begin()
+    a.submit(req)
+    for _ in range(FLEET_HANDOFF_AT):
+        a.tick()
+    pre = a.preempt(req.id)
+    b.adopt(pre)
+    while not b.idle:
+        b.tick()
+    got, _ = b.collect()
+    a.collect()
+    pages = int(pre.pos.shape[0])
+    failures = []
+    if got[0].tokens != want[0].tokens:
+        failures.append("adopted tokens differ from the unpreempted run's")
+    moved = reg.counter("handoff_bytes_total").value(path="preempt")
+    if moved != a.engine.handoff_bytes(pages):
+        failures.append(f"handoff_bytes_total {moved} != {a.engine.handoff_bytes(pages)}")
+    whole = all(s.engine.pages.free == s.engine.num_pages and s.engine.pages.reserved == 0
+                for s in (a, b))
+    if not whole:
+        failures.append("a pool is not whole after release")
+    # The dump and the load alone, on a slot holding the request's pages.
+    src, dst = a.engine, b.engine
+    src.prefill(req.prompt, slot=0, request_id=req.id)
+    src._ensure_rows(0, len(req.prompt) + len(pre.generated))
+    n = int(src.table_len[0])
+    dump_ms, load_ms = [], []
+    for _ in range(FLEET_HANDOFF_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k, v, pos = src.dump_slot_pages(0)
+        dump_ms.append((time.perf_counter() - t0) * 1e3)
+        dst.reserve_pages(0, n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dst.load_slot_pages(0, k, v, pos)
+        torch.cuda.synchronize()
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+        dst.release_slot(0)
+    src.release_slot(0)
+    launches = serve_launches("fleet_handoff", fused_adam, fa)
+    out = dict(card=card, generated_at_preempt=len(pre.generated), pages=pages,
+               handoff_bytes=int(moved), page_bytes=src.handoff_bytes(1),
+               tokens_equal=got[0].tokens == want[0].tokens, pools_whole=whole,
+               timed_pages=n, dump_ms_per_page=statistics.median(dump_ms) / n,
+               load_ms_per_page=statistics.median(load_ms) / n,
+               timer="host clock between CUDA synchronizes, median of "
+                     f"{FLEET_HANDOFF_REPS}", kernel_launches=launches, failures=failures,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               seconds=time.perf_counter() - start)
+    emit("fleet_handoff", **out)
+    if failures:
+        raise AssertionError(f"fleet_handoff: {failures}")
+    return out
+
+
+def fleet_autoscale(torch, params, fused_adam, fa, card: str) -> dict:
+    from ddl_tpu_torch.data.lm import synthesize_mixed_traffic
+    from ddl_tpu_torch.resilience import FaultInjector, FaultSpec
+    from ddl_tpu_torch.serve import AutoscaleConfig, ClassSpec, FleetController, RouterConfig
+
+    start = time.perf_counter()
+    zero_launches(fused_adam, fa)
+    torch.cuda.reset_peak_memory_stats()
+    traffic = synthesize_mixed_traffic(**FLEET_AUTOSCALE_TRAFFIC)
+    rcfg = RouterConfig(
+        serve=fleet_config(slots=2), replicas=1,
+        classes=(ClassSpec("chat", ttft_slo_s=5.0, itl_slo_s=0.5, priority=0),
+                 ClassSpec("bulk", ttft_slo_s=60.0, itl_slo_s=5.0, priority=2, shed_margin=2)),
+        shed_threshold=5)
+    tick, replica = FLEET_CRASH
+    arms, failures, runs = {}, [], {}
+    for label in ("shed_only", "autoscale", "replica_crash"):
+        ctrl = None
+        if label != "shed_only":
+            inj = (FaultInjector(FaultSpec(kind="replica_crash", step=tick, replica=replica))
+                   if label == "replica_crash" else None)
+            ctrl = FleetController(AutoscaleConfig(**FLEET_AUTOSCALE), injector=inj)
+        done, stats, _, wall = fleet_run(torch, params, traffic, rcfg, ctrl)
+        runs[label] = done
+        statuses = sorted({c.status for c in done.values()})
+        if sorted(done) != [m.id for m in traffic] or not set(statuses) <= {"ok", "shed"}:
+            failures.append(f"{label}: {len(done)} completions, statuses {statuses}")
+        arms[label] = dict(fleet_report(done, stats, wall, traffic), statuses=statuses,
+                           fleet={k: v for k, v in (stats.fleet or {}).items() if k != "events"},
+                           fleet_events=(stats.fleet or {}).get("events"))
+    crash = [e for e in arms["replica_crash"]["fleet_events"] if e["kind"] == "replica_crash"]
+    if len(crash) != 1 or not crash[0].get("inflight"):
+        failures.append(f"the crash caught no request in flight: {crash}")
+    both = [i for i, c in runs["autoscale"].items()
+            if c.status == "ok" and runs["replica_crash"][i].status == "ok"]
+    differ = [i for i in both if runs["autoscale"][i].tokens != runs["replica_crash"][i].tokens]
+    if differ:
+        failures.append(f"requests re-served after the crash changed tokens: {differ}")
+    launches = serve_launches("fleet_autoscale", fused_adam, fa)
+    out = dict(card=card, requests=len(traffic), slots=2, crash=list(FLEET_CRASH), arms=arms,
+               served_in_both=len(both), kernel_launches=launches, failures=failures,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               seconds=time.perf_counter() - start)
+    emit("fleet_autoscale", **out)
+    if failures:
+        raise AssertionError(f"fleet_autoscale: {failures}")
+    return out
+
+
+def fleet_disagg_cli() -> dict:
+    """``python -m ddl_tpu_torch serve --replicas 2 --roles
+    prefill=1,decode=1`` on f5's stream at serve_main's width, run in this
+    process through ``cli.main`` (its device left to the default): the
+    CLI's JSON, plus the call's seconds. Its params are the engine's own
+    init from ``--seed 0``, the tree :func:`init_lm_params` draws for seed
+    0, so its tokens must equal the router's disagg arm's."""
+    import contextlib
+    import io
+
+    from ddl_tpu_torch import cli
+
+    spec, tr = lm_spec(), FLEET_DISAGG_TRAFFIC
+    chat = tr["classes"]["chat"]
+    argv = ["serve", "--vocab", str(spec.vocab), "--d-model", str(spec.d_model),
+            "--heads", str(spec.num_heads), "--layers", str(spec.num_layers),
+            "--d-ff", str(spec.d_ff), "--seed", "0", "--replicas", "2",
+            "--roles", "prefill=1,decode=1", "--slots", "4", "--capacity", "512",
+            "--page-size", "64", "--traffic",
+            f"horizon={tr['horizon']};seed={tr['seed']};max_requests={tr['max_requests']};"
+            f"chat:rate={chat['rate']},pmin={chat['prompt_min']},pmax={chat['prompt_max']},"
+            f"new={chat['max_new_tokens']}", "--json"]
+    start = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"fleet_disagg: the CLI exited {rc}: {buf.getvalue()[-2000:]}")
+    return dict(json.loads(buf.getvalue().strip().splitlines()[-1]),
+                seconds=time.perf_counter() - start)
+
+
+def fleet_disagg(torch, params, fused_adam, fa, card: str) -> dict:
+    import dataclasses
+
+    from ddl_tpu_torch.data.lm import synthesize_mixed_traffic
+    from ddl_tpu_torch.serve import ClassSpec, RouterConfig
+
+    start = time.perf_counter()
+    zero_launches(fused_adam, fa)
+    torch.cuda.reset_peak_memory_stats()
+    traffic = synthesize_mixed_traffic(**FLEET_DISAGG_TRAFFIC)
+    base = RouterConfig(serve=fleet_config(slots=4), replicas=2,
+                        classes=(ClassSpec("chat", ttft_slo_s=5.0, itl_slo_s=0.5),))
+    arms, done = {}, {}
+    for label, roles in (("colocated", None), ("disagg", ("prefill", "decode"))):
+        d, stats, _, wall = fleet_run(torch, params, traffic,
+                                      dataclasses.replace(base, roles=roles))
+        done[label] = d
+        arms[label] = dict(fleet_report(d, stats, wall, traffic), disagg=stats.disagg)
+    failures = []
+    equal = {i: c.tokens for i, c in done["disagg"].items()} == \
+        {i: c.tokens for i, c in done["colocated"].items()}
+    if not equal:
+        failures.append("disagg tokens differ from the colocated run's")
+    dg = arms["disagg"]["disagg"]
+    if dg["handoffs"] != len(traffic) or any(c.status != "ok" for c in done["disagg"].values()):
+        failures.append(f"{dg['handoffs']} hand-offs for {len(traffic)} requests")
+    cli_out = fleet_disagg_cli()
+    cli_tokens = {int(i): c["tokens"] for i, c in cli_out["completions"].items()}
+    if cli_out["device"] != "cuda":
+        failures.append(f"the CLI served on {cli_out['device']!r}, not cuda")
+    if cli_tokens != {i: c.tokens for i, c in done["disagg"].items()}:
+        failures.append("the CLI's tokens differ from the router's disagg run")
+    if cli_out["router"]["disagg"] != dg:
+        failures.append(f"the CLI's hand-off ledger {cli_out['router']['disagg']} is not {dg}")
+    launches = serve_launches("fleet_disagg", fused_adam, fa)
+    out = dict(card=card, requests=len(traffic), slots=4, tokens_equal=equal, arms=arms,
+               cli=dict(device=cli_out["device"], disagg=cli_out["router"]["disagg"],
+                        per_class=cli_out["router"]["per_class"],
+                        seconds=cli_out["seconds"]),
+               kernel_launches=launches, failures=failures,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               seconds=time.perf_counter() - start)
+    emit("fleet_disagg", **out)
+    if failures:
+        raise AssertionError(f"fleet_disagg: {failures}")
+    return out
+
+
 def flash_bound_ms(shape, kind: str, elem_bytes: int, ops_per_s: float, hbm: float):
     """(bound ms, what bounds it) of one kernel at ``shape``, causal: the
     products on the causal half (pairs with key <= query; exps and the
@@ -2870,6 +3263,10 @@ def run_phases(torch, world, card: str):
     serve_equivalence(serve_params, fused_adam, flash_attention)
     serve_vs_full_forward(torch, serve_params, fused_adam, flash_attention)
     serve_bf16(torch, serve_params, fused_adam, flash_attention, serve_out)
+    fleet_start = time.perf_counter()
+    for phase in (fleet_parity, fleet_router, fleet_handoff, fleet_autoscale, fleet_disagg):
+        phase(torch, serve_params, fused_adam, flash_attention, card)
+    emit("fleet", card=card, seconds=time.perf_counter() - fleet_start)
     del serve_params
     flash_tim = flash_timing(torch, flash_attention, devtime, flush, card)
     # Last: on an H100, with obs_lm's profiled run before it, flash_timing's

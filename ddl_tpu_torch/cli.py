@@ -3,7 +3,9 @@ the ported slices carry: the seven CNN variants (single, sync and async,
 whole or sharded), the decoder LM over a [data-parallel, num-workers,
 tensor-parallel, pipeline-parallel] grid (ring, Ulysses or full attention,
 ZeRO-1, Megatron tensor parallelism, GPipe or 1F1B pipeline stages), and
-single-engine serving, at tp 1 or over a tp group.
+serving: one engine, at tp 1 or over a tp group, or a fleet of replicas
+behind the SLO-aware router (``--replicas``), with disaggregated
+prefill/decode roles and the self-healing fleet controller.
 
     python -m ddl_tpu_torch single
     python -m ddl_tpu_torch sync_sharding --num-workers 1 --num-ps 2 --layout flat --fused-adam
@@ -21,6 +23,11 @@ single-engine serving, at tp 1 or over a tp group.
     python -m ddl_tpu_torch lm --checkpoint-dir ck --checkpoint-every 1 --max-bad-steps 2 \
         --inject-fault nan_grads@1x2
     python -m ddl_tpu_torch serve --checkpoint-dir ck --json
+    python -m ddl_tpu_torch serve --replicas 2 --page-size 64 --traffic \
+        "horizon=20;chat:rate=0.7,pmin=16,pmax=48,new=16" --slo "chat:ttft=5" --json
+    python -m ddl_tpu_torch serve --replicas 2 --page-size 64 --roles prefill=1,decode=1
+    python -m ddl_tpu_torch serve --replicas 1 --page-size 64 --autoscale backlog=3 \
+        --max-replicas 3 --inject-fault replica_crash@6:0
 
 Flags are spelled as in the JAX CLI, with its defaults; a flag of another
 variant set away from its default is refused. One process drives one
@@ -70,17 +77,13 @@ _TRAIN_ONLY = ("num_workers", "epochs", "batch_size", "lr", "eval_every", "check
 _SERVE_ONLY = ("slots", "capacity", "max_new_tokens", "num_prompts", "prompt_min",
                "prompt_max", "temperature", "top_k", "prefix_cache", "prefill_chunk",
                "prefill_budget", "page_size", "num_pages", "ttft_deadline",
-               "request_deadline", "shed_threshold")
+               "request_deadline", "shed_threshold", "replicas", "traffic", "slo",
+               "autoscale", "max_replicas", "roles")
 # JAX CLI flags of slices not ported yet, with their ROADMAP items: setting
 # one raises NotImplementedError, whatever the variant.
 _NOT_PORTED = {
-    "kv_dtype": "ROADMAP queue 1, item 8: the int8 pool",
-    "replicas": "ROADMAP queue 1, item 8: the router",
-    "traffic": "ROADMAP queue 1, item 8: the router",
-    "slo": "ROADMAP queue 1, item 8: the router",
-    "autoscale": "ROADMAP queue 1, item 8: the controller",
-    "roles": "ROADMAP queue 1, item 8: disagg",
-    "speculate": "ROADMAP queue 1, item 8: speculate",
+    "kv_dtype": "ROADMAP queue 1, item 8, part 6: the int8 pool",
+    "speculate": "ROADMAP queue 1, item 8, part 5: speculate",
     "slo_rules": "ROADMAP queue 1, item 8, part 8: serve observability",
 }
 # The telemetry flags, ported on every training variant; serving's
@@ -339,14 +342,40 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--shed-threshold", type=int, default=None, metavar="N",
                     help="admission shedding: a request whose first eligible tick finds N "
                          "outstanding requests is refused with status 'shed' (N >= --slots)")
+    sv.add_argument("--replicas", type=int, default=None, metavar="N",
+                    help="multi-tenant front door (serve.router): N scheduler/engine replicas "
+                         "(each with its own KV pool and prefix index, sharing one set of "
+                         "params) behind an SLO-aware router (prefix-affinity placement, "
+                         "per-class priority shedding, per-class TTFT/ITL accounting), "
+                         "driving the --traffic stream instead of the --num-prompts set")
+    sv.add_argument("--traffic", default=None, metavar="SPEC",
+                    help="mixed-traffic scenario for --replicas "
+                         "(data.lm.synthesize_mixed_traffic): ';'-joined segments, global "
+                         "keys horizon=N, seed=N, max_requests=N, burst=START:LEN:MULT[:CLASS], "
+                         "diurnal=AMPLITUDE:PERIOD and class segments "
+                         "NAME:rate=R,pmin=A,pmax=B,new=T[,families=F,fprefix=L]; default: "
+                         "the three-class chat/longdoc/bulk mix at horizon 32")
+    sv.add_argument("--slo", default=None, metavar="SPEC",
+                    help="per-class SLO targets and priorities for --replicas: ';'-joined "
+                         "NAME:ttft=S,itl=S,priority=P[,margin=M] segments (priority 0 = most "
+                         "protected; margin defaults to priority)")
+    sv.add_argument("--autoscale", default=None, metavar="SPEC",
+                    help="self-healing fleet controller for --replicas (serve.controller): "
+                         "comma-joined key=val, max=N, min=N, backlog=F, sustain=N, idle=N, "
+                         "preempt=0|1, wait=N, gap=N, defer=0|1 and per-role ROLE.key=val; "
+                         "scales out on sustained pressure, drains before scale-in, heals "
+                         "replica crashes and preempts across replicas on paged engines; "
+                         "'' with --max-replicas uses the defaults")
+    sv.add_argument("--max-replicas", type=int, default=None, metavar="N",
+                    help="fleet cap for --autoscale (overrides its max= key)")
+    sv.add_argument("--roles", default=None, metavar="SPEC",
+                    help="disaggregated prefill/decode fleet (serve.disagg): comma-joined "
+                         "ROLE=COUNT segments (prefill/decode/mixed) summing to --replicas; "
+                         "arrivals land on prefill replicas and at the first token the "
+                         "prompt's KV pages hand off to a decode replica (needs --page-size)")
     # The JAX CLI's flags of later slices (_NOT_PORTED): parsed so that
     # setting one fails with its ROADMAP item, not a generic parse error.
     sv.add_argument("--kv-dtype", default=None, help="not ported")
-    sv.add_argument("--replicas", type=int, default=None, help="not ported")
-    sv.add_argument("--traffic", default=None, help="not ported")
-    sv.add_argument("--slo", default=None, help="not ported")
-    sv.add_argument("--autoscale", default=None, help="not ported")
-    sv.add_argument("--roles", default=None, help="not ported")
     sv.add_argument("--speculate", default=None, help="not ported")
     sv.add_argument("--slo-rules", default=None, help="not ported")
     return p
@@ -838,6 +867,9 @@ def _run_serve(args, device) -> int:
     )
     if args.top_k and args.temperature <= 0:
         raise SystemExit("--top-k requires --temperature > 0 (greedy decode ignores it)")
+    _check_fleet_flags(args)
+    if args.replicas is not None:
+        return _run_serve_router(args, cfg, device)
     if args.max_new_tokens < 1:
         raise SystemExit(f"--max-new-tokens must be >= 1, got {args.max_new_tokens}")
     if args.prompt_max + args.max_new_tokens > args.capacity:
@@ -857,6 +889,10 @@ def _run_serve(args, device) -> int:
     if ckpt is not None and not os.path.exists(ckpt):
         raise SystemExit(f"no checkpoint at {ckpt}")
     injector = _make_injector(args, "serve")
+    if injector is not None and injector.spec.kind == "replica_crash":
+        # The bare scheduler never consults crashes_replica.
+        raise SystemExit("--inject-fault replica_crash needs --replicas and --autoscale (only "
+                         "the fleet controller delivers the crash)")
     if args.tensor_parallel == 1:
         return _serve(args, cfg, device, None, injector)
     with tempfile.TemporaryDirectory() as store_dir:
@@ -868,10 +904,194 @@ def _run_serve(args, device) -> int:
             destroy_world()
 
 
+def _check_fleet_flags(args) -> None:
+    """JAX's checks of the fleet flags on serve, with its texts: each needs
+    --replicas, --max-replicas needs --autoscale, --roles needs the paged
+    layout."""
+    if args.traffic is not None and args.replicas is None:
+        raise SystemExit("--traffic requires --replicas (the router path)")
+    if args.slo is not None and args.replicas is None:
+        raise SystemExit("--slo requires --replicas (the router path)")
+    if args.autoscale is not None and args.replicas is None:
+        raise SystemExit("--autoscale requires --replicas (the fleet controller drives the "
+                         "router)")
+    if args.max_replicas is not None and args.autoscale is None:
+        raise SystemExit("--max-replicas requires --autoscale (it caps the fleet the "
+                         "controller may grow; pass --autoscale '' for defaults)")
+    if args.roles is not None:
+        if args.replicas is None:
+            raise SystemExit(
+                f"--roles {args.roles} requires --replicas (roles split the ROUTER's fleet "
+                "by phase; bare single-engine serve has no fleet to split)")
+        if args.page_size <= 0:
+            raise SystemExit(
+                f"--roles {args.roles} requires --page-size > 0 (the prefill->decode "
+                "hand-off moves KV pages; the contiguous slot-ring layout has none)")
+
+
+def _class_tallies(done, cls_of) -> dict:
+    """Per-class completion and status tallies for the serve JSON."""
+    out: dict = {}
+    for i, c in done.items():
+        row = out.setdefault(cls_of.get(i, "default"),
+                             {"total": 0, "ok": 0, "shed": 0, "deadline_exceeded": 0})
+        row["total"] += 1
+        row[c.status] = row.get(c.status, 0) + 1
+    return out
+
+
+def _run_serve_router(args, cfg, device) -> int:
+    """The ``--replicas`` path of serve (JAX's ``_run_serve_router``): the
+    SLO-aware router over N replicas sharing one set of params, driving the
+    ``--traffic`` stream with per-class SLO accounting, optionally under
+    the fleet controller (``--autoscale``) and disaggregated roles
+    (``--roles``). Every check runs before any rank joins the world; at
+    ``--tensor-parallel`` > 1 every rank runs the same router over its
+    engines' shards and rank 0 prints."""
+    from .data.lm import DEFAULT_TRAFFIC_CLASSES, synthesize_mixed_traffic
+    from .parallel.mesh import destroy_world, make_grid
+    from .serve.engine import check_config
+    from .serve.router import RouterConfig, parse_slo_spec, parse_traffic_spec
+    from .train.trainer import checkpoint_file
+
+    if args.replicas < 1:
+        raise SystemExit(f"--replicas must be >= 1, got {args.replicas}")
+    # The bare path's prompt-set flags have no meaning here: the per-class
+    # shapes come from --traffic.
+    defaults = build_parser()
+    for dest in ("num_prompts", "prompt_min", "prompt_max", "max_new_tokens"):
+        if getattr(args, dest) != defaults.get_default(dest):
+            raise SystemExit(f"--{dest.replace('_', '-')} does not apply with --replicas "
+                             "(per-class prompt/token shapes come from --traffic)")
+    roles = None
+    if args.roles is not None:
+        from .serve.disagg import parse_roles_spec
+
+        try:
+            roles = parse_roles_spec(args.roles, args.replicas)
+        except ValueError as e:
+            raise SystemExit(f"--roles: {e}")
+    try:
+        gen_kw = (parse_traffic_spec(args.traffic) if args.traffic
+                  else {"classes": dict(DEFAULT_TRAFFIC_CLASSES)})
+        gen_kw.setdefault("horizon", 32)
+        gen_kw.setdefault("seed", args.seed)
+        gen_kw.setdefault("vocab", args.vocab)
+        traffic = synthesize_mixed_traffic(**gen_kw)
+        class_specs = parse_slo_spec(args.slo or "", set(gen_kw["classes"]))
+        rcfg = RouterConfig(serve=cfg, replicas=args.replicas, classes=class_specs,
+                            shed_threshold=args.shed_threshold,
+                            ttft_deadline_s=args.ttft_deadline,
+                            deadline_s=args.request_deadline, roles=roles)
+    except ValueError as e:
+        raise SystemExit(f"serve config error: {e}")
+    if not traffic:
+        raise SystemExit("serve config error: the --traffic scenario produced no arrivals "
+                         "(raise a class rate or the horizon)")
+    for name, spec_d in gen_kw["classes"].items():
+        worst = spec_d.get("prompt_max", 16) + spec_d.get("max_new_tokens", 8)
+        if worst > cfg.capacity:
+            raise SystemExit(f"serve config error: class {name!r} worst case (pmax + new = "
+                             f"{worst}) exceeds --capacity {cfg.capacity}")
+    ckpt = checkpoint_file(args.checkpoint_dir)
+    if ckpt is not None and not os.path.exists(ckpt):
+        raise SystemExit(f"no checkpoint at {ckpt}")
+    injector = _make_injector(args, "serve")
+    controller = None
+    if args.autoscale is not None:
+        from .serve.controller import FleetController, parse_autoscale_spec
+
+        try:
+            acfg = parse_autoscale_spec(args.autoscale, max_replicas=args.max_replicas,
+                                        replicas=args.replicas)
+        except ValueError as e:
+            raise SystemExit(f"--autoscale: {e}")
+        controller = FleetController(acfg, injector=injector)
+    if injector is not None and injector.spec.kind == "replica_crash" and controller is None:
+        raise SystemExit("--inject-fault replica_crash needs --autoscale (only the fleet "
+                         "controller delivers the crash and heals the fleet)")
+    try:
+        check_config(cfg)
+    except ValueError as e:
+        raise SystemExit(f"serve config error: {e}")
+    run = (rcfg, traffic, ckpt, injector, controller)
+    if args.tensor_parallel == 1:
+        return _serve_router(args, *run, device, None)
+    with tempfile.TemporaryDirectory() as store_dir:
+        world = _join_world(args.tensor_parallel, args.device, store_dir)
+        try:
+            return _serve_router(args, *run, device,
+                                 make_grid(world, 1, 1, args.tensor_parallel))
+        finally:
+            destroy_world()
+
+
+def _serve_router(args, rcfg, traffic, ckpt, injector, controller, device, grid) -> int:
+    """One rank's router run of the ``--replicas`` path; rank 0 prints
+    JAX's lines and JSON."""
+    from .serve.router import Router
+
+    where = dict(grid=grid) if grid is not None else dict(device=device)
+    kw = dict(injector=injector, controller=controller, **where)
+    try:
+        router = (Router.from_checkpoint(rcfg, ckpt, **kw) if ckpt is not None
+                  else Router(rcfg, **kw))
+    except (ValueError, KeyError) as e:
+        raise SystemExit(f"serve config error: {e}")
+    rank0 = grid is None or grid.rank == 0
+    if ckpt is not None and rank0:
+        print(f"[ddl_tpu] serving params from {ckpt} (params-only load, placed once for "
+              f"{args.replicas} replicas)")
+    # Every program shape runs once outside the reported run (each replica
+    # may receive any request, so each warms on the whole stream).
+    router.warmup(traffic)
+    done, rstats = router.run(traffic)
+    if not rank0:
+        return 0
+    cls_of = {m.id: m.traffic_class for m in traffic}
+    summary = rstats.summary()
+    for name, row in summary["per_class"].items():
+        print(f"class {name}: {row['requests']} requests -> ok {row['ok']} shed {row['shed']} "
+              f"deadline {row['deadline_exceeded']} | ttft p95 {row['ttft_ms']['p95']:.1f}ms "
+              f"itl p95 {row['itl_ms']['p95']:.1f}ms | slo attained ttft "
+              f"{row['ttft_slo_attained']:.0%} itl {row['itl_slo_attained']:.0%}")
+    print(f"router: {args.replicas} replicas | placements {summary['per_replica_requests']} "
+          f"(affinity {rstats.affinity_placements}, load {rstats.load_placements}) | router "
+          f"sheds {rstats.router_sheds} | prefix hit rate {rstats.prefix_hit_rate:.0%}")
+    if rstats.fleet is not None:
+        fl = rstats.fleet
+        print(f"fleet: max {fl['max_replicas']} | scale out {fl['scale_outs']} in "
+              f"{fl['scale_ins']} (drains {fl['drains']}) | preemptions {fl['preemptions']} | "
+              f"crashes {fl['crashes']} (requeues {fl['requeues']})")
+    if rstats.disagg is not None:
+        dg = rstats.disagg
+        role_str = " ".join(f"{r}={n}" for r, n in sorted(dg["roles"].items()))
+        print(f"disagg: roles {role_str} | handoffs {dg['handoffs']} "
+              f"({dg['handoff_pages']} pages)")
+    if args.json:
+        print(json.dumps({
+            "variant": "serve",
+            "device": str(device),
+            "config": dataclasses.asdict(rcfg.serve),
+            "replicas": args.replicas,
+            "router": summary,
+            "speculate": None,
+            "slo_rules": None,
+            "anomaly_rules": None,
+            "per_class": _class_tallies(done, cls_of),
+            "completions": {
+                str(i): {"prompt_len": done[i].prompt_len, "tokens": done[i].tokens,
+                         "status": done[i].status,
+                         "traffic_class": cls_of.get(i, "default")}
+                for i in sorted(done)
+            },
+        }))
+    return 0
+
+
 def _serve(args, cfg, device, grid, injector) -> int:
-    """One engine's run of the serve variant (this rank's, at tp > 1).
-    A serve fault ``injector`` reaches the scheduler, which refuses it
-    (ROADMAP queue 1, item 8)."""
+    """One engine's run of the serve variant (this rank's, at tp > 1). A
+    ``stall`` fault ``injector`` reaches the scheduler."""
     from .data.lm import synthesize_prompts
     from .serve import InferenceEngine, Request, Scheduler
 

@@ -1,5 +1,14 @@
-from .lm import LMDataset, synthesize_copy, synthesize_prompts, synthesize_shared_prefix_prompts
+from .lm import (
+    DEFAULT_TRAFFIC_CLASSES,
+    LMDataset,
+    MixedRequest,
+    synthesize_copy,
+    synthesize_mixed_traffic,
+    synthesize_prompts,
+    synthesize_shared_prefix_prompts,
+)
 from .mnist import Dataset, load_mnist, one_hot, synthesize
 
-__all__ = ["Dataset", "LMDataset", "load_mnist", "one_hot", "synthesize", "synthesize_copy",
+__all__ = ["DEFAULT_TRAFFIC_CLASSES", "Dataset", "LMDataset", "MixedRequest", "load_mnist",
+           "one_hot", "synthesize", "synthesize_copy", "synthesize_mixed_traffic",
            "synthesize_prompts", "synthesize_shared_prefix_prompts"]

@@ -1,6 +1,7 @@
 """Procedural language-modeling data — a numpy copy of ``ddl_tpu/data/lm.py``
 (``LMDataset``, ``synthesize_copy``, ``synthesize_prompts``,
-``synthesize_shared_prefix_prompts``), byte-equal for the same arguments.
+``synthesize_shared_prefix_prompts``, ``MixedRequest`` and
+``synthesize_mixed_traffic``), byte-equal for the same arguments.
 
 Each sequence is ``[BOS, prefix, prefix]`` with loss only on the repeated
 half, so every scored target is a token that appeared exactly
@@ -153,3 +154,195 @@ def synthesize_shared_prefix_prompts(
                 rng.integers(1, vocab, size=tail_len, dtype=np.int32),
             ]))
     return prompts
+
+
+@dataclasses.dataclass(frozen=True)
+class MixedRequest:
+    """One arrival of the mixed-traffic stream
+    (:func:`synthesize_mixed_traffic`): a serve request plus its SLO
+    class. ``arrival`` is a scheduler tick (the open-loop clock);
+    ``family`` identifies the shared-prefix family a prompt was drawn
+    from (-1 = no family — the prompt is independent), so tests can
+    assert affinity without re-deriving prefixes."""
+
+    id: int
+    arrival: int
+    traffic_class: str
+    prompt: np.ndarray  # int32 [p], BOS-led
+    max_new_tokens: int
+    family: int = -1
+
+
+# The canonical three-class mix: short interactive chat with shared-prefix families (system prompts), long
+# document prompts with short answers, and bulk offline generation.
+# Rates are per-tick Poisson means; callers override freely.
+DEFAULT_TRAFFIC_CLASSES: dict[str, dict] = {
+    "chat": dict(rate=0.5, prompt_min=8, prompt_max=24, max_new_tokens=8,
+                 families=4, family_prefix_len=6),
+    "longdoc": dict(rate=0.1, prompt_min=48, prompt_max=96,
+                    max_new_tokens=16),
+    "bulk": dict(rate=0.25, prompt_min=8, prompt_max=32,
+                 max_new_tokens=32),
+}
+
+_TRAFFIC_CLASS_KEYS = ("rate", "prompt_min", "prompt_max",
+                       "max_new_tokens", "families", "family_prefix_len")
+
+
+def synthesize_mixed_traffic(
+    classes: dict[str, dict] | None = None,
+    horizon: int = 64,
+    vocab: int = 64,
+    seed: int = 0,
+    diurnal_amplitude: float = 0.0,
+    diurnal_period: int = 0,
+    burst: tuple | None = None,
+    max_requests: int = 0,
+) -> list[MixedRequest]:
+    """Seeded OPEN-LOOP multi-class traffic for the multi-tenant router
+    (``serve.router``): per tick ``t`` in ``[0, horizon)`` and per class, draw
+    ``k ~ Poisson(rate * diurnal(t) * burst(t))`` arrivals. Classes are
+    dicts (see :data:`DEFAULT_TRAFFIC_CLASSES`): ``rate`` (per-tick
+    Poisson mean, >= 0), prompt length bounds, ``max_new_tokens``, and
+    optionally ``families``/``family_prefix_len`` — a family class
+    draws each prompt's first ``family_prefix_len`` tokens from one of
+    ``families`` fixed BOS-led prefixes (the system-prompt shape), so
+    prefix affinity is measurable on the stream.
+
+    ``diurnal_amplitude``/``diurnal_period`` ramp every class's rate by
+    ``1 + A * sin(2*pi*t / period)`` (the day-night load curve);
+    ``burst`` is ``(start, length, multiplier)`` or ``(start, length,
+    multiplier, class_name)`` — inside the window the (one or every)
+    class's rate multiplies, the overload scenario shedding is pinned
+    against. ``max_requests > 0`` truncates the stream to its first N
+    arrivals in (arrival, id) order — the knob that gives router tests a
+    statically visible request bound.
+
+    Determinism: one seeded generator, classes iterated in sorted name
+    order, ticks in order — one seed, one stream, everywhere. Returned
+    ids are 0..n-1 in (arrival, class, draw) order. Same prompt
+    contracts as :func:`synthesize_prompts` (int32, BOS-led, payload in
+    ``[1, vocab)``)."""
+    if classes is None:
+        classes = DEFAULT_TRAFFIC_CLASSES
+    if not classes:
+        raise ValueError("classes must name at least one traffic class")
+    if horizon < 1:
+        raise ValueError(f"horizon must be >= 1, got {horizon}")
+    if vocab < 2:
+        raise ValueError(f"vocab {vocab} too small for payload + BOS")
+    if max_requests < 0:
+        raise ValueError(f"max_requests must be >= 0, got {max_requests}")
+    if not 0.0 <= diurnal_amplitude < 1.0:
+        # amplitude >= 1 would drive the rate negative at the trough.
+        raise ValueError(
+            f"diurnal_amplitude must be in [0, 1), got {diurnal_amplitude}"
+        )
+    if diurnal_amplitude and diurnal_period < 2:
+        raise ValueError(
+            f"diurnal_amplitude needs diurnal_period >= 2, got "
+            f"{diurnal_period}"
+        )
+    if burst is not None:
+        if not isinstance(burst, (tuple, list)) or not 3 <= len(burst) <= 4:
+            raise ValueError(
+                f"burst must be (start, length, multiplier[, class]), "
+                f"got {burst!r}"
+            )
+        b_start, b_len, b_mult = int(burst[0]), int(burst[1]), float(burst[2])
+        b_class = burst[3] if len(burst) == 4 else None
+        if b_start < 0 or b_len < 1 or b_mult <= 0:
+            raise ValueError(
+                f"burst needs start >= 0, length >= 1, multiplier > 0, "
+                f"got {burst!r}"
+            )
+        if b_class is not None and b_class not in classes:
+            raise ValueError(
+                f"burst class {b_class!r} is not a traffic class "
+                f"({sorted(classes)})"
+            )
+    for name, spec in classes.items():
+        unknown = set(spec) - set(_TRAFFIC_CLASS_KEYS)
+        if unknown:
+            raise ValueError(
+                f"class {name!r}: unknown spec keys {sorted(unknown)} "
+                f"(valid: {list(_TRAFFIC_CLASS_KEYS)})"
+            )
+        rate = spec.get("rate", 0.0)
+        if rate < 0:
+            raise ValueError(f"class {name!r}: rate must be >= 0, got {rate}")
+        pmin = spec.get("prompt_min", 4)
+        pmax = spec.get("prompt_max", 16)
+        if not 2 <= pmin <= pmax:
+            raise ValueError(
+                f"class {name!r}: need 2 <= prompt_min <= prompt_max, "
+                f"got {pmin}/{pmax}"
+            )
+        if spec.get("max_new_tokens", 8) < 1:
+            raise ValueError(
+                f"class {name!r}: max_new_tokens must be >= 1"
+            )
+        fams = spec.get("families", 0)
+        if fams:
+            fpl = spec.get("family_prefix_len", 0)
+            if fams < 1:
+                raise ValueError(f"class {name!r}: families must be >= 1")
+            if not 2 <= fpl < pmin:
+                raise ValueError(
+                    f"class {name!r}: family_prefix_len ({fpl}) must be in "
+                    f"[2, prompt_min) — a family prefix needs BOS + >= 1 "
+                    "payload token and must leave >= 1 tail token"
+                )
+    rng = np.random.default_rng(seed)
+    arrivals: list[tuple[int, str, np.ndarray, int, int]] = []
+    for name in sorted(classes):
+        spec = classes[name]
+        rate = float(spec.get("rate", 0.0))
+        pmin = int(spec.get("prompt_min", 4))
+        pmax = int(spec.get("prompt_max", 16))
+        max_new = int(spec.get("max_new_tokens", 8))
+        fams = int(spec.get("families", 0))
+        fpl = int(spec.get("family_prefix_len", 0)) if fams else 0
+        prefixes = [
+            np.concatenate([
+                np.zeros(1, np.int32),
+                rng.integers(1, vocab, size=fpl - 1, dtype=np.int32),
+            ])
+            for _ in range(fams)
+        ]
+        for t in range(horizon):
+            lam = rate
+            if diurnal_amplitude:
+                lam *= 1.0 + diurnal_amplitude * np.sin(
+                    2.0 * np.pi * t / diurnal_period
+                )
+            if burst is not None and b_start <= t < b_start + b_len \
+                    and (b_class is None or b_class == name):
+                lam *= b_mult
+            for _ in range(int(rng.poisson(lam))):
+                if fams:
+                    fam = int(rng.integers(fams))
+                    tail = int(rng.integers(pmin - fpl, pmax - fpl + 1))
+                    prompt = np.concatenate([
+                        prefixes[fam],
+                        rng.integers(1, vocab, size=tail, dtype=np.int32),
+                    ])
+                else:
+                    fam = -1
+                    n = int(rng.integers(pmin, pmax + 1))
+                    prompt = np.concatenate([
+                        np.zeros(1, np.int32),
+                        rng.integers(1, vocab, size=n - 1, dtype=np.int32),
+                    ])
+                arrivals.append((t, name, prompt, max_new, fam))
+    # (arrival, class, draw) order — class order is the sorted-name
+    # generation order, draw order the Poisson sequence — then ids
+    # assigned sequentially so (arrival, id) sorting is stable.
+    arrivals.sort(key=lambda a: a[0])  # stable: preserves class/draw order
+    if max_requests:
+        arrivals = arrivals[:max_requests]
+    return [
+        MixedRequest(id=i, arrival=t, traffic_class=name, prompt=prompt,
+                     max_new_tokens=max_new, family=fam)
+        for i, (t, name, prompt, max_new, fam) in enumerate(arrivals)
+    ]

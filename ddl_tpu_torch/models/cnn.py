@@ -76,6 +76,11 @@ def param_sizes(specs: Specs = PARAM_SPECS) -> dict[str, int]:
     return {name: math.prod(shape) for name, shape in specs}
 
 
+def num_params(specs: Specs = PARAM_SPECS) -> int:
+    """Total element count of the model family's variables."""
+    return sum(param_sizes(specs).values())
+
+
 def param_shapes(params: Params) -> dict[str, tuple[int, ...]]:
     """Static shapes of a concrete param dict."""
     return {k: tuple(v.shape) for k, v in params.items()}
@@ -226,6 +231,13 @@ def loss_fn(
                       conv_matmul=conv_matmul)
     logprobs = F.log_softmax(logits, dim=-1)
     return -torch.mean(torch.sum(y_onehot * logprobs, dim=-1))
+
+
+def accuracy(params: Params, x: torch.Tensor, y_onehot: torch.Tensor) -> torch.Tensor:
+    """Top-1 accuracy over one-hot labels, as a device scalar (eval mode,
+    no dropout)."""
+    logits = apply_fn(params, x)
+    return torch.mean((torch.argmax(logits, dim=-1) == torch.argmax(y_onehot, dim=-1)).float())
 
 
 def correct_count(params: Params, x: torch.Tensor, y_onehot: torch.Tensor) -> torch.Tensor:

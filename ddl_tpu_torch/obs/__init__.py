@@ -23,8 +23,9 @@ trainer reports through.
 The CLI surfaces it through ``--metrics-out``, ``--metrics-interval``,
 ``--trace-dir``, ``--profile``, ``--prom-port``, ``--peak-flops``,
 ``--ici-bw`` and ``--anomaly-rules`` on every training variant. JAX's
-offline ``obs/analyze.py`` and the serve hooks come with the rest of
-serving (ROADMAP queue 1, item 8).
+offline ``obs/analyze.py`` and the serve CLI's telemetry flags are ROADMAP
+queue 1, item 8, part 8; the serve scheduler takes a tracer and a registry
+(``serve.scheduler``).
 """
 
 from .registry import (  # noqa: F401

@@ -26,7 +26,7 @@ An index outside the valid rows is redirected there, on the device, with no
 host synchronisation. Negative indices wrap once, as JAX's ``.at[]`` does.
 Callers read the valid rows only (``[:, :C]``, ``[:P]``), so the drop row's
 contents never matter. ``quantize_rows`` / ``dequantize_rows`` (the int8
-pool) wait for their slice (ROADMAP queue 1, item 8).
+pool) wait for their slice (ROADMAP queue 1, item 8, part 6).
 """
 
 from __future__ import annotations

@@ -14,8 +14,9 @@
   inputs that prove each recovery path.
 
 The serving half of JAX's package (deadlines and shedding in the
-scheduler) was ported with serving; the scheduler's fault injector is
-ROADMAP queue 1, item 8.
+scheduler) was ported with serving; the serve kinds' consumers are the
+scheduler's ``injector`` (``stall``) and the fleet controller
+(``replica_crash``).
 """
 
 from .faults import (  # noqa: F401

@@ -16,9 +16,14 @@ incident takes:
 - ``corrupt_ckpt`` / ``truncate_ckpt``: flip bytes in, or truncate, a
   checkpoint file (deterministic under ``seed``), the torn-write and
   bit-rot inputs ``find_latest_valid`` must survive.
-- ``stall@RID`` and ``replica_crash@T:R``: the serving kinds. They parse
-  here as in JAX; every consumer of them (the scheduler's ``injector``,
-  the fleet controller) is ROADMAP queue 1, item 8, and refuses them.
+- ``stall@RID``: the serve scheduler never advances request ``RID``'s
+  prefill (an upstream hang), so its deadline must evict it and release
+  its pinned prefix refs.
+- ``replica_crash@T:R``: kill serve-fleet replica ``R`` at global tick
+  ``T``: the fleet controller (``serve.controller``) discards the replica's
+  engine and pool, re-queues its in-flight and queued requests at the
+  router's door and heals the fleet; every request still completes exactly
+  once. Fires once; deterministic on the tick clock.
 
 Injection is host-side only (staged data, signals, files), so the programs
 under test are the production programs.

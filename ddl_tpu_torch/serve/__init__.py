@@ -1,19 +1,26 @@
-"""Serving — the port of ``ddl_tpu/serve``'s single-engine data plane:
-KV-cache prefill/decode with continuous batching over the contiguous or the
-paged KV pool, the prefix cache and chunked prefill, on one device.
+"""Serving — the port of ``ddl_tpu/serve``: KV-cache prefill/decode with
+continuous batching over the contiguous or the paged KV pool, the prefix
+cache and chunked prefill, and the multi-replica fleet over it.
 
 - ``serve.cache``        — the KV caches (slot-major rings and the paged
-  pool) and the host ``PagePool`` allocator
+  pool), the host ``PagePool`` allocator and the whole-page write
 - ``serve.engine``       — ``ServeConfig`` and the bucketed prefill/decode
-  ``InferenceEngine``
+  ``InferenceEngine`` (with the page dump/load of the hand-off)
 - ``serve.sampling``     — greedy and JAX-keyed categorical sampling
 - ``serve.prefix``       — the host prefix-cache index
-- ``serve.scheduler``    — continuous batching over the engine
+- ``serve.scheduler``    — continuous batching over the engine, driven
+  whole (``run``) or tick by tick; preempt/adopt/abandon; the lifecycle
+  tracer, the ``serve_*`` registry and the SLO derivation from its records
+- ``serve.engine_iface`` — the ``ServeEngine`` protocol the control plane
+  calls
+- ``serve.router``       — the SLO-aware front door over N replicas
+- ``serve.controller``   — the self-healing fleet controller (scale out and
+  in, drains, crash healing, cross-replica preemption)
+- ``serve.disagg``       — prefill/decode roles and the page hand-off
 
-The router, fleet controller, disaggregation, speculation, the int8 pool,
-the cost-model twin (and with it the ``ServeEngine`` protocol), the
-scenarios and serve observability wait for their slices (ROADMAP queue 1,
-item 8).
+Speculation (ROADMAP queue 1, item 8, part 5), the int8 pool (part 6), the
+cost-model twin and its scenarios (part 7) and the serve CLI's telemetry
+(part 8) wait for their slices.
 
     from ddl_tpu_torch.serve import InferenceEngine, Request, Scheduler, ServeConfig
 
@@ -22,20 +29,69 @@ item 8).
 """
 
 from .cache import KVCache, PagedKVCache, PagePool  # noqa: F401
+from .controller import (  # noqa: F401
+    AutoscaleConfig,
+    FleetController,
+    RoleScale,
+    parse_autoscale_spec,
+)
+from .disagg import (  # noqa: F401
+    ROLES,
+    DisaggCoordinator,
+    parse_roles_spec,
+    validate_roles,
+)
 from .engine import InferenceEngine, ServeConfig  # noqa: F401
+from .engine_iface import ServeEngine, engine_kind  # noqa: F401
 from .prefix import PrefixIndex  # noqa: F401
-from .scheduler import Completion, Pressure, Request, Scheduler, ServeStats  # noqa: F401
+from .router import (  # noqa: F401
+    ClassSpec,
+    Router,
+    RouterConfig,
+    RouterStats,
+    parse_slo_spec,
+    parse_traffic_spec,
+)
+from .scheduler import (  # noqa: F401
+    Completion,
+    PreemptedRequest,
+    Pressure,
+    Request,
+    Scheduler,
+    ServeStats,
+    derive_request_slo,
+    request_slo_samples,
+)
 
 __all__ = [
+    "AutoscaleConfig",
+    "ClassSpec",
     "Completion",
+    "DisaggCoordinator",
+    "FleetController",
     "InferenceEngine",
     "KVCache",
     "PagePool",
     "PagedKVCache",
+    "PreemptedRequest",
     "PrefixIndex",
     "Pressure",
+    "ROLES",
     "Request",
+    "RoleScale",
+    "Router",
+    "RouterConfig",
+    "RouterStats",
     "Scheduler",
     "ServeConfig",
+    "ServeEngine",
     "ServeStats",
+    "derive_request_slo",
+    "engine_kind",
+    "parse_autoscale_spec",
+    "parse_roles_spec",
+    "parse_slo_spec",
+    "parse_traffic_spec",
+    "request_slo_samples",
+    "validate_roles",
 ]

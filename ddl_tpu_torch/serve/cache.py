@@ -12,7 +12,7 @@ out-of-bounds writes land on (``ops.kv_cache``); the properties below and
 ``convert.kv_cache_to_numpy`` see only the valid rows. Under tensor
 parallelism a rank's cache holds its own ``H/tp`` heads (JAX shards the
 head dimension over tp, ``cache_specs``), made by ``tensor_parallel=``. The int8 pool's scale
-planes wait for their slice (ROADMAP queue 1, item 8).
+planes wait for their slice (ROADMAP queue 1, item 8, part 6).
 """
 
 from __future__ import annotations
@@ -128,7 +128,7 @@ def kv_row_bytes(spec: LMSpec, kv_dtype: str | None, dtype=torch.float32) -> int
         if kv_dtype != "int8":
             raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
         raise NotImplementedError(
-            "the int8 KV pool is not ported yet (ROADMAP queue 1, item 8: the int8 pool)"
+            "the int8 KV pool is not ported yet (ROADMAP queue 1, item 8, part 6: the int8 pool)"
         )
     itemsize = torch.empty((), dtype=dtype).element_size()
     return 2 * spec.num_layers * spec.num_heads * spec.head_dim * itemsize
@@ -143,6 +143,25 @@ def copy_page(pool: PagedKVCache, *, src_page: int, dst_page: int, n: int) -> Pa
     copy_prefix(pool.v[:, dst_page], pool.v[:, src_page], n, axis=1)
     copy_prefix(pool.pos[dst_page], pool.pos[src_page], n, axis=0)
     pool.pos[dst_page, n:] = PAD_POS
+    return pool
+
+
+def write_page(pool: PagedKVCache, *, dst_page, k_rows: torch.Tensor, v_rows: torch.Tensor,
+               pos_rows: torch.Tensor) -> PagedKVCache:
+    """Overwrite whole pool pages with caller-supplied rows (K/V of every
+    layer and positions), in place: the receive half of the cross-replica
+    KV hand-off (``engine.load_slot_pages``). ``dst_page`` is one page id
+    (``k_rows``/``v_rows [L, 1, page, H, D]``, ``pos_rows [1, page]``, as
+    JAX's ``write_page``) or an index tensor of ``n`` ids (rows ``[L, n,
+    page, H, D]`` / ``[n, page]``); either way one indexed write per pool
+    tensor. A whole page is written, its ``PAD_POS`` tail included, so the
+    free-list invariant survives the write. At tp > 1 the rows are this
+    rank's head shard, as the pool is."""
+    if isinstance(dst_page, int):
+        dst_page = slice(dst_page, dst_page + 1)
+    pool.k[:, dst_page] = k_rows
+    pool.v[:, dst_page] = v_rows
+    pool.pos[dst_page] = pos_rows
     return pool
 
 

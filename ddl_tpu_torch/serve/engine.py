@@ -61,10 +61,18 @@ fp32 bytes.
 checkpoint of any topology (``utils/checkpoint.py``, either package's),
 sharded here for tp; optimizer and step state are ignored.
 
+**Page hand-off** (:meth:`InferenceEngine.dump_slot_pages`,
+:meth:`InferenceEngine.load_slot_pages`): a slot's mapped pages gathered on
+the device in block-table order and copied to host numpy, and written back
+whole into freshly mapped pages of another engine's pool
+(``cache.write_page``): the cross-replica preemption and the disaggregated
+prefill -> decode transfer move KV bits, never recompute them. At tp > 1
+each rank dumps and loads its own head shard (JAX assembles every shard
+into one host array); the round trip is bitwise either way.
+
 Not ported here, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``kv_dtype="int8"``, ``speculate_k > 0``,
-``speculate_method="prompt"``, and the page hand-off (``dump_slot_pages``,
-``load_slot_pages``, ``alias_slot_pages``).
+part: ``kv_dtype="int8"`` (part 6), ``speculate_k > 0``,
+``speculate_method="prompt"`` and ``alias_slot_pages`` (part 5).
 """
 
 from __future__ import annotations
@@ -93,13 +101,15 @@ from .cache import (
     host_cache,
     host_paged_cache,
     kv_row_bytes,
+    write_page,
 )
 from .prefix import PrefixIndex
 
 SPECULATE_METHODS = ("ngram", "prompt")
 # The compute dtypes the engine serves in, by name (None: fp32, no cast).
 SERVE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16, "float16": torch.float16}
-_HANDOFF = "ROADMAP queue 1, item 8: preempt/adopt and page dump/load"
+_INT8 = "ROADMAP queue 1, item 8, part 6: the int8 pool"
+_SPECULATE = "ROADMAP queue 1, item 8, part 5: speculate"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,10 +232,10 @@ def check_config(config: ServeConfig) -> None:
                 "slot needs at least one page; the pool could never fill the batch"
             )
     refused = (
-        (config.kv_dtype is not None, "kv_dtype='int8' (ROADMAP queue 1, item 8: the int8 pool)"),
-        (sk > 0, "speculate_k > 0 (ROADMAP queue 1, item 8: speculate)"),
+        (config.kv_dtype is not None, f"kv_dtype='int8' ({_INT8})"),
+        (sk > 0, f"speculate_k > 0 ({_SPECULATE})"),
         (config.speculate_method != "ngram",
-         f"speculate_method={config.speculate_method!r} (ROADMAP queue 1, item 8: speculate)"),
+         f"speculate_method={config.speculate_method!r} ({_SPECULATE})"),
     )
     for bad, what in refused:
         if bad:
@@ -434,14 +444,65 @@ class InferenceEngine:
         self._release_pages(pages)
 
     def dump_slot_pages(self, slot: int):
-        raise NotImplementedError(f"dump_slot_pages is not ported yet ({_HANDOFF})")
+        """Serialize ``slot``'s resident pages host-side, the send half of
+        the page hand-off: ``(k, v, pos)`` numpy arrays ``[L, n, page, H,
+        D]`` / ``[n, page]`` for the slot's ``n`` mapped pages in
+        BLOCK-TABLE order, gathered on the device and then copied to
+        pageable host memory (the copy waits for the gather). At tp > 1,
+        ``H`` is this rank's heads. A pool dtype numpy lacks (bfloat16)
+        comes back as its raw bits, ``int16``, which
+        :meth:`load_slot_pages` reinterprets: bits move, not values."""
+        if not self.paged:
+            raise RuntimeError(
+                "dump_slot_pages needs the paged KV layout (page_size > 0) — the contiguous "
+                "ring has no slot-independent pages to hand off")
+        n = int(self.table_len[slot])
+        pages = self._put(self.tables[slot, :n].astype(np.int64))
+
+        def host(t: torch.Tensor) -> np.ndarray:
+            t = t.cpu()
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            return t.numpy()
+
+        return (host(self.cache.k[:, pages]), host(self.cache.v[:, pages]),
+                host(self.cache.pos[pages]))
+
+    def _rows(self, a, like: torch.Tensor) -> torch.Tensor:
+        """Host rows on the device in ``like``'s dtype: a synchronous copy
+        (the caller may reuse ``a`` at once); same-width integer bits of a
+        float pool (the bfloat16 dump) are reinterpreted, never converted."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if t.dtype != like.dtype:
+            if t.is_floating_point() or t.element_size() != like.element_size():
+                raise ValueError(f"load_slot_pages: rows of dtype {t.dtype} for a pool of "
+                                 f"{like.dtype} (hand-offs need the same pool dtype on "
+                                 "both replicas)")
+            t = t.view(like.dtype)
+        return t.to(self.device)
 
     def load_slot_pages(self, slot: int, k, v, pos) -> list[int]:
-        raise NotImplementedError(f"load_slot_pages is not ported yet ({_HANDOFF})")
+        """Make serialized page contents resident in ``slot``: map one FRESH
+        page per source page (consuming the slot's admission reservation,
+        as prefill growth does) and overwrite them whole with the rows in
+        one ``write_page``. A freshly mapped page is all ``PAD_POS`` (the
+        free-list invariant) and the written ``pos`` rows carry the source's
+        own ``PAD_POS`` tail, so nothing stale is attendable. Returns the
+        mapped page ids (table order)."""
+        if not self.paged:
+            raise RuntimeError("load_slot_pages needs the paged KV layout (page_size > 0)")
+        if isinstance(k, tuple) or isinstance(v, tuple):
+            raise NotImplementedError(
+                f"load_slot_pages of (payload, scale) pairs is not ported yet ({_INT8})")
+        rows = dict(k_rows=self._rows(k, self.cache.k), v_rows=self._rows(v, self.cache.v),
+                    pos_rows=self._rows(pos, self.cache.pos))
+        mapped = [self._map_page(slot) for _ in range(int(k.shape[1]))]
+        if mapped:
+            write_page(self.cache, dst_page=self._put(np.asarray(mapped, np.int64)), **rows)
+        return mapped
 
     def alias_slot_pages(self, dst_slot: int, src_slot: int, rows: int) -> int:
-        raise NotImplementedError("alias_slot_pages is not ported yet "
-                                  "(ROADMAP queue 1, item 8: speculate)")
+        raise NotImplementedError(f"alias_slot_pages is not ported yet ({_SPECULATE})")
 
     def decode_page_bucket(self, pages: int) -> int:
         """Smallest power of two >= ``pages``, capped at the table width."""

@@ -30,11 +30,31 @@ neighbours, on arrival time, on the prefix cache or on chunking.
 
 Metrics: prefill and decode tok/s, per-decode-step latency, TTFT (from
 eligibility to first token) and ITL (the gap between consecutive decode
-completions while slots stay active). Not ported, each refused with its
-ROADMAP item: the tracer, metric registry, writer, SLO monitor, anomaly
-detector, fault injector and peak-FLOPs hooks (serve observability),
-``role != "mixed"`` (disagg), and ``preempt`` / ``adopt`` / ``abandon``
-(the page hand-off).
+completions while slots stay active).
+
+Telemetry: with an ``obs.Tracer`` the scheduler emits the request lifecycle
+(``submit``, ``eligible``, ``admit``, ``prefix_copy``/``prefix_map``,
+``prefill_chunk``, ``first_token``, ``decode_tick`` with the ``reqs`` that
+decoded, ``complete``, ``shed``, ``deadline_exceeded``, ``preempt``,
+``resume``), each stamped with the SAME ``perf_counter`` value its
+``ServeStats`` math uses, so :func:`derive_request_slo` recovers TTFT and
+ITL from the records float for float. On the card the decode's stamp is
+read after the fetch of the sampled tokens, which waits for the device.
+With an ``obs.MetricRegistry`` it keeps JAX's ``serve_*`` counters, gauges
+and histograms and the goodput tracker's per-phase time. Both default off,
+and every clock read they add is gated on them: a bare ``Scheduler(engine)``
+runs the plain tick, and an idle tick makes no device call either way.
+
+Fleet hooks: :meth:`Scheduler.preempt` / :meth:`Scheduler.adopt` lift an
+active request out with its KV pages (``engine.dump_slot_pages``) and
+resume it on another scheduler bit for bit; :meth:`Scheduler.abandon` hands
+back a crashed replica's ledger; ``role="prefill"`` holds first-token slots
+for the disaggregated hand-off (``serve.disagg``); an ``injector``'s
+``stall`` never advances a request's prefill (its deadline must evict it).
+
+Not ported, each refused naming ROADMAP queue 1, item 8, part 8: the
+metrics writer, SLO monitor, anomaly detector and ``peak_flops`` hooks.
+Speculative decoding (part 5) is refused by the engine's config.
 """
 
 from __future__ import annotations
@@ -45,6 +65,11 @@ import time
 
 import numpy as np
 
+from .. import precision as _precision
+from ..obs import cost as _cost
+from ..obs.goodput import GoodputTracker
+from ..obs.memory import MemorySampler
+from ..obs.trace import NULL_TRACER
 from ..utils.metrics import StepStats, StepTimer
 from .engine import InferenceEngine
 
@@ -52,8 +77,7 @@ from .engine import InferenceEngine
 # trivially shares its first token with every cached entry.
 MIN_PREFIX_HIT = 2
 
-_OBS = "ROADMAP queue 1, item 8: serve observability"
-_HANDOFF = "ROADMAP queue 1, item 8: preempt/adopt and page dump/load"
+_OBS = "ROADMAP queue 1, item 8, part 8: serve observability"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,9 +85,11 @@ class Request:
     """One generation request. ``arrival`` is the earliest scheduler step
     at which it may be admitted. ``ttft_deadline_s`` bounds eligibility ->
     first token and ``deadline_s`` eligibility -> completion (wall seconds;
-    None inherits the scheduler's defaults). JAX's ``traffic_class`` and
-    ``shed_exempt`` wait for the router and the fleet controller (ROADMAP
-    queue 1, item 8), the slices that set them."""
+    None inherits the scheduler's defaults). ``traffic_class`` names the
+    request's SLO class for the router (the scheduler ignores it);
+    ``shed_exempt`` skips the admission-shed check (the fleet controller
+    sets it on a request it re-queues after its replica crashed: its
+    admission was decided once)."""
 
     id: int
     prompt: np.ndarray  # int32 [p], p >= 1
@@ -71,13 +97,17 @@ class Request:
     arrival: int = 0
     ttft_deadline_s: float | None = None
     deadline_s: float | None = None
+    traffic_class: str = "default"
+    shed_exempt: bool = False
 
 
 @dataclasses.dataclass
 class Completion:
     """``status``: ``"ok"`` (ran to its stop condition),
     ``"deadline_exceeded"`` (evicted at a deadline; ``tokens`` holds the
-    partial output) or ``"shed"`` (refused at admission)."""
+    partial output), ``"shed"`` (refused at admission) or ``"requeued"``
+    (the fleet controller's placeholder for a crash-orphaned request,
+    overwritten once by its final completion)."""
 
     id: int
     prompt_len: int
@@ -119,6 +149,25 @@ class ServeStats:
     @property
     def prefix_hit_rate(self) -> float:
         return self.prefix_hits / self.prefix_lookups if self.prefix_lookups else 0.0
+
+
+@dataclasses.dataclass
+class PreemptedRequest:
+    """A mid-decode request lifted out of one scheduler for resumption on
+    another: the request, its generated stream, the decode cursor, its
+    original eligibility stamp (deadlines keep their meaning) and admission
+    step, and its KV pages as host numpy (``engine.dump_slot_pages``,
+    block-table order)."""
+
+    request: Request
+    generated: list[int]
+    last_token: int
+    lengths: int
+    admitted_at: int
+    eligible_wall: float
+    k: np.ndarray  # [L, n_pages, page, H, D] (this rank's heads at tp > 1)
+    v: np.ndarray  # [L, n_pages, page, H, D]
+    pos: np.ndarray  # [n_pages, page]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,9 +223,11 @@ class _RunState:
 class Scheduler:
     """Continuous-batching scheduler, one per engine. ``run`` is synchronous
     and returns when every request has completed; it is literally
-    ``begin`` / ``submit`` / ``tick`` / ``collect``. ``allow_window=True``
-    admits requests whose ``prompt + max_new_tokens`` exceeds the capacity
-    (the ring wraps into an exact sliding window; contiguous only)."""
+    ``begin`` / ``submit`` / ``tick`` / ``collect``, the form the router
+    drives tick by tick with ``pressure()`` as its load probe.
+    ``allow_window=True`` admits requests whose ``prompt + max_new_tokens``
+    exceeds the capacity (the ring wraps into an exact sliding window;
+    contiguous only)."""
 
     def __init__(self, engine: InferenceEngine, *, eos_id: int | None = None,
                  allow_window: bool = False, tracer=None, registry=None,
@@ -187,15 +238,19 @@ class Scheduler:
                  anomaly_detector=None, role: str = "mixed"):
         self.engine = engine
         self.eos_id = eos_id
+        # role="prefill" runs prompts to their first token and HOLDS the
+        # slot for the fleet's page hand-off (serve.disagg); "decode"
+        # behaves as "mixed" (the router's placement enforces the split).
         if role not in ("mixed", "prefill", "decode"):
             raise ValueError(f"role must be 'mixed', 'prefill' or 'decode', got {role!r}")
-        if role != "mixed":
-            raise NotImplementedError(
-                f"role={role!r} is not ported yet (ROADMAP queue 1, item 8: disagg)")
-        for name, value in (("tracer", tracer), ("registry", registry),
-                            ("metrics_writer", metrics_writer), ("injector", injector),
-                            ("slo_monitor", slo_monitor), ("peak_flops", peak_flops),
-                            ("anomaly_detector", anomaly_detector)):
+        if role == "prefill" and not engine.paged:
+            raise ValueError(
+                "role='prefill' needs the paged KV layout (page_size > 0): the "
+                "prefill->decode hand-off moves KV pages, and contiguous slot rings have none"
+            )
+        self.role = role
+        for name, value in (("metrics_writer", metrics_writer), ("slo_monitor", slo_monitor),
+                            ("peak_flops", peak_flops), ("anomaly_detector", anomaly_detector)):
             if value is not None:
                 raise NotImplementedError(f"Scheduler({name}=...) is not ported yet ({_OBS})")
         if allow_window and engine.paged:
@@ -220,7 +275,33 @@ class Scheduler:
         self.ttft_deadline_s = ttft_deadline_s
         self.deadline_s = deadline_s
         self.shed_threshold = shed_threshold
+        # resilience.faults: stalls(id) defers that request's prefill forever.
+        self.injector = injector
+        # NULL_TRACER is falsy: `if tr:` keeps even the clock reads off the
+        # disabled path.
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.registry = registry
+        self._peak: float | None = None
+        self._mem = self._goodput = None
+        if registry is not None:
+            self._mem = MemorySampler(registry, [engine.device])
+            self._goodput = GoodputTracker(registry, "serve")
         self._st: _RunState | None = None
+
+    @property
+    def goodput(self):
+        """The live ``obs.goodput.GoodputTracker`` (None without a
+        registry)."""
+        return self._goodput
+
+    def attach_registry(self, registry) -> None:
+        """Swap the metric registry mid-lifetime, rebuilding the consumers
+        that capture it (the goodput tracker and the memory sampler)."""
+        self.registry = registry
+        self._mem = self._goodput = None
+        if registry is not None:
+            self._mem = MemorySampler(registry, [self.engine.device])
+            self._goodput = GoodputTracker(registry, "serve")
 
     def warmup(self, requests) -> None:
         """Run every program shape ``requests`` will need OUTSIDE any timed
@@ -228,12 +309,18 @@ class Scheduler:
         clones with negative ids and at most 2 new tokens, the whole
         power-of-two prefill ladder up to the largest prompt, the paged
         decode ladder up to the widest residency, and the prefix copies.
-        Deadlines and shedding are off meanwhile."""
+        Telemetry, deadlines, shedding and fault injection are off
+        meanwhile, and the clones run as ``"mixed"`` (no coordinator takes
+        a prefill role's held slots here)."""
         if not requests:
             return
         eng = self.engine
-        saved = (self.ttft_deadline_s, self.deadline_s, self.shed_threshold)
-        self.ttft_deadline_s = self.deadline_s = self.shed_threshold = None
+        saved = (self.tracer, self.registry, self.ttft_deadline_s, self.deadline_s,
+                 self.shed_threshold, self.injector, self._mem, self._goodput, self.role)
+        self.tracer, self.registry = NULL_TRACER, None
+        self.ttft_deadline_s = self.deadline_s = self.shed_threshold = self.injector = None
+        self._mem = self._goodput = None
+        self.role = "mixed"
         try:
             self.run([
                 dataclasses.replace(r, id=-1 - i, max_new_tokens=min(2, r.max_new_tokens),
@@ -292,7 +379,8 @@ class Scheduler:
                     eng.prefix_release(entry)
             eng.reset()
         finally:
-            self.ttft_deadline_s, self.deadline_s, self.shed_threshold = saved
+            (self.tracer, self.registry, self.ttft_deadline_s, self.deadline_s,
+             self.shed_threshold, self.injector, self._mem, self._goodput, self.role) = saved
 
     def _validate(self, r: Request) -> None:
         """Reject a malformed request at SUBMIT time, before any state
@@ -330,6 +418,13 @@ class Scheduler:
         for name, v in (("ttft_deadline_s", r.ttft_deadline_s), ("deadline_s", r.deadline_s)):
             if v is not None and v <= 0:
                 raise ValueError(f"request {r.id}: {name} must be > 0 seconds, got {v}")
+        if self.injector is not None and self.injector.stalls(r.id) \
+                and self._deadline_for(r) == (None, None):
+            raise ValueError(
+                f"request {r.id}: stall fault injected but no TTFT/total deadline "
+                "applies — the run would never terminate; set a per-request or "
+                "scheduler-default deadline"
+            )
 
     def _deadline_for(self, r: Request) -> tuple[float | None, float | None]:
         """Effective ``(ttft, total)`` deadlines: the request's, else the
@@ -337,6 +432,15 @@ class Scheduler:
         ttft = r.ttft_deadline_s if r.ttft_deadline_s is not None else self.ttft_deadline_s
         total = r.deadline_s if r.deadline_s is not None else self.deadline_s
         return ttft, total
+
+    def _resolve_peak(self) -> float:
+        """Per-device peak FLOP/s for the ``serve_mfu`` gauge: the device
+        table's row at the engine's matmul precision (resolved once)."""
+        if self._peak is None:
+            self._peak = _cost.peak_flops_per_device(
+                self.engine.device, None,
+                precision=_precision.mfu_kind(self.engine.config.compute_dtype))
+        return self._peak
 
     # -- externally-driven run form ----------------------------------------
 
@@ -365,6 +469,10 @@ class Scheduler:
                                                   key=lambda q: (q.arrival, q.id)))
         else:
             st.pending.append(r)
+        if self.tracer:
+            self.tracer.event("submit", t=time.perf_counter(), req=int(r.id),
+                              prompt_len=int(np.asarray(r.prompt).shape[0]),
+                              arrival=int(r.arrival), max_new_tokens=int(r.max_new_tokens))
 
     def _require_run(self) -> _RunState:
         if self._st is None:
@@ -403,21 +511,143 @@ class Scheduler:
             prefix_entries=len(eng.prefix) if eng.prefix is not None else 0,
         )
 
-    def preempt(self, request_id: int, *, path: str = "preempt"):
-        raise NotImplementedError(f"preempt is not ported yet ({_HANDOFF})")
+    def waiting_eligible_requests(self) -> list[Request]:
+        """Queued requests whose arrival has come, in admission (FIFO)
+        order: the fleet controller's preemption-trigger probe."""
+        st = self._st
+        if st is None:
+            return []
+        out = []
+        for q in st.pending:  # (arrival, id)-sorted: early break
+            if q.arrival > st.step:
+                break
+            out.append(q)
+        return out
 
-    def adopt(self, pre) -> int:
-        raise NotImplementedError(f"adopt is not ported yet ({_HANDOFF})")
+    def occupant_requests(self) -> list[tuple[int, Request, bool]]:
+        """``(slot, request, active)`` for every occupied slot: the
+        controller's victim probe (only active occupants carry a decode
+        cursor to move)."""
+        st = self._st
+        if st is None:
+            return []
+        return [(s, r, bool(st.active[s])) for s, r in enumerate(st.occupant) if r is not None]
 
-    def abandon(self):
-        raise NotImplementedError(
-            "abandon is not ported yet (ROADMAP queue 1, item 8: the controller)")
+    # -- cross-replica preemption -------------------------------------------
+
+    def preempt(self, request_id: int, *, path: str = "preempt") -> PreemptedRequest:
+        """Lift an ACTIVE occupant out of the armed run for resumption on
+        another scheduler (:meth:`adopt`): its pages go to the host, its
+        slot frees (pages decref, the unused reservation returns, prefix
+        pins release), and no completion is recorded (it completes once, on
+        the adopter). Paged engines only. The dumped bytes count once into
+        ``handoff_bytes_total{path=}``."""
+        st = self._require_run()
+        eng = self.engine
+        if not eng.paged:
+            raise RuntimeError(
+                "preempt needs the paged KV layout (page_size > 0) — contiguous slots "
+                "have no slot-independent pages to hand off")
+        for s in range(eng.config.slots):
+            r = st.occupant[s]
+            if r is not None and r.id == request_id:
+                break
+        else:
+            raise KeyError(f"request {request_id} occupies no slot on this scheduler")
+        if not st.active[s]:
+            raise RuntimeError(
+                f"request {request_id} is mid-prefill, not mid-decode — only active "
+                "occupants carry a resumable decode cursor")
+        k, v, pos = eng.dump_slot_pages(s)
+        if self.registry is not None:
+            self.registry.counter(
+                "handoff_bytes_total", help="KV bytes moved through the host, by hand-off path",
+            ).inc(eng.handoff_bytes(int(pos.shape[0])), path=path)
+        pre = PreemptedRequest(
+            request=r, generated=list(st.generated[s]), last_token=int(st.last_tokens[s]),
+            lengths=int(st.lengths[s]), admitted_at=int(st.admitted_at[s]),
+            eligible_wall=st.eligible_wall[r.id], k=k, v=v, pos=pos,
+        )
+        st.active[s] = False
+        st.occupant[s] = None
+        # The id may come back here (a later crash of the adopter requeues it).
+        st.seen_ids.discard(r.id)
+        eng.release_slot(s)
+        if st.held_entry[s] >= 0:
+            eng.prefix_release(st.held_entry[s])
+            st.held_entry[s] = -1
+        if self.tracer:
+            self.tracer.event("preempt", req=int(r.id), slot=s, step=st.step,
+                              tokens=len(pre.generated))
+        return pre
+
+    def adopt(self, pre: PreemptedRequest) -> int:
+        """Install a preempted request into a free slot of the armed run:
+        its pages become fresh resident pages (``engine.load_slot_pages``)
+        and its decode cursor carries over, so (the sampling key being
+        ``(seed, request_id, token_index)``) its tokens equal an
+        unpreempted run's. Reserves the request's worst case like an
+        admission. Returns the slot."""
+        st = self._require_run()
+        eng = self.engine
+        if not eng.paged:
+            raise RuntimeError("adopt needs the paged KV layout (page_size > 0)")
+        r = pre.request
+        if r.id in st.seen_ids:
+            raise ValueError(f"adopt: request id {r.id} already seen on this scheduler")
+        slot = next((s for s in range(eng.config.slots) if st.occupant[s] is None), None)
+        if slot is None:
+            raise RuntimeError("adopt: no free slot on this scheduler")
+        p = int(np.asarray(r.prompt).shape[0])
+        need = eng.pages_needed(p + r.max_new_tokens)
+        if eng.pages.available < need and not eng.reclaim_pages(need):
+            raise RuntimeError(
+                f"adopt: request {r.id} needs {need} pages but only {eng.pages.available} "
+                "are available — the controller must check pages_available before "
+                "choosing this replica")
+        eng.reserve_pages(slot, need)
+        eng.load_slot_pages(slot, pre.k, pre.v, pre.pos)
+        st.seen_ids.add(r.id)
+        st.occupant[slot] = r
+        st.active[slot] = True
+        st.generated[slot] = list(pre.generated)
+        st.lengths[slot] = pre.lengths
+        st.last_tokens[slot] = pre.last_token
+        st.req_ids[slot] = r.id
+        st.admitted_at[slot] = pre.admitted_at
+        st.prefilled[slot] = p
+        st.store_after[slot] = False
+        st.held_entry[slot] = -1
+        st.eligible_wall[r.id] = pre.eligible_wall
+        st.deadlines_on = st.deadlines_on or (r.ttft_deadline_s is not None
+                                              or r.deadline_s is not None)
+        if self.tracer:
+            self.tracer.event("resume", req=int(r.id), slot=slot, step=st.step,
+                              tokens=len(pre.generated))
+        return slot
+
+    def abandon(self) -> tuple[dict[int, Completion], list[Request], list[Request]]:
+        """Crash harvest: the armed run's completions, the requests resident
+        in slots (their device state lost) and the queued ones; disarms
+        WITHOUT touching the engine, which the caller discards whole."""
+        st = self._require_run()
+        inflight = [r for r in st.occupant if r is not None]
+        queued = list(st.pending)
+        done = dict(st.done)
+        self._st = None
+        return done, inflight, queued
 
     def collect(self) -> tuple[dict[int, Completion], ServeStats]:
         """Finalize the armed run: ``(completions, stats)`` as :meth:`run`
-        returns them. Disarms the run."""
+        returns them, the run-total prefix counters flushed into the
+        registry. Disarms the run."""
         st = self._require_run()
         latency = st.decode_timer.stats()
+        if self.registry is not None:
+            reg = self.registry
+            reg.counter("serve_prefix_lookups_total").inc(st.lookups)
+            reg.counter("serve_prefix_hits_total").inc(st.hits)
+            reg.counter("serve_prefill_tokens_saved_total").inc(st.saved)
         stats = ServeStats(
             prefill_tokens=st.prefill_timer.total_images,
             prefill_s=st.prefill_timer.total_s,
@@ -484,6 +714,7 @@ class Scheduler:
         )
         st.active[s] = False
         st.occupant[s] = None
+        pages_held = int(eng.table_len[s]) if eng.paged else 0
         if eng.paged:
             # Completion and eviction are the same bookkeeping: page
             # references drop and any unused reservation returns.
@@ -491,6 +722,13 @@ class Scheduler:
         if st.held_entry[s] >= 0:
             eng.prefix_release(st.held_entry[s])
             st.held_entry[s] = -1
+        if self.tracer:
+            self.tracer.event("complete", req=int(r.id), slot=s, step=st.step,
+                              tokens=len(st.generated[s]), status=status,
+                              kv_pages_held=pages_held)
+        if self.registry is not None:
+            self.registry.counter("serve_deadline_exceeded_total" if status == "deadline_exceeded"
+                                  else "serve_requests_completed_total").inc()
 
     def _expire_queued(self, st: _RunState, r: Request, status: str) -> None:
         """Remove a never-admitted request from the queue with a structured
@@ -500,6 +738,11 @@ class Scheduler:
             id=r.id, prompt_len=int(np.asarray(r.prompt).shape[0]), tokens=[],
             admitted_step=-1, finished_step=st.step, status=status,
         )
+        if self.tracer:
+            self.tracer.event(status, req=int(r.id), step=st.step)
+        if self.registry is not None:
+            self.registry.counter("serve_shed_total" if status == "shed"
+                                  else "serve_deadline_exceeded_total").inc()
 
     def _finished(self, st: _RunState, s: int, token: int) -> bool:
         return (len(st.generated[s]) >= st.occupant[s].max_new_tokens
@@ -508,11 +751,21 @@ class Scheduler:
     def tick(self) -> None:
         """One scheduler step of the armed run: stamp eligibility, shed and
         expire, admit into free slots, prefill under the chunk budget, one
-        batched decode. An idle tick makes no device calls."""
+        batched decode, the per-tick gauges. An idle tick makes no device
+        calls."""
         st = self._require_run()
         eng = self.engine
         cfg = eng.config
         S = cfg.slots
+        tr = self.tracer
+        reg = self.registry
+        inj = self.injector
+        # Goodput: the tick is bracketed; the device sub-brackets (the SAME
+        # StepTimer values the histograms observe) are attributed as they
+        # close and the residual lands in host or idle at end_tick.
+        gp = self._goodput
+        if gp is not None:
+            gp.begin_tick()
         chunk = cfg.prefill_chunk
         # An unset budget is ONE chunk a tick (maximum decode interleaving).
         budget0 = cfg.prefill_budget or chunk
@@ -531,11 +784,17 @@ class Scheduler:
             if r.arrival > step:
                 break  # pending is (arrival, id)-sorted
             if r.id not in st.eligible_wall:
-                if self.shed_threshold is not None and outstanding >= self.shed_threshold:
+                if (self.shed_threshold is not None and outstanding >= self.shed_threshold
+                        and not r.shed_exempt):
                     shed_now.append(r)
                     continue
                 st.eligible_wall[r.id] = now
                 outstanding += 1
+                if tr:
+                    # The same `now` the TTFT clock starts from.
+                    tr.event("eligible", t=now, req=int(r.id), step=step)
+        t_shed0 = (time.perf_counter() if gp is not None and (shed_now or st.deadlines_on)
+                   else None)
         for r in shed_now:
             self._expire_queued(st, r, "shed")
         if st.deadlines_on:
@@ -564,6 +823,8 @@ class Scheduler:
                         if v is not None]
                 if lims and now - st.eligible_wall[r.id] > min(lims):
                     self._finish(st, s, status="deadline_exceeded")
+        if t_shed0 is not None:
+            gp.add("shed", time.perf_counter() - t_shed0, work=False)
         # Admit: claim every free slot whose turn has come. Paged admission
         # reserves the worst case first; when the head cannot fit, nothing
         # behind it admits either (strict FIFO).
@@ -601,10 +862,21 @@ class Scheduler:
             st.admitted_at[s] = step
             base = 0
             st.store_after[s] = False
+            if tr:
+                tr.event("admit", req=int(r.id), slot=s, step=step)
             if eng.prefix is not None:
                 st.lookups += 1
                 if hit >= MIN_PREFIX_HIT:
-                    eng.prefix_fetch(entry, hit, s)
+                    timed = tr or gp is not None
+                    t0 = time.perf_counter() if timed else 0.0
+                    copied = eng.prefix_fetch(entry, hit, s)
+                    t1 = time.perf_counter() if timed else 0.0
+                    if gp is not None:
+                        gp.add("prefix_copy", t1 - t0)
+                    if tr:
+                        # Paged: copied_rows is the CoW partial tail page only.
+                        tr.complete("prefix_map" if eng.paged else "prefix_copy", t0, t1,
+                                    req=int(r.id), slot=s, rows=hit, copied_rows=int(copied))
                     st.held_entry[s] = entry
                     base = hit
                     st.hits += 1
@@ -625,6 +897,8 @@ class Scheduler:
             r = st.occupant[s]
             if r is None or st.active[s]:
                 continue
+            if inj is not None and inj.stalls(r.id):
+                continue  # an injected stall: its deadline must evict it
             prompt = np.asarray(r.prompt, np.int32)
             p = int(prompt.shape[0])
             while st.prefilled[s] < p:
@@ -633,9 +907,23 @@ class Scheduler:
                 if budget0 and budget < n:
                     break  # out of tick budget; resume next tick
                 base = int(st.prefilled[s])
+                t0 = time.perf_counter() if tr else 0.0
                 with st.prefill_timer.step(images=n):
                     tok, _ = eng.prefill(prompt[base:base + n], slot=s, request_id=r.id,
                                          base=base)
+                if tr:
+                    tr.complete("prefill_chunk", t0, time.perf_counter(), req=int(r.id),
+                                slot=s, base=base, n=n)
+                if gp is not None:
+                    gp.add("prefill", st.prefill_timer._times[-1])
+                if reg is not None:
+                    reg.counter("serve_prefill_tokens_total").inc(n)
+                    reg.histogram("serve_prefill_seconds").observe(st.prefill_timer._times[-1])
+                    # The compiled bucket's rows over the cache-wide attend
+                    # span, per real token (padding computes too).
+                    reg.gauge("serve_prefill_flops_per_token").set(
+                        _cost.serve_prefill_flops(cfg.spec, eng.prefill_bucket(n),
+                                                  cfg.capacity) / n)
                 st.prefilled[s] += n
                 prefilled_any = True
                 st.lengths[s] = st.prefilled[s]  # see the admission comment
@@ -643,26 +931,63 @@ class Scheduler:
                     budget -= n
                 if base + n == p:  # prompt complete: first token
                     if eng.prefix is not None and st.store_after[s]:
-                        eng.prefix_store(prompt, s)
+                        stored = eng.prefix_store(prompt, s)
+                        if tr and stored:
+                            tr.event("prefix_store", req=int(r.id), slot=s, rows=p)
                     st.active[s] = True
                     st.lengths[s] = p
                     st.last_tokens[s] = tok
                     st.req_ids[s] = r.id
                     st.generated[s] = [tok]
-                    st.ttfts.append(time.perf_counter() - st.eligible_wall[r.id])
+                    t_first = time.perf_counter()
+                    st.ttfts.append(t_first - st.eligible_wall[r.id])
+                    if tr:
+                        # The same t_first as the TTFT sample above.
+                        tr.event("first_token", t=t_first, req=int(r.id), slot=s, step=step)
+                    if reg is not None:
+                        reg.histogram("serve_ttft_seconds").observe(st.ttfts[-1])
                     if self._finished(st, s, tok):
                         self._finish(st, s)
                     break
-        if st.active.any():
+        if st.active.any() and self.role == "prefill":
+            # First-token slots are HELD for the fleet's page hand-off: a
+            # prefill replica never decodes, and a held tick makes no
+            # device call.
+            st.last_decode_done = None
+        elif st.active.any():
             n_active = int(st.active.sum())
+            t0 = time.perf_counter() if tr else 0.0
             with st.decode_timer.step(images=n_active):
                 nxt, _ = eng.decode(st.last_tokens, st.lengths, st.req_ids, st.active)
+            # Read after decode's fetch of the sampled tokens, which waits
+            # for the device.
             now = time.perf_counter()
-            if st.last_decode_done is not None:
+            chained = st.last_decode_done is not None
+            if chained:
                 # The gap since the previous decode completion, interleaved
                 # prefill work included.
                 st.itls.append(now - st.last_decode_done)
             st.last_decode_done = now
+            decode_s = st.decode_timer._times[-1]
+            if gp is not None:
+                gp.add("decode", decode_s)
+            if tr:
+                # The end stamp is the ITL clock's `now`; `reqs` lists the
+                # requests that decoded (the per-request ITL derivation).
+                tr.complete("decode_tick", t0, now, step=step, n_active=n_active,
+                            chained=chained,
+                            reqs=[int(st.req_ids[i]) for i in range(S) if st.active[i]])
+            if reg is not None:
+                reg.counter("serve_decode_tokens_total").inc(n_active)
+                reg.histogram("serve_decode_step_seconds").observe(decode_s)
+                if chained:
+                    reg.histogram("serve_itl_seconds").observe(st.itls[-1])
+                # Per-token FLOPs at the width this tick attended, and the
+                # MFU of the decode just timed.
+                fpt = _cost.serve_decode_flops_per_token(cfg.spec, eng.last_attend_width)
+                reg.gauge("serve_flops_per_token").set(fpt)
+                reg.gauge("serve_mfu").set(_cost.mfu(fpt * n_active, decode_s,
+                                                     cfg.tensor_parallel, self._resolve_peak()))
             for s in range(S):
                 if not st.active[s]:
                     continue
@@ -678,10 +1003,98 @@ class Scheduler:
             st.last_decode_done = None
             if (st.deadlines_on and not prefilled_any
                     and any(o is not None for o in st.occupant)):
-                # Only expiring work remains: yield the host briefly instead
-                # of spinning until a wall-clock deadline passes.
+                # Only stalled or expiring work remains: yield the host
+                # briefly instead of spinning until a deadline passes.
                 time.sleep(0.0005)
+        if reg is not None:
+            depth = 0
+            for q in st.pending:  # (arrival, id)-sorted: early break
+                if q.arrival > step:
+                    break
+                depth += 1
+            reg.gauge("serve_queue_depth").set(depth)
+            reg.gauge("serve_active_slots").set(int(st.active.sum()))
+            reg.gauge("serve_occupied_slots").set(sum(o is not None for o in st.occupant))
+            if eng.prefix is not None:
+                reg.gauge("serve_prefix_pool_entries").set(len(eng.prefix))
+            if eng.paged:
+                reg.gauge("serve_kv_pages_free").set(eng.pages.free)
+                reg.gauge("serve_kv_pages_shared").set(eng.pages.shared)
+            if self._mem is not None:
+                self._mem.sample()
+        if gp is not None:
+            gp.end_tick()
         st.step = step + 1
         if all(o is None for o in st.occupant) and st.pending:
             # Jump an idle gap straight to the next arrival.
             st.step = max(st.step, st.pending[0].arrival)
+
+
+def request_slo_samples(records) -> dict[int, tuple[float, list[float]]]:
+    """Per-request SLO samples from a run's tracer records:
+    ``{request_id: (ttft_seconds, [itl_seconds, ...])}``. TTFT is
+    ``first_token.t - eligible.t``; the ITL stream is the gaps between the
+    request's token times (its ``first_token`` stamp, then the end stamp of
+    every ``decode_tick`` whose ``reqs`` lists it). Requests that never
+    reached a first token are absent. The shared substrate of the grouped
+    :func:`derive_request_slo` and the router's per-class accounting."""
+    eligible: dict[int, float] = {}
+    first: dict[int, float] = {}
+    token_times: dict[int, list[float]] = {}
+    for rec in records:
+        name = rec.get("name")
+        attrs = rec.get("attrs", {})
+        if name == "eligible":
+            eligible.setdefault(attrs["req"], rec["t"])
+        elif name == "first_token":
+            rid = attrs["req"]
+            first[rid] = rec["t"]
+            token_times.setdefault(rid, []).append(rec["t"])
+        elif name == "decode_tick":
+            for rid in attrs.get("reqs", ()):
+                token_times.setdefault(rid, []).append(rec["t"])
+    out: dict[int, tuple[float, list[float]]] = {}
+    for rid, t1 in first.items():
+        ts = token_times[rid]
+        out[rid] = (t1 - eligible[rid], [b - a for a, b in zip(ts, ts[1:])])
+    return out
+
+
+def derive_request_slo(records, group_by=None):
+    """SLO stats derived purely from a run's tracer records.
+
+    ``group_by=None``: the run-global ``(ttft, itl)`` ``StepStats`` pair,
+    EXACTLY equal (the same floats) to the run's ``ServeStats.ttft`` /
+    ``.itl``: TTFT is ``first_token.t - eligible.t`` per request, ITL the
+    gap between consecutive ``decode_tick`` end stamps whose later tick is
+    ``chained``. ``group_by`` (a dict or callable: request id -> label,
+    None drops it): ``{label: (ttft, itl)}`` pooling the members'
+    :func:`request_slo_samples`; a group with no first token is absent."""
+    if group_by is None:
+        eligible: dict[int, float] = {}
+        ttfts: list[float] = []
+        itls: list[float] = []
+        prev: float | None = None
+        for rec in records:
+            name = rec.get("name")
+            attrs = rec.get("attrs", {})
+            if name == "eligible":
+                eligible.setdefault(attrs["req"], rec["t"])
+            elif name == "first_token":
+                ttfts.append(rec["t"] - eligible[attrs["req"]])
+            elif name == "decode_tick":
+                if attrs.get("chained") and prev is not None:
+                    itls.append(rec["t"] - prev)
+                prev = rec["t"]
+        return StepStats.from_times(ttfts), StepStats.from_times(itls)
+    key_of = group_by if callable(group_by) else group_by.get
+    grouped: dict[object, tuple[list[float], list[float]]] = {}
+    for rid, (ttft, itls_r) in request_slo_samples(records).items():
+        key = key_of(rid)
+        if key is None:
+            continue
+        g = grouped.setdefault(key, ([], []))
+        g[0].append(ttft)
+        g[1].extend(itls_r)
+    return {k: (StepStats.from_times(tt), StepStats.from_times(ii))
+            for k, (tt, ii) in grouped.items()}

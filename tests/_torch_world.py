@@ -36,7 +36,15 @@ from ddl_tpu_torch.parallel.mesh import destroy_world, init_world, make_grid
 from ddl_tpu_torch.ops.optimizers import adam_init
 from ddl_tpu_torch.resilience import FaultInjector, FaultSpec
 from ddl_tpu_torch.utils import checkpoint as ck
-from ddl_tpu_torch.serve import InferenceEngine, Request, Scheduler, ServeConfig
+from ddl_tpu_torch.serve import (
+    ClassSpec,
+    InferenceEngine,
+    Request,
+    Router,
+    RouterConfig,
+    Scheduler,
+    ServeConfig,
+)
 from ddl_tpu_torch.serve.cache import host_cache, host_paged_cache
 from ddl_tpu_torch.strategies import async_ps
 from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
@@ -259,6 +267,12 @@ SERVE_PROMPTS = dict(num=6, min_len=3, max_len=20, vocab=16, seed=0)
 SERVE_NEW = 8
 SERVE_STATS = ("prefill_tokens", "decode_steps", "decode_tokens", "prefix_lookups",
                "prefix_hits", "prefill_tokens_saved")
+# The fleet at tp 2: a 1-replica router against the bare scheduler on the
+# paged pool (arrivals staggered one a tick), and request FLEET_MOVED
+# preempted after FLEET_PREEMPT_AT ticks on one engine and adopted by another.
+FLEET_SERVE = dict(slots=3, capacity=64, page_size=8)
+FLEET_PREEMPT_AT = 4
+FLEET_MOVED = 0
 
 
 # The checkpoint and resilience family, after the serve cases (outside the
@@ -412,6 +426,64 @@ def record_margins(engine) -> dict:
     return margins
 
 
+def fleet_requests(prompts, request_cls):
+    """The fleet case's stream: each prompt arriving one tick after the
+    previous, classed ``default``."""
+    return [request_cls(id=i, prompt=p, max_new_tokens=SERVE_NEW, arrival=i)
+            for i, p in enumerate(prompts)]
+
+
+def _fleet_case(grid, init, prompts, results):
+    """The fleet at tp 2: the bare scheduler's tokens and every decode
+    step's logits, a 1-replica router's (equal bitwise), and one request's
+    preempt -> adopt round trip between two engines of this tp group (its
+    tokens, the dumped pages' shape: this rank's heads)."""
+    cfg = ServeConfig(spec=LM_SPEC, tensor_parallel=SERVE_TP, **FLEET_SERVE)
+    reqs = fleet_requests(prompts, Request)
+
+    def logged(eng, log):
+        decode = eng.decode
+
+        def rec(*a, **k):
+            nxt, logits = decode(*a, **k)
+            log.append(logits.copy())
+            return nxt, logits
+
+        eng.decode = rec
+        return eng
+
+    bare_log, router_log = [], []
+    done, _ = Scheduler(logged(InferenceEngine(cfg, params=init, grid=grid), bare_log)).run(reqs)
+    router = Router(RouterConfig(serve=cfg, replicas=1, classes=(ClassSpec("default"),)),
+                    params=init, grid=grid)
+    logged(router.engines[0], router_log)
+    rdone, _ = router.run(reqs)
+    results["fleet/router_equal"] = np.asarray(
+        all(rdone[i].tokens == done[i].tokens for i in done) and len(bare_log) == len(router_log)
+        and all(np.array_equal(a, b) for a, b in zip(bare_log, router_log)))
+    for i, c in rdone.items():
+        results[f"fleet/router/{i}/tokens"] = np.asarray(c.tokens, np.int64)
+    a = Scheduler(InferenceEngine(cfg, params=init, grid=grid))
+    b = Scheduler(InferenceEngine(cfg, params=init, grid=grid))
+    a.begin()
+    b.begin()
+    a.submit(reqs[FLEET_MOVED])
+    for _ in range(FLEET_PREEMPT_AT):
+        a.tick()
+    pre = a.preempt(FLEET_MOVED)
+    b.adopt(pre)
+    while not b.idle:
+        b.tick()
+    moved, _ = b.collect()
+    a.collect()
+    results["fleet/moved/tokens"] = np.asarray(moved[FLEET_MOVED].tokens, np.int64)
+    results["fleet/moved/generated_at_preempt"] = np.asarray(len(pre.generated))
+    results["fleet/moved/k_shape"] = np.asarray(pre.k.shape)
+    results["fleet/moved/pools_whole"] = np.asarray(all(
+        s.engine.pages.free == s.engine.num_pages and s.engine.pages.reserved == 0
+        for s in (a, b)))
+
+
 def _serve_cases(world, init, results):
     """Every serve case on each tp-2 group of the world, then the cached
     and paged forwards call by call: completions, counters and each
@@ -436,6 +508,7 @@ def _serve_cases(world, init, results):
         results[f"{key}/stats"] = np.asarray([getattr(stats, f) for f in SERVE_STATS])
         results[f"{key}/pool_dtype"] = np.asarray(str(eng.cache.k.dtype))
         results[f"{key}/local_heads"] = np.asarray(eng.cache.k.shape[3])
+    _fleet_case(grid, init, prompts, results)
     # The cached forwards on this rank's shard and head subset.
     calls = kv_calls()
     params = lm_params_from_numpy(init, LM_SPEC, "cpu", tensor_parallel=SERVE_TP,

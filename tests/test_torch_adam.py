@@ -40,6 +40,14 @@ CARDS = [(132, 6), (132, 3), (114, 8), (1, 1)]
 THREADS = fused_adam.THREADS
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jx():
     """The JAX side, imported here so that the card-only test below needs

@@ -37,6 +37,14 @@ TINY = dict(conv_channels=tcnn.TINY_CONV_CHANNELS, fc_sizes=tcnn.TINY_FC_SIZES)
 QUIET = lambda s: None  # noqa: E731
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def init_np(small_params):
     # Creation order (v0..v13): the JAX trainer lays its flat vector out in

@@ -56,6 +56,14 @@ KERNEL_O_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-4),
 SHAPES = [(2, 64, 4, 16), (2, 72, 2, 32)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jx():
     """The JAX side, imported here so that the card-only tests need no JAX."""

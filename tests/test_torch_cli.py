@@ -13,11 +13,20 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from ddl_tpu.cli import build_parser as j_parser, config_from_args as j_config
 from ddl_tpu_torch import cli
 
 PRECISION_FLAGS = ("--precision", "--bf16", "--fp32")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _configs(argv, num_workers):

@@ -22,6 +22,14 @@ from ddl_tpu_torch.tools import devtime
 CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ev(name, device_type, start, end, id=0):
     return types.SimpleNamespace(name=name, device_type=device_type, id=id,
                                  time_range=types.SimpleNamespace(start=start, end=end))

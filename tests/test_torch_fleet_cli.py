@@ -1,0 +1,223 @@
+"""The port's ``serve --replicas`` CLI (ddl_tpu_torch/cli.py,
+``_run_serve_router``) against JAX's on the CPU, at a tiny width (vocab 32,
+d_model 32, 2 heads, 2 layers, d_ff 64), both serving one checkpoint that
+JAX's ``save_checkpoint`` wrote from JAX's init.
+
+Each case runs JAX's CLI once and the port's once (the module fixture
+``cli_runs``), and is pinned against JAX's on the same flags:
+
+- ``router``: 2 paged replicas with a prefix cache, a shed threshold, per
+  class SLOs and a bulk burst over two chat families: completions, per
+  class tallies, placements, sheds, the printed router and class lines;
+- ``autoscale_crash``: ``--autoscale ... --inject-fault replica_crash@2:1``
+  (replica 1 of 2 crashes at tick 2 with requests in flight and the
+  controller heals the fleet): tokens, statuses, placements, the fleet
+  digest and its printed line;
+- ``roles``: ``--roles prefill=1,decode=1`` (serve_bench's disagg_compare
+  fleet at this width): tokens, statuses, the disagg digest (hand-offs,
+  hand-off pages) and its printed line.
+
+Port-only: the crashed and the disaggregated runs' tokens equal the plain
+fleet's (the same flags without the fault, or colocated). Each bad
+combination of the fleet flags exits with JAX's text, and the flags of the
+parts still to port refuse.
+
+Greedy comparisons against JAX keep the top-2 margin gate (1e-5, the cached
+logits' tolerance): a near-tie fails loudly instead of passing by luck.
+"""
+
+import contextlib
+import io
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from ddl_tpu import cli as jcli
+from ddl_tpu.models import transformer as jt
+from ddl_tpu.utils import checkpoint as jck
+from ddl_tpu_torch import cli
+from test_torch_fleet import MARGIN, recording
+
+JSPEC = jt.LMSpec(vocab=32, d_model=32, num_heads=2, num_layers=2, d_ff=64)
+MODEL = ["--vocab", "32", "--d-model", "32", "--heads", "2", "--layers", "2", "--d-ff", "64"]
+CLI_CASES = {
+    "router": ["--replicas", "2", "--slots", "2", "--capacity", "48", "--page-size", "8",
+               "--prefix-cache", "2", "--shed-threshold", "4", "--traffic",
+               "horizon=8;seed=4;burst=2:3:3.0:bulk;chat:rate=0.6,pmin=8,pmax=16,new=6,"
+               "families=2,fprefix=5;bulk:rate=0.5,pmin=8,pmax=16,new=6",
+               "--slo", "chat:ttft=5,priority=0;bulk:ttft=60,priority=2,margin=2"],
+    # Replica 1 of a 2-replica paged fleet crashes at tick 2 with 2 requests
+    # in flight; the controller heals the fleet with a third engine.
+    "autoscale_crash": ["--replicas", "2", "--slots", "2", "--capacity", "16", "--page-size",
+                        "8", "--traffic", "horizon=4;seed=1;chat:rate=0.8,pmin=4,pmax=8,new=4;"
+                        "bulk:rate=1.0,pmin=4,pmax=8,new=4", "--autoscale",
+                        "backlog=2,sustain=1,idle=3", "--max-replicas", "2", "--inject-fault",
+                        "replica_crash@2:1"],
+    # serve_bench's disagg_compare fleet, at this width.
+    "roles": ["--replicas", "2", "--roles", "prefill=1,decode=1", "--slots", "4", "--capacity",
+              "64", "--page-size", "8", "--traffic",
+              "horizon=12;seed=5;max_requests=6;chat:rate=0.4,pmin=8,pmax=16,new=8"],
+}
+FLEET_CASES = ["autoscale_crash", "roles"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def ckpt_dir(tmp_path_factory):
+    weights = jax.tree.map(np.asarray, jt.init_lm_params(jax.random.PRNGKey(0), JSPEC))
+    d = tmp_path_factory.mktemp("fleet_ckpt")
+    jck.save_checkpoint(d / "ckpt.npz", {"params": weights})
+    return str(d)
+
+
+def _cli_json(main, argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(argv) == 0
+    lines = buf.getvalue().strip().splitlines()
+    return json.loads(lines[-1]), lines[:-1]
+
+
+@contextlib.contextmanager
+def _jax_cli():
+    """JAX's CLI in this process: its ``main`` sets the virtual CPU device
+    count before any backend starts; here the backend already runs with the
+    8 devices tests/conftest.py asks for, so that call is skipped."""
+    from ddl_tpu.parallel import mesh as jmesh
+
+    saved = jmesh.set_cpu_device_count
+    jmesh.set_cpu_device_count = lambda n: None
+    try:
+        yield
+    finally:
+        jmesh.set_cpu_device_count = saved
+
+
+@pytest.fixture(scope="module")
+def cli_runs(ckpt_dir):
+    """Each case's (JAX's JSON and lines, the port's, the port's top-2
+    margins, the argv), run once."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            argv = ["serve", *MODEL, "--checkpoint-dir", ckpt_dir, *CLI_CASES[name], "--json"]
+            with _jax_cli():
+                theirs = _cli_json(jcli.main, argv + ["--platform", "cpu"])
+            with recording() as rec:
+                ours = _cli_json(cli.main, argv + ["--device", "cpu"])
+            cache[name] = (theirs, ours, rec["margins"], argv)
+        return cache[name]
+
+    return get
+
+
+def test_cli_router_matches_jax(cli_runs):
+    (theirs, tlines), (ours, olines), margins, _ = cli_runs("router")
+    assert ours["completions"] == theirs["completions"]
+    assert ours["per_class"] == theirs["per_class"]
+    for key in ("per_replica_requests", "affinity_placements", "load_placements",
+                "router_sheds", "prefix_hit_rate", "ticks", "replicas"):
+        assert ours["router"][key] == theirs["router"][key], key
+    for name, row in theirs["router"]["per_class"].items():
+        assert {k: ours["router"]["per_class"][name][k] for k in ("requests", "ok", "shed")} == \
+            {k: row[k] for k in ("requests", "ok", "shed")}
+    assert [x for x in olines if x.startswith("router:")] == \
+        [x for x in tlines if x.startswith("router:")]
+    assert [x.split("|")[0] for x in olines if x.startswith("class ")] == \
+        [x.split("|")[0] for x in tlines if x.startswith("class ")]
+    assert ours["router"]["router_sheds"] > 0 and ours["device"] == "cpu"
+    assert (ours["speculate"], ours["slo_rules"], ours["anomaly_rules"]) == (None, None, None)
+    assert min(margins) > MARGIN
+
+
+def _strip_times(summary):
+    """The router digest without its wall-clock fields."""
+    out = json.loads(json.dumps(summary))
+    for row in out["per_class"].values():
+        for key in ("ttft_ms", "itl_ms", "ttft_slo_attained", "itl_slo_attained"):
+            row.pop(key)
+    return out
+
+
+@pytest.mark.parametrize("name", FLEET_CASES)
+def test_cli_fleet_matches_jax(cli_runs, name):
+    """Tokens, statuses, placements, sheds, the per-class tallies and the
+    fleet and disagg digests equal JAX's CLI on the same flags; the printed
+    fleet and disagg lines too."""
+    (theirs, tlines), (ours, olines), margins, _ = cli_runs(name)
+    assert ours["completions"] == theirs["completions"]
+    assert ours["per_class"] == theirs["per_class"]
+    assert _strip_times(ours["router"]) == _strip_times(theirs["router"])
+    assert ours["config"] == {**theirs["config"], "spec": ours["config"]["spec"]}
+    assert min(margins) > MARGIN
+    for prefix in ("fleet:", "disagg:", "router:"):
+        assert [x for x in olines if x.startswith(prefix)] == \
+            [x for x in tlines if x.startswith(prefix)]
+    statuses = {c["status"] for c in ours["completions"].values()}
+    if name == "autoscale_crash":
+        fleet = ours["router"]["fleet"]
+        assert fleet["crashes"] == 1 and fleet["requeues"] >= 1 and statuses == {"ok"}
+        crash = [e for e in fleet["events"] if e["kind"] == "replica_crash"]
+        assert crash[0]["inflight"] >= 1 and fleet["scale_outs"] >= 1
+    else:
+        dg = ours["router"]["disagg"]
+        assert dg["handoffs"] == len(ours["completions"]) and dg["handoff_pages"] > 0
+        assert dg["roles"] == {"decode": 1, "prefill": 1} and statuses == {"ok"}
+
+
+@pytest.mark.parametrize("name", FLEET_CASES)
+def test_cli_fleet_tokens_equal_the_plain_fleet(cli_runs, name):
+    """A crash (every request completes exactly once) and the prefill ->
+    decode hand-off leave every request's tokens as the plain fleet's (the
+    same flags without the fault, or colocated)."""
+    _, (ours, _), _, argv = cli_runs(name)
+    plain = list(argv)
+    flag = "--roles" if name == "roles" else "--inject-fault"
+    i = plain.index(flag)
+    del plain[i:i + 2]
+    ref, _ = _cli_json(cli.main, plain + ["--device", "cpu"])
+    assert sorted(ours["completions"], key=int) == sorted(ref["completions"], key=int)
+    for i, c in ours["completions"].items():
+        assert c["tokens"] == ref["completions"][i]["tokens"] and c["status"] == "ok", i
+
+
+FLAG_CASES = [
+    ["--traffic", "chat:rate=1"], ["--slo", "chat:ttft=1"], ["--autoscale", ""],
+    ["--replicas", "2", "--max-replicas", "3"], ["--roles", "prefill=1,decode=1"],
+    ["--replicas", "2", "--roles", "prefill=1,decode=1"],
+    ["--replicas", "0"], ["--replicas", "2", "--num-prompts", "3"],
+    ["--replicas", "2", "--page-size", "8", "--roles", "prefill=2"],
+    ["--replicas", "2", "--traffic", "chat:speed=1"],
+    ["--replicas", "2", "--traffic", "c:rate=0"],
+    ["--replicas", "2", "--traffic", "c:rate=1,pmax=200"],
+    ["--replicas", "2", "--slo", "nope:ttft=1"],
+    ["--replicas", "2", "--autoscale", "speed=1"],
+    ["--replicas", "2", "--autoscale", "backlog=2"],
+    ["--replicas", "3", "--autoscale", "", "--max-replicas", "2"],
+    ["--replicas", "2", "--inject-fault", "replica_crash@2:1"],
+    ["--inject-fault", "replica_crash@2:1"],
+    ["--replicas", "2", "--prefill-chunk", "12"],
+]
+
+
+@pytest.mark.parametrize("flags", FLAG_CASES, ids=lambda f: " ".join(f))
+def test_cli_fleet_flags_fail_as_jax(flags):
+    """Each bad combination of the fleet flags exits with JAX's text
+    before any engine is built."""
+    argv = ["serve", *MODEL, "--capacity", "64", *flags]
+    with pytest.raises(SystemExit) as ours:
+        cli.main(argv + ["--device", "cpu"])
+    with _jax_cli(), pytest.raises(SystemExit) as theirs:
+        jcli.main(argv + ["--platform", "cpu"])
+    assert str(ours.value) == str(theirs.value)

@@ -40,6 +40,14 @@ CACHE_ATOL = 1e-6
 CACHE_RTOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.tensor(np.asarray(a))
 

@@ -23,6 +23,14 @@ TABLES = {
 SHARDS = (1, 2, 3, 4, 7, 14)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fields(a):
     return dataclasses.asdict(a) | {"max_shard": a.max_shard, "balance": a.balance}
 

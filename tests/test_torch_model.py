@@ -26,6 +26,14 @@ RTOL = 1e-4
 ATOL = 1e-7
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(specs, batch=8, seed=0):
     rng = np.random.default_rng(seed)
     params = {}
@@ -68,6 +76,22 @@ def test_logits_loss_grads_match_jax(width):
             grads_t[name].numpy(), np.asarray(grads_j[name]), rtol=RTOL, atol=ATOL,
             err_msg=f"grad {name}",
         )
+
+
+@pytest.mark.parametrize("width", ["small", "full"])
+def test_num_params_and_accuracy_match_jax(width):
+    """``num_params`` of each width and ``accuracy`` on the same weights and
+    batch (a batch of 64, so the hit count is not trivially 0 or all)."""
+    specs = SPECS[width]
+    assert tcnn.num_params(specs) == jcnn.num_params(specs)
+    params, x, y = _inputs(specs, batch=64, seed=3)
+    tp = params_from_numpy(params, "cpu", specs)
+    y[::2] = np.eye(10, dtype=np.float32)[tcnn.apply_fn(tp, torch.from_numpy(x[::2]))
+                                          .argmax(-1).numpy()]
+    want = float(jcnn.accuracy({k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x),
+                               jnp.asarray(y)))
+    got = tcnn.accuracy(tp, torch.from_numpy(x), torch.from_numpy(y))
+    assert got.dtype == torch.float32 and float(got) == want and 0.5 <= want < 1.0
 
 
 def test_module_is_apply_fn():

@@ -58,6 +58,14 @@ ATOL, RTOL = 2e-5, 1e-3
 LOSS_RTOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def full():
     return jax.tree.map(np.asarray, jt.init_lm_params(jax.random.PRNGKey(3), JSPEC))

@@ -100,6 +100,14 @@ CONTRACT_RTOL, CONTRACT_ATOL, MASTERS_ATOL = 0.1, 0.05, 5e-2
 NEAR_TIE = 0.0625
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _outcome(fn):
     """A resolved policy's observable fields, or the exception's type."""
     try:

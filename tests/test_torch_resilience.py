@@ -2,7 +2,7 @@
 trainers' resume, preemption, guard and rollback hooks, serving from a
 checkpoint, the CLI's flags) against the JAX package's
 (tests/test_resilience.py and tests/test_checkpoint_resume.py, whose cases
-these are, less the serve-scheduler ones: ROADMAP queue 1, item 8; the
+these are, less the serve-fleet ones, in tests/test_torch_fleet.py; the
 observability ones are in tests/test_torch_obs.py, and ``GuardMonitor``'s
 registry and tracer hooks here).
 
@@ -666,8 +666,9 @@ def test_cli_preempt_truncate_and_resume_on_sync(tmp_path, monkeypatch):
 
 def test_cli_lm_guard_chaos_and_serve_from_checkpoint(tmp_path):
     """nan_grads@1x2 with --max-bad-steps 2 rolls back once and finishes
-    finite; serve --checkpoint-dir then serves those params; a serve fault
-    reaches the scheduler, which refuses it (item 8)."""
+    finite; serve --checkpoint-dir then serves those params; a serve stall
+    reaches the scheduler: without a deadline the run is refused, as JAX's,
+    and with one the stalled request alone is evicted with no tokens."""
     lm = ["lm", "--device", "cpu", "--seq-scheme", "full", "--seq-len", "32", "--vocab", "16",
           "--d-model", "32", "--heads", "2", "--layers", "2", "--d-ff", "64",
           "--train-seqs", "64", "--test-seqs", "16", "--batch-size", "16", "--eval-every", "1",
@@ -684,5 +685,10 @@ def test_cli_lm_guard_chaos_and_serve_from_checkpoint(tmp_path):
     assert all(c["status"] == "ok" for c in got["completions"].values())
     with pytest.raises(SystemExit, match="no checkpoint at"):
         cli.main(serve + ["--checkpoint-dir", str(tmp_path / "none")])
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="stall fault injected but no TTFT/total deadline"):
         cli.main(serve + ["--inject-fault", "stall@1"])
+    # A deadline the unstalled request meets with room to spare under load.
+    got = _cli_json(serve + ["--inject-fault", "stall@1", "--request-deadline", "1.0"])
+    assert got["completions"]["1"]["status"] == "deadline_exceeded"
+    assert got["completions"]["1"]["tokens"] == []
+    assert got["completions"]["0"]["status"] == "ok"

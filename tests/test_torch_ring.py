@@ -33,6 +33,14 @@ from ddl_tpu_torch.utils import tree
 SIZES = [(1, 8), (2, 16), (3, 24), (4, 32), (8, 64), (4, 128)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("P,T", SIZES)
 def test_zigzag_layout_equals_jax(P, T):
     t_local = T // P

@@ -35,6 +35,14 @@ QUIET = lambda s: None  # noqa: E731
 BASE = dict(epochs=1, batch_size=4, learning_rate=1e-3, eval_every=2, seed=3, scheme="full")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("kw", [
     dict(),
     dict(num_train=10, num_test=3, seq_len=32, vocab=16, seed=4),

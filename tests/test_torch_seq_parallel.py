@@ -93,8 +93,11 @@ from ddl_tpu.models.partition import lm_param_specs as j_lm_param_specs
 from ddl_tpu.ops import kv_cache as jkv
 from ddl_tpu.parallel import collectives as jcoll
 from ddl_tpu.parallel.mesh import TP_AXIS, make_mesh
+from ddl_tpu.serve import ClassSpec as JClassSpec
 from ddl_tpu.serve import InferenceEngine as JEngine
 from ddl_tpu.serve import Request as JRequest
+from ddl_tpu.serve import Router as JRouter
+from ddl_tpu.serve import RouterConfig as JRouterConfig
 from ddl_tpu.serve import Scheduler as JScheduler
 from ddl_tpu.serve import ServeConfig as JServeConfig
 from ddl_tpu.serve import cache as jcache
@@ -135,6 +138,14 @@ CACHE_ATOL, CACHE_RTOL = 1e-6, 1e-5
 # HLO ledger, by collective kind (test_four_rank_metrics_match_jax).
 SCALAR_BYTES = {"zero1_ring": {"all-reduce": 8, "collective-permute": -96},
                 "hybrid_tp2_dp2": {"all-reduce": 56}, "dp2_pp2": {"all-reduce": 32}}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jax_case(kw, jds, obs=False):
@@ -212,6 +223,7 @@ def lm_world(tmp_path_factory):
             for name, kw in _torch_world.LM_CASES.items()}
     want["serve"] = {name: _jax_serve(init, kw) for name, kw in _torch_world.SERVE_CASES.items()}
     want["kv"] = _jax_kv(init)
+    want["fleet"] = _jax_fleet(init)
     want["init"] = {spec.num_layers: jax.tree.leaves(init),
                     _torch_world.LM_SPEC_4L.num_layers: jax.tree.leaves(init4)}
     want["tmp"], want["standard"] = tmp, standard
@@ -235,6 +247,19 @@ def _jax_serve(init, kw):
                                                 max_new_tokens=_torch_world.SERVE_NEW)
                                        for i, p in enumerate(prompts)])
     return done, stats, margins
+
+
+def _jax_fleet(init):
+    """JAX's 1-replica router at tp 2 on the fleet case's stream: each
+    request's tokens."""
+    spec = jt.LMSpec(**vars(_torch_world.LM_SPEC))
+    cfg = JServeConfig(spec=spec, tensor_parallel=_torch_world.SERVE_TP,
+                       **_torch_world.FLEET_SERVE)
+    router = JRouter(JRouterConfig(serve=cfg, replicas=1, classes=(JClassSpec("default"),)),
+                     params=init)
+    prompts = j_synthesize_prompts(**_torch_world.SERVE_PROMPTS)
+    done, _ = router.run(_torch_world.fleet_requests(prompts, JRequest))
+    return {i: c.tokens for i, c in done.items()}
 
 
 def _jax_kv(init):
@@ -436,6 +461,26 @@ def test_four_rank_world_serves_at_tp2_as_jax(name, lm_world):
         if kw.get("temperature", 0.0) == 0.0 and not bf16:
             margins = np.concatenate([rank[f"{key}/{i}/margins"] for i in jdone])
             assert margins.size and margins.min() > MARGIN, margins.min()
+
+
+def test_four_rank_world_fleet_at_tp2_matches_jax(lm_world):
+    """At tp 2 on every rank: a 1-replica router equals the bare scheduler
+    (tokens and each decode step's logits, bitwise) and JAX's tp-2 router
+    (tokens); a request preempted mid-decode and adopted by another engine
+    of the tp group finishes with the same tokens, its dumped pages this
+    rank's half of the heads, both pools whole."""
+    got, want = lm_world
+    jtokens = want["fleet"]
+    moved = _torch_world.FLEET_MOVED
+    h = _torch_world.LM_SPEC.num_heads // _torch_world.SERVE_TP
+    for r, rank in enumerate(got):
+        assert bool(rank["fleet/router_equal"]), r
+        for i, tokens in jtokens.items():
+            assert rank[f"fleet/router/{i}/tokens"].tolist() == tokens, (r, i)
+        assert rank["fleet/moved/tokens"].tolist() == jtokens[moved], r
+        assert 1 < int(rank["fleet/moved/generated_at_preempt"]) < _torch_world.SERVE_NEW
+        assert int(rank["fleet/moved/k_shape"][3]) == h, r
+        assert bool(rank["fleet/moved/pools_whole"]), r
 
 
 @pytest.mark.parametrize("kind", ["cached", "paged"])

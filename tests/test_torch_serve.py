@@ -83,6 +83,14 @@ CASES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def weights():
     return jax.tree.map(np.asarray, jt.init_lm_params(jax.random.PRNGKey(0), JSPEC))
@@ -417,17 +425,27 @@ def test_engine_refuses_what_is_not_ported(kw, what):
 def test_scheduler_and_engine_refuse_what_is_not_ported():
     eng = InferenceEngine(ServeConfig(spec=TSPEC, slots=2, capacity=32, page_size=8),
                           device="cpu")
-    for kw in (dict(tracer=object()), dict(registry=object()), dict(metrics_writer=object()),
-               dict(injector=object()), dict(slo_monitor=object()), dict(peak_flops=1.0),
-               dict(anomaly_detector=object()), dict(role="prefill")):
+    for kw in (dict(metrics_writer=object()), dict(slo_monitor=object()), dict(peak_flops=1.0),
+               dict(anomaly_detector=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Scheduler(eng, **kw)
+    # The tracer, registry, fault injector, the disagg roles and the page
+    # hand-off are ported (tests/test_torch_router.py, test_torch_fleet.py):
+    # the hand-off's calls need an armed run.
+    from ddl_tpu_torch.obs import MetricRegistry
+    from ddl_tpu_torch.obs.trace import Tracer
+    from ddl_tpu_torch.resilience import FaultInjector, FaultSpec
+
+    for kw in (dict(tracer=Tracer()), dict(registry=MetricRegistry()),
+               dict(injector=FaultInjector(FaultSpec(kind="stall", step=1))),
+               dict(role="prefill")):
+        Scheduler(eng, **kw)
     sched = Scheduler(eng)
-    for call in (lambda: sched.preempt(0), lambda: sched.adopt(None), sched.abandon,
-                 lambda: eng.dump_slot_pages(0), lambda: eng.load_slot_pages(0, 0, 0, 0),
-                 lambda: eng.alias_slot_pages(1, 0, 4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for call in (lambda: sched.preempt(0), lambda: sched.adopt(None), sched.abandon):
+        with pytest.raises(RuntimeError, match="no armed run"):
             call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.alias_slot_pages(1, 0, 4)
     # Serving a checkpoint is ported (tests/test_torch_resilience.py): a
     # missing file is the loader's error.
     for call in (lambda: eng.load_params("x"),
@@ -476,8 +494,19 @@ def test_cli_refuses_serve_flags_not_ported(flag, value, monkeypatch):
     """Each flag of a slice not ported names its ROADMAP item. Tensor
     parallelism is ported: tp 2 is a world of 2 ranks, which needs
     torchrun. bf16 serving is ported: --bf16 serves in bf16. Serving a
-    checkpoint is ported: a directory without one exits, as JAX's CLI."""
+    checkpoint is ported: a directory without one exits, as JAX's CLI. The
+    fleet flags are ported (tests/test_torch_router.py): on this bare
+    prompt-set smoke each exits with JAX's text."""
     argv = SMOKE + [flag] + ([value] if value is not None else [])
+    fleet = {"--replicas": "--num-prompts does not apply with --replicas",
+             "--traffic": "--traffic requires --replicas",
+             "--slo": "--slo requires --replicas",
+             "--autoscale": "--autoscale requires --replicas",
+             "--roles": "--roles prefill:1 requires --replicas"}
+    if flag in fleet:
+        with pytest.raises(SystemExit, match=fleet[flag]):
+            cli.main(argv)
+        return
     if flag == "--checkpoint-dir":
         with pytest.raises(SystemExit, match="no checkpoint at ck/ckpt.npz"):
             cli.main(argv)

@@ -42,6 +42,14 @@ ATTN = {  # (jax, port) attention closures, causal
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _specs(name):
     return jt.LMSpec(**SPECS[name]), tt.LMSpec(**SPECS[name])
 
