@@ -214,6 +214,43 @@ g. precision_serve (after 11c) — serve_main's traffic with
    contiguous tokens up to the first near-tie (a first difference only at
    a top-2 margin below 0.0625), no kernel launched.
 
+The serving data plane's last two parts (after g, before the fleet), at
+serve_main's width (8 slots, capacity 512, pages of 64, greedy, the shared
+params), each setting every kernel count to 0 before each of its runs and
+failing if a flash or Adam kernel launched:
+
+s1. serve_speculate — the first 4 of serve_main's prompts, 64 new tokens
+   each (4 slots free for the draft lanes): the plain engine and
+   ``speculate_k=4`` (``ngram``), each warmed up, one recording run of each
+   (every decode row's logits, copied to the host), then timed turns
+   without recording (plain, spec, spec, plain): tokens equal to the plain
+   run's for every request in every run; each (request, token index)
+   logits row bitwise the plain run's while every row of that request so
+   far attended the plain run's page-count bucket, within atol 1e-4
+   (serve_vs_full_forward's) once the lanes widened one; decode steps <=
+   plain's; drafts proposed; the pool whole. Then one
+   ``speculate_method="prompt"`` run, tokens equal too. Prints the
+   acceptance rate, tokens a decode tick, decode tokens/s and ITL p50/p95
+   of each turn, and spec's decode tokens/s over plain's (the ratio of the
+   turns' means, and the least and most of one run over another).
+s2. serve_int8 — (a) layer 0's int8 payloads and scales after one prefill
+   equal ``quantize_rows`` of the fp32 engine's layer-0 rows after the same
+   prefill, on the card and on the host, bitwise; serve_main's traffic on
+   ``kv_dtype="int8"``: all ``ok``, tokens equal to the fp32 pool's up to
+   the first near-tie (a first difference only at a top-2 margin below
+   0.0625 on either side), pool bytes 4,352 a row against 16,384; both
+   pools recorded once (the top-2 margins), then timed in turns without
+   recording (fp32, int8, int8, fp32), each turn's tokens its pool's
+   recorded run's, int8's decode tokens/s over fp32's printed as s1's; (b)
+   serve_bench's longtail int8 arm (serve_bench.py:417-552: 10 short and 2
+   320-token prompts, 16 new each, 4 slots, a 4-entry prefix cache): the
+   fp32 pool of 16 pages and the int8 pool of the same 16,777,216 bytes (60
+   pages), every request ``ok`` and free pages at the end >= 1.8x fp32's;
+   (c) one int8 preempt -> adopt between two int8 engines: the adopter's
+   pages the dumped pairs bitwise, its tokens the unpreempted run's,
+   ``handoff_bytes_total`` = pages x 278,528; (d) ``speculate_k=4`` over the
+   int8 pool: s1's requests' tokens equal the int8 plain run's.
+
 Resilience phases (checkpoints, resume, preemption, the non-finite guard
 with rollback, serving from a checkpoint), each raising on failure:
 
@@ -277,7 +314,7 @@ o3. in r5, the skip and the rollback runs with a registry and a tracer:
 o4. in 11p, GPipe's T = 512 run and its pp-1 oracle with a registry: each
    rank's ``train_grad_norm`` within 2e-5 + 1e-3 of the oracle's.
 
-The serving fleet (after g, before 12), each phase one of
+The serving fleet (after s2, before 12), each phase one of
 benchmarks/serve_bench.py's fleet configurations at serve_main's width
 (``lm_spec()``, the port's init from seed 0, placed once and shared by every
 replica, capacity 512, pages of 64), each setting every kernel count to 0
@@ -330,7 +367,9 @@ and ``pp_launches`` (rank 0's, GPipe) from 11p, and under the policy
 ``bf16_launches`` (c), ``bf16_ulysses_zero1_launches`` (d),
 ``bf16_tp_launches`` (e) and ``bf16_pp_launches`` (f); the Adam row's
 ``resume_launches`` and ``resume_async_launches`` (r1, r2), each flash
-row's ``guard_launches`` and ``guard_rollback_launches`` (r5); under
+row's ``guard_launches`` and ``guard_rollback_launches`` (r5); every
+row's ``serve_speculate_launches`` and ``serve_int8_launches`` (s1, s2: 0,
+no kernel lies on the serve path); under
 telemetry each flash row's ``obs_launches`` and ``obs_profiled_launches``
 (o1: counted, and read from the profiler's trace) and the Adam row's
 ``obs_cli_profiled_launches`` (o2)), the
@@ -2080,7 +2119,7 @@ def serve_engine(params, **kw):
     ``params`` (the port's init from seed 0, placed once)."""
     from ddl_tpu_torch.serve import InferenceEngine, ServeConfig
 
-    return InferenceEngine(ServeConfig(spec=lm_spec(), slots=8, capacity=512, **kw),
+    return InferenceEngine(ServeConfig(spec=lm_spec(), **{"slots": 8, "capacity": 512, **kw}),
                            placed_params=params, device="cuda")
 
 
@@ -2351,6 +2390,365 @@ def serve_bf16(torch, params, fused_adam, fa, fp32_out) -> dict:
     emit("precision_serve", **out)
     if failures:
         raise AssertionError(f"precision_serve: {failures}")
+    return out
+
+
+# The serving data plane's speculative decode and int8 pool.
+SPEC_PROMPTS = 4  # serve_main's first 4 prompts: 4 of the 8 slots stay free for lanes
+SPEC_K = 4
+SPEC_WIDTH_ATOL = SERVE_TOL[0]  # a row once the lanes widened its request's bucket
+INT8_NEAR_TIE = 0.0625  # an int8-pool token may flip only below this top-2 margin
+LONGTAIL = dict(num_short=10, num_long=2, short_min=8, short_max=24, long_len=320, vocab=256,
+                seed=4)  # serve_bench.py's longtail arm at this width
+LONGTAIL_NEW = 16
+LONGTAIL_ROWS = 1024  # serve_bench's fp32 budget: 4 slots x capacity / 2
+INT8_HANDOFF_AT = 24  # ticks before the preemption
+
+
+def _spec_requests():
+    from ddl_tpu_torch.data.lm import synthesize_prompts
+    from ddl_tpu_torch.serve import Request
+
+    prompts = synthesize_prompts(**SERVE_PROMPTS)[:SPEC_PROMPTS]
+    return [Request(id=i, prompt=p, max_new_tokens=SERVE_NEW) for i, p in enumerate(prompts)]
+
+
+def _record_rows(eng, rows: dict):
+    """Wraps ``eng.decode`` to keep each active row's logits and the width
+    it attended, by (request id, lengths): the coordinate plain decode and
+    the draft lanes share; the last write wins (a rejected lane's position
+    is recomputed by the step that emits it)."""
+    import numpy as np
+
+    decode = eng.decode
+
+    def rec(last, lengths, rids, active, **k):
+        nxt, logits = decode(last, lengths, rids, active, **k)
+        for i in np.nonzero(np.asarray(active, bool))[0]:
+            rows[(int(rids[i]), int(lengths[i]))] = (logits[i].copy(), eng.last_attend_width)
+        return nxt, logits
+
+    eng.decode = rec
+
+
+def _spec_turn(torch, eng, requests, rows=None) -> dict:
+    """One warmed-up ``Scheduler.run`` of ``eng`` with a registry: tokens,
+    stats and the speculation counters; the pool must come back whole."""
+    from ddl_tpu_torch.obs import MetricRegistry
+    from ddl_tpu_torch.serve import Scheduler
+
+    reg = MetricRegistry()
+    if rows is not None:
+        _record_rows(eng, rows)
+    done, stats = Scheduler(eng, registry=reg).run(requests)
+    if rows is not None:
+        del eng.decode  # back to the class's method
+    torch.cuda.synchronize()
+    counts = {n: int(reg.counter(f"speculate_{n}_total").value())
+              for n in ("proposed", "accepted")}
+    whole = eng.pages.free == eng.num_pages and eng.pages.reserved == 0 and not eng.table_len.any()
+    return dict(tokens={i: c.tokens for i, c in done.items()},
+                ok=all(c.status == "ok" for c in done.values()), stats=stats, whole=whole,
+                **counts)
+
+
+def _spec_report(run) -> dict:
+    st = run["stats"]
+    return dict(decode_steps=st.decode_steps, decode_tokens=st.decode_tokens,
+                tokens_per_tick=st.decode_tokens / st.decode_steps,
+                decode_tokens_per_s=st.decode_tokens_per_s,
+                itl_ms={"p50": st.itl.p50_ms, "p95": st.itl.p95_ms},
+                proposed=run["proposed"], accepted=run["accepted"],
+                acceptance=run["accepted"] / run["proposed"] if run["proposed"] else None)
+
+
+def _rows_against(rows, ref) -> dict:
+    """Each (request, token index) row of ``rows`` against ``ref``'s: bitwise
+    while every row of the request so far attended ``ref``'s width, within
+    SPEC_WIDTH_ATOL after. Returns the counts and the largest difference."""
+    import numpy as np
+
+    clean, out = {}, dict(bitwise=0, widened=0, failures=[], max_abs_diff=0.0)
+    for key in sorted(ref):
+        (want, width), (got, gwidth) = ref[key], rows[key]
+        same = clean[key[0]] = clean.get(key[0], True) and gwidth == width
+        diff = float(np.abs(got - want).max())
+        out["max_abs_diff"] = max(out["max_abs_diff"], diff)
+        if (same and not np.array_equal(got, want)) or diff > SPEC_WIDTH_ATOL:
+            out["failures"].append(dict(key=key, same_widths=same, diff=diff))
+        out["bitwise" if same else "widened"] += 1
+    return out
+
+
+def _turns_ratio(turns, a: str, b: str) -> dict:
+    """Decode tokens/s of the ``a`` turns over the ``b`` turns (the runs of
+    one ``b, a, a, b`` sequence): the ratio of the means, and the least and
+    the most that one ``a`` run over one ``b`` run gives."""
+    rate = lambda n: [r["stats"].decode_tokens_per_s for m, r in turns if m == n]  # noqa: E731
+    ra, rb = rate(a), rate(b)
+    pairs = [x / y for x in ra for y in rb]
+    return dict(mean=(sum(ra) / len(ra)) / (sum(rb) / len(rb)), low=min(pairs), high=max(pairs))
+
+
+def serve_speculate(torch, params, fused_adam, fa, card: str) -> dict:
+    """s1: speculative decoding at serve_main's width against plain decode:
+    one recording run of each (the logits rows), then timed turns (plain,
+    spec, spec, plain), then the prompt-lookup method."""
+    requests = _spec_requests()
+    start = time.perf_counter()
+    engines = {"plain": serve_engine(params, page_size=64),
+               "spec": serve_engine(params, page_size=64, speculate_k=SPEC_K)}
+    from ddl_tpu_torch.serve import Scheduler
+
+    launches = {}
+    for name, eng in engines.items():
+        zero_launches(fused_adam, fa)
+        Scheduler(eng).warmup(requests)
+        launches[f"warmup_{name}"] = serve_launches(f"serve_speculate warm-up {name}",
+                                                    fused_adam, fa)
+    # The logits rows come from one recording run of each engine, kept out
+    # of the timed turns: recording copies every row's logits to the host.
+    rows = {"plain": {}, "spec": {}}
+    recorded = []
+    for name, eng in engines.items():
+        zero_launches(fused_adam, fa)
+        recorded.append((f"recorded {name}", _spec_turn(torch, eng, requests, rows[name])))
+        launches[f"recorded_{name}"] = serve_launches("serve_speculate", fused_adam, fa)
+    turns = []
+    for i, name in enumerate(("plain", "spec", "spec", "plain")):
+        zero_launches(fused_adam, fa)
+        turns.append((name, _spec_turn(torch, engines[name], requests)))
+        launches[f"turn{i}_{name}"] = serve_launches("serve_speculate", fused_adam, fa)
+    zero_launches(fused_adam, fa)
+    prompt_eng = serve_engine(params, page_size=64, speculate_k=SPEC_K, speculate_method="prompt")
+    Scheduler(prompt_eng).warmup(requests)
+    prompt_run = _spec_turn(torch, prompt_eng, requests)
+    launches["prompt"] = serve_launches("serve_speculate prompt", fused_adam, fa)
+    plain = turns[0][1]
+    failures = []
+    for i, (name, run) in enumerate(recorded + turns + [("prompt", prompt_run)]):
+        if run["tokens"] != plain["tokens"] or not run["ok"] or not run["whole"]:
+            failures.append(f"run {i} ({name}): tokens equal {run['tokens'] == plain['tokens']}, "
+                            f"ok {run['ok']}, pool whole {run['whole']}")
+        if "plain" not in name and run["stats"].decode_steps > plain["stats"].decode_steps:
+            failures.append(f"run {i} ({name}): {run['stats'].decode_steps} decode steps > "
+                            f"plain's {plain['stats'].decode_steps}")
+    if not turns[1][1]["proposed"]:
+        failures.append("no draft proposed")
+    logits = _rows_against(rows["spec"], rows["plain"])
+    if logits["failures"] or not logits["bitwise"]:
+        failures.append(f"logits rows: {logits['failures'][:4]}, {logits['bitwise']} bitwise")
+    out = dict(
+        requests=len(requests), new_tokens=SERVE_NEW, slots=8, capacity=512, page_size=64,
+        speculate_k=SPEC_K, turns=[dict(run=name, **_spec_report(run)) for name, run in turns],
+        spec_vs_plain_tokens_per_s=_turns_ratio(turns, "spec", "plain"),
+        prompt_method=_spec_report(prompt_run), logits_rows=logits,
+        width_atol=SPEC_WIDTH_ATOL, kernel_launches=launches, failures=failures, card=card,
+        seconds=time.perf_counter() - start)
+    emit("serve_speculate", **out)
+    if failures:
+        raise AssertionError(f"serve_speculate: {failures}")
+    return out
+
+
+def _first_layer_rows(torch, params) -> dict:
+    """(a)'s first gate: after one prefill of the same prompt, the int8
+    engine's layer-0 payloads and scales against ``quantize_rows`` of the
+    fp32 engine's layer-0 rows, on the card and on the host."""
+    from ddl_tpu_torch.data.lm import synthesize_prompts
+    from ddl_tpu_torch.ops.kv_cache import quantize_rows
+
+    prompt = synthesize_prompts(**SERVE_PROMPTS)[1]
+    eng32, eng8 = serve_engine(params, page_size=64), serve_engine(params, page_size=64,
+                                                                   kv_dtype="int8")
+    for eng in (eng32, eng8):
+        eng.prefill(prompt, slot=0, request_id=0)
+    n = int(eng32.table_len[0])
+    p32 = torch.as_tensor(eng32.tables[0, :n].astype("int64"), device=eng32.device)
+    p8 = torch.as_tensor(eng8.tables[0, :n].astype("int64"), device=eng8.device)
+    out = dict(prompt_len=len(prompt), pages=n)
+    for name in ("k", "v"):
+        rows = getattr(eng32.cache, name)[0, p32]
+        q, sc = quantize_rows(rows)
+        hq, hs = quantize_rows(rows.cpu())
+        payload = getattr(eng8.cache, name)[0, p8]
+        scale = getattr(eng8.cache, f"{name}_scale")[0, p8]
+        out[name] = dict(card=bool(torch.equal(payload, q) and torch.equal(scale, sc)),
+                         host=bool(torch.equal(hq, q.cpu()) and torch.equal(hs, sc.cpu())))
+    for eng in (eng32, eng8):
+        eng.release_slot(0)
+    return out
+
+
+def _int8_handoff(torch, params, requests) -> dict:
+    """(c): one request preempted after INT8_HANDOFF_AT ticks on one int8
+    engine and adopted by another."""
+    import numpy as np
+
+    from ddl_tpu_torch.obs import MetricRegistry
+    from ddl_tpu_torch.serve import Scheduler
+    from ddl_tpu_torch.serve.cache import kv_row_bytes
+
+    reg = MetricRegistry()
+    mk = lambda r=None: Scheduler(serve_engine(params, page_size=64, kv_dtype="int8"),  # noqa: E731
+                                  registry=r)
+    src, oracle, dst = mk(reg), mk(), mk()
+    req = requests[0]
+    for s in (src, oracle, dst):
+        s.begin()
+    src.submit(req)
+    oracle.submit(req)
+    for _ in range(INT8_HANDOFF_AT):
+        src.tick()
+        oracle.tick()
+    pre = src.preempt(req.id)
+    slot = dst.adopt(pre)
+    (k, ks), (v, vs), pos = dst.engine.dump_slot_pages(slot)
+    bitwise = all(np.array_equal(a, b) for a, b in ((k, pre.k[0]), (ks, pre.k[1]), (v, pre.v[0]),
+                                                     (vs, pre.v[1]), (pos, pre.pos)))
+    while not oracle.idle:
+        oracle.tick()
+    while not dst.idle:
+        dst.tick()
+    want, _ = oracle.collect()
+    got, _ = dst.collect()
+    src.collect()
+    pages = int(pre.pos.shape[0])
+    handoff = reg.counter("handoff_bytes_total").value(path="preempt")
+    return dict(pages=pages, handoff_bytes=handoff,
+                want_bytes=pages * 64 * kv_row_bytes(lm_spec(), "int8"),  # 278,528 a page
+                payload_dtype=str(pre.k[0].dtype), pages_bitwise=bitwise,
+                tokens_equal=got[req.id].tokens == want[req.id].tokens,
+                pools_whole=all(s.engine.pages.free == s.engine.num_pages
+                                and s.engine.pages.reserved == 0 for s in (src, oracle, dst)))
+
+
+def _longtail(torch, params) -> dict:
+    """(b): serve_bench's longtail arms, fp32 and int8 on one byte budget."""
+    from ddl_tpu_torch.data.lm import synthesize_longtail_prompts
+    from ddl_tpu_torch.obs import MetricRegistry
+    from ddl_tpu_torch.serve import Request, Scheduler
+    from ddl_tpu_torch.serve.cache import kv_row_bytes
+
+    spec = lm_spec()
+    requests = [Request(id=i, prompt=p, max_new_tokens=LONGTAIL_NEW)
+                for i, p in enumerate(synthesize_longtail_prompts(**LONGTAIL))]
+    budget = LONGTAIL_ROWS * kv_row_bytes(spec, None)
+    out = {}
+    for kv, pages in ((None, LONGTAIL_ROWS // 64), ("int8", budget // (kv_row_bytes(spec, "int8")
+                                                                        * 64))):
+        reg = MetricRegistry()
+        eng = serve_engine(params, slots=4, prefix_slots=4, page_size=64, num_pages=int(pages),
+                           kv_dtype=kv)
+        done, stats = Scheduler(eng, registry=reg).run(requests)
+        out[kv or "fp32"] = dict(
+            num_pages=int(pages), pool_bytes=int(pages) * 64 * kv_row_bytes(spec, kv),
+            ok=sum(c.status == "ok" for c in done.values()),
+            kv_pages_free=reg.gauge("serve_kv_pages_free").value(),
+            prefix_hits=stats.prefix_hits, decode_tokens_per_s=stats.decode_tokens_per_s,
+            tokens={i: c.tokens for i, c in done.items()})
+    fp32, int8 = out["fp32"], out["int8"]
+    return dict(requests=len(requests), byte_budget=budget,
+                fp32={k: v for k, v in fp32.items() if k != "tokens"},
+                int8={k: v for k, v in int8.items() if k != "tokens"},
+                free_ratio=int8["kv_pages_free"] / fp32["kv_pages_free"]
+                if fp32["kv_pages_free"] else None,
+                tokens_mismatched=sum(int8["tokens"][i] != fp32["tokens"][i]
+                                      for i in fp32["tokens"]))
+
+
+def serve_int8(torch, params, fused_adam, fa, card: str) -> dict:
+    """s2: the int8 KV pool at serve_main's width: (a) the stored rows and
+    serve_main's traffic, timed in turns against the fp32 pool, (b) the
+    longtail byte budget, (c) the hand-off, (d) speculation over the pool."""
+    from ddl_tpu_torch.data.lm import synthesize_prompts
+    from ddl_tpu_torch.serve import Request, Scheduler
+    from ddl_tpu_torch.serve.cache import kv_row_bytes
+
+    start = time.perf_counter()
+    spec = lm_spec()
+    failures, launches = [], {}
+    zero_launches(fused_adam, fa)
+    rows = _first_layer_rows(torch, params)
+    if not all(rows[n][w] for n in ("k", "v") for w in ("card", "host")):
+        failures.append(f"layer-0 rows: {rows}")
+    requests = [Request(id=i, prompt=p, max_new_tokens=SERVE_NEW)
+                for i, p in enumerate(synthesize_prompts(**SERVE_PROMPTS))]
+    engines = {"fp32": serve_engine(params, page_size=64),
+               "int8": serve_engine(params, page_size=64, kv_dtype="int8")}
+    # One recording run of each pool (the top-2 margins the near-tie rule
+    # reads), then timed turns (fp32, int8, int8, fp32) without recording.
+    recorded = {}
+    for name, e in engines.items():
+        Scheduler(e).warmup(requests)
+        margins = record_margins(e)
+        recorded[name] = (*Scheduler(e).run(requests), margins)
+        del e.prefill, e.decode  # back to the class's methods
+    turns = []
+    for name in ("fp32", "int8", "int8", "fp32"):
+        turns.append((name, dict(zip(("done", "stats"), Scheduler(engines[name]).run(requests)))))
+    eng = engines["int8"]
+    done, _, margins8 = recorded["int8"]
+    fp32, _, margins32 = recorded["fp32"]
+    whole = all(e.pages.free == e.num_pages and e.pages.reserved == 0 for e in engines.values())
+    bad = {i: (c.status, len(c.tokens)) for i, c in done.items()
+           if c.status != "ok" or len(c.tokens) != SERVE_NEW}
+    if bad or len(done) != len(requests) or not whole:
+        failures.append(f"requests not ok: {bad}, pool whole {whole}")
+    tokens = lambda d: {i: c.tokens for i, c in d.items()}  # noqa: E731
+    if any(tokens(r["done"]) != tokens(recorded[name][0]) for name, r in turns):
+        failures.append("a timed turn's tokens != its pool's recorded run's")
+    diff = _first_difference(done, fp32, margins8, margins32)
+    if diff is not None:
+        near = [m for m in (diff["margin_a"], diff["margin_b"]) if m is not None]
+        if not near or min(near) >= INT8_NEAR_TIE:
+            failures.append(f"int8 != fp32 off a near-tie: {diff}")
+    row8, row32 = kv_row_bytes(spec, "int8"), kv_row_bytes(spec, None)
+    if (row8, row32) != (4352, 16384) or eng.cache.k.dtype != torch.int8:
+        failures.append(f"pool {eng.cache.k.dtype}, {row8} / {row32} bytes a row")
+    launches["a"] = serve_launches("serve_int8 (a)", fused_adam, fa)
+    zero_launches(fused_adam, fa)
+    longtail = _longtail(torch, params)
+    if (longtail["fp32"]["ok"] != longtail["requests"] or longtail["int8"]["ok"]
+            != longtail["requests"] or not longtail["free_ratio"] or longtail["free_ratio"] < 1.8):
+        failures.append(f"longtail: {longtail}")
+    launches["b"] = serve_launches("serve_int8 (b)", fused_adam, fa)
+    zero_launches(fused_adam, fa)
+    handoff = _int8_handoff(torch, params, requests)
+    if not (handoff["pages_bitwise"] and handoff["tokens_equal"] and handoff["pools_whole"]
+            and handoff["handoff_bytes"] == handoff["want_bytes"] and handoff["pages"] > 0):
+        failures.append(f"hand-off: {handoff}")
+    launches["c"] = serve_launches("serve_int8 (c)", fused_adam, fa)
+    zero_launches(fused_adam, fa)
+    spec_requests = _spec_requests()
+    runs = {}
+    for k in (0, SPEC_K):
+        e = serve_engine(params, page_size=64, kv_dtype="int8", speculate_k=k)
+        Scheduler(e).warmup(spec_requests)
+        runs[k] = _spec_turn(torch, e, spec_requests)
+    if runs[SPEC_K]["tokens"] != runs[0]["tokens"] or not (runs[0]["ok"] and runs[SPEC_K]["ok"]):
+        failures.append("int8 speculative tokens != int8 plain tokens")
+    launches["d"] = serve_launches("serve_int8 (d)", fused_adam, fa)
+    out = dict(
+        requests=len(done), new_tokens=SERVE_NEW, slots=8, capacity=512, page_size=64,
+        layer0_rows=rows, kv_row_bytes=row8, fp32_kv_row_bytes=row32,
+        page_bytes=row8 * 64, fp32_page_bytes=row32 * 64, num_pages=eng.num_pages,
+        pool_bytes=eng.num_pages * 64 * row8, fp32_pool_bytes=eng.num_pages * 64 * row32,
+        turns=[dict(run=name, decode_tokens_per_s=r["stats"].decode_tokens_per_s,
+                    decode_tick_ms={"p50": r["stats"].latency.p50_ms,
+                                    "p95": r["stats"].latency.p95_ms},
+                    itl_ms={"p50": r["stats"].itl.p50_ms, "p95": r["stats"].itl.p95_ms})
+               for name, r in turns],
+        int8_vs_fp32_tokens_per_s=_turns_ratio(turns, "int8", "fp32"),
+        vs_fp32=dict(requests_equal=sum(done[i].tokens == fp32[i].tokens for i in done),
+                     first_difference=diff, near_tie=INT8_NEAR_TIE),
+        longtail=longtail, handoff=handoff,
+        speculate=dict(plain=_spec_report(runs[0]), spec=_spec_report(runs[SPEC_K])),
+        kernel_launches=launches, failures=failures, card=card,
+        seconds=time.perf_counter() - start)
+    emit("serve_int8", **out)
+    if failures:
+        raise AssertionError(f"serve_int8: {failures}")
     return out
 
 
@@ -3263,6 +3661,8 @@ def run_phases(torch, world, card: str):
     serve_equivalence(serve_params, fused_adam, flash_attention)
     serve_vs_full_forward(torch, serve_params, fused_adam, flash_attention)
     serve_bf16(torch, serve_params, fused_adam, flash_attention, serve_out)
+    pool = dict(speculate=serve_speculate(torch, serve_params, fused_adam, flash_attention, card),
+                int8=serve_int8(torch, serve_params, fused_adam, flash_attention, card))
     fleet_start = time.perf_counter()
     for phase in (fleet_parity, fleet_router, fleet_handoff, fleet_autoscale, fleet_disagg):
         phase(torch, serve_params, fused_adam, flash_attention, card)
@@ -3278,7 +3678,14 @@ def run_phases(torch, world, card: str):
     resilience = dict(sync=resume_out, async_=resume_async_out, guard=guard_out)
     obs = dict(lm=obs_lm_out, cli=obs_cli_out)
     return (max_err, main_out, async_out, tim, flash_err, lm_out, seq_out, tp_out, pp_out,
-            flash_tim, bf16, resilience, obs)
+            flash_tim, bf16, resilience, obs, pool)
+
+
+def _pool_launches(pool: dict, name: str) -> dict:
+    """A kernel's launches over s1's and s2's runs (each gated at 0)."""
+    return {f"serve_{phase}_launches": sum(run[name] for run in
+                                           pool[phase]["kernel_launches"].values())
+            for phase in ("speculate", "int8")}
 
 
 def main() -> int:
@@ -3308,7 +3715,7 @@ def main() -> int:
         world = init_world(1, 0, f"file://{os.path.join(store, 'store')}", "cuda")
         try:
             (max_err, main_out, async_out, tim, flash_err, lm_out, seq_out, tp_out, pp_out,
-             flash_tim, bf16, resilience, obs) = run_phases(torch, world, card)
+             flash_tim, bf16, resilience, obs, pool) = run_phases(torch, world, card)
         finally:
             destroy_world()
 
@@ -3323,6 +3730,7 @@ def main() -> int:
         "resume_launches": resilience["sync"]["launches"],
         "resume_async_launches": resilience["async_"]["launches"],
         "obs_cli_profiled_launches": obs["cli"]["adam_launches_profiled"],
+        **_pool_launches(pool, "adam_flat_fused"),
         "max_abs_err": max_err,
         "ms": tim["ms"],
         "hot_ms": tim["hot_ms"],
@@ -3353,6 +3761,7 @@ def main() -> int:
             "guard_rollback_launches": resilience["guard"]["rollback"]["launches"][key],
             "obs_launches": obs["lm"]["launches"][key],
             "obs_profiled_launches": obs["lm"]["named"][key],
+            **_pool_launches(pool, name),
             "max_abs_err": flash_err[key],
             "ms": row["ms"],
             "hot_ms": row["hot_ms"],

@@ -5,7 +5,8 @@ tensor-parallel, pipeline-parallel] grid (ring, Ulysses or full attention,
 ZeRO-1, Megatron tensor parallelism, GPipe or 1F1B pipeline stages), and
 serving: one engine, at tp 1 or over a tp group, or a fleet of replicas
 behind the SLO-aware router (``--replicas``), with disaggregated
-prefill/decode roles and the self-healing fleet controller.
+prefill/decode roles, the self-healing fleet controller, speculative
+decoding (``--speculate``) and the int8 KV pool (``--kv-dtype int8``).
 
     python -m ddl_tpu_torch single
     python -m ddl_tpu_torch sync_sharding --num-workers 1 --num-ps 2 --layout flat --fused-adam
@@ -28,6 +29,7 @@ prefill/decode roles and the self-healing fleet controller.
     python -m ddl_tpu_torch serve --replicas 2 --page-size 64 --roles prefill=1,decode=1
     python -m ddl_tpu_torch serve --replicas 1 --page-size 64 --autoscale backlog=3 \
         --max-replicas 3 --inject-fault replica_crash@6:0
+    python -m ddl_tpu_torch serve --replicas 2 --page-size 64 --speculate 4 --kv-dtype int8
 
 Flags are spelled as in the JAX CLI, with its defaults; a flag of another
 variant set away from its default is refused. One process drives one
@@ -78,12 +80,10 @@ _SERVE_ONLY = ("slots", "capacity", "max_new_tokens", "num_prompts", "prompt_min
                "prompt_max", "temperature", "top_k", "prefix_cache", "prefill_chunk",
                "prefill_budget", "page_size", "num_pages", "ttft_deadline",
                "request_deadline", "shed_threshold", "replicas", "traffic", "slo",
-               "autoscale", "max_replicas", "roles")
+               "autoscale", "max_replicas", "roles", "speculate")
 # JAX CLI flags of slices not ported yet, with their ROADMAP items: setting
 # one raises NotImplementedError, whatever the variant.
 _NOT_PORTED = {
-    "kv_dtype": "ROADMAP queue 1, item 8, part 6: the int8 pool",
-    "speculate": "ROADMAP queue 1, item 8, part 5: speculate",
     "slo_rules": "ROADMAP queue 1, item 8, part 8: serve observability",
 }
 # The telemetry flags, ported on every training variant; serving's
@@ -373,10 +373,20 @@ def build_parser() -> argparse.ArgumentParser:
                          "ROLE=COUNT segments (prefill/decode/mixed) summing to --replicas; "
                          "arrivals land on prefill replicas and at the first token the "
                          "prompt's KV pages hand off to a decode replica (needs --page-size)")
+    sv.add_argument("--kv-dtype", default=None, choices=["int8"],
+                    help="KV-pool storage dtype (needs --page-size): int8 stores pool pages "
+                         "as int8 with per-head fp32 scales (about 3.8x the pages per byte at "
+                         "head_dim 64, and as many fewer bytes through every page hand-off); "
+                         "dequantized in the attend view")
+    sv.add_argument("--speculate", default=None, metavar="K[,METHOD]",
+                    help="speculative decoding (serve.speculate): draft up to K tokens a tick "
+                         "for each active slot by n-gram lookup (METHOD 'ngram' over prompt "
+                         "and generated tokens, the default, or 'prompt') and verify them "
+                         "through FREE slots of the one batched decode (greedy-accept: the "
+                         "output equals plain greedy decode's). Needs --replicas, --page-size "
+                         "> 0, temperature 0 and --slots >= 2")
     # The JAX CLI's flags of later slices (_NOT_PORTED): parsed so that
     # setting one fails with its ROADMAP item, not a generic parse error.
-    sv.add_argument("--kv-dtype", default=None, help="not ported")
-    sv.add_argument("--speculate", default=None, help="not ported")
     sv.add_argument("--slo-rules", default=None, help="not ported")
     return p
 
@@ -854,16 +864,22 @@ def _run_serve(args, device) -> int:
                   num_layers=args.layers, d_ff=args.d_ff)
     # The engine has no optimizer boundary: a precision policy here is its
     # compute dtype ("bf16" -> bfloat16, "fp32" -> fp32).
+    spec_k, spec_method = 0, "ngram"
+    if args.speculate is not None:
+        try:
+            spec_k, spec_method = _parse_speculate(args.speculate)
+        except ValueError as e:
+            raise SystemExit(f"--speculate: {e}")
     prec = _resolve_precision(args)
     serve_dtype = "bfloat16" if prec == "bf16" else None if prec == "fp32" else _resolve_dtype(args)
     cfg = ServeConfig(
         spec=spec, slots=args.slots, capacity=args.capacity,
         tensor_parallel=args.tensor_parallel,
         temperature=args.temperature, top_k=args.top_k, seed=args.seed,
-        compute_dtype=serve_dtype,
+        compute_dtype=serve_dtype, kv_dtype=args.kv_dtype,
         prefix_slots=args.prefix_cache, prefill_chunk=args.prefill_chunk,
         prefill_budget=args.prefill_budget, page_size=args.page_size,
-        num_pages=args.num_pages,
+        num_pages=args.num_pages, speculate_k=spec_k, speculate_method=spec_method,
     )
     if args.top_k and args.temperature <= 0:
         raise SystemExit("--top-k requires --temperature > 0 (greedy decode ignores it)")
@@ -904,10 +920,29 @@ def _run_serve(args, device) -> int:
             destroy_world()
 
 
+def _parse_speculate(text: str) -> tuple[int, str]:
+    """``--speculate`` grammar: ``K`` or ``K,METHOD`` (the methods of
+    ``serve.speculate.SPECULATE_METHODS``, the one list the engine checks
+    too). The engine checks the rest (paged layout, greedy, slots)."""
+    from .serve.speculate import SPECULATE_METHODS
+
+    head, _, method = text.partition(",")
+    try:
+        k = int(head.strip())
+    except ValueError:
+        raise ValueError(f"draft length {head.strip()!r} must be an int")
+    if k < 1:
+        raise ValueError(f"draft length must be >= 1, got {k}")
+    method = method.strip() or "ngram"
+    if method not in SPECULATE_METHODS:
+        raise ValueError(f"unknown method {method!r} (valid: {', '.join(SPECULATE_METHODS)})")
+    return k, method
+
+
 def _check_fleet_flags(args) -> None:
     """JAX's checks of the fleet flags on serve, with its texts: each needs
-    --replicas, --max-replicas needs --autoscale, --roles needs the paged
-    layout."""
+    --replicas, --max-replicas needs --autoscale, --roles and --speculate
+    need the paged layout."""
     if args.traffic is not None and args.replicas is None:
         raise SystemExit("--traffic requires --replicas (the router path)")
     if args.slo is not None and args.replicas is None:
@@ -927,6 +962,16 @@ def _check_fleet_flags(args) -> None:
             raise SystemExit(
                 f"--roles {args.roles} requires --page-size > 0 (the prefill->decode "
                 "hand-off moves KV pages; the contiguous slot-ring layout has none)")
+    if args.speculate is not None:
+        if args.replicas is None:
+            raise SystemExit(
+                f"--speculate {args.speculate} requires --replicas (speculative serving runs "
+                "behind the router; bare single-engine serve rejects the flag)")
+        if args.page_size <= 0:
+            raise SystemExit(
+                f"--speculate {args.speculate} requires --page-size > 0 (draft lanes verify "
+                "through block-table ALIASES of the speculating slot's pages; the contiguous "
+                "layout has no pages to alias)")
 
 
 def _class_tallies(done, cls_of) -> dict:
@@ -1068,6 +1113,11 @@ def _serve_router(args, rcfg, traffic, ckpt, injector, controller, device, grid)
         role_str = " ".join(f"{r}={n}" for r, n in sorted(dg["roles"].items()))
         print(f"disagg: roles {role_str} | handoffs {dg['handoffs']} "
               f"({dg['handoff_pages']} pages)")
+    spec_digest = _speculate_digest(rcfg.serve, router)
+    if spec_digest is not None:
+        acc, prop = spec_digest["accepted"], spec_digest["proposed"]
+        print(f"speculate: k={spec_digest['k']} ({spec_digest['method']}) | accepted "
+              f"{acc}/{prop} drafts" + (f" ({acc / prop:.0%})" if prop else ""))
     if args.json:
         print(json.dumps({
             "variant": "serve",
@@ -1075,7 +1125,7 @@ def _serve_router(args, rcfg, traffic, ckpt, injector, controller, device, grid)
             "config": dataclasses.asdict(rcfg.serve),
             "replicas": args.replicas,
             "router": summary,
-            "speculate": None,
+            "speculate": spec_digest,
             "slo_rules": None,
             "anomaly_rules": None,
             "per_class": _class_tallies(done, cls_of),
@@ -1087,6 +1137,25 @@ def _serve_router(args, rcfg, traffic, ckpt, injector, controller, device, grid)
             },
         }))
     return 0
+
+
+def _speculate_digest(cfg, router) -> dict | None:
+    """The serve JSON's ``speculate`` digest, JAX's: k, method and the
+    drafts proposed and accepted, summed over the replicas' registries (read
+    without creating a metric). None without speculation or without
+    registries (the router made without one)."""
+    if not cfg.speculate_k or not router.replica_registries:
+        return None
+    totals = {}
+    for name in ("speculate_proposed_total", "speculate_accepted_total"):
+        totals[name] = 0
+        for rg in router.replica_registries:
+            c = rg.get(name)
+            if c is not None:
+                totals[name] += int(sum(c.value(**ls) for ls in c.label_sets()))
+    prop, acc = totals["speculate_proposed_total"], totals["speculate_accepted_total"]
+    return {"k": cfg.speculate_k, "method": cfg.speculate_method, "proposed": prop,
+            "accepted": acc, "acceptance": round(acc / prop, 3) if prop else None}
 
 
 def _serve(args, cfg, device, grid, injector) -> int:

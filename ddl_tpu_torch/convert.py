@@ -327,13 +327,17 @@ def kv_cache_from_numpy(np_cache, *, paged: bool, device: str | torch.device):
 def kv_cache_to_numpy(cache) -> dict[str, np.ndarray]:
     """Inverse of :func:`kv_cache_from_numpy`: the port's ``KVCache`` or
     ``PagedKVCache`` -> ``{"k", "v", "pos"}`` numpy in the JAX package's
-    shapes (drop row or page removed)."""
+    shapes (drop row or page removed), with ``k_scale``/``v_scale`` for an
+    int8 pool."""
     from .serve.cache import PagedKVCache
 
     np_of = lambda t: t.detach().cpu().numpy().copy()  # noqa: E731
     if isinstance(cache, PagedKVCache):
         n = cache.num_pages
-        return {"k": np_of(cache.k[:, :n]), "v": np_of(cache.v[:, :n]), "pos": np_of(cache.pos[:n])}
+        out = {"k": np_of(cache.k[:, :n]), "v": np_of(cache.v[:, :n]), "pos": np_of(cache.pos[:n])}
+        if cache.k_scale is not None:  # the int8 pool's scale planes
+            out.update(k_scale=np_of(cache.k_scale[:, :n]), v_scale=np_of(cache.v_scale[:, :n]))
+        return out
     c = cache.capacity
     return {"k": np_of(cache.k[:, :, :c]), "v": np_of(cache.v[:, :, :c]),
             "pos": np_of(cache.pos[:, :c])}

@@ -1,7 +1,8 @@
 """Procedural language-modeling data — a numpy copy of ``ddl_tpu/data/lm.py``
 (``LMDataset``, ``synthesize_copy``, ``synthesize_prompts``,
-``synthesize_shared_prefix_prompts``, ``MixedRequest`` and
-``synthesize_mixed_traffic``), byte-equal for the same arguments.
+``synthesize_shared_prefix_prompts``, ``MixedRequest``,
+``synthesize_mixed_traffic`` and ``synthesize_longtail_prompts``),
+byte-equal for the same arguments.
 
 Each sequence is ``[BOS, prefix, prefix]`` with loss only on the repeated
 half, so every scored target is a token that appeared exactly
@@ -346,3 +347,62 @@ def synthesize_mixed_traffic(
                      max_new_tokens=max_new, family=fam)
         for i, (t, name, prompt, max_new, fam) in enumerate(arrivals)
     ]
+
+
+def synthesize_longtail_prompts(
+    num_short: int = 12,
+    num_long: int = 2,
+    short_min: int = 4,
+    short_max: int = 12,
+    long_len: int = 96,
+    long_prefix_len: int = 0,
+    vocab: int = 64,
+    seed: int = 0,
+) -> list[np.ndarray]:
+    """Deterministic LONG-TAIL prompt mix for the paged pool: ``num_short``
+    short prompts (lengths uniform in ``[short_min, short_max]``) with
+    ``num_long`` prompts of exactly ``long_len`` tokens spread evenly among
+    them, the workload where a worst-case reservation per slot hurts most
+    and pooled page admission wins. The long prompts share a
+    ``long_prefix_len``-token prefix (0: ``long_len // 2``; 1: only the
+    BOS). Same contracts as :func:`synthesize_prompts`: int32 arrays of
+    variable length, token 0 the BOS, payload in ``[1, vocab)``."""
+    if num_short < 0 or num_long < 0 or num_short + num_long < 1:
+        raise ValueError(f"need num_short >= 0, num_long >= 0 and at least one "
+                         f"prompt, got {num_short}/{num_long}")
+    if not 1 <= short_min <= short_max:
+        raise ValueError(f"need 1 <= short_min <= short_max, got "
+                         f"{short_min}/{short_max}")
+    if num_long and long_len <= short_max:
+        raise ValueError(f"long_len ({long_len}) must exceed short_max ({short_max}) "
+                         "— otherwise the mix has no tail")
+    long_prefix_len = long_prefix_len or long_len // 2
+    if num_long and not 1 <= long_prefix_len <= long_len:
+        raise ValueError(f"long_prefix_len ({long_prefix_len}) outside "
+                         f"[1, long_len={long_len}]")
+    if vocab < 2:
+        raise ValueError(f"vocab {vocab} too small for payload + BOS")
+    rng = np.random.default_rng(seed)
+    shorts = [
+        np.concatenate([np.zeros(1, np.int32),
+                        rng.integers(1, vocab, size=int(n) - 1, dtype=np.int32)])
+        for n in rng.integers(short_min, short_max + 1, size=num_short)
+    ]
+    longs = []
+    if num_long:
+        # A shorts-only mix draws no long material at all.
+        shared = np.concatenate([np.zeros(1, np.int32),
+                                 rng.integers(1, vocab, size=long_prefix_len - 1,
+                                              dtype=np.int32)])
+        longs = [
+            np.concatenate([shared, rng.integers(1, vocab, size=long_len - long_prefix_len,
+                                                 dtype=np.int32)])
+            for _ in range(num_long)
+        ]
+    # Longs spread evenly through the shorts (a long head-of-line burst
+    # would test queueing, not pooling).
+    prompts = list(shorts)
+    stride = max(1, (len(prompts) + 1) // (num_long + 1))
+    for i, lp in enumerate(longs):
+        prompts.insert(min(len(prompts), (i + 1) * stride + i), lp)
+    return prompts

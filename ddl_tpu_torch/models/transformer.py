@@ -21,8 +21,8 @@ inside :func:`apply_lm`.
 The serving entry points ``apply_lm_cached`` (per-slot rings) and
 ``apply_lm_paged`` (the shared page pool) run each layer as
 :func:`apply_block` with an attention that writes the layer's k/v rows into
-a KV cache, in place, and attends over it (``ops/kv_cache.py``). The int8
-pool waits for its slice.
+a KV cache, in place, and attends over it (``ops/kv_cache.py``); the paged
+pool may store int8 rows with per-head scales (``pool_k_scale``).
 
 Tensor parallelism (Megatron): handed column-sharded ``wq/wk/wv/w1`` (and
 ``b1``) and row-sharded ``wo/w2`` (``models/partition.py``), a block's
@@ -293,7 +293,9 @@ def apply_lm_paged(
     flat_rows: torch.Tensor,
     compute_dtype: torch.dtype | None = None,
     row_reduce: Callable | None = None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    pool_k_scale: torch.Tensor | None = None,
+    pool_v_scale: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, ...]:
     """The same layer math as :func:`apply_lm_cached` against the PAGED pool:
     ``pool_k``/``pool_v [L, P + 1, page, H, D]`` and ``pool_pos [P + 1,
     page]`` (page ``P`` is the drop page), read and written through the
@@ -302,7 +304,18 @@ def apply_lm_paged(
     (``ops.kv_cache.table_rows``; padded tails and inactive slots map to the
     drop page), and attention gathers each slot's pages into a ``[B, TP *
     page, H, D]`` view whose positions travel with the rows. In place;
-    returns ``(logits, pool_k, pool_v, pool_pos)``."""
+    returns ``(logits, pool_k, pool_v, pool_pos)``.
+
+    **Int8 pool**: passing the per-head fp32 scale planes
+    ``pool_k_scale``/``pool_v_scale [L, P + 1, page, H]`` quantizes the
+    fresh rows on write (``ops.kv_cache.quantize_rows``: int8 payload and
+    scale) and dequantizes the gathered view to the compute dtype before
+    ``attend``; the return grows to ``(logits, pool_k, pool_v, pool_pos,
+    pool_k_scale, pool_v_scale)``. Without them the fp32/bf16 path runs
+    unchanged."""
+    if (pool_k_scale is None) != (pool_v_scale is None):
+        raise ValueError("pass both pool_k_scale and pool_v_scale or neither")
+    quantized = pool_k_scale is not None
     if compute_dtype is not None:
         params = tree.map(lambda p: p.to(compute_dtype), dict(params))
     h = params["embed"][tokens]  # [B, T, E]
@@ -313,18 +326,34 @@ def apply_lm_paged(
     def attn_fn(i):
         # Layer i's attention: write its k/v rows, attend over the gathered pages.
         def attn(q, k, v):
-            kv_cache.put_flat(pool_k[i], k, rows)
-            kv_cache.put_flat(pool_v[i], v, rows)
-            return kv_cache.attend(q, kv_cache.gather_pages(pool_k[i], table).to(q.dtype),
-                                   kv_cache.gather_pages(pool_v[i], table).to(q.dtype),
-                                   positions, k_pos)
+            if quantized:
+                (kq, ks), (vq, vs) = kv_cache.quantize_rows(k), kv_cache.quantize_rows(v)
+                kv_cache.put_flat(pool_k[i], kq, rows)
+                kv_cache.put_flat(pool_v[i], vq, rows)
+                kv_cache.put_flat(pool_k_scale[i], ks, rows)
+                kv_cache.put_flat(pool_v_scale[i], vs, rows)
+                k_view = kv_cache.dequantize_rows(kv_cache.gather_pages(pool_k[i], table),
+                                                  kv_cache.gather_pages(pool_k_scale[i], table),
+                                                  q.dtype)
+                v_view = kv_cache.dequantize_rows(kv_cache.gather_pages(pool_v[i], table),
+                                                  kv_cache.gather_pages(pool_v_scale[i], table),
+                                                  q.dtype)
+            else:
+                kv_cache.put_flat(pool_k[i], k, rows)
+                kv_cache.put_flat(pool_v[i], v, rows)
+                k_view = kv_cache.gather_pages(pool_k[i], table).to(q.dtype)
+                v_view = kv_cache.gather_pages(pool_v[i], table).to(q.dtype)
+            return kv_cache.attend(q, k_view, v_view, positions, k_pos)
         return attn
 
     for i, blk in enumerate(params["blocks"]):
         h = apply_block(h, blk, spec, attn_fn=attn_fn(i), positions=positions,
                         row_reduce=row_reduce)
     h = _layernorm(h, params["lnf_g"], params["lnf_b"])
-    return (h @ params["head"]).float(), pool_k, pool_v, pool_pos
+    logits = (h @ params["head"]).float()
+    if quantized:
+        return logits, pool_k, pool_v, pool_pos, pool_k_scale, pool_v_scale
+    return logits, pool_k, pool_v, pool_pos
 
 
 def ce_sums(

@@ -1,6 +1,7 @@
 """KV-cache primitives — the port of ``ddl_tpu/ops/kv_cache.py`` (``PAD_POS``,
 ``_MASKED``, ``copy_prefix``, ``table_rows``, ``gather_pages``,
-``table_positions``, ``attend``; JAX's ``append_rows`` and
+``table_positions``, ``quantize_rows``, ``dequantize_rows``, ``attend``;
+JAX's ``append_rows`` and
 ``write_rows_flat`` are :func:`put_rows` and :func:`put_flat` on indices
 from :func:`drop_index` and :func:`flat_drop_index`, which the cached
 forwards compute once for all their layers' writes).
@@ -25,8 +26,12 @@ EXTRA ROW along its row axis, the drop row, which nothing reads:
 An index outside the valid rows is redirected there, on the device, with no
 host synchronisation. Negative indices wrap once, as JAX's ``.at[]`` does.
 Callers read the valid rows only (``[:, :C]``, ``[:P]``), so the drop row's
-contents never matter. ``quantize_rows`` / ``dequantize_rows`` (the int8
-pool) wait for their slice (ROADMAP queue 1, item 8, part 6).
+contents never matter.
+
+The int8 pool (``ServeConfig.kv_dtype="int8"``) stores each fresh row as
+int8 with one fp32 scale per head (:func:`quantize_rows`, on write) and
+multiplies it back in the gathered attend view (:func:`dequantize_rows`):
+plain torch ops, as JAX's are plain jnp.
 """
 
 from __future__ import annotations
@@ -124,6 +129,31 @@ def put_flat(pool: torch.Tensor, new: torch.Tensor, rows: torch.Tensor) -> None:
     distinct by the allocator's invariant, dropped rows on the drop page)."""
     flat = pool.view((pool.shape[0] * pool.shape[1],) + tuple(pool.shape[2:]))
     flat[rows] = new.reshape((-1,) + tuple(new.shape[2:])).to(pool.dtype)
+
+
+def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-head int8 quantization of fresh K/V rows ``x [..., D]``
+    -> ``(q int8 [..., D], scale fp32 [...])``: one absmax scale per head
+    vector, ``amax / 127`` (1.0 for an all-zero row, so the dequant stays
+    finite and exact), values rounded half to even (``torch.round``, as
+    ``jnp.round``) and clipped to ``[-127, 127]``. Computed in fp32 whatever
+    the compute dtype, with true divisions on every device; per head, so a
+    tp shard quantizes its own heads."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    # A tensor divisor, not a Python scalar: CUDA divides by a scalar as a
+    # multiply by its reciprocal, which rounds otherwise than the CPU's and
+    # XLA's true division.
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
+    q = torch.round(xf / scale[..., None]).clamp(-127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+def dequantize_rows(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`quantize_rows` for the gathered attend view: ``q
+    int8 [..., D]`` times its per-head ``scale [...]``, one fp32 multiply,
+    then cast to the attend's ``dtype``."""
+    return (q.float() * scale[..., None].float()).to(dtype)
 
 
 def attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, q_pos: torch.Tensor,

@@ -17,10 +17,13 @@ cache and chunked prefill, and the multi-replica fleet over it.
 - ``serve.controller``   — the self-healing fleet controller (scale out and
   in, drains, crash healing, cross-replica preemption)
 - ``serve.disagg``       — prefill/decode roles and the page hand-off
+- ``serve.speculate``    — n-gram / prompt-lookup drafts, verified through
+  free slots of the one batched decode (``ServeConfig.speculate_k``)
 
-Speculation (ROADMAP queue 1, item 8, part 5), the int8 pool (part 6), the
-cost-model twin and its scenarios (part 7) and the serve CLI's telemetry
-(part 8) wait for their slices.
+The paged pool stores int8 payloads with per-head fp32 scales under
+``ServeConfig.kv_dtype="int8"``. The cost-model twin and its scenarios
+(ROADMAP queue 1, item 8, part 7) and the serve CLI's telemetry (part 8)
+wait for their slices.
 
     from ddl_tpu_torch.serve import InferenceEngine, Request, Scheduler, ServeConfig
 
@@ -52,6 +55,7 @@ from .router import (  # noqa: F401
     parse_slo_spec,
     parse_traffic_spec,
 )
+from .speculate import greedy_accept, propose_draft  # noqa: F401
 from .scheduler import (  # noqa: F401
     Completion,
     PreemptedRequest,
@@ -88,10 +92,12 @@ __all__ = [
     "ServeStats",
     "derive_request_slo",
     "engine_kind",
+    "greedy_accept",
     "parse_autoscale_spec",
     "parse_roles_spec",
     "parse_slo_spec",
     "parse_traffic_spec",
+    "propose_draft",
     "request_slo_samples",
     "validate_roles",
 ]

@@ -11,8 +11,9 @@ one drop row (contiguous: row ``C`` of each slot; paged: page ``P``) that
 out-of-bounds writes land on (``ops.kv_cache``); the properties below and
 ``convert.kv_cache_to_numpy`` see only the valid rows. Under tensor
 parallelism a rank's cache holds its own ``H/tp`` heads (JAX shards the
-head dimension over tp, ``cache_specs``), made by ``tensor_parallel=``. The int8 pool's scale
-planes wait for their slice (ROADMAP queue 1, item 8, part 6).
+head dimension over tp, ``cache_specs``), made by ``tensor_parallel=``. An
+int8 pool (``kv_dtype="int8"``) carries per-head fp32 scale planes beside
+its int8 payloads, and every page motion here moves them with their page.
 """
 
 from __future__ import annotations
@@ -90,11 +91,18 @@ class PagedKVCache:
       every UNMAPPED page is fully ``PAD_POS`` (pages reset when their last
       reference drops), so a freshly mapped page leaks nothing into the
       gathered attend view.
+    - ``k_scale``/``v_scale [L, P + 1, page, H]`` fp32 — per-head
+      dequantization scales, present only in an int8 pool
+      (``ServeConfig.kv_dtype == "int8"``): row ``r`` of head ``h``
+      dequantizes as ``k[..., r, h, :] * k_scale[..., r, h]``
+      (``ops.kv_cache.dequantize_rows``). ``None`` in an fp32/bf16 pool.
     """
 
-    k: torch.Tensor
+    k: torch.Tensor  # fp32/bf16, or int8 in an int8 pool
     v: torch.Tensor
     pos: torch.Tensor
+    k_scale: torch.Tensor | None = None  # int8 pools only
+    v_scale: torch.Tensor | None = None
 
     @property
     def num_pages(self) -> int:
@@ -106,48 +114,64 @@ class PagedKVCache:
 
 
 def host_paged_cache(spec: LMSpec, num_pages: int, page_size: int, dtype=torch.float32,
-                     device: str | torch.device = "cpu", *,
-                     tensor_parallel: int = 1) -> PagedKVCache:
+                     device: str | torch.device = "cpu", *, tensor_parallel: int = 1,
+                     kv_dtype: str | None = None) -> PagedKVCache:
     """Fresh paged pool: zero k/v, every row ``PAD_POS`` (the free-list
-    invariant holds from birth); one tp rank's ``H/tensor_parallel``
-    heads."""
+    invariant holds from birth); one tp rank's ``H/tensor_parallel`` heads.
+    ``kv_dtype="int8"`` stores int8 payloads plus fp32 scale planes
+    initialised to 1.0: a stale row is masked by ``pos`` but its dequantised
+    value still enters ``p·v`` as ``0 × v``, so no scale may be NaN or
+    infinite, as an uninitialised one could be."""
     shape = (spec.num_layers, num_pages + 1, page_size, spec.num_heads // tensor_parallel,
              spec.head_dim)
+    pos = torch.full((num_pages + 1, page_size), PAD_POS, dtype=torch.int32, device=device)
+    if kv_dtype is None:
+        return PagedKVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                            v=torch.zeros(shape, dtype=dtype, device=device), pos=pos)
+    if kv_dtype != "int8":
+        raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
     return PagedKVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
-        pos=torch.full((num_pages + 1, page_size), PAD_POS, dtype=torch.int32, device=device),
+        k=torch.zeros(shape, dtype=torch.int8, device=device),
+        v=torch.zeros(shape, dtype=torch.int8, device=device),
+        pos=pos,
+        k_scale=torch.ones(shape[:4], dtype=torch.float32, device=device),
+        v_scale=torch.ones(shape[:4], dtype=torch.float32, device=device),
     )
 
 
 def kv_row_bytes(spec: LMSpec, kv_dtype: str | None, dtype=torch.float32) -> int:
-    """Bytes ONE pool row (K + V of every layer) costs on the device:
-    ``2 * L * H * D * itemsize``. The int8 pool (``kv_dtype="int8"``) waits
-    for its slice."""
-    if kv_dtype is not None:
-        if kv_dtype != "int8":
-            raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
-        raise NotImplementedError(
-            "the int8 KV pool is not ported yet (ROADMAP queue 1, item 8, part 6: the int8 pool)"
-        )
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return 2 * spec.num_layers * spec.num_heads * spec.head_dim * itemsize
+    """Bytes ONE pool row (K + V of every layer, scales included) costs on
+    the device: ``2 * L * H * D * itemsize``, or for the int8 pool ``2 * L *
+    H * (D + 4)`` (one byte an element plus one fp32 scale a head), a
+    ``4D / (D + 4)``-fold saving over fp32."""
+    per_elem = 2 * spec.num_layers * spec.num_heads
+    if kv_dtype is None:
+        return per_elem * spec.head_dim * torch.empty((), dtype=dtype).element_size()
+    if kv_dtype != "int8":
+        raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
+    return per_elem * (spec.head_dim + 4)
 
 
 def copy_page(pool: PagedKVCache, *, src_page: int, dst_page: int, n: int) -> PagedKVCache:
     """Copy the first ``n`` rows (K/V of every layer and positions) of
     ``src_page`` into ``dst_page``, in place; destination rows ``>= n``
     reset to ``PAD_POS``. The copy-on-write of a prefix hit's partial
-    boundary page: the new occupant owns a real copy it may write into."""
+    boundary page: the new occupant owns a real copy it may write into. An
+    int8 pool copies the rows' scales too, so a copied row dequantizes as
+    its source."""
     copy_prefix(pool.k[:, dst_page], pool.k[:, src_page], n, axis=1)
     copy_prefix(pool.v[:, dst_page], pool.v[:, src_page], n, axis=1)
     copy_prefix(pool.pos[dst_page], pool.pos[src_page], n, axis=0)
     pool.pos[dst_page, n:] = PAD_POS
+    if pool.k_scale is not None:
+        copy_prefix(pool.k_scale[:, dst_page], pool.k_scale[:, src_page], n, axis=1)
+        copy_prefix(pool.v_scale[:, dst_page], pool.v_scale[:, src_page], n, axis=1)
     return pool
 
 
 def write_page(pool: PagedKVCache, *, dst_page, k_rows: torch.Tensor, v_rows: torch.Tensor,
-               pos_rows: torch.Tensor) -> PagedKVCache:
+               pos_rows: torch.Tensor, k_scale_rows: torch.Tensor | None = None,
+               v_scale_rows: torch.Tensor | None = None) -> PagedKVCache:
     """Overwrite whole pool pages with caller-supplied rows (K/V of every
     layer and positions), in place: the receive half of the cross-replica
     KV hand-off (``engine.load_slot_pages``). ``dst_page`` is one page id
@@ -156,12 +180,17 @@ def write_page(pool: PagedKVCache, *, dst_page, k_rows: torch.Tensor, v_rows: to
     page, H, D]`` / ``[n, page]``); either way one indexed write per pool
     tensor. A whole page is written, its ``PAD_POS`` tail included, so the
     free-list invariant survives the write. At tp > 1 the rows are this
-    rank's head shard, as the pool is."""
+    rank's head shard, as the pool is. An int8 pool takes the pages'
+    per-head ``*_scale_rows [L, n, page, H]`` too: payloads without their
+    scales would dequantize to other values."""
     if isinstance(dst_page, int):
         dst_page = slice(dst_page, dst_page + 1)
     pool.k[:, dst_page] = k_rows
     pool.v[:, dst_page] = v_rows
     pool.pos[dst_page] = pos_rows
+    if k_scale_rows is not None:
+        pool.k_scale[:, dst_page] = k_scale_rows
+        pool.v_scale[:, dst_page] = v_scale_rows
     return pool
 
 

@@ -70,9 +70,17 @@ prefill -> decode transfer move KV bits, never recompute them. At tp > 1
 each rank dumps and loads its own head shard (JAX assembles every shard
 into one host array); the round trip is bitwise either way.
 
-Not ported here, each raising ``NotImplementedError`` naming its ROADMAP
-part: ``kv_dtype="int8"`` (part 6), ``speculate_k > 0``,
-``speculate_method="prompt"`` and ``alias_slot_pages`` (part 5).
+**Int8 pool** (``kv_dtype="int8"``, paged only): the pool stores int8
+payloads with per-head fp32 scales (``cache.PagedKVCache.k_scale``); fresh
+rows quantize on write and the gathered attend view dequantizes
+(``transformer.apply_lm_paged``'s ``pool_k_scale``), so a pool row costs
+``2·L·H·(D + 4)`` bytes against fp32's ``2·L·H·D·4``. Scales travel with
+their pages: the hand-off moves ``(payload, scale)`` pairs.
+
+**Speculative decoding** (``speculate_k > 0``, ``serve.speculate``): the
+scheduler verifies drafts through free slots of the one batched decode;
+:meth:`InferenceEngine.alias_slot_pages` maps a draft lane onto the
+speculating slot's pages by reference count, zero copy.
 """
 
 from __future__ import annotations
@@ -104,12 +112,10 @@ from .cache import (
     write_page,
 )
 from .prefix import PrefixIndex
+from .speculate import SPECULATE_METHODS
 
-SPECULATE_METHODS = ("ngram", "prompt")
 # The compute dtypes the engine serves in, by name (None: fp32, no cast).
 SERVE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16, "float16": torch.float16}
-_INT8 = "ROADMAP queue 1, item 8, part 6: the int8 pool"
-_SPECULATE = "ROADMAP queue 1, item 8, part 5: speculate"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,9 +129,13 @@ class ServeConfig:
     one chunk). ``page_size > 0`` selects the paged pool of ``num_pages``
     pages (0 = ``slots * capacity / page_size``). ``tensor_parallel`` is the
     Megatron degree, which the engine's grid must have. ``compute_dtype``
-    is None (fp32), ``"float32"``, ``"bfloat16"`` or ``"float16"``. ``kv_dtype``,
-    ``speculate_k > 0`` and a ``speculate_method`` other than ``"ngram"``
-    are accepted here and refused by the engine (not ported)."""
+    is None (fp32), ``"float32"``, ``"bfloat16"`` or ``"float16"``.
+    ``kv_dtype="int8"`` (paged only) stores the pool as int8 payloads with
+    per-head fp32 scales. ``speculate_k > 0`` drafts up to that many tokens
+    a tick for each active slot (``speculate_method`` ``"ngram"`` over
+    prompt and generated tokens, or ``"prompt"``) and verifies them through
+    free slots of the one batched decode; it needs the paged layout,
+    ``temperature == 0`` and ``slots >= 2``."""
 
     spec: LMSpec = LMSpec()
     slots: int = 4
@@ -140,8 +150,8 @@ class ServeConfig:
     prefill_budget: int = 0
     page_size: int = 0  # paged KV layout: rows per page; 0 = contiguous
     num_pages: int = 0  # paged pool size; 0 = slots * capacity / page_size
-    kv_dtype: str | None = None
-    speculate_k: int = 0
+    kv_dtype: str | None = None  # "int8": quantized paged pool
+    speculate_k: int = 0  # draft tokens a tick for each active slot; 0 = off
     speculate_method: str = "ngram"
 
     def dtype(self) -> torch.dtype | None:
@@ -164,8 +174,7 @@ class ServeConfig:
 
 
 def check_config(config: ServeConfig) -> None:
-    """JAX's constructor checks (``ValueError``), then the refusals of what
-    this slice does not port (``NotImplementedError``)."""
+    """JAX's constructor checks, with its ``ValueError`` texts."""
     spec, tp = config.spec, config.tensor_parallel
     if tp < 1:
         raise ValueError(f"tensor_parallel must be >= 1, got {tp}")
@@ -221,6 +230,21 @@ def check_config(config: ServeConfig) -> None:
     if config.speculate_method not in SPECULATE_METHODS:
         raise ValueError(f"speculate_method must be one of {', '.join(SPECULATE_METHODS)}, "
                          f"got {config.speculate_method!r}")
+    if sk > 0:
+        if not ps:
+            raise ValueError(
+                f"speculate_k={sk} needs the paged KV layout (page_size > 0): draft lanes "
+                "verify through block-table ALIASES of the speculating slot's pages, and "
+                "contiguous slot rings have no pages to alias")
+        if config.temperature > 0.0:
+            raise ValueError(
+                f"speculate_k={sk} needs temperature=0 (greedy): greedy-accept is what keeps "
+                "speculative output bit-identical to plain decode; sampled acceptance is a "
+                "different algorithm")
+        if config.slots < 2:
+            raise ValueError(
+                f"speculate_k={sk} needs slots >= 2: drafts verify through FREE slots of the "
+                "batched decode, and a 1-slot batch has no lane to ride")
     if ps:
         if config.capacity % ps:
             raise ValueError(f"capacity ({config.capacity}) must be a multiple of "
@@ -231,15 +255,6 @@ def check_config(config: ServeConfig) -> None:
                 f"num_pages ({num_pages}) below slots ({config.slots}) — every admitted "
                 "slot needs at least one page; the pool could never fill the batch"
             )
-    refused = (
-        (config.kv_dtype is not None, f"kv_dtype='int8' ({_INT8})"),
-        (sk > 0, f"speculate_k > 0 ({_SPECULATE})"),
-        (config.speculate_method != "ngram",
-         f"speculate_method={config.speculate_method!r} ({_SPECULATE})"),
-    )
-    for bad, what in refused:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet")
 
 
 def _load_host_params(path, spec: LMSpec) -> dict:
@@ -288,6 +303,7 @@ class InferenceEngine:
         spec = config.spec
         self.config = config
         self.paged = config.page_size > 0
+        self.quantized = config.kv_dtype == "int8"
         if self.paged:
             self.page_size = config.page_size
             self.max_pages = config.capacity // config.page_size  # block-table width
@@ -350,7 +366,8 @@ class InferenceEngine:
         if self.paged:
             self.cache = host_paged_cache(cfg.spec, self.num_pages, self.page_size,
                                           cfg.pool_dtype(), device=self.device,
-                                          tensor_parallel=cfg.tensor_parallel)
+                                          tensor_parallel=cfg.tensor_parallel,
+                                          kv_dtype=cfg.kv_dtype)
             self.pages = PagePool(self.num_pages)
             self.tables = np.full((cfg.slots, self.max_pages), -1, np.int32)
             self.table_len = np.zeros(cfg.slots, np.int64)
@@ -451,7 +468,11 @@ class InferenceEngine:
         pageable host memory (the copy waits for the gather). At tp > 1,
         ``H`` is this rank's heads. A pool dtype numpy lacks (bfloat16)
         comes back as its raw bits, ``int16``, which
-        :meth:`load_slot_pages` reinterprets: bits move, not values."""
+        :meth:`load_slot_pages` reinterprets: bits move, not values. An int8
+        pool returns ``k`` and ``v`` as ``(payload, scale)`` pairs (int8
+        ``[L, n, page, H, D]``, fp32 ``[L, n, page, H]``), which the host
+        layers (``PreemptedRequest``, the controller, the disagg
+        coordinator) pass on opaquely."""
         if not self.paged:
             raise RuntimeError(
                 "dump_slot_pages needs the paged KV layout (page_size > 0) — the contiguous "
@@ -465,8 +486,11 @@ class InferenceEngine:
                 t = t.view(torch.int16)
             return t.numpy()
 
-        return (host(self.cache.k[:, pages]), host(self.cache.v[:, pages]),
-                host(self.cache.pos[pages]))
+        c = self.cache
+        k, v, pos = host(c.k[:, pages]), host(c.v[:, pages]), host(c.pos[pages])
+        if self.quantized:
+            return (k, host(c.k_scale[:, pages])), (v, host(c.v_scale[:, pages])), pos
+        return k, v, pos
 
     def _rows(self, a, like: torch.Tensor) -> torch.Tensor:
         """Host rows on the device in ``like``'s dtype: a synchronous copy
@@ -488,21 +512,56 @@ class InferenceEngine:
         one ``write_page``. A freshly mapped page is all ``PAD_POS`` (the
         free-list invariant) and the written ``pos`` rows carry the source's
         own ``PAD_POS`` tail, so nothing stale is attendable. Returns the
-        mapped page ids (table order)."""
+        mapped page ids (table order). An int8 pool takes ``k`` and ``v`` as
+        the ``(payload, scale)`` pairs its :meth:`dump_slot_pages` made; a
+        mismatch either way raises ``ValueError``."""
         if not self.paged:
             raise RuntimeError("load_slot_pages needs the paged KV layout (page_size > 0)")
-        if isinstance(k, tuple) or isinstance(v, tuple):
-            raise NotImplementedError(
-                f"load_slot_pages of (payload, scale) pairs is not ported yet ({_INT8})")
-        rows = dict(k_rows=self._rows(k, self.cache.k), v_rows=self._rows(v, self.cache.v),
-                    pos_rows=self._rows(pos, self.cache.pos))
+        c = self.cache
+        rows = {}
+        if self.quantized:
+            if not (isinstance(k, tuple) and isinstance(v, tuple)):
+                raise ValueError(
+                    "int8 pool: load_slot_pages needs the (payload, scale) pairs "
+                    "dump_slot_pages produced — a bare payload came from a full-precision "
+                    "dump and would dequantize to garbage")
+            (k, ks), (v, vs) = k, v
+            rows = dict(k_scale_rows=self._rows(ks, c.k_scale),
+                        v_scale_rows=self._rows(vs, c.v_scale))
+        elif isinstance(k, tuple) or isinstance(v, tuple):
+            raise ValueError(
+                "full-precision pool: load_slot_pages got (payload, scale) pairs — the dump "
+                "came from an int8 engine; hand-offs need matching kv_dtype on both replicas")
+        rows.update(k_rows=self._rows(k, c.k), v_rows=self._rows(v, c.v),
+                    pos_rows=self._rows(pos, c.pos))
         mapped = [self._map_page(slot) for _ in range(int(k.shape[1]))]
         if mapped:
             write_page(self.cache, dst_page=self._put(np.asarray(mapped, np.int64)), **rows)
         return mapped
 
     def alias_slot_pages(self, dst_slot: int, src_slot: int, rows: int) -> int:
-        raise NotImplementedError(f"alias_slot_pages is not ported yet ({_SPECULATE})")
+        """Make ``dst_slot`` a zero-copy alias of ``src_slot``'s table
+        covering logical rows ``[0, rows)``: a speculative draft LANE, which
+        writes its draft token's K/V row through the shared pages and
+        attends the shared history. Maps any page ``src_slot`` still needs
+        first (consuming ITS reservation: the lane reserves nothing), then
+        increfs each page into the lane's table. ``release_slot`` tears the
+        lane down (a pure decref: the source's references keep every page
+        live). Returns the aliased page count."""
+        if not self.paged:
+            raise RuntimeError("alias_slot_pages needs the paged KV layout (page_size > 0) — "
+                               "contiguous slots have no pages to alias")
+        if int(self.table_len[dst_slot]) or int(self.reserved_for[dst_slot]):
+            raise RuntimeError(f"alias_slot_pages into non-empty slot {dst_slot} (lanes must "
+                               "be free slots)")
+        self._ensure_rows(src_slot, rows)
+        n = int(self.table_len[src_slot])
+        for i in range(n):
+            page = int(self.tables[src_slot, i])
+            self.pages.incref(page)
+            self.tables[dst_slot, i] = page
+        self.table_len[dst_slot] = n
+        return n
 
     def decode_page_bucket(self, pages: int) -> int:
         """Smallest power of two >= ``pages``, capped at the table width."""
@@ -593,6 +652,18 @@ class InferenceEngine:
 
     # -- host API ----------------------------------------------------------
 
+    def _paged_forward(self, tokens, table, positions, flat_rows) -> torch.Tensor:
+        """The one ``apply_lm_paged`` call of paged prefill and decode, in
+        place on the pool; an int8 pool's scale planes ride along. Returns
+        the logits."""
+        cfg, c = self.config, self.cache
+        scales = dict(pool_k_scale=c.k_scale, pool_v_scale=c.v_scale) if self.quantized else {}
+        logits, *_ = transformer.apply_lm_paged(
+            self.params, tokens, c.k, c.v, c.pos, table, cfg.spec, positions=positions,
+            flat_rows=flat_rows, compute_dtype=cfg.dtype(), row_reduce=self._row_reduce,
+            **scales)
+        return logits
+
     def prefill_bucket(self, prompt_len: int) -> int:
         """Smallest power-of-two bucket >= max(prompt_len, 8), capped at the
         capacity."""
@@ -633,11 +704,8 @@ class InferenceEngine:
             table = torch.from_numpy(self.tables[slot:slot + 1].copy())
             logical = torch.from_numpy(np.where(real, base + ar, reach).astype(np.int32)[None, :])
             flat = kv_cache.table_rows(table, logical, self.page_size, self.num_pages)
-            logits, *_ = transformer.apply_lm_paged(
-                self.params, tok, self.cache.k, self.cache.v, self.cache.pos, self._put(table),
-                cfg.spec, positions=self._put(positions), flat_rows=self._put(flat),
-                compute_dtype=cfg.dtype(), row_reduce=self._row_reduce,
-            )
+            logits = self._paged_forward(tok, self._put(table), self._put(positions),
+                                         self._put(flat))
         else:
             c = cfg.capacity
             # Rows below base are the copied prefix or earlier chunks; the
@@ -682,11 +750,7 @@ class InferenceEngine:
             logical = torch.from_numpy(
                 np.where(active, lengths, pb * self.page_size).astype(np.int32)[:, None])
             flat = kv_cache.table_rows(table, logical, self.page_size, self.num_pages)
-            logits, *_ = transformer.apply_lm_paged(
-                self.params, tok, self.cache.k, self.cache.v, self.cache.pos, self._put(table),
-                cfg.spec, positions=positions, flat_rows=self._put(flat),
-                compute_dtype=cfg.dtype(), row_reduce=self._row_reduce,
-            )
+            logits = self._paged_forward(tok, self._put(table), positions, self._put(flat))
         else:
             # Free slots still compute (fixed shapes) and write a PAD_POS row
             # at `lengths % C`: invisible to any future occupant.

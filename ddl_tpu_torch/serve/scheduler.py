@@ -52,9 +52,13 @@ back a crashed replica's ledger; ``role="prefill"`` holds first-token slots
 for the disaggregated hand-off (``serve.disagg``); an ``injector``'s
 ``stall`` never advances a request's prefill (its deadline must evict it).
 
+Speculative decoding (``ServeConfig.speculate_k > 0``,
+``Scheduler._speculate_decode``): still ONE batched decode a tick, with free
+slots as draft lanes over the speculating slots' pages; the tokens equal
+plain greedy decode's, in fewer decode steps when drafts are accepted.
+
 Not ported, each refused naming ROADMAP queue 1, item 8, part 8: the
 metrics writer, SLO monitor, anomaly detector and ``peak_flops`` hooks.
-Speculative decoding (part 5) is refused by the engine's config.
 """
 
 from __future__ import annotations
@@ -72,6 +76,7 @@ from ..obs.memory import MemorySampler
 from ..obs.trace import NULL_TRACER
 from ..utils.metrics import StepStats, StepTimer
 from .engine import InferenceEngine
+from .speculate import greedy_accept, propose_draft
 
 # A prefix hit shorter than this prefills normally: every BOS-led prompt
 # trivially shares its first token with every cached entry.
@@ -748,6 +753,150 @@ class Scheduler:
         return (len(st.generated[s]) >= st.occupant[s].max_new_tokens
                 or (self.eos_id is not None and token == self.eos_id))
 
+    def _speculate_decode(self, st: _RunState, step: int) -> None:
+        """The speculative decode phase, JAX's ``_speculate_decode``: still
+        ONE batched decode call a tick, but FREE slots become draft LANES.
+        Lane ``i`` aliases the speculating slot's pages
+        (``engine.alias_slot_pages``, incref only), feeds draft token ``i``
+        at position ``n + 1 + i``, and its returned greedy token is the
+        model's own token for that position (a slot's decode row does not
+        depend on the other slots). Greedy-accept keeps the longest matching
+        draft prefix plus the first mismatch (the true next token), so the
+        output equals plain decode's; rejected lanes leave rows only beyond
+        the new frontier, position-masked and overwritten by the next step
+        that reaches them."""
+        eng = self.engine
+        cfg = eng.config
+        S = cfg.slots
+        reg = self.registry
+        k = cfg.speculate_k
+        last = st.last_tokens.copy()
+        lengths = st.lengths.copy()
+        req_ids = st.req_ids.copy()
+        active = st.active.copy()
+        free = [s for s in range(S) if st.occupant[s] is None]
+        lanes_of: dict[int, tuple[list[int], np.ndarray]] = {}
+        proposed = 0
+        for s in range(S):
+            if not st.active[s] or not free:
+                continue
+            r = st.occupant[s]
+            remaining = r.max_new_tokens - len(st.generated[s])
+            if remaining < 2:
+                # One token to go: a draft could only propose tokens the
+                # budget forbids emitting.
+                continue
+            prompt = np.asarray(r.prompt, np.int32)
+            ctx = np.concatenate([prompt, np.asarray(st.generated[s], np.int32)])
+            draft = propose_draft(ctx, min(k, remaining - 1, len(free)),
+                                  method=cfg.speculate_method, prompt_len=int(prompt.shape[0]))
+            if not draft.size:
+                continue  # no lookup hit: this slot rides plain
+            n = int(st.lengths[s])
+            lanes = free[: draft.size]
+            del free[: draft.size]
+            for i, lane in enumerate(lanes):
+                # Covers row n + draft.size of the source: the decode's own
+                # _ensure_rows of each lane (row n + 1 + i) maps nothing new.
+                eng.alias_slot_pages(lane, s, n + int(draft.size) + 1)
+                active[lane] = True
+                last[lane] = int(draft[i])
+                lengths[lane] = n + 1 + i
+                req_ids[lane] = r.id
+            lanes_of[s] = (lanes, draft)
+            proposed += int(draft.size)
+        n_active = int(st.active.sum())
+        n_lanes = sum(len(lanes) for lanes, _ in lanes_of.values())
+        # The REAL slots that decode (lanes are compute, not requests),
+        # taken before finishes change the occupancy.
+        reqs_now = [int(st.req_ids[i]) for i in range(S) if st.active[i]]
+        t0 = time.perf_counter()
+        nxt, _ = eng.decode(last, lengths, req_ids, active)
+        # Read after decode's fetch of the sampled tokens, which waits for
+        # the device.
+        now = time.perf_counter()
+        dt = now - t0
+        # Lane teardown is a pure decref, done before any bookkeeping so no
+        # later raise can leak an aliased table.
+        for lanes, _ in lanes_of.values():
+            for lane in lanes:
+                eng.release_slot(lane)
+        emitted_total = 0
+        accepted_total = 0
+        for s in range(S):
+            if not st.active[s]:
+                continue
+            lanes, draft = lanes_of.get(s, (None, None))
+            if lanes is None:
+                # No draft: the slot's own decode row advanced it one token.
+                st.lengths[s] += 1
+                tok = int(nxt[s])
+                st.generated[s].append(tok)
+                st.last_tokens[s] = tok
+                emitted_total += 1
+                if self._finished(st, s, tok):
+                    self._finish(st, s)
+                continue
+            # verified[0] is the slot's own next token, verified[1 + i] lane
+            # i's: the model's greedy answer at each position.
+            verified = [int(nxt[s])] + [int(nxt[lane]) for lane in lanes]
+            a = greedy_accept(draft, verified)
+            emitted = 0
+            for tok in verified[: a + 1]:
+                st.lengths[s] += 1
+                st.generated[s].append(tok)
+                st.last_tokens[s] = tok
+                emitted += 1
+                if self._finished(st, s, tok):
+                    self._finish(st, s)
+                    break  # eos or the budget truncates the rest of the block
+            emitted_total += emitted
+            # Only drafts actually EMITTED count as accepted.
+            accepted_total += min(a, emitted)
+        st.decode_timer.add(dt, images=emitted_total)
+        # Lanes compute at the attended width whether or not their draft is
+        # accepted: the MFU numerator prices real and lane rows.
+        self._account_decode(st, step, t0, now, dt, emitted_total, n_active + n_lanes,
+                             n_active=n_active, reqs=reqs_now, spec_lanes=n_lanes,
+                             spec_emitted=emitted_total)
+        if reg is not None and proposed:
+            # Accepted over proposed is the rate that says whether k paid.
+            reg.counter("speculate_proposed_total").inc(proposed)
+            reg.counter("speculate_accepted_total").inc(accepted_total)
+
+    def _account_decode(self, st: _RunState, step: int, t0: float, now: float, dt: float,
+                        tokens: int, fed_rows: int, **span) -> None:
+        """The accounting every decode tick shares, plain or speculative:
+        the ITL chain (the gap since the previous decode completion,
+        interleaved prefill work included), goodput, the ``decode_tick``
+        span (``span`` holds its attributes) and the decode metrics.
+        ``tokens`` were emitted by ``fed_rows`` rows computed in ``dt``."""
+        chained = st.last_decode_done is not None
+        if chained:
+            st.itls.append(now - st.last_decode_done)
+        st.last_decode_done = now
+        if self._goodput is not None:
+            self._goodput.add("decode", dt)
+        if self.tracer:
+            # The end stamp is the ITL clock's `now`; `reqs` lists the
+            # requests that decoded (the per-request ITL derivation).
+            self.tracer.complete("decode_tick", t0, now, step=step, chained=chained, **span)
+        reg = self.registry
+        if reg is not None:
+            cfg = self.engine.config
+            reg.counter("serve_decode_tokens_total").inc(tokens)
+            reg.histogram("serve_decode_step_seconds").observe(dt)
+            if chained:
+                reg.histogram("serve_itl_seconds").observe(st.itls[-1])
+            # Per-token FLOPs at the width this tick attended, and the MFU of
+            # the decode just timed.
+            fpt = _cost.serve_decode_flops_per_token(cfg.spec, self.engine.last_attend_width)
+            reg.gauge("serve_flops_per_token").set(fpt)
+            reg.gauge("serve_mfu").set(_cost.mfu(
+                _cost.serve_speculate_verify_flops(cfg.spec, fed_rows,
+                                                   self.engine.last_attend_width),
+                dt, cfg.tensor_parallel, self._resolve_peak()))
+
     def tick(self) -> None:
         """One scheduler step of the armed run: stamp eligibility, shed and
         expire, admit into free slots, prefill under the chunk budget, one
@@ -954,6 +1103,8 @@ class Scheduler:
             # prefill replica never decodes, and a held tick makes no
             # device call.
             st.last_decode_done = None
+        elif st.active.any() and cfg.speculate_k:
+            self._speculate_decode(st, step)
         elif st.active.any():
             n_active = int(st.active.sum())
             t0 = time.perf_counter() if tr else 0.0
@@ -962,32 +1113,9 @@ class Scheduler:
             # Read after decode's fetch of the sampled tokens, which waits
             # for the device.
             now = time.perf_counter()
-            chained = st.last_decode_done is not None
-            if chained:
-                # The gap since the previous decode completion, interleaved
-                # prefill work included.
-                st.itls.append(now - st.last_decode_done)
-            st.last_decode_done = now
-            decode_s = st.decode_timer._times[-1]
-            if gp is not None:
-                gp.add("decode", decode_s)
-            if tr:
-                # The end stamp is the ITL clock's `now`; `reqs` lists the
-                # requests that decoded (the per-request ITL derivation).
-                tr.complete("decode_tick", t0, now, step=step, n_active=n_active,
-                            chained=chained,
-                            reqs=[int(st.req_ids[i]) for i in range(S) if st.active[i]])
-            if reg is not None:
-                reg.counter("serve_decode_tokens_total").inc(n_active)
-                reg.histogram("serve_decode_step_seconds").observe(decode_s)
-                if chained:
-                    reg.histogram("serve_itl_seconds").observe(st.itls[-1])
-                # Per-token FLOPs at the width this tick attended, and the
-                # MFU of the decode just timed.
-                fpt = _cost.serve_decode_flops_per_token(cfg.spec, eng.last_attend_width)
-                reg.gauge("serve_flops_per_token").set(fpt)
-                reg.gauge("serve_mfu").set(_cost.mfu(fpt * n_active, decode_s,
-                                                     cfg.tensor_parallel, self._resolve_peak()))
+            self._account_decode(st, step, t0, now, st.decode_timer._times[-1], n_active,
+                                 n_active, n_active=n_active,
+                                 reqs=[int(st.req_ids[i]) for i in range(S) if st.active[i]])
             for s in range(S):
                 if not st.active[s]:
                     continue

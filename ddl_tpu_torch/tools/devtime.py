@@ -33,10 +33,13 @@ more than a kernel's length (``device_minus_launch_ms`` reports it: the
 launch latency, a few microseconds, plus that offset). ``kernel`` (a
 regular expression) restricts the sum to the kernel's own launches. The
 tracer may lose the first device events after it starts, so untimed calls
-run first inside the profiler. A range with no device time (the tracer
-dropped a record) costs the reading its window: it is taken once more in a
-new profiler session, and ``profile_windows`` says how many it took; a
-second such window raises. The reading never falls back to events.
+run first inside the profiler, each in a range of its own. A range with no
+device time (the tracer dropped a record) costs the reading its window: it
+is taken again in a new profiler session, up to ``WINDOWS`` sessions, and
+``profile_windows`` says how many it took; a reading whose every window
+lost a record raises, saying where the unplaced device events were. No
+time is read from a window that lost a record, and the reading never falls
+back to events.
 
 Needs a CUDA card.
 """
@@ -55,6 +58,8 @@ import torch
 TIMER = "device, cupti"
 FLUSH_BYTES = 256 * 2**20
 _TAG = "devtime_call_"
+_WARM_TAG = "devtime_warm"
+WINDOWS = 4  # profiler sessions a reading may take before it raises
 
 
 def hbm_bytes_per_s(name: str) -> float:
@@ -113,6 +118,7 @@ def per_call_ms(events, reps: int,
     total_us = [0.0] * reps
     names: set[str] = set()
     offsets_ms: list[float] = []
+    unplaced = []  # (launch host time or None) of device events no range holds
     for e in events:
         if (e.device_type != torch.autograd.DeviceType.CUDA or e.name.startswith(_TAG)
                 or (pat is not None and not pat.search(e.name))):
@@ -123,10 +129,18 @@ def per_call_ms(events, reps: int,
             total_us[i] += e.time_range.end - e.time_range.start
             names.add(e.name[:80])
             offsets_ms.append((e.time_range.start - t) / 1e3)
+        else:
+            unplaced.append(t)
     for i, us in enumerate(total_us):
         if us <= 0:
-            raise MissingDeviceTime(f"devtime: the profiler recorded no device time for "
-                               f"{kernel or 'the call'} in call {i} of {reps}")
+            near = [t for t in unplaced if t is not None
+                    and wins[max(i - 1, 0)][0] <= t <= wins[min(i + 1, reps - 1)][1]]
+            raise MissingDeviceTime(
+                f"devtime: the profiler recorded no device time for {kernel or 'the call'} in "
+                f"call {i} of {reps} (its range {wins[i][1] - wins[i][0]:.1f} us long; device "
+                f"events no range holds: {len(unplaced)}, of them without a launch record "
+                f"{unplaced.count(None)}, launched from i-1's start to i+1's end, in us from "
+                f"call {i}'s start: {[round(t - wins[i][0], 1) for t in near][:8]})")
     return [us / 1e3 for us in total_us], names, offsets_ms
 
 
@@ -136,20 +150,23 @@ def device_ms(fn: Callable[[], object], *, reps: int = 50, warm: int = 3,
     untimed ones), with ``flush()`` before each call if given. Only device
     events whose name matches ``kernel`` count, if given. Returns ms
     (median), mean, min, max, the call count, the device events' names and
-    the profiler windows taken (2 when the first lost a call's record)."""
+    the profiler windows taken (more than 1 when one lost a call's record)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    for window in (1, 2):
+    for window in range(1, WINDOWS + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            # Untimed calls first (at least 3, and 20 ms): the tracer may miss
-            # device work launched right after it starts.
+            # Untimed calls first (at least 3, and 20 ms), each in a range of
+            # its own: the tracer may miss device work launched right after
+            # it starts, and the first timed call is not the session's first
+            # range.
             t0, warmed = time.perf_counter(), 0
             while warmed < 3 or time.perf_counter() - t0 < 0.02:
-                fn()
-                torch.cuda.synchronize()
+                with record_function(_WARM_TAG):
+                    fn()
+                    torch.cuda.synchronize()
                 warmed += 1
             for i in range(reps):
                 if flush is not None:
@@ -162,7 +179,7 @@ def device_ms(fn: Callable[[], object], *, reps: int = 50, warm: int = 3,
             per_call, names, offsets = per_call_ms(prof.events(), reps, kernel)
             break
         except MissingDeviceTime:
-            if window == 2:
+            if window == WINDOWS:
                 raise
     return {"ms": statistics.median(per_call), "mean_ms": statistics.fmean(per_call),
             "min_ms": min(per_call), "max_ms": max(per_call), "calls": reps,

@@ -262,7 +262,12 @@ SERVE_CASES = {
     "contiguous-greedy": dict(slots=3, capacity=64),
     "paged-sampled": dict(slots=3, capacity=64, page_size=8, temperature=0.7, top_k=5),
     "paged-greedy-bf16": dict(slots=3, capacity=64, page_size=8, compute_dtype="bfloat16"),
+    "paged-greedy-int8": dict(slots=3, capacity=64, page_size=8, kv_dtype="int8"),
+    # 4 slots for 6 requests: the draft lanes ride the slots the queue
+    # leaves free; the run keeps its speculation counters (SPEC_COUNTERS).
+    "paged-greedy-speculate2": dict(slots=4, capacity=64, page_size=8, speculate_k=2),
 }
+SPEC_COUNTERS = ("speculate_proposed_total", "speculate_accepted_total")
 SERVE_PROMPTS = dict(num=6, min_len=3, max_len=20, vocab=16, seed=0)
 SERVE_NEW = 8
 SERVE_STATS = ("prefill_tokens", "decode_steps", "decode_tokens", "prefix_lookups",
@@ -273,6 +278,9 @@ SERVE_STATS = ("prefill_tokens", "decode_steps", "decode_tokens", "prefix_lookup
 FLEET_SERVE = dict(slots=3, capacity=64, page_size=8)
 FLEET_PREEMPT_AT = 4
 FLEET_MOVED = 0
+# The same move between two int8 engines: the (payload, scale) pairs of this
+# rank's heads.
+FLEET_INT8 = "paged-greedy-int8"
 
 
 # The checkpoint and resilience family, after the serve cases (outside the
@@ -433,11 +441,18 @@ def fleet_requests(prompts, request_cls):
             for i, p in enumerate(prompts)]
 
 
+def _page_arrays(k, v, pos) -> list:
+    """A page dump's arrays, an int8 pool's (payload, scale) pairs
+    flattened."""
+    return [x for part in (k, v, pos) for x in (part if isinstance(part, tuple) else (part,))]
+
+
 def _fleet_case(grid, init, prompts, results):
     """The fleet at tp 2: the bare scheduler's tokens and every decode
     step's logits, a 1-replica router's (equal bitwise), and one request's
-    preempt -> adopt round trip between two engines of this tp group (its
-    tokens, the dumped pages' shape: this rank's heads)."""
+    preempt -> adopt round trip between two engines of this tp group, fp32
+    and int8 (its tokens, the dumped pages' shape: this rank's heads, and
+    the adopter's pages equal to the dump)."""
     cfg = ServeConfig(spec=LM_SPEC, tensor_parallel=SERVE_TP, **FLEET_SERVE)
     reqs = fleet_requests(prompts, Request)
 
@@ -463,25 +478,34 @@ def _fleet_case(grid, init, prompts, results):
         and all(np.array_equal(a, b) for a, b in zip(bare_log, router_log)))
     for i, c in rdone.items():
         results[f"fleet/router/{i}/tokens"] = np.asarray(c.tokens, np.int64)
-    a = Scheduler(InferenceEngine(cfg, params=init, grid=grid))
-    b = Scheduler(InferenceEngine(cfg, params=init, grid=grid))
-    a.begin()
-    b.begin()
-    a.submit(reqs[FLEET_MOVED])
-    for _ in range(FLEET_PREEMPT_AT):
-        a.tick()
-    pre = a.preempt(FLEET_MOVED)
-    b.adopt(pre)
-    while not b.idle:
-        b.tick()
-    moved, _ = b.collect()
-    a.collect()
-    results["fleet/moved/tokens"] = np.asarray(moved[FLEET_MOVED].tokens, np.int64)
-    results["fleet/moved/generated_at_preempt"] = np.asarray(len(pre.generated))
-    results["fleet/moved/k_shape"] = np.asarray(pre.k.shape)
-    results["fleet/moved/pools_whole"] = np.asarray(all(
-        s.engine.pages.free == s.engine.num_pages and s.engine.pages.reserved == 0
-        for s in (a, b)))
+    int8 = ServeConfig(spec=LM_SPEC, tensor_parallel=SERVE_TP, **SERVE_CASES[FLEET_INT8])
+    for key, c in (("fleet/moved", cfg), ("fleet/moved_int8", int8)):
+        a = Scheduler(InferenceEngine(c, params=init, grid=grid))
+        b = Scheduler(InferenceEngine(c, params=init, grid=grid))
+        a.begin()
+        b.begin()
+        a.submit(reqs[FLEET_MOVED])
+        for _ in range(FLEET_PREEMPT_AT):
+            a.tick()
+        pre = a.preempt(FLEET_MOVED)
+        slot = b.adopt(pre)
+        # The adopter's pages are the dumped bytes.
+        results[f"{key}/round_trip"] = np.asarray(all(
+            np.array_equal(x, y) for x, y in zip(_page_arrays(*b.engine.dump_slot_pages(slot)),
+                                                 _page_arrays(pre.k, pre.v, pre.pos),
+                                                 strict=True)))
+        while not b.idle:
+            b.tick()
+        moved, _ = b.collect()
+        a.collect()
+        results[f"{key}/tokens"] = np.asarray(moved[FLEET_MOVED].tokens, np.int64)
+        results[f"{key}/generated_at_preempt"] = np.asarray(len(pre.generated))
+        payload = pre.k[0] if isinstance(pre.k, tuple) else pre.k
+        results[f"{key}/k_shape"] = np.asarray(payload.shape)
+        results[f"{key}/k_dtype"] = np.asarray(str(payload.dtype))
+        results[f"{key}/pools_whole"] = np.asarray(all(
+            s.engine.pages.free == s.engine.num_pages and s.engine.pages.reserved == 0
+            for s in (a, b)))
 
 
 def _serve_cases(world, init, results):
@@ -497,9 +521,13 @@ def _serve_cases(world, init, results):
         eng = InferenceEngine(ServeConfig(spec=LM_SPEC, tensor_parallel=SERVE_TP, **kw),
                               params=init, grid=grid)
         margins = record_margins(eng)
-        done, stats = Scheduler(eng).run(
+        reg = MetricRegistry() if kw.get("speculate_k") else None
+        done, stats = Scheduler(eng, registry=reg).run(
             [Request(id=i, prompt=p, max_new_tokens=SERVE_NEW) for i, p in enumerate(prompts)])
         key = f"serve/{name}"
+        if reg is not None:
+            results[f"{key}/spec_counters"] = np.asarray(
+                [int(reg.counter(n).value()) for n in SPEC_COUNTERS])
         for i, c in done.items():
             results[f"{key}/{i}/tokens"] = np.asarray(c.tokens, np.int64)
             results[f"{key}/{i}/steps"] = np.asarray([c.admitted_step, c.finished_step])

@@ -9,7 +9,8 @@ hand-made events (the profiler records device events only on a card).
 - the device-side copies of the ranges themselves, and device work launched
   outside every range (the L2 flush), never count;
 - a range with no device time, or a range count other than the call
-  count, raises: nothing falls back to host-side events.
+  count, raises: nothing falls back to host-side events; the error says
+  where the device events no range holds were launched.
 """
 
 import types
@@ -101,6 +102,21 @@ def test_a_range_without_device_time_raises(kernel):
         events = [e for e in events if not (e.device_type == CUDA and e.id >= 1011)]
     with pytest.raises(RuntimeError, match="no device time"):
         devtime.per_call_ms(events, 2, kernel=kernel)
+
+
+def test_the_lost_call_names_where_its_device_events_were_launched():
+    # Call 1's kernel launched 1 us after its range closed; call 2's has no
+    # launch record at all.
+    events = []
+    for e in _trace(3):
+        if e.name == "cudaLaunchKernel" and e.id == 1011:
+            e = _ev(e.name, CPU, 196.0, 197.0, e.id)
+        if not (e.name == "cudaLaunchKernel" and e.id == 1021):
+            events.append(e)
+    with pytest.raises(devtime.MissingDeviceTime, match=r"call 1 of 3 \(its range 55.0 us long; "
+                       r"device events no range holds: 2, of them without a launch record 1, "
+                       r".*call 1's start: \[56.0\]\)"):
+        devtime.per_call_ms(events, 3, kernel="adam")
 
 
 def test_range_count_must_match_the_calls():

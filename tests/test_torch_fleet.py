@@ -146,7 +146,8 @@ def test_dump_and_load_round_trip_bitwise(dtype):
     with pytest.raises(ValueError, match="same pool dtype"):
         dst.load_slot_pages(0, k.astype(np.float64) if dtype == "float32" else k.view(np.uint8),
                             v, pos)
-    with pytest.raises(NotImplementedError, match="item 8, part 6"):
+    # (payload, scale) pairs come from an int8 pool (tests/test_torch_int8.py).
+    with pytest.raises(ValueError, match="full-precision pool"):
         dst.load_slot_pages(0, (k, k), (v, v), pos)
     pool = host_paged_cache(TSPEC, 4, 8)
     write_page(pool, dst_page=3, k_rows=torch.ones(2, 1, 8, 2, 16),

@@ -15,10 +15,14 @@ Each case runs JAX's CLI once and the port's once (the module fixture
   digest and its printed line;
 - ``roles``: ``--roles prefill=1,decode=1`` (serve_bench's disagg_compare
   fleet at this width): tokens, statuses, the disagg digest (hand-offs,
-  hand-off pages) and its printed line.
+  hand-off pages) and its printed line;
+- ``speculate``: ``--speculate 4`` on a 2-replica paged fleet, and
+  ``int8_disagg``: the roles fleet with ``--kv-dtype int8``: tokens,
+  statuses, the digests and the ``speculate`` digest.
 
 Port-only: the crashed and the disaggregated runs' tokens equal the plain
-fleet's (the same flags without the fault, or colocated). Each bad
+fleet's (the same flags without the fault, or colocated), and the
+speculating fleet's equal the same fleet's without --speculate. Each bad
 combination of the fleet flags exits with JAX's text, and the flags of the
 parts still to port refuse.
 
@@ -60,8 +64,22 @@ CLI_CASES = {
     "roles": ["--replicas", "2", "--roles", "prefill=1,decode=1", "--slots", "4", "--capacity",
               "64", "--page-size", "8", "--traffic",
               "horizon=12;seed=5;max_requests=6;chat:rate=0.4,pmin=8,pmax=16,new=8"],
+    # Speculation behind the router: few requests a replica leave free
+    # slots for the draft lanes.
+    "speculate": ["--replicas", "2", "--page-size", "8", "--speculate", "4", "--capacity", "64",
+                  "--traffic", "horizon=6;seed=3;max_requests=5;chat:rate=0.6,pmin=8,pmax=16,"
+                  "new=10"],
+    # The roles fleet on the int8 pool: the hand-off moves (payload, scale)
+    # pairs.
+    "int8_disagg": ["--replicas", "2", "--roles", "prefill=1,decode=1", "--kv-dtype", "int8",
+                    "--slots", "4", "--capacity", "64", "--page-size", "8", "--traffic",
+                    "horizon=12;seed=5;max_requests=6;chat:rate=0.4,pmin=8,pmax=16,new=8"],
 }
 FLEET_CASES = ["autoscale_crash", "roles"]
+POOL_CASES = ["speculate", "int8_disagg"]
+# The flag (with its value) whose removal gives a case's plain fleet.
+PLAIN_WITHOUT = {"autoscale_crash": "--inject-fault", "roles": "--roles",
+                 "speculate": "--speculate"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -122,6 +140,25 @@ def cli_runs(ckpt_dir):
     return get
 
 
+@pytest.fixture(scope="module")
+def plain_runs(ckpt_dir):
+    """The port's JSON for each case's plain fleet (the case's flags without
+    its ``PLAIN_WITHOUT`` flag), run once."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            plain = list(CLI_CASES[name])
+            i = plain.index(PLAIN_WITHOUT[name])
+            del plain[i:i + 2]
+            argv = ["serve", *MODEL, "--checkpoint-dir", ckpt_dir, *plain, "--json", "--device",
+                    "cpu"]
+            cache[name] = _cli_json(cli.main, argv)[0]
+        return cache[name]
+
+    return get
+
+
 def test_cli_router_matches_jax(cli_runs):
     (theirs, tlines), (ours, olines), margins, _ = cli_runs("router")
     assert ours["completions"] == theirs["completions"]
@@ -137,6 +174,7 @@ def test_cli_router_matches_jax(cli_runs):
     assert [x.split("|")[0] for x in olines if x.startswith("class ")] == \
         [x.split("|")[0] for x in tlines if x.startswith("class ")]
     assert ours["router"]["router_sheds"] > 0 and ours["device"] == "cpu"
+    assert ours["speculate"] == theirs["speculate"]
     assert (ours["speculate"], ours["slo_rules"], ours["anomaly_rules"]) == (None, None, None)
     assert min(margins) > MARGIN
 
@@ -177,19 +215,44 @@ def test_cli_fleet_matches_jax(cli_runs, name):
 
 
 @pytest.mark.parametrize("name", FLEET_CASES)
-def test_cli_fleet_tokens_equal_the_plain_fleet(cli_runs, name):
+def test_cli_fleet_tokens_equal_the_plain_fleet(cli_runs, plain_runs, name):
     """A crash (every request completes exactly once) and the prefill ->
     decode hand-off leave every request's tokens as the plain fleet's (the
     same flags without the fault, or colocated)."""
-    _, (ours, _), _, argv = cli_runs(name)
-    plain = list(argv)
-    flag = "--roles" if name == "roles" else "--inject-fault"
-    i = plain.index(flag)
-    del plain[i:i + 2]
-    ref, _ = _cli_json(cli.main, plain + ["--device", "cpu"])
+    _, (ours, _), _, _ = cli_runs(name)
+    ref = plain_runs(name)
     assert sorted(ours["completions"], key=int) == sorted(ref["completions"], key=int)
     for i, c in ours["completions"].items():
         assert c["tokens"] == ref["completions"][i]["tokens"] and c["status"] == "ok", i
+
+
+@pytest.mark.parametrize("name", POOL_CASES)
+def test_cli_speculate_and_int8_match_jax(cli_runs, plain_runs, name):
+    """``--speculate`` and ``--kv-dtype int8`` behind the router: tokens,
+    statuses, the router and disagg digests, the config and the printed
+    lines equal JAX's CLI on the same flags, and so does the ``speculate``
+    digest (None on both: without a telemetry flag neither router has
+    replica registries, and serve's telemetry flags are ROADMAP queue 1,
+    item 8, part 8). Speculation's tokens equal the same fleet's without
+    it."""
+    (theirs, tlines), (ours, olines), margins, _ = cli_runs(name)
+    assert ours["completions"] == theirs["completions"]
+    assert ours["per_class"] == theirs["per_class"]
+    assert _strip_times(ours["router"]) == _strip_times(theirs["router"])
+    assert ours["config"] == {**theirs["config"], "spec": ours["config"]["spec"]}
+    assert ours["speculate"] == theirs["speculate"]
+    assert min(margins) > MARGIN
+    for prefix in ("disagg:", "router:", "speculate:"):
+        assert [x for x in olines if x.startswith(prefix)] == \
+            [x for x in tlines if x.startswith(prefix)]
+    assert {c["status"] for c in ours["completions"].values()} == {"ok"}
+    if name == "speculate":
+        assert ours["config"]["speculate_k"] == 4
+        assert ours["completions"] == plain_runs(name)["completions"]
+    else:
+        assert ours["config"]["kv_dtype"] == "int8"
+        dg = ours["router"]["disagg"]
+        assert dg["handoffs"] == len(ours["completions"]) and dg["handoff_pages"] > 0
 
 
 FLAG_CASES = [

@@ -212,8 +212,9 @@ def test_fresh_caches_and_row_bytes_match_jax():
         for name in ("k", "v", "pos"):
             np.testing.assert_array_equal(got[name], getattr(theirs, name))
     assert tcache.kv_row_bytes(TSPEC, None) == jcache.kv_row_bytes(JSPEC, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcache.kv_row_bytes(TSPEC, "int8")
+    # The int8 pool is ported (tests/test_torch_int8.py): its row bytes are
+    # JAX's too.
+    assert tcache.kv_row_bytes(TSPEC, "int8") == jcache.kv_row_bytes(JSPEC, "int8")
 
 
 def _cmp_cache(ours, want):

@@ -27,8 +27,8 @@ Port-only pins: a 1-replica router equals the bare scheduler on the same
 stream (tokens and every decode step's logits, bitwise; contiguous and
 paged); ``derive_request_slo`` of a run's records equals its
 ``ServeStats.ttft`` / ``.itl`` float for float; the router reruns to the
-same tokens and placements; parts 5, 6 and 8 of ROADMAP queue 1, item 8
-stay refused.
+same tokens and placements; part 8 of ROADMAP queue 1, item 8 stays
+refused, and parts 5 and 6 (speculation, the int8 pool) run.
 
 Greedy comparisons keep the top-2 margin gate (1e-5, the cached logits'
 tolerance against JAX).
@@ -362,8 +362,8 @@ def test_request_slo_matches_jax_and_the_run_stats(router_runs, weights):
 
 
 def test_part_8_and_later_parts_stay_refused(weights):
-    """What ROADMAP queue 1, item 8 keeps for parts 5-8 raises
-    NotImplementedError naming its part."""
+    """What ROADMAP queue 1, item 8 keeps for parts 7 and 8 raises
+    NotImplementedError naming its part; parts 5 and 6 now run."""
     cfg = ts.RouterConfig(serve=ts.ServeConfig(spec=TSPEC, slots=1, capacity=32, page_size=8),
                           replicas=1, classes=(ts.ClassSpec("default"),))
     for kw in (dict(slo_monitor=object()), dict(anomaly_detector=object()),
@@ -378,9 +378,20 @@ def test_part_8_and_later_parts_stay_refused(weights):
                dict(anomaly_detector=object()), dict(peak_flops=1e12)):
         with pytest.raises(NotImplementedError, match="item 8, part 8"):
             ts.Scheduler(eng, **kw)
-    with pytest.raises(NotImplementedError, match="item 8, part 5"):
-        eng.alias_slot_pages(1, 0, 4)
-    for flags, part in ((["--speculate", "4"], "part 5"), (["--kv-dtype", "int8"], "part 6"),
-                        (["--slo-rules", "a:metric=m,target=1"], "part 8")):
-        with pytest.raises(NotImplementedError, match=f"item 8, {part}"):
+    # Parts 5 and 6 are ported (tests/test_torch_speculate.py,
+    # tests/test_torch_int8.py): a draft lane aliases a slot's pages, and the
+    # CLI takes --speculate and --kv-dtype, each needing the paged layout.
+    eng.prefill(np.arange(1, 6, dtype=np.int32), slot=0, request_id=0)
+    two = ts.InferenceEngine(dataclasses.replace(cfg.serve, slots=2), params=weights,
+                             device="cpu")
+    two.prefill(np.arange(1, 6, dtype=np.int32), slot=0, request_id=0)
+    assert two.alias_slot_pages(1, 0, 4) == 1 and two.tables[1, 0] == two.tables[0, 0]
+    two.release_slot(1)
+    assert int(two.pages.refs[int(two.tables[0, 0])]) == 1
+    for flags, text in ((["--speculate", "4"], "--speculate 4 requires --page-size > 0"),
+                        (["--kv-dtype", "int8"], "kv_dtype='int8' needs the paged KV layout")):
+        with pytest.raises(SystemExit, match=text):
             cli.main(["serve", "--device", "cpu", "--replicas", "2", *flags])
+    with pytest.raises(NotImplementedError, match="item 8, part 8"):
+        cli.main(["serve", "--device", "cpu", "--replicas", "2", "--slo-rules",
+                  "a:metric=m,target=1"])

@@ -41,7 +41,8 @@ inputs is its tick-table row's.
 
 Serving: the same world as two tp-2 groups ({0, 1} and {2, 3}), each held
 to JAX's ``Scheduler.run`` at ``tensor_parallel=2`` (contiguous greedy,
-paged sampled: tokens, ``admitted_step``, ``finished_step``, ``status``
+paged sampled, the int8 pool, speculation at k 2 with its proposed and
+accepted counters: tokens, ``admitted_step``, ``finished_step``, ``status``
 and the ``ServeStats`` counters equal; greedy steps' top-2 margins above
 1e-5 so a near-tie fails loudly; in bf16, ``compute_dtype="bfloat16"``,
 tokens equal up to the first near-tie: a first difference only at a
@@ -243,10 +244,13 @@ def _jax_serve(init, kw):
                   params=init)
     margins = _torch_world.record_margins(eng)
     prompts = j_synthesize_prompts(**_torch_world.SERVE_PROMPTS)
-    done, stats = JScheduler(eng).run([JRequest(id=i, prompt=p,
-                                                max_new_tokens=_torch_world.SERVE_NEW)
-                                       for i, p in enumerate(prompts)])
-    return done, stats, margins
+    reg = JRegistry() if kw.get("speculate_k") else None
+    done, stats = JScheduler(eng, registry=reg).run([JRequest(id=i, prompt=p,
+                                                              max_new_tokens=_torch_world.SERVE_NEW)
+                                                     for i, p in enumerate(prompts)])
+    counters = (None if reg is None else
+                [int(reg.counter(n).value()) for n in _torch_world.SPEC_COUNTERS])
+    return done, stats, margins, counters
 
 
 def _jax_fleet(init):
@@ -439,13 +443,14 @@ def test_four_rank_world_serves_at_tp2_as_jax(name, lm_world):
     at tp 2 does: tokens, steps, statuses and counters; each rank holds half
     the heads."""
     got, want = lm_world
-    jdone, jstats, jmargins = want["serve"][name]
+    jdone, jstats, jmargins, jcounters = want["serve"][name]
     key = f"serve/{name}"
     kw = _torch_world.SERVE_CASES[name]
     bf16 = kw.get("compute_dtype") == "bfloat16"
     for r, rank in enumerate(got):
         assert int(rank[f"{key}/local_heads"]) == _torch_world.LM_SPEC.num_heads // 2
-        assert str(rank[f"{key}/pool_dtype"]) == ("torch.bfloat16" if bf16 else "torch.float32")
+        assert str(rank[f"{key}/pool_dtype"]) == (
+            "torch.bfloat16" if bf16 else "torch.int8" if kw.get("kv_dtype") else "torch.float32")
         for i, j in jdone.items():
             tokens = rank[f"{key}/{i}/tokens"].tolist()
             if bf16 and tokens != j.tokens:
@@ -458,6 +463,8 @@ def test_four_rank_world_serves_at_tp2_as_jax(name, lm_world):
             assert str(rank[f"{key}/{i}/status"]) == j.status
         assert rank[f"{key}/stats"].tolist() == [getattr(jstats, f)
                                                  for f in _torch_world.SERVE_STATS]
+        if jcounters is not None:  # speculation: proposed and accepted drafts
+            assert rank[f"{key}/spec_counters"].tolist() == jcounters and jcounters[0] > 0, r
         if kw.get("temperature", 0.0) == 0.0 and not bf16:
             margins = np.concatenate([rank[f"{key}/{i}/margins"] for i in jdone])
             assert margins.size and margins.min() > MARGIN, margins.min()
@@ -468,7 +475,9 @@ def test_four_rank_world_fleet_at_tp2_matches_jax(lm_world):
     (tokens and each decode step's logits, bitwise) and JAX's tp-2 router
     (tokens); a request preempted mid-decode and adopted by another engine
     of the tp group finishes with the same tokens, its dumped pages this
-    rank's half of the heads, both pools whole."""
+    rank's half of the heads and the adopter's pages the dumped bytes, both
+    pools whole: fp32, and int8 (the (payload, scale) pairs; JAX's tp-2 int8
+    tokens)."""
     got, want = lm_world
     jtokens = want["fleet"]
     moved = _torch_world.FLEET_MOVED
@@ -477,10 +486,14 @@ def test_four_rank_world_fleet_at_tp2_matches_jax(lm_world):
         assert bool(rank["fleet/router_equal"]), r
         for i, tokens in jtokens.items():
             assert rank[f"fleet/router/{i}/tokens"].tolist() == tokens, (r, i)
-        assert rank["fleet/moved/tokens"].tolist() == jtokens[moved], r
-        assert 1 < int(rank["fleet/moved/generated_at_preempt"]) < _torch_world.SERVE_NEW
-        assert int(rank["fleet/moved/k_shape"][3]) == h, r
-        assert bool(rank["fleet/moved/pools_whole"]), r
+        jint8 = want["serve"][_torch_world.FLEET_INT8][0][moved].tokens
+        for key, want_tokens, dtype in (("fleet/moved", jtokens[moved], "float32"),
+                                        ("fleet/moved_int8", jint8, "int8")):
+            assert rank[f"{key}/tokens"].tolist() == want_tokens, (r, key)
+            assert 1 < int(rank[f"{key}/generated_at_preempt"]) < _torch_world.SERVE_NEW
+            assert int(rank[f"{key}/k_shape"][3]) == h, (r, key)
+            assert str(rank[f"{key}/k_dtype"]) == dtype, (r, key)
+            assert bool(rank[f"{key}/round_trip"]) and bool(rank[f"{key}/pools_whole"]), (r, key)
 
 
 @pytest.mark.parametrize("kind", ["cached", "paged"])

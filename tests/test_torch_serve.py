@@ -396,9 +396,13 @@ def test_an_aborted_run_returns_the_pool_whole():
                  id="kw0-tensor_parallel"),
     pytest.param(dict(tensor_parallel=3), "tensor_parallel needs num_heads",
                  id="kw1-tensor_parallel"),
-    (dict(page_size=8, kv_dtype="int8"), "int8"),
-    (dict(page_size=8, speculate_k=2, slots=2), "speculate"),
-    (dict(speculate_method="prompt"), "speculate_method"),
+    # The int8 pool and speculation are ported (tests/test_torch_int8.py,
+    # tests/test_torch_speculate.py; the ids are the cases' names from when
+    # they still raised): each config builds the engine JAX's builds.
+    pytest.param(dict(page_size=8, kv_dtype="int8"), "int8", id="kw2-int8"),
+    pytest.param(dict(page_size=8, speculate_k=2, slots=2), "speculate", id="kw3-speculate"),
+    pytest.param(dict(speculate_method="prompt"), "speculate_method",
+                 id="kw4-speculate_method"),
     # bf16 and fp16 serving are ported (tests/test_torch_precision.py,
     # tests/test_torch_resilience.py; the id is the case's name from when
     # bf16 still raised): a dtype the engine does not serve in is a
@@ -418,8 +422,15 @@ def test_engine_refuses_what_is_not_ported(kw, what):
         with pytest.raises(ValueError, match=what):
             InferenceEngine(ServeConfig(spec=TSPEC, capacity=64, **kw), device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
-        InferenceEngine(ServeConfig(spec=TSPEC, capacity=64, **kw), device="cpu")
+    ours = InferenceEngine(ServeConfig(spec=TSPEC, capacity=64, **kw), device="cpu")
+    theirs = JEngine(JConfig(spec=JSPEC, capacity=64, **kw))
+    assert ours.quantized == theirs.quantized == ("kv_dtype" in kw)
+    assert ours.cache.k.numpy().dtype == np.asarray(theirs.cache.k).dtype
+    assert (getattr(ours.cache, "k_scale", None) is None) == \
+        (getattr(theirs.cache, "k_scale", None) is None)
+    assert ours.config.speculate_k == theirs.config.speculate_k
+    assert ours.config.speculate_method == theirs.config.speculate_method == kw.get(
+        "speculate_method", "ngram")
 
 
 def test_scheduler_and_engine_refuse_what_is_not_ported():
@@ -444,8 +455,12 @@ def test_scheduler_and_engine_refuse_what_is_not_ported():
     for call in (lambda: sched.preempt(0), lambda: sched.adopt(None), sched.abandon):
         with pytest.raises(RuntimeError, match="no armed run"):
             call()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.alias_slot_pages(1, 0, 4)
+    # Speculation's page alias is ported (tests/test_torch_speculate.py): a
+    # lane maps the source's pages by reference and its release frees none.
+    assert eng.alias_slot_pages(1, 0, 4) == 1 and eng.tables[1, 0] == eng.tables[0, 0]
+    eng.release_slot(1)
+    assert eng.pages.free == eng.num_pages - 1
+    eng.release_slot(0)
     # Serving a checkpoint is ported (tests/test_torch_resilience.py): a
     # missing file is the loader's error.
     for call in (lambda: eng.load_params("x"),
@@ -493,7 +508,9 @@ def test_cli_serve_cpu_smoke_paged_and_contiguous():
 def test_cli_refuses_serve_flags_not_ported(flag, value, monkeypatch):
     """Each flag of a slice not ported names its ROADMAP item. Tensor
     parallelism is ported: tp 2 is a world of 2 ranks, which needs
-    torchrun. bf16 serving is ported: --bf16 serves in bf16. Serving a
+    torchrun. The int8 pool is ported: --kv-dtype int8 needs --page-size,
+    then serves. Speculation is ported: --speculate needs --replicas, as
+    JAX's. bf16 serving is ported: --bf16 serves in bf16. Serving a
     checkpoint is ported: a directory without one exits, as JAX's CLI. The
     fleet flags are ported (tests/test_torch_router.py): on this bare
     prompt-set smoke each exits with JAX's text."""
@@ -502,7 +519,8 @@ def test_cli_refuses_serve_flags_not_ported(flag, value, monkeypatch):
              "--traffic": "--traffic requires --replicas",
              "--slo": "--slo requires --replicas",
              "--autoscale": "--autoscale requires --replicas",
-             "--roles": "--roles prefill:1 requires --replicas"}
+             "--roles": "--roles prefill:1 requires --replicas",
+             "--speculate": "--speculate 4 requires --replicas"}
     if flag in fleet:
         with pytest.raises(SystemExit, match=fleet[flag]):
             cli.main(argv)
@@ -514,6 +532,17 @@ def test_cli_refuses_serve_flags_not_ported(flag, value, monkeypatch):
     if flag == "--bf16":
         out = _cli_json(argv)
         assert out["config"]["compute_dtype"] == "bfloat16" and len(out["completions"]) == 6
+        return
+    if flag == "--kv-dtype":
+        # The int8 pool is ported: it needs the paged layout, and there it
+        # serves the fp32 pool's tokens at this width.
+        with pytest.raises(SystemExit, match="serve config error: kv_dtype='int8' needs the "
+                                             "paged KV layout"):
+            cli.main(argv)
+        out = _cli_json(argv + ["--page-size", "8"])
+        ref = _cli_json(SMOKE + ["--page-size", "8"])
+        assert out["config"]["kv_dtype"] == "int8" and out["kv_pages_free"] == 24
+        assert out["completions"] == ref["completions"]
         return
     if flag == "--tensor-parallel":
         monkeypatch.delenv("WORLD_SIZE", raising=False)
