@@ -314,6 +314,47 @@ o3. in r5, the skip and the rollback runs with a registry and a tracer:
 o4. in 11p, GPipe's T = 512 run and its pp-1 oracle with a registry: each
    rank's ``train_grad_norm`` within 2e-5 + 1e-3 of the oracle's.
 
+Serve observability and the digital twin (after o2, last: their profiled
+runs stay clear of flash_timing's timers), at serve_main's width over the
+shared params, each setting every kernel count to 0 first and failing if a
+flash or Adam kernel launched:
+
+o5. serve_obs — serve_main's traffic and configuration on two warmed
+   engines, telemetry off and on (a registry, a metrics writer, a
+   ``keep=True`` tracer, an SLO monitor with a TTFT rule, an anomaly
+   detector on every scheduler signal, ``peak_flops`` from the H100 fp32
+   row), one recorded run each under ``torch.profiler``: tokens and every
+   decode tick's logits rows bitwise equal; the same device kernels (by
+   name and count) and decode ticks on and off, none of ``csrc/``; the
+   goodput phases sum to ``time_observed_seconds`` within 1e-9 relative;
+   ``serve_mfu`` in (0, 1]; ``xla_compiles_total{kind=}`` the count of
+   program keys the engine dispatched, every prompt's prefill bucket among
+   them; ``obs.analyze report`` of the trace file gives TTFT and ITL equal
+   to ``derive_request_slo``'s, whose global pair is the run's
+   ``ServeStats``'. Then timed turns without recording (off, on, on, off):
+   decode tokens/s of each and on over off, printed, not gated.
+o6. serve_obs_cli — ``cli.main(["serve", ...])`` at serve_main's
+   configuration with ``--metrics-out``, ``--metrics-interval``,
+   ``--trace-dir``, ``--prom-port 0``, ``--peak-flops``, ``--ici-bw``,
+   ``--anomaly-rules`` and ``--slo-rules``, its device left to the default:
+   it must serve on cuda with o5's tokens (its engine holds its own copy of
+   the params: a request may differ only from a step whose top-2 margin in
+   o5 is below ``SERVE_TOL``'s 1e-4; every difference printed) and print
+   every digest;
+   ``obs.analyze report`` of its host trace and ``compare`` of its metrics
+   file with itself exit 0. Then f4's stream through ``--replicas 1
+   --autoscale max=3,...,sustain=8,burn=bulk_ttft --slo-rules`` (a bulk TTFT
+   rule every first token misses): on cuda, a ``reason="burn"`` scale-out,
+   the rule's alerts above 0.
+t1. twin — the port's real fleet on the card against its cost-model twin
+   (``serve.sim``) on ``serve.scenarios``' bulk_burst and replica_crash at
+   ``lm_spec()``, a registry and a tracer on both: the controller's
+   events, every request's status, ``admitted_step`` and
+   ``finished_step``, the per-class tallies, router sheds, the SLO
+   ledgers and ``handoff_bytes_total`` equal; then ``sim --scenario
+   bulk_burst --fit <o6's metrics file>`` prints the costs fitted from the
+   card and their virtual time.
+
 The serving fleet (after s2, before 12), each phase one of
 benchmarks/serve_bench.py's fleet configurations at serve_main's width
 (``lm_spec()``, the port's init from seed 0, placed once and shared by every
@@ -372,7 +413,8 @@ row's ``serve_speculate_launches`` and ``serve_int8_launches`` (s1, s2: 0,
 no kernel lies on the serve path); under
 telemetry each flash row's ``obs_launches`` and ``obs_profiled_launches``
 (o1: counted, and read from the profiler's trace) and the Adam row's
-``obs_cli_profiled_launches`` (o2)), the
+``obs_cli_profiled_launches`` (o2); every row's ``serve_obs_launches``,
+``serve_obs_cli_launches`` and ``twin_launches`` (o5, o6, t1: 0)), the
 ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no ``ok`` line. It needs no network and one card.
@@ -1084,6 +1126,16 @@ def _profiled_kernels(path: str) -> dict:
         if e.get("cat") == "kernel":
             counts[e["name"]] = counts.get(e["name"], 0) + 1
     return counts
+
+
+def _profiled_launches(path: str) -> int:
+    """Kernel launches the host made in one ``torch.profiler`` Chrome trace:
+    the CUDA runtime and driver calls that launch a kernel (category
+    ``cuda_runtime`` or ``cuda_driver``), counted host side."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+               and "LaunchKernel" in e.get("name", ""))
 
 
 def _capture_health_params(trainer) -> dict:
@@ -3102,6 +3154,348 @@ def fleet_disagg(torch, params, fused_adam, fa, card: str) -> dict:
     return out
 
 
+# Serve observability and the twin (o5, o6, t1; after o2, so that their
+# profiled runs stay clear of flash_timing's timers).
+SERVE_OBS_SLO = "ttft:metric=serve_ttft_seconds,target=0.5"
+SERVE_OBS_ANOMALY = "queue_depth;active_slots;occupied_slots;pages_free;step_time;itl;mfu"
+# Every bulk first token misses a 1 ns target: the burn trigger reads a count.
+ROUTER_OBS_SLO = ("bulk_ttft:metric=router_ttft_seconds,label.class=bulk,target=1e-9,"
+                  "objective=0.5,fast=2,slow=4")
+TWIN_SCENARIOS = ("bulk_burst", "replica_crash")
+SERVE_OBS_PROFILED = (4, 16)  # o5's profiled runs: the first 4 requests, 16 new tokens
+
+
+def _serve_obs_arm(torch, params, requests, telemetry: bool, tmp: str):
+    """(engine, scheduler, telemetry keywords) at serve_main's configuration,
+    warmed up; with ``telemetry`` every hook on: a registry, a metrics
+    writer, a ``keep=True`` tracer streaming to ``tmp``, an SLO monitor with
+    a TTFT rule, an anomaly detector on the scheduler's signals and the
+    H100 row's fp32 peak."""
+    from ddl_tpu_torch.obs import MetricRegistry, MetricsWriter, Tracer, cost, run_manifest
+    from ddl_tpu_torch.obs.anomaly import AnomalyDetector, parse_anomaly_rules
+    from ddl_tpu_torch.obs.slo import SloMonitor, parse_slo_rules
+    from ddl_tpu_torch.serve import Scheduler
+
+    eng = serve_engine(params, page_size=64)
+    kw = {}
+    if telemetry:
+        reg = MetricRegistry()
+        kw = dict(registry=reg, tracer=Tracer(os.path.join(tmp, "trace.jsonl"), keep=True),
+                  metrics_writer=MetricsWriter(os.path.join(tmp, "m.jsonl"), reg,
+                                               run_manifest()),
+                  slo_monitor=SloMonitor(parse_slo_rules(SERVE_OBS_SLO), reg),
+                  anomaly_detector=AnomalyDetector(parse_anomaly_rules(SERVE_OBS_ANOMALY), reg),
+                  peak_flops=cost.peak_flops_per_device("cuda", None, precision="fp32"))
+    sched = Scheduler(eng, **kw)
+    sched.warmup(requests)
+    torch.cuda.synchronize()
+    return eng, sched, kw
+
+
+def serve_obs(torch, params, fused_adam, fa, card: str) -> dict:
+    """o5: serve_main's traffic with every telemetry hook on against the
+    same run with telemetry off, one recorded and profiled run each, then
+    timed turns (off, on, on, off) without recording."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+
+    from ddl_tpu_torch.data.lm import synthesize_prompts
+    from ddl_tpu_torch.obs import analyze
+    from ddl_tpu_torch.obs.trace import Tracer
+    from ddl_tpu_torch.serve import Request, derive_request_slo
+    from ddl_tpu_torch.utils.metrics import trace as profiler_trace
+
+    start = time.perf_counter()
+    zero_launches(fused_adam, fa)
+    requests = [Request(id=i, prompt=p, max_new_tokens=SERVE_NEW)
+                for i, p in enumerate(synthesize_prompts(**SERVE_PROMPTS))]
+    failures, runs = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        arms = {"off": _serve_obs_arm(torch, params, requests, False, tmp),
+                "on": _serve_obs_arm(torch, params, requests, True, tmp)}
+        short = [dataclasses.replace(r, max_new_tokens=SERVE_OBS_PROFILED[1])
+                 for r in requests[:SERVE_OBS_PROFILED[0]]]
+        for label, (eng, sched, _) in arms.items():
+            ticks = []
+            margins = record_margins(eng, ticks)
+            done, stats = sched.run(requests)
+            del eng.prefill, eng.decode  # the recording wrappers
+            if label == "on":
+                # The trace file holds this run alone; later runs trace in
+                # memory, as a live run keeps its tracer.
+                sched.tracer.close()
+                sched.tracer = Tracer()
+            # A short profiled run: the whole run's trace is large to write
+            # and read.
+            pdir = os.path.join(tmp, f"profile_{label}")
+            with profiler_trace(pdir, "cuda"):
+                _, pstats = sched.run(short)
+            trace = os.path.join(pdir, "torch_profile_p0.json")
+            runs[label] = dict(done=done, stats=stats, ticks=ticks, margins=margins,
+                               profiled_ticks=pstats.decode_steps,
+                               kernels=_profiled_kernels(trace),
+                               launches=_profiled_launches(trace))
+        eng, sched, kw = arms["on"]
+        records = kw["tracer"].records
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = analyze.main(["report", os.path.join(tmp, "trace.jsonl"), "--json"])
+        report = json.loads(buf.getvalue()) if rc == 0 else None
+        turns = []
+        for label in ("off", "on", "on", "off"):
+            torch.cuda.synchronize()
+            _, stats = arms[label][1].run(requests)
+            turns.append((label, stats.decode_tokens_per_s))
+        kw["metrics_writer"].close()
+        recs = [json.loads(line) for line in open(os.path.join(tmp, "m.jsonl"))]
+    reg = kw["registry"]
+    off, on = runs["off"], runs["on"]
+    tokens_equal = {i: c.tokens for i, c in on["done"].items()} == \
+        {i: c.tokens for i, c in off["done"].items()}
+    rows_equal = len(on["ticks"]) == len(off["ticks"]) and all(
+        np.array_equal(a, b) for a, b in zip(on["ticks"], off["ticks"]))
+    if not (tokens_equal and rows_equal):
+        failures.append(f"telemetry changed tokens ({tokens_equal}) or logits rows ({rows_equal})")
+    csrc = {k: n for k, n in on["kernels"].items()
+            if re.search(ADAM_KERNEL, k) or k.startswith("flash_")}
+    # The host's launch calls are the gate; the device records are printed
+    # beside them (a profiler session can drop a few device records, PERF.md §7).
+    per_tick = {label: dict(launches=r["launches"] / max(1, r["profiled_ticks"]),
+                            device_kernels=sum(r["kernels"].values())
+                            / max(1, r["profiled_ticks"]))
+                for label, r in runs.items()}
+    device_diff = {k: on["kernels"].get(k, 0) - off["kernels"].get(k, 0)
+                   for k in set(on["kernels"]) | set(off["kernels"])
+                   if on["kernels"].get(k, 0) != off["kernels"].get(k, 0)}
+    if on["launches"] != off["launches"] or set(on["kernels"]) != set(off["kernels"]) or \
+            on["profiled_ticks"] != off["profiled_ticks"]:
+        failures.append(f"device launches differ: {per_tick}, by kernel {device_diff}")
+    if csrc or not on["launches"]:
+        failures.append(f"csrc kernels {csrc} (or no launch) in the profiled run")
+    tis = reg.get("time_in_seconds")
+    phases = sum(tis.value(**ls) for ls in tis.label_sets())
+    observed = reg.get("time_observed_seconds").value()
+    if not math.isclose(phases, observed, rel_tol=1e-9):
+        failures.append(f"goodput phases {phases} != observed {observed}")
+    mfu = reg.get("serve_mfu").value()
+    if not 0 < mfu <= 1:
+        failures.append(f"serve_mfu {mfu}")
+    compiles = reg.get("xla_compiles_total")
+    by_kind = {ls["kind"]: int(compiles.value(**ls)) for ls in compiles.label_sets()}
+    keys = {}
+    for kind, key in eng._dispatched:
+        keys.setdefault(kind, set()).add(key)
+    buckets = {eng.prefill_bucket(len(r.prompt)) for r in requests}
+    if by_kind != {k: len(v) for k, v in keys.items()} or not buckets <= keys["prefill"]:
+        failures.append(f"xla_compiles_total {by_kind} against the dispatched keys {keys}")
+    ttft, itl = derive_request_slo(records)
+    grouped = derive_request_slo(records, group_by=lambda rid: "default")["default"]
+    want = {"ttft_ms": {"p50": grouped[0].p50_ms, "p95": grouped[0].p95_ms,
+                        "p99": grouped[0].p99_ms},
+            "itl_ms": {"p50": grouped[1].p50_ms, "p95": grouped[1].p95_ms,
+                       "p99": grouped[1].p99_ms}}
+    got = report["requests"]["per_class"]["default"] if report else {}
+    if rc != 0 or {k: got.get(k) for k in want} != want:
+        failures.append(f"analyze report (rc {rc}) {got} against derive_request_slo {want}")
+    if (ttft.p95_ms, itl.p95_ms) != (on["stats"].ttft.p95_ms, on["stats"].itl.p95_ms):
+        failures.append("derive_request_slo differs from the run's ServeStats")
+    launches = serve_launches("serve_obs", fused_adam, fa)
+    off_tps = [t for label, t in turns if label == "off"]
+    on_tps = [t for label, t in turns if label == "on"]
+    out = dict(card=card, requests=len(requests), new_tokens=SERVE_NEW, tokens_equal=tokens_equal,
+               decode_logits_rows_bitwise_equal=rows_equal, decode_ticks=on["stats"].decode_steps,
+               per_tick=per_tick, device_records_on_minus_off=device_diff, csrc_kernels=csrc,
+               kernel_launches=launches,
+               goodput=dict(phases_s=phases, observed_s=observed,
+                            fraction=reg.get("goodput_fraction").value()),
+               serve_mfu=mfu, peak_flops=kw["peak_flops"], xla_compiles_total=by_kind,
+               slo=dict(fast_burn=kw["slo_monitor"].burn_rate("ttft", "fast"),
+                        alerts=kw["slo_monitor"].alerts("ttft")),
+               anomaly=kw["anomaly_detector"].summary(),
+               analyze_ttft_ms=got.get("ttft_ms"), analyze_itl_ms=got.get("itl_ms"),
+               metrics_snapshots=sum(r["record"] == "snapshot" for r in recs),
+               turns_decode_tokens_per_s=turns,
+               telemetry_cost_ratio=(sum(on_tps) / len(on_tps)) / (sum(off_tps) / len(off_tps)),
+               failures=failures, seconds=time.perf_counter() - start)
+    emit("serve_obs", **out)
+    if failures:
+        raise AssertionError(f"serve_obs: {failures}")
+    return dict(out, done=on["done"], margins=on["margins"])
+
+
+def _cli_json(argv) -> tuple[dict, list]:
+    """``cli.main(argv)`` in this process: (its JSON line, its other lines)."""
+    import contextlib
+    import io
+
+    from ddl_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    if rc != 0:
+        raise AssertionError(f"cli {argv[:2]} exited {rc}: {lines[-20:]}")
+    return json.loads(lines[-1]), lines[:-1]
+
+
+def serve_obs_cli(torch, fused_adam, fa, card: str, tmp: str, o5: dict) -> dict:
+    """o6: ``serve`` through ``cli.main`` with every serve telemetry flag,
+    its device left to the default, then a ``--replicas`` arm whose
+    autoscaler has a ``burn=`` rule; ``obs.analyze`` over its files.
+    Leaves the single-engine metrics file in ``tmp`` for t1's ``--fit``."""
+    import contextlib
+    import io
+
+    from ddl_tpu_torch.data.lm import synthesize_prompts
+    from ddl_tpu_torch.obs import analyze, cost
+
+    start = time.perf_counter()
+    zero_launches(fused_adam, fa)
+    spec, sp = lm_spec(), SERVE_PROMPTS
+    model = ["--vocab", str(spec.vocab), "--d-model", str(spec.d_model), "--heads",
+             str(spec.num_heads), "--layers", str(spec.num_layers), "--d-ff", str(spec.d_ff),
+             "--seed", "0"]
+    mpath, tdir = os.path.join(tmp, "serve.jsonl"), os.path.join(tmp, "trace")
+    peak = cost.peak_flops_per_device("cuda", None, precision="fp32")
+    single, lines = _cli_json(
+        ["serve", *model, "--slots", "8", "--capacity", "512", "--page-size", "64",
+         "--num-prompts", str(sp["num"]), "--prompt-min", str(sp["min_len"]), "--prompt-max",
+         str(sp["max_len"]), "--max-new-tokens", str(SERVE_NEW), "--metrics-out", mpath,
+         "--metrics-interval", "5", "--trace-dir", tdir, "--prom-port", "0", "--peak-flops",
+         str(peak), "--ici-bw", "9e11", "--anomaly-rules", SERVE_OBS_ANOMALY, "--slo-rules",
+         SERVE_OBS_SLO, "--json"])
+    failures = []
+    if single["device"] != "cuda":
+        failures.append(f"the CLI served on {single['device']!r}")
+    prompts = synthesize_prompts(**sp)
+    cli_tokens = {int(i): c["tokens"] for i, c in single["completions"].items()}
+    differ = {}
+    for i, want in o5["tokens"].items():
+        got = cli_tokens.get(i, [])
+        if got != want:
+            k = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
+                     min(len(got), len(want)))
+            differ[i] = dict(at=k, cli=got[k:k + 3], o5=want[k:k + 3],
+                             o5_top2_margin=o5["margins"][i][k] if k < len(o5["margins"][i])
+                             else None)
+    # The CLI's engine holds its own copy of the params: a token may differ
+    # only where o5's top-2 margin is below serving's logits tolerance.
+    ties = {i: d for i, d in differ.items()
+            if d["o5_top2_margin"] is None or d["o5_top2_margin"] >= SERVE_TOL[0]}
+    if len(cli_tokens) != len(prompts) or ties:
+        failures.append(f"the CLI's tokens are not serve_obs's: {differ}")
+    if not single["slo_rules"] or not single["anomaly_rules"] or not single["goodput"]:
+        failures.append("a digest is missing from the JSON")
+    rcs = {}
+    for name, argv in (("report", ["report", os.path.join(tdir, "host_trace_p0.jsonl")]),
+                       ("compare", ["compare", mpath, mpath])):
+        with contextlib.redirect_stdout(io.StringIO()):
+            rcs[name] = analyze.main(argv)
+    if rcs != {"report": 0, "compare": 0} or not os.path.exists(
+            os.path.join(tdir, "torch_profile_p0.json")):
+        failures.append(f"analyze exit codes {rcs}, or no profiler trace")
+    tr = FLEET_AUTOSCALE_TRAFFIC
+    traffic = ";".join([f"horizon={tr['horizon']}", f"seed={tr['seed']}",
+                        f"max_requests={tr['max_requests']}",
+                        "burst=" + ":".join(str(x) for x in tr["burst"])] +
+                       [f"{c}:rate={d['rate']},pmin={d['prompt_min']},pmax={d['prompt_max']},"
+                        f"new={d['max_new_tokens']}" for c, d in tr["classes"].items()])
+    fleet, _ = _cli_json(
+        ["serve", *model, "--replicas", "1", "--slots", "2", "--capacity", "512", "--page-size",
+         "64", "--shed-threshold", "5", "--traffic", traffic, "--slo",
+         "chat:ttft=5,itl=0.5,priority=0;bulk:ttft=60,itl=5,priority=2,margin=2",
+         "--autoscale", "max=3,min=1,backlog=3,sustain=8,idle=6,burn=bulk_ttft",
+         "--slo-rules", ROUTER_OBS_SLO, "--anomaly-rules", "backlog;shed_rate",
+         "--metrics-out", os.path.join(tmp, "fleet.jsonl"), "--json"])
+    reasons = [e.get("reason") for e in fleet["router"]["fleet"]["events"]
+               if e["kind"] == "scale_out"]
+    if fleet["device"] != "cuda" or "burn" not in reasons or \
+            not fleet["slo_rules"]["bulk_ttft"]["alerts"]:
+        failures.append(f"the fleet arm: device {fleet['device']}, scale-outs {reasons}, "
+                        f"slo {fleet['slo_rules']}")
+    launches = serve_launches("serve_obs_cli", fused_adam, fa)
+    out = dict(card=card, device=single["device"], tokens_differ_at_near_ties=differ,
+               goodput=single["goodput"],
+               slo_rules=single["slo_rules"],
+               anomaly_alerts={k: v["alerts"] for k, v in single["anomaly_rules"].items()},
+               endpoint=[x for x in lines if "metrics endpoint" in x],
+               decode_tokens_per_s_per_slot=single["decode_tokens_per_s_per_slot"],
+               analyze_rcs=rcs, fleet=dict(device=fleet["device"], scale_out_reasons=reasons,
+                                           slo_rules=fleet["slo_rules"],
+                                           anomaly_rules=fleet["anomaly_rules"],
+                                           per_class=fleet["per_class"]),
+               kernel_launches=launches, failures=failures,
+               seconds=time.perf_counter() - start)
+    emit("serve_obs_cli", **out)
+    if failures:
+        raise AssertionError(f"serve_obs_cli: {failures}")
+    return dict(out, metrics_path=mpath)
+
+
+def twin(torch, params, fused_adam, fa, card: str, fit_path: str) -> dict:
+    """t1: the port's real fleet on the card against its cost-model twin on
+    bulk_burst and replica_crash (a registry and a tracer on both), then
+    ``sim --scenario bulk_burst --fit`` with o6's metrics file."""
+    from ddl_tpu_torch.obs import MetricRegistry, Tracer
+    from ddl_tpu_torch.obs.slo import SloMonitor
+    from ddl_tpu_torch.serve import Router
+    from ddl_tpu_torch.serve.scenarios import SCENARIOS
+    from ddl_tpu_torch.serve.sim import sim_engine_factory
+
+    start = time.perf_counter()
+    zero_launches(fused_adam, fa)
+    spec, failures, scenarios = lm_spec(), [], {}
+    for name in TWIN_SCENARIOS:
+        scn = SCENARIOS[name]
+        arms = {}
+        for kind in ("real", "sim"):
+            reg, tracer = MetricRegistry(), Tracer()
+            mon = SloMonitor(scn.slo_rules(), reg, tracer=tracer) if scn.slo_rule_classes \
+                else None
+            where = dict(device="cuda", placed_params=params) if kind == "real" else {}
+            router = Router(scn.router_config(spec, engine_factory=None if kind == "real"
+                                              else sim_engine_factory()),
+                            registry=reg, tracer=tracer, slo_monitor=mon,
+                            controller=scn.make_controller(), **where)
+            t0 = time.perf_counter()
+            done, stats = router.run(scn.build_traffic(spec.vocab))
+            torch.cuda.synchronize()
+            handoff = reg.get("handoff_bytes_total")
+            arms[kind] = dict(
+                events=router.controller.events,
+                done={i: (c.status, c.admitted_step, c.finished_step) for i, c in done.items()},
+                per_class={c: (r.requests, r.ok, r.shed) for c, r in stats.per_class.items()},
+                router_sheds=stats.router_sheds,
+                handoff_bytes={ls["path"]: handoff.value(**ls) for ls in handoff.label_sets()}
+                if handoff is not None else {},
+                slo={r.name: mon.cumulative(r.name) for r in mon.rules} if mon else {},
+                wall_s=time.perf_counter() - t0)
+        real, sim = arms["real"], arms["sim"]
+        same = {k: real[k] == sim[k] for k in ("events", "done", "per_class", "router_sheds",
+                                               "handoff_bytes", "slo")}
+        if not all(same.values()):
+            failures.append(f"{name}: the twin differs from the real fleet in "
+                            f"{[k for k, v in same.items() if not v]}")
+        scenarios[name] = dict(same=same, events=[list(map(str, e)) for e in real["events"]],
+                               per_class=real["per_class"], handoff_bytes=real["handoff_bytes"],
+                               real_wall_s=real["wall_s"], sim_wall_s=sim["wall_s"])
+    fitted, _ = _cli_json(["sim", "--scenario", "bulk_burst", "--fit", fit_path, "--json"])
+    if fitted["cost_model"]["decode_s_per_tick"] == 4.0e-3:
+        failures.append(f"--fit kept the default costs: {fitted['cost_model']}")
+    launches = serve_launches("twin", fused_adam, fa)
+    out = dict(card=card, scenarios=scenarios, fitted_cost_model=fitted["cost_model"],
+               fitted_virtual_time=fitted["virtual_time"], kernel_launches=launches,
+               failures=failures, seconds=time.perf_counter() - start)
+    emit("twin", **out)
+    if failures:
+        raise AssertionError(f"twin: {failures}")
+    return out
+
+
 def flash_bound_ms(shape, kind: str, elem_bytes: int, ops_per_s: float, hbm: float):
     """(bound ms, what bounds it) of one kernel at ``shape``, causal: the
     products on the causal half (pairs with key <= query; exps and the
@@ -3674,9 +4068,18 @@ def run_phases(torch, world, card: str):
     # its profiler windows.
     obs_lm_out = obs_lm(torch, flash_attention, lm_out)
     obs_cli_out = obs_cli(torch)
+    serve_params = init_lm_params(torch.Generator().manual_seed(0), lm_spec(), "cuda")
+    o5 = serve_obs(torch, serve_params, fused_adam, flash_attention, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        o6 = serve_obs_cli(torch, fused_adam, flash_attention, card, tmp,
+                           dict(tokens={i: c.tokens for i, c in o5.pop("done").items()},
+                                margins=o5.pop("margins")))
+        t1 = twin(torch, serve_params, fused_adam, flash_attention, card, o6["metrics_path"])
+    del serve_params
+    emit("serve_obs_phases", card=card, seconds=o5["seconds"] + o6["seconds"] + t1["seconds"])
     bf16 = dict(cnn=cnn_bf16_out, lm=policy_out, seq=seq_policy_out)
     resilience = dict(sync=resume_out, async_=resume_async_out, guard=guard_out)
-    obs = dict(lm=obs_lm_out, cli=obs_cli_out)
+    obs = dict(lm=obs_lm_out, cli=obs_cli_out, serve=o5, serve_cli=o6, twin=t1)
     return (max_err, main_out, async_out, tim, flash_err, lm_out, seq_out, tp_out, pp_out,
             flash_tim, bf16, resilience, obs, pool)
 
@@ -3686,6 +4089,13 @@ def _pool_launches(pool: dict, name: str) -> dict:
     return {f"serve_{phase}_launches": sum(run[name] for run in
                                            pool[phase]["kernel_launches"].values())
             for phase in ("speculate", "int8")}
+
+
+def _serve_obs_launches(obs: dict, name: str) -> dict:
+    """A kernel's launches in o5, o6 and t1 (each gated at 0)."""
+    return {f"{key}_launches": obs[phase]["kernel_launches"][name]
+            for key, phase in (("serve_obs", "serve"), ("serve_obs_cli", "serve_cli"),
+                               ("twin", "twin"))}
 
 
 def main() -> int:
@@ -3731,6 +4141,7 @@ def main() -> int:
         "resume_async_launches": resilience["async_"]["launches"],
         "obs_cli_profiled_launches": obs["cli"]["adam_launches_profiled"],
         **_pool_launches(pool, "adam_flat_fused"),
+        **_serve_obs_launches(obs, "adam_flat_fused"),
         "max_abs_err": max_err,
         "ms": tim["ms"],
         "hot_ms": tim["hot_ms"],
@@ -3762,6 +4173,7 @@ def main() -> int:
             "obs_launches": obs["lm"]["launches"][key],
             "obs_profiled_launches": obs["lm"]["named"][key],
             **_pool_launches(pool, name),
+            **_serve_obs_launches(obs, name),
             "max_abs_err": flash_err[key],
             "ms": row["ms"],
             "hot_ms": row["hot_ms"],

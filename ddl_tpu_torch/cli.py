@@ -6,7 +6,10 @@ ZeRO-1, Megatron tensor parallelism, GPipe or 1F1B pipeline stages), and
 serving: one engine, at tp 1 or over a tp group, or a fleet of replicas
 behind the SLO-aware router (``--replicas``), with disaggregated
 prefill/decode roles, the self-healing fleet controller, speculative
-decoding (``--speculate``) and the int8 KV pool (``--kv-dtype int8``).
+decoding (``--speculate``) and the int8 KV pool (``--kv-dtype int8``), with
+serve telemetry (metrics, traces, burn-rate SLO rules, anomaly rules, the
+/metrics endpoint); and ``sim``, the fleet's cost-model digital twin
+replaying a named scenario (``--scenario``, costs fitted with ``--fit``).
 
     python -m ddl_tpu_torch single
     python -m ddl_tpu_torch sync_sharding --num-workers 1 --num-ps 2 --layout flat --fused-adam
@@ -30,16 +33,20 @@ decoding (``--speculate``) and the int8 KV pool (``--kv-dtype int8``).
     python -m ddl_tpu_torch serve --replicas 1 --page-size 64 --autoscale backlog=3 \
         --max-replicas 3 --inject-fault replica_crash@6:0
     python -m ddl_tpu_torch serve --replicas 2 --page-size 64 --speculate 4 --kv-dtype int8
+    python -m ddl_tpu_torch serve --metrics-out m.jsonl --trace-dir tr \
+        --slo-rules "ttft:metric=serve_ttft_seconds,target=0.5" --anomaly-rules queue_depth
+    python -m ddl_tpu_torch sim --scenario bulk_burst --fit m.jsonl --json
 
 Flags are spelled as in the JAX CLI, with its defaults; a flag of another
 variant set away from its default is refused. One process drives one
 device: a multi-worker run is launched with ``torchrun``, whose ``RANK`` /
 ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT`` variables this reads; a
-run of one worker makes a world of one itself. Runs on ``cuda``
-unless ``--device cpu``, in fp32 with TF32 off unless ``--precision bf16``
-(bf16 compute and bf16 gradient sums, fp32 master weights and moments) or
-the legacy ``--bf16`` (bf16 compute only); the JAX CLI's bf16 default on a
-TPU does not carry over, as JAX on a GPU defaults to fp32.
+run of one worker makes a world of one itself. Runs on ``cuda`` unless
+``--device cpu`` (``sim`` touches no device), in fp32 with TF32 off unless
+``--precision bf16`` (bf16 compute and bf16 gradient sums, fp32 master
+weights and moments) or the legacy ``--bf16`` (bf16 compute only); the JAX
+CLI's bf16 default on a TPU does not carry over, as JAX on a GPU defaults
+to fp32.
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ VARIANTS = (
     "async_sharding_greedy",
     "lm",
     "serve",
+    "sim",
 )
 # Flags of one variant group, each refused, set away from its default, by
 # the others (as ddl_tpu/cli.py's _reject_foreign_flags).
@@ -80,17 +88,12 @@ _SERVE_ONLY = ("slots", "capacity", "max_new_tokens", "num_prompts", "prompt_min
                "prompt_max", "temperature", "top_k", "prefix_cache", "prefill_chunk",
                "prefill_budget", "page_size", "num_pages", "ttft_deadline",
                "request_deadline", "shed_threshold", "replicas", "traffic", "slo",
-               "autoscale", "max_replicas", "roles", "speculate")
-# JAX CLI flags of slices not ported yet, with their ROADMAP items: setting
-# one raises NotImplementedError, whatever the variant.
-_NOT_PORTED = {
-    "slo_rules": "ROADMAP queue 1, item 8, part 8: serve observability",
-}
-# The telemetry flags, ported on every training variant; serving's
-# telemetry is ROADMAP queue 1, item 8, part 8.
-_OBS_FLAGS = ("profile", "metrics_out", "metrics_interval", "prom_port", "peak_flops",
-              "ici_bw", "anomaly_rules", "trace_dir")
-_SERVE_OBS = "ROADMAP queue 1, item 8, part 8: serve observability"
+               "slo_rules", "autoscale", "max_replicas", "roles", "speculate")
+_SIM_ONLY = ("scenario", "fit")
+# The serve flags whose job the scenario does on sim (topology, traffic,
+# per-request policy); --replicas, --autoscale and --max-replicas stay the
+# twin's scale and policy knobs.
+_SIM_REJECT = tuple(d for d in _SERVE_ONLY if d not in ("replicas", "autoscale", "max_replicas"))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -100,7 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     p.add_argument("variant", choices=VARIANTS)
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where a run computes (sim touches no device and refuses it)")
     p.add_argument("--num-workers", type=int, default=None,
                    help="data-parallel degree (default: torchrun's WORLD_SIZE, else 1)")
     p.add_argument("--num-ps", type=int, default=2,
@@ -192,14 +196,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="capture a torch.profiler trace of the training loop into DIR "
                         "(one Chrome trace a rank, torch_profile_p<rank>.json; view in "
-                        "Perfetto)")
+                        "Perfetto); training variants only, serve traces with --trace-dir")
     p.add_argument("--metrics-out", default=None, metavar="FILE",
                    help="write run telemetry as JSONL (ddl_tpu_torch.obs registry "
                         "snapshots: counters/gauges/histograms; the FIRST record is a run "
                         "manifest with the torch and CUDA versions, the card's name and "
                         "power limit, the grid's shape, the config and the git sha). On "
                         "single/lm this also enables the in-step health signals (grad "
-                        "norm, per-subtree param/update norms, non-finite counters)")
+                        "norm, per-subtree param/update norms, non-finite counters); on "
+                        "serve the scheduler's serve_* metrics, the compile counts and the "
+                        "goodput phases, snapshotted as the run goes (the router's "
+                        "router_*/fleet_* metrics with --replicas)")
     p.add_argument("--metrics-interval", type=int, default=None, metavar="N",
                    help="record the health norms every N global steps (default 10; "
                         "read with the span barrier, never an extra per-step sync); "
@@ -210,7 +217,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(byte-identical to prometheus_text()), GET /healthz a liveness "
                         "JSON. PORT 0 binds an ephemeral port (printed at startup)")
     p.add_argument("--peak-flops", type=float, default=None, metavar="FLOPS",
-                   help="per-device peak FLOP/s for the train_mfu gauge "
+                   help="per-device peak FLOP/s for the train_mfu and serve_mfu gauges "
                         "(ddl_tpu_torch.obs.cost): overrides the device table (the H100's "
                         "bf16 and fp32 rows; the CPU falls back to a nominal anchor)")
     p.add_argument("--ici-bw", type=float, default=None, metavar="BPS",
@@ -222,12 +229,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "';'-joined SIGNAL[:window=W,min=M,threshold=Z,direction="
                         "high|low|both,scale=S] segments, rolling median/MAD baselines "
                         "with anomaly_total{signal=} counters and 'anomaly' trace events; "
-                        "the trainers' signals are step_time and mfu. Applies to "
-                        "single/lm")
+                        "the trainers' signals are step_time and mfu, the scheduler's "
+                        "step_time, itl, mfu, queue_depth, active_slots, occupied_slots "
+                        "and pages_free, the router's backlog and shed_rate. Applies to "
+                        "single/lm/serve")
     p.add_argument("--trace-dir", default=None, metavar="DIR",
                    help="capture a structured trace into DIR: host spans as "
                         "host_trace_p<rank>.jsonl (convert to Chrome/Perfetto with "
-                        "'python -m ddl_tpu_torch.obs.trace in.jsonl out.json') PLUS the "
+                        "'python -m ddl_tpu_torch.obs.trace in.jsonl out.json'; analyse "
+                        "with 'python -m ddl_tpu_torch.obs.analyze report') PLUS the "
                         "torch.profiler timeline of the card in the same directory")
     lm = p.add_argument_group(
         "lm options",
@@ -385,9 +395,38 @@ def build_parser() -> argparse.ArgumentParser:
                          "through FREE slots of the one batched decode (greedy-accept: the "
                          "output equals plain greedy decode's). Needs --replicas, --page-size "
                          "> 0, temperature 0 and --slots >= 2")
-    # The JAX CLI's flags of later slices (_NOT_PORTED): parsed so that
-    # setting one fails with its ROADMAP item, not a generic parse error.
-    sv.add_argument("--slo-rules", default=None, help="not ported")
+    sv.add_argument("--slo-rules", default=None, metavar="SPEC",
+                    help="streaming burn-rate SLO monitors (ddl_tpu_torch.obs.slo) stepped "
+                         "once a scheduler or router tick over the live registry: "
+                         "';'-joined NAME:metric=M,... segments with target=SECONDS "
+                         "(histogram mode: samples above it are misses) or total=COUNTER "
+                         "(counter mode: metric counts bad events, total the attempts), "
+                         "plus objective=, fast=/slow= (window ticks), threshold= and "
+                         "label.K=V selectors; slo_burn_rate{rule=,window=} gauges, "
+                         "slo_alerts_total{rule=} counters, slo_alert trace events. Under "
+                         "--replicas the monitor reads the ROUTER registry: histogram "
+                         "rules target router_ttft_seconds with label.class=; "
+                         "--autoscale's burn=RULE|RULE names these rules")
+    sm = p.add_argument_group(
+        "sim options",
+        "the 'sim' variant replays a named scenario (ddl_tpu_torch.serve.scenarios) on "
+        "the cost-model digital twin (ddl_tpu_torch.serve.sim): the real router, "
+        "scheduler and controller drive engines that charge fitted per-phase virtual "
+        "time instead of computing, on no device; --replicas, --autoscale/"
+        "--max-replicas, --json, --metrics-out, --trace-dir and --prom-port apply as on "
+        "serve (topology and traffic come from the scenario)",
+    )
+    sm.add_argument("--scenario", default=None, metavar="NAME[:K=V,..]",
+                    help="scenario to replay (bulk_burst, replica_crash, diurnal, "
+                         "crash_storm, role_mix, longtail_prefix), with optional "
+                         "comma-joined overrides horizon=, max_requests=, rate_scale=, "
+                         "seed= (traffic scale; refused on pinned-request scenarios) and "
+                         "replicas= (topology scale)")
+    sm.add_argument("--fit", default=None, metavar="METRICS_JSONL",
+                    help="fit the twin's per-phase costs from a measured serve run's "
+                         "--metrics-out file (obs.goodput.phase_cost_fit: "
+                         "time_in_seconds{phase=} over the phase's work units); default: "
+                         "the CostModel's CPU-scale constants")
     return p
 
 
@@ -464,8 +503,9 @@ def _check_resilience_flags(args) -> None:
                              "guarded trainers)")
         if not args.checkpoint_dir:
             raise SystemExit("--max-bad-steps rollback requires --checkpoint-dir")
-    if args.resume and not args.checkpoint_dir and args.variant != "serve":
-        # serve refuses --resume as a training flag (_TRAIN_ONLY), as JAX's.
+    if args.resume and not args.checkpoint_dir and args.variant not in ("serve", "sim"):
+        # serve and sim refuse --resume as a training flag (_TRAIN_ONLY), as
+        # JAX's.
         raise SystemExit("--resume requires --checkpoint-dir")
 
 
@@ -531,14 +571,7 @@ def _resilience_json(result) -> dict:
 
 
 def _check_obs_flags(args) -> None:
-    """JAX's checks of the telemetry flags, with its texts; on serve they
-    are not ported (ROADMAP queue 1, item 8, part 8)."""
-    if args.variant == "serve":
-        defaults = build_parser()
-        for dest in _OBS_FLAGS:
-            if getattr(args, dest) != defaults.get_default(dest):
-                raise NotImplementedError(
-                    f"--{dest.replace('_', '-')} on serve is not ported yet ({_SERVE_OBS})")
+    """JAX's checks of the telemetry flags, with its texts."""
     if args.metrics_interval is not None:
         if args.metrics_interval < 1:
             raise SystemExit(f"--metrics-interval must be >= 1, got {args.metrics_interval}")
@@ -551,15 +584,17 @@ def _check_obs_flags(args) -> None:
         raise SystemExit("--anomaly-rules applies to the single/lm/serve variants")
 
 
-def _build_obs(args, *, config=None, grid=None, rank: int = 0):
+def _build_obs(args, *, config=None, grid=None, rank: int = 0, make_tracer: bool = True):
     """``(registry, writer, tracer)`` from the telemetry flags, None where
     off (JAX's ``_build_obs``). A registry exists whenever anything reads
-    it live (the JSONL writer, the /metrics endpoint, an anomaly detector),
-    on EVERY rank: the health sums are collectives. The writer (manifest
-    first) is rank 0's alone; each rank traces into its own
-    ``host_trace_p<rank>.jsonl``."""
+    it live (the JSONL writer, the /metrics endpoint, an SLO monitor, an
+    anomaly detector), on EVERY rank: the health sums are collectives. The
+    writer (manifest first) is rank 0's alone; each rank traces into its
+    own ``host_trace_p<rank>.jsonl`` (``make_tracer=False`` leaves the
+    tracer to the caller, as serve's)."""
     registry = writer = tracer = None
-    if args.metrics_out or args.prom_port is not None or args.anomaly_rules:
+    if (args.metrics_out or args.prom_port is not None or args.slo_rules
+            or args.anomaly_rules):
         from .obs import MetricRegistry
 
         registry = MetricRegistry()
@@ -569,7 +604,7 @@ def _build_obs(args, *, config=None, grid=None, rank: int = 0):
         writer = MetricsWriter(args.metrics_out, registry,
                                run_manifest(config=config, mesh=grid,
                                             extra={"variant": args.variant}))
-    if args.trace_dir:
+    if make_tracer and args.trace_dir:
         from .obs.trace import Tracer, host_trace_file
 
         tracer = Tracer(host_trace_file(args.trace_dir))
@@ -591,6 +626,50 @@ def _start_exporter(args, registry, rank: int = 0):
     print(f"[ddl_tpu] metrics endpoint: {exp.url('/metrics')} "
           f"(healthz: {exp.url('/healthz')})")
     return exp
+
+
+def _make_slo_monitor(args, registry, tracer=None):
+    """``--slo-rules``: the burn-rate monitor on the run's registry; None
+    when the flag is off."""
+    if not args.slo_rules:
+        return None
+    from .obs.slo import SloMonitor, parse_slo_rules
+
+    try:
+        return SloMonitor(parse_slo_rules(args.slo_rules), registry, tracer=tracer)
+    except ValueError as e:
+        raise SystemExit(f"--slo-rules: {e}")
+
+
+def _slo_report(monitor):
+    """End-of-run ``--slo-rules`` lines (one a rule); the JSON digest, None
+    without a monitor."""
+    if monitor is None:
+        return None
+    digest = {}
+    for name in sorted(r.name for r in monitor.rules):
+        row = {"fast_burn": monitor.burn_rate(name, "fast"),
+               "slow_burn": monitor.burn_rate(name, "slow"),
+               "alerts": monitor.alerts(name), "fired_ticks": monitor.fired_ticks(name)}
+        digest[name] = row
+        print(f"slo rule {name}: burn fast {row['fast_burn']:.2f} slow "
+              f"{row['slow_burn']:.2f} | alerts {row['alerts']}")
+    return digest
+
+
+def _goodput_line(registry) -> None:
+    """The serve run's live goodput digest line (JAX's), when the registry
+    has one."""
+    gf = registry.get("goodput_fraction") if registry is not None else None
+    if gf is None or gf.value() is None:
+        return
+    tis = registry.get("time_in_seconds")
+    phases = " ".join(
+        f"{ls['phase']}={tis.value(**ls):.2f}s"
+        for ls in sorted(tis.label_sets(), key=lambda d: -tis.value(**d))
+        if tis.value(**ls) > 0
+    ) if tis is not None else ""
+    print(f"goodput: {gf.value():.1%} ({phases})")
 
 
 def _make_anomaly(args, registry, tracer=None):
@@ -641,7 +720,7 @@ def config_from_args(args, num_workers: int):
     from .models.cnn import TINY_CONV_CHANNELS, TINY_FC_SIZES
     from .train.config import TrainConfig
 
-    _reject_foreign_flags(args, args.variant, _LM_ONLY + _SERVE_ONLY)
+    _reject_foreign_flags(args, args.variant, _LM_ONLY + _SERVE_ONLY + _SIM_ONLY)
 
     sharded = "sharding" in args.variant
     layout = args.layout or ("zigzag" if args.variant.endswith("greedy") else "block")
@@ -721,7 +800,7 @@ def lm_config_from_args(args):
     from .models.transformer import LMSpec
     from .strategies.seq import SeqConfig
 
-    _reject_foreign_flags(args, "lm", _CNN_ONLY + _SERVE_ONLY)
+    _reject_foreign_flags(args, "lm", _CNN_ONLY + _SERVE_ONLY + _SIM_ONLY)
     if args.data_parallel < 1:
         raise SystemExit(f"--data-parallel must be >= 1, got {args.data_parallel}")
     if args.tensor_parallel < 1:
@@ -857,7 +936,10 @@ def _run_serve(args, device) -> int:
     from .serve import ServeConfig
     from .serve.engine import check_config
 
-    _reject_foreign_flags(args, "serve", _CNN_ONLY + _LM_TRAIN + _TRAIN_ONLY)
+    # JAX's training-only group holds --profile: serve traces with
+    # --trace-dir.
+    _reject_foreign_flags(args, "serve",
+                          _CNN_ONLY + _LM_TRAIN + _TRAIN_ONLY + ("profile",) + _SIM_ONLY)
     if args.tensor_parallel < 1:
         raise SystemExit(f"--tensor-parallel must be >= 1, got {args.tensor_parallel}")
     spec = LMSpec(vocab=args.vocab, d_model=args.d_model, num_heads=args.heads,
@@ -1073,26 +1155,48 @@ def _run_serve_router(args, cfg, device) -> int:
 
 def _serve_router(args, rcfg, traffic, ckpt, injector, controller, device, grid) -> int:
     """One rank's router run of the ``--replicas`` path; rank 0 prints
-    JAX's lines and JSON."""
+    JAX's lines and JSON. The telemetry lives on the ROUTER registry
+    (``--slo-rules``, ``--anomaly-rules``); each replica gets its own."""
+    from .obs.trace import Tracer, host_trace_file
     from .serve.router import Router
+    from .utils.metrics import trace as profiler_trace
 
+    rank = grid.rank if grid is not None else 0
+    registry, writer, _ = _build_obs(args, config=rcfg.serve, grid=grid, rank=rank,
+                                     make_tracer=False)
+    # keep=True: the per-class SLO derivation reads the records back.
+    tracer = (Tracer(host_trace_file(args.trace_dir), keep=True) if args.trace_dir
+              else None)
+    monitor = _make_slo_monitor(args, registry, tracer)
+    detector = _make_anomaly(args, registry, tracer)
     where = dict(grid=grid) if grid is not None else dict(device=device)
-    kw = dict(injector=injector, controller=controller, **where)
+    kw = dict(registry=registry, tracer=tracer, injector=injector, slo_monitor=monitor,
+              peak_flops=args.peak_flops, anomaly_detector=detector, controller=controller,
+              **where)
     try:
         router = (Router.from_checkpoint(rcfg, ckpt, **kw) if ckpt is not None
                   else Router(rcfg, **kw))
     except (ValueError, KeyError) as e:
         raise SystemExit(f"serve config error: {e}")
-    rank0 = grid is None or grid.rank == 0
+    rank0 = rank == 0
     if ckpt is not None and rank0:
         print(f"[ddl_tpu] serving params from {ckpt} (params-only load, placed once for "
               f"{args.replicas} replicas)")
-    # Every program shape runs once outside the reported run (each replica
-    # may receive any request, so each warms on the whole stream).
-    router.warmup(traffic)
-    done, rstats = router.run(traffic)
+    exporter = None
+    try:
+        exporter = _start_exporter(args, registry, rank)
+        # Every program shape runs once outside the reported run (each
+        # replica may receive any request, so each warms on the whole
+        # stream); the profiler opens after it.
+        router.warmup(traffic)
+        with profiler_trace(args.trace_dir, device):
+            done, rstats = router.run(traffic)
+    finally:
+        _close_obs(exporter, tracer, writer)
     if not rank0:
         return 0
+    slo_digest = _slo_report(monitor)
+    anomaly_digest = _anomaly_report(detector)
     cls_of = {m.id: m.traffic_class for m in traffic}
     summary = rstats.summary()
     for name, row in summary["per_class"].items():
@@ -1126,8 +1230,8 @@ def _serve_router(args, rcfg, traffic, ckpt, injector, controller, device, grid)
             "replicas": args.replicas,
             "router": summary,
             "speculate": spec_digest,
-            "slo_rules": None,
-            "anomaly_rules": None,
+            "slo_rules": slo_digest,
+            "anomaly_rules": anomaly_digest,
             "per_class": _class_tallies(done, cls_of),
             "completions": {
                 str(i): {"prompt_len": done[i].prompt_len, "tokens": done[i].tokens,
@@ -1143,7 +1247,7 @@ def _speculate_digest(cfg, router) -> dict | None:
     """The serve JSON's ``speculate`` digest, JAX's: k, method and the
     drafts proposed and accepted, summed over the replicas' registries (read
     without creating a metric). None without speculation or without
-    registries (the router made without one)."""
+    registries (no telemetry flag on the run)."""
     if not cfg.speculate_k or not router.replica_registries:
         return None
     totals = {}
@@ -1182,18 +1286,44 @@ def _serve(args, cfg, device, grid, injector) -> int:
         raise SystemExit(f"serve config error: {e}")
     requests = [Request(id=i, prompt=pr, max_new_tokens=args.max_new_tokens)
                 for i, pr in enumerate(prompts)]
+    rank = grid.rank if grid is not None else 0
+    registry, writer, _ = _build_obs(args, config=cfg, grid=grid, rank=rank, make_tracer=False)
+    monitor = _make_slo_monitor(args, registry)
+    detector = _make_anomaly(args, registry)
     try:
-        scheduler = Scheduler(engine, ttft_deadline_s=args.ttft_deadline,
+        scheduler = Scheduler(engine, registry=registry, metrics_writer=writer,
+                              ttft_deadline_s=args.ttft_deadline,
                               deadline_s=args.request_deadline,
-                              shed_threshold=args.shed_threshold, injector=injector)
+                              shed_threshold=args.shed_threshold, injector=injector,
+                              slo_monitor=monitor, peak_flops=args.peak_flops,
+                              anomaly_detector=detector)
     except ValueError as e:
         raise SystemExit(f"serve config error: {e}")
-    # Every program shape runs once outside the reported run: the latency
-    # percentiles and tok/s measure serving, not first-use set-up.
-    scheduler.warmup(requests)
-    done, stats = scheduler.run(requests)
-    if grid is not None and grid.rank != 0:
+    from .obs.trace import trace_context
+
+    exporter = None
+    try:
+        exporter = _start_exporter(args, registry, rank)
+        # Every program shape runs once outside the reported run: the
+        # latency percentiles and tok/s measure serving, not first-use
+        # set-up. Warm-up keeps telemetry off.
+        scheduler.warmup(requests)
+        # One --trace-dir context holds the host spans and the profiler's
+        # timeline of the run, opened after the warm-up.
+        with trace_context(args.trace_dir) as tracer:
+            scheduler.tracer = tracer
+            for consumer in (monitor, detector):
+                if consumer is not None:
+                    # slo_alert and anomaly events land in the run's trace.
+                    consumer.tracer = tracer
+            done, stats = scheduler.run(requests)
+    finally:
+        _close_obs(exporter, writer)
+    if rank != 0:
         return 0
+    slo_digest = _slo_report(monitor)
+    anomaly_digest = _anomaly_report(detector)
+    _goodput_line(registry)
     for i in sorted(done):
         c = done[i]
         tag = "" if c.status == "ok" else f" [{c.status}]"
@@ -1225,6 +1355,11 @@ def _serve(args, cfg, device, grid, injector) -> int:
                          "status": done[i].status}
                 for i in sorted(done)
             },
+            "per_class": _class_tallies(done, {r.id: r.traffic_class for r in requests}),
+            "slo_rules": slo_digest,
+            "anomaly_rules": anomaly_digest,
+            "goodput": (scheduler.goodput.summary() if scheduler.goodput is not None
+                        else None),
             "prefill_tokens_per_s": stats.prefill_tokens_per_s,
             "decode_tokens_per_s": stats.decode_tokens_per_s,
             "decode_tokens_per_s_per_slot": stats.decode_tokens_per_s_per_slot,
@@ -1238,6 +1373,133 @@ def _serve(args, cfg, device, grid, injector) -> int:
             "prefill_tokens_saved": stats.prefill_tokens_saved,
             "kv_page_copies": engine.page_copies if args.page_size else 0,
             "kv_pages_free": engine.pages.free if args.page_size else 0,
+        }))
+    return 0
+
+
+def _run_sim(args) -> int:
+    """The ``sim`` variant (JAX's ``_run_sim``): replay a named scenario on
+    the cost-model twin, the real router, scheduler and controller over
+    ``serve.sim.CostModelEngine`` replicas that charge fitted per-phase
+    virtual time and touch no device. Its decisions are the real fleet's
+    tick for tick; its tokens are hashes and its clock virtual. Prints
+    JAX's lines and JSON."""
+    if args.inject_fault:
+        raise SystemExit("--inject-fault applies to the single/lm/serve variants")
+    # --device too: the twin touches no device, and a --device cpu that
+    # changed nothing would read as if it had.
+    _reject_foreign_flags(args, "sim", _CNN_ONLY + _LM_TRAIN + _TRAIN_ONLY + ("profile",)
+                          + _SIM_REJECT + ("device",))
+    if args.scenario is None:
+        raise SystemExit(
+            "sim requires --scenario NAME[:key=value,...] (choices: "
+            "bulk_burst, replica_crash, diurnal, crash_storm, role_mix, "
+            "longtail_prefix)"
+        )
+    from .models.transformer import LMSpec
+    from .obs.goodput import fleet_summary, phase_cost_fit
+    from .serve.engine_iface import engine_kind
+    from .serve.router import Router
+    from .serve.scenarios import parse_scenario
+    from .serve.sim import CostModel, sim_engine_factory
+
+    try:
+        scn, over = parse_scenario(args.scenario)
+    except ValueError as e:
+        raise SystemExit(f"--scenario: {e}")
+    spec = LMSpec(vocab=args.vocab, d_model=args.d_model, num_heads=args.heads,
+                  num_layers=args.layers, d_ff=args.d_ff)
+    cost = CostModel()
+    if args.fit is not None:
+        try:
+            cost = CostModel.from_phase_fit(phase_cost_fit(args.fit))
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"--fit: {e}")
+    replicas = over.pop("replicas", None)
+    if args.replicas is not None:
+        replicas = args.replicas
+    acfg = None
+    if args.autoscale is not None:
+        from .serve.controller import parse_autoscale_spec
+
+        try:
+            acfg = parse_autoscale_spec(args.autoscale, max_replicas=args.max_replicas,
+                                        replicas=replicas if replicas is not None
+                                        else scn.replicas)
+        except ValueError as e:
+            raise SystemExit(f"--autoscale: {e}")
+    elif args.max_replicas is not None:
+        raise SystemExit("--max-replicas requires --autoscale (it caps the fleet the "
+                         "controller may grow; pass --autoscale '' for defaults)")
+    try:
+        traffic = scn.build_traffic(args.vocab, **over)
+        rcfg = scn.router_config(spec, replicas=replicas,
+                                 engine_factory=sim_engine_factory(cost))
+        controller = scn.make_controller(autoscale=acfg, replicas=replicas)
+    except ValueError as e:
+        raise SystemExit(f"sim config error: {e}")
+    registry, writer, _ = _build_obs(args, config=rcfg.serve, make_tracer=False)
+    tracer = None
+    if args.trace_dir:
+        from .obs.trace import Tracer, host_trace_file
+
+        # keep=True: the per-class SLO derivation reads the records back;
+        # the trace reads through obs.analyze as a real fleet's does.
+        tracer = Tracer(host_trace_file(args.trace_dir), keep=True)
+    monitor = None
+    if scn.slo_rule_classes:
+        if registry is None:
+            from .obs import MetricRegistry
+
+            registry = MetricRegistry()
+        from .obs.slo import SloMonitor
+
+        monitor = SloMonitor(scn.slo_rules(), registry, tracer=tracer)
+    exporter = None
+    try:
+        try:
+            router = Router(rcfg, registry=registry, tracer=tracer, slo_monitor=monitor,
+                            controller=controller)
+        except ValueError as e:
+            raise SystemExit(f"sim config error: {e}")
+        exporter = _start_exporter(args, registry)
+        # No warm-up: the twin has nothing to run ahead.
+        done, rstats = router.run(traffic)
+    finally:
+        _close_obs(exporter, tracer, writer)
+    vt = {"prefill": 0.0, "decode": 0.0, "handoff": 0.0, "total": 0.0}
+    for eng in router.engines:
+        if eng is not None and engine_kind(eng) == "sim":
+            for k, v in eng.virtual_time().items():
+                vt[k] += v
+    summary = rstats.summary()
+    print(f"sim: scenario {scn.name} | {rcfg.replicas} replicas (cost-model twin) | "
+          f"{len(traffic)} requests")
+    for name, row in summary["per_class"].items():
+        print(f"class {name}: {row['requests']} requests -> ok {row['ok']} shed {row['shed']} "
+              f"deadline {row['deadline_exceeded']}")
+    print(f"router: placements {summary['per_replica_requests']} | router sheds "
+          f"{rstats.router_sheds} | prefix hit rate {rstats.prefix_hit_rate:.0%}")
+    if rstats.fleet is not None:
+        fl = rstats.fleet
+        print(f"fleet: max {fl['max_replicas']} | scale out {fl['scale_outs']} in "
+              f"{fl['scale_ins']} (drains {fl['drains']}) | preemptions {fl['preemptions']} | "
+              f"crashes {fl['crashes']} (requeues {fl['requeues']})")
+    print(f"virtual time: prefill {vt['prefill']:.3f}s decode {vt['decode']:.3f}s handoff "
+          f"{vt['handoff']:.3f}s | total {vt['total']:.3f}s")
+    if args.json:
+        cls_of = {m.id: m.traffic_class for m in traffic}
+        print(json.dumps({
+            "variant": "sim",
+            "scenario": args.scenario,
+            "engine_kind": "sim",
+            "replicas": rcfg.replicas,
+            "cost_model": dataclasses.asdict(cost),
+            "router": summary,
+            "virtual_time": vt,
+            "slo_rules": _slo_report(monitor),
+            "fleet_digest": fleet_summary(registry) if registry is not None else None,
+            "per_class": _class_tallies(done, cls_of),
         }))
     return 0
 
@@ -1263,18 +1525,16 @@ def _run_gauges(args, cfg, registry, result, device) -> None:
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    for dest, item in _NOT_PORTED.items():
-        if getattr(args, dest) != parser.get_default(dest):
-            raise NotImplementedError(f"--{dest.replace('_', '-')} is not ported yet ({item})")
+    args = build_parser().parse_args(argv)
+    _check_obs_flags(args)
+    _check_resilience_flags(args)
+    if args.variant == "sim":
+        return _run_sim(args)
     import torch
 
     from .data.mnist import load_mnist
     from .parallel.mesh import default_device, destroy_world
 
-    _check_obs_flags(args)
-    _check_resilience_flags(args)
     device = default_device(args.device)
     if device.type == "cuda":
         # fp32 runs in full fp32: keep cuDNN convs and cuBLAS matmuls out of

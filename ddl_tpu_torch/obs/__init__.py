@@ -18,14 +18,16 @@ trainer reports through.
   call sites' tally, the interconnect roofline;
 - :mod:`.anomaly`, :mod:`.slo`: streaming robust-z anomaly detection and
   burn-rate SLO monitors (host logic);
-- :mod:`.export`: the ``/metrics`` + ``/healthz`` pull endpoint.
+- :mod:`.export`: the ``/metrics`` + ``/healthz`` pull endpoint;
+- :mod:`.analyze`: the offline ``report``, ``comms`` and ``compare`` CLI
+  over either package's traces and metrics files (``python -m
+  ddl_tpu_torch.obs.analyze``).
 
 The CLI surfaces it through ``--metrics-out``, ``--metrics-interval``,
 ``--trace-dir``, ``--profile``, ``--prom-port``, ``--peak-flops``,
-``--ici-bw`` and ``--anomaly-rules`` on every training variant. JAX's
-offline ``obs/analyze.py`` and the serve CLI's telemetry flags are ROADMAP
-queue 1, item 8, part 8; the serve scheduler takes a tracer and a registry
-(``serve.scheduler``).
+``--ici-bw`` and ``--anomaly-rules`` on every training variant, and all
+but ``--profile`` plus ``--slo-rules`` on serve, where the scheduler (or
+the router) takes the writer, the SLO monitor and the anomaly detector.
 """
 
 from .registry import (  # noqa: F401

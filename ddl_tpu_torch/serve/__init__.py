@@ -20,10 +20,16 @@ cache and chunked prefill, and the multi-replica fleet over it.
 - ``serve.speculate``    — n-gram / prompt-lookup drafts, verified through
   free slots of the one batched decode (``ServeConfig.speculate_k``)
 
+- ``serve.sim``         — the cost-model engine of the digital twin
+  (``CostModel``, ``CostModelEngine``, ``sim_engine_factory``): the real
+  control plane over host bookkeeping and virtual time, no device
+- ``serve.scenarios``   — six seeded fleet scenarios and their
+  ``NAME[:key=value,...]`` grammar
+
 The paged pool stores int8 payloads with per-head fp32 scales under
-``ServeConfig.kv_dtype="int8"``. The cost-model twin and its scenarios
-(ROADMAP queue 1, item 8, part 7) and the serve CLI's telemetry (part 8)
-wait for their slices.
+``ServeConfig.kv_dtype="int8"``. The scheduler and router take JAX's live
+telemetry (metrics writer, SLO monitor, anomaly detector, ``peak_flops``)
+and the controller its ``burn=`` rules.
 
     from ddl_tpu_torch.serve import InferenceEngine, Request, Scheduler, ServeConfig
 
@@ -55,7 +61,9 @@ from .router import (  # noqa: F401
     parse_slo_spec,
     parse_traffic_spec,
 )
+from .sim import CostModel, CostModelEngine, sim_engine_factory  # noqa: F401
 from .speculate import greedy_accept, propose_draft  # noqa: F401
+from .scenarios import SCENARIOS, Scenario, get_scenario, parse_scenario  # noqa: F401
 from .scheduler import (  # noqa: F401
     Completion,
     PreemptedRequest,
@@ -71,6 +79,8 @@ __all__ = [
     "AutoscaleConfig",
     "ClassSpec",
     "Completion",
+    "CostModel",
+    "CostModelEngine",
     "DisaggCoordinator",
     "FleetController",
     "InferenceEngine",
@@ -86,18 +96,23 @@ __all__ = [
     "Router",
     "RouterConfig",
     "RouterStats",
+    "SCENARIOS",
+    "Scenario",
     "Scheduler",
     "ServeConfig",
     "ServeEngine",
     "ServeStats",
     "derive_request_slo",
     "engine_kind",
+    "get_scenario",
     "greedy_accept",
     "parse_autoscale_spec",
     "parse_roles_spec",
+    "parse_scenario",
     "parse_slo_spec",
     "parse_traffic_spec",
     "propose_draft",
     "request_slo_samples",
+    "sim_engine_factory",
     "validate_roles",
 ]

@@ -37,9 +37,11 @@ Telemetry: ``scale_events_total{kind=}``, ``preemptions_total``,
 ``scale_out``, ``scale_in``, ``drain``, ``preempt_move``,
 ``replica_crash`` and ``requeue``.
 
-Not ported: ``burn_rules`` (scale-out on an SLO monitor's burn rate), which
-need the router's SLO monitor (ROADMAP queue 1, item 8, part 8): a
-controller with burn rules raises ``NotImplementedError`` at bind.
+Burn rules (``burn_rules``, ``--autoscale ...,burn=RULE|RULE``): a named
+rule of the router's SLO monitor whose fast AND slow burn rates both reach
+its threshold also triggers scale-out (``reason="burn"``); on a role fleet
+it grows the hottest role. The names are checked against the monitor at
+bind, with JAX's texts.
 """
 
 from __future__ import annotations
@@ -292,12 +294,24 @@ class FleetController:
                 f"router starts with {router.config.replicas} replicas, "
                 f"above max_replicas {self.config.max_replicas}"
             )
+        # burn= rules are checked HERE, not mid-run: a typo'd rule name (or
+        # burn rules with no monitor to read) is a config error at bind,
+        # never a silently-never-firing trigger.
         if self.config.burn_rules:
-            raise NotImplementedError(
-                f"autoscale burn rules {list(self.config.burn_rules)} are not ported yet "
-                "(ROADMAP queue 1, item 8, part 8: serve observability): they read the "
-                "router's SLO monitor"
-            )
+            if router.slo_monitor is None:
+                raise ValueError(
+                    "autoscale burn rules "
+                    f"{list(self.config.burn_rules)} need an SLO "
+                    "monitor on the router (--slo-rules) — without one "
+                    "the burn trigger could never fire"
+                )
+            known = {r.name for r in router.slo_monitor.rules}
+            bad = [n for n in self.config.burn_rules if n not in known]
+            if bad:
+                raise ValueError(
+                    f"autoscale burn rules {bad} are not among the "
+                    f"monitor's rules ({sorted(known)})"
+                )
         # Per-role overrides are validated HERE, not mid-run: a
         # RoleScale every consumer is gated off (all-mixed fleet, or a
         # role the fleet never runs) would be a silently-never-firing
@@ -581,7 +595,8 @@ class FleetController:
             self._sustain += 1
         else:
             self._sustain = 0
-        if self._sustain < self.config.sustain_ticks:
+        burn_hot = self._burn_hot()
+        if not (self._sustain >= self.config.sustain_ticks or burn_hot):
             return
         if len(self._live()) >= self.config.max_replicas:
             return
@@ -589,8 +604,21 @@ class FleetController:
         self.scale_outs += 1
         self.last_scale_tick = t
         self._sustain = 0
-        self._event(t, "scale_out", replica=k, reason="pressure")
+        self._event(t, "scale_out", replica=k, reason="burn" if burn_hot else "pressure")
         self._count("scale_events_total", kind="scale_out")
+
+    def _burn_hot(self) -> bool:
+        """A ``burn_rules`` rule alerts: its fast AND slow burn rates both
+        reach its threshold (names checked against the monitor at bind)."""
+        mon = self.router.slo_monitor
+        if mon is None:
+            return False
+        for name in self.config.burn_rules:
+            rule = next(rr for rr in mon.rules if rr.name == name)
+            if (mon.burn_rate(name, "fast") >= rule.threshold
+                    and mon.burn_rate(name, "slow") >= rule.threshold):
+                return True
+        return False
 
     def _maybe_scale_out_role(self, t: int) -> None:
         """Role-aware scale-out: each role's mean
@@ -598,7 +626,9 @@ class FleetController:
         (``RoleScale`` overrides, fleet defaults otherwise) with its
         own sustain counter, and the hottest sustained role grows — at
         most one replica per tick, capped by the fleet total AND the
-        role's own ``max``."""
+        role's own ``max``. A burn alert scales the hottest role (the
+        monitor cannot attribute a latency burn to a phase; backlog
+        can)."""
         cfg = self.config
         r = self.router
         live = self._routable()
@@ -621,12 +651,13 @@ class FleetController:
                     self._role_sustain.get(role, 0) + 1
             else:
                 self._role_sustain[role] = 0
+        burn_hot = self._burn_hot()
         ready = []
         for role in per_role:
             rs = cfg.role_scale(role)
             need = (rs.sustain_ticks if rs.sustain_ticks is not None
                     else cfg.sustain_ticks)
-            if self._role_sustain.get(role, 0) < need:
+            if not (self._role_sustain.get(role, 0) >= need or burn_hot):
                 continue
             if rs.max_replicas is not None and sum(
                 1 for k in self._live() if self._role_of(k) == role
@@ -640,7 +671,8 @@ class FleetController:
         self.scale_outs += 1
         self.last_scale_tick = t
         self._role_sustain[role] = 0
-        self._event(t, "scale_out", replica=k, role=role, reason="pressure")
+        self._event(t, "scale_out", replica=k, role=role,
+                    reason="burn" if burn_hot else "pressure")
         self._count("scale_events_total", kind="scale_out")
 
     # -- scale in / drain ---------------------------------------------------

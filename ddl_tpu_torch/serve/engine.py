@@ -81,10 +81,21 @@ their pages: the hand-off moves ``(payload, scale)`` pairs.
 scheduler verifies drafts through free slots of the one batched decode;
 :meth:`InferenceEngine.alias_slot_pages` maps a draft lane onto the
 speculating slot's pages by reference count, zero copy.
+
+**Program hooks** (``compile_hook``, ``ledger_hook``; the scheduler sets
+both when it has a registry): JAX builds one program per ``(kind, key)``
+(``prefill`` by bucket, ``decode`` by page-count bucket or 0, ``prefix_copy``,
+``page_write``, ``pages_reset``) and calls its hooks once per program. Eager
+PyTorch builds nothing, so the port calls ``compile_hook(kind, key)`` at the
+FIRST dispatch of each key, and ``ledger_hook(kind, key, records)`` after
+it with the collectives that dispatch tallied (``parallel.collectives.
+tally``): the ``xla_compiles_total{kind=}`` counts and the per-program
+collective ledger come out per key, as JAX's do.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -300,6 +311,7 @@ class InferenceEngine:
             self._row_reduce = None
             tp_index = 0
         self._tp_index = tp_index
+        self.grid = grid
         spec = config.spec
         self.config = config
         self.paged = config.page_size > 0
@@ -323,6 +335,11 @@ class InferenceEngine:
         # The width the LAST decode attended per slot (paged: the page-count
         # bucket's rows; contiguous: the capacity).
         self.last_attend_width = config.capacity
+        # Program hooks (module docstring); the dispatched keys outlive
+        # reset(), as JAX's compiled programs do.
+        self.compile_hook = None
+        self.ledger_hook = None
+        self._dispatched: set[tuple[str, int]] = set()
         self.pool: KVCache | None = None
         self.prefix: PrefixIndex | None = None
         self.reset()
@@ -351,6 +368,25 @@ class InferenceEngine:
         """Device bytes ``n_pages`` pages represent (``kv_row_bytes``)."""
         return int(n_pages) * self.page_size * kv_row_bytes(
             self.config.spec, self.config.kv_dtype, self.config.pool_dtype())
+
+    def _program(self, kind: str, key: int):
+        """Bracket one dispatch of the program ``(kind, key)``: at its FIRST
+        dispatch, call ``compile_hook`` and tally its collectives for
+        ``ledger_hook``; a no-op bracket after that."""
+        if (kind, key) in self._dispatched:
+            return contextlib.nullcontext()
+        self._dispatched.add((kind, key))
+        if self.compile_hook is not None:
+            self.compile_hook(kind, key)
+        if self.ledger_hook is None:
+            return contextlib.nullcontext()
+        return self._ledgered(kind, key)
+
+    @contextlib.contextmanager
+    def _ledgered(self, kind: str, key: int):
+        with coll.tally() as records:
+            yield
+        self.ledger_hook(kind, key, records)
 
     def _put(self, a) -> torch.Tensor:
         """A host array (or CPU tensor) on the device."""
@@ -444,7 +480,8 @@ class InferenceEngine:
         free-list invariant)."""
         freed = [int(p) for p in pages if self.pages.decref(int(p))]
         if freed:
-            self.cache.pos[self._put(np.asarray(freed, np.int64))] = PAD_POS
+            with self._program("pages_reset", 0):
+                self.cache.pos[self._put(np.asarray(freed, np.int64))] = PAD_POS
 
     def release_slot(self, slot: int) -> None:
         """Free ``slot``'s residency: drop its page references (shared
@@ -535,8 +572,10 @@ class InferenceEngine:
         rows.update(k_rows=self._rows(k, c.k), v_rows=self._rows(v, c.v),
                     pos_rows=self._rows(pos, c.pos))
         mapped = [self._map_page(slot) for _ in range(int(k.shape[1]))]
-        if mapped:
-            write_page(self.cache, dst_page=self._put(np.asarray(mapped, np.int64)), **rows)
+        with self._program("page_write", 0):
+            if mapped:
+                write_page(self.cache, dst_page=self._put(np.asarray(mapped, np.int64)),
+                           **rows)
         return mapped
 
     def alias_slot_pages(self, dst_slot: int, src_slot: int, rows: int) -> int:
@@ -609,13 +648,15 @@ class InferenceEngine:
                 # The entry covers the boundary page: its token coverage is
                 # a page multiple >= any match depth n.
                 dst = self._map_page(slot)
-                copy_page(self.cache, src_page=int(e.pages[shared]), dst_page=dst, n=tail)
+                with self._program("prefix_copy", 0):
+                    copy_page(self.cache, src_page=int(e.pages[shared]), dst_page=dst, n=tail)
                 self.page_copies += 1
                 copied = tail
             self.prefix.touch(entry_id)
             self.prefix.acquire(entry_id)
             return copied
-        copy_slot_prefix(self.cache, self.pool, src_slot=e.slot, dst_slot=slot, n=n)
+        with self._program("prefix_copy", 1):
+            copy_slot_prefix(self.cache, self.pool, src_slot=e.slot, dst_slot=slot, n=n)
         self.prefix.touch(entry_id)
         self.prefix.acquire(entry_id)
         return n
@@ -646,8 +687,9 @@ class InferenceEngine:
         if got is None:
             return False
         _, pool_slot = got
-        copy_slot_prefix(self.pool, self.cache, src_slot=slot, dst_slot=pool_slot,
-                         n=int(prompt.shape[0]))
+        with self._program("prefix_copy", 0):
+            copy_slot_prefix(self.pool, self.cache, src_slot=slot, dst_slot=pool_slot,
+                             n=int(prompt.shape[0]))
         return True
 
     # -- host API ----------------------------------------------------------
@@ -690,38 +732,40 @@ class InferenceEngine:
         bucket = self.prefill_bucket(t) if _bucket is None else _bucket
         if bucket < t:
             raise ValueError(f"bucket {bucket} below the block's {t} tokens")
-        tokens = np.zeros((1, bucket), np.int32)
-        tokens[0, :t] = prompt
-        ar = np.arange(bucket, dtype=np.int32)
-        real = ar < t
-        positions = np.where(real, base + ar, PAD_POS).astype(np.int32)[None, :]
-        tok = self._put(tokens)
-        if self.paged:
-            self._ensure_rows(slot, base + t)
-            # Padded tails get logical row = reach: beyond the table, so the
-            # write lands on the drop page.
-            reach = self.max_pages * self.page_size
-            table = torch.from_numpy(self.tables[slot:slot + 1].copy())
-            logical = torch.from_numpy(np.where(real, base + ar, reach).astype(np.int32)[None, :])
-            flat = kv_cache.table_rows(table, logical, self.page_size, self.num_pages)
-            logits = self._paged_forward(tok, self._put(table), self._put(positions),
-                                         self._put(flat))
-        else:
-            c = cfg.capacity
-            # Rows below base are the copied prefix or earlier chunks; the
-            # rest are the previous occupant's and must never be attended.
-            self.cache.pos[slot, base:c] = PAD_POS
-            rows = np.where(real, (base + ar) % c, c).astype(np.int32)[None, :]
-            sl = slice(slot, slot + 1)
-            logits, *_ = transformer.apply_lm_cached(
-                self.params, tok, self.cache.k[:, sl], self.cache.v[:, sl], self.cache.pos[sl],
-                cfg.spec, start=None, positions=self._put(positions), rows=self._put(rows),
-                compute_dtype=cfg.dtype(), row_reduce=self._row_reduce,
-            )
-        logits = logits[0, :t]
-        # The sampled token is sequence element `base + t` of the request.
-        nxt = self._sample(logits[t - 1:], [request_id], [base + t])
-        return int(nxt.item()), logits.cpu().numpy()
+        with self._program("prefill", bucket):
+            tokens = np.zeros((1, bucket), np.int32)
+            tokens[0, :t] = prompt
+            ar = np.arange(bucket, dtype=np.int32)
+            real = ar < t
+            positions = np.where(real, base + ar, PAD_POS).astype(np.int32)[None, :]
+            tok = self._put(tokens)
+            if self.paged:
+                self._ensure_rows(slot, base + t)
+                # Padded tails get logical row = reach: beyond the table, so the
+                # write lands on the drop page.
+                reach = self.max_pages * self.page_size
+                table = torch.from_numpy(self.tables[slot:slot + 1].copy())
+                logical = torch.from_numpy(
+                    np.where(real, base + ar, reach).astype(np.int32)[None, :])
+                flat = kv_cache.table_rows(table, logical, self.page_size, self.num_pages)
+                logits = self._paged_forward(tok, self._put(table), self._put(positions),
+                                             self._put(flat))
+            else:
+                c = cfg.capacity
+                # Rows below base are the copied prefix or earlier chunks;
+                # the rest are the previous occupant's, never to be attended.
+                self.cache.pos[slot, base:c] = PAD_POS
+                rows = np.where(real, (base + ar) % c, c).astype(np.int32)[None, :]
+                sl = slice(slot, slot + 1)
+                logits, *_ = transformer.apply_lm_cached(
+                    self.params, tok, self.cache.k[:, sl], self.cache.v[:, sl],
+                    self.cache.pos[sl], cfg.spec, start=None, positions=self._put(positions),
+                    rows=self._put(rows), compute_dtype=cfg.dtype(), row_reduce=self._row_reduce,
+                )
+            logits = logits[0, :t]
+            # The sampled token is sequence element `base + t` of the request.
+            nxt = self._sample(logits[t - 1:], [request_id], [base + t])
+            return int(nxt.item()), logits.cpu().numpy()
 
     def decode(self, last_tokens, lengths, request_ids, active, *, _pages: int | None = None):
         """One batched decode step over all slots: host arrays in,
@@ -734,34 +778,37 @@ class InferenceEngine:
         lengths = np.asarray(lengths, np.int32)
         active = np.asarray(active, bool)
         request_ids = np.asarray(request_ids, np.int32)
-        tok = self._put(np.asarray(last_tokens, np.int32)[:, None])
-        positions = self._put(np.where(active, lengths, PAD_POS).astype(np.int32)[:, None])
+        key = 0
         if self.paged:
             if _pages is None:
                 widest = 1
                 for s in np.nonzero(active)[0]:
                     self._ensure_rows(int(s), int(lengths[s]) + 1)
                     widest = max(widest, int(self.table_len[s]))
-                pb = self.decode_page_bucket(widest)
+                key = self.decode_page_bucket(widest)
             else:
-                pb = _pages
-            self.last_attend_width = pb * self.page_size
-            table = torch.from_numpy(self.tables[:, :pb].copy())
-            logical = torch.from_numpy(
-                np.where(active, lengths, pb * self.page_size).astype(np.int32)[:, None])
-            flat = kv_cache.table_rows(table, logical, self.page_size, self.num_pages)
-            logits = self._paged_forward(tok, self._put(table), positions, self._put(flat))
-        else:
-            # Free slots still compute (fixed shapes) and write a PAD_POS row
-            # at `lengths % C`: invisible to any future occupant.
-            rows = self._put((lengths % cfg.capacity)[:, None])
-            logits, *_ = transformer.apply_lm_cached(
-                self.params, tok, self.cache.k, self.cache.v, self.cache.pos, cfg.spec,
-                start=None, positions=positions, rows=rows, compute_dtype=cfg.dtype(),
-                row_reduce=self._row_reduce,
-            )
-        logits = logits[:, 0]
-        # This step extends each sequence to length + 1 tokens: the sampled
-        # token's index is lengths + 1.
-        nxt = self._sample(logits, request_ids, lengths.astype(np.int64) + 1)
-        return nxt.cpu().numpy(), logits.cpu().numpy()
+                key = _pages
+            self.last_attend_width = key * self.page_size
+        with self._program("decode", key):
+            tok = self._put(np.asarray(last_tokens, np.int32)[:, None])
+            positions = self._put(np.where(active, lengths, PAD_POS).astype(np.int32)[:, None])
+            if self.paged:
+                table = torch.from_numpy(self.tables[:, :key].copy())
+                logical = torch.from_numpy(
+                    np.where(active, lengths, key * self.page_size).astype(np.int32)[:, None])
+                flat = kv_cache.table_rows(table, logical, self.page_size, self.num_pages)
+                logits = self._paged_forward(tok, self._put(table), positions, self._put(flat))
+            else:
+                # Free slots still compute (fixed shapes) and write a PAD_POS
+                # row at `lengths % C`: invisible to any future occupant.
+                rows = self._put((lengths % cfg.capacity)[:, None])
+                logits, *_ = transformer.apply_lm_cached(
+                    self.params, tok, self.cache.k, self.cache.v, self.cache.pos, cfg.spec,
+                    start=None, positions=positions, rows=rows, compute_dtype=cfg.dtype(),
+                    row_reduce=self._row_reduce,
+                )
+            logits = logits[:, 0]
+            # This step extends each sequence to length + 1 tokens: the
+            # sampled token's index is lengths + 1.
+            nxt = self._sample(logits, request_ids, lengths.astype(np.int64) + 1)
+            return nxt.cpu().numpy(), logits.cpu().numpy()

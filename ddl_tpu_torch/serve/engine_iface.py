@@ -8,9 +8,18 @@ logic on a tick clock; only the engine underneath touches the device.
 ``Scheduler``, ``Router``, ``FleetController`` and ``DisaggCoordinator``
 read, and nothing else. The contract is structural (``typing.Protocol``):
 the control plane stays duck-typed and the engine needs no base class.
-The port's one implementation is :class:`~ddl_tpu_torch.serve.engine.
-InferenceEngine` (``kind == "real"``); JAX's cost-model engine (``"sim"``)
-is ROADMAP queue 1, item 8, part 7.
+Two implementations:
+
+* :class:`~ddl_tpu_torch.serve.engine.InferenceEngine` (``kind == "real"``):
+  placed params, device tensors;
+* :class:`~ddl_tpu_torch.serve.sim.CostModelEngine` (``kind == "sim"``): no
+  tensors; the same host bookkeeping (page pool, block tables, prefix index)
+  with per-phase virtual time fitted from the goodput plane.
+
+Because every control decision reads only this surface, an engine that
+satisfies it replays the same controller event timeline
+(tests/test_torch_twin.py). Beyond JAX's protocol: ``handoff_bytes``, which
+JAX's control plane calls and its cost-model engine lacks.
 """
 
 from __future__ import annotations
@@ -35,7 +44,9 @@ class ServeEngine(Protocol):
     * ``prefix`` — the :class:`~ddl_tpu_torch.serve.prefix.PrefixIndex` or
       ``None``; ``page_copies`` — the copy-on-write tail copies;
     * ``device`` — where the engine runs (the memory sampler and the peak
-      FLOPs lookup read it);
+      FLOPs lookup read it; ``"cpu"`` for the cost-model engine);
+    * ``compile_hook`` / ``ledger_hook`` — set by a scheduler with a
+      registry;
     * ``params`` — opaque; replicas share one tree via ``placed_params``;
     * ``last_attend_width`` — rows the last decode attended.
     """
@@ -69,6 +80,8 @@ class ServeEngine(Protocol):
     def load_slot_pages(self, slot: int, k, v, pos) -> list[int]: ...
 
     def alias_slot_pages(self, dst_slot: int, src_slot: int, rows: int) -> int: ...
+
+    def handoff_bytes(self, n_pages: int) -> int: ...
 
     # -- prefix cache -------------------------------------------------------
     def prefix_fetch(self, entry_id: int, n: int, slot: int) -> int: ...

@@ -35,11 +35,20 @@ a crash; the door queue re-routes crash-orphaned requests, and while the
 fleet can grow the door shed defers to scale-out. Without a controller the
 loop is the static router's.
 
-Not ported: the router's ``slo_monitor=``, ``anomaly_detector=`` and
-``peak_flops=`` (ROADMAP queue 1, item 8, part 8). With ``params=None`` the
-replicas serve the port's own init from ``serve.seed`` (not JAX's draw);
-``placed_params=`` shares a tree already on the device (the port's engine
-takes the same keyword).
+**Live control plane**: ``slo_monitor=`` and ``anomaly_detector=`` live
+on the ROUTER registry (checked, with JAX's texts) and step once per global
+tick: the monitor reads the ``{class=}`` shed and request counters and
+``router_ttft_seconds{class=}`` (observed live each tick), the detector the
+fleet signals ``backlog`` and ``shed_rate``. The replicas' schedulers keep
+neither, as JAX's; ``peak_flops=`` reaches each of them.
+
+**The digital twin**: ``RouterConfig.engine_factory`` builds the replicas'
+engines (``serve.sim.sim_engine_factory()`` for cost-model engines); the
+router registry's ``fleet_engine_sim`` gauge says which kind served. With
+no factory the router builds ``InferenceEngine``s where ``device=`` or
+``grid=`` says. With ``params=None`` those serve the port's own init from
+``serve.seed`` (not JAX's draw); ``placed_params=`` shares a tree already on
+the device (the port's engine takes the same keyword).
 """
 
 from __future__ import annotations
@@ -52,6 +61,7 @@ import numpy as np
 from ..obs.trace import Tracer
 from .disagg import DisaggCoordinator, validate_roles
 from .engine import InferenceEngine, ServeConfig
+from .engine_iface import engine_kind
 from .scheduler import (
     MIN_PREFIX_HIT,
     Completion,
@@ -60,8 +70,6 @@ from .scheduler import (
     ServeStats,
     request_slo_samples,
 )
-
-_OBS = "ROADMAP queue 1, item 8, part 8: serve observability"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +134,11 @@ class RouterConfig:
     # needs the paged layout (the hand-off moves KV pages) and both
     # sides present (serve.disagg.validate_roles).
     roles: tuple[str, ...] | None = None
+    # Engine construction: ``factory(serve_config, params=None, *,
+    # placed_params=...)`` returning a ServeEngine
+    # (``serve.sim.sim_engine_factory()`` for the twin). None builds the
+    # real InferenceEngine where the router's device= or grid= says.
+    engine_factory: object | None = None
 
 
 @dataclasses.dataclass
@@ -236,10 +249,6 @@ class Router:
                  slo_monitor=None, peak_flops: float | None = None,
                  anomaly_detector=None, controller=None, device=None, grid=None,
                  placed_params=None):
-        for name, value in (("slo_monitor", slo_monitor), ("peak_flops", peak_flops),
-                            ("anomaly_detector", anomaly_detector)):
-            if value is not None:
-                raise NotImplementedError(f"Router({name}=...) is not ported yet ({_OBS})")
         if config.replicas < 1:
             raise ValueError(
                 f"replicas must be >= 1, got {config.replicas}"
@@ -263,6 +272,32 @@ class Router:
                         f"{config.shed_threshold} (threshold - margin must "
                         "be >= 1)"
                     )
+        if slo_monitor is not None:
+            if registry is None:
+                raise ValueError(
+                    "slo_monitor needs the router registry it evaluates "
+                    "against; pass registry= as well"
+                )
+            if slo_monitor.registry is not registry:
+                raise ValueError(
+                    "slo_monitor was built on a different registry than "
+                    "this router's — it would read counters the router "
+                    "never writes (burn 0.0 forever). Build it on the "
+                    "registry passed as registry="
+                )
+        if anomaly_detector is not None:
+            if registry is None:
+                raise ValueError(
+                    "anomaly_detector needs the router registry it emits "
+                    "anomaly_* metrics into; pass registry= as well"
+                )
+            if anomaly_detector.registry is not registry:
+                raise ValueError(
+                    "anomaly_detector was built on a different registry "
+                    "than this router's — its anomaly_* metrics would "
+                    "land where nothing reads them. Build it on the "
+                    "registry passed as registry="
+                )
         # The role fleet is validated before any engine is built —
         # a malformed split is a config error, never a mid-run hang.
         if config.roles is not None:
@@ -288,26 +323,36 @@ class Router:
         self.classes = {c.name: c for c in config.classes}
         self.tracer = tracer if tracer is not None else Tracer()
         self.registry = registry
-        # Replica engines run where the caller says: a device, or the tp
-        # group of a grid (one engine a rank).
-        self._where = dict(grid=grid) if grid is not None else dict(device=device)
+        factory = config.engine_factory
+        if factory is None:
+            # Replica engines run where the caller says: a device, or the
+            # tp group of a grid (one engine a rank).
+            where = dict(grid=grid) if grid is not None else dict(device=device)
+
+            def factory(serve, params=None, *, placed_params=None):
+                return InferenceEngine(serve, params=params, placed_params=placed_params,
+                                       **where)
+        self._engine_factory = factory
         self._injector = injector
+        self._peak_flops = peak_flops
         if params is not None and placed_params is not None:
             raise ValueError("pass params (host tree, placed once) OR placed_params (an "
                              "already-placed tree every replica shares), not both")
         self.engines: list[InferenceEngine | None] = []
         for k in range(config.replicas):
-            # One checkpoint, one placed copy: replica 0 places the
-            # host tree; every other replica SHARES its device arrays
-            # (prefill/decode donate only the cache argument, never
-            # params, so sharing is safe — and no replica ever pays a
-            # transient duplicate placement).
-            eng = (InferenceEngine(config.serve, params=params, **self._where)
-                   if k == 0 and placed_params is None
-                   else InferenceEngine(config.serve, **self._where,
-                                        placed_params=placed_params if k == 0
-                                        else self.engines[0].params))
+            # One checkpoint, one placed copy: replica 0 places the host
+            # tree; every other replica SHARES its device tensors (no
+            # replica writes params, so sharing is safe). A custom
+            # engine_factory receives the same wiring (a cost-model engine
+            # ignores the shared tree).
+            eng = (factory(config.serve, params=params, placed_params=placed_params)
+                   if k == 0 else factory(config.serve, placed_params=self.engines[0].params))
             self.engines.append(eng)
+        if registry is not None:
+            # /healthz and fleet_summary read this: a twin run never passes
+            # for a measured one.
+            registry.gauge("fleet_engine_sim").set(
+                1.0 if engine_kind(self.engines[0]) == "sim" else 0.0)
         # The fleet's ONE placed param tree, held by the router itself:
         # scale-out and crash healing build replacement replicas from
         # it even after replica 0 is gone.
@@ -329,6 +374,10 @@ class Router:
         # (the transparency bar every fleet feature clears).
         self.disagg = (DisaggCoordinator(self)
                        if any(r != "mixed" for r in self.roles) else None)
+        # One clock, one evaluator: both step once per GLOBAL tick in run()
+        # on the router registry; the replicas' schedulers keep neither.
+        self.slo_monitor = slo_monitor
+        self.anomaly = anomaly_detector
         self._sticky: dict[bytes, int] = {}
         # Fleet state: a DRAINING replica stops receiving
         # routed arrivals but keeps ticking until its occupants finish;
@@ -366,7 +415,8 @@ class Router:
             eng, eos_id=cfg.eos_id, tracer=self.tracer,
             registry=reg, shed_threshold=cfg.shed_threshold,
             ttft_deadline_s=cfg.ttft_deadline_s,
-            deadline_s=cfg.deadline_s, injector=self._injector, role=role,
+            deadline_s=cfg.deadline_s, injector=self._injector,
+            peak_flops=self._peak_flops, role=role,
         )
 
     def live_ids(self, *, routable: bool = False) -> list[int]:
@@ -395,8 +445,7 @@ class Router:
         router warmed. A warm-up here would be device work inside the
         timed run that no request needs."""
         k = len(self.engines)
-        eng = InferenceEngine(self.config.serve, placed_params=self._placed_params,
-                              **self._where)
+        eng = self._engine_factory(self.config.serve, placed_params=self._placed_params)
         self.engines.append(eng)
         self.roles.append(role)
         reg = None
@@ -768,6 +817,7 @@ class Router:
         # post-hoc ClassReport reports the end-to-end spanning value;
         # the live histogram keeps the first genuinely-served latency).
         ttft_observed: set[int] = set()
+        shed_prev = 0
         ctrl = self.controller
         try:
             while i < len(reqs) or self._door or any(
@@ -826,13 +876,27 @@ class Router:
                                 )
                                 ttft_observed.add(rid)
                     scanned = len(recs)
+                    total_backlog = 0
                     for k, sched in enumerate(self.scheds):
                         if sched is None:
                             continue
                         p = sched.pressure()
+                        outstanding = p.occupied_slots + p.pending_total
+                        total_backlog += outstanding
                         self.registry.gauge(
                             "router_replica_outstanding"
-                        ).set(p.occupied_slots + p.pending_total, replica=k)
+                        ).set(outstanding, replica=k)
+                    if self.anomaly is not None:
+                        # Fleet signals on the global tick clock, both
+                        # deterministic.
+                        sheds_now = counters["router_sheds"]
+                        self.anomaly.tick({"backlog": total_backlog,
+                                           "shed_rate": sheds_now - shed_prev})
+                        shed_prev = sheds_now
+                if self.slo_monitor is not None:
+                    # One burn-window step per GLOBAL tick, the clock the
+                    # routing decisions use.
+                    self.slo_monitor.tick()
                 ticks += 1
                 t += 1
                 if ctrl is None and i < len(reqs) \

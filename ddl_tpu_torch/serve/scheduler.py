@@ -57,8 +57,17 @@ Speculative decoding (``ServeConfig.speculate_k > 0``,
 slots as draft lanes over the speculating slots' pages; the tokens equal
 plain greedy decode's, in fewer decode steps when drafts are accepted.
 
-Not ported, each refused naming ROADMAP queue 1, item 8, part 8: the
-metrics writer, SLO monitor, anomaly detector and ``peak_flops`` hooks.
+The live control plane, each on the scheduler's own registry (checked at
+construction, with JAX's texts) and each a per-tick consumer, in JAX's
+order after the tick's gauges: the ``MetricsWriter``'s rate-limited
+``maybe_flush``, the ``obs.anomaly.AnomalyDetector`` fed the tick's signals
+(``queue_depth``, ``active_slots``, ``occupied_slots``, ``pages_free``: host
+state; ``step_time``, ``itl``, ``mfu``: wall clock), and one burn-window
+step of the ``obs.slo.SloMonitor``. ``peak_flops`` overrides the device
+table behind ``serve_mfu``. With a registry the engine's program hooks
+count ``xla_compiles_total{kind=}`` (warm-up included: the builds are the
+run's) and publish each program's collective ledger. Warm-up suspends every
+per-tick consumer.
 """
 
 from __future__ import annotations
@@ -70,9 +79,10 @@ import time
 import numpy as np
 
 from .. import precision as _precision
+from ..obs import comms as _comms
 from ..obs import cost as _cost
 from ..obs.goodput import GoodputTracker
-from ..obs.memory import MemorySampler
+from ..obs.memory import MemorySampler, record_compile
 from ..obs.trace import NULL_TRACER
 from ..utils.metrics import StepStats, StepTimer
 from .engine import InferenceEngine
@@ -81,8 +91,6 @@ from .speculate import greedy_accept, propose_draft
 # A prefix hit shorter than this prefills normally: every BOS-led prompt
 # trivially shares its first token with every cached entry.
 MIN_PREFIX_HIT = 2
-
-_OBS = "ROADMAP queue 1, item 8, part 8: serve observability"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,10 +262,6 @@ class Scheduler:
                 "prefill->decode hand-off moves KV pages, and contiguous slot rings have none"
             )
         self.role = role
-        for name, value in (("metrics_writer", metrics_writer), ("slo_monitor", slo_monitor),
-                            ("peak_flops", peak_flops), ("anomaly_detector", anomaly_detector)):
-            if value is not None:
-                raise NotImplementedError(f"Scheduler({name}=...) is not ported yet ({_OBS})")
         if allow_window and engine.paged:
             raise ValueError(
                 "allow_window is a ring-buffer (contiguous) semantics — the paged "
@@ -286,11 +290,39 @@ class Scheduler:
         # disabled path.
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.registry = registry
+        self.metrics_writer = metrics_writer
+        self.slo_monitor = slo_monitor
+        if slo_monitor is not None and slo_monitor.registry is not registry:
+            raise ValueError(
+                "slo_monitor was built on a different registry than this scheduler's — it "
+                "would read metrics the scheduler never writes (burn 0.0 forever). Build it "
+                "on the registry passed as registry="
+            )
+        self.anomaly = anomaly_detector
+        if anomaly_detector is not None and anomaly_detector.registry is not registry:
+            raise ValueError(
+                "anomaly_detector was built on a different registry than this scheduler's — "
+                "its anomaly_* metrics would land where nothing reads them. Build it on the "
+                "registry passed as registry="
+            )
+        self._peak_flops = peak_flops
         self._peak: float | None = None
         self._mem = self._goodput = None
         if registry is not None:
             self._mem = MemorySampler(registry, [engine.device])
             self._goodput = GoodputTracker(registry, "serve")
+
+            def _on_build(kind, key, _sched=self):
+                # The registry is captured (warm-up's builds are the run's);
+                # the tracer is read when called, so warm-up's stays off.
+                record_compile(registry, _sched.tracer, kind, key=key)
+
+            def _on_ledger(kind, key, records):
+                _comms.publish_program_ledger(registry, records, program=f"{kind}[{key}]",
+                                              grid=engine.grid)
+
+            engine.compile_hook = _on_build
+            engine.ledger_hook = _on_ledger
         self._st: _RunState | None = None
 
     @property
@@ -301,7 +333,17 @@ class Scheduler:
 
     def attach_registry(self, registry) -> None:
         """Swap the metric registry mid-lifetime, rebuilding the consumers
-        that capture it (the goodput tracker and the memory sampler)."""
+        that capture it (the goodput tracker and the memory sampler). The
+        engine's program hooks keep their registry. A bound SLO monitor or
+        anomaly detector pins the registry: the swap is refused."""
+        for name, consumer in (("slo_monitor", self.slo_monitor),
+                               ("anomaly_detector", self.anomaly)):
+            if consumer is not None and consumer.registry is not registry:
+                raise ValueError(
+                    f"attach_registry would strand the bound {name} on its old registry "
+                    "(the ctor-enforced same-registry invariant); rebuild it on the new "
+                    "registry first or detach it"
+                )
         self.registry = registry
         self._mem = self._goodput = None
         if registry is not None:
@@ -315,16 +357,18 @@ class Scheduler:
         power-of-two prefill ladder up to the largest prompt, the paged
         decode ladder up to the widest residency, and the prefix copies.
         Telemetry, deadlines, shedding and fault injection are off
-        meanwhile, and the clones run as ``"mixed"`` (no coordinator takes
-        a prefill role's held slots here)."""
+        meanwhile (the engine's program hooks stay on: the builds are the
+        run's), and the clones run as ``"mixed"`` (no coordinator takes a
+        prefill role's held slots here)."""
         if not requests:
             return
         eng = self.engine
-        saved = (self.tracer, self.registry, self.ttft_deadline_s, self.deadline_s,
-                 self.shed_threshold, self.injector, self._mem, self._goodput, self.role)
-        self.tracer, self.registry = NULL_TRACER, None
+        saved = (self.tracer, self.registry, self.metrics_writer, self.ttft_deadline_s,
+                 self.deadline_s, self.shed_threshold, self.injector, self.slo_monitor,
+                 self._mem, self.anomaly, self._goodput, self.role)
+        self.tracer, self.registry, self.metrics_writer = NULL_TRACER, None, None
         self.ttft_deadline_s = self.deadline_s = self.shed_threshold = self.injector = None
-        self._mem = self._goodput = None
+        self.slo_monitor = self._mem = self.anomaly = self._goodput = None
         self.role = "mixed"
         try:
             self.run([
@@ -384,8 +428,9 @@ class Scheduler:
                     eng.prefix_release(entry)
             eng.reset()
         finally:
-            (self.tracer, self.registry, self.ttft_deadline_s, self.deadline_s,
-             self.shed_threshold, self.injector, self._mem, self._goodput, self.role) = saved
+            (self.tracer, self.registry, self.metrics_writer, self.ttft_deadline_s,
+             self.deadline_s, self.shed_threshold, self.injector, self.slo_monitor,
+             self._mem, self.anomaly, self._goodput, self.role) = saved
 
     def _validate(self, r: Request) -> None:
         """Reject a malformed request at SUBMIT time, before any state
@@ -439,11 +484,12 @@ class Scheduler:
         return ttft, total
 
     def _resolve_peak(self) -> float:
-        """Per-device peak FLOP/s for the ``serve_mfu`` gauge: the device
-        table's row at the engine's matmul precision (resolved once)."""
+        """Per-device peak FLOP/s for the ``serve_mfu`` gauge: the
+        ``peak_flops`` override, else the device table's row at the
+        engine's matmul precision (resolved once)."""
         if self._peak is None:
             self._peak = _cost.peak_flops_per_device(
-                self.engine.device, None,
+                self.engine.device, self._peak_flops,
                 precision=_precision.mfu_kind(self.engine.config.compute_dtype))
         return self._peak
 
@@ -753,7 +799,7 @@ class Scheduler:
         return (len(st.generated[s]) >= st.occupant[s].max_new_tokens
                 or (self.eos_id is not None and token == self.eos_id))
 
-    def _speculate_decode(self, st: _RunState, step: int) -> None:
+    def _speculate_decode(self, st: _RunState, step: int):
         """The speculative decode phase, JAX's ``_speculate_decode``: still
         ONE batched decode call a tick, but FREE slots become draft LANES.
         Lane ``i`` aliases the speculating slot's pages
@@ -764,7 +810,8 @@ class Scheduler:
         draft prefix plus the first mismatch (the true next token), so the
         output equals plain decode's; rejected lanes leave rows only beyond
         the new frontier, position-masked and overwritten by the next step
-        that reaches them."""
+        that reaches them. Returns ``(decode_s, itl_s, mfu)`` for the tick's
+        anomaly signals."""
         eng = self.engine
         cfg = eng.config
         S = cfg.slots
@@ -856,24 +903,28 @@ class Scheduler:
         st.decode_timer.add(dt, images=emitted_total)
         # Lanes compute at the attended width whether or not their draft is
         # accepted: the MFU numerator prices real and lane rows.
-        self._account_decode(st, step, t0, now, dt, emitted_total, n_active + n_lanes,
-                             n_active=n_active, reqs=reqs_now, spec_lanes=n_lanes,
-                             spec_emitted=emitted_total)
+        itl_s, mfu_val = self._account_decode(
+            st, step, t0, now, dt, emitted_total, n_active + n_lanes, n_active=n_active,
+            reqs=reqs_now, spec_lanes=n_lanes, spec_emitted=emitted_total)
         if reg is not None and proposed:
             # Accepted over proposed is the rate that says whether k paid.
             reg.counter("speculate_proposed_total").inc(proposed)
             reg.counter("speculate_accepted_total").inc(accepted_total)
+        return dt, itl_s, mfu_val
 
     def _account_decode(self, st: _RunState, step: int, t0: float, now: float, dt: float,
-                        tokens: int, fed_rows: int, **span) -> None:
+                        tokens: int, fed_rows: int, **span):
         """The accounting every decode tick shares, plain or speculative:
         the ITL chain (the gap since the previous decode completion,
         interleaved prefill work included), goodput, the ``decode_tick``
         span (``span`` holds its attributes) and the decode metrics.
-        ``tokens`` were emitted by ``fed_rows`` rows computed in ``dt``."""
+        ``tokens`` were emitted by ``fed_rows`` rows computed in ``dt``.
+        Returns ``(itl_s, mfu)``, each None where not taken."""
         chained = st.last_decode_done is not None
+        itl_s = mfu_val = None
         if chained:
             st.itls.append(now - st.last_decode_done)
+            itl_s = st.itls[-1]
         st.last_decode_done = now
         if self._goodput is not None:
             self._goodput.add("decode", dt)
@@ -892,10 +943,12 @@ class Scheduler:
             # the decode just timed.
             fpt = _cost.serve_decode_flops_per_token(cfg.spec, self.engine.last_attend_width)
             reg.gauge("serve_flops_per_token").set(fpt)
-            reg.gauge("serve_mfu").set(_cost.mfu(
+            mfu_val = _cost.mfu(
                 _cost.serve_speculate_verify_flops(cfg.spec, fed_rows,
                                                    self.engine.last_attend_width),
-                dt, cfg.tensor_parallel, self._resolve_peak()))
+                dt, cfg.tensor_parallel, self._resolve_peak())
+            reg.gauge("serve_mfu").set(mfu_val)
+        return itl_s, mfu_val
 
     def tick(self) -> None:
         """One scheduler step of the armed run: stamp eligibility, shed and
@@ -1098,13 +1151,14 @@ class Scheduler:
                     if self._finished(st, s, tok):
                         self._finish(st, s)
                     break
+        decode_s = itl_s = mfu_val = None
         if st.active.any() and self.role == "prefill":
             # First-token slots are HELD for the fleet's page hand-off: a
             # prefill replica never decodes, and a held tick makes no
             # device call.
             st.last_decode_done = None
         elif st.active.any() and cfg.speculate_k:
-            self._speculate_decode(st, step)
+            decode_s, itl_s, mfu_val = self._speculate_decode(st, step)
         elif st.active.any():
             n_active = int(st.active.sum())
             t0 = time.perf_counter() if tr else 0.0
@@ -1113,9 +1167,10 @@ class Scheduler:
             # Read after decode's fetch of the sampled tokens, which waits
             # for the device.
             now = time.perf_counter()
-            self._account_decode(st, step, t0, now, st.decode_timer._times[-1], n_active,
-                                 n_active, n_active=n_active,
-                                 reqs=[int(st.req_ids[i]) for i in range(S) if st.active[i]])
+            decode_s = st.decode_timer._times[-1]
+            itl_s, mfu_val = self._account_decode(
+                st, step, t0, now, decode_s, n_active, n_active, n_active=n_active,
+                reqs=[int(st.req_ids[i]) for i in range(S) if st.active[i]])
             for s in range(S):
                 if not st.active[s]:
                     continue
@@ -1150,6 +1205,26 @@ class Scheduler:
                 reg.gauge("serve_kv_pages_shared").set(eng.pages.shared)
             if self._mem is not None:
                 self._mem.sample()
+            if self.metrics_writer is not None:
+                # Rate-limited inside: the gauges' history lands in the JSONL.
+                self.metrics_writer.maybe_flush()
+        if self.anomaly is not None:
+            # Its registry is the scheduler's (checked at construction), so
+            # `depth` is bound. The host-state signals are functions of the
+            # tick clock; the wall-clock ones ride along.
+            vals: dict = {"queue_depth": depth, "active_slots": int(st.active.sum()),
+                          "occupied_slots": sum(o is not None for o in st.occupant)}
+            if eng.paged:
+                vals["pages_free"] = int(eng.pages.free)
+            if decode_s is not None:
+                vals["step_time"] = decode_s
+                if mfu_val is not None:
+                    vals["mfu"] = mfu_val
+            if itl_s is not None:
+                vals["itl"] = itl_s
+            self.anomaly.tick(vals)
+        if self.slo_monitor is not None:
+            self.slo_monitor.tick()
         if gp is not None:
             gp.end_tick()
         st.step = step + 1

@@ -33,7 +33,9 @@ more than a kernel's length (``device_minus_launch_ms`` reports it: the
 launch latency, a few microseconds, plus that offset). ``kernel`` (a
 regular expression) restricts the sum to the kernel's own launches. The
 tracer may lose the first device events after it starts, so untimed calls
-run first inside the profiler, each in a range of its own. A range with no
+run first inside the profiler for at least ``WARM_S``, each in a range of
+its own and each after a flush when the timed calls take one, so that the
+first timed call follows the same work as every other. A range with no
 device time (the tracer dropped a record) costs the reading its window: it
 is taken again in a new profiler session, up to ``WINDOWS`` sessions, and
 ``profile_windows`` says how many it took; a reading whose every window
@@ -60,6 +62,10 @@ FLUSH_BYTES = 256 * 2**20
 _TAG = "devtime_call_"
 _WARM_TAG = "devtime_warm"
 WINDOWS = 4  # profiler sessions a reading may take before it raises
+# Seconds of untimed calls at the start of each profiler session: 20 ms
+# still lost the first timed call's records of SDPA's cold reading in all 4
+# sessions on an H100.
+WARM_S = 0.2
 
 
 def hbm_bytes_per_s(name: str) -> float:
@@ -158,12 +164,15 @@ def device_ms(fn: Callable[[], object], *, reps: int = 50, warm: int = 3,
     torch.cuda.synchronize()
     for window in range(1, WINDOWS + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            # Untimed calls first (at least 3, and 20 ms), each in a range of
-            # its own: the tracer may miss device work launched right after
-            # it starts, and the first timed call is not the session's first
-            # range.
+            # Untimed calls first (at least 3, and WARM_S), each in a range
+            # of its own and flushed as the timed ones: the tracer may miss
+            # device work launched right after it starts, and the first
+            # timed call is not the session's first range.
             t0, warmed = time.perf_counter(), 0
-            while warmed < 3 or time.perf_counter() - t0 < 0.02:
+            while warmed < 3 or time.perf_counter() - t0 < WARM_S:
+                if flush is not None:
+                    flush()
+                    torch.cuda.synchronize()
                 with record_function(_WARM_TAG):
                     fn()
                     torch.cuda.synchronize()

@@ -268,6 +268,20 @@ SERVE_CASES = {
     "paged-greedy-speculate2": dict(slots=4, capacity=64, page_size=8, speculate_k=2),
 }
 SPEC_COUNTERS = ("speculate_proposed_total", "speculate_accepted_total")
+
+
+def program_ledger(reg) -> list[str]:
+    """A serve registry's ``xla_compiles_total{kind=}`` counts and each
+    program's collective ledger (total bytes, ops and bytes by kind and by
+    axis), as sorted strings: either package's registry."""
+    out = []
+    for name in ("xla_compiles_total", "collective_bytes_total", "collective_ops_total",
+                 "collective_bytes", "collective_axis_bytes"):
+        m = reg.get(name)
+        for ls in m.label_sets():
+            labels = ",".join(f"{k}={v}" for k, v in sorted(ls.items()))
+            out.append(f"{name}{{{labels}}}={int(m.value(**ls))}")
+    return sorted(out)
 SERVE_PROMPTS = dict(num=6, min_len=3, max_len=20, vocab=16, seed=0)
 SERVE_NEW = 8
 SERVE_STATS = ("prefill_tokens", "decode_steps", "decode_tokens", "prefix_lookups",
@@ -528,6 +542,7 @@ def _serve_cases(world, init, results):
         if reg is not None:
             results[f"{key}/spec_counters"] = np.asarray(
                 [int(reg.counter(n).value()) for n in SPEC_COUNTERS])
+            results[f"{key}/programs"] = np.asarray(program_ledger(reg))
         for i, c in done.items():
             results[f"{key}/{i}/tokens"] = np.asarray(c.tokens, np.int64)
             results[f"{key}/{i}/steps"] = np.asarray([c.admitted_step, c.finished_step])

@@ -20,11 +20,25 @@ Each case runs JAX's CLI once and the port's once (the module fixture
   ``int8_disagg``: the roles fleet with ``--kv-dtype int8``: tokens,
   statuses, the digests and the ``speculate`` digest.
 
+Serve telemetry (``test_cli_serve_telemetry_matches_jax``): JAX's
+bulk_burst fleet as flags, with ``--metrics-out``, ``--prom-port 0``,
+``--peak-flops``, ``--slo-rules`` (a TTFT rule every bulk first token
+misses, a shed-burn rule), ``--anomaly-rules`` (``backlog``,
+``shed_rate``) and ``--autoscale ...,burn=`` naming the TTFT rule: the
+``slo_rules`` and ``anomaly_rules`` digests, the fleet digest (a burn
+scale-out), tokens and the printed slo/anomaly/fleet lines equal JAX's.
+
+The twin (``test_cli_sim_matches_jax``): ``sim --scenario X --json`` for each
+of the six scenarios prints JAX's lines and JSON (the router digest's
+wall-clock fields aside); ``--fit`` with a serve run's metrics file prints
+the fitted costs. Each bad ``sim`` flag exits with JAX's text
+(``test_cli_sim_flags_fail_as_jax``); ``--device``, which JAX's CLI lacks,
+is refused too.
+
 Port-only: the crashed and the disaggregated runs' tokens equal the plain
 fleet's (the same flags without the fault, or colocated), and the
 speculating fleet's equal the same fleet's without --speculate. Each bad
-combination of the fleet flags exits with JAX's text, and the flags of the
-parts still to port refuse.
+combination of the fleet flags exits with JAX's text.
 
 Greedy comparisons against JAX keep the top-2 margin gate (1e-5, the cached
 logits' tolerance): a near-tie fails loudly instead of passing by luck.
@@ -232,9 +246,8 @@ def test_cli_speculate_and_int8_match_jax(cli_runs, plain_runs, name):
     statuses, the router and disagg digests, the config and the printed
     lines equal JAX's CLI on the same flags, and so does the ``speculate``
     digest (None on both: without a telemetry flag neither router has
-    replica registries, and serve's telemetry flags are ROADMAP queue 1,
-    item 8, part 8). Speculation's tokens equal the same fleet's without
-    it."""
+    replica registries). Speculation's tokens equal the same fleet's
+    without it."""
     (theirs, tlines), (ours, olines), margins, _ = cli_runs(name)
     assert ours["completions"] == theirs["completions"]
     assert ours["per_class"] == theirs["per_class"]
@@ -284,3 +297,118 @@ def test_cli_fleet_flags_fail_as_jax(flags):
     with _jax_cli(), pytest.raises(SystemExit) as theirs:
         jcli.main(argv + ["--platform", "cpu"])
     assert str(ours.value) == str(theirs.value)
+
+
+# JAX's BULK_BURST fleet (serve.scenarios) as serve flags, on real engines.
+TELEMETRY_CASE = [
+    "--replicas", "1", "--slots", "1", "--capacity", "64", "--shed-threshold", "2",
+    "--traffic", "horizon=16;seed=0;max_requests=16;burst=4:6:6.0:bulk;"
+    "chat:rate=0.3,pmin=4,pmax=8,new=2;bulk:rate=0.4,pmin=4,pmax=8,new=2",
+    "--slo", "chat:priority=0;bulk:priority=1,margin=1",
+    "--autoscale", "max=2,min=1,backlog=2,sustain=8,idle=4,preempt=0,burn=bulk_ttft",
+    "--slo-rules", "bulk_ttft:metric=router_ttft_seconds,label.class=bulk,target=1e-9,"
+    "objective=0.5,fast=2,slow=4;bulk_shed:metric=router_shed_total,"
+    "total=router_requests_total,label.class=bulk,objective=0.5,fast=3,slow=6",
+    "--anomaly-rules", "backlog:window=4,min=2,threshold=1;shed_rate:window=4,min=2,"
+    "threshold=1",
+    "--peak-flops", "1e12",
+]
+
+
+def test_cli_serve_telemetry_matches_jax(ckpt_dir, tmp_path):
+    """The router path with every serve telemetry flag: the SLO and
+    anomaly digests (counts only: the TTFT rule's 1 ns target makes every
+    bulk first token a miss), a burn scale-out, tokens and the printed
+    lines equal JAX's; each metrics file ends in a snapshot."""
+    argv = ["serve", *MODEL, "--checkpoint-dir", ckpt_dir, *TELEMETRY_CASE, "--json"]
+    with _jax_cli():
+        theirs, tlines = _cli_json(jcli.main, argv + ["--platform", "cpu", "--metrics-out",
+                                                      str(tmp_path / "j.jsonl")])
+    ours, olines = _cli_json(cli.main, argv + ["--device", "cpu", "--prom-port", "0",
+                                               "--metrics-out", str(tmp_path / "t.jsonl")])
+    assert ours["completions"] == theirs["completions"]
+    assert ours["slo_rules"] == theirs["slo_rules"] and ours["slo_rules"]["bulk_ttft"]["alerts"]
+    assert ours["anomaly_rules"] == theirs["anomaly_rules"]
+    assert ours["anomaly_rules"]["backlog"]["fired_ticks"]
+    assert _strip_times(ours["router"]) == _strip_times(theirs["router"])
+    reasons = [e.get("reason") for e in ours["router"]["fleet"]["events"]]
+    assert "burn" in reasons
+    for prefix in ("slo rule", "anomaly signal", "fleet:", "router:"):
+        assert [x for x in olines if x.startswith(prefix)] == \
+            [x for x in tlines if x.startswith(prefix)], prefix
+    assert any(x.startswith("[ddl_tpu] metrics endpoint: http://") for x in olines)
+    for name in ("j.jsonl", "t.jsonl"):
+        recs = [json.loads(x) for x in open(tmp_path / name)]
+        assert recs[0]["record"] == "manifest" and recs[-1]["record"] == "snapshot"
+
+
+def _sim_strip(out):
+    out = dict(out)
+    out["router"] = _strip_times(out["router"])
+    return out
+
+
+def test_cli_sim_matches_jax(tmp_path):
+    """``sim --scenario X --json`` for each scenario: JAX's printed lines
+    and JSON, the router digest's wall-clock fields aside; ``--fit`` with a
+    serve run's metrics file fits the costs it prints."""
+    for name in ("bulk_burst", "replica_crash", "diurnal", "crash_storm", "role_mix",
+                 "longtail_prefix"):
+        argv = ["sim", "--scenario", name, "--json"]
+        with _jax_cli():
+            theirs, tlines = _cli_json(jcli.main, argv + ["--platform", "cpu"])
+        ours, olines = _cli_json(cli.main, argv)
+        assert olines == tlines, name
+        assert _sim_strip(ours) == _sim_strip(theirs), name
+        assert ours["engine_kind"] == "sim" and ours["virtual_time"]["total"] > 0
+    metrics = tmp_path / "serve.jsonl"
+    assert cli.main(["serve", "--device", "cpu", "--vocab", "16", "--d-model", "16", "--heads",
+                     "2", "--layers", "1", "--d-ff", "32", "--slots", "2", "--capacity", "32",
+                     "--max-new-tokens", "3", "--num-prompts", "3", "--prompt-max", "10",
+                     "--metrics-out", str(metrics)]) == 0
+    argv = ["sim", "--scenario", "diurnal:horizon=8", "--json", "--fit", str(metrics)]
+    with _jax_cli():
+        theirs, tlines = _cli_json(jcli.main, argv + ["--platform", "cpu"])
+    ours, olines = _cli_json(cli.main, argv)
+    assert ours["cost_model"] == theirs["cost_model"]
+    assert ours["cost_model"]["decode_s_per_tick"] != 4.0e-3
+    assert _sim_strip(ours) == _sim_strip(theirs) and olines == tlines
+
+
+SIM_FLAG_CASES = [
+    [], ["--scenario", "rush_hour"], ["--scenario", "diurnal:frobs=1"],
+    ["--scenario", "replica_crash:rate_scale=2"], ["--scenario", "bulk_burst", "--slots", "2"],
+    ["--scenario", "bulk_burst", "--max-replicas", "3"],
+    ["--scenario", "bulk_burst", "--autoscale", "speed=1"],
+    ["--scenario", "bulk_burst", "--fit", "absent.jsonl"],
+    ["--scenario", "bulk_burst", "--inject-fault", "stall@1"],
+    ["--scenario", "bulk_burst", "--seq-len", "64"], ["--scenario", "bulk_burst", "--profile",
+                                                      "p"],
+    ["--scenario", "bulk_burst", "--traffic", "chat:rate=1"],
+    ["--scenario", "bulk_burst", "--slo-rules", "a:metric=m,target=1"],
+    ["--scenario", "bulk_burst", "--anomaly-rules", "backlog"],
+    ["--scenario", "bulk_burst", "--metrics-interval", "2"],
+    ["--scenario", "bulk_burst", "--num-ps", "3"],
+]
+
+
+def test_cli_sim_flags_fail_as_jax():
+    """Each bad sim flag exits with JAX's text before the twin runs; the
+    port also refuses ``--device`` (the twin touches no device); and
+    ``--slo-rules`` does not apply to a training variant, as in JAX's."""
+    for flags in SIM_FLAG_CASES:
+        with pytest.raises(SystemExit) as ours:
+            cli.main(["sim", *flags])
+        with _jax_cli(), pytest.raises(SystemExit) as theirs:
+            jcli.main(["sim", *flags, "--platform", "cpu"])
+        assert str(ours.value) == str(theirs.value), flags
+    with pytest.raises(SystemExit, match="^--device does not apply to the sim variant$"):
+        cli.main(["sim", "--scenario", "bulk_burst", "--device", "cuda", "--device", "cpu"])
+    for variant in ("lm", "sync"):
+        argv = [variant, "--slo-rules", "a:metric=m,target=1"]
+        with pytest.raises(SystemExit) as ours:
+            cli.main(argv + ["--device", "cpu"])
+        with _jax_cli(), pytest.raises(SystemExit) as theirs:
+            jcli.main(argv + ["--platform", "cpu"])
+        assert str(ours.value) == str(theirs.value) == \
+            f"--slo-rules does not apply to the {variant} variant"

@@ -44,7 +44,8 @@ def test_port_imports_no_jax_and_no_ddl_tpu():
     files = sorted((ROOT / "ddl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     for module in ("utils/checkpoint.py", "resilience/__init__.py", "resilience/faults.py",
-                   "resilience/guard.py", "obs/health.py", "parallel/multihost.py"):
+                   "resilience/guard.py", "obs/health.py", "parallel/multihost.py",
+                   "obs/analyze.py", "serve/sim.py", "serve/scenarios.py"):
         assert ROOT / "ddl_tpu_torch" / module in files, module
     bad = {}
     for path in files:
@@ -99,6 +100,11 @@ def test_entry_points_raise_without_a_card():
     for variant in ("async", "async_sharding", "async_sharding_greedy"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main([variant, "--tiny", "--synthetic-train", "8", "--synthetic-test", "8"])
+    # The twin touches no device: sim runs without a card and refuses
+    # --device, which would change nothing.
+    assert cli.main(["sim", "--scenario", "replica_crash"]) == 0
+    with pytest.raises(SystemExit, match="--device does not apply to the sim variant"):
+        cli.main(["sim", "--scenario", "replica_crash", "--device", "cpu"])
 
 
 def test_cpu_fused_adam_never_builds_the_kernel(monkeypatch):

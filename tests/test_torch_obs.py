@@ -18,8 +18,9 @@ JAX package's (ddl_tpu/obs/) on the same seeded inputs.
   collective ledger's bytes (one step's exactly; XLA merges 4 bytes of
   scalar all-reduce across a 2-step span, which the call-site tally counts
   as called), and parameters bitwise those of the run without metrics;
-- the CLI's telemetry flags: JAX's hygiene texts, the serve refusals, and
-  end-to-end runs that write a manifest-first metrics file and a trace.
+- the CLI's telemetry flags: JAX's hygiene texts, each serve telemetry flag
+  served (``--profile`` refused, as JAX's), and end-to-end runs that write a
+  manifest-first metrics file and a trace.
 """
 
 import json
@@ -563,9 +564,38 @@ def test_obs_flag_hygiene_reads_as_jax(argv):
                                         ("--prom-port", "0"), ("--anomaly-rules", "itl"),
                                         ("--slo-rules", "a:metric=m,target=1"),
                                         ("--profile", "p"), ("--peak-flops", "1e12")])
-def test_serve_telemetry_flags_name_their_item(flag, value):
-    with pytest.raises(NotImplementedError, match="item 8, part 8"):
-        cli.main(["serve", "--device", "cpu", flag, value])
+def test_serve_telemetry_flags_name_their_item(flag, value, tmp_path, monkeypatch, capsys):
+    """Serve's telemetry flags are ported: each serves a tiny prompt set
+    and lands where JAX's does; --profile does not apply to serve, as in
+    JAX's CLI (its training-only group holds it: serve profiles through
+    --trace-dir). JAX's serve payloads are held in
+    tests/test_torch_fleet_cli.py and tests/test_torch_serve_obs.py."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["serve", "--device", "cpu", "--vocab", "16", "--d-model", "16", "--heads", "2",
+            "--layers", "1", "--d-ff", "32", "--slots", "2", "--capacity", "32",
+            "--max-new-tokens", "3", "--num-prompts", "3", "--prompt-max", "10", "--json",
+            flag, value]
+    if flag == "--profile":
+        assert "profile" in jcli._TRAIN_ONLY_DESTS
+        with pytest.raises(SystemExit, match="^--profile does not apply to the serve variant$"):
+            cli.main(argv)
+        return
+    assert cli.main(argv) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert {c["status"] for c in out["completions"].values()} == {"ok"}
+    assert (out["goodput"] is None) == (flag in ("--trace-dir", "--peak-flops"))
+    if flag == "--metrics-out":
+        recs = [json.loads(x) for x in open(value)]
+        assert recs[0]["record"] == "manifest" and recs[-1]["record"] == "snapshot"
+        names = {m["name"] for m in recs[-1]["metrics"]}
+        assert {"serve_decode_tokens_total", "xla_compiles_total", "serve_mfu"} <= names
+    elif flag == "--trace-dir":
+        names = {json.loads(x)["name"] for x in open(tmp_path / value / "host_trace_p0.jsonl")}
+        assert {"eligible", "first_token", "decode_tick", "complete"} <= names
+    elif flag == "--anomaly-rules":
+        assert set(out["anomaly_rules"]) == {"itl"}
+    elif flag == "--slo-rules":
+        assert set(out["slo_rules"]) == {"a"} and out["anomaly_rules"] is None
 
 
 def test_single_cli_writes_metrics_and_trace(tmp_path, capsys):

@@ -17,9 +17,9 @@ Pinned against JAX:
   affinity and a shed threshold: every request's tokens, status,
   ``admitted_step`` and ``finished_step``; the placement ledger, affinity
   and load placements, router sheds and per-class counts; the shared
-  tracer's ``(name, attrs)`` sequence (timestamps left out; JAX's
-  ``compile`` events, which its engine's compile hook adds, left out); the
-  ``router_*`` counters and each replica's ``serve_*`` counters;
+  tracer's ``(name, attrs)`` sequence, ``compile`` events included
+  (timestamps left out); the ``router_*`` counters and each replica's
+  ``serve_*`` counters;
 - ``request_slo_samples`` and ``derive_request_slo`` (global and grouped)
   on that run's records.
 
@@ -27,8 +27,9 @@ Port-only pins: a 1-replica router equals the bare scheduler on the same
 stream (tokens and every decode step's logits, bitwise; contiguous and
 paged); ``derive_request_slo`` of a run's records equals its
 ``ServeStats.ttft`` / ``.itl`` float for float; the router reruns to the
-same tokens and placements; part 8 of ROADMAP queue 1, item 8 stays
-refused, and parts 5 and 6 (speculation, the int8 pool) run.
+same tokens and placements; the router's, the scheduler's and the
+controller's telemetry arguments are taken and checked with JAX's texts, and
+speculation and the int8 pool run.
 
 Greedy comparisons keep the top-2 margin gate (1e-5, the cached logits'
 tolerance against JAX).
@@ -314,14 +315,16 @@ def _counters(reg, prefixes):
 
 
 def test_router_trace_and_counters_match_jax(router_runs):
-    """The shared tracer's lifecycle and routing events in order, and the
-    router's and each replica's counters."""
+    """The shared tracer's lifecycle, routing and ``compile`` events in
+    order (the port's at each program key's first dispatch, JAX's at each
+    build), and the router's and each replica's counters."""
     _, _, jreg, jtr, jrouter, _ = router_runs["jax"]
     _, _, treg, ttr, trouter, _ = router_runs["port"]
     events = lambda tr: [(r["name"], r["attrs"]) for r in tr.records]  # noqa: E731
-    theirs = [e for e in events(jtr) if e[0] != "compile"]
+    theirs = events(jtr)
     ours = events(ttr)
     assert ours == theirs
+    assert {a["kind"] for n, a in ours if n == "compile"} >= {"prefill", "decode"}
     names = {n for n, _ in ours}
     assert {"submit", "route", "router_shed", "eligible", "admit", "prefix_map",
             "prefill_chunk", "first_token", "decode_tick", "complete"} <= names
@@ -362,22 +365,65 @@ def test_request_slo_matches_jax_and_the_run_stats(router_runs, weights):
 
 
 def test_part_8_and_later_parts_stay_refused(weights):
-    """What ROADMAP queue 1, item 8 keeps for parts 7 and 8 raises
-    NotImplementedError naming its part; parts 5 and 6 now run."""
+    """Serve observability is ported: the router takes ``slo_monitor=``,
+    ``anomaly_detector=`` and ``peak_flops=``, the scheduler also
+    ``metrics_writer=``, and the controller its ``burn=`` rules, each
+    misuse refused with JAX's text (the consumer on another registry or
+    none, burn rules without a monitor or naming an unknown rule)."""
+    from ddl_tpu.obs.anomaly import AnomalyDetector as JDetector, parse_anomaly_rules as jpar
+    from ddl_tpu.obs.slo import SloMonitor as JMonitor, SloRule as JRule
+    from ddl_tpu_torch.obs.anomaly import AnomalyDetector, parse_anomaly_rules
+    from ddl_tpu_torch.obs.slo import SloMonitor, SloRule
+
     cfg = ts.RouterConfig(serve=ts.ServeConfig(spec=TSPEC, slots=1, capacity=32, page_size=8),
                           replicas=1, classes=(ts.ClassSpec("default"),))
-    for kw in (dict(slo_monitor=object()), dict(anomaly_detector=object()),
-               dict(peak_flops=1e12)):
-        with pytest.raises(NotImplementedError, match="item 8, part 8"):
-            ts.Router(cfg, params=weights, device="cpu", **kw)
-    ctrl = ts.FleetController(ts.parse_autoscale_spec("burn=bulk_shed", max_replicas=2))
-    with pytest.raises(NotImplementedError, match="item 8, part 8"):
-        ts.Router(cfg, params=weights, device="cpu", controller=ctrl)
+    jcfg = js.RouterConfig(serve=js.ServeConfig(spec=JSPEC, slots=1, capacity=32, page_size=8),
+                           replicas=1, classes=(js.ClassSpec("default"),))
+    rule = dict(name="shed", metric="router_shed_total", total_metric="router_requests_total")
+    reg, jreg = MetricRegistry(), JRegistry()
+    mon, jmon = SloMonitor((SloRule(**rule),), reg), JMonitor((JRule(**rule),), jreg)
+    det = AnomalyDetector(parse_anomaly_rules("backlog"), reg)
+    jdet = JDetector(jpar("backlog"), jreg)
+    for ours, theirs in ((dict(slo_monitor=mon), dict(slo_monitor=jmon)),
+                         (dict(anomaly_detector=det), dict(anomaly_detector=jdet)),
+                         (dict(slo_monitor=mon, registry=MetricRegistry()),
+                          dict(slo_monitor=jmon, registry=JRegistry())),
+                         (dict(anomaly_detector=det, registry=MetricRegistry()),
+                          dict(anomaly_detector=jdet, registry=JRegistry()))):
+        with pytest.raises(ValueError) as e_ours:
+            ts.Router(cfg, params=weights, device="cpu", **ours)
+        with pytest.raises(ValueError) as e_theirs:
+            js.Router(jcfg, **theirs)
+        assert str(e_ours.value) == str(e_theirs.value)
+    router = ts.Router(cfg, params=weights, device="cpu", registry=reg, slo_monitor=mon,
+                       anomaly_detector=det, peak_flops=1e12)
+    assert router.slo_monitor is mon and router.anomaly is det
+    assert router.scheds[0].slo_monitor is None and router.scheds[0]._peak_flops == 1e12
+    assert reg.get("fleet_engine_sim").value() == 0.0
+    texts = []
+    for spec, monitor in (("burn=bulk_shed", None), ("burn=nope", mon)):
+        ctrl = ts.FleetController(ts.parse_autoscale_spec(spec, max_replicas=2))
+        with pytest.raises(ValueError) as e:
+            ts.Router(cfg, params=weights, device="cpu", registry=reg, slo_monitor=monitor,
+                      controller=ctrl)
+        texts.append(str(e.value))
+    assert texts == [
+        "autoscale burn rules ['bulk_shed'] need an SLO monitor on the router (--slo-rules) "
+        "— without one the burn trigger could never fire",
+        "autoscale burn rules ['nope'] are not among the monitor's rules (['shed'])"]
+    ts.Router(cfg, params=weights, device="cpu", registry=reg, slo_monitor=mon,
+              controller=ts.FleetController(ts.parse_autoscale_spec("burn=shed",
+                                                                    max_replicas=2)))
     eng = ts.InferenceEngine(cfg.serve, params=weights, device="cpu")
-    for kw in (dict(metrics_writer=object()), dict(slo_monitor=object()),
-               dict(anomaly_detector=object()), dict(peak_flops=1e12)):
-        with pytest.raises(NotImplementedError, match="item 8, part 8"):
-            ts.Scheduler(eng, **kw)
+    for kw, text in ((dict(slo_monitor=mon), "slo_monitor was built on a different registry"),
+                     (dict(anomaly_detector=det),
+                      "anomaly_detector was built on a different registry")):
+        with pytest.raises(ValueError, match=text):
+            ts.Scheduler(eng, registry=MetricRegistry(), **kw)
+    sched = ts.Scheduler(eng, registry=reg, slo_monitor=mon, anomaly_detector=det,
+                         peak_flops=1e12)
+    with pytest.raises(ValueError, match="attach_registry would strand the bound slo_monitor"):
+        sched.attach_registry(MetricRegistry())
     # Parts 5 and 6 are ported (tests/test_torch_speculate.py,
     # tests/test_torch_int8.py): a draft lane aliases a slot's pages, and the
     # CLI takes --speculate and --kv-dtype, each needing the paged layout.
@@ -392,6 +438,6 @@ def test_part_8_and_later_parts_stay_refused(weights):
                         (["--kv-dtype", "int8"], "kv_dtype='int8' needs the paged KV layout")):
         with pytest.raises(SystemExit, match=text):
             cli.main(["serve", "--device", "cpu", "--replicas", "2", *flags])
-    with pytest.raises(NotImplementedError, match="item 8, part 8"):
-        cli.main(["serve", "--device", "cpu", "--replicas", "2", "--slo-rules",
-                  "a:metric=m,target=1"])
+    # The CLI reads --slo-rules (a malformed spec exits before any engine).
+    with pytest.raises(SystemExit, match="--slo-rules: "):
+        cli.main(["serve", "--device", "cpu", "--replicas", "2", "--slo-rules", "a:metric=m"])

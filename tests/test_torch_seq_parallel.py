@@ -249,7 +249,8 @@ def _jax_serve(init, kw):
                                                               max_new_tokens=_torch_world.SERVE_NEW)
                                                      for i, p in enumerate(prompts)])
     counters = (None if reg is None else
-                [int(reg.counter(n).value()) for n in _torch_world.SPEC_COUNTERS])
+                ([int(reg.counter(n).value()) for n in _torch_world.SPEC_COUNTERS],
+                 _torch_world.program_ledger(reg)))
     return done, stats, margins, counters
 
 
@@ -464,7 +465,15 @@ def test_four_rank_world_serves_at_tp2_as_jax(name, lm_world):
         assert rank[f"{key}/stats"].tolist() == [getattr(jstats, f)
                                                  for f in _torch_world.SERVE_STATS]
         if jcounters is not None:  # speculation: proposed and accepted drafts
-            assert rank[f"{key}/spec_counters"].tolist() == jcounters and jcounters[0] > 0, r
+            spec_counters, programs = jcounters
+            assert rank[f"{key}/spec_counters"].tolist() == spec_counters, r
+            assert spec_counters[0] > 0
+            # Compile counts by kind and each program's collective ledger:
+            # the port's tally of the tp all-reduces equals the bytes, ops
+            # and axis XLA's HLO carries.
+            assert rank[f"{key}/programs"].tolist() == programs, r
+            assert any(p.startswith("collective_bytes_total{program=decode[") and
+                       not p.endswith("=0") for p in programs)
         if kw.get("temperature", 0.0) == 0.0 and not bf16:
             margins = np.concatenate([rank[f"{key}/{i}/margins"] for i in jdone])
             assert margins.size and margins.min() > MARGIN, margins.min()

@@ -436,17 +436,28 @@ def test_engine_refuses_what_is_not_ported(kw, what):
 def test_scheduler_and_engine_refuse_what_is_not_ported():
     eng = InferenceEngine(ServeConfig(spec=TSPEC, slots=2, capacity=32, page_size=8),
                           device="cpu")
-    for kw in (dict(metrics_writer=object()), dict(slo_monitor=object()), dict(peak_flops=1.0),
-               dict(anomaly_detector=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Scheduler(eng, **kw)
-    # The tracer, registry, fault injector, the disagg roles and the page
-    # hand-off are ported (tests/test_torch_router.py, test_torch_fleet.py):
-    # the hand-off's calls need an armed run.
+    # The tracer, registry, metrics writer, SLO monitor, anomaly detector,
+    # peak FLOPs, fault injector, the disagg roles and the page hand-off are
+    # ported (tests/test_torch_router.py, test_torch_fleet.py,
+    # test_torch_serve_obs.py): a consumer on a registry other than the
+    # scheduler's is refused, and the hand-off's calls need an armed run.
     from ddl_tpu_torch.obs import MetricRegistry
+    from ddl_tpu_torch.obs.anomaly import AnomalyDetector, parse_anomaly_rules
+    from ddl_tpu_torch.obs.slo import SloMonitor, parse_slo_rules
     from ddl_tpu_torch.obs.trace import Tracer
     from ddl_tpu_torch.resilience import FaultInjector, FaultSpec
 
+    reg = MetricRegistry()
+    mon = SloMonitor(parse_slo_rules("a:metric=serve_ttft_seconds,target=1"), reg)
+    det = AnomalyDetector(parse_anomaly_rules("queue_depth"), reg)
+    for kw in (dict(metrics_writer=object()), dict(slo_monitor=mon), dict(peak_flops=1.0),
+               dict(anomaly_detector=det)):
+        if "metrics_writer" in kw or "peak_flops" in kw:
+            Scheduler(eng, **kw)
+            continue
+        with pytest.raises(ValueError, match="built on a different registry"):
+            Scheduler(eng, **kw)
+        Scheduler(eng, registry=reg, **kw)
     for kw in (dict(tracer=Tracer()), dict(registry=MetricRegistry()),
                dict(injector=FaultInjector(FaultSpec(kind="stall", step=1))),
                dict(role="prefill")):
