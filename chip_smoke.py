@@ -313,6 +313,23 @@ o3. in r5, the skip and the rollback runs with a registry and a tracer:
    guard_skip, guard_rollback.
 o4. in 11p, GPipe's T = 512 run and its pp-1 oracle with a registry: each
    rank's ``train_grad_norm`` within 2e-5 + 1e-3 of the oracle's.
+o7. multihost_cli (after o2) — the multi-host launch through the CLI
+   (``--multihost --num-processes 1``): one host process starts one rank,
+   which joins an NCCL world of one through the self-hosted TCP rendezvous.
+   A two-host NCCL world needs two cards (NCCL takes one rank a card); the
+   phase says so on a line of its own and runs no gloo stand-in. (a)
+   o2's command line with and without ``--multihost``, both with cuDNN's
+   deterministic algorithms (a ``sitecustomize`` on PYTHONPATH, which the
+   launched rank inherits: cuDNN's default algorithms made a repeat of o2
+   read another final accuracy): exit 0, JAX's ``multihost: process 0/1,
+   1 global devices`` line in the launched run only, 20 fused-Adam kernels
+   in each profiler's trace, ``history`` and ``final_accuracy`` bit-equal
+   (o2's printed beside them); (b) ``lm --attn-impl
+   flash`` at lm_main's width, 4 steps, ``--eval-every 0``, profiled, with
+   and without ``--multihost``: each flash kernel 16 times (4 layers x 4
+   steps) in each trace, and the final losses bit-equal; (c) ``sync
+   --multihost --num-processes 1`` with one rank more than the host's
+   cards exits naming NCCL's one card a rank, before any rank starts.
 
 Serve observability and the digital twin (after o2, last: their profiled
 runs stay clear of flash_timing's timers), at serve_main's width over the
@@ -413,7 +430,9 @@ row's ``serve_speculate_launches`` and ``serve_int8_launches`` (s1, s2: 0,
 no kernel lies on the serve path); under
 telemetry each flash row's ``obs_launches`` and ``obs_profiled_launches``
 (o1: counted, and read from the profiler's trace) and the Adam row's
-``obs_cli_profiled_launches`` (o2); every row's ``serve_obs_launches``,
+``obs_cli_profiled_launches`` (o2); the Adam row's
+``multihost_cli_profiled_launches`` and each flash row's
+``multihost_lm_profiled_launches`` (o7, from the profiler's traces); every row's ``serve_obs_launches``,
 ``serve_obs_cli_launches`` and ``twin_launches`` (o5, o6, t1: 0)), the
 ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -1250,6 +1269,14 @@ def obs_lm(torch, fa, lm_out) -> dict:
     return out
 
 
+def _obs_cli_argv(mpath: str, tdir: str) -> list[str]:
+    """obs_cli's command line (multihost_cli runs it again)."""
+    return ["sync_sharding", "--num-ps", "2", "--layout", "flat", "--fused-adam",
+            "--batch-size", "100", "--synthetic-train", str(MAIN_STEPS * 100),
+            "--synthetic-test", "100", "--metrics-out", mpath, "--trace-dir", tdir,
+            "--metrics-interval", "5", "--json"]
+
+
 def obs_cli(torch) -> dict:
     """The telemetry flags through the CLI: one subprocess of ``python -m
     ddl_tpu_torch sync_sharding --fused-adam`` at phase 4's configuration
@@ -1263,10 +1290,7 @@ def obs_cli(torch) -> dict:
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
         mpath, tdir = os.path.join(tmp, "m.jsonl"), os.path.join(tmp, "trace")
-        argv = ["sync_sharding", "--num-ps", "2", "--layout", "flat", "--fused-adam",
-                "--batch-size", "100", "--synthetic-train", str(MAIN_STEPS * 100),
-                "--synthetic-test", "100", "--metrics-out", mpath, "--trace-dir", tdir,
-                "--metrics-interval", "5", "--json"]
+        argv = _obs_cli_argv(mpath, tdir)
         proc = subprocess.run([sys.executable, "-m", "ddl_tpu_torch"] + argv, cwd=root,
                               capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
@@ -1292,6 +1316,174 @@ def obs_cli(torch) -> dict:
           and host == ["train/run"] and adam == MAIN_STEPS)
     if not ok:
         raise AssertionError(f"obs_cli: {out}")
+    return out
+
+
+MULTIHOST = ["--multihost", "--num-processes", "1"]
+MULTIHOST_LM_STEPS = 4
+# lm_main's width through the CLI: no eval inside the profiled span loop.
+MULTIHOST_LM = ["lm", "--seq-scheme", "full", "--attn-impl", "flash", "--seq-len", "2048",
+                "--vocab", "256", "--d-model", "512", "--heads", "8", "--layers", "4",
+                "--d-ff", "2048", "--batch-size", "4", "--train-seqs",
+                str(4 * MULTIHOST_LM_STEPS), "--test-seqs", "4", "--eval-every", "0", "--json"]
+MULTIHOST_LINE = "[ddl_tpu_torch] multihost: process 0/1, 1 global devices"
+
+
+# cuDNN's default convolution algorithms are not deterministic: two runs of
+# one CNN command line may differ in the last bits (PR 18's f1: a final
+# accuracy of 0.38 against 0.36 over 100 images). This sitecustomize turns
+# its deterministic algorithms on in every Python process started with its
+# directory on PYTHONPATH, a rank that a --multihost host starts included,
+# then hands over to the sitecustomize it shadows, if there is one.
+DETERMINISTIC_SITE = """\
+import os
+import sys
+
+import torch
+
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+here = os.path.dirname(os.path.abspath(__file__))
+me = sys.modules.pop("sitecustomize")
+sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != here]
+try:
+    import sitecustomize  # noqa: F401
+except ImportError:
+    pass
+sys.modules.setdefault("sitecustomize", me)
+"""
+
+
+def _deterministic_env(tmp: str) -> dict:
+    """This process's environment with :data:`DETERMINISTIC_SITE` first on
+    PYTHONPATH."""
+    site = os.path.join(tmp, "deterministic_site")
+    os.makedirs(site)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(DETERMINISTIC_SITE)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (site, env.get("PYTHONPATH")) if p)
+    return env
+
+
+def _cli_runs(runs: dict, phase: str, envs: dict | None = None,
+              timeout_s: float = 600) -> dict:
+    """Each ``name: argv`` of ``runs`` as ``python -m ddl_tpu_torch argv``
+    from the checkout (in ``envs[name]`` where given), all at once: ``name:
+    (stdout, the JSON of its last line)``. A non-zero exit fails ``phase``;
+    a run past the timeout is killed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    envs = envs or {}
+    procs = {name: subprocess.Popen([sys.executable, "-m", "ddl_tpu_torch"] + argv, cwd=root,
+                                    env=envs.get(name), stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, argv in runs.items()}
+    deadline = time.monotonic() + timeout_s
+    outs = {}
+    try:
+        for name, proc in procs.items():
+            outs[name] = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for name, proc in procs.items():
+        if proc.returncode != 0:
+            print(outs[name][0][-4000:], outs[name][1][-4000:], file=sys.stderr, flush=True)
+            raise AssertionError(f"{phase}: exit code {proc.returncode} for {runs[name]}")
+    return {name: (out, json.loads(out.strip().splitlines()[-1]))
+            for name, (out, _) in outs.items()}
+
+
+def multihost_cli(torch, obs_out: dict) -> dict:
+    """The multi-host launch through the CLI on the one card: ``--multihost
+    --num-processes 1``, one host process starting one rank, which joins an
+    NCCL world of one through the self-hosted TCP rendezvous (a two-host
+    NCCL world needs two cards: NCCL takes one rank a card). (a) obs_cli's
+    command line with and without ``--multihost``, both with cuDNN's
+    deterministic algorithms (:data:`DETERMINISTIC_SITE`): exit 0, JAX's
+    ``multihost: process 0/1, 1 global devices`` line in the launched run
+    only, 20 fused-Adam kernels in each profiler's trace, and ``history``
+    and ``final_accuracy`` bit-equal (obs_cli's own, with cuDNN's default
+    algorithms, printed beside them). (b) ``lm
+    --attn-impl flash`` at lm_main's width, 4 steps, profiled, with and
+    without ``--multihost``: each flash kernel 4 layers x 4 steps in both
+    traces (the span loop's window: no warm-up, no eval), and the final loss
+    bit-equal. (c) A launch of one rank more than the host has cards is
+    refused before any rank starts."""
+    from ddl_tpu_torch import cli
+
+    start = time.perf_counter()
+    emit("multihost_scope", note="one host process of one rank on the one card; a two-host "
+         "NCCL world needs two cards (NCCL takes one rank a card), so no two-host world "
+         "runs here and no gloo stand-in runs through the CLI")
+    with tempfile.TemporaryDirectory() as tmp:
+        # The four runs at once on the card: each computes as it would alone.
+        det = _deterministic_env(tmp)
+        done = _cli_runs({
+            "cnn_plain": _obs_cli_argv(os.path.join(tmp, "m0.jsonl"), os.path.join(tmp, "t0")),
+            "cnn": _obs_cli_argv(os.path.join(tmp, "m1.jsonl"), os.path.join(tmp, "t1"))
+            + MULTIHOST,
+            "plain": MULTIHOST_LM + ["--profile", os.path.join(tmp, "plain")],
+            "multihost": MULTIHOST_LM + ["--profile", os.path.join(tmp, "multihost")]
+            + MULTIHOST}, "multihost_cli", envs={"cnn_plain": det, "cnn": det})
+        cnn_out, cnn = done["cnn"]
+        cnn_plain_out, cnn_plain = done["cnn_plain"]
+        adam = {name: sum(n for k, n in _profiled_kernels(
+            os.path.join(tmp, tdir, "torch_profile_p0.json")).items()
+            if re.search(ADAM_KERNEL, k)) for name, tdir in (("plain", "t0"), ("multihost", "t1"))}
+        lm = {}
+        for name in ("plain", "multihost"):
+            out, payload = done[name]
+            kernels = _profiled_kernels(os.path.join(tmp, name, "torch_profile_p0.json"))
+            lm[name] = dict(line=MULTIHOST_LINE in out.splitlines(), payload=payload,
+                            named={key: sum(n for k, n in kernels.items()
+                                            if f"{kname}_kernel" in k)
+                                   for key, (kname, _) in FLASH_KERNELS.items()})
+    cards = torch.cuda.device_count()
+    try:
+        cli.main(["sync", *MULTIHOST, "--num-workers", str(cards + 1)])
+        refusal = None
+    except SystemExit as e:
+        refusal = str(e)
+    summary = obs_out["summary"]
+    want_flash = dict.fromkeys(FLASH_KERNELS, 4 * MULTIHOST_LM_STEPS)
+    out = dict(
+        cnn=dict(line=MULTIHOST_LINE in cnn_out.splitlines(),
+                 plain_line=MULTIHOST_LINE in cnn_plain_out.splitlines(),
+                 adam_launches_profiled=adam["multihost"],
+                 plain_adam_launches_profiled=adam["plain"],
+                 history=cnn["history"], final_accuracy=cnn["final_accuracy"],
+                 plain_history=cnn_plain["history"],
+                 plain_final_accuracy=cnn_plain["final_accuracy"],
+                 obs_cli_history=summary["history"],
+                 obs_cli_final_accuracy=summary["final_accuracy"],
+                 devices=[cnn["device"], cnn_plain["device"]],
+                 images_per_sec=cnn["images_per_sec"],
+                 plain_images_per_sec=cnn_plain["images_per_sec"],
+                 obs_cli_images_per_sec=summary["images_per_sec"]),
+        lm={name: dict(line=r["line"], profiled_launches=r["named"],
+                       final_loss=r["payload"]["final_loss"], device=r["payload"]["device"],
+                       tokens_per_sec=r["payload"]["tokens_per_sec"])
+            for name, r in lm.items()},
+        lm_final_loss_bitwise=lm["plain"]["payload"]["final_loss"]
+        == lm["multihost"]["payload"]["final_loss"],
+        want_flash_launches=want_flash, too_many_ranks_refusal=refusal,
+        seconds=time.perf_counter() - start)
+    emit("multihost_cli", **out)
+    ok = (out["cnn"]["line"] and not out["cnn"]["plain_line"]
+          and adam == {"plain": MAIN_STEPS, "multihost": MAIN_STEPS}
+          and all(d.startswith("cuda") for d in out["cnn"]["devices"])
+          and cnn["history"] == cnn_plain["history"]
+          and cnn["final_accuracy"] == cnn_plain["final_accuracy"]
+          and lm["multihost"]["line"] and not lm["plain"]["line"]
+          and all(r["named"] == want_flash and r["payload"]["device"].startswith("cuda")
+                  for r in lm.values())
+          and out["lm_final_loss_bitwise"]
+          and refusal is not None and "which takes one card a rank" in refusal)
+    if not ok:
+        raise AssertionError(f"multihost_cli: {out}")
     return out
 
 
@@ -4068,6 +4260,7 @@ def run_phases(torch, world, card: str):
     # its profiler windows.
     obs_lm_out = obs_lm(torch, flash_attention, lm_out)
     obs_cli_out = obs_cli(torch)
+    multihost_out = multihost_cli(torch, obs_cli_out)
     serve_params = init_lm_params(torch.Generator().manual_seed(0), lm_spec(), "cuda")
     o5 = serve_obs(torch, serve_params, fused_adam, flash_attention, card)
     with tempfile.TemporaryDirectory() as tmp:
@@ -4079,7 +4272,8 @@ def run_phases(torch, world, card: str):
     emit("serve_obs_phases", card=card, seconds=o5["seconds"] + o6["seconds"] + t1["seconds"])
     bf16 = dict(cnn=cnn_bf16_out, lm=policy_out, seq=seq_policy_out)
     resilience = dict(sync=resume_out, async_=resume_async_out, guard=guard_out)
-    obs = dict(lm=obs_lm_out, cli=obs_cli_out, serve=o5, serve_cli=o6, twin=t1)
+    obs = dict(lm=obs_lm_out, cli=obs_cli_out, serve=o5, serve_cli=o6, twin=t1,
+               multihost=multihost_out)
     return (max_err, main_out, async_out, tim, flash_err, lm_out, seq_out, tp_out, pp_out,
             flash_tim, bf16, resilience, obs, pool)
 
@@ -4140,6 +4334,7 @@ def main() -> int:
         "resume_launches": resilience["sync"]["launches"],
         "resume_async_launches": resilience["async_"]["launches"],
         "obs_cli_profiled_launches": obs["cli"]["adam_launches_profiled"],
+        "multihost_cli_profiled_launches": obs["multihost"]["cnn"]["adam_launches_profiled"],
         **_pool_launches(pool, "adam_flat_fused"),
         **_serve_obs_launches(obs, "adam_flat_fused"),
         "max_abs_err": max_err,
@@ -4172,6 +4367,8 @@ def main() -> int:
             "guard_rollback_launches": resilience["guard"]["rollback"]["launches"][key],
             "obs_launches": obs["lm"]["launches"][key],
             "obs_profiled_launches": obs["lm"]["named"][key],
+            "multihost_lm_profiled_launches":
+                obs["multihost"]["lm"]["multihost"]["profiled_launches"][key],
             **_pool_launches(pool, name),
             **_serve_obs_launches(obs, name),
             "max_abs_err": flash_err[key],

@@ -36,13 +36,18 @@ replaying a named scenario (``--scenario``, costs fitted with ``--fit``).
     python -m ddl_tpu_torch serve --metrics-out m.jsonl --trace-dir tr \
         --slo-rules "ttft:metric=serve_ttft_seconds,target=0.5" --anomaly-rules queue_depth
     python -m ddl_tpu_torch sim --scenario bulk_burst --fit m.jsonl --json
+    python -m ddl_tpu_torch lm --multihost --coordinator host0:8476 --num-processes 2 \
+        --process-id $P --num-workers 2 --tensor-parallel 2
 
 Flags are spelled as in the JAX CLI, with its defaults; a flag of another
 variant set away from its default is refused. One process drives one
 device: a multi-worker run is launched with ``torchrun``, whose ``RANK`` /
-``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT`` variables this reads; a
-run of one worker makes a world of one itself. Runs on ``cuda`` unless
-``--device cpu`` (``sim`` touches no device), in fp32 with TF32 off unless
+``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT`` / ``LOCAL_RANK``
+variables this reads, or with JAX's ``--multihost`` flags, one command a
+host, whose process starts that host's ranks with the same variables
+(``parallel/multihost.py``); a run of one worker makes a world of one
+itself. Runs on ``cuda`` unless ``--device cpu`` or JAX's ``--platform
+cpu`` (``sim`` touches no device), in fp32 with TF32 off unless
 ``--precision bf16`` (bf16 compute and bf16 gradient sums, fp32 master
 weights and moments) or the legacy ``--bf16`` (bf16 compute only); the JAX
 CLI's bf16 default on a TPU does not carry over, as JAX on a GPU defaults
@@ -90,6 +95,7 @@ _SERVE_ONLY = ("slots", "capacity", "max_new_tokens", "num_prompts", "prompt_min
                "request_deadline", "shed_threshold", "replicas", "traffic", "slo",
                "slo_rules", "autoscale", "max_replicas", "roles", "speculate")
 _SIM_ONLY = ("scenario", "fit")
+_MULTIHOST = ("multihost", "coordinator", "num_processes", "process_id")
 # The serve flags whose job the scenario does on sim (topology, traffic,
 # per-request policy); --replicas, --autoscale and --max-replicas stay the
 # twin's scale and policy knobs.
@@ -103,8 +109,13 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     p.add_argument("variant", choices=VARIANTS)
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="where a run computes (sim touches no device and refuses it)")
+    p.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                   help="where a run computes (default cuda; sim touches no device and "
+                        "refuses it)")
+    p.add_argument("--platform", default=None, choices=["cpu", "tpu"],
+                   help="JAX's spelling of the device: 'cpu' is --device cpu; 'tpu' is "
+                        "refused (the port runs on an NVIDIA card or the CPU); sim takes "
+                        "it and ignores it, as JAX's")
     p.add_argument("--num-workers", type=int, default=None,
                    help="data-parallel degree (default: torchrun's WORLD_SIZE, else 1)")
     p.add_argument("--num-ps", type=int, default=2,
@@ -427,6 +438,21 @@ def build_parser() -> argparse.ArgumentParser:
                          "--metrics-out file (obs.goodput.phase_cost_fit: "
                          "time_in_seconds{phase=} over the phase's work units); default: "
                          "the CostModel's CPU-scale constants")
+    p.add_argument("--multihost", action="store_true",
+                   help="one command per host: this process starts its host's ranks "
+                        "(world / --num-processes of them, global ranks p*n .. p*n+n-1) "
+                        "and they join one torch.distributed world over a TCP rendezvous "
+                        "at --coordinator (parallel/multihost.py). Run the same command "
+                        "on every host with --process-id set")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multihost coordinator address (process 0's host, where global "
+                        "rank 0 serves the rendezvous; default: self-hosted when "
+                        "--num-processes 1)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multihost world size in host processes")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank in the multihost world (default 0 when "
+                        "--num-processes 1)")
     return p
 
 
@@ -778,16 +804,22 @@ def config_from_args(args, num_workers: int):
 
 
 def _join_world(num_workers: int, device: str, store_dir: str):
-    """torchrun's world when its variables are set, else a world of one
-    over a file store in ``store_dir``. ``num_workers`` is the number of
-    ranks the run needs."""
+    """torchrun's world, or the multi-host launch's, when their variables
+    are set (a card by ``LOCAL_RANK``; a rendezvous and collectives bounded
+    by ``multihost.RENDEZVOUS_TIMEOUT_S``), else a world of one over a file
+    store in ``store_dir``. ``num_workers`` is the number of ranks the run
+    needs."""
+    from .parallel import multihost
     from .parallel.mesh import init_world
 
     env_size = os.environ.get("WORLD_SIZE")
     if env_size is not None:
         if int(env_size) != num_workers:
             raise SystemExit(f"the run needs {num_workers} ranks, WORLD_SIZE is {env_size}")
-        return init_world(num_workers, int(os.environ["RANK"]), "env://", device)
+        local = os.environ.get("LOCAL_RANK")
+        return init_world(num_workers, int(os.environ["RANK"]), "env://", device,
+                          local_rank=None if local is None else int(local),
+                          timeout_s=multihost.RENDEZVOUS_TIMEOUT_S)
     if num_workers != 1:
         raise SystemExit(
             f"{num_workers} ranks need one process each: "
@@ -883,7 +915,7 @@ def _run_lm(args, device) -> int:
             detector = _make_anomaly(args, registry, tracer)
             exporter = _start_exporter(args, registry, world.rank)
             result = trainer.train(
-                log=print if world.rank == 0 else (lambda s: None),
+                log=print if world.lead else (lambda s: None),
                 max_bad_steps=args.max_bad_steps or 0,
                 # --trace-dir captures the card's timeline beside the host
                 # spans (an explicit --profile dir wins for the profiler).
@@ -899,7 +931,7 @@ def _run_lm(args, device) -> int:
         finally:
             _close_obs(exporter, tracer, writer)
             destroy_world()
-    if world.rank != 0:
+    if not world.lead:
         return 0
     anomaly_digest = _anomaly_report(detector)
     print(f"training time: {result.train_time_s:.2f}s "
@@ -1387,9 +1419,11 @@ def _run_sim(args) -> int:
     if args.inject_fault:
         raise SystemExit("--inject-fault applies to the single/lm/serve variants")
     # --device too: the twin touches no device, and a --device cpu that
-    # changed nothing would read as if it had.
+    # changed nothing would read as if it had; and the multi-host flags:
+    # the twin replays in this process. --platform is taken and ignored,
+    # as JAX's.
     _reject_foreign_flags(args, "sim", _CNN_ONLY + _LM_TRAIN + _TRAIN_ONLY + ("profile",)
-                          + _SIM_REJECT + ("device",))
+                          + _SIM_REJECT + ("device",) + _MULTIHOST)
     if args.scenario is None:
         raise SystemExit(
             "sim requires --scenario NAME[:key=value,...] (choices: "
@@ -1524,12 +1558,70 @@ def _run_gauges(args, cfg, registry, result, device) -> None:
         ))
 
 
+def _resolve_platform(args) -> None:
+    """JAX's ``--platform`` onto ``--device``: ``cpu`` is ``--device cpu``,
+    ``tpu`` is refused, and ``--device`` defaults to cuda."""
+    if args.platform == "tpu":
+        raise SystemExit("--platform tpu: the port runs on an NVIDIA card (--device cuda, "
+                         "the default) or the CPU (--platform cpu); it has no TPU backend")
+    if args.platform == "cpu":
+        if args.device == "cuda":
+            raise SystemExit("--platform cpu conflicts with --device cuda")
+        args.device = "cpu"
+    args.device = args.device or "cuda"
+
+
+def _launch_host(args, argv: list[str]) -> int:
+    """``--multihost`` on one host (``parallel/multihost.py``): JAX's
+    world-size rule and refusals, JAX's line, then this host's ranks, each
+    this same command line with torchrun's variables, until they end."""
+    from .parallel import multihost
+
+    if args.variant == "serve":
+        raise SystemExit("serve is single-controller (one process drives the tp mesh); "
+                         "--multihost does not apply")
+    if args.variant == "single":
+        raise SystemExit("single trains one device in one process; --multihost does not apply")
+    if "WORLD_SIZE" in os.environ:
+        raise SystemExit("--multihost starts its own ranks: run it once a host, not under "
+                         "torchrun (WORLD_SIZE is set)")
+    if args.num_processes is None:
+        raise SystemExit("--multihost needs --num-processes (the port has no TPU environment "
+                         "to infer the world from)")
+    # JAX's world (ddl_tpu/cli.py's CPU device count): the lm grid's
+    # defaulting, num_workers 1 under pipeline parallelism.
+    total = ((args.num_workers or (1 if args.pipeline_parallel > 1 else args.num_processes))
+             * args.data_parallel * args.tensor_parallel * args.pipeline_parallel)
+    try:
+        host = multihost.initialize(args.coordinator, args.num_processes, args.process_id,
+                                    total)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if args.device == "cuda":
+        import torch
+
+        cards = torch.cuda.device_count()
+        if host.n_local > cards:
+            raise SystemExit(
+                f"--multihost: this host runs {host.n_local} ranks over NCCL, which takes one "
+                f"card a rank, and it has {cards} card(s)")
+    print(f"[ddl_tpu_torch] multihost: process {host.process_id}/{host.num_processes}, "
+          f"{total} global devices", flush=True)
+    return multihost.launch(host, [sys.executable, "-m", "ddl_tpu_torch", *argv])
+
+
 def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     _check_obs_flags(args)
     _check_resilience_flags(args)
     if args.variant == "sim":
         return _run_sim(args)
+    _resolve_platform(args)
+    from .parallel import multihost
+
+    if args.multihost and multihost.launched() is None:
+        return _launch_host(args, argv)
     import torch
 
     from .data.mnist import load_mnist
@@ -1562,6 +1654,7 @@ def main(argv: list[str] | None = None) -> int:
         if args.variant != "single":
             world = _join_world(num_workers, args.device, store_dir)
         rank = world.rank if world is not None else 0
+        lead = world is None or world.lead
         registry = writer = tracer = exporter = detector = None
         try:
             registry, writer, tracer = _build_obs(args, config=cfg, rank=rank)
@@ -1583,7 +1676,7 @@ def main(argv: list[str] | None = None) -> int:
                 else:
                     from .strategies.sync import SyncTrainer as Trainer
                 trainer = Trainer(cfg, dataset, world=world)
-                train_kw["log"] = print if rank == 0 else (lambda s: None)
+                train_kw["log"] = print if lead else (lambda s: None)
                 if tracer is not None:
                     # The sync/async trainers take no tracer (as JAX's):
                     # one run-level span wraps the whole training call.
@@ -1599,8 +1692,8 @@ def main(argv: list[str] | None = None) -> int:
             _close_obs(exporter, tracer, writer)
             if world is not None:
                 destroy_world()
-    anomaly_digest = _anomaly_report(detector) if rank == 0 else None
-    if rank != 0:
+    anomaly_digest = _anomaly_report(detector) if lead else None
+    if not lead:
         return 0
     print(f"training time: {result.train_time_s:.2f}s "
           f"({result.images_per_sec:.0f} images/s, "

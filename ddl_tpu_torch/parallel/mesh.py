@@ -36,6 +36,7 @@ Device rule: entry points run on ``cuda`` unless the caller asks for
 from __future__ import annotations
 
 import dataclasses
+import datetime
 
 import torch
 import torch.distributed as dist
@@ -67,11 +68,21 @@ def default_device(requested: str | torch.device | None = None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class World:
-    """This process's place in the data-parallel world."""
+    """This process's place in the data-parallel world; ``local_rank`` is
+    its number on its host (None: the global rank, one host)."""
 
     rank: int
     size: int
     device: torch.device
+    local_rank: int | None = None
+
+    @property
+    def lead(self) -> bool:
+        """Whether this rank prints the run's lines and writes its
+        checkpoints: each host's local rank 0, so each host's disk holds
+        the saves its own resume reads, as every JAX process writes its
+        own. On one host that is rank 0 alone."""
+        return (self.rank if self.local_rank is None else self.local_rank) == 0
 
 
 def init_world(
@@ -81,24 +92,30 @@ def init_world(
     device: str | torch.device | None = None,
     *,
     backend: str | None = None,
+    local_rank: int | None = None,
+    timeout_s: float | None = None,
 ) -> World:
     """Join (or create) the process group: NCCL when ``device`` is CUDA,
     gloo on the CPU, unless ``backend`` names one. ``init_method`` is any
     ``torch.distributed`` URL (``file://...``, ``tcp://localhost:<port>``,
-    ``env://``). On CUDA, rank ``r`` of a host uses card ``r %
-    device_count``; NCCL takes one rank a card, while gloo (which copies
-    CUDA tensors through the host) lets several ranks share one."""
+    ``env://``). On CUDA, local rank ``l`` of a host (``local_rank``, else
+    the global rank) uses card ``l % device_count``; NCCL takes one rank a
+    card, while gloo (which copies CUDA tensors through the host) lets
+    several ranks share one. ``timeout_s`` bounds the rendezvous and each
+    collective (torch's default when None)."""
     dev = default_device(device)
+    local = rank if local_rank is None else local_rank
     if dev.type == "cuda":
         if dev.index is None:
-            dev = torch.device("cuda", rank % torch.cuda.device_count())
+            dev = torch.device("cuda", local % torch.cuda.device_count())
         torch.cuda.set_device(dev)
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
+    kw = {} if timeout_s is None else {"timeout": datetime.timedelta(seconds=timeout_s)}
     dist.init_process_group(
-        backend, init_method=init_method, world_size=world_size, rank=rank
+        backend, init_method=init_method, world_size=world_size, rank=rank, **kw
     )
-    return World(rank=rank, size=world_size, device=dev)
+    return World(rank=rank, size=world_size, device=dev, local_rank=local_rank)
 
 
 @dataclasses.dataclass(frozen=True)

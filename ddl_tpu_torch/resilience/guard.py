@@ -40,8 +40,9 @@ def rollback_state(checkpoint_dir, monitor: "GuardMonitor", like, log, world=Non
     diagnosis when there is nothing to roll back to.
 
     In a world of several ranks (``world``, a ``parallel.mesh.World``)
-    every rank reads the same file, then rank 0 alone prunes, between two
-    barriers, so no rank reads a file another is deleting."""
+    every rank reads the same file, then each host's local rank 0 alone
+    prunes its disk's saves (``World.lead``: rank 0 on one host), between
+    two barriers, so no rank reads a file another is deleting."""
     from ..utils.checkpoint import discard_newer, find_latest_valid, load_checkpoint
 
     if checkpoint_dir is None:
@@ -50,7 +51,7 @@ def rollback_state(checkpoint_dir, monitor: "GuardMonitor", like, log, world=Non
             "non-finite steps) but no checkpoint_dir is set — nothing "
             "to roll back to"
         )
-    rank, size = (0, 1) if world is None else (world.rank, world.size)
+    lead, size = (True, 1) if world is None else (world.lead, world.size)
     found = find_latest_valid(
         checkpoint_dir, max_step=monitor.streak_start, log=log
     )
@@ -67,7 +68,7 @@ def rollback_state(checkpoint_dir, monitor: "GuardMonitor", like, log, world=Non
         import torch.distributed as dist
 
         dist.barrier()
-    if rank == 0:
+    if lead:
         discard_newer(checkpoint_dir, step, log=log)
     if size > 1:
         dist.barrier()

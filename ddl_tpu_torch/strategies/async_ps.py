@@ -425,7 +425,7 @@ class AsyncTrainer:
         check_injector(fault_injector, "async")
         cfg, world = self.config, self.world
         W, dev = world.size, world.device
-        log = log if world.rank == 0 else (lambda s: None)
+        log = log if world.lead else (lambda s: None)
         xs_np, ys_np, rounds = self._batches()
         xs = torch.as_tensor(xs_np).to(dev, staging_dtype(cfg))
         ys = torch.as_tensor(ys_np).to(dev)

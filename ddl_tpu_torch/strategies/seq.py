@@ -103,6 +103,7 @@ from ..ops.optimizers import AdamState, ShardedAdam, adam_init, adam_update
 from ..parallel import collectives as coll
 from ..parallel import ring
 from ..parallel.mesh import DP_AXIS, LOCAL, SP_AXIS, Grid, World, default_device, make_grid
+from ..parallel.multihost import local_slice
 from ..pipeline import trainer as pipeline_trainer
 from ..pipeline.schedule import SCHEDULES
 from ..pipeline.step import PipelineRecord, make_pipeline_eval_body
@@ -765,12 +766,10 @@ class SeqTrainer:
         column's ``T/W`` positions and, with ``rows``, its dp row's ``B/dp``
         sequences (token ids as int64). tp peers get the same block."""
         g, cfg = self.grid, self.config
-        t = arr.shape[-1] // cfg.num_workers
-        block = arr[..., g.sp_index * t:(g.sp_index + 1) * t]
+        block = local_slice(arr, arr.ndim - 1, cfg.num_workers, [g.sp_index])
         if rows:
-            b = arr.shape[-2] // cfg.data_parallel
-            block = block[..., g.dp_index * b:(g.dp_index + 1) * b, :]
-        out = torch.as_tensor(np.ascontiguousarray(block))
+            block = local_slice(block, arr.ndim - 2, cfg.data_parallel, [g.dp_index])
+        out = torch.as_tensor(block)
         return (out.long() if not out.is_floating_point() else out).to(self.device)
 
     def stage_batches(self, arr: np.ndarray, batches: int, bs: int) -> torch.Tensor:

@@ -388,7 +388,7 @@ class SyncTrainer:
             cfg,
             lambda k, guard: make_sync_epoch(cfg, world, self.layout, self._shapes, k),
             params, copy.deepcopy(self.opt_state), xs, ys, x_test, y_test, dev,
-            log if world.rank == 0 else (lambda s: None), self.state_io(),
+            log if world.lead else (lambda s: None), self.state_io(),
             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every, resume=resume,
             should_stop=should_stop, dispatch_timeout=dispatch_timeout,
             fault_injector=fault_injector, profile_dir=profile_dir,

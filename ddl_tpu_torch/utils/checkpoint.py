@@ -33,11 +33,17 @@ device (fetched to the host for a save).
 
 Who writes in a world of several ranks: the trainers gather their shards
 on every rank (every rank must enter the gather, or the world deadlocks),
-rank 0 alone writes (two ranks writing the same retained files would race
-on the pruning), and every rank meets at a barrier before the next span
+each host's local rank 0 writes (``World.lead``: rank 0 alone on one
+host), and every rank meets at a barrier before the next span
 (:func:`save_checkpoint_world`). A resume or a rollback reads on every
-rank. So the ranks share one disk: node-local disks across hosts wait for
-the multi-host launch flags (ROADMAP queue 1, item 9).
+rank. Across hosts (``parallel/multihost.py``, or torchrun on several
+nodes) each host's lead writes to its own ``--checkpoint-dir``, as every
+JAX process writes its own, so each host's disk holds the saves its own
+resume reads. Two hosts that name one directory (a shared disk) write the
+same bytes at the same step at once: every write goes through a temp file
+of its own (``mkstemp``) and ``os.replace``, and pruning tolerates a file
+the other writer removed first, so the directory keeps one valid newest
+save with valid manifests.
 """
 
 from __future__ import annotations
@@ -183,6 +189,16 @@ def _write_npz_atomic(dst: str, arrays: dict[str, np.ndarray],
         raise
 
 
+def _drop_same_file_tmp(tmp: str) -> None:
+    """After ``os.replace(tmp, dst)`` of a hardlink: when ``dst`` already
+    was a link of the same file (another writer of the same save got there
+    first), POSIX rename does nothing and leaves ``tmp``; remove it."""
+    try:
+        os.unlink(tmp)
+    except FileNotFoundError:
+        pass
+
+
 def _retained_name(path: str, step: int) -> str:
     stem = path[:-4] if path.endswith(".npz") else path
     return f"{stem}-{step:08d}.npz"
@@ -249,6 +265,7 @@ def save_checkpoint(
         try:
             os.link(retained, tmp)
             os.replace(tmp, path)
+            _drop_same_file_tmp(tmp)
         except OSError:
             if os.path.exists(tmp):
                 os.unlink(tmp)
@@ -391,6 +408,7 @@ def discard_newer(
         try:
             os.link(newest, tmp)
             os.replace(tmp, rolling)
+            _drop_same_file_tmp(tmp)
             man = manifest_path(newest)
             if os.path.exists(man):
                 with open(man) as f:
@@ -496,12 +514,13 @@ def load_checkpoint(
 
 def save_checkpoint_world(path, tree: Any, *, world=None, **kw) -> None:
     """:func:`save_checkpoint` in a world of ranks (``world`` a
-    ``parallel.mesh.World``; None or a world of one writes at once): rank
-    0 writes ``tree`` (which every rank has gathered), then every rank
+    ``parallel.mesh.World``; None or a world of one writes at once): each
+    host's local rank 0 (``World.lead``) writes ``tree`` (which every rank
+    has gathered), then every rank
     meets at a barrier, so no rank starts its next span, or reads the
     directory, before the save is whole."""
-    rank, size = (0, 1) if world is None else (world.rank, world.size)
-    if rank == 0:
+    lead, size = (True, 1) if world is None else (world.lead, world.size)
+    if lead:
         save_checkpoint(path, tree, **kw)
     if size > 1:
         import torch.distributed as dist
