@@ -16,14 +16,24 @@ merge::
 Spans nest (``depth``; a record is written at span END, so a child's
 precedes its parent's). ``chrome_trace_events`` converts records to the
 Chrome/Perfetto ``trace_event`` format; ``python -m ddl_tpu_torch.obs.trace
-in.jsonl out.json`` converts a file. ``trace_context`` pairs a host tracer
-with the port's profiler (``utils.metrics.trace``, ``torch.profiler``), so
-one ``--trace-dir`` run captures the host spans and the card's kernel
-timeline side by side.
+in.jsonl out.json`` converts a file.
+
+Two sinks, two clocks. The JSONL records are on ``perf_counter``, which no
+profiler shares. The second sink is the profiler's: while a
+``torch.profiler`` session records, :func:`phase` opens a
+``record_function`` range on the profiler's host clock, the one it stamps
+each kernel launch with, and ``Tracer.span`` opens one under its own name.
+So in a ``--trace-dir`` run (``trace_context``) every span, and each phase
+of the LM step (:data:`STEP_PHASES`), is a range of the profiler's Chrome
+trace, and the device work it launched is found by the launches' host
+times, never by device timestamps, whose clock is offset from the host's
+for a whole session on a card. ``complete`` records are written after the
+fact and get no range.
 
 ``NULL_TRACER`` is the disabled instance: same API, no records, and FALSY,
 so call sites guard clock reads with ``if tracer:`` and a disabled run pays
-not even the ``perf_counter`` calls.
+not even the ``perf_counter`` calls. Outside a profiler session
+:func:`phase` returns one shared null context: a flag read, no allocation.
 """
 
 from __future__ import annotations
@@ -32,6 +42,22 @@ import contextlib
 import json
 import os
 import time
+
+import torch
+
+# The LM step's phases (strategies/seq.py), in the order a step opens them.
+STEP_PHASES = ("step/forward", "step/backward", "step/grad_sync", "step/optimizer",
+               "step/health")
+
+_NULL = contextlib.nullcontext()
+
+
+def phase(name: str):
+    """A ``torch.profiler`` range named ``name`` while a profiler session
+    records, else the shared null context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NULL
 
 
 def _process_index() -> int:
@@ -110,7 +136,8 @@ class Tracer:
         t0 = time.perf_counter()
         self._depth += 1
         try:
-            yield self
+            with phase(name):
+                yield self
         finally:
             self._depth -= 1
             self.complete(name, t0, time.perf_counter(), **attrs)
@@ -148,9 +175,8 @@ class NullTracer:
     def complete(self, name: str, t0: float, t1: float, **attrs) -> None:
         pass
 
-    @contextlib.contextmanager
     def span(self, name: str, **attrs):
-        yield self
+        return _NULL_SPAN
 
     def flush(self) -> None:
         pass
@@ -160,6 +186,7 @@ class NullTracer:
 
 
 NULL_TRACER = NullTracer()
+_NULL_SPAN = contextlib.nullcontext(NULL_TRACER)  # gives the tracer, as Tracer.span does
 
 
 def host_trace_file(trace_dir: str | os.PathLike) -> str:
@@ -175,8 +202,9 @@ def host_trace_file(trace_dir: str | os.PathLike) -> str:
 def trace_context(trace_dir: str | os.PathLike | None):
     """Host tracer + the ``torch.profiler`` trace in one directory (None =
     disabled: yields ``NULL_TRACER``, starts nothing). The host spans land
-    in ``host_trace_p<rank>.jsonl`` next to the profiler's Chrome trace, so
-    one ``--trace-dir`` run captures both timelines."""
+    in ``host_trace_p<rank>.jsonl`` next to the profiler's Chrome trace,
+    which holds each span again as a range on the profiler's clock (module
+    doc)."""
     if trace_dir is None:
         yield NULL_TRACER
         return

@@ -58,6 +58,13 @@ sums with the policy's ``cast_grads`` / ``upcast_grads``, where JAX's do,
 so the all-reduce, the ZeRO-1 reduce-scatter and the hybrid's per-leaf
 sums move bf16 and Adam sees fp32. Master weights and moments stay fp32.
 
+Phases: the three step bodies open ``obs.trace.STEP_PHASES`` in order with
+``obs.trace.phase``: the forward, the backward, ``grad_sync`` (the casts
+and the ``(dp, sp)`` sum or reduce-scatter), the optimizer (Adam, and
+ZeRO-1's all-gather) and the health work. Each is a ``torch.profiler``
+range while a session records, a shared null context otherwise; the
+pipeline's step opens none.
+
 ``SeqConfig`` keeps every JAX field and default, and the JAX trainer's own
 checks raise the same ``ValueError``s (:func:`check_config`).
 
@@ -97,6 +104,7 @@ from ..data.lm import LMDataset
 from ..models import partition, transformer
 from ..obs import health as hlt
 from ..obs.health import HEALTH_FULL, HEALTH_OFF, flat_grad_sq_nonfinite, nonfinite_count
+from ..obs.trace import phase
 from ..models.transformer import LMSpec
 from ..ops import flash_attention
 from ..ops.optimizers import AdamState, ShardedAdam, adam_init, adam_update
@@ -418,9 +426,12 @@ def _local_loss_fn(config: SeqConfig, grid: Grid, attn, tokens, targets, weights
 
 def _local_grads(config, grid, attn, positions, params, tokens, targets, weights):
     """``(loss summed over (dp, sp), this rank's gradient leaves)``."""
-    leaves = tree.map(lambda t: t.detach().requires_grad_(True), params)
-    l_local = _local_loss_fn(config, grid, attn, tokens, targets, weights, positions)(leaves)
-    grads = torch.autograd.grad(l_local, tree.leaves(leaves))
+    with phase("step/forward"):
+        leaves = tree.map(lambda t: t.detach().requires_grad_(True), params)
+        l_local = _local_loss_fn(config, grid, attn, tokens, targets, weights,
+                                 positions)(leaves)
+    with phase("step/backward"):
+        grads = torch.autograd.grad(l_local, tree.leaves(leaves))
     return _psum(l_local.detach(), grid), grads
 
 
@@ -480,20 +491,22 @@ def _step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
     def step(params, opt_state: AdamState, tokens, targets, weights, health=HEALTH_OFF):
         loss, grads = _local_grads(config, grid, attn, positions, params, tokens, targets,
                                    weights)
-        grads = pol.cast_grads(tree.unflatten(params, grads))
-        if grid.data_group is not LOCAL:
-            grads = plan.unflatten(_psum(_FlatPlan.flatten(grads), grid))
-        else:
-            coll.note("all-reduce", None, LOCAL,
-                      nbytes=plan.total * tree.leaves(grads)[0].element_size())
-        grads = pol.upcast_grads(grads)
-        with torch.no_grad():
+        with phase("step/grad_sync"):
+            grads = pol.cast_grads(tree.unflatten(params, grads))
+            if grid.data_group is not LOCAL:
+                grads = plan.unflatten(_psum(_FlatPlan.flatten(grads), grid))
+            else:
+                coll.note("all-reduce", None, LOCAL,
+                          nbytes=plan.total * tree.leaves(grads)[0].element_size())
+            grads = pol.upcast_grads(grads)
+        with phase("step/optimizer"), torch.no_grad():
             new_params, new_opt = adam_update(params, opt_state, grads,
                                               lr=config.learning_rate)
-        return hlt.finish_step(
-            guard, health, lambda: nonfinite_count(grads, groups),
-            lambda new, nf: hlt.health_signals(grads, params, new, groups, nf),
-            params, opt_state, new_params, new_opt, loss)
+        with phase("step/health"):
+            return hlt.finish_step(
+                guard, health, lambda: nonfinite_count(grads, groups),
+                lambda new, nf: hlt.health_signals(grads, params, new, groups, nf),
+                params, opt_state, new_params, new_opt, loss)
 
     return step
 
@@ -538,9 +551,10 @@ def _zero1_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
     def step(params, opt: ShardedAdam, tokens, targets, weights, health=HEALTH_OFF):
         loss, grads = _local_grads(config, grid, attn, positions, params, tokens, targets,
                                    weights)
-        g_own = pol.upcast_grads(_zero1_flat(grid, _FlatPlan.flatten(pol.cast_grads(grads)),
-                                             chunk))
-        with torch.no_grad():
+        with phase("step/grad_sync"):
+            g_own = pol.upcast_grads(_zero1_flat(
+                grid, _FlatPlan.flatten(pol.cast_grads(grads)), chunk))
+        with phase("step/optimizer"), torch.no_grad():
             p_own = coll.pad_to(_FlatPlan.flatten(params), chunk * n_dev)[mine]
             p_new, new_opt = _adam_flat(p_own, opt, g_own, lr=config.learning_rate)
             full = _zero1_gather(grid, p_new)
@@ -550,9 +564,10 @@ def _zero1_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
             return {"grad_norm": sq.sqrt(), "nonfinite_grads": count,
                     **hlt.norm_signals(params, new)}
 
-        return hlt.finish_step(
-            guard, health, lambda: flat_grad_sq_nonfinite(g_own, grid.data_group)[1],
-            signals, params, opt, plan.unflatten(full), new_opt, loss)
+        with phase("step/health"):
+            return hlt.finish_step(
+                guard, health, lambda: flat_grad_sq_nonfinite(g_own, grid.data_group)[1],
+                signals, params, opt, plan.unflatten(full), new_opt, loss)
 
     return step
 
@@ -630,10 +645,11 @@ def _zero1_tp_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
     def step(params, opt: HybridAdam, tokens, targets, weights, health=HEALTH_OFF):
         loss, grads = _local_grads(config, grid, attn, positions, params, tokens, targets,
                                    weights)
-        g_rep, g_tp = hplan.split(pol.cast_grads(grads))
-        g_own = pol.upcast_grads(_zero1_flat(grid, hplan.flatten_rep(g_rep), chunk))
-        g_tp = [pol.upcast_grads(_psum(g, grid)) for g in g_tp]
-        with torch.no_grad():
+        with phase("step/grad_sync"):
+            g_rep, g_tp = hplan.split(pol.cast_grads(grads))
+            g_own = pol.upcast_grads(_zero1_flat(grid, hplan.flatten_rep(g_rep), chunk))
+            g_tp = [pol.upcast_grads(_psum(g, grid)) for g in g_tp]
+        with phase("step/optimizer"), torch.no_grad():
             p_rep, p_tp = hplan.split(tree.leaves(params))
             p_own = coll.pad_to(hplan.flatten_rep(p_rep), chunk * n_dev)[mine]
             p_new, flat = _adam_flat(p_own, ShardedAdam(step=opt.step, m=opt.m_flat,
@@ -657,8 +673,9 @@ def _zero1_tp_step_body(config: SeqConfig, grid: Grid, positions: torch.Tensor,
                     "nonfinite_grads": nf if nf is not None else nonfinite(),
                     **hlt.norm_signals(params, new, groups)}
 
-        return hlt.finish_step(guard, health, nonfinite, signals, params, opt,
-                               hplan.merge(rep_new, tp_new), new_opt, loss)
+        with phase("step/health"):
+            return hlt.finish_step(guard, health, nonfinite, signals, params, opt,
+                                   hplan.merge(rep_new, tp_new), new_opt, loss)
 
     return step
 

@@ -83,21 +83,23 @@ from ..strategies.sync import make_sharded_step, resolve_layout, sharded_adam_in
 from ..train.config import TrainConfig
 from ..train.trainer import staging_dtype
 
+# cuBLAS's matrix products; on Hopper most are its ``nvjet_*`` kernels.
+MATMUL = re.compile(r"gemm|cutlass|cublas|xmma|sgemm|splitK|nvjet", re.I)
 CNN_FAMILIES = (
     ("fused_adam", re.compile(r"adam_flat_\w*kernel")),
     ("nccl", re.compile(r"nccl", re.I)),
     ("conv", re.compile(r"conv|cudnn|implicit|dgrad|wgrad|fprop|winograd|fft", re.I)),
-    ("matmul", re.compile(r"gemm|cutlass|cublas|xmma|sgemm|splitK", re.I)),
+    ("matmul", MATMUL),
     ("pool", re.compile(r"max_pool|MaxPool", re.I)),
 )
 LM_FAMILIES = (
     ("flash", re.compile(r"flash_(fwd|bwd_dkv|bwd_dq)_kernel")),
     ("nccl", re.compile(r"nccl", re.I)),
-    ("matmul", re.compile(r"gemm|cutlass|cublas|xmma|sgemm|splitK", re.I)),
+    ("matmul", MATMUL),
     ("elementwise", re.compile(r"elementwise|vectorized|unrolled", re.I)),
 )
 SERVE_FAMILIES = (
-    ("matmul", re.compile(r"gemm|cutlass|cublas|xmma|sgemm|splitK", re.I)),
+    ("matmul", MATMUL),
     ("softmax", re.compile(r"softmax", re.I)),
     ("index", re.compile(r"index|scatter|gather", re.I)),
     ("reduce", re.compile(r"reduce", re.I)),

@@ -11,6 +11,9 @@ hand-made events (the profiler records device events only on a card).
 - a range with no device time, or a range count other than the call
   count, raises: nothing falls back to host-side events; the error says
   where the device events no range holds were launched.
+
+And ``tools/step_anatomy.py``'s kernel families take cuBLAS's Hopper
+``nvjet_*`` kernels for matrix products.
 """
 
 import types
@@ -18,7 +21,7 @@ import types
 import pytest
 import torch
 
-from ddl_tpu_torch.tools import devtime
+from ddl_tpu_torch.tools import devtime, step_anatomy
 
 CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
 
@@ -128,3 +131,9 @@ def test_hbm_rates():
     assert devtime.hbm_bytes_per_s("NVIDIA H100 80GB HBM3") == 3.35e12
     assert devtime.hbm_bytes_per_s("NVIDIA H100 PCIe") == 2.0e12
     assert devtime.hbm_bytes_per_s("NVIDIA H200") == 4.8e12
+
+
+@pytest.mark.parametrize("families", ["CNN_FAMILIES", "LM_FAMILIES", "SERVE_FAMILIES"])
+def test_step_anatomy_takes_hopper_cublas_kernels_for_matmul(families):
+    fams = getattr(step_anatomy, families)
+    assert step_anatomy.family("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT", fams) == "matmul"

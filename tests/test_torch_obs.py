@@ -7,6 +7,9 @@ JAX package's (ddl_tpu/obs/) on the same seeded inputs.
   writer's manifest first;
 - the tracer's Chrome conversion equal on one record stream (spans,
   incidents, flow chains), and ``python -m ddl_tpu_torch.obs.trace``;
+  ``phase`` one shared null context outside a profiler session and a range
+  inside one, and a ``Tracer.span`` under a session both its JSONL record
+  and a profiler range of its name;
 - the FLOP integers equal over CNN and LM configurations; ``mfu``, the peak
   table's fallbacks and its H100 rows; the roofline model and its fit;
 - goodput, anomaly and SLO: the same streams give the same registry text
@@ -188,6 +191,39 @@ def test_tracer_records_and_null_tracer(tmp_path):
     with ttrace.trace_context(tmp_path / "tr") as t2:
         t2.event("hello")
     assert os.path.exists(path) and os.path.exists(tmp_path / "tr" / "torch_profile_p0.json")
+
+
+def _cpu_profile():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def test_phase_is_one_null_context_outside_a_profiler_and_a_range_inside():
+    null = ttrace.phase("step/forward")
+    assert ttrace.phase("step/backward") is null
+    assert ttrace.NULL_TRACER.span("x") is ttrace.NULL_TRACER.span("y")
+    with ttrace.NULL_TRACER.span("x") as t:
+        assert t is ttrace.NULL_TRACER
+    with _cpu_profile() as prof:
+        rng = ttrace.phase("step/forward")
+        assert isinstance(rng, torch.profiler.record_function)
+        with rng:
+            torch.ones(2).add_(1)
+    (fwd,) = [e for e in prof.events() if e.name == "step/forward"]
+    (add,) = [e for e in prof.events() if e.name == "aten::add_"]
+    assert fwd.time_range.start <= add.time_range.start <= add.time_range.end <= fwd.time_range.end
+
+
+def test_tracer_span_under_a_profiler_keeps_its_record_and_adds_a_range():
+    plain, profiled = Tracer(), Tracer()
+    with plain.span("train/span", gstep=3, k=2):
+        pass
+    with _cpu_profile() as prof, profiled.span("train/span", gstep=3, k=2):
+        pass
+    (a,), (b,) = plain.records, profiled.records
+    assert a.keys() == b.keys()
+    assert [(r["type"], r["name"], r["depth"], r["attrs"]) for r in (a, b)] == [
+        ("span", "train/span", 0, {"gstep": 3, "k": 2})] * 2
+    assert [e.name for e in prof.events() if e.name == "train/span"] == ["train/span"]
 
 
 def test_profiler_bracket_and_step_timer(tmp_path):

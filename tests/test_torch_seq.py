@@ -9,6 +9,10 @@ data against the JAX package.
   tolerances of tests/test_lm.py's flash-vs-xla pin: the two sides run the
   same fp32 math in another order, and Adam moves each parameter by about
   lr whatever the gradient's size), and the same accuracy history.
+- One step's phases: under a CPU profiler the plain and ZeRO-1 bodies open
+  ``obs.trace.STEP_PHASES`` once each, in order, and the step's
+  parameters, moments and loss are bitwise those of the same step with no
+  profiler.
 - The options the sequence-parallel slice ported (ring, Ulysses, zigzag,
   ZeRO-1) and the bf16 policy train on one device without a world; W, dp,
   tp or pp above 1 without a world raises; the JAX trainer's own checks
@@ -28,7 +32,8 @@ from ddl_tpu.models import transformer as jt
 from ddl_tpu.strategies.seq import SeqConfig as JSeqConfig, SeqTrainer as JSeqTrainer
 from ddl_tpu_torch.data.lm import synthesize_copy
 from ddl_tpu_torch.models import transformer as tt
-from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer
+from ddl_tpu_torch.obs.trace import STEP_PHASES
+from ddl_tpu_torch.strategies.seq import SeqConfig, SeqTrainer, _clone_state
 from ddl_tpu_torch.utils import tree
 
 QUIET = lambda s: None  # noqa: E731
@@ -95,6 +100,30 @@ def test_seq_trainer_bf16_compute_keeps_fp32_masters():
                for t in tree.leaves([trainer.params, trainer.opt_state.m, trainer.opt_state.v]))
     assert int(trainer.opt_state.step) == 4
     assert res.tokens_per_sec > 0 and res.step_stats.steps == 3
+
+
+@pytest.mark.parametrize("change", [dict(), dict(precision="bf16"), dict(zero1=True)],
+                         ids=["plain", "plain-bf16", "zero1"])
+def test_one_step_opens_its_phases_in_order_and_is_bitwise_unchanged_by_them(change):
+    ds, _ = _datasets(seed=5)
+    trainer = SeqTrainer(SeqConfig(spec=tt.TINY_SPEC, **BASE, **change), ds, device="cpu")
+    step, bs = trainer.step_fn(), BASE["batch_size"]
+    batch = [trainer.stage_batches(a, 1, bs)[0] for a in (ds.tokens, ds.targets, ds.weights)]
+
+    def one_step():
+        params, opt = tree.map(torch.clone, trainer.params), _clone_state(trainer.opt_state)
+        params, opt, loss = step(params, opt, *batch)[:3]
+        moments = [getattr(opt, f.name) for f in dataclasses.fields(opt)]
+        return tree.leaves([params, moments, loss])
+
+    plain = one_step()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        profiled = one_step()
+    opened = sorted((e.time_range.start, e.name) for e in prof.events()
+                    if e.name.startswith("step/"))
+    assert [name for _, name in opened] == list(STEP_PHASES)
+    assert len(profiled) == len(plain) > 4
+    assert all(torch.equal(a, b) for a, b in zip(profiled, plain))
 
 
 @pytest.mark.parametrize("change,outcome", [
