@@ -27,8 +27,8 @@
 // Forward (`flash_fwd_kernel`, replaces `_flash_attention_impl`): both
 // products, S = Q K^T and P V, on the tensor cores. In fp32 they run on the
 // TF32 tensor cores to fp32 accuracy (3xTF32, mma.sync m16n8k8, as the
-// backward below); its bound is 3 x products over the TF32 rate. In bf16
-// they run on the bf16 tensor cores (mma.sync m16n8k16, fp32 sums): S in
+// fp32 backward below); its bound is 3 x products over the TF32 rate. In
+// bf16 they run on the bf16 tensor cores (mma.sync m16n8k16, fp32 sums): S in
 // one pass (bf16 products are exact), P V in two, with P split into two
 // bf16 parts (hi = bf16(p), lo = bf16(p - hi)), since P rounded once to
 // bf16 takes most of O's bf16 tolerance; its bound is the products over
@@ -58,41 +58,76 @@
 //   copy each, as in the backward; the grid starts the last query tile,
 //   which under causality sees every key, first; no atomics.
 //
-// Backward (`flash_bwd_dkv_kernel`, `flash_bwd_dq_kernel`): every product
-// on the TF32 tensor cores (mma.sync m16n8k8, tf32_mma.cuh) to fp32
-// accuracy, "3xTF32": each fp32 operand is split into hi = tf32(x) and
-// lo = tf32(x - hi), and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi. One TF32
-// pass would keep about 3 decimal digits, too few for the fp32 gradients'
-// gates. bf16 inputs widen to exact TF32 values (lo = 0), so the products
-// of two inputs (S, dP) take one pass and those with P or dS two. The
-// bound is thus 3 x products over the TF32 tensor-core rate (495 TFLOP/s
-// dense), not the CUDA cores. The design:
+// Backward (`flash_bwd_dkv_kernel`, `flash_bwd_dq_kernel`): two kernels,
+// no atomics. Each warp owns 16 rows of the outer index (keys for dK/dV,
+// queries for dQ), a block of 4 warps 64, and loops over tiles of the
+// inner index. Per tile it recomputes S and dP on the tensor cores, forms
+// P and dS in the accumulator layout, and multiplies them on into its
+// 16 x D gradient accumulators: dK/dV runs 4 products (S^T, dP^T, P^T dO,
+// dS^T Q), dQ 3 (S, dP, dS K). The body depends on the inputs' type; the
+// two share the tile staging, the loop and the stores, no arithmetic.
 //
-// - Warps own rows. A block of 4 warps owns 64 rows of the outer index
-//   (keys for dK/dV, queries for dQ), 16 rows a warp, and loops over tiles
-//   of 32 rows of the inner index (16 for dK/dV at D = 128, so that its
-//   16 x 128 dK and dV accumulators, 128 registers a thread, fit). Each
-//   warp computes its 16 x 32 tiles of S and dP, forms P and dS in the
-//   accumulator layout (causal and ragged masks, lse and delta applied
-//   there), and multiplies them on into its 16 x D gradient accumulators:
-//   no shared-memory round trip for P or dS.
-// - Sums kept short. The tensor cores' fp32 sums truncate instead of
-//   rounding to nearest, and a chain of thousands of products into one
-//   accumulator drifts (2e-5 relative at the LM's shape, enough to fail
-//   the flash-vs-plain training gate). So S and dP keep the small TF32
-//   terms in an accumulator of their own, and each 16 x 8 gradient tile
-//   sums one inner tile in a fresh accumulator that is added to the running
-//   one in IEEE fp32: the gradients are then as accurate as the plain fp32
-//   version.
+// bf16 (the LM's training path): every product in one pass of mma.sync
+// m16n8k16 on the bf16 tensor cores, fp32 sums. Its bound is the products
+// over the bf16 rate (989 TFLOP/s dense), and with mma.sync, whose operands
+// come from registers, the shared-memory reads that feed them: every B
+// fragment (16 x 8, 256 bytes) feeds one mma of its warp. The design:
+//
+// - Every fragment by ldmatrix, 4 8 x 8 tiles an instruction, from the
+//   row-major tiles staged in shared memory: S^T = K Q^T and dP^T = V dO^T
+//   take Q's and dO's B fragments as stored (k along D), P^T dO and dS^T Q
+//   transposed (.trans, k along the rows), as the forward takes K and V.
+//   The warp's own rows are A fragments: K's and V's stay in registers for
+//   the whole loop up to D = 64; Q's and dO's are re-read each tile, which
+//   leaves dQ 128-170 registers and more blocks a multiprocessor.
+// - P = 2^(S c - lse log2 e) with c = scale log2 e: one fma and ex2.approx
+//   an element, as in the forward. dS = P (dP - delta) in fp32. P and dS
+//   are then rounded to bf16 in registers, two adjacent 16 x 8 accumulator
+//   tiles packed into one A fragment of m16n8k16 (as the forward's P): no
+//   shared round trip. Rounding them is what JAX's TPU kernel and
+//   FlashAttention-2 feed their products; its 2^-9 relative error is far
+//   inside the bf16 gradients' tolerance.
+// - Masks only the tiles that hold a masked or ragged entry (the diagonal
+//   tiles under causality, the last tile of a ragged T); the rest skip the
+//   test.
+// - Tiles: dQ streams 64 keys a tile; dK/dV stages up to 128 queries a
+//   tile (one sync and one copy of lse and delta for all of them) and works
+//   through them in chunks of 64 or 32, as many as its registers allow
+//   beside the 16 x D dK and dV accumulators (BwdKVTile, BwdKVOps).
+//   Every instance compiles without spills.
+//
+// fp32: every product on the TF32 tensor cores (mma.sync m16n8k8,
+// tf32_mma.cuh) to fp32 accuracy, "3xTF32": each fp32 operand is split
+// into hi = tf32(x) and lo = tf32(x - hi), and a b = a_lo b_hi + a_hi b_lo
+// + a_hi b_hi. One TF32 pass would keep about 3 decimal digits, too few for
+// the fp32 gradients' gates. The bound is thus 3 x products over the TF32
+// tensor-core rate (495 TFLOP/s dense), not the CUDA cores. The design:
+//
+// - Inner tiles of 32 rows (16 for dK/dV at D = 128, so that its 16 x 128
+//   dK and dV accumulators, 128 registers a thread, fit). Causal and
+//   ragged masks, lse and delta applied to every tile.
 // - P and dS go from the accumulator layout to the A-operand layout without
 //   shuffles: the second product's reduction index is permuted inside each
 //   group of 8 (k = t <-> column 2t, k = t + 4 <-> column 2t + 1), so the A
 //   fragment is (c0, c2, c1, c3) of the accumulator, and the B operand's
 //   rows follow the same permutation (rows 2t and 2t + 1).
+// - Fragments are read a value at a time from the tiles as stored; the
+//   loads along D (bank 4 row + col) and, thanks to the permutation, those
+//   along rows (bank 8 t + g) are both free of bank conflicts at the pad.
+//
+// Both types:
+//
+// - Sums kept short. The tensor cores' fp32 sums truncate instead of
+//   rounding to nearest, and a chain of thousands of products into one
+//   accumulator drifts (2e-5 relative at the LM's shape, enough to fail
+//   the flash-vs-plain training gate). So each 16 x 8 gradient tile sums
+//   one inner tile in a fresh accumulator that is added to the running one
+//   in IEEE fp32 (and in fp32, S and dP keep the small TF32 terms in an
+//   accumulator of their own): the gradients are then as accurate as the
+//   plain version in the inputs' type.
 // - One copy of each tile, staged as it lies in memory (row-major, in the
-//   inputs' type) with 16 bytes of padding a row. The fragment loads along
-//   D (bank 4 row + col) and, thanks to the permutation, those along rows
-//   (bank 8 t + g) are both free of bank conflicts at that one pad.
+//   inputs' type) with 16 bytes of padding a row, which keeps ldmatrix's
+//   eight 16-byte rows on distinct banks.
 // - The streamed tiles (Q, dO, lse, delta for dK/dV; K, V for dQ) are
 //   double-buffered with cp.async: tile i + 1 loads while tile i multiplies.
 // - Causal load balance: the grid's fast index runs over (batch, head) and
@@ -109,6 +144,7 @@
 #include <stdint.h>
 
 #include "tf32_mma.cuh"
+
 
 namespace {
 
@@ -132,9 +168,6 @@ __host__ __device__ constexpr int padded_row() {
     return D + 16 / (int)sizeof(E);
 }
 
-__device__ __forceinline__ float lds1(const float* p) { return *p; }
-__device__ __forceinline__ float lds1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-
 // Rows [row0, row0 + ROWS) of one (batch, head) slice, all D columns, into
 // shared memory row-major ([ROWS][LD]) with 16-byte cp.async copies; rows
 // at or past T are zero-filled.
@@ -142,8 +175,11 @@ template <int ROWS, int D, typename E>
 __device__ __forceinline__ void async_tile(E* dst, const E* src, int64_t row_stride, int row0,
                                            int T) {
     constexpr int LD = padded_row<E, D>(), PER = 16 / (int)sizeof(E), CH = D / PER;
-    for (int idx = threadIdx.x; idx < ROWS * CH; idx += kThreads) {
-        const int r = idx / CH, c = idx % CH;
+    static_assert(kThreads % CH == 0, "a thread copies one column of chunks");
+    // A thread's column is the same on every row it copies: computed once,
+    // so that the compiler keeps one offset live across the tile loop.
+    const int c = threadIdx.x % CH;
+    for (int r = threadIdx.x / CH; r < ROWS; r += kThreads / CH) {
         const bool in = row0 + r < T;
         tc::cp_async16(dst + r * LD + c * PER,
                        src + (in ? (int64_t)(row0 + r) * row_stride + c * PER : 0), in);
@@ -162,41 +198,42 @@ __device__ __forceinline__ void async_rows(float* dst, const float* src, int row
 // A fragment of rows r0 + {g, g + 8}, columns c0 + {t, t + 4} of a
 // row-major shared tile (the operand of S = Q K^T and dP = dO V^T that runs
 // along D). Bank 4 row + col: conflict-free at the 16-byte pad.
-template <int LD, typename E>
-__device__ __forceinline__ void frag_a(float (&a)[4], const E* s, int r0, int c0, int g, int t) {
-    const E* p = s + (r0 + g) * LD + c0 + t;
-    a[0] = lds1(p);
-    a[1] = lds1(p + 8 * LD);
-    a[2] = lds1(p + 4);
-    a[3] = lds1(p + 8 * LD + 4);
+template <int LD>
+__device__ __forceinline__ void frag_a(float (&a)[4], const float* s, int r0, int c0, int g,
+                                       int t) {
+    const float* p = s + (r0 + g) * LD + c0 + t;
+    a[0] = p[0];
+    a[1] = p[8 * LD];
+    a[2] = p[4];
+    a[3] = p[8 * LD + 4];
 }
 
 // B fragment with k along D and n along rows: (k = c0 + t, n = r0 + g) and
 // (k = c0 + t + 4, n = r0 + g).
-template <int LD, typename E>
-__device__ __forceinline__ void frag_b_cols(float (&b)[2], const E* s, int r0, int c0, int g,
+template <int LD>
+__device__ __forceinline__ void frag_b_cols(float (&b)[2], const float* s, int r0, int c0, int g,
                                             int t) {
-    const E* p = s + (r0 + g) * LD + c0 + t;
-    b[0] = lds1(p);
-    b[1] = lds1(p + 4);
+    const float* p = s + (r0 + g) * LD + c0 + t;
+    b[0] = p[0];
+    b[1] = p[4];
 }
 
 // B fragment with k along rows, in the permuted order that matches an A
 // fragment taken from an accumulator (k = t <-> row r0 + 2t, k = t + 4 <->
-// row r0 + 2t + 1), and n along D (column c0 + g). Bank 8 t + g (fp32;
-// bf16 pairs share words): conflict-free at the 16-byte pad.
-template <int LD, typename E>
-__device__ __forceinline__ void frag_b_rows(float (&b)[2], const E* s, int r0, int c0, int g,
+// row r0 + 2t + 1), and n along D (column c0 + g). Bank 8 t + g:
+// conflict-free at the 16-byte pad.
+template <int LD>
+__device__ __forceinline__ void frag_b_rows(float (&b)[2], const float* s, int r0, int c0, int g,
                                             int t) {
-    const E* p = s + (r0 + 2 * t) * LD + c0 + g;
-    b[0] = lds1(p);
-    b[1] = lds1(p + LD);
+    const float* p = s + (r0 + 2 * t) * LD + c0 + g;
+    b[0] = p[0];
+    b[1] = p[LD];
 }
 
 // The A fragment of a 16 x 8 accumulator tile in the permuted k order.
 __device__ __forceinline__ tc::Split<4> acc_as_a(const float (&c)[4]) {
     const float a[4] = {c[0], c[2], c[1], c[3]};
-    return tc::split<false>(a);
+    return tc::split(a);
 }
 
 __device__ __forceinline__ void store2(float* p, float x, float y) {
@@ -275,7 +312,7 @@ struct FwdOps<float, D, BK, LD> {
                                                           int t) {
         float x[4];
         frag_a<LD>(x, Qs, r0, 8 * kk, g, t);
-        return tc::split<false>(x);
+        return tc::split(x);
     }
 
     static __device__ __forceinline__ void load_q(Q& q, const float* Qs, int r0, int g, int t) {
@@ -302,7 +339,7 @@ struct FwdOps<float, D, BK, LD> {
             for (int j = 0; j < BK / 8; ++j) {
                 float y[2];
                 frag_b_cols<LD>(y, Kb, 8 * j, 8 * kk, g, t);
-                tc::mma_f32_2acc<false, false>(s[j], s_lo[j], qa, tc::split<false>(y));
+                tc::mma_f32_2acc(s[j], s_lo[j], qa, tc::split(y));
             }
         }
 #pragma unroll
@@ -328,7 +365,7 @@ struct FwdOps<float, D, BK, LD> {
                 for (int nd = 0; nd < NG; ++nd) {
                     float y[2];
                     frag_b_rows<LD>(y, Vb, 8 * j, 8 * (n0 + nd), g, t);
-                    tc::mma_f32<false, false>(x[nd], pa[j], tc::split<false>(y));
+                    tc::mma_f32(x[nd], pa[j], tc::split(y));
                 }
             }
 #pragma unroll
@@ -556,13 +593,266 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename E, int D>
 struct BwdKVTile {
-    // At D = 128 the inner tile is 16 rows, so that the 16 x 128 dK and dV
-    // accumulators (128 registers a thread) and S, dP fit without spills.
-    static constexpr int BK = kOuter, BQ = D == 128 ? kInner / 2 : kInner;
+    // Queries of a streamed tile. fp32: 32, or 16 at D = 128, so that the
+    // 16 x 128 dK and dV accumulators (128 registers a thread) and S, dP
+    // with their lo parts fit without spills. bf16 (chunks below): 128 at
+    // D = 64, 64 at D = 32 and 128, 32 at D = 16; fewer syncs a query than
+    // smaller tiles, and the fastest on the H100 (PERF.md) of the tiles that
+    // compile without spills.
+    static constexpr int BK = kOuter;
+    static constexpr int BQ = sizeof(E) == 2 ? (D == 64 ? 128 : D == 16 ? 32 : 64)
+                                             : (D == 128 ? kInner / 2 : kInner);
     static constexpr int LD = padded_row<E, D>();
     // K, V [BK][LD]; two stages of Q, dO [BQ][LD]; two stages of lse, delta [BQ]
     static constexpr int kBytes =
         (2 * BK * LD + 4 * BQ * LD) * (int)sizeof(E) + 4 * BQ * (int)sizeof(float);
+};
+
+// This lane's row address for ldmatrix of a 16 x 16 block at (r0, 0) of a
+// row-major bf16 tile. ROWS_MINOR: tiles 0..3 are rows +0 / +8 (tiles 0, 1
+// / 2, 3) of columns +0 / +8 (tiles 0, 2 / 1, 3): an A fragment, or with
+// .trans the B fragments of two output blocks with k along the rows.
+// Otherwise tiles 0..3 are columns +0 / +8 (tiles 0, 2 / 1, 3) of rows +0
+// / +8 (tiles 0, 1 / 2, 3): the B fragments of two blocks of rows, with k
+// along the columns.
+template <int LD, bool ROWS_MINOR>
+__device__ __forceinline__ const __nv_bfloat16* ldsm_row(const __nv_bfloat16* s, int r0,
+                                                         int lane) {
+    const int hi = lane >> 4, mid = (lane >> 3) & 1;
+    const int row = r0 + (lane & 7) + 8 * (ROWS_MINOR ? mid : hi);
+    return s + row * LD + 8 * (ROWS_MINOR ? hi : mid);
+}
+
+// P = 2^(S c - lse log2 e) and dS = P (dP - delta) in place, in the
+// accumulator layout of a 16-row tile: element e of tile j sits at row
+// half e >> 1, column 8 j + 2 t + (e & 1). nlse(j, half, col) gives
+// -lse log2 e and delta(j, half, col) delta of that entry; visible_at(j,
+// half, col), read only with MASK, whether it is unmasked and inside T.
+template <int N, bool MASK, typename Nlse, typename Delta, typename Visible>
+__device__ __forceinline__ void probs_bf16(float (&s)[N][4], float (&dp)[N][4], float c,
+                                           Nlse nlse, Delta delta, Visible visible_at) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int half = e >> 1, col = e & 1;
+            float p = tc::exp2_ftz(__fmaf_rn(s[j][e], c, nlse(j, half, col)));
+            if constexpr (MASK) {
+                if (!visible_at(j, half, col)) p = 0.f;
+            }
+            s[j][e] = p;
+            dp[j][e] = p * (dp[j][e] - delta(j, half, col));
+        }
+    }
+}
+
+// Two adjacent 16 x 8 accumulator tiles (16 columns) rounded to bf16: the
+// A fragment of m16n8k16 whose k runs over those columns.
+__device__ __forceinline__ void pack_a16(uint32_t (&a)[4], const float (&x0)[4],
+                                         const float (&x1)[4]) {
+    a[0] = tc::pack_bf16(x0[0], x0[1]);
+    a[1] = tc::pack_bf16(x0[2], x0[3]);
+    a[2] = tc::pack_bf16(x1[0], x1[1]);
+    a[3] = tc::pack_bf16(x1[2], x1[3]);
+}
+
+// The products of one warp (16 keys) and one query tile, by input type:
+// S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T in the accumulator
+// layout (row key, column query), then dV += P^T dO and dK += dS^T Q,
+// reducing over the tile's queries: each 16 x 8 output tile sums the tile
+// (in bf16 a chunk of it) in a fresh accumulator, added to the running one
+// in IEEE fp32.
+template <typename E, int D, int BQ, int LD>
+struct BwdKVOps;
+
+// fp32: on the TF32 tensor cores to fp32 accuracy (3xTF32, m16n8k8).
+template <int D, int BQ, int LD>
+struct BwdKVOps<float, D, BQ, LD> {
+    struct KV {};
+    static __device__ __forceinline__ void load_kv(KV&, const float*, const float*, int, int) {}
+
+    static __device__ __forceinline__ void tile(float (&dk_acc)[D / 8][4],
+                                                float (&dv_acc)[D / 8][4], const KV&,
+                                                const float* Ks, const float* Vs, const float* Qb,
+                                                const float* dOb, const float* lse_b,
+                                                const float* dl_b, int q0, int kr, int warp,
+                                                int T, int causal, float scale, int g, int t,
+                                                int /*lane*/) {
+        // S^T = K Q^T and dP^T = V dO^T: [16 keys][BQ queries].
+        float s[BQ / 8][4] = {}, dp[BQ / 8][4] = {};
+        float s_lo[BQ / 8][4] = {}, dp_lo[BQ / 8][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk) {
+            float x[4];
+            frag_a<LD>(x, Ks, warp * kWarpRows, 8 * kk, g, t);
+            const tc::Split<4> ka = tc::split(x);
+            frag_a<LD>(x, Vs, warp * kWarpRows, 8 * kk, g, t);
+            const tc::Split<4> va = tc::split(x);
+#pragma unroll
+            for (int j = 0; j < BQ / 8; ++j) {
+                float y[2];
+                frag_b_cols<LD>(y, Qb, 8 * j, 8 * kk, g, t);
+                tc::mma_f32_2acc(s[j], s_lo[j], ka, tc::split(y));
+                frag_b_cols<LD>(y, dOb, 8 * j, 8 * kk, g, t);
+                tc::mma_f32_2acc(dp[j], dp_lo[j], va, tc::split(y));
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+            tc::add4(s[j], s_lo[j]);
+            tc::add4(dp[j], dp_lo[j]);
+        }
+        // P^T and dS^T in the accumulator layout: row key, column query.
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int c = 8 * j + 2 * t + (e & 1);
+                const bool vis = visible(q0 + c, kr + g + 8 * (e >> 1), T, causal);
+                const float p = vis ? expf(s[j][e] * scale - lse_b[c]) : 0.f;
+                s[j][e] = p;
+                dp[j][e] = vis ? p * (dp[j][e] - dl_b[c]) : 0.f;
+            }
+        }
+        tc::Split<4> pa[BQ / 8], sa[BQ / 8];
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+            pa[j] = acc_as_a(s[j]);
+            sa[j] = acc_as_a(dp[j]);
+        }
+#pragma unroll
+        for (int nd = 0; nd < D / 8; ++nd) {
+            float tv[4] = {}, tk[4] = {};
+#pragma unroll
+            for (int j = 0; j < BQ / 8; ++j) {
+                float y[2];
+                frag_b_rows<LD>(y, dOb, 8 * j, 8 * nd, g, t);
+                tc::mma_f32(tv, pa[j], tc::split(y));
+                frag_b_rows<LD>(y, Qb, 8 * j, 8 * nd, g, t);
+                tc::mma_f32(tk, sa[j], tc::split(y));
+            }
+            tc::add4(dv_acc[nd], tv);
+            tc::add4(dk_acc[nd], tk);
+        }
+    }
+};
+
+// bf16: on the bf16 tensor cores (m16n8k16, fp32 sums), one pass a
+// product, every fragment by ldmatrix; P^T and dS^T rounded to bf16.
+template <int D, int BQ, int LD>
+struct BwdKVOps<__nv_bfloat16, D, BQ, LD> {
+    using bf16 = __nv_bfloat16;
+    // K's and V's A fragments (the warp's 16 keys), loaded once for the
+    // whole query loop up to D = 64 (D / 2 registers a thread); at D = 128,
+    // whose dK and dV accumulators take 128 registers, re-read each chunk.
+    static constexpr bool kRegs = D <= 64;
+    // The streamed tile runs in chunks of CH queries: S^T, dP^T, P^T, dS^T
+    // of a chunk, then its products, each output tile summed over the chunk
+    // in a fresh accumulator. 64 at D = 64, else 32: the chunk's S^T and dP^T
+    // (CH / 2 registers a thread each) beside the dK and dV accumulators
+    // (D / 2 each).
+    static constexpr int CH = D == 64 ? 64 : 32;
+    static_assert(BQ % CH == 0, "a streamed tile is whole chunks");
+    struct KV {
+        uint32_t k[kRegs ? D / 16 : 1][4], v[kRegs ? D / 16 : 1][4];
+    };
+
+    static __device__ __forceinline__ void load_kv(KV& kv, const bf16* Ks, const bf16* Vs,
+                                                   int r0, int lane) {
+        if constexpr (kRegs) {
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                tc::ldmatrix_x4(kv.k[kk], ldsm_row<LD, true>(Ks, r0, lane) + 16 * kk);
+                tc::ldmatrix_x4(kv.v[kk], ldsm_row<LD, true>(Vs, r0, lane) + 16 * kk);
+            }
+        }
+    }
+
+    static __device__ __forceinline__ void tile(float (&dk_acc)[D / 8][4],
+                                                float (&dv_acc)[D / 8][4], const KV& kv,
+                                                const bf16* Ks, const bf16* Vs, const bf16* Qb,
+                                                const bf16* dOb, const float* lse_b,
+                                                const float* dl_b, int q0, int kr, int warp,
+                                                int T, int causal, float scale, int g, int t,
+                                                int lane) {
+        const int r0 = warp * kWarpRows;
+        const float c = (float)(scale * kLog2e);
+#pragma unroll
+        for (int c0 = 0; c0 < BQ; c0 += CH) {
+            const int qc = q0 + c0;  // the chunk's first query
+            // Skip a chunk wholly before the warp's keys or past T.
+            if ((causal && kr > qc + CH - 1) || qc >= T) continue;
+            float s[CH / 8][4] = {}, dp[CH / 8][4] = {};
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                uint32_t ka[4], va[4];
+                if constexpr (kRegs) {
+#pragma unroll
+                    for (int r = 0; r < 4; ++r) ka[r] = kv.k[kk][r], va[r] = kv.v[kk][r];
+                } else {
+                    tc::ldmatrix_x4(ka, ldsm_row<LD, true>(Ks, r0, lane) + 16 * kk);
+                    tc::ldmatrix_x4(va, ldsm_row<LD, true>(Vs, r0, lane) + 16 * kk);
+                }
+#pragma unroll
+                for (int jp = 0; jp < CH / 16; ++jp) {
+                    uint32_t y[4];
+                    tc::ldmatrix_x4(y, ldsm_row<LD, false>(Qb, c0 + 16 * jp, lane) + 16 * kk);
+                    const uint32_t q0b[2] = {y[0], y[1]}, q1b[2] = {y[2], y[3]};
+                    tc::mma_bf16(s[2 * jp], ka, q0b);
+                    tc::mma_bf16(s[2 * jp + 1], ka, q1b);
+                    tc::ldmatrix_x4(y, ldsm_row<LD, false>(dOb, c0 + 16 * jp, lane) + 16 * kk);
+                    const uint32_t o0b[2] = {y[0], y[1]}, o1b[2] = {y[2], y[3]};
+                    tc::mma_bf16(dp[2 * jp], va, o0b);
+                    tc::mma_bf16(dp[2 * jp + 1], va, o1b);
+                }
+            }
+            // Column (query) qc + 8 j + 2 t + col; row (key) kr + g + 8 half.
+            auto nlse = [&](int j, int, int col) {
+                return -lse_b[c0 + 8 * j + 2 * t + col] * (float)kLog2e;
+            };
+            auto delta = [&](int j, int, int col) { return dl_b[c0 + 8 * j + 2 * t + col]; };
+            auto vis = [&](int j, int half, int col) {
+                return visible(qc + 8 * j + 2 * t + col, kr + g + 8 * half, T, causal);
+            };
+            // Masks only where the chunk holds a query before one of the
+            // warp's keys, or a query or a key past T (warp-uniform).
+            if ((causal && qc < kr + kWarpRows - 1) || qc + CH > T || kr + kWarpRows > T) {
+                probs_bf16<CH / 8, true>(s, dp, c, nlse, delta, vis);
+            } else {
+                probs_bf16<CH / 8, false>(s, dp, c, nlse, delta, vis);
+            }
+            uint32_t pa[CH / 16][4], sa[CH / 16][4];
+#pragma unroll
+            for (int jj = 0; jj < CH / 16; ++jj) {
+                pack_a16(pa[jj], s[2 * jj], s[2 * jj + 1]);
+                pack_a16(sa[jj], dp[2 * jj], dp[2 * jj + 1]);
+            }
+            // dV += P^T dO and dK += dS^T Q: dO's and Q's B fragments
+            // transposed out of their row-major tiles, two output tiles of 8
+            // columns a load, the chunk summed in fresh accumulators.
+#pragma unroll
+            for (int np = 0; np < D / 16; ++np) {
+                float tv[2][4] = {}, tk[2][4] = {};
+#pragma unroll
+                for (int jj = 0; jj < CH / 16; ++jj) {
+                    uint32_t y[4];
+                    tc::ldmatrix_x4_trans(y, ldsm_row<LD, true>(dOb, c0 + 16 * jj, lane) + 16 * np);
+                    const uint32_t o0b[2] = {y[0], y[1]}, o1b[2] = {y[2], y[3]};
+                    tc::mma_bf16(tv[0], pa[jj], o0b);
+                    tc::mma_bf16(tv[1], pa[jj], o1b);
+                    tc::ldmatrix_x4_trans(y, ldsm_row<LD, true>(Qb, c0 + 16 * jj, lane) + 16 * np);
+                    const uint32_t q0b[2] = {y[0], y[1]}, q1b[2] = {y[2], y[3]};
+                    tc::mma_bf16(tk[0], sa[jj], q0b);
+                    tc::mma_bf16(tk[1], sa[jj], q1b);
+                }
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    tc::add4(dv_acc[2 * np + i], tv[i]);
+                    tc::add4(dk_acc[2 * np + i], tk[i]);
+                }
+            }
+        }
+    }
 };
 
 template <typename E, int D>
@@ -574,7 +864,7 @@ __global__ void __launch_bounds__(kThreads)
                          int64_t sT, int64_t sH, float scale, int causal) {
     using S = BwdKVTile<E, D>;
     constexpr int BQ = S::BQ, LD = S::LD;
-    constexpr bool kExact = sizeof(E) == 2;  // bf16 values are exact in TF32
+    using Ops = BwdKVOps<E, D, BQ, LD>;
     extern __shared__ float4 smem4[];
     E* Ks = reinterpret_cast<E*>(smem4);
     E* Vs = Ks + S::BK * LD;
@@ -604,7 +894,12 @@ __global__ void __launch_bounds__(kThreads)
     };
     async_tile<S::BK, D>(Ks, k + base, sT, n0, T);
     async_tile<S::BK, D>(Vs, v + base, sT, n0, T);
-    stage(0);  // one group with K and V
+    tc::cp_async_commit();
+    stage(0);
+    tc::cp_async_wait<1>();
+    __syncthreads();  // K and V visible to every warp
+    typename Ops::KV kv;
+    Ops::load_kv(kv, Ks, Vs, warp * kWarpRows, lane);
 
     float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
     for (int i = 0; i < n_tiles; ++i) {
@@ -614,76 +909,14 @@ __global__ void __launch_bounds__(kThreads)
         } else {
             tc::cp_async_wait<0>();
         }
-        __syncthreads();  // tile i (and K, V) visible to every warp
+        __syncthreads();  // tile i visible to every warp
         const int q0 = q_begin + i * BQ, buf = i & 1;
-        const E* Qb = Qs + buf * BQ * LD;
-        const E* dOb = dOs + buf * BQ * LD;
-        const float* lse_b = lse_s + buf * BQ;
-        const float* dl_b = dl_s + buf * BQ;
         // Skip when this warp's keys are all past T or all after the
         // tile's last query (warp-uniform).
         if (kr < T && (!causal || kr <= q0 + BQ - 1)) {
-            // S^T = K Q^T and dP^T = V dO^T: [16 keys][BQ queries].
-            float s[BQ / 8][4] = {}, dp[BQ / 8][4] = {};
-            float s_lo[BQ / 8][4] = {}, dp_lo[BQ / 8][4] = {};
-#pragma unroll
-            for (int kk = 0; kk < D / 8; ++kk) {
-                float x[4];
-                frag_a<LD>(x, Ks, warp * kWarpRows, 8 * kk, g, t);
-                const tc::Split<4> ka = tc::split<kExact>(x);
-                frag_a<LD>(x, Vs, warp * kWarpRows, 8 * kk, g, t);
-                const tc::Split<4> va = tc::split<kExact>(x);
-#pragma unroll
-                for (int j = 0; j < BQ / 8; ++j) {
-                    float y[2];
-                    frag_b_cols<LD>(y, Qb, 8 * j, 8 * kk, g, t);
-                    tc::mma_f32_2acc<kExact, kExact>(s[j], s_lo[j], ka, tc::split<kExact>(y));
-                    frag_b_cols<LD>(y, dOb, 8 * j, 8 * kk, g, t);
-                    tc::mma_f32_2acc<kExact, kExact>(dp[j], dp_lo[j], va, tc::split<kExact>(y));
-                }
-            }
-            if constexpr (!kExact) {
-#pragma unroll
-                for (int j = 0; j < BQ / 8; ++j) {
-                    tc::add4(s[j], s_lo[j]);
-                    tc::add4(dp[j], dp_lo[j]);
-                }
-            }
-            // P^T and dS^T in the accumulator layout: row key, column query.
-#pragma unroll
-            for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int c = 8 * j + 2 * t + (e & 1);
-                    const bool vis = visible(q0 + c, kr + g + 8 * (e >> 1), T, causal);
-                    const float p = vis ? expf(s[j][e] * scale - lse_b[c]) : 0.f;
-                    s[j][e] = p;
-                    dp[j][e] = vis ? p * (dp[j][e] - dl_b[c]) : 0.f;
-                }
-            }
-            // dV += P^T dO and dK += dS^T Q, reducing over the tile's
-            // queries: each 16 x 8 output tile sums the whole inner tile in
-            // a fresh accumulator, added to the running one in IEEE fp32.
-            tc::Split<4> pa[BQ / 8], sa[BQ / 8];
-#pragma unroll
-            for (int j = 0; j < BQ / 8; ++j) {
-                pa[j] = acc_as_a(s[j]);
-                sa[j] = acc_as_a(dp[j]);
-            }
-#pragma unroll
-            for (int nd = 0; nd < D / 8; ++nd) {
-                float tv[4] = {}, tk[4] = {};
-#pragma unroll
-                for (int j = 0; j < BQ / 8; ++j) {
-                    float y[2];
-                    frag_b_rows<LD>(y, dOb, 8 * j, 8 * nd, g, t);
-                    tc::mma_f32<false, kExact>(tv, pa[j], tc::split<kExact>(y));
-                    frag_b_rows<LD>(y, Qb, 8 * j, 8 * nd, g, t);
-                    tc::mma_f32<false, kExact>(tk, sa[j], tc::split<kExact>(y));
-                }
-                tc::add4(dv_acc[nd], tv);
-                tc::add4(dk_acc[nd], tk);
-            }
+            Ops::tile(dk_acc, dv_acc, kv, Ks, Vs, Qs + buf * BQ * LD, dOs + buf * BQ * LD,
+                      lse_s + buf * BQ, dl_s + buf * BQ, q0, kr, warp, T, causal, scale, g, t,
+                      lane);
         }
         __syncthreads();  // every warp is done with buffer i & 1 before it reloads
     }
@@ -695,9 +928,149 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename E, int D>
 struct BwdQTile {
-    static constexpr int BQ = kOuter, BK = kInner, LD = padded_row<E, D>();
+    // Keys of a streamed tile: 32 in fp32, 64 in bf16 (faster on the H100,
+    // PERF.md).
+    static constexpr int BQ = kOuter, BK = sizeof(E) == 2 ? 64 : kInner;
+    static constexpr int LD = padded_row<E, D>();
     // Q, dO [BQ][LD]; two stages of K, V [BK][LD]
     static constexpr int kBytes = (2 * BQ * LD + 4 * BK * LD) * (int)sizeof(E);
+};
+
+// The products of one warp (16 queries) and one key tile, by input type:
+// S = Q K^T and dP = dO V^T, dS in the accumulator layout (row query,
+// column key), then dQ += dS K, reducing over the tile's keys, a fresh
+// accumulator per output tile as in dK/dV.
+template <typename E, int D, int BK, int LD>
+struct BwdQOps;
+
+// fp32: 3xTF32, as dK/dV.
+template <int D, int BK, int LD>
+struct BwdQOps<float, D, BK, LD> {
+    static __device__ __forceinline__ void tile(float (&acc)[D / 8][4], const float* Qs,
+                                                const float* dOs,
+                                                const float* Kb, const float* Vb,
+                                                const float (&lse_r)[2], const float (&dl_r)[2],
+                                                int k0, int qr, int warp, int T, int causal,
+                                                float scale, int g, int t, int /*lane*/) {
+        // S = Q K^T and dP = dO V^T: [16 queries][BK keys].
+        float s[BK / 8][4] = {}, dp[BK / 8][4] = {};
+        float s_lo[BK / 8][4] = {}, dp_lo[BK / 8][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk) {
+            float x[4];
+            frag_a<LD>(x, Qs, warp * kWarpRows, 8 * kk, g, t);
+            const tc::Split<4> qa = tc::split(x);
+            frag_a<LD>(x, dOs, warp * kWarpRows, 8 * kk, g, t);
+            const tc::Split<4> oa = tc::split(x);
+#pragma unroll
+            for (int j = 0; j < BK / 8; ++j) {
+                float y[2];
+                frag_b_cols<LD>(y, Kb, 8 * j, 8 * kk, g, t);
+                tc::mma_f32_2acc(s[j], s_lo[j], qa, tc::split(y));
+                frag_b_cols<LD>(y, Vb, 8 * j, 8 * kk, g, t);
+                tc::mma_f32_2acc(dp[j], dp_lo[j], oa, tc::split(y));
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+            tc::add4(s[j], s_lo[j]);
+            tc::add4(dp[j], dp_lo[j]);
+        }
+        // dS in the accumulator layout: row query, column key.
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int half = e >> 1;
+                const bool vis =
+                    visible(qr + g + 8 * half, k0 + 8 * j + 2 * t + (e & 1), T, causal);
+                const float p = vis ? expf(s[j][e] * scale - lse_r[half]) : 0.f;
+                dp[j][e] = vis ? p * (dp[j][e] - dl_r[half]) : 0.f;
+            }
+        }
+        tc::Split<4> sa[BK / 8];
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) sa[j] = acc_as_a(dp[j]);
+#pragma unroll
+        for (int nd = 0; nd < D / 8; ++nd) {
+            float tq[4] = {};
+#pragma unroll
+            for (int j = 0; j < BK / 8; ++j) {
+                float y[2];
+                frag_b_rows<LD>(y, Kb, 8 * j, 8 * nd, g, t);
+                tc::mma_f32(tq, sa[j], tc::split(y));
+            }
+            tc::add4(acc[nd], tq);
+        }
+    }
+};
+
+// bf16: one m16n8k16 pass a product, as dK/dV; dS rounded to bf16. Q's
+// and dO's A fragments are re-read each tile: held for the whole loop,
+// they cost 32 registers (64 at D = 128) and blocks a multiprocessor.
+template <int D, int BK, int LD>
+struct BwdQOps<__nv_bfloat16, D, BK, LD> {
+    using bf16 = __nv_bfloat16;
+
+    static __device__ __forceinline__ void tile(float (&acc)[D / 8][4], const bf16* Qs,
+                                                const bf16* dOs, const bf16* Kb, const bf16* Vb,
+                                                const float (&lse_r)[2], const float (&dl_r)[2],
+                                                int k0, int qr, int warp, int T, int causal,
+                                                float scale, int g, int t, int lane) {
+        float s[BK / 8][4] = {}, dp[BK / 8][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+            uint32_t qa[4], oa[4];
+            tc::ldmatrix_x4(qa, ldsm_row<LD, true>(Qs, warp * kWarpRows, lane) + 16 * kk);
+            tc::ldmatrix_x4(oa, ldsm_row<LD, true>(dOs, warp * kWarpRows, lane) + 16 * kk);
+#pragma unroll
+            for (int jp = 0; jp < BK / 16; ++jp) {
+                uint32_t y[4];
+                tc::ldmatrix_x4(y, ldsm_row<LD, false>(Kb, 16 * jp, lane) + 16 * kk);
+                const uint32_t k0b[2] = {y[0], y[1]}, k1b[2] = {y[2], y[3]};
+                tc::mma_bf16(s[2 * jp], qa, k0b);
+                tc::mma_bf16(s[2 * jp + 1], qa, k1b);
+                tc::ldmatrix_x4(y, ldsm_row<LD, false>(Vb, 16 * jp, lane) + 16 * kk);
+                const uint32_t v0b[2] = {y[0], y[1]}, v1b[2] = {y[2], y[3]};
+                tc::mma_bf16(dp[2 * jp], oa, v0b);
+                tc::mma_bf16(dp[2 * jp + 1], oa, v1b);
+            }
+        }
+        // Row (query) qr + g + 8 half; column (key) k0 + 8 j + 2 t + col.
+        const float c = (float)(scale * kLog2e);
+        const float nl[2] = {-lse_r[0] * (float)kLog2e, -lse_r[1] * (float)kLog2e};
+        auto nlse = [&](int, int half, int) { return nl[half]; };
+        auto delta = [&](int, int half, int) { return dl_r[half]; };
+        auto vis = [&](int j, int half, int col) {
+            return visible(qr + g + 8 * half, k0 + 8 * j + 2 * t + col, T, causal);
+        };
+        // Masks only where the tile holds a key after one of the warp's
+        // queries, or a key or a query past T (warp-uniform).
+        if ((causal && k0 + BK - 1 > qr) || k0 + BK > T || qr + kWarpRows > T) {
+            probs_bf16<BK / 8, true>(s, dp, c, nlse, delta, vis);
+        } else {
+            probs_bf16<BK / 8, false>(s, dp, c, nlse, delta, vis);
+        }
+        uint32_t sa[BK / 16][4];
+#pragma unroll
+        for (int jj = 0; jj < BK / 16; ++jj) pack_a16(sa[jj], dp[2 * jj], dp[2 * jj + 1]);
+        // K's B fragments transposed out of its row-major tile, two output
+        // tiles of 8 columns a load.
+#pragma unroll
+        for (int np = 0; np < D / 16; ++np) {
+            float x[2][4] = {};
+#pragma unroll
+            for (int jj = 0; jj < BK / 16; ++jj) {
+                uint32_t y[4];
+                tc::ldmatrix_x4_trans(y, ldsm_row<LD, true>(Kb, 16 * jj, lane) + 16 * np);
+                const uint32_t b0[2] = {y[0], y[1]}, b1[2] = {y[2], y[3]};
+                tc::mma_bf16(x[0], sa[jj], b0);
+                tc::mma_bf16(x[1], sa[jj], b1);
+            }
+            tc::add4(acc[2 * np], x[0]);
+            tc::add4(acc[2 * np + 1], x[1]);
+        }
+    }
 };
 
 template <typename E, int D>
@@ -709,7 +1082,7 @@ __global__ void __launch_bounds__(kThreads)
                         float scale, int causal) {
     using S = BwdQTile<E, D>;
     constexpr int BK = S::BK, LD = S::LD;
-    constexpr bool kExact = sizeof(E) == 2;
+    using Ops = BwdQOps<E, D, BK, LD>;
     extern __shared__ float4 smem4[];
     E* Qs = reinterpret_cast<E*>(smem4);
     E* dOs = Qs + S::BQ * LD;
@@ -756,65 +1129,11 @@ __global__ void __launch_bounds__(kThreads)
         }
         __syncthreads();
         const int k0 = i * BK, buf = i & 1;
-        const E* Kb = Ks + buf * BK * LD;
-        const E* Vb = Vs + buf * BK * LD;
         // Skip when this warp's queries are all past T or all before the
         // tile's first key (warp-uniform).
         if (qr < T && (!causal || k0 <= qr + kWarpRows - 1)) {
-            // S = Q K^T and dP = dO V^T: [16 queries][BK keys].
-            float s[BK / 8][4] = {}, dp[BK / 8][4] = {};
-            float s_lo[BK / 8][4] = {}, dp_lo[BK / 8][4] = {};
-#pragma unroll
-            for (int kk = 0; kk < D / 8; ++kk) {
-                float x[4];
-                frag_a<LD>(x, Qs, warp * kWarpRows, 8 * kk, g, t);
-                const tc::Split<4> qa = tc::split<kExact>(x);
-                frag_a<LD>(x, dOs, warp * kWarpRows, 8 * kk, g, t);
-                const tc::Split<4> oa = tc::split<kExact>(x);
-#pragma unroll
-                for (int j = 0; j < BK / 8; ++j) {
-                    float y[2];
-                    frag_b_cols<LD>(y, Kb, 8 * j, 8 * kk, g, t);
-                    tc::mma_f32_2acc<kExact, kExact>(s[j], s_lo[j], qa, tc::split<kExact>(y));
-                    frag_b_cols<LD>(y, Vb, 8 * j, 8 * kk, g, t);
-                    tc::mma_f32_2acc<kExact, kExact>(dp[j], dp_lo[j], oa, tc::split<kExact>(y));
-                }
-            }
-            if constexpr (!kExact) {
-#pragma unroll
-                for (int j = 0; j < BK / 8; ++j) {
-                    tc::add4(s[j], s_lo[j]);
-                    tc::add4(dp[j], dp_lo[j]);
-                }
-            }
-            // dS in the accumulator layout: row query, column key.
-#pragma unroll
-            for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int half = e >> 1;
-                    const bool vis =
-                        visible(qr + g + 8 * half, k0 + 8 * j + 2 * t + (e & 1), T, causal);
-                    const float p = vis ? expf(s[j][e] * scale - lse_r[half]) : 0.f;
-                    dp[j][e] = vis ? p * (dp[j][e] - dl_r[half]) : 0.f;
-                }
-            }
-            // dQ += dS K, reducing over the tile's keys, a fresh
-            // accumulator per output tile as above.
-            tc::Split<4> sa[BK / 8];
-#pragma unroll
-            for (int j = 0; j < BK / 8; ++j) sa[j] = acc_as_a(dp[j]);
-#pragma unroll
-            for (int nd = 0; nd < D / 8; ++nd) {
-                float tq[4] = {};
-#pragma unroll
-                for (int j = 0; j < BK / 8; ++j) {
-                    float y[2];
-                    frag_b_rows<LD>(y, Kb, 8 * j, 8 * nd, g, t);
-                    tc::mma_f32<false, kExact>(tq, sa[j], tc::split<kExact>(y));
-                }
-                tc::add4(acc[nd], tq);
-            }
+            Ops::tile(acc, Qs, dOs, Ks + buf * BK * LD, Vs + buf * BK * LD, lse_r, dl_r, k0, qr,
+                      warp, T, causal, scale, g, t, lane);
         }
         __syncthreads();
     }

@@ -32,24 +32,18 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
 
 // An operand fragment split as x = hi + lo + O(2^-22 |x|): hi = tf32(x),
 // lo = tf32(x - hi). x - hi is exact in fp32 (__fsub_rn: never contracted).
-// EXACT: x is already a TF32 value (a widened bf16), so lo = 0 and unused.
 template <int N>
 struct Split {
     uint32_t hi[N], lo[N];
 };
 
-template <bool EXACT, int N>
+template <int N>
 __device__ __forceinline__ Split<N> split(const float (&x)[N]) {
     Split<N> s;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-        if constexpr (EXACT) {
-            s.hi[i] = __float_as_uint(x[i]);
-            s.lo[i] = 0u;
-        } else {
-            s.hi[i] = tf32_rna(x[i]);
-            s.lo[i] = tf32_rna(__fsub_rn(x[i], __uint_as_float(s.hi[i])));
-        }
+        s.hi[i] = tf32_rna(x[i]);
+        s.lo[i] = tf32_rna(__fsub_rn(x[i], __uint_as_float(s.hi[i])));
     }
     return s;
 }
@@ -67,13 +61,10 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // c += a b to fp32 accuracy: a_lo b_hi + a_hi b_lo + a_hi b_hi, small terms
-// first (the a_lo b_lo term, O(2^-22), is dropped). An exact operand has no
-// lo part, so its term is skipped: 2 products when one side is exact, 1
-// when both are.
-template <bool A_EXACT, bool B_EXACT>
+// first (the a_lo b_lo term, O(2^-22), is dropped).
 __device__ __forceinline__ void mma_f32(float (&c)[4], const Split<4>& a, const Split<2>& b) {
-    if constexpr (!A_EXACT) mma_tf32(c, a.lo, b.hi);
-    if constexpr (!B_EXACT) mma_tf32(c, a.hi, b.lo);
+    mma_tf32(c, a.lo, b.hi);
+    mma_tf32(c, a.hi, b.lo);
     mma_tf32(c, a.hi, b.hi);
 }
 
@@ -81,11 +72,10 @@ __device__ __forceinline__ void mma_f32(float (&c)[4], const Split<4>& a, const 
 // (2^-11 the size of the sum), so the main chain holds a_hi b_hi alone:
 // c_hi += a_hi b_hi, c_lo += a_lo b_hi + a_hi b_lo. The caller adds c_lo
 // to c_hi in IEEE fp32 at the end of the chain.
-template <bool A_EXACT, bool B_EXACT>
 __device__ __forceinline__ void mma_f32_2acc(float (&c_hi)[4], float (&c_lo)[4],
                                              const Split<4>& a, const Split<2>& b) {
-    if constexpr (!A_EXACT) mma_tf32(c_lo, a.lo, b.hi);
-    if constexpr (!B_EXACT) mma_tf32(c_lo, a.hi, b.lo);
+    mma_tf32(c_lo, a.lo, b.hi);
+    mma_tf32(c_lo, a.hi, b.lo);
     mma_tf32(c_hi, a.hi, b.hi);
 }
 
@@ -113,6 +103,13 @@ __device__ __forceinline__ float exp2_ftz(float x) {
     return y;
 }
 
+// x and y rounded to bf16 (to nearest even) in one register, x in the low
+// half: two adjacent accumulator values as one register of an A fragment.
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    return *reinterpret_cast<const uint32_t*>(&h);
+}
+
 // x and y, each split into two bf16 parts as x = hi + lo + O(2^-16 |x|):
 // hi = bf16(x), lo = bf16(x - hi), both rounded to nearest even. Each
 // register holds the x part in its low half. x - hi is exact in fp32.
@@ -127,8 +124,9 @@ __device__ __forceinline__ void split_bf16(uint32_t& hi, uint32_t& lo, float x, 
 // Four 8 x 8 tiles of 16-bit values from shared memory (ldmatrix): lanes
 // 8i..8i+7 pass the addresses of rows 0..7 of tile i (16 bytes each,
 // 16-byte aligned), and lane 4 g + t receives in r[i] tile i's elements
-// (row g, columns 2t and 2t + 1), the first in the low half: a B fragment
-// of m16n8k16 with k along the columns.
+// (row g, columns 2t and 2t + 1), the first in the low half: B fragments
+// of m16n8k16 with k along the columns, or, with tiles 0..3 at rows +0 / +8
+// (tiles 0, 2 / 1, 3) of columns +0 / +8 (tiles 0, 1 / 2, 3), an A fragment.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
     const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(row));
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"

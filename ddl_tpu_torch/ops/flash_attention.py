@@ -17,9 +17,10 @@ Inputs are float32 or bfloat16 in the model's ``[B, T, H, D]`` layout
 outputs and gradients come back in the inputs' type. All three kernels run
 their products on the tensor cores and are deterministic. In fp32 they use
 the TF32 tensor cores to fp32 accuracy: each fp32 operand is split into two
-TF32 parts, three products per product. In bf16 the forward uses the bf16
-tensor cores, with P split into two bf16 parts for ``P V``; the backward
-kernels widen bf16 to TF32, which holds it exactly.
+TF32 parts, three products per product. In bf16 all three use the bf16
+tensor cores: the forward with P split into two bf16 parts for ``P V``, the
+backward kernels one pass a product, with P and dS rounded to bf16 before
+their products (as JAX's TPU kernel feeds its matmuls).
 
 :func:`flash_attention_bthd` dispatches on the tensors' device: on CUDA it
 launches the kernels (built from ``csrc/flash_attention.cu`` at first use),

@@ -19,7 +19,9 @@
 - The backward kernels' arithmetic, rehearsed in torch: dK/dV/dQ from
   products split into TF32 parts ("3xTF32", as the kernels run them on the
   tensor cores) hold the fp32 gradient tolerance; one TF32 pass is at
-  least 10x further off.
+  least 10x further off. In bf16 (one bf16 pass a product, P through exp2
+  with one fma, P and dS rounded to bf16, a fresh fp32 accumulator an
+  inner tile) they hold chip_smoke.py's bf16 gradient tolerance.
 - The forward kernel's arithmetic, rehearsed in torch: key tiles of 64, an
   online softmax in base 2 with a running max and sum, each tile's P V in a
   fresh accumulator added to the rescaled O in fp32; fp32 products in 3
@@ -49,6 +51,8 @@ BF16_TOL = dict(atol=5e-2, rtol=5e-2)
 # The kernels' gradients against their plain versions in fp32 (the card's
 # gate; chip_smoke.py's flash_kernel phase uses the same).
 KERNEL_GRAD_TOL = dict(atol=1e-4, rtol=1e-3)
+# The same in bf16 (chip_smoke.py's FLASH_TOL["bfloat16"] for the gradients).
+KERNEL_GRAD_TOL_BF16 = dict(atol=1e-2, rtol=1e-2)
 # The forward kernel's O (and LSE) against the plain version, by input type
 # (chip_smoke.py's FLASH_TOL).
 KERNEL_O_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-4),
@@ -344,6 +348,55 @@ def test_forward_kernel_arithmetic_holds_the_o_tolerance(shape, causal, dtype):
         assert err1 >= 10 * err3, f"one pass {err1:.2e}, three {err3:.2e}"
 
 
+def _bf16_backward_emulated(q, k, v, do, lse, delta, causal, scale):
+    """(dq, dk, dv) computed as the bf16 backward kernels compute them: S
+    and dP from the bf16 inputs in one pass (products of bf16 values are
+    exact, sums fp32); P = 2^(S c - lse log2 e) with c = scale log2 e and
+    one fma; P and dS rounded to bf16 before their products; each inner
+    tile (dK/dV: chunks of 64 queries at D = 64, else 32; dQ: tiles of 64
+    keys) summed in a fresh fp32 accumulator added to the running one; the
+    gradients stored in bf16."""
+    t, d = q.shape[1], q.shape[3]
+    kv_inner, q_inner = (64 if d == 64 else 32), 64
+    qf, kf, vf, of = (x.float() for x in (q, k, v, do))
+    log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
+    c = torch.tensor(scale * math.log2(math.e), dtype=torch.float32)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", of, vf)
+    # The kernels' fma: S c - lse log2 e with one rounding.
+    p = torch.exp2((s.double() * c.double() - (lse * log2e).double()[..., None]).float())
+    if causal:
+        p = torch.where(torch.ones(t, t, dtype=torch.bool).tril(), p, 0.0)
+    ds = p * (dp - delta[..., None])
+    p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
+    dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
+    for i in range(0, t, kv_inner):
+        rows = slice(i, i + kv_inner)
+        dv = dv + torch.einsum("bhqk,bqhd->bkhd", p16[:, :, rows], of[:, rows])
+        dk = dk + torch.einsum("bhqk,bqhd->bkhd", ds16[:, :, rows], qf[:, rows])
+    for i in range(0, t, q_inner):
+        rows = slice(i, i + q_inner)
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds16[..., rows], kf[:, rows])
+    return (dq * scale).bfloat16(), (dk * scale).bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 72, 2, 32), (1, 160, 2, 64), (1, 128, 2, 128)])
+def test_bf16_backward_arithmetic_holds_the_bf16_gradient_tolerance(shape, causal):
+    q, k, v, do = _kernel_inputs(shape, torch.bfloat16, "cpu", seed=shape[1] + causal)
+    scale = 1.0 / shape[-1] ** 0.5
+    qf, kf, vf, of = (x.float() for x in (q, k, v, do))
+    o, lse = fa.flash_fwd_reference(qf, kf, vf, causal, scale)
+    delta = fa.attention_delta(o, of)
+    wk, wv = fa.flash_bwd_dkv_reference(qf, kf, vf, of, lse, delta, causal, scale)
+    want = (fa.flash_bwd_dq_reference(qf, kf, vf, of, lse, delta, causal, scale), wk, wv)
+    got = _bf16_backward_emulated(q, k, v, do, lse, delta, causal, scale)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), w, msg=lambda m: f"{name}: {m}",
+                                   **KERNEL_GRAD_TOL_BF16)
+
+
 @pytest.mark.parametrize("kernel", ["backward", "forward"])
 def test_backward_operands_are_realigned_to_16_bytes(kernel, monkeypatch):
     x = torch.zeros(1 + 2 * 16 * 2 * 16)[1:].view(2, 16, 2, 16)  # 4 bytes past a boundary
@@ -383,12 +436,16 @@ def cuda_device():
 
 
 CUDA_SHAPES = [(1, 64, 2, 16), (2, 200, 4, 32), (2, 256, 4, 64), (1, 512, 2, 128)]
+# The benchmark cells' per-layer shapes (16 heads of 64 and of 128), cut in
+# T to keep the tests fast; bf16, the cells' type.
+CELL_SHAPES = [(1, 512, 16, 64), (1, 512, 16, 128)]
+TYPES = [torch.float32, torch.bfloat16]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("shape", CUDA_SHAPES)
+@pytest.mark.parametrize("shape, dtype", [(s, d) for s in CUDA_SHAPES for d in TYPES]
+                         + [(s, torch.bfloat16) for s in CELL_SHAPES])
 def test_cuda_kernels_match_plain(shape, causal, dtype, cuda_device):
     q, k, v, do = _kernel_inputs(shape, dtype, cuda_device, seed=shape[1])
     before = dict(fa.launches)
@@ -402,8 +459,8 @@ def test_cuda_kernels_match_plain(shape, causal, dtype, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [CUDA_SHAPES[2], CUDA_SHAPES[3]])
+@pytest.mark.parametrize("shape, dtype", [(s, d) for s in CUDA_SHAPES[2:] for d in TYPES]
+                         + [(s, torch.bfloat16) for s in CELL_SHAPES])
 def test_cuda_backward_kernels_bit_equal_on_repeat(shape, dtype, cuda_device):
     q, k, v, do = _kernel_inputs(shape, dtype, cuda_device, seed=11)
     scale = 1.0 / shape[-1] ** 0.5
