@@ -64,7 +64,9 @@ Phases, each printing one JSON line:
    O's tolerance. fp32: O within atol 1e-5 / rtol 1e-4, gradients within atol
    1e-4 / rtol 1e-3; bf16 inputs (and R) against the reference in fp32 on
    the same bf16 values: O within atol 2e-3 / rtol 1e-2, gradients within
-   atol 1e-2 / rtol 1e-2.
+   atol 1e-2 / rtol 1e-2. Then the latent-attention pair (q and k 192, v
+   128) in bf16 at [1, 200, 2], [2, 1000, 4] and [1, 2048, 16], causal and
+   not, under the same bf16 tolerances (O, LSE, dq, dk, dv).
 8. flash_determinism — the forward, dK/dV and dQ twice on the same inputs
    at [4, 2048, 8, 64], causal, fp32 and bf16: o, lse, dk, dv and dq must
    be bit-equal.
@@ -474,6 +476,10 @@ FLASH_SHAPES = ((1, 64, 2, 16), (2, 200, 4, 32), (4, 2048, 8, 64), (1, 512, 2, 1
                 (4, 2048, 4, 64),  # lm_tp's: a tp-2 rank's half of the heads
                 (1, 2048, 8, 64))  # lm_pp's: one microbatch of 4
 FLASH_MAIN = (4, 2048, 8, 64)  # the LM path's [B, T, H, D]
+# The latent-attention instance, bf16 only: [B, T, H] with q and k 192 wide,
+# v 128 (models/mla_moe.py's heads); the last is the expert cell's own shape
+# (the plain version's fp32 scores there take 8.6 GB a copy).
+FLASH_MLA_SHAPES = ((1, 200, 2), (2, 1000, 4), (1, 2048, 16), (2, 8192, 16))
 # dtype name -> ((atol, rtol) of O, (atol, rtol) of the gradients). bf16: O
 # differs from the fp32 reference by its own rounding (2^-9 relative); the
 # gradients also carry O's rounding through delta = rowsum(dO * O), an
@@ -1022,6 +1028,34 @@ def check_flash(torch, fa) -> dict:
                     worst["bwd_dkv"] = max(worst["bwd_dkv"], errs["dk"], errs["dv"])
                     worst["bwd_dq"] = max(worst["bwd_dq"], errs["dq"])
                 del q, k, v, r, got, out, ref, want, lse, lse_want
+    (oa, orl), (ga, grl) = FLASH_TOL["bfloat16"]
+    for bth in FLASH_MLA_SHAPES:
+        for causal in (True, False):
+            gen = torch.Generator(device=dev).manual_seed(sum(bth) + causal)
+            q, k = (torch.randn(*bth, 192, generator=gen, device=dev).bfloat16().float()
+                    for _ in range(2))
+            v, r = (torch.randn(*bth, 128, generator=gen, device=dev).bfloat16().float()
+                    for _ in range(2))
+            got = [t.to(torch.bfloat16).requires_grad_(True) for t in (q, k, v)]
+            out = fa.flash_attention_bthd(*got, causal=causal)
+            (out.float() * r).sum().backward()
+            ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            want = fa.flash_attention_reference(*ref, causal=causal)
+            (want * r).sum().backward()
+            scale = 1.0 / math.sqrt(192)
+            _, lse = fa.flash_fwd(*(t.detach() for t in got), causal, scale)
+            _, lse_want = fa.flash_fwd_reference(q, k, v, causal, scale)
+            torch.cuda.synchronize()
+            checks = {"o": _close(out, want, oa, orl), "lse": _close(lse, lse_want, oa, orl)}
+            for n, a, b in zip("qkv", got, ref):
+                checks[f"d{n}"] = _close(a.grad, b.grad, ga, grl)
+            errs = {n: e for n, (_, e, _) in checks.items()}
+            emit("flash_kernel", shape=[*bth, 192, 128], causal=causal, dtype="bfloat16",
+                 max_abs_err=errs, share_of_tolerance={n: s for n, (_, _, s) in checks.items()})
+            if out.shape[-1] != 128 or not all(ok for ok, _, _ in checks.values()):
+                raise AssertionError(f"flash kernels != plain at {bth} (192, 128) "
+                                     f"causal={causal}: {errs}")
+            del q, k, v, r, got, out, ref, want, lse, lse_want
     torch.cuda.empty_cache()
     return worst
 

@@ -135,6 +135,22 @@
 //   the last query tile for dQ), so the longest blocks start first. A warp
 //   whose 16 rows see none of a tile skips it.
 //
+// Widths: q and k (and dQ, dK) rows are D wide, v, O, dO and dV rows
+// DV = v_dim<D>() wide. The (D, DV) pairs are (16, 16), (32, 32), (64, 64)
+// and (128, 128) in both types, and (192, 128) in bf16 only: latent
+// attention's heads (models/mla_moe.py: 128 "nope" and 64 RoPE dims of q
+// and k, 128 of value). That instance is no kernel of the TPU package. It
+// runs v at its own width (no zero padding to 192): S and dS K over 192,
+// P V, dP and dV over 128, in the same bodies, whose loops over D stop
+// their v-side products at DV. Its operands are contiguous, so v's strides
+// follow from its width. What bounds it: at the cell's [2, 8192, 16]
+// operations, as the others; on registers, the dK/dV kernel's 16 x 192 and
+// 16 x 128 accumulators (160 registers a thread), so K's and V's fragments
+// are re-read each chunk of 32 queries, and the forward re-reads Q's
+// fragments each key tile (48 registers a thread if held). Staged tiles of
+// 192 bf16 values (24 chunks of 16 bytes) are copied chunk by chunk over
+// the block, 128 not being a multiple of 24.
+//
 // Each launcher launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() of its launch.
 
@@ -168,6 +184,31 @@ __host__ __device__ constexpr int padded_row() {
     return D + 16 / (int)sizeof(E);
 }
 
+// The width of v, O, dO and dV in the instance whose q and k (and dQ, dK)
+// rows are D wide: D, but 128 for the latent-attention instance D = 192
+// (bf16 only). Its operands are contiguous, so v's strides follow from its
+// width (vstrides below); the others take the caller's strides.
+template <int D>
+__host__ __device__ constexpr int v_dim() {
+    return D == 192 ? 128 : D;
+}
+
+// Offset of (batch b, head h) and row stride of the DV-wide operands: the
+// caller's base and row stride when DV == D, else those of a contiguous
+// [B, T, H, DV] tensor.
+template <int D>
+__device__ __forceinline__ void vstrides(int64_t& vbase, int64_t& vT, int64_t base, int64_t sT,
+                                         int b, int h, int T, int H) {
+    constexpr int DV = v_dim<D>();
+    if constexpr (DV == D) {
+        vbase = base;
+        vT = sT;
+    } else {
+        vT = (int64_t)H * DV;
+        vbase = (int64_t)b * T * vT + (int64_t)h * DV;
+    }
+}
+
 // Rows [row0, row0 + ROWS) of one (batch, head) slice, all D columns, into
 // shared memory row-major ([ROWS][LD]) with 16-byte cp.async copies; rows
 // at or past T are zero-filled.
@@ -175,14 +216,24 @@ template <int ROWS, int D, typename E>
 __device__ __forceinline__ void async_tile(E* dst, const E* src, int64_t row_stride, int row0,
                                            int T) {
     constexpr int LD = padded_row<E, D>(), PER = 16 / (int)sizeof(E), CH = D / PER;
-    static_assert(kThreads % CH == 0, "a thread copies one column of chunks");
-    // A thread's column is the same on every row it copies: computed once,
-    // so that the compiler keeps one offset live across the tile loop.
-    const int c = threadIdx.x % CH;
-    for (int r = threadIdx.x / CH; r < ROWS; r += kThreads / CH) {
-        const bool in = row0 + r < T;
-        tc::cp_async16(dst + r * LD + c * PER,
-                       src + (in ? (int64_t)(row0 + r) * row_stride + c * PER : 0), in);
+    if constexpr (kThreads % CH == 0) {
+        // A thread's column is the same on every row it copies: computed
+        // once, so that the compiler keeps one offset live across the loop.
+        const int c = threadIdx.x % CH;
+        for (int r = threadIdx.x / CH; r < ROWS; r += kThreads / CH) {
+            const bool in = row0 + r < T;
+            tc::cp_async16(dst + r * LD + c * PER,
+                           src + (in ? (int64_t)(row0 + r) * row_stride + c * PER : 0), in);
+        }
+    } else {
+        // Rows of a width whose chunks do not divide the block (D = 192):
+        // the tile's chunks in order, a thread every kThreads.
+        for (int i = threadIdx.x; i < ROWS * CH; i += kThreads) {
+            const int r = i / CH, c = i % CH;
+            const bool in = row0 + r < T;
+            tc::cp_async16(dst + r * LD + c * PER,
+                           src + (in ? (int64_t)(row0 + r) * row_stride + c * PER : 0), in);
+        }
     }
 }
 
@@ -280,9 +331,9 @@ struct FwdTile {
     // Keys of a streamed tile: 64 (faster than 32 on the H100 in both
     // types, PERF.md).
     static constexpr int BQ = kOuter, BK = 64;
-    static constexpr int LD = padded_row<E, D>();
-    // Q [BQ][LD]; two stages of K, V [BK][LD]
-    static constexpr int kBytes = (BQ * LD + 4 * BK * LD) * (int)sizeof(E);
+    static constexpr int LD = padded_row<E, D>(), LDV = padded_row<E, v_dim<D>()>();
+    // Q [BQ][LD]; two stages of K [BK][LD] and of V [BK][LDV]
+    static constexpr int kBytes = (BQ * LD + 2 * BK * LD + 2 * BK * LDV) * (int)sizeof(E);
 };
 
 // o = alpha o + x in IEEE fp32 (one rounding an element), alpha per row
@@ -293,13 +344,15 @@ __device__ __forceinline__ void rescale_add(float (&o)[4], const float (&alpha)[
     for (int e = 0; e < 4; ++e) o[e] = __fmaf_rn(alpha[e >> 1], o[e], x[e]);
 }
 
-// The products of one warp (16 query rows) and one key tile, by input type.
-template <typename E, int D, int BK, int LD>
+// The products of one warp (16 query rows) and one key tile, by input type;
+// V's tile rows are LDV apart.
+template <typename E, int D, int BK, int LD, int LDV>
 struct FwdOps;
 
 // fp32: on the TF32 tensor cores to fp32 accuracy (3xTF32, m16n8k8).
-template <int D, int BK, int LD>
-struct FwdOps<float, D, BK, LD> {
+template <int D, int BK, int LD, int LDV>
+struct FwdOps<float, D, BK, LD, LDV> {
+    static_assert(v_dim<D>() == D && LDV == LD, "fp32 instances have one width");
     // Q's fragments, split into TF32 parts once for the whole key loop (D
     // registers a thread), up to D = 64; at D = 128, whose O accumulator
     // takes 64 registers, they are re-read and split each tile.
@@ -375,36 +428,49 @@ struct FwdOps<float, D, BK, LD> {
 };
 
 // bf16: on the bf16 tensor cores (m16n8k16, fp32 sums).
-template <int D, int BK, int LD>
-struct FwdOps<__nv_bfloat16, D, BK, LD> {
+template <int D, int BK, int LD, int LDV>
+struct FwdOps<__nv_bfloat16, D, BK, LD, LDV> {
+    static constexpr int DV = v_dim<D>();
+    // Q's fragments stay in registers for the whole key loop up to D = 128;
+    // at D = 192 (48 registers a thread) they are re-read each tile.
+    static constexpr bool kQRegs = D <= 128;
     struct Q {
-        uint32_t a[D / 16][4];
+        uint32_t a[kQRegs ? D / 16 : 1][4];
     };
 
     static __device__ __forceinline__ void load_q(Q& q, const __nv_bfloat16* Qs, int r0, int g,
                                                   int t) {
+        if constexpr (kQRegs) {
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) frag_a16<LD>(q.a[kk], Qs, r0, 16 * kk, g, t);
+            for (int kk = 0; kk < D / 16; ++kk) frag_a16<LD>(q.a[kk], Qs, r0, 16 * kk, g, t);
+        }
     }
 
     // s = Q K^T in one pass: products of bf16 values are exact.
     static __device__ __forceinline__ void scores(float (&s)[BK / 8][4], const Q& q,
-                                                  const __nv_bfloat16* /*Qs*/,
-                                                  const __nv_bfloat16* Kb, int /*r0*/, int /*g*/,
-                                                  int /*t*/, int lane) {
+                                                  const __nv_bfloat16* Qs,
+                                                  const __nv_bfloat16* Kb, int r0, int g, int t,
+                                                  int lane) {
         // ldmatrix tiles 0..3: keys +0 / +8 (tiles 0, 1 / 2, 3) of columns
         // +0 / +8 (tiles 0, 2 / 1, 3): the B fragments of two key blocks.
         const __nv_bfloat16* krow =
             Kb + ((lane & 7) + 8 * (lane >> 4)) * LD + 8 * ((lane >> 3) & 1);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
+            uint32_t qa[4];
+            if constexpr (kQRegs) {
+#pragma unroll
+                for (int r = 0; r < 4; ++r) qa[r] = q.a[kk][r];
+            } else {
+                frag_a16<LD>(qa, Qs, r0, 16 * kk, g, t);
+            }
 #pragma unroll
             for (int jp = 0; jp < BK / 16; ++jp) {
                 uint32_t y[4];
                 tc::ldmatrix_x4(y, krow + 16 * jp * LD + 16 * kk);
                 const uint32_t b0[2] = {y[0], y[1]}, b1[2] = {y[2], y[3]};
-                tc::mma_bf16(s[2 * jp], q.a[kk], b0);
-                tc::mma_bf16(s[2 * jp + 1], q.a[kk], b1);
+                tc::mma_bf16(s[2 * jp], qa, b0);
+                tc::mma_bf16(s[2 * jp + 1], qa, b1);
             }
         }
     }
@@ -413,10 +479,10 @@ struct FwdOps<__nv_bfloat16, D, BK, LD> {
     // B fragments transposed out of its row-major tile, two output tiles of
     // 8 columns a load. As in fp32, the key tile is the outer loop and up to
     // 8 output tiles take fresh accumulators at once.
-    static __device__ __forceinline__ void pv(float (&o)[D / 8][4], const float (&p)[BK / 8][4],
+    static __device__ __forceinline__ void pv(float (&o)[DV / 8][4], const float (&p)[BK / 8][4],
                                               const float (&alpha)[2], const __nv_bfloat16* Vb,
                                               int /*g*/, int /*t*/, int lane) {
-        constexpr int NP = D / 16 < 4 ? D / 16 : 4;  // pairs of output tiles at once
+        constexpr int NP = DV / 16 < 4 ? DV / 16 : 4;  // pairs of output tiles at once
         // Keys 16 jj..16 jj + 15: the accumulator tiles 2 jj and 2 jj + 1.
         uint32_t ph[BK / 16][4], pl[BK / 16][4];
 #pragma unroll
@@ -430,16 +496,16 @@ struct FwdOps<__nv_bfloat16, D, BK, LD> {
         // This lane's row address for ldmatrix: tiles 0..3 are keys +0 / +8
         // of columns +0 (tiles 0, 1) and +8 (tiles 2, 3).
         const __nv_bfloat16* vrow =
-            Vb + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 8 * (lane >> 4);
+            Vb + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LDV + 8 * (lane >> 4);
 #pragma unroll
-        for (int p0 = 0; p0 < D / 16; p0 += NP) {
+        for (int p0 = 0; p0 < DV / 16; p0 += NP) {
             float x[2 * NP][4] = {};
 #pragma unroll
             for (int jj = 0; jj < BK / 16; ++jj) {
 #pragma unroll
                 for (int np = 0; np < NP; ++np) {
                     uint32_t y[4];
-                    tc::ldmatrix_x4_trans(y, vrow + 16 * jj * LD + 16 * (p0 + np));
+                    tc::ldmatrix_x4_trans(y, vrow + 16 * jj * LDV + 16 * (p0 + np));
                     const uint32_t b0[2] = {y[0], y[1]}, b1[2] = {y[2], y[3]};
                     tc::mma_bf16(x[2 * np], pl[jj], b0);
                     tc::mma_bf16(x[2 * np], ph[jj], b0);
@@ -511,12 +577,12 @@ __global__ void __launch_bounds__(kThreads)
                      E* __restrict__ o, float* __restrict__ lse, int T, int H, int64_t sB,
                      int64_t sT, int64_t sH, float c, int causal) {
     using S = FwdTile<E, D>;
-    using Ops = FwdOps<E, D, S::BK, S::LD>;
-    constexpr int BK = S::BK, LD = S::LD;
+    using Ops = FwdOps<E, D, S::BK, S::LD, S::LDV>;
+    constexpr int BK = S::BK, LD = S::LD, LDV = S::LDV, DV = v_dim<D>();
     extern __shared__ float4 smem4[];
     E* Qs = reinterpret_cast<E*>(smem4);
     E* Ks = Qs + S::BQ * LD;   // [2][BK][LD]
-    E* Vs = Ks + 2 * BK * LD;  // [2][BK][LD]
+    E* Vs = Ks + 2 * BK * LD;  // [2][BK][LDV]
 
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
     // Slow grid index = query tile, heaviest first: under causality the
@@ -524,6 +590,8 @@ __global__ void __launch_bounds__(kThreads)
     const int m0 = (gridDim.y - 1 - blockIdx.y) * S::BQ, bh = blockIdx.x, b = bh / H,
               h = bh % H;
     const int64_t base = (int64_t)b * sB + (int64_t)h * sH;
+    int64_t vbase, vT;  // of v and o
+    vstrides<D>(vbase, vT, base, sT, b, h, T, H);
     const int r0 = warp * kWarpRows, qr = m0 + r0;  // this warp's first query
     const int k_end = causal ? min(T, m0 + S::BQ) : T;
     const int n_tiles = (k_end + BK - 1) / BK;
@@ -531,7 +599,7 @@ __global__ void __launch_bounds__(kThreads)
     auto stage = [&](int i) {
         const int buf = i & 1;
         async_tile<BK, D>(Ks + buf * BK * LD, k + base, sT, i * BK, T);
-        async_tile<BK, D>(Vs + buf * BK * LD, v + base, sT, i * BK, T);
+        async_tile<BK, DV>(Vs + buf * BK * LDV, v + vbase, vT, i * BK, T);
         tc::cp_async_commit();
     };
     async_tile<S::BQ, D>(Qs, q + base, sT, m0, T);
@@ -542,7 +610,7 @@ __global__ void __launch_bounds__(kThreads)
     typename Ops::Q qf;
     Ops::load_q(qf, Qs, r0, g, t);
 
-    float acc[D / 8][4] = {};
+    float acc[DV / 8][4] = {};
     float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
     for (int i = 0; i < n_tiles; ++i) {
         if (i + 1 < n_tiles) {
@@ -566,7 +634,7 @@ __global__ void __launch_bounds__(kThreads)
             } else {
                 online_softmax<BK, false>(s, m_run, l_run, alpha, qr, n0, T, causal, c, g, t);
             }
-            Ops::pv(acc, s, alpha, Vs + buf * BK * LD, g, t, lane);
+            Ops::pv(acc, s, alpha, Vs + buf * BK * LDV, g, t, lane);
         }
         __syncthreads();  // every warp is done with buffer i & 1 before it reloads
     }
@@ -581,12 +649,12 @@ __global__ void __launch_bounds__(kThreads)
         // m is in base 2: LSE = m ln 2 + log l, in natural units.
         if (t == 0 && r < T) lse_row[r] = __fmaf_rn(m_run[half], kLn2, logf(l));
 #pragma unroll
-        for (int nd = 0; nd < D / 8; ++nd) {
+        for (int nd = 0; nd < DV / 8; ++nd) {
             acc[nd][2 * half] /= l;
             acc[nd][2 * half + 1] /= l;
         }
     }
-    store_rows<D>(o, acc, 1.f, base, sT, qr, T, g, t);
+    store_rows<DV>(o, acc, 1.f, vbase, vT, qr, T, g, t);
 }
 
 // ------------------------------------------------------------------ dK, dV
@@ -596,16 +664,18 @@ struct BwdKVTile {
     // Queries of a streamed tile. fp32: 32, or 16 at D = 128, so that the
     // 16 x 128 dK and dV accumulators (128 registers a thread) and S, dP
     // with their lo parts fit without spills. bf16 (chunks below): 128 at
-    // D = 64, 64 at D = 32 and 128, 32 at D = 16; fewer syncs a query than
-    // smaller tiles, and the fastest on the H100 (PERF.md) of the tiles that
-    // compile without spills.
+    // D = 64, 64 at D = 32, 128 and 192, 32 at D = 16; fewer syncs a query
+    // than smaller tiles, and the fastest on the H100 (PERF.md) of the tiles
+    // that compile without spills.
     static constexpr int BK = kOuter;
     static constexpr int BQ = sizeof(E) == 2 ? (D == 64 ? 128 : D == 16 ? 32 : 64)
                                              : (D == 128 ? kInner / 2 : kInner);
-    static constexpr int LD = padded_row<E, D>();
-    // K, V [BK][LD]; two stages of Q, dO [BQ][LD]; two stages of lse, delta [BQ]
-    static constexpr int kBytes =
-        (2 * BK * LD + 4 * BQ * LD) * (int)sizeof(E) + 4 * BQ * (int)sizeof(float);
+    static constexpr int LD = padded_row<E, D>(), LDV = padded_row<E, v_dim<D>()>();
+    // K [BK][LD], V [BK][LDV]; two stages of Q [BQ][LD] and dO [BQ][LDV];
+    // two stages of lse, delta [BQ]
+    static constexpr int kBytes = (BK * LD + BK * LDV + 2 * BQ * LD + 2 * BQ * LDV) *
+                                      (int)sizeof(E) +
+                                  4 * BQ * (int)sizeof(float);
 };
 
 // This lane's row address for ldmatrix of a 16 x 16 block at (r0, 0) of a
@@ -661,13 +731,14 @@ __device__ __forceinline__ void pack_a16(uint32_t (&a)[4], const float (&x0)[4],
 // layout (row key, column query), then dV += P^T dO and dK += dS^T Q,
 // reducing over the tile's queries: each 16 x 8 output tile sums the tile
 // (in bf16 a chunk of it) in a fresh accumulator, added to the running one
-// in IEEE fp32.
-template <typename E, int D, int BQ, int LD>
+// in IEEE fp32. V's and dO's tile rows are LDV apart.
+template <typename E, int D, int BQ, int LD, int LDV>
 struct BwdKVOps;
 
 // fp32: on the TF32 tensor cores to fp32 accuracy (3xTF32, m16n8k8).
-template <int D, int BQ, int LD>
-struct BwdKVOps<float, D, BQ, LD> {
+template <int D, int BQ, int LD, int LDV>
+struct BwdKVOps<float, D, BQ, LD, LDV> {
+    static_assert(v_dim<D>() == D && LDV == LD, "fp32 instances have one width");
     struct KV {};
     static __device__ __forceinline__ void load_kv(KV&, const float*, const float*, int, int) {}
 
@@ -738,23 +809,26 @@ struct BwdKVOps<float, D, BQ, LD> {
 };
 
 // bf16: on the bf16 tensor cores (m16n8k16, fp32 sums), one pass a
-// product, every fragment by ldmatrix; P^T and dS^T rounded to bf16.
-template <int D, int BQ, int LD>
-struct BwdKVOps<__nv_bfloat16, D, BQ, LD> {
+// product, every fragment by ldmatrix; P^T and dS^T rounded to bf16. S^T
+// runs over D and dP^T over DV; dK's products over D, dV's over DV.
+template <int D, int BQ, int LD, int LDV>
+struct BwdKVOps<__nv_bfloat16, D, BQ, LD, LDV> {
     using bf16 = __nv_bfloat16;
+    static constexpr int DV = v_dim<D>();
     // K's and V's A fragments (the warp's 16 keys), loaded once for the
-    // whole query loop up to D = 64 (D / 2 registers a thread); at D = 128,
-    // whose dK and dV accumulators take 128 registers, re-read each chunk.
+    // whole query loop up to D = 64 (D / 2 registers a thread); at D = 128
+    // and 192, whose dK and dV accumulators take 128 and 160 registers,
+    // re-read each chunk.
     static constexpr bool kRegs = D <= 64;
     // The streamed tile runs in chunks of CH queries: S^T, dP^T, P^T, dS^T
     // of a chunk, then its products, each output tile summed over the chunk
     // in a fresh accumulator. 64 at D = 64, else 32: the chunk's S^T and dP^T
     // (CH / 2 registers a thread each) beside the dK and dV accumulators
-    // (D / 2 each).
+    // ((D + DV) / 2).
     static constexpr int CH = D == 64 ? 64 : 32;
     static_assert(BQ % CH == 0, "a streamed tile is whole chunks");
     struct KV {
-        uint32_t k[kRegs ? D / 16 : 1][4], v[kRegs ? D / 16 : 1][4];
+        uint32_t k[kRegs ? D / 16 : 1][4], v[kRegs ? DV / 16 : 1][4];
     };
 
     static __device__ __forceinline__ void load_kv(KV& kv, const bf16* Ks, const bf16* Vs,
@@ -763,13 +837,14 @@ struct BwdKVOps<__nv_bfloat16, D, BQ, LD> {
 #pragma unroll
             for (int kk = 0; kk < D / 16; ++kk) {
                 tc::ldmatrix_x4(kv.k[kk], ldsm_row<LD, true>(Ks, r0, lane) + 16 * kk);
-                tc::ldmatrix_x4(kv.v[kk], ldsm_row<LD, true>(Vs, r0, lane) + 16 * kk);
+                if (kk < DV / 16)
+                    tc::ldmatrix_x4(kv.v[kk], ldsm_row<LDV, true>(Vs, r0, lane) + 16 * kk);
             }
         }
     }
 
     static __device__ __forceinline__ void tile(float (&dk_acc)[D / 8][4],
-                                                float (&dv_acc)[D / 8][4], const KV& kv,
+                                                float (&dv_acc)[DV / 8][4], const KV& kv,
                                                 const bf16* Ks, const bf16* Vs, const bf16* Qb,
                                                 const bf16* dOb, const float* lse_b,
                                                 const float* dl_b, int q0, int kr, int warp,
@@ -785,13 +860,15 @@ struct BwdKVOps<__nv_bfloat16, D, BQ, LD> {
             float s[CH / 8][4] = {}, dp[CH / 8][4] = {};
 #pragma unroll
             for (int kk = 0; kk < D / 16; ++kk) {
+                // dP^T's reduction (over DV) ends first where DV < D.
+                const bool with_v = kk < DV / 16;
                 uint32_t ka[4], va[4];
                 if constexpr (kRegs) {
 #pragma unroll
                     for (int r = 0; r < 4; ++r) ka[r] = kv.k[kk][r], va[r] = kv.v[kk][r];
                 } else {
                     tc::ldmatrix_x4(ka, ldsm_row<LD, true>(Ks, r0, lane) + 16 * kk);
-                    tc::ldmatrix_x4(va, ldsm_row<LD, true>(Vs, r0, lane) + 16 * kk);
+                    if (with_v) tc::ldmatrix_x4(va, ldsm_row<LDV, true>(Vs, r0, lane) + 16 * kk);
                 }
 #pragma unroll
                 for (int jp = 0; jp < CH / 16; ++jp) {
@@ -800,10 +877,12 @@ struct BwdKVOps<__nv_bfloat16, D, BQ, LD> {
                     const uint32_t q0b[2] = {y[0], y[1]}, q1b[2] = {y[2], y[3]};
                     tc::mma_bf16(s[2 * jp], ka, q0b);
                     tc::mma_bf16(s[2 * jp + 1], ka, q1b);
-                    tc::ldmatrix_x4(y, ldsm_row<LD, false>(dOb, c0 + 16 * jp, lane) + 16 * kk);
-                    const uint32_t o0b[2] = {y[0], y[1]}, o1b[2] = {y[2], y[3]};
-                    tc::mma_bf16(dp[2 * jp], va, o0b);
-                    tc::mma_bf16(dp[2 * jp + 1], va, o1b);
+                    if (with_v) {
+                        tc::ldmatrix_x4(y, ldsm_row<LDV, false>(dOb, c0 + 16 * jp, lane) + 16 * kk);
+                        const uint32_t o0b[2] = {y[0], y[1]}, o1b[2] = {y[2], y[3]};
+                        tc::mma_bf16(dp[2 * jp], va, o0b);
+                        tc::mma_bf16(dp[2 * jp + 1], va, o1b);
+                    }
                 }
             }
             // Column (query) qc + 8 j + 2 t + col; row (key) kr + g + 8 half.
@@ -832,14 +911,19 @@ struct BwdKVOps<__nv_bfloat16, D, BQ, LD> {
             // columns a load, the chunk summed in fresh accumulators.
 #pragma unroll
             for (int np = 0; np < D / 16; ++np) {
+                // dV's columns (DV) end first where DV < D.
+                const bool with_v = np < DV / 16;
                 float tv[2][4] = {}, tk[2][4] = {};
 #pragma unroll
                 for (int jj = 0; jj < CH / 16; ++jj) {
                     uint32_t y[4];
-                    tc::ldmatrix_x4_trans(y, ldsm_row<LD, true>(dOb, c0 + 16 * jj, lane) + 16 * np);
-                    const uint32_t o0b[2] = {y[0], y[1]}, o1b[2] = {y[2], y[3]};
-                    tc::mma_bf16(tv[0], pa[jj], o0b);
-                    tc::mma_bf16(tv[1], pa[jj], o1b);
+                    if (with_v) {
+                        tc::ldmatrix_x4_trans(
+                            y, ldsm_row<LDV, true>(dOb, c0 + 16 * jj, lane) + 16 * np);
+                        const uint32_t o0b[2] = {y[0], y[1]}, o1b[2] = {y[2], y[3]};
+                        tc::mma_bf16(tv[0], pa[jj], o0b);
+                        tc::mma_bf16(tv[1], pa[jj], o1b);
+                    }
                     tc::ldmatrix_x4_trans(y, ldsm_row<LD, true>(Qb, c0 + 16 * jj, lane) + 16 * np);
                     const uint32_t q0b[2] = {y[0], y[1]}, q1b[2] = {y[2], y[3]};
                     tc::mma_bf16(tk[0], sa[jj], q0b);
@@ -847,7 +931,7 @@ struct BwdKVOps<__nv_bfloat16, D, BQ, LD> {
                 }
 #pragma unroll
                 for (int i = 0; i < 2; ++i) {
-                    tc::add4(dv_acc[2 * np + i], tv[i]);
+                    if (with_v) tc::add4(dv_acc[2 * np + i], tv[i]);
                     tc::add4(dk_acc[2 * np + i], tk[i]);
                 }
             }
@@ -863,14 +947,14 @@ __global__ void __launch_bounds__(kThreads)
                          E* __restrict__ dk, E* __restrict__ dv, int T, int H, int64_t sB,
                          int64_t sT, int64_t sH, float scale, int causal) {
     using S = BwdKVTile<E, D>;
-    constexpr int BQ = S::BQ, LD = S::LD;
-    using Ops = BwdKVOps<E, D, BQ, LD>;
+    constexpr int BQ = S::BQ, LD = S::LD, LDV = S::LDV, DV = v_dim<D>();
+    using Ops = BwdKVOps<E, D, BQ, LD, LDV>;
     extern __shared__ float4 smem4[];
     E* Ks = reinterpret_cast<E*>(smem4);
-    E* Vs = Ks + S::BK * LD;
-    E* Qs = Vs + S::BK * LD;   // [2][BQ][LD]
-    E* dOs = Qs + 2 * BQ * LD;  // [2][BQ][LD]
-    float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * LD);  // [2][BQ]
+    E* Vs = Ks + S::BK * LD;    // [BK][LDV]
+    E* Qs = Vs + S::BK * LDV;   // [2][BQ][LD]
+    E* dOs = Qs + 2 * BQ * LD;  // [2][BQ][LDV]
+    float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * LDV);  // [2][BQ]
     float* dl_s = lse_s + 2 * BQ;
 
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -878,6 +962,8 @@ __global__ void __launch_bounds__(kThreads)
     // at 0 sees every query.
     const int n0 = blockIdx.y * S::BK, bh = blockIdx.x, b = bh / H, h = bh % H;
     const int64_t base = (int64_t)b * sB + (int64_t)h * sH;
+    int64_t vbase, vT;  // of v, dO and dV
+    vstrides<D>(vbase, vT, base, sT, b, h, T, H);
     const int64_t rows = (int64_t)bh * T;
     const int kr = n0 + warp * kWarpRows;  // this warp's first key
     // Causal: query tiles wholly before this key tile see none of it.
@@ -887,13 +973,13 @@ __global__ void __launch_bounds__(kThreads)
     auto stage = [&](int i) {
         const int q0 = q_begin + i * BQ, buf = i & 1;
         async_tile<BQ, D>(Qs + buf * BQ * LD, q + base, sT, q0, T);
-        async_tile<BQ, D>(dOs + buf * BQ * LD, dout + base, sT, q0, T);
+        async_tile<BQ, DV>(dOs + buf * BQ * LDV, dout + vbase, vT, q0, T);
         async_rows<BQ>(lse_s + buf * BQ, lse + rows, q0, T);
         async_rows<BQ>(dl_s + buf * BQ, delta + rows, q0, T);
         tc::cp_async_commit();
     };
     async_tile<S::BK, D>(Ks, k + base, sT, n0, T);
-    async_tile<S::BK, D>(Vs, v + base, sT, n0, T);
+    async_tile<S::BK, DV>(Vs, v + vbase, vT, n0, T);
     tc::cp_async_commit();
     stage(0);
     tc::cp_async_wait<1>();
@@ -901,7 +987,7 @@ __global__ void __launch_bounds__(kThreads)
     typename Ops::KV kv;
     Ops::load_kv(kv, Ks, Vs, warp * kWarpRows, lane);
 
-    float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
+    float dk_acc[D / 8][4] = {}, dv_acc[DV / 8][4] = {};
     for (int i = 0; i < n_tiles; ++i) {
         if (i + 1 < n_tiles) {
             stage(i + 1);
@@ -914,14 +1000,14 @@ __global__ void __launch_bounds__(kThreads)
         // Skip when this warp's keys are all past T or all after the
         // tile's last query (warp-uniform).
         if (kr < T && (!causal || kr <= q0 + BQ - 1)) {
-            Ops::tile(dk_acc, dv_acc, kv, Ks, Vs, Qs + buf * BQ * LD, dOs + buf * BQ * LD,
+            Ops::tile(dk_acc, dv_acc, kv, Ks, Vs, Qs + buf * BQ * LD, dOs + buf * BQ * LDV,
                       lse_s + buf * BQ, dl_s + buf * BQ, q0, kr, warp, T, causal, scale, g, t,
                       lane);
         }
         __syncthreads();  // every warp is done with buffer i & 1 before it reloads
     }
     store_rows<D>(dk, dk_acc, scale, base, sT, kr, T, g, t);
-    store_rows<D>(dv, dv_acc, 1.f, base, sT, kr, T, g, t);
+    store_rows<DV>(dv, dv_acc, 1.f, vbase, vT, kr, T, g, t);
 }
 
 // ---------------------------------------------------------------------- dQ
@@ -931,21 +1017,24 @@ struct BwdQTile {
     // Keys of a streamed tile: 32 in fp32, 64 in bf16 (faster on the H100,
     // PERF.md).
     static constexpr int BQ = kOuter, BK = sizeof(E) == 2 ? 64 : kInner;
-    static constexpr int LD = padded_row<E, D>();
-    // Q, dO [BQ][LD]; two stages of K, V [BK][LD]
-    static constexpr int kBytes = (2 * BQ * LD + 4 * BK * LD) * (int)sizeof(E);
+    static constexpr int LD = padded_row<E, D>(), LDV = padded_row<E, v_dim<D>()>();
+    // Q [BQ][LD], dO [BQ][LDV]; two stages of K [BK][LD] and V [BK][LDV]
+    static constexpr int kBytes =
+        (BQ * LD + BQ * LDV + 2 * BK * LD + 2 * BK * LDV) * (int)sizeof(E);
 };
 
 // The products of one warp (16 queries) and one key tile, by input type:
 // S = Q K^T and dP = dO V^T, dS in the accumulator layout (row query,
 // column key), then dQ += dS K, reducing over the tile's keys, a fresh
-// accumulator per output tile as in dK/dV.
-template <typename E, int D, int BK, int LD>
+// accumulator per output tile as in dK/dV. dO's and V's tile rows are LDV
+// apart.
+template <typename E, int D, int BK, int LD, int LDV>
 struct BwdQOps;
 
 // fp32: 3xTF32, as dK/dV.
-template <int D, int BK, int LD>
-struct BwdQOps<float, D, BK, LD> {
+template <int D, int BK, int LD, int LDV>
+struct BwdQOps<float, D, BK, LD, LDV> {
+    static_assert(v_dim<D>() == D && LDV == LD, "fp32 instances have one width");
     static __device__ __forceinline__ void tile(float (&acc)[D / 8][4], const float* Qs,
                                                 const float* dOs,
                                                 const float* Kb, const float* Vb,
@@ -1007,10 +1096,12 @@ struct BwdQOps<float, D, BK, LD> {
 
 // bf16: one m16n8k16 pass a product, as dK/dV; dS rounded to bf16. Q's
 // and dO's A fragments are re-read each tile: held for the whole loop,
-// they cost 32 registers (64 at D = 128) and blocks a multiprocessor.
-template <int D, int BK, int LD>
-struct BwdQOps<__nv_bfloat16, D, BK, LD> {
+// they cost 32 registers (64 at D = 128) and blocks a multiprocessor. S
+// runs over D, dP over DV.
+template <int D, int BK, int LD, int LDV>
+struct BwdQOps<__nv_bfloat16, D, BK, LD, LDV> {
     using bf16 = __nv_bfloat16;
+    static constexpr int DV = v_dim<D>();
 
     static __device__ __forceinline__ void tile(float (&acc)[D / 8][4], const bf16* Qs,
                                                 const bf16* dOs, const bf16* Kb, const bf16* Vb,
@@ -1020,9 +1111,12 @@ struct BwdQOps<__nv_bfloat16, D, BK, LD> {
         float s[BK / 8][4] = {}, dp[BK / 8][4] = {};
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
+            // dP's reduction (over DV) ends first where DV < D.
+            const bool with_v = kk < DV / 16;
             uint32_t qa[4], oa[4];
             tc::ldmatrix_x4(qa, ldsm_row<LD, true>(Qs, warp * kWarpRows, lane) + 16 * kk);
-            tc::ldmatrix_x4(oa, ldsm_row<LD, true>(dOs, warp * kWarpRows, lane) + 16 * kk);
+            if (with_v)
+                tc::ldmatrix_x4(oa, ldsm_row<LDV, true>(dOs, warp * kWarpRows, lane) + 16 * kk);
 #pragma unroll
             for (int jp = 0; jp < BK / 16; ++jp) {
                 uint32_t y[4];
@@ -1030,10 +1124,12 @@ struct BwdQOps<__nv_bfloat16, D, BK, LD> {
                 const uint32_t k0b[2] = {y[0], y[1]}, k1b[2] = {y[2], y[3]};
                 tc::mma_bf16(s[2 * jp], qa, k0b);
                 tc::mma_bf16(s[2 * jp + 1], qa, k1b);
-                tc::ldmatrix_x4(y, ldsm_row<LD, false>(Vb, 16 * jp, lane) + 16 * kk);
-                const uint32_t v0b[2] = {y[0], y[1]}, v1b[2] = {y[2], y[3]};
-                tc::mma_bf16(dp[2 * jp], oa, v0b);
-                tc::mma_bf16(dp[2 * jp + 1], oa, v1b);
+                if (with_v) {
+                    tc::ldmatrix_x4(y, ldsm_row<LDV, false>(Vb, 16 * jp, lane) + 16 * kk);
+                    const uint32_t v0b[2] = {y[0], y[1]}, v1b[2] = {y[2], y[3]};
+                    tc::mma_bf16(dp[2 * jp], oa, v0b);
+                    tc::mma_bf16(dp[2 * jp + 1], oa, v1b);
+                }
             }
         }
         // Row (query) qr + g + 8 half; column (key) k0 + 8 j + 2 t + col.
@@ -1081,13 +1177,13 @@ __global__ void __launch_bounds__(kThreads)
                         E* __restrict__ dq, int T, int H, int64_t sB, int64_t sT, int64_t sH,
                         float scale, int causal) {
     using S = BwdQTile<E, D>;
-    constexpr int BK = S::BK, LD = S::LD;
-    using Ops = BwdQOps<E, D, BK, LD>;
+    constexpr int BK = S::BK, LD = S::LD, LDV = S::LDV, DV = v_dim<D>();
+    using Ops = BwdQOps<E, D, BK, LD, LDV>;
     extern __shared__ float4 smem4[];
     E* Qs = reinterpret_cast<E*>(smem4);
-    E* dOs = Qs + S::BQ * LD;
-    E* Ks = dOs + S::BQ * LD;  // [2][BK][LD]
-    E* Vs = Ks + 2 * BK * LD;  // [2][BK][LD]
+    E* dOs = Qs + S::BQ * LD;   // [BQ][LDV]
+    E* Ks = dOs + S::BQ * LDV;  // [2][BK][LD]
+    E* Vs = Ks + 2 * BK * LD;   // [2][BK][LDV]
 
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
     // Slow grid index = query tile, heaviest first: under causality the
@@ -1095,6 +1191,8 @@ __global__ void __launch_bounds__(kThreads)
     const int m0 = (gridDim.y - 1 - blockIdx.y) * S::BQ, bh = blockIdx.x, b = bh / H,
               h = bh % H;
     const int64_t base = (int64_t)b * sB + (int64_t)h * sH;
+    int64_t vbase, vT;  // of v and dO
+    vstrides<D>(vbase, vT, base, sT, b, h, T, H);
     const int64_t rows = (int64_t)bh * T;
     const int qr = m0 + warp * kWarpRows;  // this warp's first query
     const int k_end = causal ? min(T, m0 + S::BQ) : T;
@@ -1103,11 +1201,11 @@ __global__ void __launch_bounds__(kThreads)
     auto stage = [&](int i) {
         const int buf = i & 1;
         async_tile<BK, D>(Ks + buf * BK * LD, k + base, sT, i * BK, T);
-        async_tile<BK, D>(Vs + buf * BK * LD, v + base, sT, i * BK, T);
+        async_tile<BK, DV>(Vs + buf * BK * LDV, v + vbase, vT, i * BK, T);
         tc::cp_async_commit();
     };
     async_tile<S::BQ, D>(Qs, q + base, sT, m0, T);
-    async_tile<S::BQ, D>(dOs, dout + base, sT, m0, T);
+    async_tile<S::BQ, DV>(dOs, dout + vbase, vT, m0, T);
     stage(0);  // one group with Q and dO
 
     // lse and delta of this lane's rows qr + g and qr + g + 8.
@@ -1132,7 +1230,7 @@ __global__ void __launch_bounds__(kThreads)
         // Skip when this warp's queries are all past T or all before the
         // tile's first key (warp-uniform).
         if (qr < T && (!causal || k0 <= qr + kWarpRows - 1)) {
-            Ops::tile(acc, Qs, dOs, Ks + buf * BK * LD, Vs + buf * BK * LD, lse_r, dl_r, k0, qr,
+            Ops::tile(acc, Qs, dOs, Ks + buf * BK * LD, Vs + buf * BK * LDV, lse_r, dl_r, k0, qr,
                       warp, T, causal, scale, g, t, lane);
         }
         __syncthreads();
@@ -1218,6 +1316,8 @@ cudaError_t launch(Which which, const Args& a) {
     return cudaGetLastError();
 }
 
+// D is q's and k's width; v's is v_dim<D>(). The D = 192 instance (v 128)
+// exists in bf16 only.
 template <typename E>
 int smem_bytes_dim(Which which, int D) {
     switch (D) {
@@ -1225,6 +1325,9 @@ int smem_bytes_dim(Which which, int D) {
         case 32: return smem_bytes<E, 32>(which);
         case 64: return smem_bytes<E, 64>(which);
         case 128: return smem_bytes<E, 128>(which);
+        case 192:
+            if constexpr (sizeof(E) == 2) return smem_bytes<E, 192>(which);
+            return -1;
         default: return -1;
     }
 }
@@ -1236,6 +1339,9 @@ cudaError_t launch_dim(Which which, int D, const Args& a) {
         case 32: return launch<E, 32>(which, a);
         case 64: return launch<E, 64>(which, a);
         case 128: return launch<E, 128>(which, a);
+        case 192:
+            if constexpr (sizeof(E) == 2) return launch<E, 192>(which, a);
+            return cudaErrorInvalidValue;
         default: return cudaErrorInvalidValue;
     }
 }
@@ -1256,8 +1362,9 @@ int dispatch(Which which, int dtype, int D, int device, const Args& a) {
 
 extern "C" {
 
-// Forward: o [B, T, H, D] in the inputs' type and lse [B, H, T] float32.
-// sB, sT, sH are the element strides of q, k, v and o (all alike).
+// Forward: o [B, T, H, v_dim(D)] in the inputs' type and lse [B, H, T]
+// float32. sB, sT, sH are the element strides of q and k, and of v and o
+// where their width is D; narrower v and o are contiguous.
 int ddl_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
                   int B, int T, int H, int D, int64_t sB, int64_t sT, int64_t sH, float scale,
                   int causal, int device, void* stream) {

@@ -25,7 +25,8 @@ profiler shares. The second sink is the profiler's: while a
 each kernel launch with, and ``Tracer.span`` opens one under its own name.
 So in a ``--trace-dir`` run (``trace_context``) every span, and each phase
 of the LM step (:data:`STEP_PHASES`), is a range of the profiler's Chrome
-trace, and the device work it launched is found by the launches' host
+trace (and the expert layer's :data:`MOE_PHASES` inside them), and the
+device work it launched is found by the launches' host
 times, never by device timestamps, whose clock is offset from the host's
 for a whole session on a card. ``complete`` records are written after the
 fact and get no range.
@@ -48,6 +49,10 @@ import torch
 # The LM step's phases (strategies/seq.py), in the order a step opens them.
 STEP_PHASES = ("step/forward", "step/backward", "step/grad_sync", "step/optimizer",
                "step/health")
+# The expert layer's (models/mla_moe.py), inside step/forward and, for the
+# experts, step/backward: the gate, top-k and sort; the gather, the experts'
+# products and the scatter-add.
+MOE_PHASES = ("moe/route", "moe/experts")
 
 _NULL = contextlib.nullcontext()
 

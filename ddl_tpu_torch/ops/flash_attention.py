@@ -13,8 +13,15 @@ are hand-written CUDA kernels (``csrc/flash_attention.cu``) under a
   code computes it in plain jnp outside its kernels too).
 
 Inputs are float32 or bfloat16 in the model's ``[B, T, H, D]`` layout
-(no transpose copies), ``D`` in :data:`HEAD_DIMS`; every sum is fp32, and
-outputs and gradients come back in the inputs' type. All three kernels run
+(no transpose copies); every sum is fp32, and outputs and gradients come
+back in the inputs' type. The kernels take the ``(D_qk, D_v)`` pairs of
+:data:`DIM_PAIRS`: q, k and v of one width ``D`` in :data:`HEAD_DIMS` (the
+dense LM's heads), or q and k of 192 with v of 128 in bf16 (latent
+attention's heads, ``models/mla_moe.py``: 128 "nope" and 64 RoPE dims
+against 128 of value), an instance whose dK/dV accumulators (96 + 64
+registers a thread) bound its tiles; fp32 refuses that pair. O and dV are
+``D_v`` wide, LSE, dQ and dK as before. The plain versions take any ``v``
+width. All three kernels run
 their products on the tensor cores and are deterministic. In fp32 they use
 the TF32 tensor cores to fp32 accuracy: each fp32 operand is split into two
 TF32 parts, three products per product. In bf16 all three use the bf16
@@ -48,6 +55,9 @@ import torch
 from . import build
 
 HEAD_DIMS = (16, 32, 64, 128)
+# (D_qk, D_v) -> the input types a kernel instance exists for.
+DIM_PAIRS = {**{(d, d): (torch.float32, torch.bfloat16) for d in HEAD_DIMS},
+             (192, 128): (torch.bfloat16,)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The JAX reference's additive mask value (DEFAULT_MASK_VALUE of the
 # bundled flash-attention module): finite, so masked scores never make
@@ -135,19 +145,26 @@ def load_kernel() -> ctypes.CDLL:
     return lib
 
 
-def _check(*ts: torch.Tensor) -> None:
-    """Same ``[B, T, H, D]`` shape, type and device for every operand."""
-    q = ts[0]
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """One type and device for every operand, ``q`` and ``k`` of one
+    ``[B, T, H, D]`` shape, ``v`` of the same ``[B, T, H]`` and its own
+    width; on a card, a ``(D, D_v)`` pair and type of :data:`DIM_PAIRS`."""
     if q.dim() != 4:
         raise ValueError(f"flash attention takes [B, T, H, D] tensors, got {tuple(q.shape)}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash attention takes float32 or bfloat16, got {q.dtype}")
-    for t in ts[1:]:
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+    for t in (k, v):
+        if (t.shape[:-1] != q.shape[:-1] or t.dtype != q.dtype or t.device != q.device
+                or (t is k and t.shape != q.shape)):
             raise ValueError(
-                "flash attention needs q, k and v alike: "
+                "flash attention needs q and k alike and v of the same [B, T, H]: "
                 f"{tuple(t.shape)} {t.dtype} {t.device} vs {tuple(q.shape)} {q.dtype} {q.device}"
             )
+    pair = (q.shape[-1], v.shape[-1])
+    if q.device.type == "cuda" and q.dtype not in DIM_PAIRS.get(pair, ()):
+        raise ValueError(f"the flash kernels have no {q.dtype} instance for the head_dim pair "
+                         f"(D_qk, D_v) = {pair}; they take {sorted(DIM_PAIRS)} (the unequal "
+                         "pair in bf16)")
 
 
 def _device_and_stream(t: torch.Tensor) -> tuple[int, int]:
@@ -158,14 +175,18 @@ def _device_and_stream(t: torch.Tensor) -> tuple[int, int]:
     return dev, torch.cuda.current_stream(dev).cuda_stream
 
 
-def _launch(key: str, name: str, tensors, q: torch.Tensor, causal: bool, scale: float) -> None:
+def _launch(key: str, name: str, tensors, q: torch.Tensor, v: torch.Tensor, causal: bool,
+            scale: float) -> None:
     """One launch of ``name`` on the tensors' device, counted under
     ``launches[key]``. Every tensor must be contiguous (the kernels take
-    one set of [B, T, H, D] strides for all operands). With B, T or H = 0
-    there is nothing to compute: no launch, no count."""
+    one set of [B, T, H, D] strides for q's width, and work out v's from
+    it). With B, T or H = 0 there is nothing to compute: no launch, no
+    count."""
     b, t, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernels take head_dim in {HEAD_DIMS}, got {d}")
+    if q.dtype not in DIM_PAIRS.get((d, v.shape[-1]), ()):
+        raise ValueError(f"flash attention kernels take head_dim pairs (D_qk, D_v) in "
+                         f"{sorted(DIM_PAIRS)} (the unequal pair in bf16), got "
+                         f"{(d, v.shape[-1])} in {q.dtype}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("flash attention kernels take contiguous tensors")
     dev, stream = _device_and_stream(q)
@@ -193,9 +214,9 @@ def _aligned16(x: torch.Tensor) -> torch.Tensor:
 def flash_fwd(q, k, v, causal: bool, scale: float):
     """The forward kernel: ``(o, lse)`` for contiguous CUDA ``q, k, v``."""
     q, k, v = (_aligned16(x) for x in (q, k, v))
-    o = torch.empty_like(q)
+    o = torch.empty_like(v)
     lse = torch.empty(q.shape[0], q.shape[2], q.shape[1], dtype=torch.float32, device=q.device)
-    _launch("fwd", "ddl_flash_fwd", (q, k, v, o, lse), q, causal, scale)
+    _launch("fwd", "ddl_flash_fwd", (q, k, v, o, lse), q, v, causal, scale)
     return o, lse
 
 
@@ -203,7 +224,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
     """The dK/dV kernel: ``(dk, dv)``."""
     q, k, v, do = (_aligned16(x) for x in (q, k, v, do))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("bwd_dkv", "ddl_flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv), q, causal, scale)
+    _launch("bwd_dkv", "ddl_flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv), q, v, causal,
+            scale)
     return dk, dv
 
 
@@ -211,7 +233,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
     """The dQ kernel."""
     q, k, v, do = (_aligned16(x) for x in (q, k, v, do))
     dq = torch.empty_like(q)
-    _launch("bwd_dq", "ddl_flash_bwd_dq", (q, k, v, do, lse, delta, dq), q, causal, scale)
+    _launch("bwd_dq", "ddl_flash_bwd_dq", (q, k, v, do, lse, delta, dq), q, v, causal, scale)
     return dq
 
 
@@ -240,8 +262,9 @@ def flash_attention_bthd(
 ) -> torch.Tensor:
     """Flash attention over ``[B, T, H, D]`` (the JAX function's signature,
     minus ``platform``: the tensors' device decides). Causality is aligned
-    from position 0; ``scale`` defaults to ``1/sqrt(D)``. Output in ``q``'s
-    type; differentiable in ``q``, ``k`` and ``v``."""
+    from position 0; ``scale`` defaults to ``1/sqrt(D)`` of q's width.
+    Output ``[B, T, H, D_v]`` in ``q``'s type; differentiable in ``q``,
+    ``k`` and ``v``."""
     _check(q, k, v)
     scale = _scale(q, scale)
     if q.device.type == "cpu":

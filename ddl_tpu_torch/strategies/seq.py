@@ -68,6 +68,14 @@ pipeline's step opens none.
 ``SeqConfig`` keeps every JAX field and default, and the JAX trainer's own
 checks raise the same ``ValueError``s (:func:`check_config`).
 
+The model: ``spec`` an ``LMSpec`` trains the dense block
+(``models/transformer.py``), an ``mla_moe.MLAMoESpec`` the latent-attention
+and expert block (``models/mla_moe.py``, no JAX counterpart), through the
+same step bodies, policy and Adam (:func:`_model` picks the module). The
+second runs ``scheme="full"`` on one rank or data-parallel replicas only:
+tensor, pipeline and sequence parallelism, ZeRO-1 and the hybrid refuse it
+(:func:`_check_mla_moe`).
+
 Resilience (JAX's ``SeqTrainer.train`` hooks): checkpoints hold the standard
 per-layer params-shaped form of the parameters and Adam moments whatever
 the dp, sp, tp or pp (:meth:`SeqTrainer._opt_for_save`), so a save at one
@@ -101,7 +109,7 @@ from ..convert import (
     lm_zeros_numpy,
 )
 from ..data.lm import LMDataset
-from ..models import partition, transformer
+from ..models import mla_moe, partition, transformer
 from ..obs import health as hlt
 from ..obs.health import HEALTH_FULL, HEALTH_OFF, flat_grad_sq_nonfinite, nonfinite_count
 from ..obs.trace import phase
@@ -291,10 +299,31 @@ def _attn_for(config: SeqConfig, grid: Grid = LOCAL_GRID) -> Callable:
     raise ValueError(f"unknown scheme {config.scheme!r}")
 
 
+def _model(spec):
+    """The module whose functions train ``spec``'s block."""
+    return mla_moe if isinstance(spec, mla_moe.MLAMoESpec) else transformer
+
+
+def _check_mla_moe(config: SeqConfig) -> None:
+    """The MLA + MoE block trains with ``scheme="full"`` (one rank, or
+    data-parallel replicas of it) and nothing else."""
+    refused = [name for name, on in (
+        ("tensor_parallel > 1", config.tensor_parallel > 1),
+        ("pipeline_parallel > 1", config.pipeline_parallel > 1),
+        (f"scheme {config.scheme!r} / num_workers {config.num_workers} (sequence parallel)",
+         config.scheme != "full" or config.num_workers != 1),
+        ("zero1 (and the hybrid)", config.zero1)) if on]
+    if refused:
+        raise ValueError("the MLA + MoE block (MLAMoESpec) trains with scheme='full' on "
+                         f"whole layers only; not supported: {'; '.join(refused)}")
+
+
 def check_config(config: SeqConfig, dataset: LMDataset) -> None:
     """Every check of the JAX ``SeqTrainer.__init__``, in its order and with
     its ``ValueError`` texts. Needs no process group."""
     W, dp, tp = config.num_workers, config.data_parallel, config.tensor_parallel
+    if isinstance(config.spec, mla_moe.MLAMoESpec):
+        _check_mla_moe(config)
     config.validate_topology()
     if dataset.seq_len % max(W, 1):
         raise ValueError(f"seq_len {dataset.seq_len} not divisible by {W} workers")
@@ -415,7 +444,7 @@ def _local_loss_fn(config: SeqConfig, grid: Grid, attn, tokens, targets, weights
     hooks = dict(row_reduce=_row_reduce(grid), col_promote=_col_promote(grid))
 
     def local_loss(p):
-        num, _ = transformer.lm_loss_sums(
+        num, _ = _model(config.spec).lm_loss_sums(
             p, tokens, targets, weights, config.spec, attn_fn=attn, positions=positions,
             compute_dtype=config.dtype(), remat=config.remat, **hooks,
         )
@@ -437,10 +466,11 @@ def _local_grads(config, grid, attn, positions, params, tokens, targets, weights
 
 class _FlatPlan:
     """Static flatten/unflatten plan for the LM parameter tree, in
-    ``utils.tree.leaves`` order (``jax.flatten_util.ravel_pytree``'s)."""
+    ``utils.tree.leaves`` order (``jax.flatten_util.ravel_pytree``'s). It
+    keeps the template's structure as meta tensors, not its memory."""
 
     def __init__(self, template):
-        self.like = template
+        self.like = tree.map(lambda t: torch.empty_like(t, device="meta"), template)
         self.shapes = [tuple(t.shape) for t in tree.leaves(template)]
         self.sizes = [math.prod(s) for s in self.shapes]
         self.total = sum(self.sizes)
@@ -717,14 +747,21 @@ class SeqTrainer:
         tp, pp = config.tensor_parallel, config.pipeline_parallel
         self.grid = make_grid(world, config.data_parallel, config.num_workers, tp, pp)
         self.device = world.device if world is not None else default_device(device)
-        self._specs = partition.lm_param_specs(partition.stage_spec(config.spec, pp), tp)
+        moe = isinstance(config.spec, mla_moe.MLAMoESpec)
+        self._specs = None if moe else partition.lm_param_specs(
+            partition.stage_spec(config.spec, pp), tp)
         if init is None:
             # The full tree from the seed, then this rank's slice of it.
-            init = lm_params_to_numpy(transformer.init_lm_params(
-                torch.Generator().manual_seed(config.seed), config.spec))
-        self.params = lm_params_from_numpy(init, config.spec, self.device, tensor_parallel=tp,
-                                           tp_index=self.grid.tp_index, pipeline_parallel=pp,
-                                           pp_index=self.grid.pp_index)
+            gen = torch.Generator().manual_seed(config.seed)
+            init = lm_params_to_numpy(mla_moe.init_params(gen, config.spec) if moe
+                                      else transformer.init_lm_params(gen, config.spec))
+        if moe:
+            mla_moe.growable_segments(self.device)
+            self.params = mla_moe.params_from_numpy(init, config.spec, self.device)
+        else:
+            self.params = lm_params_from_numpy(init, config.spec, self.device,
+                                               tensor_parallel=tp, tp_index=self.grid.tp_index,
+                                               pipeline_parallel=pp, pp_index=self.grid.pp_index)
         self.pipeline_record = PipelineRecord() if pp > 1 else None
         self._plan = _FlatPlan(self.params)
         self._hplan = _HybridPlan(self.params, self._specs) if config.zero1 and tp > 1 else None
@@ -835,7 +872,7 @@ class SeqTrainer:
             sums = make_pipeline_eval_body(self.config, self.grid, self.positions)
         else:
             sums = _shard_sums(self.config, self.grid, self._attn, self.positions,
-                               transformer.lm_correct_sums)
+                               _model(self.config.spec).lm_correct_sums)
         num, den = sums(params, tokens, targets, weights)
         return float(num / den)
 
@@ -873,8 +910,9 @@ class SeqTrainer:
             stage = partition.gather_lm_params(shards, self._specs)
         if g.pipeline_parallel == 1:
             return stage
-        plan = _FlatPlan(tree.map(torch.from_numpy, stage))
-        flat = _FlatPlan.flatten(plan.like).to(self.device)
+        host = tree.map(torch.from_numpy, stage)
+        plan = _FlatPlan(host)
+        flat = _FlatPlan.flatten(host).to(self.device)
         stages = [lm_params_to_numpy(plan.unflatten(f)) for f in
                   coll.all_gather_list(flat, g.pp_group)]
         return partition.gather_stage_params(stages)
